@@ -1,0 +1,662 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`shifu_tpu_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed 0] [--out chiprun_out/chip_smoke.json]
+
+Phases, each of which must pass:
+
+1. build   compiles `shifu_tpu_torch/csrc/hist_level.cu` with nvcc for
+           sm_90a (a fresh build, never a cached library).
+2. kernels holds both entries of the histogram -> split-scan kernel
+           (`fused_level`, `hist_level`) against their plain PyTorch
+           versions on the card, at the bench `gbt` shape (L = 1..32,
+           bf16 planes, int8 codes), the bench `rf` shape (L = 64 and 128,
+           histogram only, f32 planes) and the bench `gbt_wide` shape (one
+           2,001-slot categorical, which takes the wide route); and times
+           kernel, plain version and, where there is one, the library call.
+3. gbt     bench `gbt` (500k x 30 x 33 slots, 5 trees, depth 6): CleanedData
+           written with `write_codes`, `load_codes`, `train_trees` on cuda,
+           a second run bit-equal, the `.gbt` saved, loaded and scored on
+           cuda, scores within atol 0.03 of the same run on the CPU.
+4. rf      bench `rf` (500k x 30, 10 trees, depth 8): reaches both kernel
+           entries; the forest is bit-equal to the CPU run's.
+
+It prints the card and its power limit, a `kernels` JSON line, and as its
+last line {"ok": true, "device": {...}}. It exits non-zero without a CUDA
+device, outside a checkout of the repository, or when any phase fails.
+The per-shape details go to --out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# bench.py's tree configurations (GBT, RF, GBT_WIDE)
+GBT = dict(n=500_000, f=30, bins=32, trees=5, depth=6)
+RF = dict(n=500_000, numeric=20, cat65=10, trees=10, depth=8)
+WIDE = dict(n=200_000, numeric=180, cat64=19, wide_cat=2000)
+
+# NVIDIA H100 SXM data sheet: HBM rate and f32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+# float moment planes: the plain version sums f32 through float atomics in
+# a run-dependent order, the kernel in 64-bit fixed point; the two agree
+# to a few ulps of the bin's running sum
+MOMENT_RTOL = 1e-4
+MOMENT_ATOL_OF_MAX = 1e-5
+GBT_SCORE_ATOL = 0.03  # the JAX package's kernel-on/off tolerance
+
+SPLIT_FIELDS = ("feature", "cut_rank", "rank_flat", "leaf_value", "is_split",
+                "best_gain", "left_mask", "node_cnt", "left_cnt")
+EXACT_FIELDS = ("feature", "cut_rank", "rank_flat", "is_split", "left_mask",
+                "node_cnt", "left_cnt")
+
+
+class PhaseFailed(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise PhaseFailed(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+
+def time_ms(torch, fn, reps: int = 7, warm: int = 2) -> float:
+    """Median CUDA-event time of one call, after warm-up."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _device_times(prof, reps: int) -> dict:
+    """Device microseconds per call by kernel name, from a profile."""
+    import torch
+
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = float(getattr(ev, "device_time_total", 0.0)
+                   or getattr(ev, "cuda_time_total", 0.0))
+        out[ev.key] = out.get(ev.key, 0.0) + us / reps
+    return out
+
+
+def device_split_ms(torch, fn, reps: int = 5) -> dict:
+    """Per call, from the torch profiler: device time of each of the
+    port's two CUDA kernels and of everything the call ran on the device.
+    None where the profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = _device_times(prof, reps)
+    if not times:
+        return dict(accumulate_ms=None, finalize_ms=None, device_busy_ms=None)
+    pick = lambda k: sum(v for n, v in times.items() if k in n) / 1e3  # noqa
+    return dict(accumulate_ms=pick("hist_accumulate_kernel"),
+                finalize_ms=pick("hist_finalize_kernel"),
+                device_busy_ms=sum(times.values()) / 1e3)
+
+
+def profile_run(torch, fn, wall_s: float, top: int = 8) -> dict:
+    """Device busy time of one run of `fn` under the torch profiler, its
+    share of `wall_s` (the same run's time unprofiled), and the kernels
+    that took most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = _device_times(prof, 1)
+    if not times:
+        return dict(device_busy_s=None, idle_share=None, top_kernels=[])
+    busy = sum(times.values()) / 1e6
+    ranked = sorted(times.items(), key=lambda kv: -kv[1])[:top]
+    return dict(device_busy_s=busy, idle_share=max(0.0, 1.0 - busy / wall_s),
+                top_kernels=[[k[:80], v / 1e3] for k, v in ranked])
+
+
+def level_bound_ms(n_rows: int, n_live: int, F: int, code_bytes: int,
+                   comp_bytes: int, L: int, T: int, s_max: int,
+                   fused: bool) -> tuple:
+    """(bound ms, 'bytes' or 'operations') of one level: the codes and
+    component planes of the rows that carry weight, node ids and the row
+    mask of every row, each read once; the histogram (and in fused mode
+    the scan outputs) written once. Operations: 3 adds per live (row,
+    feature), and ~40 f32 ops per (node, slot) for the scan."""
+    read = (n_live * (F * code_bytes + 3 * comp_bytes)
+            + n_rows * (4 + 1))
+    write = 3 * L * T * 4
+    ops = 3 * n_live * F
+    if fused:
+        # rank_flat i32, left_mask, 7 per-node fields
+        write += L * T * 4 + L * s_max + 7 * L * 4
+        ops += 40 * L * T
+    t_bytes = read + write
+    b_ms = t_bytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / F32_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+class KernelStats:
+    def __init__(self):
+        self.max_abs_err = {"fused_level": 0.0, "hist_level": 0.0}
+        self.timed = {}  # entry -> dict(ms, plain_ms, bound_ms, ...)
+        self.cases = []
+
+    def err(self, name: str, a, b) -> float:
+        e = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+        self.max_abs_err[name] = max(self.max_abs_err[name], e)
+        return e
+
+
+def _level_case(torch, dev, codes_np, L: int, seed: int,
+                float_labels: bool, poisson: bool):
+    """Level inputs on the card: node ids in [0, L), 90% rows active;
+    0/1 labels (integer-valued planes) or residual-like float labels."""
+    rng = np.random.default_rng(seed)
+    n = codes_np.shape[0]
+    if float_labels:
+        y = (rng.random(n) - 0.35).astype(np.float32)
+    else:
+        y = (codes_np[:, 0] + codes_np[:, 1] >= 32).astype(np.float32)
+    w = (rng.poisson(1.0, size=n) if poisson
+         else np.ones(n)).astype(np.float32)
+    node = rng.integers(0, L, size=n).astype(np.int32)
+    act = rng.random(n) < 0.9
+    t = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+    return t(y), t(w), t(node), t(act)
+
+
+def _live_rows(w, act) -> int:
+    return int(((w != 0) & act).sum())
+
+
+def check_fused(torch, hk, stats, tag, codes, codes8, lay, L, y, w, node,
+                act, fok, lowp, exact, timed=False):
+    kw = dict(L=L, lay=lay, impurity="variance", min_inst=5, min_gain=0.0,
+              low_precision=lowp)
+    h1, o1 = hk.fused_level(codes, y, w, node, act, fok, codes8=codes8, **kw)
+    h2, o2 = hk.fused_level(codes, y, w, node, act, fok, codes8=codes8, **kw)
+    hp, op = hk.fused_level_reference(codes, y, w, node, act, fok, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(h1, h2) and all(torch.equal(a, b)
+                                      for a, b in zip(o1, o2)),
+          f"{tag}: two kernel launches differ")
+    check(torch.equal(h1[0], hp[0]), f"{tag}: count plane differs")
+    e = stats.err("fused_level", h1, hp)
+    if exact:
+        check(torch.equal(h1, hp), f"{tag}: integer-valued planes differ "
+              f"(max abs err {e})")
+        for nm, a, b in zip(SPLIT_FIELDS, op, o1):
+            if nm in EXACT_FIELDS:
+                check(torch.equal(a, b), f"{tag}: {nm} differs")
+            else:
+                fin = torch.isfinite(a)
+                check(torch.equal(fin, torch.isfinite(b))
+                      and torch.allclose(a[fin], b[fin], rtol=1e-6, atol=0),
+                      f"{tag}: {nm} beyond rtol 1e-6")
+                stats.err("fused_level", torch.where(fin, a, 0),
+                          torch.where(fin, b, 0))
+        agree = 1.0
+    else:
+        _check_moments(torch, tag, h1, hp)
+        agree = float((o1[0] == op[0]).float().mean())
+    case = dict(case=tag, entry="fused_level", L=L, n=int(codes.shape[0]),
+                T=lay.T, exact_planes=exact, max_abs_err=e,
+                split_feature_agreement=agree)
+    if timed:
+        case.update(_time_entry(torch, hk, "fused_level", codes, codes8, lay,
+                                L, y, w, node, act, fok, kw))
+    stats.cases.append(case)
+    print(f"  {tag}: ok (max abs err {e:.3g}"
+          + (f", kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms,"
+             f" bound {case['bound_ms']:.4f} ms" + _split(case)
+             if timed else "") + ")")
+    return case
+
+
+def _check_moments(torch, tag, hk_hist, hp):
+    for c in (1, 2):
+        lim = (MOMENT_RTOL * hp[c].abs()
+               + MOMENT_ATOL_OF_MAX * float(hp[c].abs().max()))
+        bad = int(((hk_hist[c] - hp[c]).abs() > lim).sum())
+        check(bad == 0, f"{tag}: moment plane {c} beyond rtol {MOMENT_RTOL}"
+              f" + {MOMENT_ATOL_OF_MAX} x max in {bad} bins")
+
+
+def check_hist(torch, hk, stats, tag, codes, codes8, lay, L, y, w, node, act,
+               lowp, timed=False):
+    kw = dict(L=L, lay=lay, low_precision=lowp)
+    h1 = hk.hist_level(codes, y, w, node, act, codes8=codes8, **kw)
+    h2 = hk.hist_level(codes, y, w, node, act, codes8=codes8, **kw)
+    hp = hk.hist_level_reference(codes, y, w, node, act, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(h1, h2), f"{tag}: two kernel launches differ")
+    e = stats.err("hist_level", h1, hp)
+    check(torch.equal(h1, hp), f"{tag}: integer-valued planes differ "
+          f"(max abs err {e})")
+    case = dict(case=tag, entry="hist_level", L=L, n=int(codes.shape[0]),
+                T=lay.T, exact_planes=True, max_abs_err=e)
+    if timed:
+        case.update(_time_entry(torch, hk, "hist_level", codes, codes8, lay,
+                                L, y, w, node, act, None, kw))
+    stats.cases.append(case)
+    print(f"  {tag}: ok (max abs err {e:.3g}"
+          + (f", kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms,"
+             f" bincount {case['library_ms']:.4f} ms, bound "
+             f"{case['bound_ms']:.4f} ms" + _split(case)
+             if timed else "") + ")")
+    return case
+
+
+def _split(case) -> str:
+    if case["device_busy_ms"] is None:
+        return "; profiler: no device time recorded, not measured"
+    return (f"; profiler: accumulate {case['accumulate_ms']:.4f} ms, "
+            f"finalize {case['finalize_ms']:.4f} ms, device busy "
+            f"{case['device_busy_ms']:.4f} ms")
+
+
+def _time_entry(torch, hk, entry, codes, codes8, lay, L, y, w, node, act,
+                fok, kw):
+    n, F = codes.shape
+    fused = entry == "fused_level"
+    if fused:
+        def kern():
+            hk.fused_level(codes, y, w, node, act, fok, codes8=codes8, **kw)
+
+        def plain():
+            hk.fused_level_reference(codes, y, w, node, act, fok, **kw)
+        library = None
+    else:
+        def kern():
+            hk.hist_level(codes, y, w, node, act, codes8=codes8, **kw)
+
+        def plain():
+            hk.hist_level_reference(codes, y, w, node, act, **kw)
+        # the yardstick: one torch.bincount per plane over the flat
+        # node*T + slot index (computed outside the timed region)
+        off = torch.as_tensor(lay.off.astype(np.int64), device=codes.device)
+        clip = torch.as_tensor(lay.clip_max.astype(np.int64),
+                               device=codes.device)
+        code = torch.minimum(codes.long().clamp_min(0), clip[None, :])
+        nl = torch.where(act, node.long().clamp(0, L - 1),
+                         torch.zeros_like(node.long()))
+        flat = (nl[:, None] * lay.T + off[None, :] + code).reshape(-1)
+        wa = torch.where(act, w, torch.zeros_like(w))
+        comps = [wa, wa * y, wa * y * y]
+        planes = [c[:, None].expand(n, F).reshape(-1) for c in comps]
+
+        def library():
+            for p in planes:
+                torch.bincount(flat, weights=p, minlength=L * lay.T)
+    cb = 1 if codes8 is not None else 4
+    pb = 2 if kw.get("low_precision") else 4
+    bound, by = level_bound_ms(n, _live_rows(w, act), F, cb, pb, L,
+                               lay.T, lay.s_max, fused)
+    return dict(ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+                library_ms=(time_ms(torch, library) if library else None),
+                bound_ms=bound, bound_by=by, **device_split_ms(torch, kern))
+
+
+def phase_kernels(torch, dev, hk, tt, gbt_codes_np, rf_data, seed):
+    stats = KernelStats()
+    # bench gbt shape: 30 numeric features, 33 slots, int8 codes, bf16
+    slots = [GBT["bins"] + 1] * GBT["f"]
+    lay = tt.make_layout(slots, [False] * GBT["f"])
+    codes = torch.as_tensor(gbt_codes_np).to(dev)
+    codes8 = hk.codes8_of(codes, lay)
+    fok = torch.ones(lay.T, dtype=torch.bool, device=dev)
+    fok_sub = fok.clone()
+    fok_sub[: int(lay.off[10])] = False  # a tree's feature subset
+    for L in (1, 2, 4, 8, 16, 32):
+        y, w, node, act = _level_case(torch, dev, gbt_codes_np, L,
+                                      seed + L, False, False)
+        check_fused(torch, hk, stats, f"gbt L={L} 0/1 planes", codes, codes8,
+                    lay, L, y, w, node, act, fok_sub, True, True)
+        y, w, node, act = _level_case(torch, dev, gbt_codes_np, L,
+                                      seed + 100 + L, True, False)
+        c = check_fused(torch, hk, stats, f"gbt L={L} float planes", codes,
+                        codes8, lay, L, y, w, node, act, fok, True, False,
+                        timed=True)
+        if L == 1:  # level 0 of every GBT tree
+            stats.timed["fused_level"] = c
+    del codes, codes8
+
+    # bench rf shape: 20 x 33 numeric + 10 x 65 categorical, f32 planes
+    r_codes_np, r_slots, r_cat = rf_data
+    lay = tt.make_layout(r_slots, r_cat)
+    codes = torch.as_tensor(r_codes_np).to(dev)
+    codes8 = hk.codes8_of(codes, lay)
+    for L in (64, 128):
+        y, w, node, act = _level_case(torch, dev, r_codes_np, L,
+                                      seed + L, False, True)
+        c = check_hist(torch, hk, stats, f"rf L={L} poisson planes", codes,
+                       codes8, lay, L, y, w, node, act, False, timed=True)
+        if L == 64:  # the built half of level 7 at depth 8
+            stats.timed["hist_level"] = c
+    fok = torch.ones(lay.T, dtype=torch.bool, device=dev)
+    y, w, node, act = _level_case(torch, dev, r_codes_np, 32, seed,
+                                  False, True)
+    check_fused(torch, hk, stats, "rf L=32 poisson planes", codes, codes8,
+                lay, 32, y, w, node, act, fok, False, True)
+    del codes, codes8
+
+    # bench gbt_wide shape: 180 x 33 numeric, 19 x 65 categorical and one
+    # 2,001-slot categorical past the kernel's segment cap; int32 codes
+    w_slots = ([33] * WIDE["numeric"] + [65] * WIDE["cat64"]
+               + [WIDE["wide_cat"] + 1])
+    w_cat = [False] * WIDE["numeric"] + [True] * (WIDE["cat64"] + 1)
+    check(max(w_slots) > hk.SEG_CAP, "wide case does not take the wide route")
+    rng = np.random.default_rng(seed)
+    w_codes_np = np.stack([rng.integers(0, s - 1, size=WIDE["n"])
+                           for s in w_slots], 1).astype(np.int32)
+    lay = tt.make_layout(w_slots, w_cat)
+    codes = torch.as_tensor(w_codes_np).to(dev)
+    fok = torch.ones(lay.T, dtype=torch.bool, device=dev)
+    for L in (1, 8, 32):
+        rng = np.random.default_rng(seed + L)
+        y = torch.as_tensor((w_codes_np[:, -1] % 3 == 0)
+                            .astype(np.float32)).to(dev)
+        w = torch.ones_like(y)
+        node = torch.as_tensor(rng.integers(0, L, size=WIDE["n"])
+                               .astype(np.int32)).to(dev)
+        act = torch.as_tensor(rng.random(WIDE["n"]) < 0.9).to(dev)
+        check_fused(torch, hk, stats, f"gbt_wide L={L} 0/1 planes", codes,
+                    None, lay, L, y, w, node, act, fok, True, True)
+    torch.cuda.synchronize()
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phases 3-4: the main path
+# ---------------------------------------------------------------------------
+
+
+def gbt_data(seed: int):
+    """bench.py bench_gbt / _bench_trees data: codes in [0, 32), labels
+    from the first two columns plus noise."""
+    n, F, bins = GBT["n"], GBT["f"], GBT["bins"]
+    codes = np.random.default_rng(seed).integers(
+        0, bins, size=(n, F)).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    y = (codes[:, 0].astype(np.int64) + codes[:, 1]
+         + rng.integers(0, 32, size=n) > 48).astype(np.float32)
+    return codes, y, [bins + 1] * F, [False] * F
+
+
+def rf_data(seed: int):
+    """bench.py bench_rf data: 20 numeric + 10 categorical columns."""
+    slots = [33] * RF["numeric"] + [65] * RF["cat65"]
+    is_cat = [False] * RF["numeric"] + [True] * RF["cat65"]
+    rng = np.random.default_rng(seed)
+    codes = np.stack([rng.integers(0, s - 1, size=RF["n"]) for s in slots],
+                     1).astype(np.int32)
+    y = ((codes[:, 0] >= 16) | (codes[:, RF["numeric"]] >= 32)
+         ).astype(np.float32)
+    return codes, y, slots, is_cat
+
+
+def forests_equal(a, b) -> bool:
+    if len(a.trees) != len(b.trees):
+        return False
+    return all(np.array_equal(x.feature, y.feature)
+               and np.array_equal(x.left_mask, y.left_mask)
+               and np.array_equal(x.leaf_value, y.leaf_value)
+               and x.weight == y.weight for x, y in zip(a.trees, b.trees))
+
+
+def print_profile(rep: dict) -> None:
+    p = rep["profile"]
+    if p["device_busy_s"] is None:
+        print("  profile: no device time recorded, not measured")
+        return
+    print(f"  profile: device busy {p['device_busy_s']:.4f} s of "
+          f"{rep['seconds_second']:.4f} s, idle share {p['idle_share']:.3f};"
+          " top kernels (ms): " + ", ".join(f"{k[:40]} {v:.2f}"
+                                             for k, v in p["top_kernels"][:5]))
+
+
+def train_on_card(torch, hk, tt, args_, cfg):
+    """One counted main-path run: counts zeroed just before, read just
+    after."""
+    hk.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tt.train_trees(*args_, cfg, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return res, secs, dict(hk.launches), dict(hk.reference_calls)
+
+
+def phase_main(torch, hk, tt, pds, ptree, name, data, cfg, data_dir):
+    """CleanedData -> train_trees on cuda (twice) -> model file -> scores;
+    the same run on the CPU. Returns (report, launches)."""
+    codes, y, slots, is_cat = data
+    n, F = codes.shape
+    cols = [f"f{i}" for i in range(F)]
+    out = os.path.join(data_dir, name)
+    pds.write_codes(out, codes, y.astype(np.int8), np.ones(n, np.float32),
+                    cols, slots, n_shards=4)
+    meta, c16, tags, wts = pds.load_codes(out)
+    check(meta.extra["slots"] == slots and c16.shape == (n, F),
+          f"{name}: CleanedData round trip")
+    args_ = (c16, tags, wts, meta.extra["slots"], is_cat, meta.columns)
+
+    res, secs, launches, refs = train_on_card(torch, hk, tt, args_, cfg)
+    check(all(v == 0 for v in refs.values()),
+          f"{name}: the run on the card reached a plain version: {refs}")
+    check(launches["fused_level"] > 0,
+          f"{name}: fused kernel never launched: {launches}")
+    res2, secs2, _l2, _r2 = train_on_card(torch, hk, tt, args_, cfg)
+    check(forests_equal(res.spec, res2.spec),
+          f"{name}: a second run on the card gave another forest")
+
+    prof = profile_run(torch, lambda: tt.train_trees(*args_, cfg,
+                                                     device="cuda"), secs2)
+
+    path = os.path.join(out, f"model0.{name[:3]}")
+    res.spec.save(path)
+    spec = ptree.TreeModelSpec.load(path)
+    spec.save(path + ".again")
+    with open(path, "rb") as a, open(path + ".again", "rb") as b:
+        check(a.read() == b.read(), f"{name}: model file does not round-trip")
+    scores = ptree.IndependentTreeModel(spec, device="cuda").compute(c16)
+    check(scores.shape == (n,) and np.isfinite(scores).all()
+          and (scores >= 0).all() and (scores <= 1).all(),
+          f"{name}: scores not finite in [0, 1]")
+
+    t0 = time.perf_counter()
+    cpu = tt.train_trees(*args_, cfg, device="cpu")
+    cpu_secs = time.perf_counter() - t0
+    cpu_scores = ptree.IndependentTreeModel(cpu.spec,
+                                            device="cpu").compute(c16)
+    diff = float(np.abs(scores - cpu_scores).max())
+    rep = dict(rows=n, trees=len(res.spec.trees), depth=cfg.max_depth,
+               seconds_first=secs, seconds_second=secs2,
+               trees_per_s=len(res.spec.trees) / secs2,
+               row_trees_per_s=n * len(res.spec.trees) / secs2,
+               valid_error=res.valid_error, cpu_valid_error=cpu.valid_error,
+               cpu_seconds=cpu_secs, max_score_diff_vs_cpu=diff,
+               forest_bit_equal_to_cpu=forests_equal(res.spec, cpu.spec),
+               launches=launches, profile=prof)
+    return rep
+
+
+# ---------------------------------------------------------------------------
+
+
+def run(args) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        sys.path.insert(0, REPO)
+        from shifu_tpu_torch.models import tree as ptree
+        from shifu_tpu_torch.norm import dataset as pds
+        from shifu_tpu_torch.ops import build
+        from shifu_tpu_torch.ops import hist_kernel as hk
+        from shifu_tpu_torch.train import tree_trainer as tt
+    except ImportError as e:
+        print(f"chip_smoke: the shifu_tpu_torch package is missing ({e}); "
+              "run from a checkout of the repository", file=sys.stderr)
+        return 2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    print(f"card: {card}")
+    report = dict(card=card, device=kind, seed=args.seed)
+    t_all = time.perf_counter()
+
+    # phase 1: build every kernel of the path from the checkout's sources
+    build.load("hist_level", rebuild=True)
+    report["build_seconds"] = dict(build.build_seconds)
+    print(f"build: nvcc {' '.join(build.NVCC_FLAGS[:2])} "
+          f"hist_level.cu in {build.build_seconds['hist_level']:.2f} s")
+    regs = [ln.strip() for ln in build.build_logs["hist_level"].splitlines()
+            if "registers" in ln]
+    for ln in regs:
+        print(f"  ptxas: {ln}")
+
+    gbt = gbt_data(args.seed)
+    rf = rf_data(args.seed)
+
+    # phase 2
+    print("kernels vs plain versions:")
+    stats = phase_kernels(torch, dev, hk, tt, gbt[0], (rf[0], rf[2], rf[3]),
+                          args.seed)
+    report["kernel_cases"] = stats.cases
+
+    # phases 3 and 4
+    data_dir = os.path.join(build.BUILD_DIR, "smoke-data")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    try:
+        gcfg = tt.TreeTrainConfig(algorithm="GBT", tree_num=GBT["trees"],
+                                  max_depth=GBT["depth"], learning_rate=0.1,
+                                  valid_set_rate=0.1, seed=3)
+        g = phase_main(torch, hk, tt, pds, ptree, "gbt", gbt, gcfg, data_dir)
+        check(g["max_score_diff_vs_cpu"] <= GBT_SCORE_ATOL,
+              f"gbt: scores differ from the CPU run by "
+              f"{g['max_score_diff_vs_cpu']} > {GBT_SCORE_ATOL}")
+        print(f"gbt: {g['trees']} trees depth {g['depth']} on {g['rows']} "
+              f"rows: {g['trees_per_s']:.3f} trees/s "
+              f"({g['row_trees_per_s']:.4g} row-trees/s, second run), "
+              f"valid error {g['valid_error']:.6f} (cpu "
+              f"{g['cpu_valid_error']:.6f}), max |score - cpu score| "
+              f"{g['max_score_diff_vs_cpu']:.3g}, launches {g['launches']}")
+
+        rcfg = tt.TreeTrainConfig(algorithm="RF", tree_num=RF["trees"],
+                                  max_depth=RF["depth"],
+                                  feature_subset_strategy="TWOTHIRDS",
+                                  valid_set_rate=0.1, seed=3)
+        r = phase_main(torch, hk, tt, pds, ptree, "rf", rf, rcfg, data_dir)
+        check(r["launches"]["hist_level"] > 0,
+              f"rf: histogram-only kernel never launched: {r['launches']}")
+        check(r["forest_bit_equal_to_cpu"],
+              "rf: the forest differs from the CPU run's")
+        print(f"rf: {r['trees']} trees depth {r['depth']} on {r['rows']} "
+              f"rows: {r['trees_per_s']:.3f} trees/s "
+              f"({r['row_trees_per_s']:.4g} row-trees/s, second run), "
+              f"valid error {r['valid_error']:.6f}, forest bit-equal to the "
+              f"CPU run, launches {r['launches']}")
+        for rep in (g, r):
+            print_profile(rep)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    report["gbt"], report["rf"] = g, r
+
+    kernels = []
+    for name in ("fused_level", "hist_level"):
+        c = stats.timed[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="shifu_tpu_torch/csrc/hist_level.cu",
+            replaces="shifu_tpu/ops/hist_pallas.py:526",
+            launches=g["launches"][name] + r["launches"][name],
+            max_abs_err=stats.max_abs_err[name], ms=c["ms"],
+            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"], library_ms=c["library_ms"]))
+        print(f"{name}: timed at {c['case']} (n={c['n']}, T={c['T']})")
+    report["kernels"] = kernels
+    report["seconds"] = time.perf_counter() - t_all
+    if args.out:
+        out = os.path.join(REPO, args.out)
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        with open(out, "w") as fh:
+            json.dump(report, fh, indent=1)
+    print(f"smoke: {report['seconds']:.1f} s")
+    print(f"{card}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the synthetic data (bench.py uses 0)")
+    ap.add_argument("--out", default="chiprun_out/chip_smoke.json",
+                    help="details file, relative to the repository root "
+                    "('' for none)")
+    args = ap.parse_args()
+    try:
+        return run(args)
+    except PhaseFailed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

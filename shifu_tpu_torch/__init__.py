@@ -1,0 +1,14 @@
+"""shifu-tpu ported to PyTorch and CUDA for NVIDIA Hopper (H100).
+
+The JAX package `shifu_tpu` stays the reference; this package is its
+counterpart, slice by slice. It imports torch and numpy, never jax and
+never `shifu_tpu`. Entry points run on the card (`device=None` means
+cuda) unless the caller asks for the CPU.
+
+Slice 1: level-wise GBT/RF training (`train.tree_trainer.train_trees`)
+through the hand-written histogram -> split-scan CUDA kernel
+(`ops.hist_kernel`, source `csrc/hist_level.cu`), the CleanedData bin-code
+format (`norm.dataset`), and the `.gbt`/`.rf` tree model (`models.tree`).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,122 @@
+"""CleanedData: the sharded on-disk bin-code layout that tree training reads.
+
+Counterpart of `shifu_tpu/norm/dataset.py` (the code-matrix half only).
+The files are the same bytes in both packages, so each reads what the
+other wrote:
+
+    meta.json            columns, nRows, shardRows, normType "CODES",
+                         extra {"slots": [...]}
+    codes-SSSSS.npy      [rows_s, n_feat] int16 (int32 past 2^15 slots)
+    tags-SSSSS.npy       [rows_s] int8   (1 pos / 0 neg)
+    weights-SSSSS.npy    [rows_s] float32
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+
+@dataclass
+class NormMeta:
+    columns: List[str]
+    n_rows: int
+    shard_rows: List[int]
+    norm_type: str = "ZSCALE"
+    extra: Optional[dict] = None
+
+    def to_json(self) -> dict:
+        return {
+            "columns": self.columns,
+            "nRows": self.n_rows,
+            "shardRows": self.shard_rows,
+            "normType": self.norm_type,
+            "extra": self.extra or {},
+        }
+
+    @classmethod
+    def from_json(cls, d: dict) -> "NormMeta":
+        return cls(
+            columns=list(d["columns"]),
+            n_rows=int(d["nRows"]),
+            shard_rows=[int(x) for x in d["shardRows"]],
+            norm_type=d.get("normType", "ZSCALE"),
+            extra=d.get("extra") or {},
+        )
+
+
+def _write_meta(out_dir: str, columns: List[str], shard_rows: List[int],
+                norm_type: str, extra: Optional[dict]) -> NormMeta:
+    meta = NormMeta(columns=columns, n_rows=int(sum(shard_rows)),
+                    shard_rows=shard_rows, norm_type=norm_type, extra=extra)
+    with open(os.path.join(out_dir, "meta.json"), "w") as fh:
+        json.dump(meta.to_json(), fh, indent=2)
+    return meta
+
+
+def _shard_slices(n_rows: int, n_shards: int) -> List[Tuple[int, int]]:
+    base, rem = divmod(n_rows, n_shards)
+    out, start = [], 0
+    for s in range(n_shards):
+        size = base + (1 if s < rem else 0)
+        out.append((start, start + size))
+        start += size
+    return out
+
+
+def _write_sharded(out_dir: str, primary_prefix: str, primary: np.ndarray,
+                   primary_dtype, tags: np.ndarray, weights: np.ndarray,
+                   columns: List[str], norm_type: str, n_shards: int,
+                   extra: Optional[dict]) -> NormMeta:
+    os.makedirs(out_dir, exist_ok=True)
+    n = primary.shape[0]
+    n_shards = max(1, min(n_shards, max(n, 1)))
+    shard_rows = []
+    for s, (a, b) in enumerate(_shard_slices(n, n_shards)):
+        np.save(os.path.join(out_dir, f"{primary_prefix}-{s:05d}.npy"),
+                primary[a:b].astype(primary_dtype, copy=False))
+        np.save(os.path.join(out_dir, f"tags-{s:05d}.npy"),
+                tags[a:b].astype(np.int8, copy=False))
+        np.save(os.path.join(out_dir, f"weights-{s:05d}.npy"),
+                weights[a:b].astype(np.float32, copy=False))
+        shard_rows.append(b - a)
+    return _write_meta(out_dir, columns, shard_rows, norm_type, extra)
+
+
+def write_codes(out_dir: str, codes: np.ndarray, tags: np.ndarray,
+                weights: np.ndarray, columns: List[str], slots: List[int],
+                n_shards: int = 1) -> NormMeta:
+    """Tree-model input: int16 bin codes per feature + per-column slot
+    counts. int16 covers the reference's 10k category cap; wider slots
+    use int32."""
+    code_dtype = np.int16 if (not slots or max(slots) < 2**15) else np.int32
+    return _write_sharded(out_dir, "codes", codes, code_dtype, tags, weights,
+                          columns, "CODES", n_shards, {"slots": slots})
+
+
+def read_meta(data_dir: str) -> NormMeta:
+    with open(os.path.join(data_dir, "meta.json")) as fh:
+        return NormMeta.from_json(json.load(fh))
+
+
+def _load_stack(data_dir: str, prefix: str, n_shards: int) -> np.ndarray:
+    parts = [
+        np.load(os.path.join(data_dir, f"{prefix}-{s:05d}.npy"), mmap_mode="r")
+        for s in range(n_shards)
+    ]
+    return (np.concatenate(parts, axis=0) if len(parts) > 1
+            else np.asarray(parts[0]))
+
+
+def load_codes(data_dir: str
+               ) -> Tuple[NormMeta, np.ndarray, np.ndarray, np.ndarray]:
+    """(meta, codes[n, C] i16, tags[n] i8, weights[n] f32)."""
+    meta = read_meta(data_dir)
+    k = len(meta.shard_rows)
+    return (meta, _load_stack(data_dir, "codes", k),
+            _load_stack(data_dir, "tags", k),
+            _load_stack(data_dir, "weights", k))

@@ -1,0 +1,875 @@
+"""GBT/RF histogram tree builder, level-wise, single device.
+
+Counterpart of `shifu_tpu/train/tree_trainer.py` on its fused path
+(`_get_tree_program` with no mesh and no hoisted one-hot, driven by
+`train_trees`). What DTMaster/DTWorker do across a cluster happens here as
+a loop of device ops over a FLAT per-feature slot layout:
+
+    histogram  [3, L, T], T = sum(slots_f): per node, per slot sums of
+               (w, w*y, w*y^2). Every level with L <= 32 nodes runs the
+               fused histogram -> split-scan entry `ops.hist_kernel.
+               fused_level`; deeper levels run `hist_level` and the torch
+               split scan.
+    split scan ordered prefix sums per (node, feature segment): numeric
+               segments keep slot order, categorical segments sort by mean
+               label (a stable lexsort inside static segment boundaries);
+               gain by impurity (variance / friedmanmse / entropy / gini).
+    reuse      histogram SUBTRACTION: from level 1 on, only the SMALLER
+               child of each split is built (a half-width histogram); the
+               sibling is parent - built. Planes stay f32 (the JAX
+               package's default: its f64 chain follows jax x64, off by
+               default). RF planes under integer weights are exact, so RF
+               forests equal the plain run's bit for bit.
+
+On a CUDA device the histogram entries launch the kernel of
+`csrc/hist_level.cu`; on the CPU they run their plain versions. Random
+draws are numpy `default_rng` streams keyed exactly as the JAX package
+keys them, so one seed gives the same valid split, feature subsets, RF
+bags and DART keep masks in both packages.
+
+Not ported in this slice (each raises NotImplementedError): NATIVE
+multi-class (n_classes >= 3), leaf-wise growth (max_leaves > 0), and the
+host-batched `build_tree` path (2**max_depth > the stats-memory node
+batch). ROADMAP.md queues A and B list them.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from shifu_tpu_torch.models.tree import (DenseTree, TreeModelSpec,
+                                         traverse_trees)
+from shifu_tpu_torch.ops import hist_kernel
+from shifu_tpu_torch.utils.log import get_logger
+from shifu_tpu_torch.utils.platform import DeviceLike, resolve_device
+
+log = get_logger(__name__)
+
+# node-histograms built and derived, and levels that fell back to a full
+# rebuild under the stats-memory budget (tree.hist.* in the JAX package)
+hist_counters: Dict[str, int] = {"built": 0, "derived": 0,
+                                 "fallback_rebuilds": 0}
+
+# widest level (in nodes) that takes the fused histogram + scan entry;
+# deeper levels run the histogram-only entry and the torch split scan
+_FUSED_SCAN_L_CAP = 32
+
+# rows per block of the final level's node-total contraction
+_LEAF_BLK = 65536
+
+
+@dataclass
+class TreeTrainConfig:
+    algorithm: str = "GBT"  # GBT | RF
+    tree_num: int = 100
+    max_depth: int = 6
+    max_leaves: int = -1  # > 0 switches to leaf-wise growth (not ported)
+    impurity: str = "variance"  # variance | friedmanmse | entropy | gini
+    loss: str = "squared"  # squared | log (GBT label relabeling)
+    learning_rate: float = 0.05
+    min_instances_per_node: int = 5
+    min_info_gain: float = 0.0
+    feature_subset_strategy: str = "ALL"
+    bagging_sample_rate: float = 1.0
+    bagging_with_replacement: bool = True
+    valid_set_rate: float = 0.1
+    dropout_rate: float = 0.0  # GBT DART-style per-row drop
+    early_stop_rounds: int = 0
+    enable_early_stop: bool = False  # DTEarlyStopDecider windowed decider
+    max_stats_memory_mb: int = 256  # histogram node-batch budget
+    hist_subtraction: bool = True  # build smaller child, derive the sibling
+    n_classes: int = 0  # >= 3: NATIVE multi-class (not ported)
+    seed: int = 0
+
+
+def subset_count(strategy: str, n_features: int) -> int:
+    s = strategy.upper()
+    if s in ("ALL", ""):
+        return n_features
+    if s == "HALF":
+        return max(1, n_features // 2)
+    if s == "ONETHIRD":
+        return max(1, n_features // 3)
+    if s == "TWOTHIRDS":
+        return max(1, (2 * n_features) // 3)
+    if s == "QUARTER":
+        return max(1, n_features // 4)
+    if s in ("SQRT", "AUTO"):
+        return max(1, int(math.sqrt(n_features)))
+    if s == "LOG2":
+        return max(1, int(math.log2(max(n_features, 2))))
+    return n_features
+
+
+# ---------------------------------------------------------------------------
+# static per-feature slot layout
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class FeatureLayout:
+    """Flat per-feature slot addressing: feature f owns slots
+    [off[f], off[f]+slots[f]) of a T-wide axis."""
+
+    slots: np.ndarray  # [F] int32
+    off: np.ndarray  # [F] int32 segment starts
+    T: int
+    seg_of_t: np.ndarray  # [T] feature id per flat slot
+    pos_in_seg: np.ndarray  # [T] slot rank within its segment
+    seg_start_t: np.ndarray  # [T]
+    seg_size_t: np.ndarray  # [T]
+    is_cat_t: np.ndarray  # [T] bool
+    clip_max: np.ndarray  # [F] slots-1
+    s_max: int
+    key: tuple = ()
+
+
+_LAYOUTS: Dict[tuple, FeatureLayout] = {}
+
+
+def make_layout(slots: List[int], is_cat: List[bool]) -> FeatureLayout:
+    key = (tuple(int(s) for s in slots), tuple(bool(c) for c in is_cat))
+    lay = _LAYOUTS.get(key)
+    if lay is not None:
+        return lay
+    slots_np = np.asarray(slots, np.int32)
+    off = np.zeros(len(slots), np.int32)
+    off[1:] = np.cumsum(slots_np[:-1])
+    T = int(slots_np.sum())
+    seg = np.repeat(np.arange(len(slots), dtype=np.int32), slots_np)
+    pos = np.arange(T, dtype=np.int32) - off[seg]
+    lay = FeatureLayout(
+        slots=slots_np, off=off, T=T, seg_of_t=seg, pos_in_seg=pos,
+        seg_start_t=off[seg], seg_size_t=slots_np[seg],
+        is_cat_t=np.asarray(is_cat, bool)[seg],
+        clip_max=np.maximum(slots_np - 1, 0),
+        s_max=int(slots_np.max()) if len(slots) else 1, key=key)
+    _LAYOUTS[key] = lay
+    return lay
+
+
+@dataclass(frozen=True)
+class ScanLayout:
+    """Device copies of the layout arrays the split scan reads."""
+
+    is_cat_t: torch.Tensor  # [T] bool
+    seg_t: torch.Tensor  # [T] long
+    pos_t: torch.Tensor  # [T] long
+    start_t: torch.Tensor  # [T] long
+    size_t: torch.Tensor  # [T] long
+    off_f: torch.Tensor  # [F] long
+    clip_f: torch.Tensor  # [F] long
+    seg0_size: int
+    s_max: int
+
+
+_SCAN_LAYOUTS: Dict[tuple, ScanLayout] = {}
+
+
+def scan_layout(lay: FeatureLayout, device: torch.device) -> ScanLayout:
+    key = (lay.key, str(device))
+    sl = _SCAN_LAYOUTS.get(key)
+    if sl is None:
+        as_long = lambda a: torch.as_tensor(  # noqa: E731
+            np.asarray(a, np.int64), device=device)
+        sl = ScanLayout(
+            is_cat_t=torch.as_tensor(lay.is_cat_t, device=device),
+            seg_t=as_long(lay.seg_of_t), pos_t=as_long(lay.pos_in_seg),
+            start_t=as_long(lay.seg_start_t), size_t=as_long(lay.seg_size_t),
+            off_f=as_long(lay.off), clip_f=as_long(lay.clip_max),
+            seg0_size=int(lay.slots[0]) if len(lay.slots) else 1,
+            s_max=lay.s_max)
+        _SCAN_LAYOUTS[key] = sl
+    return sl
+
+
+# ---------------------------------------------------------------------------
+# plain histogram, split scan, leaf totals
+# ---------------------------------------------------------------------------
+
+
+def comps_of(labels: torch.Tensor, weights: torch.Tensor,
+             active: torch.Tensor, low_precision: bool) -> torch.Tensor:
+    """[n, 3] component planes (w, w*y, w*y^2), inactive rows zeroed
+    through the weight; bf16 (one rounding) when low_precision."""
+    w = torch.where(active, weights, torch.zeros_like(weights))
+    wy = w * labels
+    comps = torch.stack([w, wy, wy * labels], dim=1)
+    return comps.to(torch.bfloat16) if low_precision else comps
+
+
+def hist_scatter(codes: torch.Tensor, comps: torch.Tensor, nl: torch.Tensor,
+                 L: int, lay: FeatureLayout) -> torch.Tensor:
+    """Plain histogram (counterpart of `_make_hist_fn`'s scatter lowering):
+    index_add_ of each f32 plane over node*T + off[f] + clip(code).
+    `nl` is already clamped to [0, L) and `comps` zeroed on inactive
+    rows."""
+    dev = codes.device
+    n, F = codes.shape
+    T = lay.T
+    off = torch.as_tensor(np.asarray(lay.off, np.int64), device=dev)
+    clip = torch.as_tensor(np.asarray(lay.clip_max, np.int64), device=dev)
+    code = torch.minimum(codes.long().clamp_min(0), clip[None, :])
+    flat = (nl.long()[:, None] * T + off[None, :] + code).reshape(-1)
+    planes = []
+    for c in range(comps.shape[1]):
+        vals = comps[:, c:c + 1].expand(n, F).reshape(-1)
+        planes.append(torch.zeros(L * T, dtype=torch.float32, device=dev)
+                      .index_add_(0, flat, vals).reshape(L, T))
+    return torch.stack(planes)
+
+
+def left_mask_of(rank_flat, feature, cut_rank, is_split,
+                 sl: ScanLayout) -> torch.Tensor:
+    """Model-facing mask over ORIGINAL codes [L, s_max]."""
+    dev = rank_flat.device
+    s_range = torch.arange(sl.s_max, device=dev)
+    f = feature.long()
+    f_clip = sl.clip_f[f]
+    s_idx = torch.minimum(s_range[None, :], f_clip[:, None])
+    flat_idx = sl.off_f[f][:, None] + s_idx
+    ranks = rank_flat.gather(1, flat_idx)
+    return ((ranks <= cut_rank[:, None])
+            & (s_range[None, :] <= f_clip[:, None])
+            & is_split[:, None])
+
+
+def split_scan(hist: torch.Tensor, feat_ok_t: torch.Tensor, sl: ScanLayout,
+               impurity: str, min_inst: int, min_gain: float):
+    """Best split per node from the flat histogram (counterpart of
+    `_make_split_scan`). The ordered layout is `jnp.lexsort((sec, seg))`
+    reproduced by two stable sorts (by key, then by segment); empty
+    categories key +inf and sort last, ties keep slot order.
+
+    Returns (feature [L] i32, cut_rank [L] i32, rank_flat [L, T] i32,
+    leaf_value [L], is_split [L] bool, best_gain [L], left_mask
+    [L, s_max] bool, node_cnt [L], left_cnt [L])."""
+    cnt, s1, s2 = hist[0], hist[1], hist[2]
+    L, T = cnt.shape
+    inf = torch.tensor(float("inf"), device=hist.device)
+    mean = torch.where(cnt > 0, s1 / cnt.clamp_min(1e-12), inf)
+    sec = torch.where(sl.is_cat_t[None, :], mean,
+                      sl.pos_t.to(torch.float32)[None, :].expand(L, T))
+    o1 = torch.argsort(sec, dim=-1, stable=True)
+    o2 = torch.argsort(sl.seg_t[o1], dim=-1, stable=True)
+    order = o1.gather(1, o2)  # original index per ordered position
+
+    # the running sums cross every segment of the row; in f64 they stay
+    # exact for integer-valued planes however wide the row, so each
+    # segment's left/total sums round once to f32, like the kernel's
+    # per-segment scan (an f32 running sum stops being exact past 2^24)
+    def csum(a):
+        return torch.cumsum(a.gather(1, order).double(), dim=-1)
+
+    c0, c1, c2 = csum(cnt), csum(s1), csum(s2)
+    start_prev = (sl.start_t - 1).clamp_min(0)
+    end_idx = sl.start_t + sl.size_t - 1
+    has_prev = (sl.start_t > 0)[None, :]
+
+    def seg_sums(c):
+        base = torch.where(has_prev, c[:, start_prev], torch.zeros_like(c))
+        return (c - base).float(), (c[:, end_idx] - base).float()
+
+    lcnt, tcnt = seg_sums(c0)
+    ls1, ts1 = seg_sums(c1)
+    ls2, ts2 = seg_sums(c2)
+    rcnt, rs1, rs2 = tcnt - lcnt, ts1 - ls1, ts2 - ls2
+
+    def sse(c, s, q):
+        return q - s * s / c.clamp_min(1e-12)
+
+    def gini_mass(c, p):
+        ng = c - p
+        return c - (p * p + ng * ng) / c.clamp_min(1e-12)
+
+    def entropy_mass(c, p):
+        pr = p / c.clamp_min(1e-12)
+        q = 1.0 - pr
+        h = -(pr * torch.log2(pr.clamp_min(1e-12))
+              + q * torch.log2(q.clamp_min(1e-12)))
+        return c * h
+
+    if impurity == "entropy":
+        gain = (entropy_mass(tcnt, ts1) - entropy_mass(lcnt, ls1)
+                - entropy_mass(rcnt, rs1))
+    elif impurity == "gini":
+        gain = (gini_mass(tcnt, ts1) - gini_mass(lcnt, ls1)
+                - gini_mass(rcnt, rs1))
+    elif impurity == "friedmanmse":
+        ml = ls1 / lcnt.clamp_min(1e-12)
+        mr = rs1 / rcnt.clamp_min(1e-12)
+        d = ml - mr
+        gain = lcnt * rcnt / tcnt.clamp_min(1e-12) * (d * d)
+    else:  # variance
+        gain = sse(tcnt, ts1, ts2) - sse(lcnt, ls1, ls2) - sse(rcnt, rs1,
+                                                              rs2)
+    valid = ((lcnt >= min_inst) & (rcnt >= min_inst) & (gain > min_gain)
+             & feat_ok_t[None, :]
+             & (sl.pos_t < sl.size_t - 1)[None, :])  # cut at segment end
+    gain = torch.where(valid, gain, -inf)
+
+    best = torch.argmax(gain, dim=-1)  # ordered position, first max wins
+    best_gain = gain.gather(1, best[:, None])[:, 0]
+    left_cnt = lcnt.gather(1, best[:, None])[:, 0]
+    feature = sl.seg_t[best]
+    cut_rank = sl.pos_t[best]
+    is_split = torch.isfinite(best_gain)
+    rank_flat = torch.zeros((L, T), dtype=torch.int32, device=hist.device)
+    rank_flat.scatter_(1, order,
+                       sl.pos_t.to(torch.int32)[None, :].expand(L, T))
+    node_cnt = c0[:, sl.seg0_size - 1].float()
+    leaf_value = c1[:, sl.seg0_size - 1].float() / node_cnt.clamp_min(1e-12)
+    left_mask = left_mask_of(rank_flat, feature, cut_rank, is_split, sl)
+    return (feature.to(torch.int32), cut_rank.to(torch.int32), rank_flat,
+            leaf_value, is_split, best_gain, left_mask, node_cnt, left_cnt)
+
+
+def leaf_acc(labels, weights, node, active, L: int) -> torch.Tensor:
+    """Final-level node totals [2, L] = per node (sum w, sum w*y), without
+    a per-slot histogram (counterpart of `_make_leaf_fn`). A blocked
+    one-hot contraction keeps the sum order fixed, so two runs on the card
+    give the same bits (float atomics would not)."""
+    dev = labels.device
+    n = labels.shape[0]
+    w = torch.where(active, weights, torch.zeros_like(weights))
+    nl = torch.where(active, node.clamp(0, L - 1), torch.zeros_like(node))
+    comps = torch.stack([w, w * labels], dim=1)
+    acc = torch.zeros((2, L), dtype=torch.float32, device=dev)
+    ids = torch.arange(L, device=dev)
+    for a in range(0, n, _LEAF_BLK):
+        oh = (nl[a:a + _LEAF_BLK, None] == ids[None, :]).to(torch.float32)
+        acc = acc + comps[a:a + _LEAF_BLK].T @ oh
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# histogram subtraction plan
+# ---------------------------------------------------------------------------
+
+
+def _node_batch_size(T: int, max_stats_memory_mb: int,
+                     n_classes: int = 0) -> int:
+    """Nodes per histogram batch under the stats-memory budget
+    (DTMaster.java:450-467): the [C, L, T] f32 histogram must fit."""
+    planes = n_classes if n_classes >= 3 else 3
+    budget = max(1, max_stats_memory_mb) * (1 << 20)
+    return max(1, budget // (planes * 4 * max(T, 1)))
+
+
+def _sub_level_fits(L: int, batch_cap: int, acc64: bool = False) -> bool:
+    """Memory gate for subtraction at a level of L nodes, in [C, 1, T]
+    node planes: retained parent + built half + reconstructed level."""
+    f = 2 if acc64 else 1
+    half = max(L // 2, 1)
+    planes = half * (f + 1) + L * f + (L if acc64 else 0)
+    return planes <= batch_cap
+
+
+def _sub_plan(cfg: TreeTrainConfig, batch_cap: int) -> tuple:
+    """Static per-level subtraction decisions (cfg-only, so a resumed run
+    picks the same plan). The accumulator chain is pinned to f32."""
+    return tuple(
+        d >= 1 and cfg.hist_subtraction
+        and _sub_level_fits(2 ** d, batch_cap)
+        for d in range(cfg.max_depth + 1))
+
+
+def _plan_counts(sub_levels: tuple, enabled: bool) -> Tuple[int, int, int]:
+    """(built, derived, fallback) node-histogram counts of one tree."""
+    built = derived = fallback = 0
+    for d, sub in enumerate(sub_levels):
+        L = 2 ** d
+        if sub:
+            built += L // 2
+            derived += L // 2
+        else:
+            built += L
+            if enabled and d >= 1:
+                fallback += 1
+    return built, derived, fallback
+
+
+def _record_hist_counters(built: int, derived: int, fallback: int) -> None:
+    hist_counters["built"] += built
+    hist_counters["derived"] += derived
+    hist_counters["fallback_rebuilds"] += fallback
+
+
+def _sub_row_masks(node, active, left_small):
+    """Rows of the built (smaller) children: (parent-slot node ids,
+    build-row mask)."""
+    built_lsb = torch.where(left_small, 0, 1)
+    parent = node >> 1
+    return parent, active & ((node & 1) == built_lsb[parent.long()])
+
+
+def _interleave_children(left_small, built, derived):
+    """Per-parent (built, derived) child values in level order [2*Lh,...]:
+    the built child sits at 2p when the parent's left side was smaller."""
+    Lh = built.shape[0]
+    ls = left_small.reshape((Lh,) + (1,) * (built.ndim - 1))
+    lh = torch.where(ls, built, derived)
+    rh = torch.where(ls, derived, built)
+    return torch.stack([lh, rh], dim=1).reshape((2 * Lh,) + built.shape[1:])
+
+
+def _derive(p_hist, built, p_split, left_small):
+    """Sibling = parent - built (zero under non-split parents); returns
+    (derived [C, Lh, T], reconstructed level [C, 2*Lh, T])."""
+    derived = torch.where(p_split[None, :, None], p_hist - built,
+                          torch.zeros_like(p_hist))
+    full = torch.stack([_interleave_children(left_small, built[c], derived[c])
+                        for c in range(built.shape[0])])
+    return derived, full
+
+
+# ---------------------------------------------------------------------------
+# one level-wise tree
+# ---------------------------------------------------------------------------
+
+
+def _grow_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
+               sub_levels: tuple, lowp: bool):
+    """One level-wise tree (counterpart of `_get_tree_program`'s body).
+    Returns (feat_flat, mask_flat, leaf_flat, resting, row_pred) — the
+    flat arrays are the DenseTree level-order layout."""
+    D = cfg.max_depth
+    dev = codes.device
+    n = codes.shape[0]
+    sl = scan_layout(lay, dev)
+    min_inst = max(cfg.min_instances_per_node, 1)
+    kw = dict(lay=lay, low_precision=lowp, codes8=codes8)
+    skw = dict(impurity=cfg.impurity, min_inst=min_inst,
+               min_gain=cfg.min_info_gain)
+    node = torch.zeros(n, dtype=torch.int32, device=dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    resting = torch.zeros(n, dtype=torch.long, device=dev)
+    feats_l, masks_l, leaves_l = [], [], []
+    prev = None  # retained parent level (hist, is_split, lcnt, ncnt)
+
+    def scan(hist):
+        return split_scan(hist, feat_ok_t, sl, **skw)
+
+    for d in range(D):
+        L = 2 ** d
+        if prev is not None:
+            p_hist, p_split, p_lcnt, p_ncnt = prev
+            left_small = p_lcnt <= p_ncnt - p_lcnt
+            nhalf, build_row = _sub_row_masks(node, active, left_small)
+            if L // 2 <= _FUSED_SCAN_L_CAP:
+                # the kernel grows only the smaller child (histogram and
+                # its scan in one pass); the sibling derives and is
+                # scanned in torch, then both interleave per parent
+                built, scan_b = hist_kernel.fused_level(
+                    codes, labels, weights, nhalf, build_row, feat_ok_t,
+                    L=L // 2, **kw, **skw)
+                derived, hist = _derive(p_hist, built, p_split, left_small)
+                out = tuple(_interleave_children(left_small, xb, xd)
+                            for xb, xd in zip(scan_b, scan(derived)))
+            else:
+                built = hist_kernel.hist_level(codes, labels, weights, nhalf,
+                                               build_row, L=L // 2, **kw)
+                _derived, hist = _derive(p_hist, built, p_split, left_small)
+                out = scan(hist)
+        elif L <= _FUSED_SCAN_L_CAP:
+            hist, out = hist_kernel.fused_level(
+                codes, labels, weights, node, active, feat_ok_t, L=L, **kw,
+                **skw)
+        else:
+            hist = hist_kernel.hist_level(codes, labels, weights, node,
+                                          active, L=L, **kw)
+            out = scan(hist)
+        (bf, br, rank_flat, lv, is_split, _g, lm, nc, lc) = out
+        prev = ((hist, is_split, lc, nc)
+                if d + 1 < D and sub_levels[d + 1] else None)
+        nl = node.clamp(0, L - 1).long()
+        settled = active & ~is_split[nl]
+        resting = torch.where(settled, (L - 1) + nl, resting)
+        f = torch.where(is_split, bf, torch.zeros_like(bf))[nl].long()
+        code = codes.gather(1, f[:, None])[:, 0].long()
+        cf = sl.off_f[f] + torch.minimum(code.clamp_min(0), sl.clip_f[f])
+        goes_left = rank_flat[nl, cf] <= br[nl]
+        still = is_split[nl] & active
+        node = torch.where(still, torch.where(goes_left, 2 * nl, 2 * nl + 1),
+                           torch.zeros_like(nl)).to(torch.int32)
+        active = still
+        feats_l.append(torch.where(is_split, bf, torch.full_like(bf, -1)))
+        masks_l.append(lm)
+        leaves_l.append(lv)
+
+    # final level: node totals only (no per-slot histogram)
+    L2 = 2 ** D
+    acc = leaf_acc(labels, weights, node, active, L2)
+    leaves_l.append(acc[1] / acc[0].clamp_min(1e-12))
+    resting = torch.where(active, (L2 - 1) + node.long(), resting)
+    feat_flat = torch.cat(feats_l + [torch.full((L2,), -1, dtype=torch.int32,
+                                                device=dev)])
+    mask_flat = torch.cat(masks_l + [torch.zeros((L2, lay.s_max),
+                                                 dtype=torch.bool,
+                                                 device=dev)])
+    leaf_flat = torch.cat(leaves_l)
+    return feat_flat, mask_flat, leaf_flat, resting, leaf_flat[resting]
+
+
+# ---------------------------------------------------------------------------
+# early stop (dt/DTEarlyStopDecider.java:49)
+# ---------------------------------------------------------------------------
+
+
+class _MinQueue:
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self.restart()
+
+    def restart(self):
+        self.min = float("inf")
+        self.size = -1
+
+    def add(self, v: float) -> bool:
+        self.min = min(self.min, v)
+        self.size += 1
+        return self.size >= self.capacity
+
+    def pop_min(self) -> float:
+        m = self.min
+        self.restart()
+        return m
+
+
+class _AverageQueue:
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self.arr = [0.0] * capacity
+        self.restart()
+
+    def restart(self):
+        self.total = 0
+        self.sum = 0.0
+
+    def add(self, v: float) -> bool:
+        idx = self.total % self.capacity
+        self.total += 1
+        if self.total <= self.capacity:
+            self.sum += v
+            self.arr[idx] = self.sum / self.total
+            return False
+        self.sum += v - self.arr[idx]
+        self.arr[idx] = self.sum / self.capacity
+        return True
+
+    def gain(self) -> float:
+        cur = (self.total - 1) % self.capacity
+        last = (self.total - 2) % self.capacity
+        return self.arr[last] - self.arr[cur]
+
+
+class DTEarlyStopDecider:
+    """Windowed early stop: min over a window feeds a moving average; when
+    the average's gain stays ~zero for 3 windows the decider restarts, and
+    3 restarts mean stop (MAGIC_NUMBER=3, NEARLY_ZERO=1e-6)."""
+
+    MAGIC = 3
+    NEARLY_ZERO = 1e-6
+
+    def __init__(self, tree_depth: int):
+        if tree_depth <= 0:
+            raise ValueError("tree depth must be positive")
+        self.min_queue = _MinQueue(tree_depth * self.MAGIC)
+        self.avg_queue = _AverageQueue(tree_depth)
+        self.gain_zero_count = 0
+        self.restart_count = 0
+
+    def add(self, validation_error: float) -> bool:
+        if self.min_queue.add(validation_error):
+            m = self.min_queue.pop_min()
+            if self.avg_queue.add(m):
+                if self.avg_queue.gain() < self.NEARLY_ZERO:
+                    self.gain_zero_count += 1
+                    if self.gain_zero_count >= self.MAGIC:
+                        self.avg_queue.restart()
+                        self.restart_count += 1
+                        self.gain_zero_count = 0
+                else:
+                    self.gain_zero_count = 0
+        return self.can_stop()
+
+    def can_stop(self) -> bool:
+        return self.restart_count >= self.MAGIC
+
+
+# ---------------------------------------------------------------------------
+# full training run
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class TreeTrainResult:
+    spec: TreeModelSpec
+    train_error: float
+    valid_error: float
+
+
+def _errors(score, y, vm):
+    """(train_err, valid_err) mean squared error on each side of the
+    valid split (device scalars)."""
+    sq = (y - score) ** 2
+    zero = torch.zeros_like(sq)
+    v = torch.where(vm, sq, zero).sum() / vm.sum().clamp_min(1)
+    t = torch.where(~vm, sq, zero).sum() / (~vm).sum().clamp_min(1)
+    return t, v
+
+
+def _score_existing(trees: List[DenseTree], codes) -> torch.Tensor:
+    """Raw GBT prediction of an existing forest, folded tree by tree like
+    the live run (a pairwise sum would round differently on resume)."""
+    score = torch.zeros(codes.shape[0], dtype=torch.float32,
+                        device=codes.device)
+    if not trees:
+        return score
+    per_tree = traverse_trees(trees, codes)
+    for t in range(per_tree.shape[1]):
+        score = score + per_tree[:, t]
+    return score
+
+
+def _check_ported(cfg: TreeTrainConfig, batch_cap: int) -> None:
+    if cfg.n_classes >= 3:
+        raise NotImplementedError(
+            "NATIVE multi-class tree training (n_classes >= 3) is not ported "
+            "yet: ROADMAP queue B, multiclass branch of the histogram kernel")
+    if cfg.max_leaves and cfg.max_leaves > 0:
+        raise NotImplementedError(
+            "leaf-wise growth (max_leaves > 0) is not ported yet: ROADMAP "
+            "queue A, leaf-wise and build_tree growers")
+    if 2 ** cfg.max_depth > batch_cap:
+        raise NotImplementedError(
+            f"2**max_depth = {2 ** cfg.max_depth} nodes exceed the "
+            f"stats-memory node batch ({batch_cap}); the host-batched "
+            "build_tree path is not ported yet: ROADMAP queue A, leaf-wise "
+            "and build_tree growers")
+
+
+def _as_device(a, dtype, dev):
+    if isinstance(a, torch.Tensor):
+        return a.to(device=dev, dtype=dtype).contiguous()
+    np_dt = {torch.int32: np.int32, torch.float32: np.float32}[dtype]
+    return torch.as_tensor(np.ascontiguousarray(np.asarray(a, np_dt)),
+                           device=dev)
+
+
+def _assemble(trees: List, deferred: List[tuple]) -> None:
+    """Device results -> DenseTrees, one host copy for the backlog."""
+    if not deferred:
+        return
+    f_all = torch.stack([f for _k, _w, f, _m, _lv in deferred]).cpu().numpy()
+    m_all = torch.stack([m for _k, _w, _f, m, _lv in deferred]).cpu().numpy()
+    l_all = torch.stack([lv for _k, _w, _f, _m, lv in deferred]).cpu().numpy()
+    for i, (k, weight_k, _f, _m, _lv) in enumerate(deferred):
+        trees[k] = DenseTree(feature=np.asarray(f_all[i], np.int32),
+                             left_mask=np.asarray(m_all[i], bool),
+                             leaf_value=np.asarray(l_all[i], np.float32),
+                             weight=weight_k)
+    deferred.clear()
+
+
+def train_trees(
+    codes,
+    tags,
+    weights,
+    slots: List[int],
+    is_cat: List[bool],
+    columns: List[str],
+    cfg: TreeTrainConfig,
+    boundaries: Optional[List] = None,
+    categories: Optional[List] = None,
+    progress_cb=None,
+    init_trees: Optional[List[DenseTree]] = None,
+    init_valid_errors: Optional[List[float]] = None,
+    checkpoint_cb: Optional[
+        Callable[[int, List[DenseTree], List[float]], None]] = None,
+    device: DeviceLike = None,
+) -> TreeTrainResult:
+    """Full GBT/RF training run on one device (`device=None` = cuda).
+
+    `init_trees` continues from an existing forest: per-tree draws are
+    keyed by (seed, tree index), so trees k..N after loading 0..k-1
+    reproduce the uninterrupted run. `checkpoint_cb(k, trees,
+    valid_errors)` fires after each tree."""
+    dev = resolve_device(device)
+    n, F = codes.shape
+    valid_mask = np.random.default_rng([cfg.seed, 999_983]).random(n) \
+        < cfg.valid_set_rate
+    codes_t = _as_device(codes, torch.int32, dev)
+    y_t = _as_device(tags, torch.float32, dev)
+    w_t = _as_device(weights, torch.float32, dev)
+    vm_t = torch.as_tensor(valid_mask, device=dev)
+    base_w = torch.where(vm_t, torch.zeros_like(w_t), w_t)
+    slots_np = np.asarray(slots, dtype=np.int32)
+    is_cat_np = np.asarray(is_cat, dtype=bool)
+    lay = make_layout([int(s) for s in slots_np], [bool(c) for c in is_cat_np])
+    batch_cap = _node_batch_size(lay.T, cfg.max_stats_memory_mb,
+                                 cfg.n_classes)
+    _check_ported(cfg, batch_cap)
+
+    k_sub = subset_count(cfg.feature_subset_strategy, F)
+    trees: List = list(init_trees or [])
+    start_k = len(trees)
+    lr = cfg.learning_rate
+    is_gbt = cfg.algorithm == "GBT"
+    log_loss = cfg.loss == "log"
+
+    if start_k:
+        if is_gbt and cfg.dropout_rate > 0.0:
+            # DART resume: regenerate each tree's keyed keep mask
+            per_tree = traverse_trees(trees, codes_t)
+            s = torch.zeros(n, dtype=torch.float32, device=dev)
+            for col in range(per_tree.shape[1]):
+                contrib = per_tree[:, col]
+                if col > 0:
+                    keep = (np.random.default_rng([cfg.seed, col, 777])
+                            .random(n) >= cfg.dropout_rate)
+                    contrib = contrib * torch.as_tensor(
+                        keep.astype(np.float32), device=dev)
+                s = s + contrib
+        else:
+            s = _score_existing(trees, codes_t)
+        pred = s if is_gbt else s / start_k
+    else:
+        pred = torch.zeros(n, dtype=torch.float32, device=dev)
+    valid_errors: List = list(init_valid_errors or [])[:start_k]
+    bad_rounds = 0
+    decider = (DTEarlyStopDecider(cfg.max_depth)
+               if cfg.enable_early_stop else None)
+    for idx, v in enumerate(valid_errors):
+        if decider is not None:
+            decider.add(v)
+        if cfg.early_stop_rounds and idx >= 1:
+            bad_rounds = bad_rounds + 1 if v > min(valid_errors[:idx + 1]) \
+                else 0
+    terr = 0.0
+    need_sync = bool(progress_cb or checkpoint_cb or cfg.early_stop_rounds
+                     or decider is not None)
+
+    sub_levels = _sub_plan(cfg, batch_cap)
+    sub_counts = _plan_counts(sub_levels[:cfg.max_depth],
+                              cfg.hist_subtraction)
+    lowp = is_gbt  # bf16 component planes for GBT; RF stays exact f32
+    # int8 code planes, hoisted once per forest (codes are tree- and
+    # level-independent), when every feature fits 128 slots
+    codes8 = (hist_kernel.codes8_of(codes_t, lay) if lay.s_max <= 128
+              else None)
+    fot_all = (torch.ones(lay.T, dtype=torch.bool, device=dev)
+               if k_sub >= F else None)
+
+    # per-tree draws keyed by (seed, tree index), as the JAX package
+    feat_oks: Dict[int, np.ndarray] = {}
+    bags: Dict[int, np.ndarray] = {}
+    for k in range(start_k, cfg.tree_num):
+        rng_k = np.random.default_rng([cfg.seed, k])
+        if cfg.algorithm == "RF":
+            if cfg.bagging_with_replacement:
+                bags[k] = rng_k.poisson(cfg.bagging_sample_rate, size=n)
+            else:
+                bags[k] = rng_k.random(n) < cfg.bagging_sample_rate
+        feat_ok = np.zeros(F, dtype=bool)
+        if k_sub >= F:
+            feat_ok[:] = True
+        else:
+            feat_ok[rng_k.choice(F, size=k_sub, replace=False)] = True
+        feat_oks[k] = feat_ok
+
+    deferred: List[tuple] = []
+    err_pairs: List[tuple] = []
+    for k in range(start_k, cfg.tree_num):
+        if cfg.algorithm == "RF":
+            w_k = base_w * torch.as_tensor(
+                bags[k].astype(np.uint16).astype(np.float32), device=dev)
+            labels_k = y_t
+        else:  # GBT: fit the negative loss gradient
+            w_k = base_w
+            labels_k = (y_t - 1.0 / (1.0 + torch.exp(-pred)) if log_loss
+                        else y_t - pred)
+        fot = fot_all if fot_all is not None else torch.as_tensor(
+            feat_oks[k][lay.seg_of_t], device=dev)
+        feats_d, masks_d, leaves_d, _resting, tree_pred = _grow_tree(
+            codes_t, codes8, labels_k, w_k, fot, lay=lay, cfg=cfg,
+            sub_levels=sub_levels, lowp=lowp)
+        _record_hist_counters(*sub_counts)
+        weight_k = 1.0 if (is_gbt and k == 0) else (lr if is_gbt else 1.0)
+        deferred.append((k, weight_k, feats_d, masks_d, leaves_d))
+        trees.append(None)  # assembled from `deferred`
+
+        if is_gbt:
+            if cfg.dropout_rate > 0.0 and k > 0:
+                # DART-ish per-row dropout of this tree's contribution to
+                # the running prediction (never the model)
+                keep = (np.random.default_rng([cfg.seed, k, 777])
+                        .random(n) >= cfg.dropout_rate)
+                pred = pred + weight_k * tree_pred * torch.as_tensor(
+                    keep.astype(np.float32), device=dev)
+            else:
+                pred = pred + weight_k * tree_pred
+            score = (1.0 / (1.0 + torch.exp(-pred)) if log_loss
+                     else pred.clamp(0.0, 1.0))
+        else:  # RF running mean over trees built so far
+            pred = tree_pred if k == 0 else (pred * k + tree_pred) / (k + 1)
+            score = pred.clamp(0.0, 1.0)
+        t_e, v_e = _errors(score, y_t, vm_t)
+        if not need_sync:
+            err_pairs.append((t_e, v_e))
+            valid_errors.append(None)  # filled after the final sync
+            continue
+        _assemble(trees, deferred)
+        terr, verr = float(t_e), float(v_e)
+        valid_errors.append(verr)
+        if progress_cb:
+            progress_cb(k + 1, terr, verr)
+        if checkpoint_cb:
+            checkpoint_cb(k + 1, trees, valid_errors)
+        if decider is not None and decider.add(verr):
+            log.info("windowed early stop after %d trees "
+                     "(DTEarlyStopDecider)", k + 1)
+            break
+        if cfg.early_stop_rounds and len(valid_errors) > 1:
+            if verr > min(valid_errors):
+                bad_rounds += 1
+                if bad_rounds >= cfg.early_stop_rounds:
+                    log.info("early stop after %d trees", k + 1)
+                    break
+            else:
+                bad_rounds = 0
+
+    _assemble(trees, deferred)
+    if err_pairs:
+        host = torch.stack([torch.stack(p) for p in err_pairs]).cpu().numpy()
+        errs = [(float(t), float(v)) for t, v in host]
+        terr = errs[-1][0]
+        j = 0
+        for i in range(len(valid_errors)):
+            if valid_errors[i] is None:
+                valid_errors[i] = errs[j][1]
+                j += 1
+
+    spec = TreeModelSpec(
+        algorithm=cfg.algorithm,
+        trees=trees,
+        input_columns=list(columns),
+        slots=[int(s) for s in slots],
+        boundaries=boundaries or [None] * F,
+        categories=categories or [None] * F,
+        loss=cfg.loss,
+        learning_rate=lr,
+        init_pred=0.0,
+        convert_to_prob="SIGMOID" if cfg.loss == "log" else "RAW",
+        train_error=terr,
+        valid_error=valid_errors[-1] if valid_errors else None,
+        n_classes=cfg.n_classes,
+    )
+    return TreeTrainResult(spec=spec, train_error=terr,
+                           valid_error=valid_errors[-1] if valid_errors
+                           else 0.0)

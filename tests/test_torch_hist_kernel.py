@@ -1,0 +1,266 @@
+"""The port's histogram -> split-scan entries vs the JAX package.
+
+On the CPU the port's wrappers run their plain PyTorch versions
+(`hist_level_reference`, `fused_level_reference`); these tests hold those
+against the JAX package's XLA histogram and its Pallas kernel in
+interpret mode, on the same numpy inputs. The CUDA kernel itself runs
+only on the card: tests/test_torch_cuda.py holds it against these plain
+versions there (marked `cuda`, skipped without a card).
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from shifu_tpu.ops.hist_pallas import (  # noqa: E402
+    make_fused_level_fn,
+    make_pallas_hist_fn,
+)
+from shifu_tpu.train.tree_trainer import (  # noqa: E402
+    _device_layout,
+    _make_hist_fn,
+    make_layout,
+)
+from shifu_tpu_torch.ops import hist_kernel as hk  # noqa: E402
+from shifu_tpu_torch.train import tree_trainer as tt  # noqa: E402
+
+NAMES = ("feature", "cut_rank", "rank_flat", "leaf_value", "is_split",
+         "best_gain", "left_mask", "node_cnt", "left_cnt")
+
+
+def _mixed_case(n=1500, seed=0):
+    """test_hist_pallas.py's ragged layout: narrow numerics, 33/65-wide
+    categoricals and one 1500-slot categorical (wider than the kernel's
+    segment cap, so it takes the torch scan route)."""
+    rng = np.random.default_rng(seed)
+    slots = [9] * 6 + [33, 65] + [1500]
+    is_cat = [False] * 6 + [True] * 3
+    codes = np.stack([rng.integers(0, s - 1, size=n) for s in slots],
+                     1).astype(np.int32)
+    y = rng.random(n).astype(np.float32)
+    w = rng.integers(1, 4, size=n).astype(np.float32)
+    return slots, is_cat, codes, y, w, rng
+
+
+def _jax_scatter_hist(L, slots, is_cat, codes, y, w, node, active):
+    lay = make_layout(slots, is_cat)
+    la = _device_layout(lay, np.ones(len(slots), bool))
+    fn = jax.jit(_make_hist_fn(L, lay, allow_matmul=False))
+    return np.asarray(fn(jnp.asarray(codes), jnp.asarray(y), jnp.asarray(w),
+                         jnp.asarray(node), jnp.asarray(active), la.off,
+                         la.clip, la.seg_t, la.pos_t))
+
+
+def _jax_pallas_hist(L, slots, is_cat, codes, y, w, node, active,
+                     low_precision=False):
+    lay = make_layout(slots, is_cat)
+    fn = jax.jit(make_pallas_hist_fn(L, lay, interpret=True,
+                                     low_precision=low_precision))
+    return np.asarray(fn(jnp.asarray(codes), jnp.asarray(y), jnp.asarray(w),
+                         jnp.asarray(node), jnp.asarray(active)))
+
+
+def _port_hist(L, slots, is_cat, codes, y, w, node, active,
+               low_precision=False):
+    lay = tt.make_layout(slots, is_cat)
+    t = torch.as_tensor
+    return hk.hist_level_reference(
+        t(codes), t(y), t(w), t(node), t(active), L=L, lay=lay,
+        low_precision=low_precision).numpy()
+
+
+def test_hist_matches_jax_scatter_and_pallas():
+    slots, is_cat, codes, y, w, rng = _mixed_case()
+    L = 8
+    node = rng.integers(0, L, size=len(y)).astype(np.int32)
+    active = rng.random(len(y)) < 0.9
+    args = (L, slots, is_cat, codes, y, w, node, active)
+    h_port = _port_hist(*args)
+    for h_ref in (_jax_scatter_hist(*args), _jax_pallas_hist(*args)):
+        # counts: integer weights sum exactly in f32 in any order
+        np.testing.assert_array_equal(h_port[0], h_ref[0])
+        # moments: equal up to float summation order
+        np.testing.assert_allclose(h_port, h_ref, rtol=1e-5, atol=1e-3)
+
+
+def test_hist_bf16_planes_bounds():
+    """bf16 component planes (the GBT precision policy): counts stay
+    exact, moments land within one bf16 rounding of the f32 sums; and
+    they match the JAX kernel's bf16 planes up to summation order."""
+    slots, is_cat, codes, y, w, rng = _mixed_case(n=900, seed=5)
+    L = 4
+    node = rng.integers(0, L, size=len(y)).astype(np.int32)
+    active = np.ones(len(y), bool)
+    w1 = np.ones(len(y), np.float32)
+    args = (L, slots, is_cat, codes, y, w1, node, active)
+    h_port = _port_hist(*args, low_precision=True)
+    h_ref = _jax_scatter_hist(*args)
+    np.testing.assert_array_equal(h_port[0], h_ref[0])
+    np.testing.assert_allclose(h_port[1:], h_ref[1:], rtol=1e-2, atol=0.15)
+    h_pl = _jax_pallas_hist(*args, low_precision=True)
+    np.testing.assert_allclose(h_port, h_pl, rtol=1e-5, atol=1e-3)
+
+
+def _fused_pair(impurity, L=4, n=1300, seed=11, min_inst=2):
+    slots, is_cat, codes, _y, w, _rng = _mixed_case(n=n, seed=seed)
+    y = (codes[:, 0] >= 4).astype(np.float32)  # 0/1 labels: exact planes
+    rng = np.random.default_rng(7)
+    node = rng.integers(0, L, size=n).astype(np.int32)
+    active = rng.random(n) < 0.95
+    feat_ok = np.ones(len(slots), bool)
+    feat_ok[2] = False  # one feature outside the tree's subset
+    jlay = make_layout(slots, is_cat)
+    fot = feat_ok[jlay.seg_of_t]
+    fused = jax.jit(make_fused_level_fn(L, jlay, impurity, min_inst, 0.0,
+                                        interpret=True))
+    j_hist, j_out = fused(jnp.asarray(codes), None, jnp.asarray(y),
+                          jnp.asarray(w), jnp.asarray(node),
+                          jnp.asarray(active), jnp.asarray(fot))
+    t = torch.as_tensor
+    p_hist, p_out = hk.fused_level_reference(
+        t(codes), t(y), t(w), t(node), t(active), t(fot), L=L,
+        lay=tt.make_layout(slots, is_cat), impurity=impurity,
+        min_inst=min_inst, min_gain=0.0)
+    return j_hist, j_out, p_hist, p_out
+
+
+@pytest.mark.parametrize("impurity", ["variance", "friedmanmse", "entropy",
+                                      "gini"])
+def test_fused_matches_jax_kernel(impurity):
+    """Integer-valued labels and weights: the histogram is bit-equal, the
+    9-tuple's integer fields and masks are exact (the wide 1500-slot
+    feature included), float stats within rtol 1e-5."""
+    j_hist, j_out, p_hist, p_out = _fused_pair(impurity)
+    np.testing.assert_array_equal(np.asarray(j_hist), p_hist.numpy())
+    for nm, a, b in zip(NAMES, j_out, p_out):
+        a, b = np.asarray(a), b.numpy()
+        if nm in ("best_gain", "leaf_value", "node_cnt", "left_cnt"):
+            np.testing.assert_allclose(b, a, rtol=1e-5, err_msg=nm)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=nm)
+    assert bool(np.asarray(j_out[4]).any())  # some node really splits
+
+
+def _emulated_planes(hist, fok, lay, min_inst):
+    """The kernel's scan-mode planes (gain, rank, lcnt, tot0), written out
+    per (node, segment) in plain torch, variance impurity: what
+    hist_finalize_kernel computes, for checking the wrapper's epilogue on
+    the CPU."""
+    L, T = hist.shape[1:]
+    gain = torch.full((L, T), -float("inf"))
+    rank = torch.zeros((L, T), dtype=torch.int32)
+    lcnt = torch.zeros((L, T))
+    tot0 = torch.zeros((L, 3))
+    inf = torch.tensor(float("inf"))
+    for l in range(L):
+        for f in range(len(lay.slots)):
+            st, sz = int(lay.off[f]), int(lay.slots[f])
+            h = hist[:, l, st:st + sz]
+            if sz > hk.SEG_CAP:
+                rank[l, st:st + sz] = torch.arange(sz, dtype=torch.int32)
+                if f == 0:
+                    tot0[l] = h.sum(1)
+                continue
+            key = (torch.where(h[0] > 0, h[1] / h[0].clamp_min(1e-12), inf)
+                   if lay.is_cat_t[st] else torch.arange(sz).float())
+            order = torch.argsort(key, stable=True)
+            r = torch.empty(sz, dtype=torch.long)
+            r[order] = torch.arange(sz)
+            pre = torch.cumsum(h[:, order], 1)
+            tc, ts1, ts2 = pre[:, -1]
+            lc, ls1, ls2 = pre[0][r], pre[1][r], pre[2][r]
+
+            def sse(c, s, q):
+                return q - s * s / c.clamp_min(1e-12)
+
+            g = (sse(tc, ts1, ts2) - sse(lc, ls1, ls2)
+                 - sse(tc - lc, ts1 - ls1, ts2 - ls2))
+            valid = ((lc >= min_inst) & (tc - lc >= min_inst) & (g > 0.0)
+                     & fok[st:st + sz] & (r < sz - 1))
+            gain[l, st:st + sz] = torch.where(valid, g, -inf)
+            rank[l, st:st + sz] = r.int()
+            lcnt[l, st:st + sz] = lc
+            if f == 0:
+                tot0[l] = pre[:, -1]
+    return gain, rank, lcnt, tot0
+
+
+@pytest.mark.parametrize("wide_first,w_scale", [(False, 1), (True, 1),
+                                                (False, 4097)])
+def test_kernel_epilogue_reproduces_reference(wide_first, w_scale):
+    """The wrapper's torch epilogue (argmax with the ordered-position
+    tie-break, the wide-feature merge, rank_flat, left mask, node stats)
+    turns the kernel's planes into exactly the reference 9-tuple — also
+    when the widest feature is segment 0 and owns the node totals, and
+    when a node's row of slots sums past 2^24 while each segment stays
+    below it (w_scale: the plain scan's running sums must stay exact
+    across segments, as the kernel's per-segment sums are)."""
+    rng = np.random.default_rng(3)
+    slots = ([1500, 9, 33] if wide_first
+             else [9] * 6 + [33, 65] + [1500])
+    is_cat = ([True, False, True] if wide_first
+              else [False] * 6 + [True] * 3)
+    lay = tt.make_layout(slots, is_cat)
+    n, L = 1500, 4
+    codes = np.stack([rng.integers(0, s - 1, size=n) for s in slots],
+                     1).astype(np.int32)
+    t = torch.as_tensor
+    # heavy case: the label follows the 65-slot categorical (segment 7),
+    # so the best split's sums sit far past 2^24 in the running sum
+    y = t((codes[:, 0] >= 4) if w_scale == 1 else (codes[:, 7] % 2 == 0)
+          ).to(torch.float32)
+    w = t((rng.integers(1, 4, size=n) * w_scale).astype(np.float32))
+    node = t(rng.integers(0, L, size=n).astype(np.int32))
+    act = t(rng.random(n) < 0.95)
+    fok = torch.ones(lay.T, dtype=torch.bool)
+    fok[lay.off[1]:lay.off[1] + lay.slots[1]] = False
+    hist, ref = hk.fused_level_reference(t(codes), y, w, node, act, fok, L=L,
+                                         lay=lay, impurity="variance",
+                                         min_inst=2, min_gain=0.0)
+    if w_scale > 1:
+        assert float(hist[0].sum(1).max()) > 2 ** 24
+    planes = _emulated_planes(hist, fok, lay, 2)
+    out = hk._epilogue(hist, planes, fok, lay, "variance", 2, 0.0)
+    for nm, a, b in zip(NAMES, ref, out):
+        assert a.dtype == b.dtype, nm
+        assert torch.equal(a, b), nm
+
+
+def test_cpu_wrappers_run_plain_versions_and_count():
+    slots, is_cat, codes, y, w, rng = _mixed_case(n=400, seed=2)
+    lay = tt.make_layout(slots, is_cat)
+    t = torch.as_tensor
+    node = t(rng.integers(0, 2, size=400).astype(np.int32))
+    act = torch.ones(400, dtype=torch.bool)
+    fok = torch.ones(lay.T, dtype=torch.bool)
+    hk.reset_counters()
+    h = hk.hist_level(t(codes), t(y), t(w), node, act, L=2, lay=lay)
+    h2, _ = hk.fused_level(t(codes), t(y), t(w), node, act, fok, L=2,
+                           lay=lay, impurity="gini", min_inst=1,
+                           min_gain=0.0)
+    assert torch.equal(h, h2)
+    assert hk.reference_calls == {"hist_level": 1, "fused_level": 1}
+    assert hk.launches == {"hist_level": 0, "fused_level": 0}
+    c8 = hk.codes8_of(t(codes), lay)
+    assert c8.dtype == torch.int8
+    np.testing.assert_array_equal(c8[:, :8].numpy(), codes[:, :8])
+
+
+def test_tiles_cover_every_bin_within_shared_memory():
+    """The accumulate tiling covers each (node, slot) bin exactly once and
+    every tile fits the kernel's shared-memory budget."""
+    for slots, L in (([33] * 30, 32), ([33] * 20 + [65] * 10, 128),
+                     ([9] * 6 + [2001], 16), ([10_000], 1)):
+        lay = tt.make_layout(slots, [False] * len(slots))
+        tiles, smem_bins = hk._tiles(lay, L)
+        assert smem_bins <= hk.SMEM_BINS
+        seen = np.zeros((L, lay.T), np.int32)
+        for f_lo, f_hi, t_lo, t_w, l_lo, l_n in tiles:
+            assert l_n * t_w <= smem_bins
+            assert f_lo == lay.seg_of_t[t_lo]
+            assert f_hi - 1 == lay.seg_of_t[t_lo + t_w - 1]
+            seen[l_lo:l_lo + l_n, t_lo:t_lo + t_w] += 1
+        assert (seen == 1).all()

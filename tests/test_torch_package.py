@@ -1,0 +1,87 @@
+"""Package rules of the port: no JAX, device resolution, shared formats."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from shifu_tpu_torch.norm import dataset as pds  # noqa: E402
+from shifu_tpu_torch.train import tree_trainer as ptt  # noqa: E402
+from shifu_tpu_torch.utils import platform  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULES = [
+    "shifu_tpu_torch", "shifu_tpu_torch.convert",
+    "shifu_tpu_torch.fs.listing", "shifu_tpu_torch.models.tree",
+    "shifu_tpu_torch.norm.dataset", "shifu_tpu_torch.ops.build",
+    "shifu_tpu_torch.ops.hist_kernel", "shifu_tpu_torch.train.tree_trainer",
+    "shifu_tpu_torch.utils.errors", "shifu_tpu_torch.utils.log",
+    "shifu_tpu_torch.utils.platform",
+]
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'shifu_tpu' or "
+        "m.startswith('shifu_tpu.'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        platform.resolve_device(None)
+    codes = np.zeros((10, 2), np.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ptt.train_trees(codes, np.zeros(10, np.float32),
+                        np.ones(10, np.float32), [3, 3], [False, False],
+                        ["a", "b"], ptt.TreeTrainConfig(tree_num=1))
+    assert platform.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        platform.resolve_device("cuda:0")
+
+
+def _cleaned(seed=0, n=700):
+    rng = np.random.default_rng(seed)
+    slots = [5, 40000, 12]  # one column past int16: int32 code shards
+    codes = np.stack([rng.integers(0, s, size=n) for s in slots],
+                     1).astype(np.int32)
+    tags = (rng.random(n) < 0.3).astype(np.int8)
+    w = rng.random(n).astype(np.float32)
+    return codes, tags, w, ["a", "b", "c"], slots
+
+
+@pytest.mark.parametrize("narrow", [True, False])
+def test_cleaned_data_crosses_packages(tmp_path, narrow):
+    jds = pytest.importorskip("shifu_tpu.norm.dataset")
+    codes, tags, w, cols, slots = _cleaned()
+    if narrow:  # int16 shards
+        slots = [5, 300, 12]
+        codes = np.minimum(codes, np.asarray(slots) - 1).astype(np.int32)
+    jdir, pdir = tmp_path / "jax", tmp_path / "port"
+    jds.write_codes(str(jdir), codes, tags, w, cols, slots, n_shards=3)
+    pds.write_codes(str(pdir), codes, tags, w, cols, slots, n_shards=3)
+    names = sorted(os.listdir(jdir))
+    assert names == sorted(os.listdir(pdir))
+    for nm in names:  # the same bytes on disk
+        assert (jdir / nm).read_bytes() == (pdir / nm).read_bytes(), nm
+    for src in (jdir, pdir):
+        jm, jc, jt, jw = jds.load_codes(str(src))
+        pm, pc, pt, pw = pds.load_codes(str(src))
+        assert jm.to_json() == pm.to_json()
+        for a, b in ((jc, pc), (jt, pt), (jw, pw)):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(pc, codes)
+        assert pds.read_meta(str(src)).extra == {"slots": slots}

@@ -1,0 +1,179 @@
+"""The port's level-wise GBT/RF trainer and tree model vs the JAX package.
+
+Port `train_trees(device="cpu")` (the fused level structure through the
+histogram entries' plain versions) against JAX `train_trees` with
+`-Dshifu.pallas.mode=off`, on test_hist_pallas.py's `_forest_data` case.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+from shifu_tpu.models import tree as jtree  # noqa: E402
+from shifu_tpu.train import tree_trainer as jtt  # noqa: E402
+from shifu_tpu.utils import environment  # noqa: E402
+from shifu_tpu_torch import convert  # noqa: E402
+from shifu_tpu_torch.models import tree as ptree  # noqa: E402
+from shifu_tpu_torch.ops import hist_kernel as hk  # noqa: E402
+from shifu_tpu_torch.train import tree_trainer as ptt  # noqa: E402
+
+
+def _forest_data(n=2500, seed=0):
+    rng = np.random.default_rng(seed)
+    slots = [17] * 5 + [33, 65]
+    is_cat = [False] * 5 + [True] * 2
+    codes = np.stack([rng.integers(0, s - 1, size=n) for s in slots],
+                     1).astype(np.int32)
+    y = ((codes[:, 0] >= 8).astype(np.int8)
+         | (codes[:, 5] >= 20).astype(np.int8)).astype(np.float32)
+    noise = rng.random(n) < 0.15
+    y = np.where(noise, 1.0 - y, y).astype(np.float32)
+    w = np.ones(n, np.float32)
+    cols = [f"f{i}" for i in range(len(slots))]
+    return codes, y, w, slots, is_cat, cols
+
+
+def _jax_train(codes, y, w, slots, is_cat, cols, **kw):
+    environment.set_property("shifu.pallas.mode", "off")
+    try:
+        return jtt.train_trees(codes, y, w, slots, is_cat, cols,
+                               jtt.TreeTrainConfig(**kw))
+    finally:
+        environment.set_property("shifu.pallas.mode", "")
+
+
+def _port_train(codes, y, w, slots, is_cat, cols, **kw):
+    return ptt.train_trees(codes, y, w, slots, is_cat, cols,
+                           ptt.TreeTrainConfig(**kw), device="cpu")
+
+
+def _assert_forests_bit_equal(a, b):
+    assert len(a.spec.trees) == len(b.spec.trees)
+    for t0, t1 in zip(a.spec.trees, b.spec.trees):
+        np.testing.assert_array_equal(t0.feature, t1.feature)
+        np.testing.assert_array_equal(t0.left_mask, t1.left_mask)
+        np.testing.assert_array_equal(t0.leaf_value, t1.leaf_value)
+        assert t0.weight == t1.weight
+
+
+@pytest.mark.parametrize("depth,subtraction", [(4, True), (7, False),
+                                               (8, True)])
+def test_rf_forest_bit_equal(depth, subtraction):
+    """RF integer-weight planes are exact, so the forest is BIT-equal:
+    depth 4 engages the subtraction chain through the fused entry; L=64
+    takes the histogram-only entry, as a full level (depth 7, subtraction
+    off) and as the built half of L=128 (depth 8)."""
+    data = _forest_data()
+    kw = dict(algorithm="RF", tree_num=3, max_depth=depth,
+              feature_subset_strategy="TWOTHIRDS", seed=3,
+              valid_set_rate=0.1, hist_subtraction=subtraction)
+    ref = _jax_train(*data, **kw)
+    hk.reset_counters()
+    port = _port_train(*data, **kw)
+    _assert_forests_bit_equal(ref, port)
+    assert port.valid_error == pytest.approx(ref.valid_error, abs=1e-6)
+    widths = [2 ** d // 2 if subtraction and d else 2 ** d
+              for d in range(depth)]
+    assert hk.reference_calls["fused_level"] == 3 * sum(
+        w <= 32 for w in widths)
+    assert hk.reference_calls["hist_level"] == 3 * sum(w > 32 for w in widths)
+    assert hk.reference_calls["hist_level"] > 0 or depth == 4
+
+
+def test_gbt_scores_within_tolerance():
+    """GBT planes travel bf16 in the port (the kernel's precision policy)
+    and f32 in the JAX XLA path: tolerance parity, as the JAX package's
+    own kernel-on/off test."""
+    codes, y, w, slots, is_cat, cols = _forest_data(seed=6)
+    kw = dict(algorithm="GBT", tree_num=4, max_depth=4, learning_rate=0.3,
+              seed=7, valid_set_rate=0.1)
+    ref = _jax_train(codes, y, w, slots, is_cat, cols, **kw)
+    port = _port_train(codes, y, w, slots, is_cat, cols, **kw)
+    s_ref = ref.spec.independent().compute(codes)
+    s_port = port.spec.independent(device="cpu").compute(codes)
+    np.testing.assert_allclose(s_port, s_ref, atol=0.03)
+
+
+def test_gbt_model_file_crosses_packages(tmp_path):
+    """A .gbt saved by either package loads in the other and saves to the
+    same bytes; one forest scores the same in both (via convert.py)."""
+    codes, y, w, slots, is_cat, cols = _forest_data(n=1200, seed=2)
+    kw = dict(algorithm="GBT", tree_num=3, max_depth=3, learning_rate=0.2,
+              seed=1, valid_set_rate=0.1)
+    port = _port_train(codes, y, w, slots, is_cat, cols, **kw)
+    ref = _jax_train(codes, y, w, slots, is_cat, cols, **kw)
+    for spec, name in ((port.spec, "port"), (ref.spec, "jax")):
+        a = tmp_path / f"{name}-a.gbt"
+        b = tmp_path / f"{name}-b.gbt"
+        c = tmp_path / f"{name}-c.gbt"
+        spec.save(str(a))
+        jtree.TreeModelSpec.load(str(a)).save(str(b))
+        ptree.TreeModelSpec.load(str(b)).save(str(c))
+        assert a.read_bytes() == b.read_bytes() == c.read_bytes()
+
+    # JAX forest -> port spec: scores agree
+    moved = convert.spec_from(ref.spec)
+    s_ref = ref.spec.independent().compute(codes)
+    s_port = ptree.IndependentTreeModel(moved, device="cpu").compute(codes)
+    np.testing.assert_allclose(s_port, s_ref, rtol=1e-6)
+    # port forest -> JAX spec through plain fields, and per-tree arrays
+    d = convert.spec_fields(port.spec)
+    back = jtree.TreeModelSpec(**{**d, "trees": [jtree.DenseTree(**t)
+                                                 for t in d["trees"]]})
+    np.testing.assert_allclose(
+        back.independent().compute(codes),
+        port.spec.independent(device="cpu").compute(codes), rtol=1e-6)
+    again = convert.forest_from(
+        [t.feature for t in ref.spec.trees],
+        [t.left_mask for t in ref.spec.trees],
+        [t.leaf_value for t in ref.spec.trees],
+        [t.weight for t in ref.spec.trees],
+        algorithm="GBT", input_columns=cols, slots=slots,
+        convert_to_prob=ref.spec.convert_to_prob)
+    np.testing.assert_allclose(
+        again.independent(device="cpu").compute(codes), s_ref, rtol=1e-6)
+
+
+@pytest.mark.parametrize("alg", ["GBT", "RF"])
+def test_resume_is_bit_equal(alg):
+    """Per-tree draws keyed by (seed, tree index): 2 trees, then 2 more
+    from init_trees, equal the uninterrupted 4-tree run bit for bit."""
+    data = _forest_data(n=1500, seed=4)
+    kw = dict(algorithm=alg, tree_num=4, max_depth=3, learning_rate=0.2,
+              feature_subset_strategy="HALF", seed=5)
+    full = _port_train(*data, **kw)
+    head = _port_train(*data, **{**kw, "tree_num": 2})
+    tail = ptt.train_trees(*data, ptt.TreeTrainConfig(**kw),
+                           init_trees=head.spec.trees, device="cpu")
+    _assert_forests_bit_equal(full, tail)
+
+
+def test_hist_counters_follow_subtraction_plan():
+    data = _forest_data(n=800, seed=1)
+    for k in ptt.hist_counters:
+        ptt.hist_counters[k] = 0
+    _port_train(*data, algorithm="GBT", tree_num=2, max_depth=4, seed=1)
+    leaves = 2 ** 4
+    assert ptt.hist_counters["built"] == 2 * (leaves // 2)
+    assert ptt.hist_counters["derived"] == 2 * (leaves // 2 - 1)
+    assert ptt.hist_counters["fallback_rebuilds"] == 0
+
+
+def test_early_stop_decider_matches_jax():
+    rng = np.random.default_rng(0)
+    errs = list(0.3 + 0.01 * rng.random(200))
+    a, b = jtt.DTEarlyStopDecider(2), ptt.DTEarlyStopDecider(2)
+    assert [a.add(e) for e in errs] == [b.add(e) for e in errs]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(algorithm="RF", n_classes=3, impurity="gini"),
+    dict(max_leaves=7),
+    dict(max_depth=9, max_stats_memory_mb=1),
+])
+def test_unported_branches_raise(kw):
+    data = _forest_data(n=200)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _port_train(*data, **{"tree_num": 1, **kw})
