@@ -12,14 +12,32 @@ Phases, each of which must pass:
            versions on the card, at the bench `gbt` shape (L = 1..32,
            bf16 planes, int8 codes), the bench `rf` shape (L = 64 and 128,
            histogram only, f32 planes) and the bench `gbt_wide` shape (one
-           2,001-slot categorical, which takes the wide route); and times
-           kernel, plain version and, where there is one, the library call.
+           2,001-slot categorical, which takes the wide route); then the
+           multi-class mode of both (`fused_level_mc`, `hist_level_mc`) at
+           the bench `rf` shape with K = 3, 5, 8 (past the 48 KB static
+           shared-memory limit) and 32 (past a full 1,024-slot segment):
+           fused at L = 1..32, histogram only at L = 64 and 128, planes
+           bit-equal, gini scan tuples exact, entropy gains at rtol 1e-6;
+           and times kernel, plain version and, where there is one, the
+           library call.
 3. gbt     bench `gbt` (500k x 30 x 33 slots, 5 trees, depth 6): CleanedData
            written with `write_codes`, `load_codes`, `train_trees` on cuda,
            a second run bit-equal, the `.gbt` saved, loaded and scored on
            cuda, scores within atol 0.03 of the same run on the CPU.
 4. rf      bench `rf` (500k x 30, 10 trees, depth 8): reaches both kernel
            entries; the forest is bit-equal to the CPU run's.
+5. native  `shifu train` NATIVE RF, the slice's main path: a model set
+           (ModelConfig.json: RF, NATIVE, 5 class tags, TreeNum 10,
+           MaxDepth 8, TWOTHIRDS, gini; ColumnConfig.json; CleanedData of
+           the bench `rf` shape) written with the port's own modules, then
+           `TrainProcessor(root, device="cuda").run()` twice (the model
+           files byte-identical), both multi-class entries launched and no
+           plain version called, `model0.rf` round-tripped, scored on cuda
+           ([n, 5] votes, rows sum to 1), and the CPU run's model file
+           byte-identical to the card's.
+6. ova     `shifu train` ONEVSALL GBT: 3 classes, 100k rows of the bench
+           `gbt` shape, 5 trees, depth 6: three `model<k>.gbt`, a second
+           card run bit-equal, scores within 0.03 of the CPU run.
 
 It prints the card and its power limit, a `kernels` JSON line, and as its
 last line {"ok": true, "device": {...}}. It exits non-zero without a CUDA
@@ -117,9 +135,10 @@ def _device_times(prof, reps: int) -> dict:
 
 
 def device_split_ms(torch, fn, reps: int = 5) -> dict:
-    """Per call, from the torch profiler: device time of each of the
-    port's two CUDA kernels and of everything the call ran on the device.
-    None where the profiler recorded no device activity."""
+    """Per call, from the torch profiler: device time of the port's
+    accumulate kernel (either mode) and finalize kernel, and of everything
+    the call ran on the device. None where the profiler recorded no
+    device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -132,7 +151,7 @@ def device_split_ms(torch, fn, reps: int = 5) -> dict:
     if not times:
         return dict(accumulate_ms=None, finalize_ms=None, device_busy_ms=None)
     pick = lambda k: sum(v for n, v in times.items() if k in n) / 1e3  # noqa
-    return dict(accumulate_ms=pick("hist_accumulate_kernel"),
+    return dict(accumulate_ms=pick("hist_accumulate"),
                 finalize_ms=pick("hist_finalize_kernel"),
                 device_busy_ms=sum(times.values()) / 1e3)
 
@@ -178,15 +197,42 @@ def level_bound_ms(n_rows: int, n_live: int, F: int, code_bytes: int,
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
+def class_level_bound_ms(n_rows: int, n_live: int, F: int,
+                         code_bytes: int, K: int, L: int, T: int,
+                         fused: bool) -> tuple:
+    """(bound ms, 'bytes' or 'operations') of one multi-class level: the
+    codes (n*F), the class ids, weights and node ids (4 + 4 + 4 bytes a
+    row) read once, the [K, L, T] f32 planes written once, and in scan
+    mode the gain/rank/left-count planes and [L, K] totals. Operations:
+    one add per live (row, feature), ~12 per class and ~20 more per
+    (node, slot) for the class scan."""
+    t_bytes = n_rows * F * code_bytes + n_rows * 12 + K * L * T * 4
+    ops = n_live * F
+    if fused:
+        t_bytes += 3 * L * T * 4 + L * K * 4
+        ops += L * T * (12 * K + 20)
+    b_ms = t_bytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / F32_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+ENTRIES = ("fused_level", "hist_level", "fused_level_mc", "hist_level_mc")
+# class counts of the multi-class checks: 5 is the main path's (phase 5),
+# 8 passes the 48 KB static shared-memory limit, 32 passes the point
+# where a 1,024-slot segment of 32 planes fits in 227 KB
+MC_KS = (3, 5, 8, 32)
+MC_MAIN_K = 5
+
 
 class KernelStats:
     def __init__(self):
-        self.max_abs_err = {"fused_level": 0.0, "hist_level": 0.0}
+        self.max_abs_err = {k: 0.0 for k in ENTRIES}
         self.timed = {}  # entry -> dict(ms, plain_ms, bound_ms, ...)
+        self.timed_mc = {}  # (entry, K) -> the same
         self.cases = []
 
     def err(self, name: str, a, b) -> float:
@@ -306,7 +352,8 @@ def _split(case) -> str:
 def _time_entry(torch, hk, entry, codes, codes8, lay, L, y, w, node, act,
                 fok, kw):
     n, F = codes.shape
-    fused = entry == "fused_level"
+    K = kw.get("n_classes", 0)
+    fused = entry.startswith("fused_level")
     if fused:
         def kern():
             hk.fused_level(codes, y, w, node, act, fok, codes8=codes8, **kw)
@@ -330,7 +377,11 @@ def _time_entry(torch, hk, entry, codes, codes8, lay, L, y, w, node, act,
                          torch.zeros_like(node.long()))
         flat = (nl[:, None] * lay.T + off[None, :] + code).reshape(-1)
         wa = torch.where(act, w, torch.zeros_like(w))
-        comps = [wa, wa * y, wa * y * y]
+        if K >= 3:  # one weighted count plane a class
+            cls = y.long().clamp(0, K - 1)
+            comps = [wa * (cls == c) for c in range(K)]
+        else:
+            comps = [wa, wa * y, wa * y * y]
         planes = [c[:, None].expand(n, F).reshape(-1) for c in comps]
 
         def library():
@@ -338,8 +389,12 @@ def _time_entry(torch, hk, entry, codes, codes8, lay, L, y, w, node, act,
                 torch.bincount(flat, weights=p, minlength=L * lay.T)
     cb = 1 if codes8 is not None else 4
     pb = 2 if kw.get("low_precision") else 4
-    bound, by = level_bound_ms(n, _live_rows(w, act), F, cb, pb, L,
-                               lay.T, lay.s_max, fused)
+    if K >= 3:
+        bound, by = class_level_bound_ms(n, _live_rows(w, act), F, cb, K,
+                                         L, lay.T, fused)
+    else:
+        bound, by = level_bound_ms(n, _live_rows(w, act), F, cb, pb, L,
+                                   lay.T, lay.s_max, fused)
     return dict(ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
                 library_ms=(time_ms(torch, library) if library else None),
                 bound_ms=bound, bound_by=by, **device_split_ms(torch, kern))
@@ -412,6 +467,154 @@ def phase_kernels(torch, dev, hk, tt, gbt_codes_np, rf_data, seed):
                     None, lay, L, y, w, node, act, fok, True, True)
     torch.cuda.synchronize()
     return stats
+
+
+def _class_case(torch, dev, codes_np, L: int, K: int, seed: int):
+    """Multi-class level inputs: class ids that follow a numeric and a
+    categorical column, Poisson bag weights (integer planes), node ids in
+    [0, L), 90% rows active."""
+    rng = np.random.default_rng(seed)
+    n = codes_np.shape[0]
+    y = ((codes_np[:, 0] // 3 + codes_np[:, RF["numeric"]]) % K
+         ).astype(np.float32)
+    w = rng.poisson(1.0, size=n).astype(np.float32)
+    node = rng.integers(0, L, size=n).astype(np.int32)
+    act = rng.random(n) < 0.9
+    t = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+    return t(y), t(w), t(node), t(act)
+
+
+def check_fused_mc(torch, hk, stats, tag, codes, codes8, lay, L, K, y, w,
+                   node, act, fok, impurity, timed=False):
+    """Class mode, fused: planes bit-equal; gini: every field of the
+    9-tuple exact; entropy: gains at rtol 1e-6 (log2f against torch's
+    log2), every other field exact."""
+    kw = dict(L=L, lay=lay, impurity=impurity, min_inst=5, min_gain=0.0,
+              n_classes=K)
+    h1, o1 = hk.fused_level(codes, y, w, node, act, fok, codes8=codes8, **kw)
+    h2, o2 = hk.fused_level(codes, y, w, node, act, fok, codes8=codes8, **kw)
+    hp, op = hk.fused_level_reference(codes, y, w, node, act, fok, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(h1, h2) and all(torch.equal(a, b)
+                                      for a, b in zip(o1, o2)),
+          f"{tag}: two kernel launches differ")
+    e = stats.err("fused_level_mc", h1, hp)
+    check(torch.equal(h1, hp), f"{tag}: class planes differ (max abs err "
+          f"{e})")
+    for nm, a, b in zip(SPLIT_FIELDS, op, o1):
+        if nm == "best_gain" and impurity == "entropy":
+            fin = torch.isfinite(a)
+            check(torch.equal(fin, torch.isfinite(b))
+                  and torch.allclose(a[fin], b[fin], rtol=1e-6, atol=0),
+                  f"{tag}: best_gain beyond rtol 1e-6")
+            stats.err("fused_level_mc", torch.where(fin, a, 0),
+                      torch.where(fin, b, 0))
+        else:
+            check(torch.equal(a, b), f"{tag}: {nm} differs")
+    case = dict(case=tag, entry="fused_level_mc", K=K, L=L,
+                n=int(codes.shape[0]), T=lay.T, impurity=impurity,
+                seg_cap=hk.seg_cap(K, codes.device), max_abs_err=e,
+                splits=int(o1[4].sum()))
+    if timed:
+        case.update(_time_entry(torch, hk, "fused_level_mc", codes, codes8,
+                                lay, L, y, w, node, act, fok, kw))
+    stats.cases.append(case)
+    print(f"  {tag}: ok ({case['splits']} of {L} nodes split"
+          + (f", kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f}"
+             f" ms, bound {case['bound_ms']:.4f} ms" + _split(case)
+             if timed else "") + ")")
+    return case
+
+
+def check_hist_mc(torch, hk, stats, tag, codes, codes8, lay, L, K, y, w,
+                  node, act, timed=False):
+    kw = dict(L=L, lay=lay, n_classes=K)
+    h1 = hk.hist_level(codes, y, w, node, act, codes8=codes8, **kw)
+    h2 = hk.hist_level(codes, y, w, node, act, codes8=codes8, **kw)
+    hp = hk.hist_level_reference(codes, y, w, node, act, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(h1, h2), f"{tag}: two kernel launches differ")
+    e = stats.err("hist_level_mc", h1, hp)
+    check(h1.shape == (K, L, lay.T) and torch.equal(h1, hp),
+          f"{tag}: class planes differ (max abs err {e})")
+    tiles, _bins = hk._tiles(lay, L, K)
+    case = dict(case=tag, entry="hist_level_mc", K=K, L=L,
+                n=int(codes.shape[0]), T=lay.T, tiles=len(tiles),
+                max_abs_err=e)
+    if timed:
+        case.update(_time_entry(torch, hk, "hist_level_mc", codes, codes8,
+                                lay, L, y, w, node, act, None, kw))
+    stats.cases.append(case)
+    print(f"  {tag}: ok ({len(tiles)} accumulate tiles"
+          + (f", kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f}"
+             f" ms, {K} x bincount {case['library_ms']:.4f} ms, bound "
+             f"{case['bound_ms']:.4f} ms" + _split(case)
+             if timed else "") + ")")
+    return case
+
+
+def phase_kernels_mc(torch, dev, hk, tt, stats, rf_data, seed):
+    """The multi-class mode of both entries at the bench `rf` shape."""
+    r_codes_np, r_slots, r_cat = rf_data
+    lay = tt.make_layout(r_slots, r_cat)
+    codes = torch.as_tensor(r_codes_np).to(dev)
+    codes8 = hk.codes8_of(codes, lay)
+    fok = torch.ones(lay.T, dtype=torch.bool, device=dev)
+    fok_sub = fok.clone()
+    fok_sub[: int(lay.off[10])] = False  # a tree's feature subset
+    for K in MC_KS:
+        print(f"  K = {K}: segment cap {hk.seg_cap(K, dev)}, finalize "
+              f"shared memory {(2 * K + 3) * 4 * hk.seg_cap(K, dev)} B")
+        for L in (1, 2, 4, 8, 16, 32):
+            y, w, node, act = _class_case(torch, dev, r_codes_np, L, K,
+                                          seed + 7 * L + K)
+            c = check_fused_mc(torch, hk, stats, f"rf K={K} L={L} gini",
+                               codes, codes8, lay, L, K, y, w, node, act,
+                               fok_sub if L % 2 else fok, "gini",
+                               timed=L == 1)
+            if L == 1:
+                stats.timed_mc[("fused_level_mc", K)] = c
+            if L == 4:
+                check_fused_mc(torch, hk, stats, f"rf K={K} L={L} entropy",
+                               codes, codes8, lay, L, K, y, w, node, act,
+                               fok, "entropy")
+        for L in (64, 128):
+            y, w, node, act = _class_case(torch, dev, r_codes_np, L, K,
+                                          seed + L + K)
+            c = check_hist_mc(torch, hk, stats, f"rf K={K} L={L} hist",
+                              codes, codes8, lay, L, K, y, w, node, act,
+                              timed=L == 64)
+            if L == 64:  # the built half of level 7 at depth 8
+                stats.timed_mc[("hist_level_mc", K)] = c
+    del codes, codes8
+
+    # a 900-slot categorical fits the 1,024-slot cap of 3 planes but not
+    # the 867 of 32: at K = 32 it takes the wide route (the torch class
+    # scan on its columns), at K = 3 the kernel scans it
+    w_slots = [33] * 4 + [900]
+    w_cat = [False] * 4 + [True]
+    rng = np.random.default_rng(seed + 900)
+    w_codes_np = np.stack([rng.integers(0, s - 1, size=200_000)
+                           for s in w_slots], 1).astype(np.int32)
+    lay = tt.make_layout(w_slots, w_cat)
+    codes = torch.as_tensor(w_codes_np).to(dev)
+    fok = torch.ones(lay.T, dtype=torch.bool, device=dev)
+    for K in (3, 32):
+        check(hk.seg_cap(K, dev) < 900 if K == 32
+              else hk.seg_cap(K, dev) >= 900,
+              f"K={K}: the 900-slot segment is not routed as intended")
+        rng = np.random.default_rng(seed + K)
+        y = torch.as_tensor(((w_codes_np[:, 4] // 7 + w_codes_np[:, 0]) % K)
+                            .astype(np.float32)).to(dev)
+        w = torch.as_tensor(rng.poisson(1.0, size=200_000)
+                            .astype(np.float32)).to(dev)
+        node = torch.as_tensor(rng.integers(0, 4, size=200_000)
+                               .astype(np.int32)).to(dev)
+        act = torch.as_tensor(rng.random(200_000) < 0.9).to(dev)
+        check_fused_mc(torch, hk, stats, f"900-slot categorical K={K} L=4 "
+                       "gini", codes, None, lay, 4, K, y, w, node, act, fok,
+                       "gini")
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -530,6 +733,188 @@ def phase_main(torch, hk, tt, pds, ptree, name, data, cfg, data_dir):
 
 
 # ---------------------------------------------------------------------------
+# phases 5-6: `shifu train` on a model set
+# ---------------------------------------------------------------------------
+
+NATIVE = dict(classes=5, trees=10, depth=8)
+OVA = dict(n=100_000, classes=3, trees=5, depth=6)
+
+
+def write_model_set(root, codes, cls, slots, is_cat, n_classes, alg,
+                    method, params):
+    """A model set the port's train step reads, written with the port's
+    own config and CleanedData modules: ModelConfig.json (posTags = the
+    class tags, negTags empty: classification), ColumnConfig.json (the
+    target, then one selected column a feature with its bin boundaries
+    or categories), tmp/norm/CleanedData."""
+    from shifu_tpu_torch.config import (ColumnBinning, ColumnConfig,
+                                        ColumnFlag, ColumnType,
+                                        save_column_config_list)
+    from shifu_tpu_torch.config.model_config import (Algorithm,
+                                                     MultipleClassification,
+                                                     new_model_config)
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+    from shifu_tpu_torch.norm.dataset import write_codes
+
+    paths = PathFinder(root)
+    os.makedirs(root, exist_ok=True)
+    mc = new_model_config("Smoke", Algorithm.parse(alg))
+    mc.data_set.data_path = "data"
+    mc.data_set.target_column_name = "class"
+    mc.data_set.pos_tags = [f"c{k}" for k in range(n_classes)]
+    mc.data_set.neg_tags = []
+    mc.train.multi_classify_method = MultipleClassification.parse(method)
+    mc.train.params.update(params)
+    mc.save(paths.model_config_path())
+    columns = [ColumnConfig(column_num=0, column_name="class",
+                            column_type=ColumnType.C,
+                            column_flag=ColumnFlag.TARGET)]
+    names = []
+    for f, (sl, cat) in enumerate(zip(slots, is_cat)):
+        name = f"{'cat' if cat else 'num'}_{f}"
+        names.append(name)
+        binning = (ColumnBinning(length=sl - 1, bin_category=[
+            f"v{j}" for j in range(sl - 1)]) if cat else
+            ColumnBinning(length=sl - 1, bin_boundary=[-float("inf")] + [
+                float(j) for j in range(1, sl - 1)]))
+        columns.append(ColumnConfig(
+            column_num=f + 1, column_name=name,
+            column_type=ColumnType.C if cat else ColumnType.N,
+            final_select=True, column_binning=binning))
+    save_column_config_list(paths.column_config_path(), columns)
+    n = codes.shape[0]
+    write_codes(paths.cleaned_data_dir(), codes, cls.astype(np.int8),
+                np.ones(n, np.float32), names, slots, n_shards=4)
+    return paths
+
+
+def _model_bytes(paths, n_models, suffix):
+    out = []
+    for i in range(n_models):
+        with open(paths.model_path(i, suffix), "rb") as fh:
+            out.append(fh.read())
+    return out
+
+
+def run_step(torch, hk, TrainProcessor, root, device):
+    """One `shifu train` run: counts zeroed just before, read just after."""
+    hk.reset_counters()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = TrainProcessor(root, device=device).run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"{root}: train step returned {rc}")
+    return secs, dict(hk.launches), dict(hk.reference_calls)
+
+
+def phase_native(torch, hk, ptree, data_dir, rf_data, seed):
+    """`shifu train` NATIVE RF at the bench `rf` width: the main path."""
+    from shifu_tpu_torch.processor.train import TrainProcessor
+
+    codes, _y, slots, is_cat = rf_data
+    n, K = codes.shape[0], NATIVE["classes"]
+    rng = np.random.default_rng(seed + 5)
+    cls = ((codes[:, 0] // 7 + (codes[:, RF["numeric"]] >= 32)
+            + (codes[:, 3] >= 20)) % K)
+    noise = rng.random(n) < 0.1
+    cls = np.where(noise, rng.integers(0, K, size=n), cls)
+    params = {"TreeNum": NATIVE["trees"], "MaxDepth": NATIVE["depth"],
+              "FeatureSubsetStrategy": "TWOTHIRDS", "Impurity": "gini"}
+    root = os.path.join(data_dir, "native")
+    paths = write_model_set(root, codes, cls, slots, is_cat, K, "RF",
+                            "NATIVE", params)
+
+    secs, launches, refs = run_step(torch, hk, TrainProcessor, root, "cuda")
+    check(all(v == 0 for v in refs.values()),
+          f"native: the run on the card reached a plain version: {refs}")
+    check(launches["fused_level_mc"] > 0 and launches["hist_level_mc"] > 0,
+          f"native: a multi-class entry never launched: {launches}")
+    first = _model_bytes(paths, 1, "rf")
+    secs2, launches2, _r = run_step(torch, hk, TrainProcessor, root, "cuda")
+    check(_model_bytes(paths, 1, "rf") == first,
+          "native: a second run on the card wrote another model file")
+    prof = profile_run(torch, lambda: TrainProcessor(root, device="cuda")
+                       .run(), secs2)
+
+    path = paths.model_path(0, "rf")
+    spec = ptree.TreeModelSpec.load(path)
+    spec.save(path + ".again")
+    with open(path + ".again", "rb") as fh:
+        check(fh.read() == first[0], "native: model file does not round-trip")
+    check(spec.n_classes == K and len(spec.trees) == NATIVE["trees"],
+          "native: the model is not a K-class forest of TreeNum trees")
+    votes = ptree.IndependentTreeModel(spec, device="cuda").compute(codes)
+    check(votes.shape == (n, K) and np.isfinite(votes).all()
+          and np.allclose(votes.sum(1), 1.0, rtol=0, atol=1e-6),
+          "native: votes are not [n, K] rows summing to 1")
+
+    cpu_root = os.path.join(data_dir, "native-cpu")
+    shutil.copytree(root, cpu_root, ignore=shutil.ignore_patterns(
+        "models", "train"))
+    cpu_secs, _l, _r = run_step(torch, hk, TrainProcessor, cpu_root, "cpu")
+    cpu_bytes = _model_bytes(type(paths)(cpu_root), 1, "rf")
+    check(cpu_bytes == first,
+          "native: the CPU run's model file differs from the card's")
+    acc = float((votes.argmax(1) == cls).mean())
+    return dict(rows=n, classes=K, trees=NATIVE["trees"],
+                depth=NATIVE["depth"], seconds_first=secs,
+                seconds_second=secs2,
+                trees_per_s=NATIVE["trees"] / secs2,
+                row_trees_per_s=n * NATIVE["trees"] / secs2,
+                valid_error=spec.valid_error, train_error=spec.train_error,
+                vote_accuracy_all_rows=acc, cpu_seconds=cpu_secs,
+                model_bytes=len(first[0]), launches=launches,
+                launches_second=launches2, profile=prof)
+
+
+def phase_ova(torch, hk, ptree, data_dir, gbt_data_, seed):
+    """`shifu train` ONEVSALL GBT: one binary forest per class."""
+    from shifu_tpu_torch.processor.train import TrainProcessor
+
+    codes_all, _y, slots, is_cat = gbt_data_
+    n, K = OVA["n"], OVA["classes"]
+    codes = np.ascontiguousarray(codes_all[:n])
+    rng = np.random.default_rng(seed + 6)
+    cls = np.minimum((codes[:, 0].astype(np.int64) + codes[:, 1]
+                      + rng.integers(0, 8, size=n)) // 24, K - 1)
+    params = {"TreeNum": OVA["trees"], "MaxDepth": OVA["depth"],
+              "LearningRate": 0.1}
+    root = os.path.join(data_dir, "ova")
+    paths = write_model_set(root, codes, cls, slots, is_cat, K, "GBT",
+                            "ONEVSALL", params)
+    secs, launches, refs = run_step(torch, hk, TrainProcessor, root, "cuda")
+    check(all(v == 0 for v in refs.values()),
+          f"ova: the run on the card reached a plain version: {refs}")
+    check(launches["fused_level"] > 0, f"ova: no fused launch: {launches}")
+    first = _model_bytes(paths, K, "gbt")
+    secs2, _l2, _r2 = run_step(torch, hk, TrainProcessor, root, "cuda")
+    check(_model_bytes(paths, K, "gbt") == first,
+          "ova: a second run on the card wrote other model files")
+    cpu_root = os.path.join(data_dir, "ova-cpu")
+    shutil.copytree(root, cpu_root, ignore=shutil.ignore_patterns(
+        "models", "train"))
+    run_step(torch, hk, TrainProcessor, cpu_root, "cpu")
+    diffs = []
+    for k in range(K):
+        card = ptree.IndependentTreeModel.load(paths.model_path(k, "gbt"),
+                                               device="cuda").compute(codes)
+        cpu = ptree.IndependentTreeModel.load(
+            os.path.join(cpu_root, "models", f"model{k}.gbt"),
+            device="cpu").compute(codes)
+        diffs.append(float(np.abs(card - cpu).max()))
+    check(max(diffs) <= GBT_SCORE_ATOL,
+          f"ova: scores differ from the CPU run by {max(diffs)} > "
+          f"{GBT_SCORE_ATOL}")
+    return dict(rows=n, classes=K, trees=OVA["trees"], depth=OVA["depth"],
+                seconds_first=secs, seconds_second=secs2,
+                trees_per_s=K * OVA["trees"] / secs2,
+                max_score_diff_vs_cpu=diffs, launches=launches)
+
+
+# ---------------------------------------------------------------------------
 
 
 def run(args) -> int:
@@ -575,6 +960,8 @@ def run(args) -> int:
     print("kernels vs plain versions:")
     stats = phase_kernels(torch, dev, hk, tt, gbt[0], (rf[0], rf[2], rf[3]),
                           args.seed)
+    phase_kernels_mc(torch, dev, hk, tt, stats, (rf[0], rf[2], rf[3]),
+                     args.seed)
     report["kernel_cases"] = stats.cases
 
     # phases 3 and 4
@@ -611,22 +998,52 @@ def run(args) -> int:
               f"CPU run, launches {r['launches']}")
         for rep in (g, r):
             print_profile(rep)
+
+        nat = phase_native(torch, hk, ptree, data_dir, rf, args.seed)
+        print(f"native: shifu train NATIVE RF, {nat['classes']} classes, "
+              f"{nat['trees']} trees depth {nat['depth']} on {nat['rows']} "
+              f"rows: {nat['trees_per_s']:.3f} trees/s "
+              f"({nat['row_trees_per_s']:.4g} row-trees/s, second run), "
+              f"valid misclassification {nat['valid_error']:.6f}, model "
+              f"file bit-equal across two card runs and to the CPU run "
+              f"({nat['cpu_seconds']:.1f} s), launches {nat['launches']}")
+        print_profile(nat)
+        ova = phase_ova(torch, hk, ptree, data_dir, gbt, args.seed)
+        print(f"ova: shifu train ONEVSALL GBT, {ova['classes']} forests of "
+              f"{ova['trees']} trees depth {ova['depth']} on {ova['rows']} "
+              f"rows: {ova['trees_per_s']:.3f} trees/s (second run), max "
+              f"|score - cpu score| {max(ova['max_score_diff_vs_cpu']):.3g},"
+              f" launches {ova['launches']}")
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     report["gbt"], report["rf"] = g, r
+    report["native"], report["ova"] = nat, ova
 
     kernels = []
-    for name in ("fused_level", "hist_level"):
-        c = stats.timed[name]
+    mc_lines = ":358-365,:408-430,:540-552,:767-769"
+    for name in ENTRIES:
+        mc = name.endswith("_mc")
+        c = (stats.timed_mc[(name, MC_MAIN_K)] if mc
+             else stats.timed[name])
+        launches = (nat["launches"][name] if mc else
+                    g["launches"][name] + r["launches"][name]
+                    + ova["launches"][name])
         kernels.append(dict(
             name=name, route="cuda",
             source="shifu_tpu_torch/csrc/hist_level.cu",
-            replaces="shifu_tpu/ops/hist_pallas.py:526",
-            launches=g["launches"][name] + r["launches"][name],
+            replaces=("shifu_tpu/ops/hist_pallas.py:526 (multi-class "
+                      f"branch {mc_lines})" if mc
+                      else "shifu_tpu/ops/hist_pallas.py:526"),
+            launches=launches,
             max_abs_err=stats.max_abs_err[name], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"]))
         print(f"{name}: timed at {c['case']} (n={c['n']}, T={c['T']})")
+    for (name, K), c in sorted(stats.timed_mc.items()):
+        print(f"  {name} K={K}: kernel {c['ms']:.4f} ms, plain "
+              f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms"
+              + (f", library {c['library_ms']:.4f} ms"
+                 if c["library_ms"] is not None else "") + _split(c))
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_all
     if args.out:

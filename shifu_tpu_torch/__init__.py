@@ -9,6 +9,12 @@ Slice 1: level-wise GBT/RF training (`train.tree_trainer.train_trees`)
 through the hand-written histogram -> split-scan CUDA kernel
 (`ops.hist_kernel`, source `csrc/hist_level.cu`), the CleanedData bin-code
 format (`norm.dataset`), and the `.gbt`/`.rf` tree model (`models.tree`).
+
+Slice 2: the `shifu train` step for trees (`processor.train`, CLI
+`python -m shifu_tpu_torch train`) over a model-set directory, with the
+configs, paths and helpers it reads (`config`, `fs.pathfinder`,
+`utils.environment`), and NATIVE multi-class RF through the kernel's
+multi-class mode.
 """
 
 __version__ = "0.1.0"

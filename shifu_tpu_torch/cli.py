@@ -1,0 +1,108 @@
+"""`python -m shifu_tpu_torch` — the port's CLI (counterpart of
+`shifu_tpu/cli.py`).
+
+    python -m shifu_tpu_torch train [-dry] [--resume] [--device cpu|cuda]
+                                    [-Dk=v ...]
+
+run in a model-set directory. The `train` flags follow the JAX `train`
+subcommand; `--device` picks the device (default: the card, an error
+without one). Exit codes follow the JAX CLI: 0 ok, 1 ShifuError (or no
+card), 2 not implemented. Every other lifecycle subcommand exits 2 with
+the ROADMAP item that ports it. -Dk=v anywhere on the line sets an
+operational property (ShifuCLI.java:430-453).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import List, Optional
+
+from shifu_tpu_torch.utils import environment
+from shifu_tpu_torch.utils.errors import ShifuError
+from shifu_tpu_torch.utils.log import configure, get_logger
+from shifu_tpu_torch.utils.platform import DeviceUnavailable
+
+log = get_logger("shifu")
+
+# the JAX CLI's other subcommands and the ROADMAP item that ports each
+NOT_PORTED = {
+    "new": "A.14", "init": "A.4", "stats": "A.5", "norm": "A.6",
+    "normalize": "A.6", "varsel": "A.7", "varselect": "A.7",
+    "retrain": "A.14", "posttrain": "A.14", "eval": "A.9",
+    "export": "A.14", "combo": "A.14", "encode": "A.14", "test": "A.14",
+    "convert": "A.14", "serve": "A.10", "version": "A.14",
+}
+
+
+def _extract_props(argv: List[str]) -> List[str]:
+    """Pull -Dk=v args out (anywhere on the line) into the environment."""
+    rest = []
+    for arg in argv:
+        if arg.startswith("-D") and "=" in arg:
+            key, value = arg[2:].split("=", 1)
+            environment.set_property(key, value)
+        else:
+            rest.append(arg)
+    return rest
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m shifu_tpu_torch",
+        description="shifu lifecycle steps ported to PyTorch/CUDA",
+    )
+    parser.add_argument("-v", "--verbose", action="store_true")
+    sub = parser.add_subparsers(dest="command")
+    p_train = sub.add_parser("train", help="train model(s)")
+    p_train.add_argument("-dry", "--dry", action="store_true", help="dry run")
+    p_train.add_argument("--resume", action="store_true",
+                         help="resume a preempted run (the tree step "
+                              "resumes from its per-tree checkpoint "
+                              "either way)")
+    p_train.add_argument("--device", choices=["cpu", "cuda"], default=None,
+                         help="device to train on (default: cuda)")
+    for name in NOT_PORTED:
+        p = sub.add_parser(name, help=f"not ported yet (ROADMAP "
+                                      f"{NOT_PORTED[name]})")
+        p.add_argument("rest", nargs=argparse.REMAINDER)
+    return parser
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    argv = _extract_props(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    configure(getattr(args, "verbose", False))
+
+    if args.command is None:
+        parser.print_help()
+        return 1
+    resume = getattr(args, "resume", False)
+    if resume:
+        environment.set_property("shifu.resume", "true")
+    try:
+        return dispatch(args)
+    except ShifuError as e:
+        log.error("%s", e)
+        return 1
+    except DeviceUnavailable as e:
+        log.error("%s (use --device cpu)", e)
+        return 1
+    except NotImplementedError as e:
+        log.error("not implemented yet: %s", e)
+        return 2
+    finally:
+        if resume:
+            environment.set_property("shifu.resume", "")
+
+
+def dispatch(args: argparse.Namespace) -> int:
+    cmd = args.command
+    if cmd == "train":
+        from shifu_tpu_torch.processor.train import TrainProcessor
+
+        return TrainProcessor(dry=args.dry, device=args.device).run()
+    raise NotImplementedError(
+        f"`{cmd}` is not ported yet: ROADMAP {NOT_PORTED[cmd]}")

@@ -5,15 +5,20 @@ Counterpart of `shifu_tpu/train/tree_trainer.py` on its fused path
 `train_trees`). What DTMaster/DTWorker do across a cluster happens here as
 a loop of device ops over a FLAT per-feature slot layout:
 
-    histogram  [3, L, T], T = sum(slots_f): per node, per slot sums of
-               (w, w*y, w*y^2). Every level with L <= 32 nodes runs the
-               fused histogram -> split-scan entry `ops.hist_kernel.
+    histogram  [C, L, T], T = sum(slots_f): per node, per slot sums of
+               (w, w*y, w*y^2) (C = 3), or for NATIVE multi-class RF
+               (n_classes = K >= 3) one weighted count plane a class
+               (C = K). Every level with L <= 32 nodes runs the fused
+               histogram -> split-scan entry `ops.hist_kernel.
                fused_level`; deeper levels run `hist_level` and the torch
                split scan.
     split scan ordered prefix sums per (node, feature segment): numeric
                segments keep slot order, categorical segments sort by mean
-               label (a stable lexsort inside static segment boundaries);
-               gain by impurity (variance / friedmanmse / entropy / gini).
+               label (K classes: by expected class index) inside static
+               segment boundaries; gain by impurity (variance /
+               friedmanmse / entropy / gini; K classes: the K-class gini
+               or entropy mass drop, `cls_scan`). Multi-class leaves hold
+               the majority class index; the forest votes.
     reuse      histogram SUBTRACTION: from level 1 on, only the SMALLER
                child of each split is built (a half-width histogram); the
                sibling is parent - built. Planes stay f32 (the JAX
@@ -27,10 +32,9 @@ draws are numpy `default_rng` streams keyed exactly as the JAX package
 keys them, so one seed gives the same valid split, feature subsets, RF
 bags and DART keep masks in both packages.
 
-Not ported in this slice (each raises NotImplementedError): NATIVE
-multi-class (n_classes >= 3), leaf-wise growth (max_leaves > 0), and the
-host-batched `build_tree` path (2**max_depth > the stats-memory node
-batch). ROADMAP.md queues A and B list them.
+Not ported yet (each raises NotImplementedError): leaf-wise growth
+(max_leaves > 0) and the host-batched `build_tree` path (2**max_depth >
+the stats-memory node batch). ROADMAP.md queue A item 11 lists them.
 """
 
 from __future__ import annotations
@@ -83,8 +87,47 @@ class TreeTrainConfig:
     enable_early_stop: bool = False  # DTEarlyStopDecider windowed decider
     max_stats_memory_mb: int = 256  # histogram node-batch budget
     hist_subtraction: bool = True  # build smaller child, derive the sibling
-    n_classes: int = 0  # >= 3: NATIVE multi-class (not ported)
+    n_classes: int = 0  # >= 3: NATIVE RF multi-class (majority-vote leaves)
     seed: int = 0
+
+    @classmethod
+    def from_model_config(cls, mc, trainer_id: int = 0) -> "TreeTrainConfig":
+        """TrainModelProcessor's DT param wiring (tree_trainer.py:98-133 of
+        the JAX package): trainer `i` gets the seed i * 977 + 13."""
+        t = mc.train
+        alg = t.algorithm.value if hasattr(t.algorithm, "value") else str(t.algorithm)
+
+        def g(key, default):
+            v = t.get_param(key, default)
+            return default if v is None else v
+
+        alg = "RF" if alg in ("RF", "DT") else "GBT"
+        return cls(
+            algorithm=alg,
+            tree_num=int(g("TreeNum", 100 if alg == "GBT" else 10)),
+            max_depth=int(g("MaxDepth", 6 if alg == "GBT" else 10)),
+            max_leaves=int(g("MaxLeaves", -1)),
+            impurity=str(g("Impurity", "variance")).lower(),
+            loss=str(g("Loss", "squared")).lower(),
+            learning_rate=float(g("LearningRate", 0.05)),
+            dropout_rate=float(g("DropoutRate", 0.0)),
+            min_instances_per_node=int(g("MinInstancesPerNode", 5)),
+            min_info_gain=float(g("MinInfoGain", 0.0)),
+            feature_subset_strategy=str(
+                g("FeatureSubsetStrategy", "ALL")
+            ).upper(),
+            bagging_sample_rate=float(t.bagging_sample_rate or 1.0),
+            bagging_with_replacement=bool(t.bagging_with_replacement),
+            valid_set_rate=float(t.valid_set_rate or 0.1),
+            early_stop_rounds=int(g("EarlyStopRounds", 0)),
+            enable_early_stop=bool(g("EnableEarlyStop", False)),
+            max_stats_memory_mb=int(g("MaxStatsMemoryMB", 256)),
+            hist_subtraction=bool(g("TreeHistSubtraction", True)),
+            n_classes=(len(mc.tags())
+                       if (mc.is_multi_classification()
+                           and not t.is_one_vs_all()) else 0),
+            seed=trainer_id * 977 + 13,
+        )
 
 
 def subset_count(strategy: str, n_features: int) -> int:
@@ -194,13 +237,46 @@ def scan_layout(lay: FeatureLayout, device: torch.device) -> ScanLayout:
 
 
 def comps_of(labels: torch.Tensor, weights: torch.Tensor,
-             active: torch.Tensor, low_precision: bool) -> torch.Tensor:
-    """[n, 3] component planes (w, w*y, w*y^2), inactive rows zeroed
-    through the weight; bf16 (one rounding) when low_precision."""
+             active: torch.Tensor, low_precision: bool,
+             n_classes: int = 0) -> torch.Tensor:
+    """[n, 3] component planes (w, w*y, w*y^2), or for n_classes >= 3 the
+    [n, K] planes w * [cls == c] (`_make_comps_of`; labels are class
+    indices), inactive rows zeroed through the weight; bf16 (one
+    rounding) when low_precision."""
     w = torch.where(active, weights, torch.zeros_like(weights))
+    if n_classes >= 3:
+        cls = labels.to(torch.int32).clamp(0, n_classes - 1)
+        return torch.stack([w * (cls == c).to(torch.float32)
+                            for c in range(n_classes)], dim=1)
     wy = w * labels
     comps = torch.stack([w, wy, wy * labels], dim=1)
     return comps.to(torch.bfloat16) if low_precision else comps
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Exactly rounded f32 a * b + c, as a fused multiply-add gives it
+    (CUDA's fmaf, XLA's contracted multiply-add): the f64 product of two
+    f32 values is exact, TwoSum gives the f64 sum's error, and rounding
+    that sum to odd before the one f32 rounding keeps the double rounding
+    exact (Boldo and Melquiond, 2008)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    bits = s.view(torch.int64)
+    fix = (err != 0) & ((bits & 1) == 0)
+    step = torch.sign(err).to(torch.int64) * torch.sign(s).to(torch.int64)
+    return torch.where(fix, bits + step, bits).view(torch.float64).float()
+
+
+def class_sum(planes: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading (class) axis in class order c = 0..K-1, as
+    the kernels add their class terms."""
+    acc = planes[0]
+    for c in range(1, planes.shape[0]):
+        acc = acc + planes[c]
+    return acc
 
 
 def hist_scatter(codes: torch.Tensor, comps: torch.Tensor, nl: torch.Tensor,
@@ -239,45 +315,74 @@ def left_mask_of(rank_flat, feature, cut_rank, is_split,
             & is_split[:, None])
 
 
+def _scan_order(sec: torch.Tensor, sl: ScanLayout) -> torch.Tensor:
+    """`jnp.lexsort((sec, seg))` per row, reproduced by two stable sorts
+    (by key, then by segment): the original index per ordered position."""
+    o1 = torch.argsort(sec, dim=-1, stable=True)
+    o2 = torch.argsort(sl.seg_t[o1], dim=-1, stable=True)
+    return o1.gather(1, o2)
+
+
+def _seg_sums(planes: torch.Tensor, order: torch.Tensor, sl: ScanLayout):
+    """Inclusive left sums in the ordered layout and segment totals of
+    [..., L, T] planes. The running sums cross every segment of the row;
+    in f64 they stay exact for integer-valued planes however wide the
+    row, so each segment's left/total sums round once to f32, like the
+    kernel's per-segment scan (an f32 running sum stops being exact past
+    2^24; ROADMAP C.2)."""
+    idx = order.expand(planes.shape)
+    c = torch.cumsum(planes.gather(-1, idx).double(), dim=-1)
+    start_prev = (sl.start_t - 1).clamp_min(0)
+    end_idx = sl.start_t + sl.size_t - 1
+    has_prev = sl.start_t > 0
+    base = torch.where(has_prev, c[..., start_prev], torch.zeros_like(c))
+    return (c - base).float(), (c[..., end_idx] - base).float()
+
+
+def _scan_tail(gain, lcnt, rcnt, order, feat_ok_t, sl: ScanLayout,
+               min_inst: int, min_gain: float, node_cnt, leaf_value):
+    """Validity, the best ordered position (first max wins), rank_flat and
+    the model-facing mask: the shared end of both scans."""
+    L, T = gain.shape
+    inf = torch.tensor(float("inf"), device=gain.device)
+    valid = ((lcnt >= min_inst) & (rcnt >= min_inst) & (gain > min_gain)
+             & feat_ok_t[None, :]
+             & (sl.pos_t < sl.size_t - 1)[None, :])  # cut at segment end
+    gain = torch.where(valid, gain, -inf)
+
+    best = torch.argmax(gain, dim=-1)  # ordered position, first max wins
+    best_gain = gain.gather(1, best[:, None])[:, 0]
+    left_cnt = lcnt.gather(1, best[:, None])[:, 0]
+    feature = sl.seg_t[best]
+    cut_rank = sl.pos_t[best]
+    is_split = torch.isfinite(best_gain)
+    rank_flat = torch.zeros((L, T), dtype=torch.int32, device=gain.device)
+    rank_flat.scatter_(1, order,
+                       sl.pos_t.to(torch.int32)[None, :].expand(L, T))
+    left_mask = left_mask_of(rank_flat, feature, cut_rank, is_split, sl)
+    return (feature.to(torch.int32), cut_rank.to(torch.int32), rank_flat,
+            leaf_value, is_split, best_gain, left_mask, node_cnt, left_cnt)
+
+
 def split_scan(hist: torch.Tensor, feat_ok_t: torch.Tensor, sl: ScanLayout,
                impurity: str, min_inst: int, min_gain: float):
     """Best split per node from the flat histogram (counterpart of
-    `_make_split_scan`). The ordered layout is `jnp.lexsort((sec, seg))`
-    reproduced by two stable sorts (by key, then by segment); empty
-    categories key +inf and sort last, ties keep slot order.
+    `_make_split_scan`). The ordered layout is `jnp.lexsort((sec, seg))`;
+    empty categories key +inf and sort last, ties keep slot order.
 
     Returns (feature [L] i32, cut_rank [L] i32, rank_flat [L, T] i32,
     leaf_value [L], is_split [L] bool, best_gain [L], left_mask
     [L, s_max] bool, node_cnt [L], left_cnt [L])."""
-    cnt, s1, s2 = hist[0], hist[1], hist[2]
+    cnt, s1 = hist[0], hist[1]
     L, T = cnt.shape
     inf = torch.tensor(float("inf"), device=hist.device)
     mean = torch.where(cnt > 0, s1 / cnt.clamp_min(1e-12), inf)
     sec = torch.where(sl.is_cat_t[None, :], mean,
                       sl.pos_t.to(torch.float32)[None, :].expand(L, T))
-    o1 = torch.argsort(sec, dim=-1, stable=True)
-    o2 = torch.argsort(sl.seg_t[o1], dim=-1, stable=True)
-    order = o1.gather(1, o2)  # original index per ordered position
-
-    # the running sums cross every segment of the row; in f64 they stay
-    # exact for integer-valued planes however wide the row, so each
-    # segment's left/total sums round once to f32, like the kernel's
-    # per-segment scan (an f32 running sum stops being exact past 2^24)
-    def csum(a):
-        return torch.cumsum(a.gather(1, order).double(), dim=-1)
-
-    c0, c1, c2 = csum(cnt), csum(s1), csum(s2)
-    start_prev = (sl.start_t - 1).clamp_min(0)
-    end_idx = sl.start_t + sl.size_t - 1
-    has_prev = (sl.start_t > 0)[None, :]
-
-    def seg_sums(c):
-        base = torch.where(has_prev, c[:, start_prev], torch.zeros_like(c))
-        return (c - base).float(), (c[:, end_idx] - base).float()
-
-    lcnt, tcnt = seg_sums(c0)
-    ls1, ts1 = seg_sums(c1)
-    ls2, ts2 = seg_sums(c2)
+    order = _scan_order(sec, sl)
+    left, tot = _seg_sums(hist, order, sl)
+    lcnt, ls1, ls2 = left
+    tcnt, ts1, ts2 = tot
     rcnt, rs1, rs2 = tcnt - lcnt, ts1 - ls1, ts2 - ls2
 
     def sse(c, s, q):
@@ -308,43 +413,99 @@ def split_scan(hist: torch.Tensor, feat_ok_t: torch.Tensor, sl: ScanLayout,
     else:  # variance
         gain = sse(tcnt, ts1, ts2) - sse(lcnt, ls1, ls2) - sse(rcnt, rs1,
                                                               rs2)
-    valid = ((lcnt >= min_inst) & (rcnt >= min_inst) & (gain > min_gain)
-             & feat_ok_t[None, :]
-             & (sl.pos_t < sl.size_t - 1)[None, :])  # cut at segment end
-    gain = torch.where(valid, gain, -inf)
-
-    best = torch.argmax(gain, dim=-1)  # ordered position, first max wins
-    best_gain = gain.gather(1, best[:, None])[:, 0]
-    left_cnt = lcnt.gather(1, best[:, None])[:, 0]
-    feature = sl.seg_t[best]
-    cut_rank = sl.pos_t[best]
-    is_split = torch.isfinite(best_gain)
-    rank_flat = torch.zeros((L, T), dtype=torch.int32, device=hist.device)
-    rank_flat.scatter_(1, order,
-                       sl.pos_t.to(torch.int32)[None, :].expand(L, T))
-    node_cnt = c0[:, sl.seg0_size - 1].float()
-    leaf_value = c1[:, sl.seg0_size - 1].float() / node_cnt.clamp_min(1e-12)
-    left_mask = left_mask_of(rank_flat, feature, cut_rank, is_split, sl)
-    return (feature.to(torch.int32), cut_rank.to(torch.int32), rank_flat,
-            leaf_value, is_split, best_gain, left_mask, node_cnt, left_cnt)
+    # node stats: segment 0's totals (its end in the running sum)
+    node_cnt = tcnt[:, 0]
+    leaf_value = ts1[:, 0] / node_cnt.clamp_min(1e-12)
+    return _scan_tail(gain, lcnt, rcnt, order, feat_ok_t, sl, min_inst,
+                      min_gain, node_cnt, leaf_value)
 
 
-def leaf_acc(labels, weights, node, active, L: int) -> torch.Tensor:
-    """Final-level node totals [2, L] = per node (sum w, sum w*y), without
-    a per-slot histogram (counterpart of `_make_leaf_fn`). A blocked
-    one-hot contraction keeps the sum order fixed, so two runs on the card
-    give the same bits (float atomics would not)."""
+def cls_scan(hist: torch.Tensor, feat_ok_t: torch.Tensor, sl: ScanLayout,
+             impurity: str, min_inst: int, min_gain: float):
+    """Multi-class split scan over per-class count planes [K, L, T]
+    (counterpart of `_make_cls_scan`, NATIVE RF classification). The
+    categorical key is the expected class index sum_c c*h_c / sum_c h_c
+    (+inf for empty slots); the gain is the K-class mass drop, gini
+    total * (1 - sum_c p_c^2) or entropy total * sum_c -p_c log2 p_c,
+    class terms summed c = 0..K-1 in order (hist_pallas.py:416-427);
+    variance/friedmanmse fall back to gini, as in the JAX package. The
+    gain rounds as the JAX package's XLA scan does on the CPU, which
+    contracts each class term and the side masses into fused
+    multiply-adds (`fma32`); the CUDA kernel uses `fmaf` at the same
+    places, so gini gains are bit-equal in all three. Running sums in
+    f64, each segment's sums rounded once (the C.2 repair). Leaf value =
+    majority class index (first on ties). Returns the same 9-tuple as
+    `split_scan`."""
+    K, L, T = hist.shape
+    inf = torch.tensor(float("inf"), device=hist.device)
+    cnt = class_sum(hist)
+    ex = torch.zeros_like(cnt)
+    for c in range(K):
+        ex = ex + float(c) * hist[c]
+    mean = torch.where(cnt > 0, ex / cnt.clamp_min(1e-12), inf)
+    sec = torch.where(sl.is_cat_t[None, :], mean,
+                      sl.pos_t.to(torch.float32)[None, :].expand(L, T))
+    order = _scan_order(sec, sl)
+    left, tot = _seg_sums(hist, order, sl)
+    right = tot - left
+    lcnt, rcnt = class_sum(left), class_sum(right)
+    tcnt = lcnt + rcnt
+    entropy = impurity == "entropy"
+
+    def impurity_of(parts, total):
+        # gini 1 - sum_c p_c^2 / entropy -sum_c p_c log2 p_c, each class
+        # term a fused multiply-add onto the running sum
+        p = parts / total.clamp_min(1e-12)[None]
+        q = torch.log2(p.clamp_min(1e-12)) if entropy else p
+        acc = torch.zeros_like(total)
+        for c in range(K):
+            acc = fma32(p[c], q[c], acc)
+        return -acc if entropy else 1.0 - acc
+
+    # gain = total*h_tot - left*h_left - right*h_right, contracted as
+    # fma(-right, h_right, fma(total, h_tot, -(left * h_left)))
+    h_l = impurity_of(left, lcnt)
+    gain = fma32(-rcnt, impurity_of(right, rcnt),
+                 fma32(tcnt, impurity_of(tot, tcnt), -(lcnt * h_l)))
+    node_class = tot[:, :, 0]  # [K, L] segment-0 class totals
+    node_cnt = class_sum(node_class)
+    leaf_value = torch.argmax(node_class, dim=0).to(torch.float32)
+    return _scan_tail(gain, lcnt, rcnt, order, feat_ok_t, sl, min_inst,
+                      min_gain, node_cnt, leaf_value)
+
+
+def scan_of(n_classes: int):
+    """The split scan for the histogram's planes."""
+    return cls_scan if n_classes >= 3 else split_scan
+
+
+def leaf_acc(labels, weights, node, active, L: int,
+             n_classes: int = 0) -> torch.Tensor:
+    """Final-level node totals [C, L] = per node (sum w, sum w*y), or the
+    K per-class weighted counts, without a per-slot histogram
+    (counterpart of `_make_leaf_fn`). A blocked one-hot contraction keeps
+    the sum order fixed, so two runs on the card give the same bits
+    (float atomics would not)."""
     dev = labels.device
     n = labels.shape[0]
-    w = torch.where(active, weights, torch.zeros_like(weights))
     nl = torch.where(active, node.clamp(0, L - 1), torch.zeros_like(node))
-    comps = torch.stack([w, w * labels], dim=1)
-    acc = torch.zeros((2, L), dtype=torch.float32, device=dev)
+    comps = comps_of(labels, weights, active, False, n_classes)
+    if n_classes < 3:
+        comps = comps[:, :2]
+    acc = torch.zeros((comps.shape[1], L), dtype=torch.float32, device=dev)
     ids = torch.arange(L, device=dev)
     for a in range(0, n, _LEAF_BLK):
         oh = (nl[a:a + _LEAF_BLK, None] == ids[None, :]).to(torch.float32)
         acc = acc + comps[a:a + _LEAF_BLK].T @ oh
     return acc
+
+
+def leaf_values(acc: torch.Tensor, n_classes: int = 0) -> torch.Tensor:
+    """`leaf_acc` totals -> leaf values: the mean label, or the majority
+    class index (first on ties, as jnp.argmax)."""
+    if n_classes >= 3:
+        return torch.argmax(acc, dim=0).to(torch.float32)
+    return acc[1] / acc[0].clamp_min(1e-12)
 
 
 # ---------------------------------------------------------------------------
@@ -443,7 +604,8 @@ def _grow_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
     n = codes.shape[0]
     sl = scan_layout(lay, dev)
     min_inst = max(cfg.min_instances_per_node, 1)
-    kw = dict(lay=lay, low_precision=lowp, codes8=codes8)
+    K = cfg.n_classes
+    kw = dict(lay=lay, low_precision=lowp, codes8=codes8, n_classes=K)
     skw = dict(impurity=cfg.impurity, min_inst=min_inst,
                min_gain=cfg.min_info_gain)
     node = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -453,7 +615,7 @@ def _grow_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
     prev = None  # retained parent level (hist, is_split, lcnt, ncnt)
 
     def scan(hist):
-        return split_scan(hist, feat_ok_t, sl, **skw)
+        return scan_of(K)(hist, feat_ok_t, sl, **skw)
 
     for d in range(D):
         L = 2 ** d
@@ -504,8 +666,8 @@ def _grow_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
 
     # final level: node totals only (no per-slot histogram)
     L2 = 2 ** D
-    acc = leaf_acc(labels, weights, node, active, L2)
-    leaves_l.append(acc[1] / acc[0].clamp_min(1e-12))
+    acc = leaf_acc(labels, weights, node, active, L2, K)
+    leaves_l.append(leaf_values(acc, K))
     resting = torch.where(active, (L2 - 1) + node.long(), resting)
     feat_flat = torch.cat(feats_l + [torch.full((L2,), -1, dtype=torch.int32,
                                                 device=dev)])
@@ -624,6 +786,36 @@ def _errors(score, y, vm):
     return t, v
 
 
+def _cls_errors(votes, y, vm):
+    """(train_err, valid_err) misclassification rate of the forest's
+    majority vote (counterpart of `_get_cls_errors_program`; ties go to
+    the first class)."""
+    err = (torch.argmax(votes, dim=1).to(torch.float32) != y).to(
+        torch.float32)
+    zero = torch.zeros_like(err)
+    v = torch.where(vm, err, zero).sum() / vm.sum().clamp_min(1)
+    t = torch.where(~vm, err, zero).sum() / (~vm).sum().clamp_min(1)
+    return t, v
+
+
+def _votes_of(trees: List[DenseTree], codes, n_classes: int):
+    """[n, K] per-class votes of an existing forest (resume: the workers'
+    re-derivation of the prediction state)."""
+    n = codes.shape[0]
+    votes = torch.zeros((n, n_classes), dtype=torch.float32,
+                        device=codes.device)
+    if trees:
+        per_tree = traverse_trees(trees, codes)
+        for col in range(per_tree.shape[1]):
+            votes = votes + _one_vote(per_tree[:, col], n_classes)
+    return votes
+
+
+def _one_vote(tree_pred, n_classes: int) -> torch.Tensor:
+    cls = tree_pred.to(torch.int64).clamp(0, n_classes - 1)
+    return torch.nn.functional.one_hot(cls, n_classes).to(torch.float32)
+
+
 def _score_existing(trees: List[DenseTree], codes) -> torch.Tensor:
     """Raw GBT prediction of an existing forest, folded tree by tree like
     the live run (a pairwise sum would round differently on resume)."""
@@ -638,10 +830,6 @@ def _score_existing(trees: List[DenseTree], codes) -> torch.Tensor:
 
 
 def _check_ported(cfg: TreeTrainConfig, batch_cap: int) -> None:
-    if cfg.n_classes >= 3:
-        raise NotImplementedError(
-            "NATIVE multi-class tree training (n_classes >= 3) is not ported "
-            "yet: ROADMAP queue B, multiclass branch of the histogram kernel")
     if cfg.max_leaves and cfg.max_leaves > 0:
         raise NotImplementedError(
             "leaf-wise growth (max_leaves > 0) is not ported yet: ROADMAP "
@@ -714,6 +902,13 @@ def train_trees(
     lay = make_layout([int(s) for s in slots_np], [bool(c) for c in is_cat_np])
     batch_cap = _node_batch_size(lay.T, cfg.max_stats_memory_mb,
                                  cfg.n_classes)
+    is_cls = cfg.n_classes >= 3
+    if is_cls and cfg.algorithm == "GBT":
+        raise ValueError(
+            "NATIVE multi-class tree training is RF-only (the reference "
+            "supports GBT multi-class via ONEVSALL, "
+            "TrainModelProcessor.java:341-349)"
+        )
     _check_ported(cfg, batch_cap)
 
     k_sub = subset_count(cfg.feature_subset_strategy, F)
@@ -723,7 +918,10 @@ def train_trees(
     is_gbt = cfg.algorithm == "GBT"
     log_loss = cfg.loss == "log"
 
-    if start_k:
+    # prediction state re-derived from loaded trees on resume: GBT keeps
+    # the raw sum F(x), RF the running mean, classification per-class votes
+    votes = _votes_of(trees, codes_t, cfg.n_classes) if is_cls else None
+    if start_k and not is_cls:
         if is_gbt and cfg.dropout_rate > 0.0:
             # DART resume: regenerate each tree's keyed keep mask
             per_tree = traverse_trees(trees, codes_t)
@@ -759,6 +957,7 @@ def train_trees(
     sub_counts = _plan_counts(sub_levels[:cfg.max_depth],
                               cfg.hist_subtraction)
     lowp = is_gbt  # bf16 component planes for GBT; RF stays exact f32
+    # (multi-class is RF-only, so its count planes are f32 too)
     # int8 code planes, hoisted once per forest (codes are tree- and
     # level-independent), when every feature fits 128 slots
     codes8 = (hist_kernel.codes8_of(codes_t, lay) if lay.s_max <= 128
@@ -804,7 +1003,10 @@ def train_trees(
         deferred.append((k, weight_k, feats_d, masks_d, leaves_d))
         trees.append(None)  # assembled from `deferred`
 
-        if is_gbt:
+        if is_cls:
+            votes = votes + _one_vote(tree_pred, cfg.n_classes)
+            t_e, v_e = _cls_errors(votes, y_t, vm_t)
+        elif is_gbt:
             if cfg.dropout_rate > 0.0 and k > 0:
                 # DART-ish per-row dropout of this tree's contribution to
                 # the running prediction (never the model)
@@ -819,7 +1021,8 @@ def train_trees(
         else:  # RF running mean over trees built so far
             pred = tree_pred if k == 0 else (pred * k + tree_pred) / (k + 1)
             score = pred.clamp(0.0, 1.0)
-        t_e, v_e = _errors(score, y_t, vm_t)
+        if not is_cls:
+            t_e, v_e = _errors(score, y_t, vm_t)
         if not need_sync:
             err_pairs.append((t_e, v_e))
             valid_errors.append(None)  # filled after the final sync

@@ -14,6 +14,10 @@ import torch
 DeviceLike = Union[None, str, torch.device]
 
 
+class DeviceUnavailable(RuntimeError):
+    """The card was asked for (explicitly or by default) and is absent."""
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """None -> cuda (raises without CUDA); "cpu"/"cuda[:i]"/torch.device
     as given, with cuda checked for availability."""
@@ -21,7 +25,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         device = "cuda"
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise DeviceUnavailable(
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU explicitly")
     if dev.type not in ("cuda", "cpu"):

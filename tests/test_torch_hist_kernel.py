@@ -144,6 +144,89 @@ def test_fused_matches_jax_kernel(impurity):
     assert bool(np.asarray(j_out[4]).any())  # some node really splits
 
 
+def _class_labels(codes, k):
+    """Class indices that follow a numeric and the 65-slot categorical."""
+    return ((codes[:, 0] + codes[:, 7]) % k).astype(np.float32)
+
+
+def test_multiclass_hist_matches_jax_scatter_and_pallas():
+    """K = 4 per-class count planes at L = 4 on the ragged layout (the
+    1500-slot categorical included): integer weights, so the plain
+    histogram equals the JAX XLA histogram and the Pallas kernel in
+    interpret mode bit for bit."""
+    slots, is_cat, codes, _y, w, rng = _mixed_case()
+    K, L = 4, 4
+    y = _class_labels(codes, K)
+    node = rng.integers(0, L, size=len(y)).astype(np.int32)
+    active = rng.random(len(y)) < 0.9
+    lay = make_layout(slots, is_cat)
+    la = _device_layout(lay, np.ones(len(slots), bool))
+    args = (jnp.asarray(codes), jnp.asarray(y), jnp.asarray(w),
+            jnp.asarray(node), jnp.asarray(active))
+    h_xla = jax.jit(_make_hist_fn(L, lay, allow_matmul=False, n_classes=K))(
+        *args, la.off, la.clip, la.seg_t, la.pos_t)
+    h_pl = jax.jit(make_pallas_hist_fn(L, lay, n_classes=K,
+                                       interpret=True))(*args)
+    t = torch.as_tensor
+    h_port = hk.hist_level(t(codes), t(y), t(w), t(node), t(active), L=L,
+                           lay=tt.make_layout(slots, is_cat), n_classes=K)
+    assert h_port.shape == (K, L, lay.T)
+    np.testing.assert_array_equal(h_port.numpy(), np.asarray(h_xla))
+    np.testing.assert_array_equal(h_port.numpy(), np.asarray(h_pl))
+
+
+def _fused_cls_pair(impurity, K=4, L=2, n=1300, seed=11):
+    slots, is_cat, codes, _y, w, _rng = _mixed_case(n=n, seed=seed)
+    y = _class_labels(codes, K)
+    rng = np.random.default_rng(7)
+    node = rng.integers(0, L, size=n).astype(np.int32)
+    active = rng.random(n) < 0.95
+    feat_ok = np.ones(len(slots), bool)
+    feat_ok[2] = False
+    jlay = make_layout(slots, is_cat)
+    fot = feat_ok[jlay.seg_of_t]
+    fused = jax.jit(make_fused_level_fn(L, jlay, impurity, 2, 0.0,
+                                        n_classes=K, interpret=True))
+    j_hist, j_out = fused(jnp.asarray(codes), None, jnp.asarray(y),
+                          jnp.asarray(w), jnp.asarray(node),
+                          jnp.asarray(active), jnp.asarray(fot))
+    t = torch.as_tensor
+    p_hist, p_out = hk.fused_level(
+        t(codes), t(y), t(w), t(node), t(active), t(fot), L=L,
+        lay=tt.make_layout(slots, is_cat), impurity=impurity, min_inst=2,
+        min_gain=0.0, n_classes=K)
+    return j_hist, j_out, p_hist, p_out
+
+
+@pytest.mark.parametrize("impurity", ["gini", "entropy", "variance"])
+def test_fused_multiclass_matches_jax_kernel(impurity):
+    """The plain fused multi-class level against the Pallas kernel in
+    interpret mode at L = 2, the 1500-slot categorical (the wide route)
+    included. Integer weights: the K planes are bit-equal. gini (and
+    variance, which falls back to gini): every field of the 9-tuple is
+    exact. entropy: log2 may differ by an ulp between torch and XLA, so
+    best_gain is held at rtol 1e-6 and the discrete fields exactly; a
+    flipped near-tie names its node and both gains."""
+    j_hist, j_out, p_hist, p_out = _fused_cls_pair(impurity)
+    np.testing.assert_array_equal(np.asarray(j_hist), p_hist.numpy())
+    j = {nm: np.asarray(a) for nm, a in zip(NAMES, j_out)}
+    p = {nm: b.numpy() for nm, b in zip(NAMES, p_out)}
+    for l in range(len(j["feature"])):
+        assert (j["feature"][l], j["cut_rank"][l]) == (
+            p["feature"][l], p["cut_rank"][l]), (
+            f"node {l}: JAX splits feature {j['feature'][l]} at rank "
+            f"{j['cut_rank'][l]} (gain {j['best_gain'][l]!r}), the port "
+            f"feature {p['feature'][l]} at {p['cut_rank'][l]} "
+            f"(gain {p['best_gain'][l]!r})")
+    for nm in NAMES:
+        if nm == "best_gain" and impurity == "entropy":
+            np.testing.assert_allclose(p[nm], j[nm], rtol=1e-6, err_msg=nm)
+        else:
+            np.testing.assert_array_equal(p[nm], j[nm], err_msg=nm)
+    assert j["is_split"].any()
+    assert set(np.unique(p["leaf_value"])) <= set(range(4))
+
+
 def _emulated_planes(hist, fok, lay, min_inst):
     """The kernel's scan-mode planes (gain, rank, lcnt, tot0), written out
     per (node, segment) in plain torch, variance impurity: what
@@ -229,6 +312,107 @@ def test_kernel_epilogue_reproduces_reference(wide_first, w_scale):
         assert torch.equal(a, b), nm
 
 
+def _emulated_cls_planes(hist, fok, lay, min_inst, cap):
+    """The kernel's class-mode scan planes (gain, rank, lcnt, tot0 [L, K]),
+    per (node, segment) in plain torch, gini: what hist_finalize_kernel
+    computes with cls_mode, for checking the epilogue on the CPU.
+    Segments wider than `cap` are left to the wrapper's torch scan."""
+    K, L, T = hist.shape
+    gain = torch.full((L, T), -float("inf"))
+    rank = torch.zeros((L, T), dtype=torch.int32)
+    lcnt = torch.zeros((L, T))
+    tot0 = torch.zeros((L, K))
+    inf = torch.tensor(float("inf"))
+
+    def impurity(parts, total):
+        p = parts / total.clamp_min(1e-12)
+        acc = torch.zeros_like(total)
+        for c in range(K):
+            acc = tt.fma32(p[c], p[c], acc)
+        return 1.0 - acc
+
+    for l in range(L):
+        for f in range(len(lay.slots)):
+            st, sz = int(lay.off[f]), int(lay.slots[f])
+            h = hist[:, l, st:st + sz]
+            if sz > cap:
+                rank[l, st:st + sz] = torch.arange(sz, dtype=torch.int32)
+                if f == 0:
+                    tot0[l] = h.sum(1)
+                continue
+            cnt = tt.class_sum(h)
+            ex = sum(float(c) * h[c] for c in range(K))
+            key = (torch.where(cnt > 0, ex / cnt.clamp_min(1e-12), inf)
+                   if lay.is_cat_t[st] else torch.arange(sz).float())
+            order = torch.argsort(key, stable=True)
+            r = torch.empty(sz, dtype=torch.long)
+            r[order] = torch.arange(sz)
+            pre = torch.cumsum(h[:, order], 1)
+            left, tot = pre[:, r], pre[:, -1:].expand(K, sz)
+            right = tot - left
+            lc, rc = tt.class_sum(left), tt.class_sum(right)
+            tc = lc + rc
+            g = tt.fma32(-rc, impurity(right, rc),
+                         tt.fma32(tc, impurity(tot, tc),
+                                  -(lc * impurity(left, lc))))
+            valid = ((lc >= min_inst) & (rc >= min_inst) & (g > 0.0)
+                     & fok[st:st + sz] & (r < sz - 1))
+            gain[l, st:st + sz] = torch.where(valid, g, -inf)
+            rank[l, st:st + sz] = r.int()
+            lcnt[l, st:st + sz] = lc
+            if f == 0:
+                tot0[l] = pre[:, -1]
+    return gain, rank, lcnt, tot0
+
+
+@pytest.mark.parametrize("K,cap", [(3, hk.SEG_CAP), (5, hk.SEG_CAP),
+                                   (5, 40)])
+def test_kernel_epilogue_reproduces_class_reference(K, cap):
+    """Class mode: the epilogue turns the kernel's planes into exactly the
+    plain multi-class 9-tuple (node count summed in class order, first
+    majority class), also when a narrower segment cap (many class planes
+    in shared memory) sends the 65-slot categorical to the wide route."""
+    slots, is_cat, codes, _y, w, rng = _mixed_case(n=1400, seed=8)
+    lay = tt.make_layout(slots, is_cat)
+    L = 4
+    t = torch.as_tensor
+    y = t(_class_labels(codes, K))
+    node = t(rng.integers(0, L, size=len(y)).astype(np.int32))
+    act = t(rng.random(len(y)) < 0.95)
+    fok = torch.ones(lay.T, dtype=torch.bool)
+    fok[lay.off[1]:lay.off[1] + lay.slots[1]] = False
+    hist, ref = hk.fused_level_reference(t(codes), y, t(w), node, act, fok,
+                                         L=L, lay=lay, impurity="gini",
+                                         min_inst=2, min_gain=0.0,
+                                         n_classes=K)
+    planes = _emulated_cls_planes(hist, fok, lay, 2, cap)
+    out = hk._epilogue(hist, planes, fok, lay, "gini", 2, 0.0, K, cap)
+    for nm, a, b in zip(NAMES, ref, out):
+        assert a.dtype == b.dtype, nm
+        assert torch.equal(a, b), nm
+    assert bool(ref[4].any())
+
+
+def test_class_mode_segment_cap_and_tiles():
+    """Shared memory a class-mode scan needs: (2K + 3) words a slot, so
+    1,024 slots fit for K <= 28 in 227 KB (232,448 B) and K = 32 scans
+    867; the accumulate tile holds 3 * 8192 // K bins a plane."""
+    optin = 232_448
+    assert hk.seg_cap_for(3, optin) == hk.SEG_CAP
+    assert hk.seg_cap_for(8, optin) == hk.SEG_CAP
+    assert (2 * 8 + 3) * 4 * hk.SEG_CAP > 48 * 1024  # past the static limit
+    assert hk.seg_cap_for(32, optin) == 867
+    assert hk.seg_cap_for(32, optin) * (2 * 32 + 3) * 4 <= optin
+    lay = tt.make_layout([33] * 20 + [65] * 10, [False] * 20 + [True] * 10)
+    for K in (3, 8, 32):
+        tiles, bins = hk._tiles(lay, 128, K)
+        assert bins * K <= 3 * hk.SMEM_BINS
+        seen = np.zeros((128, lay.T), np.int32)
+        for f_lo, f_hi, t_lo, t_w, l_lo, l_n in tiles:
+            seen[l_lo:l_lo + l_n, t_lo:t_lo + t_w] += 1
+        assert (seen == 1).all()
+
+
 def test_cpu_wrappers_run_plain_versions_and_count():
     slots, is_cat, codes, y, w, rng = _mixed_case(n=400, seed=2)
     lay = tt.make_layout(slots, is_cat)
@@ -242,8 +426,12 @@ def test_cpu_wrappers_run_plain_versions_and_count():
                            lay=lay, impurity="gini", min_inst=1,
                            min_gain=0.0)
     assert torch.equal(h, h2)
-    assert hk.reference_calls == {"hist_level": 1, "fused_level": 1}
-    assert hk.launches == {"hist_level": 0, "fused_level": 0}
+    cls = t((codes[:, 0] % 4).astype(np.float32))
+    hk.hist_level(t(codes), cls, t(w), node, act, L=2, lay=lay, n_classes=4)
+    assert hk.reference_calls == {"hist_level": 1, "fused_level": 1,
+                                  "hist_level_mc": 1, "fused_level_mc": 0}
+    assert hk.launches == {"hist_level": 0, "fused_level": 0,
+                           "hist_level_mc": 0, "fused_level_mc": 0}
     c8 = hk.codes8_of(t(codes), lay)
     assert c8.dtype == torch.int8
     np.testing.assert_array_equal(c8[:, :8].numpy(), codes[:, :8])

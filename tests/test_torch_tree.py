@@ -168,8 +168,88 @@ def test_early_stop_decider_matches_jax():
     assert [a.add(e) for e in errs] == [b.add(e) for e in errs]
 
 
+def _class_data(n=2500, seed=0, k=3):
+    """_forest_data's codes with K class labels (class indices as float
+    tags, as NATIVE CleanedData carries them): the class follows two
+    numeric columns and one categorical, with 15% noise."""
+    codes, _y, w, slots, is_cat, cols = _forest_data(n=n, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    cls = (codes[:, 0] * k // slots[0] + (codes[:, 5] >= 20)
+           + (codes[:, 2] >= 12)) % k
+    noise = rng.random(n) < 0.15
+    cls = np.where(noise, rng.integers(0, k, size=n), cls)
+    return codes, cls.astype(np.float32), w, slots, is_cat, cols
+
+
+def _first_diff(a, b):
+    """'tree t node i: feature x vs y' for the first differing node."""
+    for t, (t0, t1) in enumerate(zip(a.spec.trees, b.spec.trees)):
+        for i in range(t0.feature.shape[0]):
+            if (t0.feature[i] != t1.feature[i]
+                    or not np.array_equal(t0.left_mask[i], t1.left_mask[i])
+                    or t0.leaf_value[i] != t1.leaf_value[i]):
+                return (f"tree {t} node {i}: feature {t0.feature[i]} vs "
+                        f"{t1.feature[i]}, leaf {t0.leaf_value[i]} vs "
+                        f"{t1.leaf_value[i]}")
+    return None
+
+
+@pytest.mark.parametrize("k,depth,impurity", [(3, 3, "gini"),
+                                              (4, 8, "gini"),
+                                              (4, 4, "entropy")])
+def test_native_multiclass_rf_bit_equal(k, depth, impurity):
+    """NATIVE multi-class RF: per-class count planes under integer weights
+    are exact, so the forest (majority-class leaves, masks, features) is
+    BIT-equal to the JAX package's and the valid misclassification rate
+    is equal. Depth 8 with subtraction reaches the histogram-only entry
+    at L = 64 (the built half of level 7). Entropy gains may differ from
+    XLA's by an ulp of log2; the forest is held equal on this data, and a
+    flipped near-tie names its node."""
+    data = _class_data(k=k)
+    kw = dict(algorithm="RF", tree_num=3, max_depth=depth,
+              feature_subset_strategy="TWOTHIRDS", seed=3,
+              valid_set_rate=0.1, impurity=impurity, n_classes=k)
+    ref = _jax_train(*data, **kw)
+    hk.reset_counters()
+    port = _port_train(*data, **kw)
+    assert _first_diff(ref, port) is None, _first_diff(ref, port)
+    _assert_forests_bit_equal(ref, port)
+    assert port.valid_error == ref.valid_error
+    assert port.train_error == ref.train_error
+    assert port.spec.n_classes == k
+    leaves = np.concatenate([t.leaf_value for t in port.spec.trees])
+    assert set(np.unique(leaves)) <= set(range(k))
+    assert hk.reference_calls["fused_level_mc"] > 0
+    assert (hk.reference_calls["hist_level_mc"] > 0) == (depth == 8)
+    assert hk.reference_calls["fused_level"] == 0
+
+
+def test_native_multiclass_resume_is_bit_equal():
+    """2 trees, then 2 more from init_trees (votes re-derived from the
+    loaded forest), equal the uninterrupted 4-tree multi-class run bit
+    for bit, valid errors included."""
+    data = _class_data(n=1500, seed=4, k=4)
+    kw = dict(algorithm="RF", tree_num=4, max_depth=4, impurity="gini",
+              feature_subset_strategy="HALF", seed=5, n_classes=4)
+    errs = []
+    full = ptt.train_trees(*data, ptt.TreeTrainConfig(**kw), device="cpu",
+                           progress_cb=lambda k, t, v: errs.append(v))
+    head = _port_train(*data, **{**kw, "tree_num": 2})
+    tail = ptt.train_trees(*data, ptt.TreeTrainConfig(**kw),
+                           init_trees=head.spec.trees,
+                           init_valid_errors=errs[:2], device="cpu")
+    _assert_forests_bit_equal(full, tail)
+    assert tail.valid_error == full.valid_error
+
+
+def test_native_multiclass_gbt_raises():
+    data = _class_data(n=300, k=3)
+    for train in (_jax_train, _port_train):
+        with pytest.raises(ValueError, match="RF-only"):
+            train(*data, algorithm="GBT", tree_num=1, n_classes=3)
+
+
 @pytest.mark.parametrize("kw", [
-    dict(algorithm="RF", n_classes=3, impurity="gini"),
     dict(max_leaves=7),
     dict(max_depth=9, max_stats_memory_mb=1),
 ])
