@@ -19,22 +19,30 @@ scan's: (feature, cut_rank, rank_flat, leaf_value, is_split, best_gain,
 left_mask, node_cnt, left_cnt).
 
 On CPU tensors a wrapper runs its plain version; on CUDA tensors it
-launches the kernel of `csrc/hist_level.cu` or raises — there is no
-fallback and no mode knob. Each entry counts its kernel launches and its
-plain-version calls in plain integers (`launches`, `reference_calls`),
-the multi-class mode under its own names (`hist_level_mc`,
-`fused_level_mc`).
+launches the kernels of `csrc/hist_level.cu` or raises — there is no
+fallback and no mode knob. An entry is three launches: the pre-pass
+(the entry's prep, and the live rows grouped by node tile), the
+accumulate and the finalize. Each entry counts its kernel launches and
+its plain-version calls in plain integers (`launches`,
+`reference_calls`), the multi-class mode under its own names
+(`hist_level_mc`, `fused_level_mc`).
 
 Precision policy (the JAX package's): GBT comps travel bf16, rounded once
 when the planes are built, and sum in (here: fixed-point, then) f32; RF
 planes stay f32 so integer-weight counts are exact. Codes travel int8
-when every feature fits 128 slots (`codes8_of`), else int32.
+when every feature fits 128 slots (`codes8_of`, rows padded to 16
+bytes), else int32. `int_planes` (the trainer's `int_planes_of`, once a
+forest) lets the kernels sum integer planes in 32-bit shared bins; the
+planes are the same bits either way. `hist_level_fixed_reference` is the
+kernels' exact yardstick: the same 64-bit fixed point, computed plainly.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -43,14 +51,20 @@ import torch
 # gbt_wide 2001-slot column) are scanned by the torch split scan on just
 # their columns — static routing by shape, as in the JAX package
 SEG_CAP = 1024
-# int64 bins of one accumulate tile: 3 planes x 8192 x 8 B = 192 KiB of
-# the 227 KB of shared memory a Hopper block may use; K class planes
-# share the same budget (3 * 8192 // K bins a plane)
-SMEM_BINS = 8192
-# fewest rows worth a block of its own
-_ROW_MIN = 2048
+# an accumulate tile holds TILE_SLOTS slots over all its planes, within
+# 16-48 KiB of shared memory (bins and feature table), so four 256-thread
+# blocks share an SM's 228 KB (the sizes measured fastest on the H100,
+# PERF.md)
+TILE_SLOTS = 384
+TILE_MIN, TILE_MAX = 16 * 1024, 48 * 1024
+# shared memory one Hopper block may opt in to
+SMEM_BLOCK_MAX = 232_448
 # int8 codes hold every feature whose clipped code fits 0..127
 _I8_SLOTS = 128
+# int8 code rows are padded to this many bytes (16-byte loads)
+_ROW_ALIGN = 16
+# largest |value| a row adds to a 32-bit shared bin
+INT32_VMAX = 2 ** 24
 
 _IMPURITY = {"variance": 0, "friedmanmse": 1, "entropy": 2, "gini": 3}
 
@@ -73,10 +87,16 @@ def _tt():
 
 def codes8_of(codes: torch.Tensor, lay) -> torch.Tensor:
     """[n, F] int codes -> int8 planes (counterpart of make_codes8_fn):
-    exact for every feature with <= 128 slots; wider columns clamp."""
+    exact for every feature with <= 128 slots; wider columns clamp. The
+    rows are padded to a multiple of 16 bytes (the view drops the pad),
+    so the accumulate kernel reads them 16 bytes at a time."""
+    n, F = codes.shape
+    width = max(_ROW_ALIGN, -(-F // _ROW_ALIGN) * _ROW_ALIGN)
     cap = torch.as_tensor(np.minimum(lay.clip_max, _I8_SLOTS - 1),
                           device=codes.device)
-    return torch.minimum(codes.clamp_min(0), cap[None, :]).to(torch.int8)
+    buf = torch.zeros((n, width), dtype=torch.int8, device=codes.device)
+    buf[:, :F] = torch.minimum(codes.clamp_min(0), cap[None, :])
+    return buf[:, :F]
 
 
 def _entry(name: str, n_classes: int) -> str:
@@ -96,19 +116,17 @@ def seg_cap_for(planes: int, smem_optin: int) -> int:
     return max(0, min(SEG_CAP, smem_optin // ((2 * planes + 3) * 4)))
 
 
-def _nl_of(node_slot, active, L: int):
-    return torch.where(active, node_slot.clamp(0, L - 1),
-                       torch.zeros_like(node_slot)).to(torch.int32)
-
-
 def _prep(labels, weights, node_slot, active, L: int, low_precision: bool,
           n_classes: int = 0):
-    """Component planes [n, C] (inactive rows zeroed through the weight,
-    bf16 for GBT; one weighted count plane a class for n_classes >= 3)
-    and node ids clamped to [0, L), 0 for inactive rows."""
+    """The plain versions' prep: component planes [n, C] (inactive rows
+    zeroed through the weight, bf16 for GBT; one weighted count plane a
+    class for n_classes >= 3) and node ids clamped to [0, L), 0 for
+    inactive rows."""
     comps = _tt().comps_of(labels, weights, active, low_precision,
                            n_classes)
-    return comps, _nl_of(node_slot, active, L)
+    nl = torch.where(active, node_slot.clamp(0, L - 1),
+                     torch.zeros_like(node_slot)).to(torch.int32)
+    return comps, nl
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +136,8 @@ def _prep(labels, weights, node_slot, active, L: int, low_precision: bool,
 
 def hist_level_reference(codes, labels, weights, node_slot, active, *,
                          L: int, lay, low_precision: bool = False,
-                         codes8=None, n_classes: int = 0) -> torch.Tensor:
+                         codes8=None, n_classes: int = 0,
+                         int_planes: bool = False) -> torch.Tensor:
     """Plain version of `hist_level`: index_add_ over the flat
     node*T + off[f] + clip(code) slot of every (row, feature)."""
     reference_calls[_entry("hist_level", n_classes)] += 1
@@ -131,7 +150,7 @@ def fused_level_reference(codes, labels, weights, node_slot, active,
                           feat_ok_t, *, L: int, lay, impurity: str,
                           min_inst: int, min_gain: float,
                           low_precision: bool = False, codes8=None,
-                          n_classes: int = 0):
+                          n_classes: int = 0, int_planes: bool = False):
     """Plain version of `fused_level`: the plain histogram, then the
     reference split scan (the class scan for n_classes >= 3) over it."""
     reference_calls[_entry("fused_level", n_classes)] += 1
@@ -142,6 +161,293 @@ def fused_level_reference(codes, labels, weights, node_slot, active,
     sl = tt.scan_layout(lay, hist.device)
     return hist, tt.scan_of(n_classes)(hist, feat_ok_t, sl, impurity,
                                        min_inst, min_gain)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' fixed point, plainly: the exact yardstick
+# ---------------------------------------------------------------------------
+
+
+def plane_shift(maxabs: float, n: int) -> int:
+    """The kernels' fixed-point shift S of a plane: every bin sum is at
+    most n * max|v| < 2^e, so sums of v * 2^(61 - e) stay below 2^61."""
+    return 61 - math.frexp(float(maxabs) * float(n))[1]
+
+
+def _shifts(maxabs: torch.Tensor, n: int, planes: int):
+    """Per-plane shifts: the K class planes share one (from max|w|)."""
+    s = [plane_shift(m, n) for m in maxabs.tolist()]
+    return s * planes if len(s) == 1 else s
+
+
+def fixed_acc_reference(codes, labels, weights, node_slot, active, *,
+                        L: int, lay, low_precision: bool = False,
+                        n_classes: int = 0):
+    """The kernels' int64 accumulator, plainly: round(v * 2^S) in f64
+    (half to even, as llrint) of every plane value, int64 index_add_ over
+    the flat node*T + off[f] + clip(code) slot. Returns (acc [P, L, T]
+    int64, maxabs [1 (class planes) or 3] f32)."""
+    comps, nl = _prep(labels, weights, node_slot, active, L, low_precision,
+                      n_classes)
+    comps = comps.float()
+    n, F = codes.shape
+    T = lay.T
+    # class planes share one shift, from max|w| (a row's weight sits in
+    # one plane)
+    mags = comps.abs().amax(1, keepdim=True) if n_classes >= 3 else comps.abs()
+    maxabs = (mags.amax(0) if n else
+              torch.zeros(mags.shape[1], device=codes.device))
+    S = _shifts(maxabs, n, comps.shape[1])
+    scale = torch.tensor([2.0 ** s for s in S], dtype=torch.float64,
+                         device=codes.device)
+    q = torch.round(comps.double() * scale[None, :]).to(torch.int64)
+    off = torch.as_tensor(np.asarray(lay.off, np.int64), device=codes.device)
+    clip = torch.as_tensor(np.asarray(lay.clip_max, np.int64),
+                           device=codes.device)
+    code = torch.minimum(codes.long().clamp_min(0), clip[None, :])
+    flat = (nl.long()[:, None] * T + off[None, :] + code).reshape(-1)
+    acc = torch.zeros((comps.shape[1], L * T), dtype=torch.int64,
+                      device=codes.device)
+    for c in range(comps.shape[1]):
+        acc[c].index_add_(0, flat, q[:, c:c + 1].expand(n, F).reshape(-1))
+    return acc.reshape(-1, L, T), maxabs
+
+
+def fixed_planes(acc: torch.Tensor, maxabs: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """int64 accumulator -> f32 planes, as hist_finalize_kernel converts
+    them: (float)((double)acc * 2^-S)."""
+    S = _shifts(maxabs, n, acc.shape[0])
+    inv = torch.tensor([2.0 ** -s for s in S], dtype=torch.float64,
+                       device=acc.device)
+    return (acc.double() * inv[:, None, None]).float()
+
+
+def hist_level_fixed_reference(codes, labels, weights, node_slot, active, *,
+                               L: int, lay, low_precision: bool = False,
+                               n_classes: int = 0) -> torch.Tensor:
+    """The exact fixed-point plain version of the kernels' planes: what
+    `hist_level` computes on the card, bit for bit in every mode (GBT's
+    float moments included). Used by the tests and chip_smoke.py, never
+    by the main path."""
+    acc, maxabs = fixed_acc_reference(
+        codes, labels, weights, node_slot, active, L=L, lay=lay,
+        low_precision=low_precision, n_classes=n_classes)
+    return fixed_planes(acc, maxabs, codes.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# the accumulate plan, and plain versions of the pre-pass and accumulate
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class AccPlan:
+    """How the accumulate cuts a level: node groups of `l_n` nodes, and
+    slot ranges `ttiles` [n_tt, 5] (f_lo, f_hi, t_lo, t_w, features of the
+    ranges before) that end on feature boundaries (a feature wider than a
+    tile is split); a tile is one group x one slot range. `NF` features
+    in all; `smem` bytes of shared memory a block: a `tab_bytes` feature
+    table, then planes x l_n x (widest t_w) bins of 4 (`bins32`) or 8
+    bytes."""
+
+    planes: int
+    bins32: bool
+    l_n: int
+    n_groups: int
+    ttiles: np.ndarray
+    NF: int
+    tab_bytes: int
+    smem: int
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def tile_bytes_for(planes: int, bins32: bool) -> int:
+    """Shared memory of one accumulate tile (see TILE_SLOTS)."""
+    return min(TILE_MAX, max(TILE_MIN,
+                             planes * (4 if bins32 else 8) * TILE_SLOTS))
+
+
+def plan_accumulate(lay, L: int, n_classes: int = 0, bins32: bool = False,
+                    tile_bytes: Optional[int] = None) -> AccPlan:
+    """Tiles of at most `tile_bytes` (`tile_bytes_for`) of shared memory:
+    slot ranges packed greedily from whole features, then as many nodes a
+    group as the widest range leaves room for."""
+    P = planes_of(n_classes)
+    tile = (tile_bytes_for(P, bins32) if tile_bytes is None
+            else int(tile_bytes))
+    bb = P * (4 if bins32 else 8)  # bytes of one slot over all planes
+    cap1 = (tile - 16) // bb  # slots of a one-feature, one-node tile
+    if cap1 < 1:
+        raise ValueError(f"{P} planes do not fit a {tile}-byte tile")
+    ranges = []
+    cur = None  # [f_lo, f_hi, t_lo, t_w]
+    for f, s in enumerate(int(x) for x in lay.slots):
+        o = int(lay.off[f])
+        if s > cap1:  # wider than a tile: split over several
+            if cur is not None:
+                ranges.append(cur)
+                cur = None
+            ranges += [[f, f + 1, o + a, min(cap1, s - a)]
+                       for a in range(0, s, cap1)]
+        elif (cur is not None and (cur[3] + s) * bb
+              + _align16(8 * (cur[1] - cur[0] + 1)) <= tile):
+            cur[1], cur[3] = f + 1, cur[3] + s
+        else:
+            if cur is not None:
+                ranges.append(cur)
+            cur = [f, f + 1, o, s]
+    if cur is not None:
+        ranges.append(cur)
+    if not ranges:
+        raise ValueError("the layout has no features")
+    nf = [r[1] - r[0] for r in ranges]
+    before = np.cumsum([0] + nf[:-1])
+    ttiles = np.asarray([r + [int(b)] for r, b in zip(ranges, before)],
+                        np.int32)
+    max_tw = int(ttiles[:, 3].max())
+    tab_bytes = _align16(8 * max(nf))
+    l_n = max(1, min(L, (tile - tab_bytes) // max(1, bb * max_tw)))
+    n_groups = -(-L // l_n)
+    l_n = -(-L // n_groups)
+    return AccPlan(planes=P, bins32=bool(bins32), l_n=l_n, n_groups=n_groups,
+                   ttiles=ttiles, NF=int(sum(nf)), tab_bytes=tab_bytes,
+                   smem=tab_bytes + bb * l_n * max_tw)
+
+
+def group_rows_reference(labels, weights, node_slot, active, *, L: int,
+                         plan: AccPlan, low_precision: bool = False,
+                         n_classes: int = 0):
+    """Plain version of the pre-pass (`hist_group_kernel`): the entry's
+    prep, and the live rows (active, weight != 0) counting-sorted by node
+    group. Returns (gstart [groups + 1], rows [live], meta [live] = node
+    in group | class << 16, vals [live, 1 or 3] f32 (w, or the moments,
+    bf16-rounded for GBT), maxabs [1 or 3]), all int64 but vals and
+    maxabs; rows keep row order inside a group (the kernel's order there
+    is any)."""
+    w = torch.where(active, weights, torch.zeros_like(weights))
+    live = w != 0
+    nl = node_slot.long().clamp(0, L - 1)
+    if n_classes >= 3:
+        cls = labels.to(torch.int32).clamp(0, n_classes - 1).long()
+        vals = w[:, None]
+    else:
+        cls = torch.zeros_like(nl)
+        wy = w * labels
+        vals = torch.stack([w, wy, wy * labels], dim=1)
+        if low_precision:
+            vals = vals.to(torch.bfloat16).float()
+    idx = torch.nonzero(live)[:, 0]
+    g = nl[idx] // plan.l_n
+    order = torch.argsort(g, stable=True)
+    rows, g = idx[order], g[order]
+    counts = torch.bincount(g, minlength=plan.n_groups)
+    gstart = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    meta = (nl[rows] - g * plan.l_n) | (cls[rows] << 16)
+    maxabs = (vals[rows].abs().amax(0) if len(rows) else
+              torch.zeros(vals.shape[1], device=vals.device))
+    return gstart, rows, meta, vals[rows], maxabs
+
+
+def accumulate_reference(codes, grouped, *, L: int, lay, plan: AccPlan,
+                         n: int, blocks: int = 7) -> torch.Tensor:
+    """Plain version of `hist_accumulate_kernel` over the pre-pass's
+    groups, step for step: the pairs of all tiles cut into `blocks` equal
+    spans, each block's rows of each tile summed in its own bins (32-bit
+    bins: the integer values, flushed times 2^S every row_cap rows, a row
+    whose values are not integers of at most 2^24 going to the global
+    accumulator as round(v * 2^S); 64-bit bins: round(v * 2^S)), and the
+    flush into the int64 accumulator. Raises if a 32-bit bin would pass
+    2^31 - 1. Returns acc [P, L, T] int64."""
+    gstart, rows, meta, vals, maxabs = grouped
+    dev = vals.device
+    P, T, NF = plan.planes, lay.T, plan.NF
+    S = _shifts(maxabs, n, P)
+    scale = torch.tensor([2.0 ** s for s in S[:vals.shape[1]]],
+                         dtype=torch.float64, device=dev)
+    vmax = max([1.0] + [min(float(m), INT32_VMAX) for m in maxabs.tolist()])
+    fits32 = plan.bins32 and min(S) >= 0
+    row_cap = (int((2 ** 31 - 1) / math.ceil(vmax)) if plan.bins32
+               else 1 << 62)
+    off = torch.as_tensor(np.asarray(lay.off, np.int64), device=dev)
+    clip = torch.as_tensor(np.asarray(lay.clip_max, np.int64), device=dev)
+    acc = torch.zeros(P * L * T, dtype=torch.int64, device=dev)
+    gs_all = [int(x) for x in gstart.tolist()]
+    W = gs_all[-1] * NF
+    for b in range(blocks):
+        w0, w1 = W * b // blocks, W * (b + 1) // blocks
+        if w0 >= w1:
+            continue
+        for g in range(plan.n_groups):
+            gs, cnt = gs_all[g], gs_all[g + 1] - gs_all[g]
+            if gs * NF >= w1:
+                break
+            if cnt == 0:
+                continue
+            l_lo = g * plan.l_n
+            lg = min(plan.l_n, L - l_lo)
+            for f_lo, f_hi, t_lo, t_w, nf_pre in plan.ttiles.tolist():
+                nf = f_hi - f_lo
+                ts = gs * NF + cnt * nf_pre
+                if ts >= w1:
+                    break
+                if ts + cnt * nf <= w0:
+                    continue
+                ra = -(-(w0 - ts) // nf) if w0 > ts else 0
+                rb = min(cnt, -(-(w1 - ts) // nf))
+                for c0 in range(ra, rb, row_cap):
+                    seg = slice(gs + c0, gs + min(rb, c0 + row_cap))
+                    _tile_rows(acc, codes, rows[seg], meta[seg], vals[seg],
+                               off, clip, f_lo, f_hi, t_lo, t_w, l_lo, lg,
+                               L, T, S, scale, plan.bins32, fits32)
+    return acc.reshape(P, L, T)
+
+
+def _tile_rows(acc, codes, rows, meta, vals, off, clip, f_lo, f_hi, t_lo,
+               t_w, l_lo, lg, L, T, S, scale, bins32, fits32):
+    """One block's rows of one tile (accumulate_reference): shared bins
+    [P, lg, t_w], then the flush."""
+    cls_mode = vals.shape[1] == 1
+    P = acc.numel() // (L * T)
+    nbins = lg * t_w
+    l = meta & 0xFFFF
+    c = meta >> 16
+    code = torch.minimum(codes[rows][:, f_lo:f_hi].long().clamp_min(0),
+                         clip[None, f_lo:f_hi])
+    t = off[None, f_lo:f_hi] + code - t_lo
+    ok = (t >= 0) & (t < t_w)
+    q64 = torch.round(vals.double() * scale[None, :]).to(torch.int64)
+    if bins32:
+        in_smem = (fits32 & (vals == torch.trunc(vals))
+                   & (vals.abs() <= INT32_VMAX)).all(1)
+        q = torch.where(in_smem[:, None], vals.to(torch.int64), 0)
+    else:
+        in_smem = torch.ones(len(rows), dtype=torch.bool, device=vals.device)
+        q = q64
+    bins = torch.zeros(P * nbins, dtype=torch.int64, device=vals.device)
+    nv = vals.shape[1]
+    for j in range(nv):
+        plane = c if cls_mode else torch.full_like(c, j)
+        sh = ok & in_smem[:, None]
+        idx = (plane * nbins + l * t_w)[:, None] + t
+        bins.index_add_(0, idx[sh], q[:, j:j + 1].expand_as(t)[sh])
+        gl = ok & ~in_smem[:, None]
+        gidx = ((plane * L + l_lo + l) * T + t_lo)[:, None] + t
+        acc.index_add_(0, gidx[gl], q64[:, j:j + 1].expand_as(t)[gl])
+    k = torch.arange(P * nbins, device=vals.device)
+    cc, rem = k // nbins, k % nbins
+    if bins32:
+        if bool((bins.abs() > 2 ** 31 - 1).any()):
+            raise OverflowError("a 32-bit shared bin passed 2^31 - 1")
+        # S >= 0 wherever a bin is not 0
+        mult = torch.tensor([1 << s if s >= 0 else 0 for s in S],
+                            dtype=torch.int64, device=vals.device)
+        bins = bins * mult[cc]
+    dst = (cc * L + l_lo + rem // t_w) * T + t_lo + rem % t_w
+    acc.index_add_(0, dst, bins)
 
 
 # ---------------------------------------------------------------------------
@@ -159,12 +465,18 @@ def _lib():
 
         lib = build.load("hist_level")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.hist_accumulate.argtypes = [P, I, P, I, P, I, I, I, I, P, P, P,
-                                        I, I, I, I, P, P, P]
+        LL = ctypes.c_longlong
+        lib.hist_accumulate.argtypes = [
+            P, I, LL,          # codes, code_is_i8, code_stride
+            P, P, P, I, P,     # labels, weights, node, node_is_i64, active
+            I, I, I, I,        # n, L, T, K
+            I, I, I, I,        # lowp, bins32, l_n, n_groups
+            P, I, I, I, I,     # ttile, n_tt, NF, tab_bytes, smem
+            P, P,              # off, clip
+            P, LL, P, P, P]    # ws, ws_bytes, maxabs, acc, stream
         lib.hist_accumulate.restype = I
-        lib.hist_accumulate_cls.argtypes = [P, I, P, P, P, I, I, I, I, I, P,
-                                            P, P, I, I, I, I, P, P, P]
-        lib.hist_accumulate_cls.restype = I
+        lib.hist_ws_bytes.argtypes = [I, I, I]
+        lib.hist_ws_bytes.restype = LL
         lib.hist_finalize.argtypes = [P, P, I, I, I, I, I, I, I, P, P, P, P,
                                       I, I, F, F, P, P, P, P, P, P]
         lib.hist_finalize.restype = I
@@ -201,44 +513,25 @@ def _feature_arrays(lay, dev: torch.device):
     return arrs
 
 
-def _tiles(lay, L: int, planes: int = 3) -> Tuple[np.ndarray, int]:
-    """Accumulate tiles [k, 6] (f_lo, f_hi, t_lo, t_w, l_lo, l_n): flat
-    slot ranges x node ranges of at most 3 * SMEM_BINS // planes bins a
-    plane. Returns (tiles, bins a plane of the largest tile)."""
-    T = lay.T
-    cap = max(1, 3 * SMEM_BINS // planes)
-    n_tt = -(-T // cap)
-    t_w = -(-T // n_tt)
-    l_n = max(1, min(L, cap // t_w))
-    n_lt = -(-L // l_n)
-    l_n = -(-L // n_lt)
-    tiles = []
-    for t_lo in range(0, T, t_w):
-        tw = min(t_w, T - t_lo)
-        f_lo = int(lay.seg_of_t[t_lo])
-        f_hi = int(lay.seg_of_t[t_lo + tw - 1]) + 1
-        for l_lo in range(0, L, l_n):
-            tiles.append((f_lo, f_hi, t_lo, tw, l_lo, min(l_n, L - l_lo)))
-    return np.asarray(tiles, np.int32), t_w * l_n
+def _plan(lay, L: int, n_classes: int, bins32: bool, dev: torch.device):
+    """The accumulate plan and its slot ranges on the device (cached)."""
+    key = ("plan", lay.key, L, planes_of(n_classes), bins32, str(dev))
+    got = _DEV_CACHE.get(key)
+    if got is None:
+        plan = plan_accumulate(lay, L, n_classes, bins32)
+        got = (plan, torch.as_tensor(plan.ttiles, device=dev))
+        _DEV_CACHE[key] = got
+    return got
 
 
-def _plan(lay, L: int, n: int, planes: int, dev: torch.device):
-    key = ("plan", lay.key, L, n, planes, str(dev))
-    plan = _DEV_CACHE.get(key)
-    if plan is None:
-        tiles, smem_bins = _tiles(lay, L, planes)
-        k = len(tiles)
-        max_nf = int((tiles[:, 1] - tiles[:, 0]).max())
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        splits = max(1, min(-(-n // _ROW_MIN), -(-2 * sms // k)))
-        while -(-n // splits) * max_nf >= 2**31:
-            splits *= 2
-        rows_per = max(1, -(-n // splits))
-        splits = max(1, -(-n // rows_per))
-        plan = (torch.as_tensor(tiles, device=dev), k, splits, rows_per,
-                smem_bins)
-        _DEV_CACHE[key] = plan
-    return plan
+def _ws_bytes(n: int, n_groups: int, cls_mode: bool, dev) -> int:
+    key = ("ws", n, n_groups, cls_mode, str(dev))
+    got = _DEV_CACHE.get(key)
+    if got is None:
+        with torch.cuda.device(dev):
+            got = int(_lib().hist_ws_bytes(n, n_groups, int(cls_mode)))
+        _DEV_CACHE[key] = got
+    return got
 
 
 def _wide_layout(lay, dev: torch.device, cap: int = SEG_CAP):
@@ -263,7 +556,8 @@ def _wide_layout(lay, dev: torch.device, cap: int = SEG_CAP):
     return out
 
 
-def _check(t: torch.Tensor, name: str, dtypes, shape, dev) -> None:
+def _check(t: torch.Tensor, name: str, dtypes, shape, dev,
+           contiguous: bool = True) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor")
     if t.device != dev:
@@ -273,7 +567,7 @@ def _check(t: torch.Tensor, name: str, dtypes, shape, dev) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
@@ -283,20 +577,31 @@ def _raise_on(rc: int, what: str) -> None:
                            f"({torch.cuda.get_device_name()})")
 
 
+def _check_codes8(t: torch.Tensor, n: int, F: int, dev) -> None:
+    """codes8 must be `codes8_of`'s int8 rows, padded to 16 bytes."""
+    _check(t, "codes8", (torch.int8,), (n, F), dev, contiguous=False)
+    if (t.stride(1) != 1 or t.stride(0) < F or t.stride(0) % _ROW_ALIGN
+            or t.data_ptr() % _ROW_ALIGN):
+        raise ValueError("codes8 must be codes8_of's int8 rows, padded to "
+                         f"{_ROW_ALIGN} bytes")
+
+
 def _accumulate(codes, codes8, labels, weights, node_slot, active, L: int,
-                lay, low_precision: bool, n_classes: int):
-    """Checks the inputs, launches hist_accumulate (moment planes) or
-    hist_accumulate_cls (class planes: class ids and weights, one atomic
-    a (row, feature)). Returns (acc int64 [P, L, T], maxabs, n, feature
+                lay, low_precision: bool, n_classes: int, int_planes: bool):
+    """Checks the inputs, launches the pre-pass and the accumulate
+    (hist_accumulate) on the entry's own labels, weights, node ids and
+    active mask. Returns (acc int64 [P, L, T], maxabs, n, feature
     arrays)."""
     dev = codes.device
     n, F = codes.shape
     if F != len(lay.slots):
         raise ValueError(f"codes has {F} features, layout has "
                          f"{len(lay.slots)}")
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} rows: the kernels index rows in 32 bits")
     if codes8 is not None and lay.s_max <= _I8_SLOTS:
         src, is_i8 = codes8, 1
-        _check(src, "codes8", (torch.int8,), (n, F), dev)
+        _check_codes8(src, n, F, dev)
     else:
         src, is_i8 = codes, 0
         _check(src, "codes", (torch.int32,), (n, F), dev)
@@ -304,35 +609,24 @@ def _accumulate(codes, codes8, labels, weights, node_slot, active, L: int,
         _check(t, nm, (torch.float32,), (n,), dev)
     _check(node_slot, "node_slot", (torch.int32, torch.int64), (n,), dev)
     _check(active, "active", (torch.bool,), (n,), dev)
+    cls_mode = n_classes >= 3
     P = planes_of(n_classes)
     off, clip, slots, is_cat = _feature_arrays(lay, dev)
-    tiles, k, splits, rows_per, smem_bins = _plan(lay, L, n, P, dev)
+    plan, ttiles = _plan(lay, L, n_classes, bool(int_planes), dev)
     acc = torch.empty((P, L, lay.T), dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if n_classes >= 3:
-        # a row adds its weight to exactly one class plane: the kernel
-        # takes the class id and the weight instead of [n, K] comps
-        cls = labels.to(torch.int32).clamp(0, n_classes - 1).contiguous()
-        w = torch.where(active, weights, torch.zeros_like(weights))
-        nl = _nl_of(node_slot, active, L)
-        maxabs = (w.abs().amax()[None] if n else
-                  torch.zeros(1, device=dev)).contiguous()
-        rc = _lib().hist_accumulate_cls(
-            src.data_ptr(), is_i8, cls.data_ptr(), w.data_ptr(),
-            nl.data_ptr(), n, F, lay.T, L, n_classes, off.data_ptr(),
-            clip.data_ptr(), tiles.data_ptr(), k, splits, rows_per,
-            smem_bins, maxabs.data_ptr(), acc.data_ptr(), stream)
-        _raise_on(rc, "hist_accumulate_cls launch")
-        return acc, maxabs, n, (off, clip, slots, is_cat)
-    comps, nl = _prep(labels, weights, node_slot, active, L, low_precision)
-    comps = comps.contiguous()
-    maxabs = (comps.float().abs().amax(0) if n else
-              torch.zeros(3, device=dev)).contiguous()
+    maxabs = torch.empty(1 if cls_mode else 3, dtype=torch.float32,
+                         device=dev)
+    ws = torch.empty(_ws_bytes(n, plan.n_groups, cls_mode, dev),
+                     dtype=torch.uint8, device=dev)
     rc = _lib().hist_accumulate(
-        src.data_ptr(), is_i8, comps.data_ptr(),
-        int(comps.dtype == torch.bfloat16), nl.data_ptr(), n, F, lay.T, L,
-        off.data_ptr(), clip.data_ptr(), tiles.data_ptr(), k, splits,
-        rows_per, smem_bins, maxabs.data_ptr(), acc.data_ptr(), stream)
+        src.data_ptr(), is_i8, src.stride(0), labels.data_ptr(),
+        weights.data_ptr(), node_slot.data_ptr(),
+        int(node_slot.dtype == torch.int64), active.data_ptr(), n, L, lay.T,
+        n_classes if cls_mode else 0, int(low_precision), int(plan.bins32),
+        plan.l_n, plan.n_groups, ttiles.data_ptr(), len(plan.ttiles),
+        plan.NF, plan.tab_bytes, plan.smem, off.data_ptr(),
+        clip.data_ptr(), ws.data_ptr(), ws.numel(), maxabs.data_ptr(),
+        acc.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "hist_accumulate launch")
     return acc, maxabs, n, (off, clip, slots, is_cat)
 
@@ -374,10 +668,11 @@ def _finalize(acc, maxabs, n: int, L: int, lay, feats, n_classes: int,
 def hist_level(codes, labels, weights, node_slot, active, *, L: int, lay,
                low_precision: bool = False,
                codes8: Optional[torch.Tensor] = None,
-               n_classes: int = 0) -> torch.Tensor:
+               n_classes: int = 0, int_planes: bool = False) -> torch.Tensor:
     """Histogram-only entry: [C, L, T] f32 per-node slot sums of
     (w, w*y, w*y^2), or of w per class for n_classes >= 3, over active
-    rows."""
+    rows. `int_planes`: every plane value is an integer (32-bit shared
+    bins on the card; the same planes)."""
     if codes.device.type == "cpu":
         return hist_level_reference(codes, labels, weights, node_slot,
                                     active, L=L, lay=lay,
@@ -387,7 +682,7 @@ def hist_level(codes, labels, weights, node_slot, active, *, L: int, lay,
         raise ValueError(f"unsupported device {codes.device}")
     acc, maxabs, n, feats = _accumulate(codes, codes8, labels, weights,
                                         node_slot, active, L, lay,
-                                        low_precision, n_classes)
+                                        low_precision, n_classes, int_planes)
     hist, _ = _finalize(acc, maxabs, n, L, lay, feats, n_classes)
     launches[_entry("hist_level", n_classes)] += 1
     return hist
@@ -396,7 +691,8 @@ def hist_level(codes, labels, weights, node_slot, active, *, L: int, lay,
 def fused_level(codes, labels, weights, node_slot, active, feat_ok_t, *,
                 L: int, lay, impurity: str, min_inst: int, min_gain: float,
                 low_precision: bool = False,
-                codes8: Optional[torch.Tensor] = None, n_classes: int = 0):
+                codes8: Optional[torch.Tensor] = None, n_classes: int = 0,
+                int_planes: bool = False):
     """Fused entry for one tree level: (hist [C, L, T], scan 9-tuple)."""
     if codes.device.type == "cpu":
         return fused_level_reference(codes, labels, weights, node_slot,
@@ -414,10 +710,10 @@ def fused_level(codes, labels, weights, node_slot, active, feat_ok_t, *,
     cap = seg_cap(planes_of(n_classes), dev)
     acc, maxabs, n, feats = _accumulate(codes, codes8, labels, weights,
                                         node_slot, active, L, lay,
-                                        low_precision, n_classes)
-    fok = feat_ok_t.to(torch.float32)
+                                        low_precision, n_classes, int_planes)
     hist, planes = _finalize(acc, maxabs, n, L, lay, feats, n_classes,
-                             scan=(fok, impurity, min_inst, min_gain, cap))
+                             scan=(feat_ok_t, impurity, min_inst, min_gain,
+                                   cap))
     launches[_entry("fused_level", n_classes)] += 1
     return hist, _epilogue(hist, planes, feat_ok_t, lay, impurity, min_inst,
                            min_gain, n_classes, cap)

@@ -253,6 +253,23 @@ def comps_of(labels: torch.Tensor, weights: torch.Tensor,
     return comps.to(torch.bfloat16) if low_precision else comps
 
 
+def int_planes_of(labels: torch.Tensor, weights: torch.Tensor,
+                  n_classes: int, low_precision: bool) -> bool:
+    """Whether every histogram plane value of a forest is an integer, so
+    the kernels may sum them in their exact 32-bit shared bins: the row
+    weights are integers (an RF bag multiplies them by integer counts)
+    and, for the moment planes (w, w*y, w*y^2), so are the labels. GBT's
+    bf16 residual planes never are. Decided once a forest (one host
+    sync), never once a level."""
+    if low_precision:
+        return False
+
+    def whole(t):
+        return bool(torch.all(torch.isfinite(t) & (t == torch.trunc(t))))
+
+    return whole(weights) and (n_classes >= 3 or whole(labels))
+
+
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Exactly rounded f32 a * b + c, as a fused multiply-add gives it
     (CUDA's fmaf, XLA's contracted multiply-add): the f64 product of two
@@ -595,17 +612,19 @@ def _derive(p_hist, built, p_split, left_small):
 
 
 def _grow_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
-               sub_levels: tuple, lowp: bool):
+               sub_levels: tuple, lowp: bool, int_planes: bool = False):
     """One level-wise tree (counterpart of `_get_tree_program`'s body).
     Returns (feat_flat, mask_flat, leaf_flat, resting, row_pred) — the
-    flat arrays are the DenseTree level-order layout."""
+    flat arrays are the DenseTree level-order layout. `int_planes`: the
+    forest's `int_planes_of`."""
     D = cfg.max_depth
     dev = codes.device
     n = codes.shape[0]
     sl = scan_layout(lay, dev)
     min_inst = max(cfg.min_instances_per_node, 1)
     K = cfg.n_classes
-    kw = dict(lay=lay, low_precision=lowp, codes8=codes8, n_classes=K)
+    kw = dict(lay=lay, low_precision=lowp, codes8=codes8, n_classes=K,
+              int_planes=int_planes)
     skw = dict(impurity=cfg.impurity, min_inst=min_inst,
                min_gain=cfg.min_info_gain)
     node = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -962,6 +981,9 @@ def train_trees(
     # level-independent), when every feature fits 128 slots
     codes8 = (hist_kernel.codes8_of(codes_t, lay) if lay.s_max <= 128
               else None)
+    # RF planes under integer weights (and, for the moments, labels) are
+    # integers: the kernels' 32-bit shared bins, decided once a forest
+    int_planes = int_planes_of(y_t, base_w, cfg.n_classes, lowp)
     fot_all = (torch.ones(lay.T, dtype=torch.bool, device=dev)
                if k_sub >= F else None)
 
@@ -997,7 +1019,7 @@ def train_trees(
             feat_oks[k][lay.seg_of_t], device=dev)
         feats_d, masks_d, leaves_d, _resting, tree_pred = _grow_tree(
             codes_t, codes8, labels_k, w_k, fot, lay=lay, cfg=cfg,
-            sub_levels=sub_levels, lowp=lowp)
+            sub_levels=sub_levels, lowp=lowp, int_planes=int_planes)
         _record_hist_counters(*sub_counts)
         weight_k = 1.0 if (is_gbt and k == 0) else (lr if is_gbt else 1.0)
         deferred.append((k, weight_k, feats_d, masks_d, leaves_d))

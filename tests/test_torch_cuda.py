@@ -76,8 +76,8 @@ def test_hist_kernel_matches_plain(dev, L):
 @pytest.mark.cuda
 def test_bf16_planes_close_and_deterministic(dev):
     """Float GBT planes: counts exact, moments within summation-order
-    tolerance of the plain version, and two launches give the same
-    bits."""
+    tolerance of the plain version and bit-equal to the fixed-point plain
+    version, and two launches give the same bits."""
     lay, codes, _y, _w, node, act = _case(dev, [33] * 30, [False] * 30,
                                           100_000, 16, 2)
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -87,10 +87,12 @@ def test_bf16_planes_close_and_deterministic(dev):
     h1 = hk.hist_level(codes, y, w, node, act, **kw)
     h2 = hk.hist_level(codes, y, w, node, act, **kw)
     hp = hk.hist_level_reference(codes, y, w, node, act, **kw)
+    hf = hk.hist_level_fixed_reference(codes, y, w, node, act, **kw)
     torch.cuda.synchronize()
     assert torch.equal(h1, h2)
     assert torch.equal(h1[0], hp[0])
     torch.testing.assert_close(h1, hp, rtol=1e-4, atol=1e-3)
+    assert torch.equal(h1, hf)
 
 
 @pytest.mark.cuda
@@ -101,6 +103,106 @@ def test_wrappers_raise_on_bad_inputs(dev):
         hk.hist_level(codes.long(), y, w, node, act, L=2, lay=lay)
     with pytest.raises(ValueError):
         hk.hist_level(codes, y.cpu(), w, node, act, L=2, lay=lay)
+    with pytest.raises(ValueError):  # int8 rows not padded to 16 bytes
+        hk.hist_level(codes, y, w, node, act, L=2, lay=lay,
+                      codes8=codes.to(torch.int8))
+    with pytest.raises(TypeError):
+        hk.hist_level(codes, y, w, node, act.float(), L=2, lay=lay)
+
+
+def _level(dev, slots, n, L, seed, *, K=0, weights="poisson",
+           labels="binary", rows="random", node64=False):
+    """Level inputs on the card: Poisson, fractional or unit weights;
+    0/1, float or class labels; node ids (int32, or int64 with node64)
+    with a few out of range; the active rows random (90%), none, or the
+    built smaller child of a split holding ~1% / ~99% of them."""
+    rng = np.random.default_rng(seed)
+    codes = np.stack([rng.integers(0, s - 1, size=n) for s in slots],
+                     1).astype(np.int32)
+    if K >= 3:
+        y = ((codes[:, 0] + codes[:, -1]) % K).astype(np.float32)
+    elif labels == "float":
+        y = (rng.random(n) - 0.35).astype(np.float32)
+    else:
+        y = (codes[:, 0] >= slots[0] // 2).astype(np.float32)
+    w = {"poisson": rng.poisson(1.0, size=n), "frac": rng.random(n) * 3,
+         "ones": np.ones(n)}[weights].astype(np.float32)
+    node = rng.integers(-1, L + 1, size=n).astype(
+        np.int64 if node64 else np.int32)
+    if rows == "random":
+        act = rng.random(n) < 0.9
+    elif rows == "none":
+        act = np.zeros(n, bool)
+    else:  # a split's smaller child, built at L nodes (parent ids)
+        left = rng.random(n) < {"small1": 0.01, "small99": 0.99}[rows]
+        act = left & (rng.random(n) < 0.95)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    lay = tt.make_layout(slots, [False] * len(slots))
+    return lay, t(codes), t(y), t(w), t(node), t(act)
+
+
+BENCH_RF = [33] * 20 + [65] * 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,slots,n,L,K,kw,int_planes", [
+    ("class fractional weights (64-bit)", BENCH_RF, 30_000, 8, 5,
+     dict(weights="frac"), False),
+    ("class fractional weights, told integer", BENCH_RF, 30_000, 8, 5,
+     dict(weights="frac"), True),
+    ("smaller child 1%", BENCH_RF, 60_000, 16, 0, dict(rows="small1"), True),
+    ("smaller child 99%", BENCH_RF, 60_000, 16, 0, dict(rows="small99"),
+     True),
+    ("class smaller child 1%", BENCH_RF, 60_000, 16, 5, dict(rows="small1"),
+     True),
+    ("class smaller child 99%", BENCH_RF, 60_000, 16, 5,
+     dict(rows="small99"), True),
+    ("K=32 L=64", BENCH_RF, 40_000, 64, 32, {}, True),
+    ("K=32 L=64 (64-bit)", BENCH_RF, 40_000, 64, 32, {}, False),
+    ("gbt bf16", [33] * 30, 50_000, 32, 0,
+     dict(labels="float", weights="ones"), False),
+    ("int32 codes (200 slots)", [33] * 8 + [200, 65], 30_000, 8, 0, {},
+     True),
+    ("class int32 codes (200 slots)", [33] * 8 + [200, 65], 30_000, 8, 3,
+     {}, True),
+    ("n not a multiple of 8", BENCH_RF, 30_001, 32, 0, {}, True),
+    ("float labels, moment (64-bit)", BENCH_RF, 30_000, 64, 0,
+     dict(labels="float"), False),
+    ("L=1, one node group", BENCH_RF, 30_000, 1, 0, {}, True),
+    ("class L=1, int64 node ids", BENCH_RF, 30_000, 1, 5,
+     dict(node64=True), True),
+    ("all rows inactive", BENCH_RF, 30_000, 8, 0, dict(rows="none"), True),
+    ("class all rows inactive", BENCH_RF, 30_000, 64, 5, dict(rows="none"),
+     True),
+    ("n = 0", BENCH_RF, 0, 8, 0, {}, True),
+    ("class n = 0", BENCH_RF, 0, 8, 3, {}, False),
+    ("n = 1", BENCH_RF, 1, 8, 0, {}, True),
+    ("gbt bf16 n = 1", [33] * 30, 1, 4, 0,
+     dict(labels="float", weights="ones"), False),
+])
+def test_kernel_planes_equal_fixed_reference(dev, case, slots, n, L, K, kw,
+                                             int_planes):
+    """Every mode and route of the accumulate: the kernel's planes are the
+    fixed-point plain version's bit for bit, two launches give the same
+    bits, and the fused entry's planes equal the histogram entry's."""
+    lay, codes, y, w, node, act = _level(dev, slots, n, L, 7, K=K, **kw)
+    lowp = kw.get("labels") == "float" and kw.get("weights") == "ones"
+    c8 = hk.codes8_of(codes, lay) if lay.s_max <= 128 else None
+    args = (codes, y, w, node, act)
+    hkw = dict(L=L, lay=lay, low_precision=lowp, n_classes=K)
+    h1 = hk.hist_level(*args, codes8=c8, int_planes=int_planes, **hkw)
+    h2 = hk.hist_level(*args, codes8=c8, int_planes=int_planes, **hkw)
+    hf = hk.hist_level_fixed_reference(*args, **hkw)
+    torch.cuda.synchronize()
+    assert torch.equal(h1, h2), case
+    assert torch.equal(h1, hf), case
+    if L <= 32:
+        fok = torch.ones(lay.T, dtype=torch.bool, device=dev)
+        h3, _out = hk.fused_level(*args, fok, codes8=c8, impurity="gini",
+                                  min_inst=2, min_gain=0.0,
+                                  int_planes=int_planes, **hkw)
+        torch.cuda.synchronize()
+        assert torch.equal(h3, hf), case
 
 
 def _class_case(dev, K, n, L, seed):

@@ -393,10 +393,23 @@ def test_kernel_epilogue_reproduces_class_reference(K, cap):
     assert bool(ref[4].any())
 
 
+def _tiles_seen(plan, L, T):
+    """How often each (node, slot) bin lies in a tile of the plan."""
+    seen = np.zeros((L, T), np.int32)
+    for g in range(plan.n_groups):
+        l_lo = g * plan.l_n
+        for f_lo, f_hi, t_lo, t_w, _nf in plan.ttiles:
+            seen[l_lo:l_lo + plan.l_n, t_lo:t_lo + t_w] += 1
+    return seen
+
+
 def test_class_mode_segment_cap_and_tiles():
     """Shared memory a class-mode scan needs: (2K + 3) words a slot, so
     1,024 slots fit for K <= 28 in 227 KB (232,448 B) and K = 32 scans
-    867; the accumulate tile holds 3 * 8192 // K bins a plane."""
+    867; the accumulate tile holds its K planes' bins (32- or 64-bit) and
+    the feature table in the shared memory of `tile_bytes_for` (at most a
+    little more where the widest slot range and the longest feature table
+    are two ranges)."""
     optin = 232_448
     assert hk.seg_cap_for(3, optin) == hk.SEG_CAP
     assert hk.seg_cap_for(8, optin) == hk.SEG_CAP
@@ -405,12 +418,15 @@ def test_class_mode_segment_cap_and_tiles():
     assert hk.seg_cap_for(32, optin) * (2 * 32 + 3) * 4 <= optin
     lay = tt.make_layout([33] * 20 + [65] * 10, [False] * 20 + [True] * 10)
     for K in (3, 8, 32):
-        tiles, bins = hk._tiles(lay, 128, K)
-        assert bins * K <= 3 * hk.SMEM_BINS
-        seen = np.zeros((128, lay.T), np.int32)
-        for f_lo, f_hi, t_lo, t_w, l_lo, l_n in tiles:
-            seen[l_lo:l_lo + l_n, t_lo:t_lo + t_w] += 1
-        assert (seen == 1).all()
+        for bins32 in (False, True):
+            plan = hk.plan_accumulate(lay, 128, K, bins32)
+            assert plan.planes == K
+            bb = K * (4 if bins32 else 8)
+            assert plan.smem == (plan.tab_bytes
+                                 + bb * plan.l_n * int(plan.ttiles[:, 3].max()))
+            assert plan.smem <= hk.SMEM_BLOCK_MAX
+            assert plan.smem <= hk.tile_bytes_for(K, bins32) + 16 * 30
+            assert (_tiles_seen(plan, 128, lay.T) == 1).all()
 
 
 def test_cpu_wrappers_run_plain_versions_and_count():
@@ -438,17 +454,240 @@ def test_cpu_wrappers_run_plain_versions_and_count():
 
 
 def test_tiles_cover_every_bin_within_shared_memory():
-    """The accumulate tiling covers each (node, slot) bin exactly once and
-    every tile fits the kernel's shared-memory budget."""
+    """The accumulate tiling covers each (node, slot) bin exactly once,
+    its slot ranges end on feature boundaries (only a feature wider than
+    a tile is split, so each (row, feature) pair falls in one tile), and
+    every block fits the kernel's shared-memory budget."""
     for slots, L in (([33] * 30, 32), ([33] * 20 + [65] * 10, 128),
                      ([9] * 6 + [2001], 16), ([10_000], 1)):
         lay = tt.make_layout(slots, [False] * len(slots))
-        tiles, smem_bins = hk._tiles(lay, L)
-        assert smem_bins <= hk.SMEM_BINS
-        seen = np.zeros((L, lay.T), np.int32)
-        for f_lo, f_hi, t_lo, t_w, l_lo, l_n in tiles:
-            assert l_n * t_w <= smem_bins
-            assert f_lo == lay.seg_of_t[t_lo]
-            assert f_hi - 1 == lay.seg_of_t[t_lo + t_w - 1]
-            seen[l_lo:l_lo + l_n, t_lo:t_lo + t_w] += 1
-        assert (seen == 1).all()
+        for bins32 in (False, True):
+            plan = hk.plan_accumulate(lay, L, 0, bins32)
+            assert plan.smem <= hk.SMEM_BLOCK_MAX
+            assert plan.n_groups * plan.l_n >= L > (plan.n_groups - 1) * plan.l_n
+            nf_before = 0
+            for f_lo, f_hi, t_lo, t_w, nf in plan.ttiles:
+                assert nf == nf_before
+                nf_before += f_hi - f_lo
+                assert f_lo == lay.seg_of_t[t_lo]
+                assert f_hi - 1 == lay.seg_of_t[t_lo + t_w - 1]
+                if f_hi - f_lo > 1 or t_w == lay.slots[f_lo]:
+                    assert t_lo == lay.off[f_lo]
+                    assert t_lo + t_w == lay.off[f_hi - 1] + lay.slots[f_hi - 1]
+            assert nf_before == plan.NF
+            assert (_tiles_seen(plan, L, lay.T) == 1).all()
+
+
+# ---------------------------------------------------------------------------
+# the exact fixed-point yardstick and the kernels' plan, on the CPU
+# ---------------------------------------------------------------------------
+
+RF_SLOTS = [33] * 20 + [65] * 10
+RF_CAT = [False] * 20 + [True] * 10
+
+
+def _level(n, L, seed, *, slots=RF_SLOTS, K=0, weights="poisson",
+           labels="binary", rows="random"):
+    """Level inputs as numpy: codes, labels (0/1, float residuals or class
+    ids), weights (Poisson bags, fractional or large integers), node ids
+    in [0, L) with a few out of range (the kernels clamp them), and the
+    active mask of `rows`: "random" (90%), "small1"/"small99" (the built
+    smaller child holding ~1% / ~99% of the rows), "none" (all
+    inactive)."""
+    rng = np.random.default_rng(seed)
+    codes = np.stack([rng.integers(0, s - 1, size=n) for s in slots],
+                     1).astype(np.int32)
+    if K >= 3:
+        y = ((codes[:, 0] + codes[:, -1]) % K).astype(np.float32)
+    elif labels == "float":
+        y = (rng.random(n) - 0.35).astype(np.float32)
+    else:
+        y = (codes[:, 0] >= slots[0] // 2).astype(np.float32)
+    w = {"poisson": lambda: rng.poisson(1.0, size=n),
+         "frac": lambda: rng.random(n) * 3,
+         "big": lambda: rng.integers(1, 4, size=n) * 3_000_000,
+         "huge": lambda: np.where(rng.random(n) < 0.01, 2.0 ** 25 + 1,
+                                  rng.integers(0, 3, size=n))}[weights]()
+    w = w.astype(np.float32)
+    node = rng.integers(-1, L + 1, size=n).astype(np.int32)
+    frac = {"random": 0.9, "small1": 0.01, "small99": 0.99, "none": 0.0}
+    act = rng.random(n) < frac[rows]
+    return codes, y, w, node, act
+
+
+def _t(*arrs):
+    return [torch.as_tensor(a) for a in arrs]
+
+
+@pytest.mark.parametrize("K", [0, 4])
+def test_fixed_reference_matches_plain_and_jax(K):
+    """The exact fixed-point plain version: bit-equal to the f32 plain
+    version and to the JAX package's Pallas kernel (interpret mode) and
+    XLA histogram on integer planes, both modes; on float moment planes
+    (GBT's bf16 residuals) within the moment tolerance of the f32 sums."""
+    slots, is_cat, codes, _y, w, rng = _mixed_case()
+    L = 8
+    y = (_class_labels(codes, K) if K else
+         (codes[:, 0] >= 4).astype(np.float32))
+    node = rng.integers(0, L, size=len(y)).astype(np.int32)
+    active = rng.random(len(y)) < 0.9
+    lay = tt.make_layout(slots, is_cat)
+    args = _t(codes, y, w, node, active)
+    fixed = hk.hist_level_fixed_reference(*args, L=L, lay=lay, n_classes=K)
+    plain = hk.hist_level_reference(*args, L=L, lay=lay, n_classes=K)
+    assert torch.equal(fixed, plain)
+    jlay = make_layout(slots, is_cat)
+    jargs = (jnp.asarray(codes), jnp.asarray(y), jnp.asarray(w),
+             jnp.asarray(node), jnp.asarray(active))
+    h_pl = jax.jit(make_pallas_hist_fn(L, jlay, n_classes=K,
+                                       interpret=True))(*jargs)
+    np.testing.assert_array_equal(fixed.numpy(), np.asarray(h_pl))
+    if K == 0:
+        np.testing.assert_array_equal(
+            fixed.numpy(), _jax_scatter_hist(L, slots, is_cat, codes, y, w,
+                                             node, active))
+        # float moment planes, bf16 as GBT sends them
+        yf = (rng.random(len(y)) - 0.4).astype(np.float32)
+        args = _t(codes, yf, np.ones_like(w), node, active)
+        fixed = hk.hist_level_fixed_reference(*args, L=L, lay=lay,
+                                              low_precision=True)
+        plain = hk.hist_level_reference(*args, L=L, lay=lay,
+                                        low_precision=True)
+        assert torch.equal(fixed[0], plain[0])
+        lim = 1e-4 * plain.abs() + 1e-5 * plain.abs().amax((1, 2),
+                                                           keepdim=True)
+        assert bool(((fixed - plain).abs() <= lim).all())
+        h_pl = jax.jit(make_pallas_hist_fn(L, jlay, interpret=True,
+                                           low_precision=True))(
+            jnp.asarray(codes), jnp.asarray(yf), jnp.ones(len(yf)),
+            jnp.asarray(node), jnp.asarray(active))
+        np.testing.assert_allclose(fixed.numpy(), np.asarray(h_pl),
+                                   rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("K", [0, 3, 5, 32])
+@pytest.mark.parametrize("L", [1, 8, 32, 64, 128])
+def test_prepass_groups_every_live_row_once(L, K):
+    """The pre-pass's plain emulation and the tile planner: every live row
+    (active, weight != 0) lands in exactly one group, the group of its
+    clamped node; every (plane, node, slot) bin lies in exactly one tile;
+    a block's shared memory fits 232,448 B; the grouped accumulate keeps
+    every 32-bit bin within 2^31 - 1 and equals the ungrouped fixed point
+    bit for bit. Row masks: random, a smaller child of 1% and of 99%,
+    all inactive; and n = 0 and 1."""
+    lay = tt.make_layout(RF_SLOTS, RF_CAT)
+    cases = [(3000, rows) for rows in ("random", "small1", "small99",
+                                       "none")] + [(0, "random"),
+                                                   (1, "random")]
+    for bins32 in (True, False):
+        plan = hk.plan_accumulate(lay, L, K, bins32)
+        assert plan.smem <= 232_448
+        assert (_tiles_seen(plan, L, lay.T) == 1).all()
+        for n, rows in cases:
+            codes, y, w, node, act = _level(n, L, 11 + L + K, K=K, rows=rows)
+            args = _t(codes, y, w, node, act)
+            gstart, grow, meta, vals, maxabs = hk.group_rows_reference(
+                *args[1:], L=L, plan=plan, n_classes=K)
+            live = np.flatnonzero(act & (w != 0))
+            assert sorted(grow.tolist()) == live.tolist()
+            nl = np.clip(node, 0, L - 1)
+            g_of = np.repeat(np.arange(plan.n_groups), np.diff(gstart.numpy()))
+            np.testing.assert_array_equal(g_of, nl[grow.numpy()] // plan.l_n)
+            np.testing.assert_array_equal(
+                (meta & 0xFFFF).numpy() + g_of * plan.l_n, nl[grow.numpy()])
+            if K:
+                np.testing.assert_array_equal(
+                    (meta >> 16).numpy(), y[grow.numpy()].astype(np.int64))
+            acc = hk.accumulate_reference(args[0], (gstart, grow, meta, vals,
+                                                    maxabs), L=L, lay=lay,
+                                          plan=plan, n=n)
+            ref, ref_max = hk.fixed_acc_reference(*args, L=L, lay=lay,
+                                                  n_classes=K)
+            assert torch.equal(maxabs, ref_max)
+            assert torch.equal(acc, ref), (n, rows, bins32)
+
+
+@pytest.mark.parametrize("case", ["gbt_bf16", "frac_weights_32", "frac_64",
+                                  "int32_codes", "big_weights_32",
+                                  "huge_weights_32", "class_frac_32",
+                                  "n_odd", "float_labels_32"])
+def test_grouped_accumulate_equals_ungrouped(case):
+    """The kernels' plan step for step (pre-pass groups, the pairs cut
+    into equal spans over blocks, per-tile bins, 32-bit bins flushed as
+    v * 2^S every row_cap rows, rows that are no small integers sent to
+    the global accumulator) gives the ungrouped fixed point bit for bit,
+    whatever the trainer's int_planes says: GBT bf16 planes, fractional
+    weights on either route, a 200-slot feature (int32 codes), integer
+    weights large enough to make several flushes a block, weights past
+    2^24, fractional class weights, float labels, n not a multiple of 8,
+    and blocks that cut through groups and tiles."""
+    slots, K, lowp, bins32, n = RF_SLOTS, 0, False, True, 3000
+    kw = {}
+    if case == "gbt_bf16":
+        kw, lowp, bins32 = dict(labels="float", weights="frac"), True, False
+    elif case == "frac_weights_32":
+        kw = dict(weights="frac")
+    elif case == "frac_64":
+        kw, bins32 = dict(weights="frac"), False
+    elif case == "int32_codes":
+        slots = [33] * 8 + [200, 65]
+    elif case == "big_weights_32":
+        kw = dict(weights="big")
+    elif case == "huge_weights_32":
+        kw = dict(weights="huge")
+    elif case == "class_frac_32":
+        K, kw = 5, dict(weights="frac")
+    elif case == "n_odd":
+        n = 2999
+    elif case == "float_labels_32":
+        kw = dict(labels="float")
+    L = 16
+    lay = tt.make_layout(slots, [False] * len(slots))
+    codes, y, w, node, act = _level(n, L, 3, slots=slots, K=K, **kw)
+    args = _t(codes, y, w, node, act)
+    plan = hk.plan_accumulate(lay, L, K, bins32, tile_bytes=6 * 1024)
+    assert plan.n_groups > 1 and len(plan.ttiles) > 1
+    grouped = hk.group_rows_reference(*args[1:], L=L, plan=plan,
+                                      low_precision=lowp, n_classes=K)
+    ref, _m = hk.fixed_acc_reference(*args, L=L, lay=lay, low_precision=lowp,
+                                     n_classes=K)
+    for blocks in (1, 7, 64):
+        acc = hk.accumulate_reference(args[0], grouped, L=L, lay=lay,
+                                      plan=plan, n=n, blocks=blocks)
+        assert torch.equal(acc, ref), blocks
+    planes = hk.fixed_planes(ref, grouped[4], n)
+    exact = hk.hist_level_fixed_reference(*args, L=L, lay=lay,
+                                          low_precision=lowp, n_classes=K)
+    assert torch.equal(planes, exact)
+
+
+def test_int_planes_decision():
+    """32-bit shared bins only where every plane value is an integer:
+    Poisson-bagged integer weights with 0/1 labels, or any integer
+    weights in class mode; fractional weights, float labels (regression
+    RF: w*y is then no integer) and GBT's bf16 planes take 64 bits."""
+    rng = np.random.default_rng(0)
+    n = 1000
+    bag = torch.as_tensor(rng.poisson(1.0, size=n).astype(np.float32))
+    y01 = torch.as_tensor((rng.random(n) < 0.3).astype(np.float32))
+    yf = torch.as_tensor(rng.random(n).astype(np.float32))
+    ones = torch.ones(n)
+    assert tt.int_planes_of(y01, ones * bag, 0, False)
+    assert tt.int_planes_of(yf, ones * bag, 5, False)
+    assert not tt.int_planes_of(yf, ones * bag, 0, False)
+    assert not tt.int_planes_of(y01, (ones * 0.5) * bag, 0, False)
+    assert not tt.int_planes_of(y01, (ones * 0.5) * bag, 5, False)
+    assert not tt.int_planes_of(y01, ones * bag, 0, True)
+
+
+def test_codes8_rows_padded_for_wide_loads():
+    """codes8_of's rows sit 16 bytes apart in memory (the kernel reads
+    them 16 bytes at a time) and hold the clamped int8 codes."""
+    slots, is_cat, codes, *_ = _mixed_case(n=50, seed=1)
+    lay = tt.make_layout(slots, is_cat)
+    c8 = hk.codes8_of(torch.as_tensor(codes), lay)
+    assert c8.shape == codes.shape and c8.stride() == (16, 1)
+    np.testing.assert_array_equal(c8.numpy()[:, :8], codes[:, :8])
+    wide = hk.codes8_of(torch.zeros((3, 17), dtype=torch.int32),
+                        tt.make_layout([9] * 17, [False] * 17))
+    assert wide.stride() == (32, 1)
