@@ -7,8 +7,8 @@ Phases, each of which must pass:
 
 1. build   compiles `shifu_tpu_torch/csrc/hist_level.cu` with nvcc for
            sm_90a (a fresh build, never a cached library).
-2. kernels holds both entries of the histogram -> split-scan kernel
-           (`fused_level`, `hist_level`) against their plain PyTorch
+2. kernels holds the histogram entries of the histogram -> split-scan
+           kernels (`fused_level`, `hist_level`) against their plain PyTorch
            versions on the card, at the bench `gbt` shape (L = 1..32,
            bf16 planes, int8 codes), the bench `rf` shape (L = 64 and 128,
            histogram only, f32 planes) and the bench `gbt_wide` shape (int32
@@ -24,7 +24,15 @@ Phases, each of which must pass:
            rtol 1e-6. It times kernel, plain version and, where there is
            one, the library call, and, from the torch profiler, the
            pre-pass, accumulate and finalize kernels' device time and the
-           device launches of one entry call.
+           device launches of one entry call. Then the scan-only entry
+           (`scan_level`, `scan_level_mc`) at the main path's shapes:
+           derived siblings of bench `gbt` (L = 1, 16, bf16) and `rf`
+           (L = 32), the L = 128 levels, K = 3/5/8/32, node totals past
+           2^24 and a bench `gbt_wide` level (its 2,001-slot column takes
+           the torch scan): per-slot planes against
+           `scan_planes_reference` and the 9-tuple against the plain
+           scan, bit for bit on integer planes; timed beside the plain
+           torch scan the parent's main path ran.
 3. gbt     bench `gbt` (500k x 30 x 33 slots, 5 trees, depth 6): CleanedData
            written with `write_codes`, `load_codes`, `train_trees` on cuda,
            a second run bit-equal, the `.gbt` saved, loaded and scored on
@@ -44,6 +52,10 @@ Phases, each of which must pass:
            `gbt` shape, 5 trees, depth 6: three `model<k>.gbt`, a second
            card run bit-equal, scores within 0.03 of the CPU run.
 
+Every main-path run (phases 3-6) must launch the scan entry once for each
+subtraction level of each tree (bench `gbt` 25, `rf` 70, NATIVE 70,
+ONEVSALL 75) and run no plain torch scan on the card.
+
 It prints the card and its power limit, a `kernels` JSON line, and as its
 last line {"ok": true, "device": {...}}. It exits non-zero without a CUDA
 device, outside a checkout of the repository, or when any phase fails.
@@ -52,7 +64,8 @@ The per-shape details go to --out.
     python3 chip_smoke.py --entries [--package-root DIR]
 
 only times one call of each entry at the shapes of the `kernels` line
-and at the bench `gbt` L = 32 and `gbt_wide` L = 1, 8, 32 levels (entry
+and at the bench `gbt` L = 32 and `gbt_wide` L = 1, 8, 32 levels (the
+scan entry where the package has one; entry
 ms; device ms of its kernels and device launches a call, from the
 profiler), with `shifu_tpu_torch` imported from DIR (default: this
 checkout), appends a line to entries.jsonl beside the --out file and
@@ -167,37 +180,36 @@ def _device_counts(prof, reps: int) -> dict:
     return out
 
 
-# the port's three CUDA kernels, by the name the profiler gives them
-# ("hist_accumulate" also names the two accumulate kernels of checkouts
-# from before the pre-pass, for --entries against one)
+# the port's CUDA kernels, by the name the profiler gives them
 HIST_KERNELS = (("prepass", "hist_group_kernel"),
                 ("accumulate", "hist_accumulate"),
-                ("finalize", "hist_finalize_kernel"))
+                ("finalize", "hist_finalize_kernel"),
+                ("scan", "hist_scan_kernel"))
 
 
-def device_split_ms(torch, fn, reps: int = 5) -> dict:
-    """Per call, from the torch profiler: device time of the port's
-    pre-pass, accumulate kernel (either mode) and finalize kernel, of
-    everything the call ran on the device, and the number of device
-    launches (kernels, copies, fills) of one call. None where the
-    profiler recorded no device activity, or lost some of it."""
+def device_split_ms(torch, fn, reps: int = 5,
+                    once: str = "hist_accumulate") -> dict:
+    """Per call, from the torch profiler: device time of each of the
+    port's kernels, of everything the call ran on the device, and the
+    number of device launches (kernels, copies, fills) of one call. None
+    where the profiler recorded no device activity, or lost some of it
+    (the kernel `once` not once a call)."""
     fn()
     torch.cuda.synchronize()
-    # a profile that lost events (the accumulate not once a call) is
-    # taken again, and after a few such profiles not measured
+    # a profile that lost events is taken again, and after a few such
+    # profiles not measured
     for _attempt in range(4):
         with _profile(torch) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         counts = _device_counts(prof, reps)
-        whole = sum(c for n, c in counts.items()
-                    if "hist_accumulate" in n) == 1
+        whole = sum(c for n, c in counts.items() if once in n) == 1
         if whole:
             break
     times = _device_times(prof, reps)
     if not times or not whole:
-        return dict(prepass_ms=None, accumulate_ms=None, finalize_ms=None,
+        return dict({f"{k}_ms": None for k, _n in HIST_KERNELS},
                     device_busy_ms=None, device_launches=None)
     pick = lambda k: sum(v for n, v in times.items() if k in n) / 1e3  # noqa
     out = {f"{k}_ms": pick(name) for k, name in HIST_KERNELS}
@@ -271,6 +283,31 @@ def class_level_bound_ms(n_rows: int, n_live: int, F: int,
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
+def finalize_bound_ms(P: int, L: int, T: int) -> float:
+    """Bound of the fused entry's finalize kernel (ms; bytes bound it):
+    the int64 accumulator [P, L, T] and feat_ok read once, the f32
+    histogram, gain/rank/left count [L, T] and node totals [L, P]
+    written once."""
+    t_bytes = P * L * T * (8 + 4) + T + L * T * 12 + L * P * 4
+    return t_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def scan_bound_ms(P: int, L: int, lay, K: int) -> tuple:
+    """(bound ms, 'bytes' or 'operations') of one scan-only entry call:
+    the f32 planes [P, L, T] and feat_ok read once, gain/rank/left count
+    [L, T] and node totals [L, P] written once. Operations: the pairwise
+    rank of this layout's categorical segments (size^2 a node), ~40 f32
+    ops per (node, slot), ~12 per class and ~20 more in class mode."""
+    T = lay.T
+    t_bytes = P * L * T * 4 + T + L * T * 12 + L * P * 4
+    cat = sum(int(s) ** 2 for s, o in zip(lay.slots, lay.off)
+              if lay.is_cat_t[o])
+    ops = L * (cat + T * ((12 * K + 20) if K >= 3 else 40))
+    b_ms = t_bytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / F32_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
 def accumulate_bound_ms(n_rows: int, n_live: int, F: int, code_bytes: int,
                         P: int, L: int, T: int) -> float:
     """Bound of a level's pre-pass + accumulate (ms; bytes bound them):
@@ -285,7 +322,8 @@ def accumulate_bound_ms(n_rows: int, n_live: int, F: int, code_bytes: int,
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-ENTRIES = ("fused_level", "hist_level", "fused_level_mc", "hist_level_mc")
+ENTRIES = ("fused_level", "hist_level", "scan_level", "fused_level_mc",
+           "hist_level_mc", "scan_level_mc")
 # class counts of the multi-class checks: 5 is the main path's (phase 5),
 # 8 passes the 48 KB static shared-memory limit, 32 passes the point
 # where a 1,024-slot segment of 32 planes fits in 227 KB
@@ -413,11 +451,16 @@ def check_hist(torch, hk, stats, tag, codes, codes8, lay, L, y, w, node, act,
 def _split(case) -> str:
     if case["device_busy_ms"] is None:
         return "; profiler: device time lost or not recorded, not measured"
-    bound = (f" (together against a bound of {case['acc_bound_ms']:.4f} ms)"
-             if "acc_bound_ms" in case else "")
-    return (f"; profiler: pre-pass {case['prepass_ms']:.4f} ms, accumulate "
-            f"{case['accumulate_ms']:.4f} ms{bound}, finalize "
-            f"{case['finalize_ms']:.4f} ms, device busy "
+    bounds = {"accumulate": case.get("acc_bound_ms"),
+              "finalize": case.get("finalize_bound_ms")}
+    parts = []
+    for k, _name in HIST_KERNELS:
+        ms, b = case.get(f"{k}_ms"), bounds.get(k)
+        if ms:
+            with_pre = ", with the pre-pass" if k == "accumulate" else ""
+            parts.append(f"{k} {ms:.4f} ms" + (
+                f" (bound {b:.4f} ms{with_pre})" if b is not None else ""))
+    return (f"; profiler: {', '.join(parts)}, device busy "
             f"{case['device_busy_ms']:.4f} ms in "
             f"{case['device_launches']:.0f} device launches a call")
 
@@ -470,10 +513,11 @@ def _time_entry(torch, hk, entry, codes, codes8, lay, L, y, w, node, act,
                                    lay.T, lay.s_max, fused)
     acc_bound = accumulate_bound_ms(n, _live_rows(w, act), F, cb,
                                     hk.planes_of(K), L, lay.T)
+    fin = finalize_bound_ms(hk.planes_of(K), L, lay.T) if fused else None
     return dict(ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
                 library_ms=(time_ms(torch, library) if library else None),
                 bound_ms=bound, bound_by=by, acc_bound_ms=acc_bound,
-                **device_split_ms(torch, kern))
+                finalize_bound_ms=fin, **device_split_ms(torch, kern))
 
 
 def phase_kernels(torch, dev, hk, tt, gbt_codes_np, rf_data, seed):
@@ -713,9 +757,9 @@ def entry_profile(torch, dev, hk, tt, gbt_codes_np, rf_data, seed) -> list:
     """One call of each entry at the kernels line's shapes, the bench
     `gbt` L = 32 level and the bench `gbt_wide` levels L = 1, 8, 32 (int32
     codes): entry ms (CUDA events) and, from the profiler, its kernels'
-    device ms and its device launches a call."""
-    import inspect
-
+    device ms and its device launches a call. The scan entry where the
+    package has one (the bench `rf` L = 32 derived sibling and L = 128
+    level, K = 5 at L = 32)."""
     r_codes_np, r_slots, r_cat = rf_data
     w_codes_np, w_slots, w_cat = wide_data(seed)
     g_lay = tt.make_layout([GBT["bins"] + 1] * GBT["f"], [False] * GBT["f"])
@@ -726,8 +770,6 @@ def entry_profile(torch, dev, hk, tt, gbt_codes_np, rf_data, seed) -> list:
             "rf": (r_codes, hk.codes8_of(r_codes, r_lay), r_lay),
             "wide": (torch.as_tensor(w_codes_np).to(dev), None,
                      tt.make_layout(w_slots, w_cat))}
-    # checkouts from before the pre-pass take no int_planes
-    has_ip = "int_planes" in inspect.signature(hk.hist_level).parameters
     cases = []  # (name, entry, data, L, K, lowp, inputs)
     for L in (1, 32):
         cases.append((f"fused_level gbt L={L}", "fused", "gbt", L, 0, True,
@@ -743,13 +785,18 @@ def entry_profile(torch, dev, hk, tt, gbt_codes_np, rf_data, seed) -> list:
     for L in (1, 8, 32):
         cases.append((f"fused_level gbt_wide L={L}", "fused", "wide", L, 0,
                       True, _wide_case(torch, dev, w_codes_np, L, seed)))
+    if hasattr(hk, "scan_level"):
+        for L, K, derived in ((32, 0, True), (128, 0, False), (32, 5, True)):
+            h = scan_hist(torch, hk, tt, dev, r_codes_np, *data["rf"], L, K,
+                          seed + L + K, derived=derived)
+            cases.append((f"scan_level{'_mc' if K else ''} rf K={K} L={L} "
+                          f"{'derived' if derived else 'level'}", "scan",
+                          "rf", L, K, False, (h, None, None, None)))
     rows = []
     for name, entry, d, L, K, lowp, (y, w, node, act) in cases:
         codes, codes8, lay = data[d]
         kw = dict(L=L, lay=lay, codes8=codes8, low_precision=lowp,
-                  n_classes=K)
-        if has_ip:
-            kw["int_planes"] = not lowp
+                  n_classes=K, int_planes=not lowp)
         fok = torch.ones(lay.T, dtype=torch.bool, device=dev)
 
         def fn():
@@ -757,13 +804,216 @@ def entry_profile(torch, dev, hk, tt, gbt_codes_np, rf_data, seed) -> list:
                 hk.fused_level(codes, y, w, node, act, fok,
                                impurity="gini" if K else "variance",
                                min_inst=5, min_gain=0.0, **kw)
+            elif entry == "scan":
+                hk.scan_level(y, fok, lay=lay, n_classes=K,
+                              impurity="gini" if K else "variance",
+                              min_inst=5, min_gain=0.0)
             else:
                 hk.hist_level(codes, y, w, node, act, **kw)
+        once = "hist_scan_kernel" if entry == "scan" else "hist_accumulate"
         row = dict(case=name, ms=time_ms(torch, fn), **device_split_ms(
-            torch, fn))
+            torch, fn, once=once))
         rows.append(row)
         print(f"  {name}: entry {row['ms']:.4f} ms" + _split(row))
     return rows
+
+
+def scan_hist(torch, hk, tt, dev, codes_np, codes, codes8, lay, Lh, K,
+              seed, lowp=False, w_scale=1, derived=True):
+    """A histogram the scan entry takes on the main path, made on the
+    card with the histogram entry: the derived sibling [P, Lh, T]
+    (parents' histogram minus the built smaller children's, zero under
+    parent 1, which did not split) or, without `derived`, a whole level.
+    Class ids, residual-like float labels (bf16 planes, lowp) or 0/1
+    labels; Poisson weights times w_scale (integer planes)."""
+    rng = np.random.default_rng(seed)
+    n = codes_np.shape[0]
+    if K:
+        y = (codes_np[:, 0] // 3 + codes_np[:, -1]) % K
+    elif lowp:
+        y = rng.random(n) - 0.35
+    else:
+        y = (codes_np[:, 0] + codes_np[:, -1]) % 3 == 0
+    w = np.ones(n) if lowp else rng.poisson(1.0, size=n) * w_scale
+    t = lambda a, dt: torch.as_tensor(np.asarray(a, dt)).to(dev)  # noqa
+    args = (codes, t(y, np.float32), t(w, np.float32),
+            t(rng.integers(0, Lh, size=n), np.int32))
+    kw = dict(L=Lh, lay=lay, codes8=codes8, n_classes=K, low_precision=lowp,
+              int_planes=not lowp)
+    act = rng.random(n) < 0.9
+    hist = hk.hist_level(*args, t(act, bool), **kw)
+    if derived:
+        built = hk.hist_level(*args, t(act & (rng.random(n) < 0.4), bool),
+                              **kw)
+        p_split = torch.arange(Lh, device=dev) != 1
+        left_small = t(rng.random(Lh) < 0.5, bool)
+        hist, _full = tt._derive(hist, built, p_split, left_small)
+    return hist.contiguous()
+
+
+class PlainScans:
+    """Counts the plain torch scans (`tree_trainer.split_scan` /
+    `cls_scan`) that run on the card, by the width of the histogram they
+    are given: on the main path they take only columns wider than the
+    scan kernels' cap."""
+
+    def __init__(self, tt):
+        self.tt = tt
+        self.widths = []
+
+    def __enter__(self):
+        self.saved = (self.tt.split_scan, self.tt.cls_scan)
+
+        def counted(fn):
+            def scan(hist, *a, **k):
+                if hist.device.type == "cuda":
+                    self.widths.append(int(hist.shape[-1]))
+                return fn(hist, *a, **k)
+            return scan
+        self.tt.split_scan, self.tt.cls_scan = map(counted, self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        self.tt.split_scan, self.tt.cls_scan = self.saved
+
+
+def check_scan(torch, hk, tt, stats, tag, lay, hist, fok, K, impurity,
+               exact, timed=False, wide=0):
+    """The scan-only entry against its plain versions: per-slot planes
+    against `scan_planes_reference` and the 9-tuple against the plain
+    scan, bit for bit on integer planes (entropy gains at rtol 1e-6:
+    log2f against torch's log2); on bf16 planes gains and sums at rtol
+    1e-5 and feature and cut equal wherever a node's two best gains
+    differ by more. Where a column passes the cap (`wide` slots), the
+    plain scan runs on those columns only."""
+    entry = "scan_level_mc" if K >= 3 else "scan_level"
+    kw = dict(impurity=impurity, min_inst=5, min_gain=0.0, n_classes=K)
+    with PlainScans(tt) as ps:
+        out = hk.scan_level(hist, fok, lay=lay, **kw)
+    out2 = hk.scan_level(hist, fok, lay=lay, **kw)
+    planes, cap = hk.scan_planes(hist, fok, lay=lay, **kw)
+    ref = hk.scan_planes_reference(hist, fok, lay, cap=cap, **kw)
+    plain = tt.scan_of(K)(hist, fok, tt.scan_layout(lay, hist.device),
+                          impurity, 5, 0.0)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, out2)),
+          f"{tag}: two kernel launches differ")
+    check(ps.widths == ([wide] if wide else []),
+          f"{tag}: the plain scan ran on widths {ps.widths}")
+    check(torch.equal(planes[1], ref[1]), f"{tag}: rank differs")
+    gain_tol = 1e-6 if impurity == "entropy" else 0.0
+    pairs = [("gain", ref[0], planes[0], gain_tol),
+             ("best_gain", plain[5], out[5], gain_tol)]
+    if exact:
+        pairs += [("lcnt", ref[2], planes[2], 0.0),
+                  ("tot0", ref[3], planes[3], 0.0)]
+        pairs += [(nm, a, b, 0.0) for nm, a, b in zip(SPLIT_FIELDS, plain, out)
+                  if nm != "best_gain"]
+    else:
+        pairs = [(nm, a, b, 1e-5) for nm, a, b, _t in pairs]
+        pairs += [("lcnt", ref[2], planes[2], 1e-5),
+                  ("tot0", ref[3], planes[3], 1e-5)]
+        top2 = torch.topk(ref[0], min(2, ref[0].shape[1]), dim=1).values
+        clear = (top2[:, 0] - top2[:, -1]) > 1e-5 * top2[:, 0].abs()
+        for i in (0, 1):
+            check(torch.equal(out[i][clear], plain[i][clear]),
+                  f"{tag}: {SPLIT_FIELDS[i]} differs at a clear best gain")
+    e = 0.0
+    for nm, a, b, tol in pairs:
+        fin = torch.isfinite(a) if a.is_floating_point() else None
+        if fin is None or not tol:
+            check(torch.equal(a, b), f"{tag}: {nm} differs")
+        else:
+            check(torch.equal(fin, torch.isfinite(b))
+                  and torch.allclose(b[fin], a[fin], rtol=tol, atol=0),
+                  f"{tag}: {nm} beyond rtol {tol}")
+        if nm in ("gain", "best_gain"):
+            e = max(e, stats.err(entry, torch.where(fin, a, 0),
+                                 torch.where(fin, b, 0)))
+    case = dict(case=tag, entry=entry, K=K, L=int(hist.shape[1]), T=lay.T,
+                impurity=impurity, seg_cap=cap, exact_planes=exact,
+                max_abs_err=e, splits=int(out[4].sum()))
+    if timed:
+        sl = tt.scan_layout(lay, hist.device)
+        P = hist.shape[0]
+        bound, by = scan_bound_ms(P, hist.shape[1], lay, K)
+        case.update(
+            ms=time_ms(torch, lambda: hk.scan_level(hist, fok, lay=lay, **kw)),
+            plain_ms=time_ms(torch, lambda: tt.scan_of(K)(
+                hist, fok, sl, impurity, 5, 0.0)),
+            library_ms=None, bound_ms=bound, bound_by=by,
+            **device_split_ms(torch, lambda: hk.scan_level(
+                hist, fok, lay=lay, **kw), once="hist_scan_kernel"))
+    stats.cases.append(case)
+    print(f"  {tag}: ok ({case['splits']} of {case['L']} nodes split, max "
+          f"abs gain err {e:.3g}"
+          + (f", entry {case['ms']:.4f} ms, plain torch scan "
+             f"{case['plain_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms"
+             + _split(case) if timed else "") + ")")
+    return case
+
+
+def phase_scan(torch, dev, hk, tt, stats, gbt_codes_np, rf_data, seed):
+    """The scan-only entry at the main path's shapes: the derived
+    siblings of bench `gbt` (bf16 planes) and `rf`, the whole L = 128
+    level of bench `rf` and of NATIVE RF (K = 5), K = 3/5/8/32 class
+    planes, node totals past 2^24, and a bench `gbt_wide` level whose
+    2,001-slot column passes the cap."""
+    g_lay = tt.make_layout([GBT["bins"] + 1] * GBT["f"], [False] * GBT["f"])
+    g_codes = torch.as_tensor(gbt_codes_np).to(dev)
+    g8 = hk.codes8_of(g_codes, g_lay)
+    g_fok = torch.ones(g_lay.T, dtype=torch.bool, device=dev)
+    for Lh in (1, 16):
+        h = scan_hist(torch, hk, tt, dev, gbt_codes_np, g_codes, g8, g_lay,
+                      Lh, 0, seed + Lh, lowp=True)
+        check_scan(torch, hk, tt, stats, f"gbt L={Lh} derived bf16", g_lay,
+                   h, g_fok, 0, "variance", False, timed=True)
+    del g_codes, g8
+
+    r_codes_np, r_slots, r_cat = rf_data
+    lay = tt.make_layout(r_slots, r_cat)
+    codes = torch.as_tensor(r_codes_np).to(dev)
+    c8 = hk.codes8_of(codes, lay)
+    fok = torch.ones(lay.T, dtype=torch.bool, device=dev)
+    fok[: int(lay.off[10])] = False  # a tree's feature subset
+    mk = lambda L, K, sd, **kw: scan_hist(  # noqa: E731
+        torch, hk, tt, dev, r_codes_np, codes, c8, lay, L, K, sd, **kw)
+    for L, derived in ((32, True), (128, False)):
+        c = check_scan(torch, hk, tt, stats,
+                       f"rf L={L} {'derived' if derived else 'level'}", lay,
+                       mk(L, 0, seed + L, derived=derived), fok, 0,
+                       "variance", True, timed=True)
+        if L == 32:
+            stats.timed["scan_level"] = c
+    for K, L, derived, imp in ((5, 32, True, "gini"), (5, 128, False, "gini"),
+                               (5, 32, True, "entropy"),
+                               (3, 32, True, "gini"), (8, 32, True, "gini"),
+                               (32, 64, True, "gini")):
+        c = check_scan(torch, hk, tt, stats,
+                       f"rf K={K} L={L} {'derived' if derived else 'level'} "
+                       f"{imp}", lay, mk(L, K, seed + L + K, derived=derived),
+                       fok, K, imp, True, timed=imp == "gini")
+        if (K, L) == (MC_MAIN_K, 32) and imp == "gini":
+            stats.timed_mc[("scan_level_mc", K)] = c
+    for K in (0, 5):
+        h = mk(16, K, seed + 24 + K, w_scale=3_000_000)
+        cnt = tt.class_sum(h) if K else h[0]
+        check(float(cnt[:, : int(lay.slots[0])].sum(1).max()) > 2 ** 24,
+              "the heavy case's node totals stay below 2^24")
+        check_scan(torch, hk, tt, stats, f"rf K={K} L=16 derived, node "
+                   "totals past 2^24", lay, h, fok, K,
+                   "gini" if K else "variance", True)
+    del codes, c8
+
+    w_codes_np, w_slots, w_cat = wide_data(seed)
+    w_lay = tt.make_layout(w_slots, w_cat)
+    w_codes = torch.as_tensor(w_codes_np).to(dev)
+    h = scan_hist(torch, hk, tt, dev, w_codes_np, w_codes, None, w_lay, 16,
+                  0, seed + 16)
+    check_scan(torch, hk, tt, stats, "gbt_wide L=16 derived", w_lay, h,
+               torch.ones(w_lay.T, dtype=torch.bool, device=dev), 0,
+               "variance", True, wide=max(w_slots))
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -818,16 +1068,36 @@ def print_profile(rep: dict) -> None:
         for k, v in p["hist_kernels"].items()))
 
 
+# scan_level(_mc) launches of each main-path run: one a tree for every
+# subtraction level (the derived sibling; past 32 nodes the whole level)
+SCAN_LAUNCHES = {"gbt": 25, "rf": 70, "native": 70, "ova": 75}
+
+
+def check_scans(name, launches, plain_widths):
+    """Every split scan of a main-path run went through the kernels: the
+    scan entry's launches as the level plan gives them, and no plain
+    torch scan on the card (no column of these layouts passes the
+    cap)."""
+    got = launches["scan_level"] + launches["scan_level_mc"]
+    check(got == SCAN_LAUNCHES[name],
+          f"{name}: {got} scan_level launches, expected "
+          f"{SCAN_LAUNCHES[name]}: {launches}")
+    check(not plain_widths,
+          f"{name}: the plain torch scan ran on the card: {plain_widths}")
+
+
 def train_on_card(torch, hk, tt, args_, cfg):
     """One counted main-path run: counts zeroed just before, read just
     after."""
     hk.reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = tt.train_trees(*args_, cfg, device="cuda")
+    with PlainScans(tt) as ps:
+        res = tt.train_trees(*args_, cfg, device="cuda")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    return res, secs, dict(hk.launches), dict(hk.reference_calls)
+    return (res, secs, dict(hk.launches), dict(hk.reference_calls),
+            ps.widths)
 
 
 def phase_main(torch, hk, tt, pds, ptree, name, data, cfg, data_dir):
@@ -844,12 +1114,14 @@ def phase_main(torch, hk, tt, pds, ptree, name, data, cfg, data_dir):
           f"{name}: CleanedData round trip")
     args_ = (c16, tags, wts, meta.extra["slots"], is_cat, meta.columns)
 
-    res, secs, launches, refs = train_on_card(torch, hk, tt, args_, cfg)
+    res, secs, launches, refs, plain = train_on_card(torch, hk, tt, args_,
+                                                     cfg)
     check(all(v == 0 for v in refs.values()),
           f"{name}: the run on the card reached a plain version: {refs}")
     check(launches["fused_level"] > 0,
           f"{name}: fused kernel never launched: {launches}")
-    res2, secs2, _l2, _r2 = train_on_card(torch, hk, tt, args_, cfg)
+    check_scans(name, launches, plain)
+    res2, secs2, _l2, _r2, _p2 = train_on_card(torch, hk, tt, args_, cfg)
     check(forests_equal(res.spec, res2.spec),
           f"{name}: a second run on the card gave another forest")
 
@@ -948,21 +1220,23 @@ def _model_bytes(paths, n_models, suffix):
     return out
 
 
-def run_step(torch, hk, TrainProcessor, root, device):
-    """One `shifu train` run: counts zeroed just before, read just after."""
+def run_step(torch, hk, tt, TrainProcessor, root, device):
+    """One `shifu train` run: counts zeroed just before, read just after;
+    on the card also the widths the plain torch scan ran on."""
     hk.reset_counters()
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rc = TrainProcessor(root, device=device).run()
+    with PlainScans(tt) as ps:
+        rc = TrainProcessor(root, device=device).run()
     if device == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     check(rc == 0, f"{root}: train step returned {rc}")
-    return secs, dict(hk.launches), dict(hk.reference_calls)
+    return secs, dict(hk.launches), dict(hk.reference_calls), ps.widths
 
 
-def phase_native(torch, hk, ptree, data_dir, rf_data, seed):
+def phase_native(torch, hk, tt, ptree, data_dir, rf_data, seed):
     """`shifu train` NATIVE RF at the bench `rf` width: the main path."""
     from shifu_tpu_torch.processor.train import TrainProcessor
 
@@ -979,13 +1253,16 @@ def phase_native(torch, hk, ptree, data_dir, rf_data, seed):
     paths = write_model_set(root, codes, cls, slots, is_cat, K, "RF",
                             "NATIVE", params)
 
-    secs, launches, refs = run_step(torch, hk, TrainProcessor, root, "cuda")
+    secs, launches, refs, plain = run_step(torch, hk, tt, TrainProcessor,
+                                           root, "cuda")
     check(all(v == 0 for v in refs.values()),
           f"native: the run on the card reached a plain version: {refs}")
     check(launches["fused_level_mc"] > 0 and launches["hist_level_mc"] > 0,
           f"native: a multi-class entry never launched: {launches}")
+    check_scans("native", launches, plain)
     first = _model_bytes(paths, 1, "rf")
-    secs2, launches2, _r = run_step(torch, hk, TrainProcessor, root, "cuda")
+    secs2, launches2, _r, _p = run_step(torch, hk, tt, TrainProcessor, root,
+                                        "cuda")
     check(_model_bytes(paths, 1, "rf") == first,
           "native: a second run on the card wrote another model file")
     prof = profile_run(torch, lambda: TrainProcessor(root, device="cuda")
@@ -1006,7 +1283,8 @@ def phase_native(torch, hk, ptree, data_dir, rf_data, seed):
     cpu_root = os.path.join(data_dir, "native-cpu")
     shutil.copytree(root, cpu_root, ignore=shutil.ignore_patterns(
         "models", "train"))
-    cpu_secs, _l, _r = run_step(torch, hk, TrainProcessor, cpu_root, "cpu")
+    cpu_secs, _l, _r, _p = run_step(torch, hk, tt, TrainProcessor, cpu_root,
+                                    "cpu")
     cpu_bytes = _model_bytes(type(paths)(cpu_root), 1, "rf")
     check(cpu_bytes == first,
           "native: the CPU run's model file differs from the card's")
@@ -1022,7 +1300,7 @@ def phase_native(torch, hk, ptree, data_dir, rf_data, seed):
                 launches_second=launches2, profile=prof)
 
 
-def phase_ova(torch, hk, ptree, data_dir, gbt_data_, seed):
+def phase_ova(torch, hk, tt, ptree, data_dir, gbt_data_, seed):
     """`shifu train` ONEVSALL GBT: one binary forest per class."""
     from shifu_tpu_torch.processor.train import TrainProcessor
 
@@ -1037,18 +1315,21 @@ def phase_ova(torch, hk, ptree, data_dir, gbt_data_, seed):
     root = os.path.join(data_dir, "ova")
     paths = write_model_set(root, codes, cls, slots, is_cat, K, "GBT",
                             "ONEVSALL", params)
-    secs, launches, refs = run_step(torch, hk, TrainProcessor, root, "cuda")
+    secs, launches, refs, plain = run_step(torch, hk, tt, TrainProcessor,
+                                           root, "cuda")
     check(all(v == 0 for v in refs.values()),
           f"ova: the run on the card reached a plain version: {refs}")
     check(launches["fused_level"] > 0, f"ova: no fused launch: {launches}")
+    check_scans("ova", launches, plain)
     first = _model_bytes(paths, K, "gbt")
-    secs2, _l2, _r2 = run_step(torch, hk, TrainProcessor, root, "cuda")
+    secs2, _l2, _r2, _p2 = run_step(torch, hk, tt, TrainProcessor, root,
+                                    "cuda")
     check(_model_bytes(paths, K, "gbt") == first,
           "ova: a second run on the card wrote other model files")
     cpu_root = os.path.join(data_dir, "ova-cpu")
     shutil.copytree(root, cpu_root, ignore=shutil.ignore_patterns(
         "models", "train"))
-    run_step(torch, hk, TrainProcessor, cpu_root, "cpu")
+    run_step(torch, hk, tt, TrainProcessor, cpu_root, "cpu")
     diffs = []
     for k in range(K):
         card = ptree.IndependentTreeModel.load(paths.model_path(k, "gbt"),
@@ -1128,6 +1409,9 @@ def run(args) -> int:
                           args.seed)
     phase_kernels_mc(torch, dev, hk, tt, stats, (rf[0], rf[2], rf[3]),
                      args.seed)
+    print("scan entry vs plain versions:")
+    phase_scan(torch, dev, hk, tt, stats, gbt[0], (rf[0], rf[2], rf[3]),
+               args.seed)
     report["kernel_cases"] = stats.cases
 
     # phases 3 and 4
@@ -1165,7 +1449,7 @@ def run(args) -> int:
         for rep in (g, r):
             print_profile(rep)
 
-        nat = phase_native(torch, hk, ptree, data_dir, rf, args.seed)
+        nat = phase_native(torch, hk, tt, ptree, data_dir, rf, args.seed)
         print(f"native: shifu train NATIVE RF, {nat['classes']} classes, "
               f"{nat['trees']} trees depth {nat['depth']} on {nat['rows']} "
               f"rows: {nat['trees_per_s']:.3f} trees/s "
@@ -1174,7 +1458,7 @@ def run(args) -> int:
               f"file bit-equal across two card runs and to the CPU run "
               f"({nat['cpu_seconds']:.1f} s), launches {nat['launches']}")
         print_profile(nat)
-        ova = phase_ova(torch, hk, ptree, data_dir, gbt, args.seed)
+        ova = phase_ova(torch, hk, tt, ptree, data_dir, gbt, args.seed)
         print(f"ova: shifu train ONEVSALL GBT, {ova['classes']} forests of "
               f"{ova['trees']} trees depth {ova['depth']} on {ova['rows']} "
               f"rows: {ova['trees_per_s']:.3f} trees/s (second run), max "
@@ -1194,17 +1478,24 @@ def run(args) -> int:
         launches = (nat["launches"][name] if mc else
                     g["launches"][name] + r["launches"][name]
                     + ova["launches"][name])
+        if name.startswith("scan_level"):
+            replaces = ("shifu_tpu/train/tree_trainer.py:631 _make_scan_fn "
+                        "(XLA, outside pallas_call)"
+                        + (", multi-class _make_cls_scan" if mc else ""))
+        elif mc:
+            replaces = ("shifu_tpu/ops/hist_pallas.py:526 (multi-class "
+                        f"branch {mc_lines})")
+        else:
+            replaces = "shifu_tpu/ops/hist_pallas.py:526"
         kernels.append(dict(
             name=name, route="cuda",
             source="shifu_tpu_torch/csrc/hist_level.cu",
-            replaces=("shifu_tpu/ops/hist_pallas.py:526 (multi-class "
-                      f"branch {mc_lines})" if mc
-                      else "shifu_tpu/ops/hist_pallas.py:526"),
+            replaces=replaces,
             launches=launches,
             max_abs_err=stats.max_abs_err[name], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"]))
-        print(f"{name}: timed at {c['case']} (n={c['n']}, T={c['T']})")
+        print(f"{name}: timed at {c['case']} (L={c['L']}, T={c['T']})")
     for (name, K), c in sorted(stats.timed_mc.items()):
         print(f"  {name} K={K}: kernel {c['ms']:.4f} ms, plain "
               f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms"

@@ -80,13 +80,37 @@
 //    so the 32-bit route is exact for any input. Tiles are sized by the
 //    wrapper (`tile_bytes_for`) so that four blocks share an SM, and a
 //    block takes at least ACC_PAIRS_PER_BLOCK pairs.
-//  * hist_finalize_kernel: grid (features, nodes). Converts the int64
-//    accumulator to the f32 histogram and, in scan mode, scans the
-//    segment in dynamic shared memory ((2P + 3) * 4 bytes a slot):
-//    pairwise stable rank (O(size^2), exact ties), prefix sums in rank
-//    order, gains. Segments wider than the wrapper's seg_cap (SEG_CAP,
-//    or less where K planes of a 1,024-slot segment do not fit the
-//    block's shared memory) are left to the wrapper's torch scan.
+//  * The split scan, one body behind two entries: hist_finalize_kernel
+//    converts the int64 accumulator to the f32 histogram as it reads it
+//    (the fused entry; without the scan, the histogram-only entry's
+//    conversion), hist_scan_kernel reads an f32 histogram already on the
+//    card (the scan-only entry `scan_level`: the derived sibling of a
+//    subtraction level and the levels past 32 nodes). It replaces the
+//    in-kernel scan of hist_pallas.py (:349-450) and, for the scan-only
+//    entry, the JAX package's XLA scan `_make_scan_fn`
+//    (shifu_tpu/train/tree_trainer.py:631), which runs outside
+//    pallas_call. Its bound is bytes: the [P, L, T] planes read once
+//    (int64 or f32) and gain/rank/left count [L, T] and the node totals
+//    written once, a few MB at most, under 2 us at 3.35 TB/s; so what
+//    costs is latency and idle lanes. The design:
+//    - work sized to the segment and the level (hist_kernel.plan_scan):
+//      at a level with enough of them, a segment of at most WARP_SLOTS
+//      (64) slots takes one warp, several warps a block (as many as
+//      (2P + 3) words a slot fit the 227 KB a block may opt in to, at
+//      most 8); at a narrow level (few jobs, so latency counts) and for
+//      wider segments up to the cap, a block of 256 takes a segment;
+//      wider still (the cap: SEG_CAP, or fewer slots where K planes do
+//      not fit) the block only converts them and leaves their scan to
+//      the wrapper's torch scan.
+//    - the pairwise O(size^2) stable rank (exact ties) only for
+//      categorical segments; a numeric segment's rank is its slot.
+//    - ordered prefix sums as a parallel scan in f64 (a thread sums
+//      CHUNK ranks, warp shuffles, then the warps' totals), rounded once
+//      to f32 a slot: integer planes equal the plain version bit for
+//      bit at any node total (f32 prefix sums were inexact past 2^24).
+//      The node totals of a segment 0 past the cap likewise.
+//    - every lane works on key, rank and gain; the kernel's dynamic
+//      shared memory is set once per size (`prepare`).
 //  * Built with -fmad=false so the comps and the gain arithmetic round
 //    like the separate elementwise ops of the plain PyTorch version; the
 //    class scan uses explicit fmaf where the JAX package's XLA scan
@@ -113,7 +137,13 @@ namespace cg = cooperative_groups;
 // fewest (row, feature) pairs worth an accumulate block of its own
 #define ACC_PAIRS_PER_BLOCK 16384
 #define SCAN_THREADS 256
-#define SEG_CAP 1024
+// most slots a thread takes in a scan's ordered prefix sums
+#define CHUNK 4
+// widest segment a warp scans (2 slots a lane; the wrapper's plan_scan
+// decides which segments take a warp), and widest one a block scans (the
+// cap)
+#define WARP_SLOTS 64
+#define SEG_CAP (SCAN_THREADS * CHUNK)
 // fewest rows worth a pre-pass block
 #define PRE_ROWS_MIN 2048
 // most node groups whose rows the pre-pass counts with warp-wide atomics
@@ -576,154 +606,331 @@ __device__ __forceinline__ float class_impurity(const float* pre, int cap,
   return entropy ? -acc : 1.f - acc;
 }
 
-// Dynamic shared memory, in floats of seg_cap slots: h [P][cap], pre
-// [P][cap], key [cap], then ints order [cap], rnk [cap].
-__global__ void __launch_bounds__(SCAN_THREADS)
-hist_finalize_kernel(const unsigned long long* __restrict__ acc,
-                     const float* __restrict__ maxabs, int n, int L, int T,
-                     int P, int cls_mode, int seg_cap,
-                     const int* __restrict__ off,
-                     const int* __restrict__ slots,
-                     const int* __restrict__ is_cat,
-                     const unsigned char* __restrict__ featok,
-                     int do_scan,
-                     int impurity, float min_inst, float min_gain,
-                     float* __restrict__ hist, float* __restrict__ gain,
-                     int* __restrict__ rank, float* __restrict__ lcnt,
-                     float* __restrict__ tot0) {
-  extern __shared__ float smem[];
-  const int cap = seg_cap;
-  float* h = smem;
-  float* pre = h + (size_t)P * cap;
-  float* key = pre + (size_t)P * cap;
-  int* order = (int*)(key + cap);
-  int* rnk = order + cap;
+// ---------------------------------------------------------------------------
+// The split scan: one body, run by a warp (segments of at most WARP_SLOTS
+// slots, `warps` of them a block) or by a whole block (wider segments up
+// to the cap), behind two entries: hist_finalize_kernel (the int64
+// accumulator, converted to the f32 histogram as it is read) and
+// hist_scan_kernel (an f32 histogram already on the card).
+// ---------------------------------------------------------------------------
 
-  const int f = blockIdx.x, l = blockIdx.y;
-  const int start = off[f], size = slots[f];
-  const int tid = threadIdx.x, bd = blockDim.x;
-  const bool fits = do_scan && size <= cap;
-  // class planes share one fixed-point shift (from max|w|)
-  const double inv0 = ldexp(1.0, -plane_shift(maxabs[0], n));
+// A segment's shared memory, (2P + 3) words a slot of m slots: h [P][m],
+// pre [P][m], key [m], then ints order [m] (slot at each rank) and rnk [m]
+// (rank of each slot).
+struct Region {
+  float* h;
+  float* pre;
+  float* key;
+  int* order;
+  int* rnk;
+  int m;
+  __device__ Region(float* base, int P, int m_)
+      : h(base), pre(base + (size_t)P * m_), key(base + 2 * (size_t)P * m_),
+        order(reinterpret_cast<int*>(base + (2 * (size_t)P + 1) * m_)),
+        rnk(reinterpret_cast<int*>(base + (2 * (size_t)P + 2) * m_)),
+        m(m_) {}
+};
 
-  for (int s = tid; s < size; s += bd) {
-    const size_t t = (size_t)start + s;
-    for (int c = 0; c < P; ++c) {
-      const double inv = (cls_mode || c == 0)
-                             ? inv0 : ldexp(1.0, -plane_shift(maxabs[c], n));
-      const size_t k = ((size_t)c * L + l) * T + t;
-      const float v = (float)((double)(long long)acc[k] * inv);
-      hist[k] = v;
-      if (fits) h[(size_t)c * cap + s] = v;
-    }
+// The threads that scan one segment: a warp, or the whole block (then ws
+// holds the warps' totals of a block scan).
+template <bool BLOCK>
+struct Group {
+  int t;  // thread index in the group
+  double* ws;
+  __device__ int size() const { return BLOCK ? (int)blockDim.x : 32; }
+  __device__ void sync() const {
+    if constexpr (BLOCK) __syncthreads();
+    else __syncwarp();
   }
-  if (!do_scan) return;
-  const size_t row = (size_t)l * T + start;
-
-  if (!fits) {  // the wrapper's torch split scan owns this segment
-    for (int s = tid; s < size; s += bd) {
-      gain[row + s] = -CUDART_INF_F;
-      rank[row + s] = s;
-      lcnt[row + s] = 0.f;
+  // Exclusive prefix of x over the group's threads in thread order, and
+  // the group's total. Every thread of the group calls it.
+  __device__ double scan(double x, double& total) const {
+    const unsigned full = 0xffffffffu;
+    const int lane = threadIdx.x & 31;
+    double s = x;
+    for (int o = 1; o < 32; o <<= 1) {
+      const double y = __shfl_up_sync(full, s, o);
+      if (lane >= o) s += y;
     }
-    if (f == 0) {
-      __syncthreads();  // this block's hist writes are visible after it
-      for (int c = tid; c < P; c += bd) {
-        float run = 0.f;
-        for (int s = 0; s < size; ++s)
-          run += hist[((size_t)c * L + l) * T + start + s];
-        tot0[l * P + c] = run;
+    double ex = __shfl_up_sync(full, s, 1);
+    if (lane == 0) ex = 0.0;
+    if constexpr (!BLOCK) {
+      total = __shfl_sync(full, s, 31);
+      return ex;
+    } else {
+      const int wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
+      if (lane == 31) ws[wid] = s;
+      __syncthreads();
+      double before = 0.0, tot = 0.0;
+      for (int k = 0; k < nw; ++k) {
+        if (k < wid) before += ws[k];
+        tot += ws[k];
       }
+      __syncthreads();
+      total = tot;
+      return before + ex;
     }
-    return;
   }
-  __syncthreads();
+};
 
-  const bool cat = is_cat[f] != 0;
-  for (int s = tid; s < size; s += bd) {
+// What a scan writes: per slot gain (-inf where invalid), rank and left
+// count [L, T]; the node totals [L, P] from segment 0.
+struct ScanOut {
+  const unsigned char* featok;
+  int impurity;
+  float min_inst, min_gain;
+  float* gain;
+  int* rank;
+  float* lcnt;
+  float* tot0;
+  int L, T, P, cls;
+};
+
+// The work division (the wrapper's plan_scan): jobs are (node, feature).
+// Blocks [0, warp_blocks) give each warp one job of wfeat (n_w features,
+// node-major, `warps` a block, wseg slots of shared memory a warp); the
+// rest give the block one job of bfeat (n_b features: wider than a warp's
+// share, or past the cap, bseg slots of shared memory).
+struct ScanJobs {
+  const int* off;
+  const int* slots;
+  const int* is_cat;
+  const int* wfeat;
+  const int* bfeat;
+  int n_w, n_b, warps, wseg, bseg, cap, warp_blocks;
+};
+
+// The int64 fixed-point accumulator, converted to f32 as the fused entry
+// reads it; load() also writes the f32 histogram. inv: the planes' 2^-S,
+// set by set_inv in shared memory.
+struct AccSrc {
+  const unsigned long long* acc;
+  const float* maxabs;
+  float* hist;
+  int n, L, T, cls;
+  const double* inv;
+  // 2^-S of each plane's fixed-point shift, once a block (class planes
+  // share one, from max|w|); a barrier follows
+  __device__ void set_inv(double* s_inv) {
+    if (threadIdx.x < 3)
+      s_inv[threadIdx.x] =
+          ldexp(1.0, -plane_shift(maxabs[cls ? 0 : threadIdx.x], n));
+    __syncthreads();
+    inv = s_inv;
+  }
+  __device__ float value(int c, int l, int t) const {
+    return (float)((double)(long long)acc[((size_t)c * L + l) * T + t]
+                   * inv[cls ? 0 : c]);
+  }
+  __device__ float load(int c, int l, int t) const {
+    const float v = value(c, l, t);
+    hist[((size_t)c * L + l) * T + t] = v;
+    return v;
+  }
+};
+
+// An f32 histogram already on the card (the scan-only entry).
+struct F32Src {
+  const float* hist;
+  int L, T;
+  __device__ float value(int c, int l, int t) const {
+    return hist[((size_t)c * L + l) * T + t];
+  }
+  __device__ float load(int c, int l, int t) const { return value(c, l, t); }
+};
+
+// Scans segment (l, f) in region R: stable rank on (key, slot), ordered
+// prefix sums in f64 rounded once a slot, gain and validity a slot, and
+// the node totals where f is segment 0.
+template <bool BLOCK, typename Src>
+__device__ void scan_segment(const Src& src, const Group<BLOCK>& g,
+                             const Region& R, int l, int f,
+                             const ScanJobs& J, const ScanOut& o) {
+  const int G = g.size(), P = o.P, m = R.m;
+  const int start = J.off[f], size = J.slots[f];
+  for (int s = g.t; s < size; s += G)
+    for (int c = 0; c < P; ++c) R.h[(size_t)c * m + s] = src.load(c, l, start + s);
+  g.sync();
+
+  if (J.is_cat[f]) {
     // categorical segments sort by mean label (class mode: by expected
-    // class index sum_c c*h_c / sum_c h_c), empty slots last (+inf);
-    // numeric segments keep slot order
-    float k = (float)s;
-    if (cat) {
+    // class index sum_c c*h_c / sum_c h_c), empty slots last (+inf)
+    for (int s = g.t; s < size; s += G) {
       float cnt, num;
-      if (cls_mode) {
-        cnt = h[s];
-        for (int c = 1; c < P; ++c) cnt = cnt + h[(size_t)c * cap + s];
+      if (o.cls) {
+        cnt = R.h[s];
+        for (int c = 1; c < P; ++c) cnt = cnt + R.h[(size_t)c * m + s];
         num = 0.f;
-        for (int c = 0; c < P; ++c)
-          num = num + (float)c * h[(size_t)c * cap + s];
+        for (int c = 0; c < P; ++c) num = num + (float)c * R.h[(size_t)c * m + s];
       } else {
-        cnt = h[s];
-        num = h[cap + s];
+        cnt = R.h[s];
+        num = R.h[m + s];
       }
-      k = cnt > 0.f ? num / fmaxf(cnt, 1e-12f) : CUDART_INF_F;
+      R.key[s] = cnt > 0.f ? num / fmaxf(cnt, 1e-12f) : CUDART_INF_F;
     }
-    key[s] = k;
-  }
-  __syncthreads();
-  // stable lex rank on (key, slot): equals a stable sort's position
-  for (int a = tid; a < size; a += bd) {
-    const float ka = key[a];
-    int r = 0;
-    for (int b = 0; b < size; ++b) {
-      const float kb = key[b];
-      r += (kb < ka) || (kb == ka && b < a);
+    g.sync();
+    // stable lex rank on (key, slot): a stable sort's position
+    for (int a = g.t; a < size; a += G) {
+      const float ka = R.key[a];
+      int r = 0;
+      for (int b = 0; b < size; ++b) {
+        const float kb = R.key[b];
+        r += (kb < ka) || (kb == ka && b < a);
+      }
+      R.rnk[a] = r;
+      R.order[r] = a;
     }
-    rnk[a] = r;
-    order[r] = a;
-  }
-  __syncthreads();
-  // inclusive prefix sums in rank order, one plane a lane
-  for (int c = tid; c < P; c += bd) {
-    const float* hc = h + (size_t)c * cap;
-    float* pc = pre + (size_t)c * cap;
-    float run = 0.f;
-    for (int r = 0; r < size; ++r) {
-      run += hc[order[r]];
-      pc[r] = run;
+  } else {  // numeric segments keep slot order: the rank is the slot
+    for (int s = g.t; s < size; s += G) {
+      R.rnk[s] = s;
+      R.order[s] = s;
     }
   }
-  __syncthreads();
+  g.sync();
+
+  // inclusive prefix sums in rank order, in f64, rounded once a slot:
+  // thread t sums ranks [t*k, t*k + k) (k <= CHUNK), the group scans the
+  // threads' totals
+  const int k = (size + G - 1) / G;
+  const int r0 = g.t * k;
+  for (int c = 0; c < P; ++c) {
+    const float* hc = R.h + (size_t)c * m;
+    double run[CHUNK];
+    double acc = 0.0;
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) {
+      const int r = r0 + j;
+      if (j < k && r < size) acc += (double)hc[R.order[r]];
+      run[j] = acc;
+    }
+    double total;
+    const double ex = g.scan(acc, total);
+    float* pc = R.pre + (size_t)c * m;
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) {
+      const int r = r0 + j;
+      if (j < k && r < size) pc[r] = (float)(ex + run[j]);
+    }
+  }
+  g.sync();
 
   const int last = size - 1;
-  const bool entropy = impurity == 2;
-  for (int a = tid; a < size; a += bd) {
-    const int r = rnk[a];
-    float lc, rc, g;
-    if (cls_mode) {
-      lc = pre[r];
-      rc = pre[last] - pre[r];
+  const bool entropy = o.impurity == 2;
+  const size_t row = (size_t)l * o.T + start;
+  for (int a = g.t; a < size; a += G) {
+    const int r = R.rnk[a];
+    float lc, rc, gn;
+    if (o.cls) {
+      lc = R.pre[r];
+      rc = R.pre[last] - R.pre[r];
       for (int c = 1; c < P; ++c) {
-        const float* pc = pre + (size_t)c * cap;
+        const float* pc = R.pre + (size_t)c * m;
         lc = lc + pc[r];
         rc = rc + (pc[last] - pc[r]);
       }
       const float tc = lc + rc;
       // tc*h_tot - lc*h_left - rc*h_right, contracted as the XLA scan
-      const float hl = class_impurity(pre, cap, P, r, last, 0, lc, entropy);
-      const float hr = class_impurity(pre, cap, P, r, last, 1, rc, entropy);
-      const float ht = class_impurity(pre, cap, P, r, last, 2, tc, entropy);
-      g = fmaf(-rc, hr, fmaf(tc, ht, -(lc * hl)));
+      const float hl = class_impurity(R.pre, m, P, r, last, 0, lc, entropy);
+      const float hr = class_impurity(R.pre, m, P, r, last, 1, rc, entropy);
+      const float ht = class_impurity(R.pre, m, P, r, last, 2, tc, entropy);
+      gn = fmaf(-rc, hr, fmaf(tc, ht, -(lc * hl)));
     } else {
-      const float* p1 = pre + cap;
-      const float* p2 = pre + 2 * (size_t)cap;
-      const float tc = pre[last], ts1 = p1[last], ts2 = p2[last];
-      lc = pre[r];
+      const float* p1 = R.pre + m;
+      const float* p2 = R.pre + 2 * (size_t)m;
+      const float tc = R.pre[last], ts1 = p1[last], ts2 = p2[last];
+      lc = R.pre[r];
       const float ls1 = p1[r], ls2 = p2[r];
       rc = tc - lc;
-      const float rs1 = ts1 - ls1, rs2 = ts2 - ls2;
-      g = split_gain(impurity, lc, ls1, ls2, rc, rs1, rs2, tc, ts1, ts2);
+      gn = split_gain(o.impurity, lc, ls1, ls2, rc, ts1 - ls1, ts2 - ls2, tc,
+                      ts1, ts2);
     }
-    const bool valid = (lc >= min_inst) && (rc >= min_inst) && (g > min_gain)
-                       && (featok[start + a] != 0) && (r < last);
-    gain[row + a] = valid ? g : -CUDART_INF_F;
-    rank[row + a] = r;
-    lcnt[row + a] = lc;
+    const bool valid = (lc >= o.min_inst) && (rc >= o.min_inst)
+                       && (gn > o.min_gain) && (o.featok[start + a] != 0)
+                       && (r < last);
+    o.gain[row + a] = valid ? gn : -CUDART_INF_F;
+    o.rank[row + a] = r;
+    o.lcnt[row + a] = lc;
   }
   if (f == 0)
-    for (int c = tid; c < P; c += bd)
-      tot0[l * P + c] = pre[(size_t)c * cap + last];
+    for (int c = g.t; c < P; c += G)
+      o.tot0[l * P + c] = R.pre[(size_t)c * m + last];
+}
+
+// A segment past the cap: the wrapper's torch scan owns its columns; the
+// block converts them (fused entry), marks them invalid, and where it is
+// segment 0 sums the node totals in f64 (rounded once).
+template <typename Src>
+__device__ void wide_segment(const Src& src, const Group<true>& g, int l,
+                             int f, const ScanJobs& J, const ScanOut& o) {
+  const int G = g.size();
+  const int start = J.off[f], size = J.slots[f];
+  const size_t row = (size_t)l * o.T + start;
+  for (int s = g.t; s < size; s += G) {
+    for (int c = 0; c < o.P; ++c) src.load(c, l, start + s);
+    o.gain[row + s] = -CUDART_INF_F;
+    o.rank[row + s] = s;
+    o.lcnt[row + s] = 0.f;
+  }
+  if (f != 0) return;
+  for (int c = 0; c < o.P; ++c) {
+    double part = 0.0, total;
+    for (int s = g.t; s < size; s += G) part += (double)src.value(c, l, start + s);
+    g.scan(part, total);
+    if (g.t == 0) o.tot0[l * o.P + c] = (float)total;
+  }
+}
+
+// Block b runs its jobs (see ScanJobs). Warp jobs touch no block barrier,
+// so idle warps leave at once.
+template <typename Src>
+__device__ void scan_jobs(const Src& src, const ScanJobs& J,
+                          const ScanOut& o, float* smem, double* ws) {
+  const int words = 2 * o.P + 3;
+  if ((int)blockIdx.x < J.warp_blocks) {
+    const int w = threadIdx.x >> 5;
+    const long long j = (long long)blockIdx.x * J.warps + w;
+    if (w >= J.warps || j >= (long long)o.L * J.n_w) return;
+    const Group<false> g{(int)(threadIdx.x & 31), nullptr};
+    const Region R(smem + (size_t)w * words * J.wseg, o.P, J.wseg);
+    scan_segment(src, g, R, (int)(j / J.n_w), J.wfeat[j % J.n_w], J, o);
+  } else {
+    const long long j = blockIdx.x - J.warp_blocks;
+    const int l = (int)(j / J.n_b), f = J.bfeat[j % J.n_b];
+    const Group<true> g{(int)threadIdx.x, ws};
+    if (J.slots[f] > J.cap) wide_segment(src, g, l, f, J, o);
+    else scan_segment(src, g, Region(smem, o.P, J.bseg), l, f, J, o);
+  }
+}
+
+// The fused and histogram-only entries' last launch: the int64
+// accumulator -> the f32 histogram, and with SCAN the split scan of every
+// (node, segment). Without SCAN a grid-stride conversion.
+template <bool SCAN>
+__global__ void __launch_bounds__(SCAN_THREADS)
+hist_finalize_kernel(AccSrc src, ScanJobs J, ScanOut o) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ double ws[SCAN_THREADS / 32];
+  __shared__ double s_inv[3];
+  src.set_inv(s_inv);
+  if constexpr (SCAN) {
+    scan_jobs(src, J, o, smem, ws);
+  } else {
+    const long long total = (long long)o.P * o.L * o.T;
+    for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         k < total; k += (long long)gridDim.x * blockDim.x) {
+      const int t = (int)(k % o.T);
+      const long long cl = k / o.T;
+      src.load((int)(cl / o.L), (int)(cl % o.L), t);
+    }
+  }
+}
+
+// The scan-only entry: the split scan of an f32 [P, L, T] histogram.
+__global__ void __launch_bounds__(SCAN_THREADS)
+hist_scan_kernel(F32Src src, ScanJobs J, ScanOut o) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ double ws[SCAN_THREADS / 32];
+  scan_jobs(src, J, o, smem, ws);
 }
 
 }  // namespace
@@ -842,6 +1049,44 @@ void launch_acc(const void* codes, long long code_stride, const int2* grow,
       ttile, n_tt, NF, tab_bytes, off, clip, maxabs, n, L, T, K, acc);
 }
 
+
+// Checks a scan plan against the kernels' limits, then launches `fn` on
+// its jobs (shared memory set once per kernel and size, by prepare).
+template <typename Src>
+cudaError_t launch_scan(void (*fn)(Src, ScanJobs, ScanOut), const Src& src,
+                        ScanJobs J, const ScanOut& o, int smem,
+                        cudaStream_t st) {
+  const size_t words = (2 * (size_t)o.P + 3) * sizeof(float);
+  if (J.cap < 0 || J.cap > SEG_CAP || J.wseg < 0 || J.wseg > WARP_SLOTS
+      || J.wseg > J.cap || J.bseg < 0 || J.bseg > J.cap || J.warps < 1
+      || J.warps > SCAN_THREADS / 32 || J.n_w < 0 || J.n_b < 0
+      || (J.n_w > 0 && J.wseg < 1) || smem < 0
+      || (size_t)smem < std::max(J.warps * words * J.wseg, words * J.bseg))
+    return cudaErrorInvalidValue;
+  J.warp_blocks = (int)(((long long)o.L * J.n_w + J.warps - 1) / J.warps);
+  const long long grid = J.warp_blocks + (long long)o.L * J.n_b;
+  if (grid == 0) return cudaSuccess;
+  if (prepare(fn, SCAN_THREADS, (size_t)smem, false) < 1)
+    return cudaErrorInvalidConfiguration;
+  fn<<<(unsigned)grid, SCAN_THREADS, smem, st>>>(src, J, o);
+  return cudaGetLastError();
+}
+
+ScanJobs scan_jobs_of(const int* off, const int* slots, const int* is_cat,
+                      const int* wfeat, int n_w, const int* bfeat, int n_b,
+                      int wseg, int warps, int bseg, int cap) {
+  return ScanJobs{off, slots, is_cat, wfeat, bfeat, n_w, n_b, warps, wseg,
+                  bseg, cap, 0};
+}
+
+ScanOut scan_out_of(const unsigned char* featok, int impurity,
+                    float min_inst, float min_gain, float* gain, int* rank,
+                    float* lcnt, float* tot0, int L, int T, int P,
+                    int cls_mode) {
+  return ScanOut{featok, impurity, min_inst, min_gain, gain, rank, lcnt,
+                 tot0, L, T, P, cls_mode};
+}
+
 }  // namespace
 
 extern "C" {
@@ -931,30 +1176,66 @@ int hist_accumulate(const void* codes, int code_is_i8, long long code_stride,
   return (int)cudaGetLastError();
 }
 
-// int64 accumulator [P, L, T] -> f32 hist [P, L, T]; with do_scan also
-// gain/rank/lcnt [L, T] and tot0 [L, P]. cls_mode: P = K class planes
-// (one shift, from maxabs[0]); else P = 3 moment planes. featok: [T] bool.
-int hist_finalize(const void* acc, const float* maxabs, int n, int L, int T,
-                  int F, int P, int cls_mode, int seg_cap, const int* off,
-                  const int* slots, const int* is_cat,
-                  const unsigned char* featok, int do_scan, int impurity,
-                  float min_inst, float min_gain, float* hist, float* gain,
-                  int* rank, float* lcnt, float* tot0, void* stream) {
-  if (seg_cap < 1 || seg_cap > SEG_CAP) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = do_scan
-      ? (2 * (size_t)P + 1) * seg_cap * sizeof(float)
-            + 2 * (size_t)seg_cap * sizeof(int)
-      : 0;
-  cudaFuncSetAttribute(hist_finalize_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  const dim3 grid(F, L);
-  hist_finalize_kernel<<<grid, SCAN_THREADS, smem, st>>>(
-      (const unsigned long long*)acc, maxabs, n, L, T, P, cls_mode, seg_cap,
-      off, slots, is_cat, featok, do_scan, impurity, min_inst, min_gain,
-      hist, gain, rank, lcnt, tot0);
+// int64 accumulator [P, L, T] -> f32 hist [P, L, T] (the histogram-only
+// entry's last launch). cls_mode: P = K class planes, one shift (from
+// maxabs[0]); else P = 3 moment planes.
+int hist_convert(const void* acc, const float* maxabs, int n, int L, int T,
+                 int P, int cls_mode, float* hist, void* stream) {
+  const long long total = (long long)P * L * T;
+  if (total == 0) return 0;
+  const AccSrc src{(const unsigned long long*)acc, maxabs, hist, n, L, T,
+                   cls_mode, nullptr};
+  const ScanOut o = scan_out_of(nullptr, 0, 0.f, 0.f, nullptr, nullptr,
+                                nullptr, nullptr, L, T, P, cls_mode);
+  const int grid = (int)std::min<long long>(
+      (total + SCAN_THREADS - 1) / SCAN_THREADS, (long long)sm_count() * 8);
+  hist_finalize_kernel<false><<<grid, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
+      src, ScanJobs{}, o);
   return (int)cudaGetLastError();
+}
+
+// The fused entry's last launch: the int64 accumulator -> f32 hist, and
+// the split scan of every (node, segment): gain/rank/lcnt [L, T] and tot0
+// [L, P]. The plan (hist_kernel.plan_scan): features wfeat [n_w] take a
+// warp each (wseg slots of shared memory, `warps` a block), bfeat [n_b] a
+// block each (bseg slots; past `cap` slots the segment is left to the
+// wrapper's torch scan); smem bytes of dynamic shared memory a block.
+// off/slots/is_cat: [F] int32; featok: [T] bool; impurity: 0 variance, 1
+// friedmanmse, 2 entropy, 3 gini.
+int hist_finalize(const void* acc, const float* maxabs, int n, int L, int T,
+                  int P, int cls_mode, float* hist, const int* off,
+                  const int* slots, const int* is_cat, const int* wfeat,
+                  int n_w, const int* bfeat, int n_b, int wseg, int warps,
+                  int bseg, int cap, int smem, const unsigned char* featok,
+                  int impurity, float min_inst, float min_gain, float* gain,
+                  int* rank, float* lcnt, float* tot0, void* stream) {
+  const AccSrc src{(const unsigned long long*)acc, maxabs, hist, n, L, T,
+                   cls_mode, nullptr};
+  return (int)launch_scan(
+      hist_finalize_kernel<true>, src,
+      scan_jobs_of(off, slots, is_cat, wfeat, n_w, bfeat, n_b, wseg, warps,
+                   bseg, cap),
+      scan_out_of(featok, impurity, min_inst, min_gain, gain, rank, lcnt,
+                  tot0, L, T, P, cls_mode),
+      smem, (cudaStream_t)stream);
+}
+
+// The scan-only entry: the split scan of an f32 histogram hist [P, L, T]
+// already on the card; the rest as hist_finalize.
+int hist_scan(const float* hist, int L, int T, int P, int cls_mode,
+              const int* off, const int* slots, const int* is_cat,
+              const int* wfeat, int n_w, const int* bfeat, int n_b, int wseg,
+              int warps, int bseg, int cap, int smem,
+              const unsigned char* featok, int impurity, float min_inst,
+              float min_gain, float* gain, int* rank, float* lcnt,
+              float* tot0, void* stream) {
+  return (int)launch_scan(
+      hist_scan_kernel, F32Src{hist, L, T},
+      scan_jobs_of(off, slots, is_cat, wfeat, n_w, bfeat, n_b, wseg, warps,
+                   bseg, cap),
+      scan_out_of(featok, impurity, min_inst, min_gain, gain, rank, lcnt,
+                  tot0, L, T, P, cls_mode),
+      smem, (cudaStream_t)stream);
 }
 
 int hist_seg_cap(void) { return SEG_CAP; }

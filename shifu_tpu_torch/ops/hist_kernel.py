@@ -1,16 +1,22 @@
 """Tree-level histogram -> split scan: CUDA kernel wrappers and their plain
 PyTorch versions.
 
-Counterpart of `shifu_tpu/ops/hist_pallas.py`. Two entries, each with a
-plain version that takes the same arguments and returns the same outputs:
+Counterpart of `shifu_tpu/ops/hist_pallas.py`. Three entries, each with
+a plain version that takes the same arguments and returns the same
+outputs:
 
     hist_level(codes, labels, weights, node_slot, active, *, L, lay, ...)
         -> hist [C, L, T] f32                (make_pallas_hist_fn)
     fused_level(codes, labels, weights, node_slot, active, feat_ok_t, *,
                 L, lay, impurity, min_inst, min_gain, ...)
         -> (hist [C, L, T], scan 9-tuple)    (make_fused_level_fn)
+    scan_level(hist, feat_ok_t, *, lay, impurity, min_inst, min_gain,
+               n_classes)
+        -> scan 9-tuple of an f32 histogram already on the device (the
+           JAX package's XLA scan `_make_scan_fn`: the derived sibling of
+           a subtraction level, the levels past 32 nodes)
 
-Both take `n_classes`, as the JAX entries do. Below 3 the planes are the
+All take `n_classes`, as the JAX entries do. Below 3 the planes are the
 C = 3 moments (w, w*y, w*y^2); from 3 up (NATIVE multi-class RF) they are
 C = K weighted per-class counts, `labels` holds class indices, and the
 scan is the K-class gini/entropy scan with majority-class leaf values
@@ -20,12 +26,16 @@ left_mask, node_cnt, left_cnt).
 
 On CPU tensors a wrapper runs its plain version; on CUDA tensors it
 launches the kernels of `csrc/hist_level.cu` or raises — there is no
-fallback and no mode knob. An entry is three launches: the pre-pass
-(the entry's prep, and the live rows grouped by node tile), the
-accumulate and the finalize. Each entry counts its kernel launches and
-its plain-version calls in plain integers (`launches`,
-`reference_calls`), the multi-class mode under its own names
-(`hist_level_mc`, `fused_level_mc`).
+fallback and no mode knob. A histogram entry is three launches: the
+pre-pass (the entry's prep, and the live rows grouped by node tile), the
+accumulate and the finalize; the scan entry is one. The scan kernels
+write per-slot planes (gain, rank, left count, node totals:
+`scan_planes_reference` is their plain version) that a shared torch
+epilogue turns into the 9-tuple; segments wider than the cap take the
+torch scan there. Each entry counts its kernel launches and its
+plain-version calls in plain integers (`launches`, `reference_calls`),
+the multi-class mode under its own names (`hist_level_mc`,
+`fused_level_mc`, `scan_level_mc`).
 
 Precision policy (the JAX package's): GBT comps travel bf16, rounded once
 when the planes are built, and sum in (here: fixed-point, then) f32; RF
@@ -59,6 +69,14 @@ TILE_SLOTS = 384
 TILE_MIN, TILE_MAX = 16 * 1024, 48 * 1024
 # shared memory one Hopper block may opt in to
 SMEM_BLOCK_MAX = 232_448
+# widest segment one warp of the scan kernels takes (2 slots a lane: the
+# bench layouts' 33-slot segments take a warp, their 65-slot ones a block),
+# the fewest such segments a level needs for warps to pay (below it every
+# segment takes a block, whose latency is lower), both the fastest split
+# measured on the H100; and the most warps a 256-thread scan block holds
+WARP_SLOTS = 64
+WARP_JOBS_MIN = 512
+SCAN_WARPS = 8
 # int8 codes hold every feature whose clipped code fits 0..127
 _I8_SLOTS = 128
 # int8 code rows are padded to this many bytes (16-byte loads)
@@ -68,7 +86,8 @@ INT32_VMAX = 2 ** 24
 
 _IMPURITY = {"variance": 0, "friedmanmse": 1, "entropy": 2, "gini": 3}
 
-_ENTRIES = ("hist_level", "fused_level", "hist_level_mc", "fused_level_mc")
+_ENTRIES = ("hist_level", "fused_level", "scan_level", "hist_level_mc",
+            "fused_level_mc", "scan_level_mc")
 launches: Dict[str, int] = {k: 0 for k in _ENTRIES}
 reference_calls: Dict[str, int] = {k: 0 for k in _ENTRIES}
 
@@ -108,7 +127,7 @@ def planes_of(n_classes: int) -> int:
 
 
 def seg_cap_for(planes: int, smem_optin: int) -> int:
-    """Widest segment the finalize kernel scans itself with `planes`
+    """Widest segment the scan kernels scan themselves with `planes`
     planes: SEG_CAP, or fewer slots where (2 * planes + 3) words a slot
     of dynamic shared memory pass what a block may opt in to (K = 32
     class planes: 867 slots in 227 KB). Wider segments take the torch
@@ -161,6 +180,72 @@ def fused_level_reference(codes, labels, weights, node_slot, active,
     sl = tt.scan_layout(lay, hist.device)
     return hist, tt.scan_of(n_classes)(hist, feat_ok_t, sl, impurity,
                                        min_inst, min_gain)
+
+
+def scan_planes_reference(hist, feat_ok_t, lay, impurity: str,
+                          min_inst: int, min_gain: float, n_classes: int = 0,
+                          cap: int = SEG_CAP):
+    """Plain version of the scan kernels' per-slot outputs over an f32
+    [P, L, T] histogram, per (node, segment): the stable rank on (key,
+    slot) (numeric: the slot), the ordered left sums and the segment
+    totals in f64 rounded once to f32, the gain (`moment_gain` /
+    `class_gain`) and its validity. Segments wider than `cap` are left to
+    the torch scan: rank = slot, gain -inf, left count 0. Returns (gain
+    [L, T] f32 (-inf where invalid), rank [L, T] i32, lcnt [L, T] f32,
+    tot0 [L, P] f32, segment 0's totals)."""
+    tt = _tt()
+    P, L, T = hist.shape
+    dev = hist.device
+    gain = torch.full((L, T), float("-inf"), device=dev)
+    rank = torch.zeros((L, T), dtype=torch.int32, device=dev)
+    lcnt = torch.zeros((L, T), device=dev)
+    tot0 = torch.zeros((L, P), device=dev)
+    sizes = [int(s) for s in lay.slots]
+    for sz in sorted(set(sizes)):  # the segments of one width together
+        fs = [f for f, s in enumerate(sizes) if s == sz]
+        cols = torch.as_tensor(np.asarray(
+            [np.arange(int(lay.off[f]), int(lay.off[f]) + sz) for f in fs],
+            np.int64), device=dev)  # [nf, sz]
+        h = hist[:, :, cols]  # [P, L, nf, sz]
+        slot = torch.arange(sz, device=dev)
+        f0 = fs.index(0) if 0 in fs else None
+        if sz > cap:
+            rank[:, cols] = slot.to(torch.int32).expand(L, len(fs), sz)
+            if f0 is not None:
+                tot0 = h[:, :, f0].double().sum(-1).float().T
+            continue
+        if n_classes >= 3:
+            cnt = tt.class_sum(h)
+            num = torch.zeros_like(cnt)
+            for c in range(P):
+                num = num + float(c) * h[c]
+        else:
+            cnt, num = h[0], h[1]
+        mean = torch.where(cnt > 0, num / cnt.clamp_min(1e-12),
+                           torch.full_like(cnt, float("inf")))
+        is_cat = torch.as_tensor(lay.is_cat_t[lay.off[fs]], device=dev)
+        key = torch.where(is_cat[None, :, None], mean,
+                          slot.to(torch.float32).expand_as(mean))
+        order = torch.argsort(key, dim=-1, stable=True)  # slot at each rank
+        r = torch.empty_like(order).scatter_(-1, order,
+                                             slot.expand_as(order))
+        pre = torch.cumsum(h.gather(-1, order.expand_as(h)).double(),
+                           dim=-1).float()  # in rank order
+        left = pre.gather(-1, r.expand_as(h))
+        tot = pre[..., -1:].expand_as(left)
+        if n_classes >= 3:
+            g, lc, rc = tt.class_gain(left, tot, impurity == "entropy")
+        else:
+            g, lc, rc = tt.moment_gain(impurity, left, tot)
+        valid = ((lc >= min_inst) & (rc >= min_inst) & (g > min_gain)
+                 & feat_ok_t[cols][None] & (r < sz - 1))
+        gain[:, cols] = torch.where(valid, g, torch.full_like(g,
+                                                          float("-inf")))
+        rank[:, cols] = r.to(torch.int32)
+        lcnt[:, cols] = lc
+        if f0 is not None:
+            tot0 = pre[:, :, f0, -1].T
+    return gain, rank, lcnt, tot0.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -451,6 +536,64 @@ def _tile_rows(acc, codes, rows, meta, vals, off, clip, f_lo, f_hi, t_lo,
 
 
 # ---------------------------------------------------------------------------
+# the scan kernels' work division
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """How the scan kernels divide a level into (node, feature) jobs:
+    features `warp_feats` (at most `wseg` <= WARP_SLOTS slots) take a
+    warp each, `warps` to a block, node-major; `block_feats` (the rest,
+    past the cap included) a block each. Dynamic shared memory a block,
+    `smem` bytes: (2P + 3) words a slot, `wseg` slots a warp or `bseg`
+    slots for a block job (segments past the cap need none)."""
+
+    warp_feats: np.ndarray
+    block_feats: np.ndarray
+    wseg: int
+    warps: int
+    bseg: int
+    smem: int
+
+    def jobs(self, L: int):
+        """(block, warp or -1, node, feature) of every job, in the
+        kernels' index math (`scan_jobs` in csrc/hist_level.cu)."""
+        n_w, n_b = len(self.warp_feats), len(self.block_feats)
+        warp_blocks = -(-L * n_w // self.warps)
+        out = [(j // self.warps, j % self.warps, j // n_w,
+                int(self.warp_feats[j % n_w])) for j in range(L * n_w)]
+        out += [(warp_blocks + j, -1, j // n_b, int(self.block_feats[j % n_b]))
+                for j in range(L * n_b)]
+        return out
+
+
+def plan_scan(lay, planes: int, cap: int, L: int,
+              smem_optin: int = SMEM_BLOCK_MAX) -> ScanPlan:
+    """At a level of L nodes, segments up to a warp's share (WARP_SLOTS,
+    and at most the cap) take a warp where there are at least
+    WARP_JOBS_MIN of them; a block holds as many warps as their
+    (2 * planes + 3) words a slot of the widest such segment fit in
+    `smem_optin`, at most SCAN_WARPS. Every other segment takes a
+    block."""
+    words = (2 * planes + 3) * 4
+    sizes = [int(s) for s in lay.slots]
+    w_cap = min(WARP_SLOTS, cap)
+    if L * sum(s <= w_cap for s in sizes) < WARP_JOBS_MIN:
+        w_cap = 0
+    warp_f = [f for f, s in enumerate(sizes) if s <= w_cap]
+    block_f = [f for f, s in enumerate(sizes) if s > w_cap]
+    wseg = max((sizes[f] for f in warp_f), default=0)
+    warps = (max(1, min(SCAN_WARPS, smem_optin // (words * wseg))) if wseg
+             else 1)
+    bseg = max((sizes[f] for f in block_f if sizes[f] <= cap), default=0)
+    return ScanPlan(warp_feats=np.asarray(warp_f, np.int32),
+                    block_feats=np.asarray(block_f, np.int32), wseg=wseg,
+                    warps=warps, bseg=bseg,
+                    smem=max(warps * words * wseg, words * bseg))
+
+
+# ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
@@ -477,9 +620,17 @@ def _lib():
         lib.hist_accumulate.restype = I
         lib.hist_ws_bytes.argtypes = [I, I, I]
         lib.hist_ws_bytes.restype = LL
-        lib.hist_finalize.argtypes = [P, P, I, I, I, I, I, I, I, P, P, P, P,
-                                      I, I, F, F, P, P, P, P, P, P]
-        lib.hist_finalize.restype = I
+        # the scan plan, options and outputs, shared by both scan entries
+        scan_args = [P, P, P,          # off, slots, is_cat
+                     P, I, P, I,       # wfeat, n_w, bfeat, n_b
+                     I, I, I, I, I,    # wseg, warps, bseg, cap, smem
+                     P, I, F, F,       # featok, impurity, min_inst, min_gain
+                     P, P, P, P, P]    # gain, rank, lcnt, tot0, stream
+        lib.hist_convert.argtypes = [P, P, I, I, I, I, I, P, P]
+        lib.hist_finalize.argtypes = [P, P, I, I, I, I, I, P] + scan_args
+        lib.hist_scan.argtypes = [P, I, I, I, I] + scan_args
+        for fn in (lib.hist_convert, lib.hist_finalize, lib.hist_scan):
+            fn.restype = I
         for fn in (lib.hist_seg_cap, lib.hist_smem_optin):
             fn.argtypes, fn.restype = [], I
         if lib.hist_seg_cap() != SEG_CAP:
@@ -530,6 +681,20 @@ def _ws_bytes(n: int, n_groups: int, cls_mode: bool, dev) -> int:
     if got is None:
         with torch.cuda.device(dev):
             got = int(_lib().hist_ws_bytes(n, n_groups, int(cls_mode)))
+        _DEV_CACHE[key] = got
+    return got
+
+
+def _scan_plan(lay, planes: int, cap: int, L: int, dev: torch.device):
+    """The scan plan of a level and its feature lists on the device
+    (cached)."""
+    key = ("scan", lay.key, planes, cap, L, str(dev))
+    got = _DEV_CACHE.get(key)
+    if got is None:
+        with torch.cuda.device(dev):
+            plan = plan_scan(lay, planes, cap, L, _lib().hist_smem_optin())
+        got = (plan, torch.as_tensor(plan.warp_feats, device=dev),
+               torch.as_tensor(plan.block_feats, device=dev))
         _DEV_CACHE[key] = got
     return got
 
@@ -631,38 +796,38 @@ def _accumulate(codes, codes8, labels, weights, node_slot, active, L: int,
     return acc, maxabs, n, (off, clip, slots, is_cat)
 
 
-def _finalize(acc, maxabs, n: int, L: int, lay, feats, n_classes: int,
-              scan=None):
-    dev = acc.device
-    off, _clip, slots, is_cat = feats
-    T, F = lay.T, len(lay.slots)
-    P = planes_of(n_classes)
-    cls_mode = int(n_classes >= 3)
-    hist = torch.empty((P, L, T), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _lib()
-    if scan is None:
-        rc = lib.hist_finalize(acc.data_ptr(), maxabs.data_ptr(), n, L, T, F,
-                               P, cls_mode, SEG_CAP, off.data_ptr(),
-                               slots.data_ptr(), is_cat.data_ptr(), None, 0,
-                               0, 0.0, 0.0, hist.data_ptr(), None, None,
-                               None, None, stream)
-        _raise_on(rc, "hist_finalize launch")
-        return hist, None
+def _scan_planes(hist, lay, feats, n_classes: int, scan, fixed=None):
+    """One scan launch over a level's histogram hist [P, L, T]: with
+    `fixed`, the fused entry's (acc, maxabs, n), hist_finalize converts
+    the int64 accumulator into `hist` as it scans; else hist_scan reads
+    the f32 `hist`. Returns the per-slot planes (gain, rank, lcnt,
+    tot0)."""
     fok, impurity, min_inst, min_gain, cap = scan
+    off, _clip, slots, is_cat = feats
+    dev = hist.device
+    P, L, T = hist.shape
+    plan, wfeat, bfeat = _scan_plan(lay, P, cap, L, dev)
     gain = torch.empty((L, T), dtype=torch.float32, device=dev)
     rank = torch.empty((L, T), dtype=torch.int32, device=dev)
     lcnt = torch.empty((L, T), dtype=torch.float32, device=dev)
     tot0 = torch.empty((L, P), dtype=torch.float32, device=dev)
-    rc = lib.hist_finalize(acc.data_ptr(), maxabs.data_ptr(), n, L, T, F, P,
-                           cls_mode, cap, off.data_ptr(), slots.data_ptr(),
-                           is_cat.data_ptr(), fok.data_ptr(), 1,
-                           _IMPURITY[impurity], float(min_inst),
-                           float(min_gain), hist.data_ptr(),
-                           gain.data_ptr(), rank.data_ptr(),
-                           lcnt.data_ptr(), tot0.data_ptr(), stream)
-    _raise_on(rc, "hist_finalize launch")
-    return hist, (gain, rank, lcnt, tot0)
+    rest = (off.data_ptr(), slots.data_ptr(), is_cat.data_ptr(),
+            wfeat.data_ptr(), len(plan.warp_feats), bfeat.data_ptr(),
+            len(plan.block_feats), plan.wseg, plan.warps, plan.bseg, cap,
+            plan.smem, fok.data_ptr(), _IMPURITY[impurity], float(min_inst),
+            float(min_gain), gain.data_ptr(), rank.data_ptr(),
+            lcnt.data_ptr(), tot0.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    cls_mode = int(n_classes >= 3)
+    if fixed is not None:
+        acc, maxabs, n = fixed
+        rc = _lib().hist_finalize(acc.data_ptr(), maxabs.data_ptr(), n, L, T,
+                                  P, cls_mode, hist.data_ptr(), *rest)
+        _raise_on(rc, "hist_finalize launch")
+    else:
+        rc = _lib().hist_scan(hist.data_ptr(), L, T, P, cls_mode, *rest)
+        _raise_on(rc, "hist_scan launch")
+    return gain, rank, lcnt, tot0
 
 
 def hist_level(codes, labels, weights, node_slot, active, *, L: int, lay,
@@ -680,10 +845,16 @@ def hist_level(codes, labels, weights, node_slot, active, *, L: int, lay,
                                     n_classes=n_classes)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
-    acc, maxabs, n, feats = _accumulate(codes, codes8, labels, weights,
-                                        node_slot, active, L, lay,
-                                        low_precision, n_classes, int_planes)
-    hist, _ = _finalize(acc, maxabs, n, L, lay, feats, n_classes)
+    acc, maxabs, n, _feats = _accumulate(codes, codes8, labels, weights,
+                                         node_slot, active, L, lay,
+                                         low_precision, n_classes,
+                                         int_planes)
+    hist = torch.empty_like(acc, dtype=torch.float32)
+    rc = _lib().hist_convert(acc.data_ptr(), maxabs.data_ptr(), n, L, lay.T,
+                             hist.shape[0], int(n_classes >= 3),
+                             hist.data_ptr(),
+                             torch.cuda.current_stream(acc.device).cuda_stream)
+    _raise_on(rc, "hist_convert launch")
     launches[_entry("hist_level", n_classes)] += 1
     return hist
 
@@ -711,12 +882,59 @@ def fused_level(codes, labels, weights, node_slot, active, feat_ok_t, *,
     acc, maxabs, n, feats = _accumulate(codes, codes8, labels, weights,
                                         node_slot, active, L, lay,
                                         low_precision, n_classes, int_planes)
-    hist, planes = _finalize(acc, maxabs, n, L, lay, feats, n_classes,
-                             scan=(feat_ok_t, impurity, min_inst, min_gain,
-                                   cap))
+    hist = torch.empty_like(acc, dtype=torch.float32)
+    planes = _scan_planes(hist, lay, feats, n_classes,
+                          (feat_ok_t, impurity, min_inst, min_gain, cap),
+                          fixed=(acc, maxabs, n))
     launches[_entry("fused_level", n_classes)] += 1
     return hist, _epilogue(hist, planes, feat_ok_t, lay, impurity, min_inst,
                            min_gain, n_classes, cap)
+
+
+def scan_planes(hist, feat_ok_t, *, lay, impurity: str, min_inst: int,
+                min_gain: float, n_classes: int = 0):
+    """The scan kernel's per-slot planes (gain, rank, lcnt, tot0; see
+    `scan_planes_reference`, their plain version, which a CPU tensor
+    gets) of an f32 [C, L, T] histogram, and the segment cap they were
+    scanned under."""
+    if hist.device.type == "cpu":
+        return scan_planes_reference(hist, feat_ok_t, lay, impurity,
+                                     min_inst, min_gain, n_classes), SEG_CAP
+    if hist.device.type != "cuda":
+        raise ValueError(f"unsupported device {hist.device}")
+    if impurity not in _IMPURITY:
+        raise ValueError(f"unknown impurity {impurity!r}")
+    dev = hist.device
+    P = planes_of(n_classes)
+    if hist.dim() != 3:
+        raise ValueError(f"hist has shape {tuple(hist.shape)}, expected "
+                         f"({P}, L, {lay.T})")
+    _check(hist, "hist", (torch.float32,), (P, hist.shape[1], lay.T), dev)
+    _check(feat_ok_t, "feat_ok_t", (torch.bool,), (lay.T,), dev)
+    cap = seg_cap(P, dev)
+    return _scan_planes(hist, lay, _feature_arrays(lay, dev), n_classes,
+                        (feat_ok_t, impurity, min_inst, min_gain, cap)), cap
+
+
+def scan_level(hist, feat_ok_t, *, lay, impurity: str, min_inst: int,
+               min_gain: float, n_classes: int = 0):
+    """Scan-only entry: the split-scan 9-tuple of an f32 [C, L, T]
+    histogram (moments, or K class planes for n_classes >= 3). On the
+    CPU the plain scan (`tree_trainer.scan_of`); on the card one launch
+    of hist_scan_kernel (`scan_planes`) and the fused entry's epilogue,
+    which scans the segments wider than the cap in torch."""
+    name = _entry("scan_level", n_classes)
+    if hist.device.type == "cpu":
+        reference_calls[name] += 1
+        tt = _tt()
+        return tt.scan_of(n_classes)(hist, feat_ok_t,
+                                     tt.scan_layout(lay, hist.device),
+                                     impurity, min_inst, min_gain)
+    kw = dict(impurity=impurity, min_inst=min_inst, min_gain=min_gain,
+              n_classes=n_classes)
+    planes, cap = scan_planes(hist, feat_ok_t, lay=lay, **kw)
+    launches[name] += 1
+    return _epilogue(hist, planes, feat_ok_t, lay, cap=cap, **kw)
 
 
 def _epilogue(hist, planes, feat_ok_t, lay, impurity, min_inst, min_gain,

@@ -10,8 +10,8 @@ a loop of device ops over a FLAT per-feature slot layout:
                (n_classes = K >= 3) one weighted count plane a class
                (C = K). Every level with L <= 32 nodes runs the fused
                histogram -> split-scan entry `ops.hist_kernel.
-               fused_level`; deeper levels run `hist_level` and the torch
-               split scan.
+               fused_level`; deeper levels run `hist_level` and the
+               scan-only entry `scan_level`, as does the derived sibling.
     split scan ordered prefix sums per (node, feature segment): numeric
                segments keep slot order, categorical segments sort by mean
                label (K classes: by expected class index) inside static
@@ -26,8 +26,9 @@ a loop of device ops over a FLAT per-feature slot layout:
                default). RF planes under integer weights are exact, so RF
                forests equal the plain run's bit for bit.
 
-On a CUDA device the histogram entries launch the kernel of
-`csrc/hist_level.cu`; on the CPU they run their plain versions. Random
+On a CUDA device the histogram and scan entries launch the kernels of
+`csrc/hist_level.cu`; on the CPU they run their plain versions (the
+scans below). Random
 draws are numpy `default_rng` streams keyed exactly as the JAX package
 keys them, so one seed gives the same valid split, feature subsets, RF
 bags and DART keep masks in both packages.
@@ -60,7 +61,7 @@ hist_counters: Dict[str, int] = {"built": 0, "derived": 0,
                                  "fallback_rebuilds": 0}
 
 # widest level (in nodes) that takes the fused histogram + scan entry;
-# deeper levels run the histogram-only entry and the torch split scan
+# deeper levels run the histogram-only entry and the scan-only entry
 _FUSED_SCAN_L_CAP = 32
 
 # rows per block of the final level's node-total contraction
@@ -381,23 +382,12 @@ def _scan_tail(gain, lcnt, rcnt, order, feat_ok_t, sl: ScanLayout,
             leaf_value, is_split, best_gain, left_mask, node_cnt, left_cnt)
 
 
-def split_scan(hist: torch.Tensor, feat_ok_t: torch.Tensor, sl: ScanLayout,
-               impurity: str, min_inst: int, min_gain: float):
-    """Best split per node from the flat histogram (counterpart of
-    `_make_split_scan`). The ordered layout is `jnp.lexsort((sec, seg))`;
-    empty categories key +inf and sort last, ties keep slot order.
-
-    Returns (feature [L] i32, cut_rank [L] i32, rank_flat [L, T] i32,
-    leaf_value [L], is_split [L] bool, best_gain [L], left_mask
-    [L, s_max] bool, node_cnt [L], left_cnt [L])."""
-    cnt, s1 = hist[0], hist[1]
-    L, T = cnt.shape
-    inf = torch.tensor(float("inf"), device=hist.device)
-    mean = torch.where(cnt > 0, s1 / cnt.clamp_min(1e-12), inf)
-    sec = torch.where(sl.is_cat_t[None, :], mean,
-                      sl.pos_t.to(torch.float32)[None, :].expand(L, T))
-    order = _scan_order(sec, sl)
-    left, tot = _seg_sums(hist, order, sl)
+def moment_gain(impurity: str, left: torch.Tensor, tot: torch.Tensor):
+    """Gain of a cut after each ordered position from the left and the
+    segment-total moment planes [3, ...] (count, sum y, sum y^2) of the
+    same shape, by impurity (variance / friedmanmse / entropy / gini),
+    in the f32 operations of the kernel's `split_gain`. Returns (gain,
+    lcnt, rcnt)."""
     lcnt, ls1, ls2 = left
     tcnt, ts1, ts2 = tot
     rcnt, rs1, rs2 = tcnt - lcnt, ts1 - ls1, ts2 - ls2
@@ -430,9 +420,61 @@ def split_scan(hist: torch.Tensor, feat_ok_t: torch.Tensor, sl: ScanLayout,
     else:  # variance
         gain = sse(tcnt, ts1, ts2) - sse(lcnt, ls1, ls2) - sse(rcnt, rs1,
                                                               rs2)
+    return gain, lcnt, rcnt
+
+
+def class_gain(left: torch.Tensor, tot: torch.Tensor, entropy: bool):
+    """K-class gain of a cut after each ordered position from the left
+    and segment-total class planes [K, ...] of the same shape: the mass
+    drop total*h_tot - left*h_left - right*h_right, gini h = 1 - sum_c
+    p_c^2 or entropy h = -sum_c p_c log2 p_c, class terms summed
+    c = 0..K-1 in order. It rounds as the JAX package's XLA scan does on
+    the CPU, which contracts each class term and the side masses into
+    fused multiply-adds (`fma32`); the CUDA kernel uses `fmaf` at the
+    same places. Returns (gain, lcnt, rcnt), the counts summed in class
+    order."""
+    right = tot - left
+    lcnt, rcnt = class_sum(left), class_sum(right)
+    tcnt = lcnt + rcnt
+
+    def impurity_of(parts, total):
+        # each class term a fused multiply-add onto the running sum
+        p = parts / total.clamp_min(1e-12)[None]
+        q = torch.log2(p.clamp_min(1e-12)) if entropy else p
+        acc = torch.zeros_like(total)
+        for c in range(parts.shape[0]):
+            acc = fma32(p[c], q[c], acc)
+        return -acc if entropy else 1.0 - acc
+
+    # contracted as fma(-right, h_right, fma(total, h_tot, -(left*h_left)))
+    h_l = impurity_of(left, lcnt)
+    gain = fma32(-rcnt, impurity_of(right, rcnt),
+                 fma32(tcnt, impurity_of(tot, tcnt), -(lcnt * h_l)))
+    return gain, lcnt, rcnt
+
+
+def split_scan(hist: torch.Tensor, feat_ok_t: torch.Tensor, sl: ScanLayout,
+               impurity: str, min_inst: int, min_gain: float):
+    """Best split per node from the flat histogram (counterpart of
+    `_make_split_scan`). The ordered layout is `jnp.lexsort((sec, seg))`;
+    empty categories key +inf and sort last, ties keep slot order; gain
+    by `moment_gain`.
+
+    Returns (feature [L] i32, cut_rank [L] i32, rank_flat [L, T] i32,
+    leaf_value [L], is_split [L] bool, best_gain [L], left_mask
+    [L, s_max] bool, node_cnt [L], left_cnt [L])."""
+    cnt, s1 = hist[0], hist[1]
+    L, T = cnt.shape
+    inf = torch.tensor(float("inf"), device=hist.device)
+    mean = torch.where(cnt > 0, s1 / cnt.clamp_min(1e-12), inf)
+    sec = torch.where(sl.is_cat_t[None, :], mean,
+                      sl.pos_t.to(torch.float32)[None, :].expand(L, T))
+    order = _scan_order(sec, sl)
+    left, tot = _seg_sums(hist, order, sl)
+    gain, lcnt, rcnt = moment_gain(impurity, left, tot)
     # node stats: segment 0's totals (its end in the running sum)
-    node_cnt = tcnt[:, 0]
-    leaf_value = ts1[:, 0] / node_cnt.clamp_min(1e-12)
+    node_cnt = tot[0][:, 0]
+    leaf_value = tot[1][:, 0] / node_cnt.clamp_min(1e-12)
     return _scan_tail(gain, lcnt, rcnt, order, feat_ok_t, sl, min_inst,
                       min_gain, node_cnt, leaf_value)
 
@@ -442,16 +484,11 @@ def cls_scan(hist: torch.Tensor, feat_ok_t: torch.Tensor, sl: ScanLayout,
     """Multi-class split scan over per-class count planes [K, L, T]
     (counterpart of `_make_cls_scan`, NATIVE RF classification). The
     categorical key is the expected class index sum_c c*h_c / sum_c h_c
-    (+inf for empty slots); the gain is the K-class mass drop, gini
-    total * (1 - sum_c p_c^2) or entropy total * sum_c -p_c log2 p_c,
-    class terms summed c = 0..K-1 in order (hist_pallas.py:416-427);
-    variance/friedmanmse fall back to gini, as in the JAX package. The
-    gain rounds as the JAX package's XLA scan does on the CPU, which
-    contracts each class term and the side masses into fused
-    multiply-adds (`fma32`); the CUDA kernel uses `fmaf` at the same
-    places, so gini gains are bit-equal in all three. Running sums in
-    f64, each segment's sums rounded once (the C.2 repair). Leaf value =
-    majority class index (first on ties). Returns the same 9-tuple as
+    (+inf for empty slots); the gain is `class_gain`'s K-class gini or
+    entropy mass drop (hist_pallas.py:416-427); variance/friedmanmse fall
+    back to gini, as in the JAX package. Running sums in f64, each
+    segment's sums rounded once (the C.2 repair). Leaf value = majority
+    class index (first on ties). Returns the same 9-tuple as
     `split_scan`."""
     K, L, T = hist.shape
     inf = torch.tensor(float("inf"), device=hist.device)
@@ -464,26 +501,7 @@ def cls_scan(hist: torch.Tensor, feat_ok_t: torch.Tensor, sl: ScanLayout,
                       sl.pos_t.to(torch.float32)[None, :].expand(L, T))
     order = _scan_order(sec, sl)
     left, tot = _seg_sums(hist, order, sl)
-    right = tot - left
-    lcnt, rcnt = class_sum(left), class_sum(right)
-    tcnt = lcnt + rcnt
-    entropy = impurity == "entropy"
-
-    def impurity_of(parts, total):
-        # gini 1 - sum_c p_c^2 / entropy -sum_c p_c log2 p_c, each class
-        # term a fused multiply-add onto the running sum
-        p = parts / total.clamp_min(1e-12)[None]
-        q = torch.log2(p.clamp_min(1e-12)) if entropy else p
-        acc = torch.zeros_like(total)
-        for c in range(K):
-            acc = fma32(p[c], q[c], acc)
-        return -acc if entropy else 1.0 - acc
-
-    # gain = total*h_tot - left*h_left - right*h_right, contracted as
-    # fma(-right, h_right, fma(total, h_tot, -(left * h_left)))
-    h_l = impurity_of(left, lcnt)
-    gain = fma32(-rcnt, impurity_of(right, rcnt),
-                 fma32(tcnt, impurity_of(tot, tcnt), -(lcnt * h_l)))
+    gain, lcnt, rcnt = class_gain(left, tot, impurity == "entropy")
     node_class = tot[:, :, 0]  # [K, L] segment-0 class totals
     node_cnt = class_sum(node_class)
     leaf_value = torch.argmax(node_class, dim=0).to(torch.float32)
@@ -634,7 +652,8 @@ def _grow_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
     prev = None  # retained parent level (hist, is_split, lcnt, ncnt)
 
     def scan(hist):
-        return scan_of(K)(hist, feat_ok_t, sl, **skw)
+        return hist_kernel.scan_level(hist, feat_ok_t, lay=lay, n_classes=K,
+                                      **skw)
 
     for d in range(D):
         L = 2 ** d
@@ -644,8 +663,9 @@ def _grow_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
             nhalf, build_row = _sub_row_masks(node, active, left_small)
             if L // 2 <= _FUSED_SCAN_L_CAP:
                 # the kernel grows only the smaller child (histogram and
-                # its scan in one pass); the sibling derives and is
-                # scanned in torch, then both interleave per parent
+                # its scan in one pass); the sibling derives in torch and
+                # takes the scan-only entry, then both interleave per
+                # parent
                 built, scan_b = hist_kernel.fused_level(
                     codes, labels, weights, nhalf, build_row, feat_ok_t,
                     L=L // 2, **kw, **skw)

@@ -1,7 +1,7 @@
-"""The CUDA histogram -> split-scan kernel against its plain PyTorch versions,
-on the card. Every test here is marked `cuda` and skips without a CUDA
-device (the kernel has no CPU mode); this file imports no JAX, so it runs
-on a machine that has only PyTorch:
+"""The CUDA histogram -> split-scan kernels against their plain PyTorch
+versions, on the card. Every test here is marked `cuda` and skips without
+a CUDA device (the kernels have no CPU mode); this file imports no JAX, so
+it runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py
 """
@@ -298,7 +298,8 @@ def test_native_rf_forest_cuda_equals_cpu(dev):
                              device="cuda")
     assert hk.launches["fused_level_mc"] > 0
     assert hk.launches["hist_level_mc"] > 0
-    assert hk.reference_calls["fused_level_mc"] == 0
+    assert hk.launches["scan_level_mc"] > 0
+    assert sum(hk.reference_calls.values()) == 0
     on_cpu = tt.train_trees(codes, y, w, slots, is_cat, cols, cfg,
                             device="cpu")
     for a, b in zip(on_card.spec.trees, on_cpu.spec.trees):
@@ -306,3 +307,153 @@ def test_native_rf_forest_cuda_equals_cpu(dev):
         np.testing.assert_array_equal(a.left_mask, b.left_mask)
         np.testing.assert_array_equal(a.leaf_value, b.leaf_value)
     assert on_card.valid_error == on_cpu.valid_error
+
+
+# ---------------------------------------------------------------------------
+# the scan-only entry
+# ---------------------------------------------------------------------------
+
+RAGGED = [9] * 6 + [33, 65] + [1500]
+RAGGED_CAT = [False] * 6 + [True] * 3
+
+
+def _derived_planes(dev, slots, is_cat, K, Lh, seed, *, w_scale=1,
+                    lowp=False, n=60_000):
+    """Derived-sibling planes [P, Lh, T] on the card (parents minus the
+    built smaller children, zero under parent 1, which did not split):
+    Poisson weights times w_scale with 0/1 or class labels (integer
+    planes), or GBT's bf16 planes of float labels (lowp)."""
+    rng = np.random.default_rng(seed)
+    lay = tt.make_layout(slots, is_cat)
+    codes = np.stack([rng.integers(0, s - 1, size=n) for s in slots],
+                     1).astype(np.int32)
+    if K:
+        y = (codes[:, 0] // 3 + codes[:, -1]) % K
+    elif lowp:
+        y = rng.random(n) - 0.35
+    else:
+        y = codes[:, -1] % 3 == 0
+    w = np.ones(n) if lowp else rng.poisson(1.0, size=n) * w_scale
+    node = rng.integers(0, Lh, size=n)
+    act = rng.random(n) < 0.95
+    built = act & (rng.random(n) < 0.4)
+    t = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=dev)  # noqa
+    args = (t(codes, np.int32), t(y, np.float32), t(w, np.float32),
+            t(node, np.int32))
+    kw = dict(L=Lh, lay=lay, n_classes=K, low_precision=lowp)
+    p_hist = hk.hist_level_reference(*args, t(act, bool), **kw)
+    b_hist = hk.hist_level_reference(*args, t(built, bool), **kw)
+    p_split = torch.arange(Lh, device=dev) != 1
+    left_small = t(rng.random(Lh) < 0.5, bool)
+    derived, _full = tt._derive(p_hist, b_hist, p_split, left_small)
+    fok = torch.ones(lay.T, dtype=torch.bool, device=dev)
+    fok[int(lay.off[2]):int(lay.off[2] + lay.slots[2])] = False
+    return lay, derived.contiguous(), fok
+
+
+def _check_scan(dev, lay, hist, fok, K, impurity, gain_rtol=0.0):
+    """scan_level's planes against scan_planes_reference, its 9-tuple
+    against the plain scan's: bit for bit, but gains at gain_rtol."""
+    kw = dict(impurity=impurity, min_inst=2, min_gain=0.0, n_classes=K)
+    (gain, rank, lcnt, tot0), cap = hk.scan_planes(hist, fok, lay=lay, **kw)
+    ref = hk.scan_planes_reference(hist, fok, lay, cap=cap, **kw)
+    out = hk.scan_level(hist, fok, lay=lay, **kw)
+    plain = tt.scan_of(K)(hist, fok, tt.scan_layout(lay, dev),
+                          **{k: kw[k] for k in kw if k != "n_classes"})
+    torch.cuda.synchronize()
+    for nm, a, b in (("rank", ref[1], rank), ("lcnt", ref[2], lcnt),
+                     ("tot0", ref[3], tot0)):
+        assert torch.equal(a, b), nm
+    for nm, a, b in (("gain", ref[0], gain), ("best_gain", plain[5], out[5])):
+        if gain_rtol:
+            fin = torch.isfinite(a)
+            assert torch.equal(fin, torch.isfinite(b)), nm
+            torch.testing.assert_close(b[fin], a[fin], rtol=gain_rtol,
+                                       atol=0, msg=nm)
+        else:
+            assert torch.equal(a, b), nm
+    for nm, a, b in zip(NAMES, plain, out):
+        if nm != "best_gain":
+            assert torch.equal(a, b), nm
+    assert bool(out[4].any())
+    return cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,impurity,layout,Lh", [
+    (0, "variance", "rf", 64), (0, "gini", "ragged", 16),
+    (0, "entropy", "rf", 16), (0, "friedmanmse", "ragged", 8),
+    (3, "gini", "ragged", 16), (5, "gini", "rf", 64),
+    (5, "entropy", "rf", 16), (32, "gini", "wide900", 8),
+    (32, "gini", "rf", 32)])
+def test_scan_level_matches_plain(dev, K, impurity, layout, Lh):
+    """The scan-only entry on derived-sibling planes, both modes: the
+    kernel's per-slot planes equal their plain version bit for bit and
+    the 9-tuple the plain scan's (entropy gains at rtol 1e-6: log2f
+    against torch's log2); the 1500-slot categorical, and at K = 32 a
+    900-slot one, pass the cap and take the torch scan in the
+    epilogue."""
+    slots, is_cat = {"rf": (BENCH_RF, [False] * 20 + [True] * 10),
+                     "ragged": (RAGGED, RAGGED_CAT),
+                     "wide900": ([33] * 4 + [900],
+                                 [False] * 4 + [True])}[layout]
+    lay, hist, fok = _derived_planes(dev, slots, is_cat, K, Lh, 3 + K)
+    cap = _check_scan(dev, lay, hist, fok, K, impurity,
+                      1e-6 if impurity == "entropy" else 0.0)
+    assert (max(slots) > cap) == (layout != "rf")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [0, 5])
+def test_scan_level_node_totals_past_2_24(dev, K):
+    """Integer planes whose node totals pass 2^24: the kernel's f64
+    segment sums keep planes and 9-tuple bit-equal to the plain scan's
+    (an f32 prefix sum would not be exact)."""
+    lay, hist, fok = _derived_planes(dev, RAGGED, RAGGED_CAT, K, 8, 5,
+                                     w_scale=3_000_000)
+    cnt = tt.class_sum(hist) if K else hist[0]
+    assert float(cnt[:, :RAGGED[0]].sum(1).max()) > 2 ** 24
+    _check_scan(dev, lay, hist, fok, K, "gini" if K else "variance")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lh", [1, 16])
+def test_scan_level_bf16_moment_planes(dev, Lh):
+    """GBT's float planes (bf16 comps): the kernel's f64 sums run in
+    another order than the plain cumsum, so gains agree within 1e-5
+    relative, and feature and cut are equal wherever a node's two best
+    gains differ by more than that."""
+    lay, hist, fok = _derived_planes(dev, [33] * 30, [False] * 30, 0, Lh, 9,
+                                     lowp=True)
+    kw = dict(impurity="variance", min_inst=5, min_gain=0.0)
+    out = hk.scan_level(hist, fok, lay=lay, **kw)
+    plain = tt.split_scan(hist, fok, tt.scan_layout(lay, dev), **kw)
+    ref, _cap = hk.scan_planes(hist, fok, lay=lay, **kw)
+    torch.cuda.synchronize()
+    a, b = plain[5], out[5]
+    fin = torch.isfinite(a)
+    assert torch.equal(fin, torch.isfinite(b))
+    torch.testing.assert_close(b[fin], a[fin], rtol=1e-5, atol=0)
+    top2 = torch.topk(ref[0], 2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-5 * top2[:, 0].abs()
+    assert torch.equal(out[0][clear], plain[0][clear])
+    assert torch.equal(out[1][clear], plain[1][clear])
+    assert bool(clear.any())
+
+
+@pytest.mark.cuda
+def test_scan_level_raises_on_bad_inputs(dev):
+    lay, hist, fok = _derived_planes(dev, [9, 9, 9], [False, True, False],
+                                     0, 2, 1, n=500)
+    kw = dict(lay=lay, impurity="gini", min_inst=1, min_gain=0.0)
+    with pytest.raises(TypeError):
+        hk.scan_level(hist.double(), fok, **kw)
+    with pytest.raises(ValueError):  # 3 moment planes, not 4 classes
+        hk.scan_level(hist, fok, n_classes=4, **kw)
+    with pytest.raises(ValueError):
+        hk.scan_level(hist, fok.cpu(), **kw)
+    with pytest.raises(ValueError):
+        hk.scan_level(hist.transpose(1, 2).contiguous().transpose(1, 2),
+                      fok, **kw)
+    with pytest.raises(ValueError):
+        hk.scan_level(hist, fok, **{**kw, "impurity": "mse"})

@@ -227,56 +227,13 @@ def test_fused_multiclass_matches_jax_kernel(impurity):
     assert set(np.unique(p["leaf_value"])) <= set(range(4))
 
 
-def _emulated_planes(hist, fok, lay, min_inst):
-    """The kernel's scan-mode planes (gain, rank, lcnt, tot0), written out
-    per (node, segment) in plain torch, variance impurity: what
-    hist_finalize_kernel computes, for checking the wrapper's epilogue on
-    the CPU."""
-    L, T = hist.shape[1:]
-    gain = torch.full((L, T), -float("inf"))
-    rank = torch.zeros((L, T), dtype=torch.int32)
-    lcnt = torch.zeros((L, T))
-    tot0 = torch.zeros((L, 3))
-    inf = torch.tensor(float("inf"))
-    for l in range(L):
-        for f in range(len(lay.slots)):
-            st, sz = int(lay.off[f]), int(lay.slots[f])
-            h = hist[:, l, st:st + sz]
-            if sz > hk.SEG_CAP:
-                rank[l, st:st + sz] = torch.arange(sz, dtype=torch.int32)
-                if f == 0:
-                    tot0[l] = h.sum(1)
-                continue
-            key = (torch.where(h[0] > 0, h[1] / h[0].clamp_min(1e-12), inf)
-                   if lay.is_cat_t[st] else torch.arange(sz).float())
-            order = torch.argsort(key, stable=True)
-            r = torch.empty(sz, dtype=torch.long)
-            r[order] = torch.arange(sz)
-            pre = torch.cumsum(h[:, order], 1)
-            tc, ts1, ts2 = pre[:, -1]
-            lc, ls1, ls2 = pre[0][r], pre[1][r], pre[2][r]
-
-            def sse(c, s, q):
-                return q - s * s / c.clamp_min(1e-12)
-
-            g = (sse(tc, ts1, ts2) - sse(lc, ls1, ls2)
-                 - sse(tc - lc, ts1 - ls1, ts2 - ls2))
-            valid = ((lc >= min_inst) & (tc - lc >= min_inst) & (g > 0.0)
-                     & fok[st:st + sz] & (r < sz - 1))
-            gain[l, st:st + sz] = torch.where(valid, g, -inf)
-            rank[l, st:st + sz] = r.int()
-            lcnt[l, st:st + sz] = lc
-            if f == 0:
-                tot0[l] = pre[:, -1]
-    return gain, rank, lcnt, tot0
-
-
 @pytest.mark.parametrize("wide_first,w_scale", [(False, 1), (True, 1),
                                                 (False, 4097)])
 def test_kernel_epilogue_reproduces_reference(wide_first, w_scale):
     """The wrapper's torch epilogue (argmax with the ordered-position
     tie-break, the wide-feature merge, rank_flat, left mask, node stats)
-    turns the kernel's planes into exactly the reference 9-tuple — also
+    turns the kernel's planes (their plain version,
+    `scan_planes_reference`) into exactly the reference 9-tuple — also
     when the widest feature is segment 0 and owns the node totals, and
     when a node's row of slots sums past 2^24 while each segment stays
     below it (w_scale: the plain scan's running sums must stay exact
@@ -305,64 +262,11 @@ def test_kernel_epilogue_reproduces_reference(wide_first, w_scale):
                                          min_inst=2, min_gain=0.0)
     if w_scale > 1:
         assert float(hist[0].sum(1).max()) > 2 ** 24
-    planes = _emulated_planes(hist, fok, lay, 2)
+    planes = hk.scan_planes_reference(hist, fok, lay, "variance", 2, 0.0)
     out = hk._epilogue(hist, planes, fok, lay, "variance", 2, 0.0)
     for nm, a, b in zip(NAMES, ref, out):
         assert a.dtype == b.dtype, nm
         assert torch.equal(a, b), nm
-
-
-def _emulated_cls_planes(hist, fok, lay, min_inst, cap):
-    """The kernel's class-mode scan planes (gain, rank, lcnt, tot0 [L, K]),
-    per (node, segment) in plain torch, gini: what hist_finalize_kernel
-    computes with cls_mode, for checking the epilogue on the CPU.
-    Segments wider than `cap` are left to the wrapper's torch scan."""
-    K, L, T = hist.shape
-    gain = torch.full((L, T), -float("inf"))
-    rank = torch.zeros((L, T), dtype=torch.int32)
-    lcnt = torch.zeros((L, T))
-    tot0 = torch.zeros((L, K))
-    inf = torch.tensor(float("inf"))
-
-    def impurity(parts, total):
-        p = parts / total.clamp_min(1e-12)
-        acc = torch.zeros_like(total)
-        for c in range(K):
-            acc = tt.fma32(p[c], p[c], acc)
-        return 1.0 - acc
-
-    for l in range(L):
-        for f in range(len(lay.slots)):
-            st, sz = int(lay.off[f]), int(lay.slots[f])
-            h = hist[:, l, st:st + sz]
-            if sz > cap:
-                rank[l, st:st + sz] = torch.arange(sz, dtype=torch.int32)
-                if f == 0:
-                    tot0[l] = h.sum(1)
-                continue
-            cnt = tt.class_sum(h)
-            ex = sum(float(c) * h[c] for c in range(K))
-            key = (torch.where(cnt > 0, ex / cnt.clamp_min(1e-12), inf)
-                   if lay.is_cat_t[st] else torch.arange(sz).float())
-            order = torch.argsort(key, stable=True)
-            r = torch.empty(sz, dtype=torch.long)
-            r[order] = torch.arange(sz)
-            pre = torch.cumsum(h[:, order], 1)
-            left, tot = pre[:, r], pre[:, -1:].expand(K, sz)
-            right = tot - left
-            lc, rc = tt.class_sum(left), tt.class_sum(right)
-            tc = lc + rc
-            g = tt.fma32(-rc, impurity(right, rc),
-                         tt.fma32(tc, impurity(tot, tc),
-                                  -(lc * impurity(left, lc))))
-            valid = ((lc >= min_inst) & (rc >= min_inst) & (g > 0.0)
-                     & fok[st:st + sz] & (r < sz - 1))
-            gain[l, st:st + sz] = torch.where(valid, g, -inf)
-            rank[l, st:st + sz] = r.int()
-            lcnt[l, st:st + sz] = lc
-            if f == 0:
-                tot0[l] = pre[:, -1]
-    return gain, rank, lcnt, tot0
 
 
 @pytest.mark.parametrize("K,cap", [(3, hk.SEG_CAP), (5, hk.SEG_CAP),
@@ -385,7 +289,7 @@ def test_kernel_epilogue_reproduces_class_reference(K, cap):
                                          L=L, lay=lay, impurity="gini",
                                          min_inst=2, min_gain=0.0,
                                          n_classes=K)
-    planes = _emulated_cls_planes(hist, fok, lay, 2, cap)
+    planes = hk.scan_planes_reference(hist, fok, lay, "gini", 2, 0.0, K, cap)
     out = hk._epilogue(hist, planes, fok, lay, "gini", 2, 0.0, K, cap)
     for nm, a, b in zip(NAMES, ref, out):
         assert a.dtype == b.dtype, nm
@@ -443,11 +347,17 @@ def test_cpu_wrappers_run_plain_versions_and_count():
                            min_gain=0.0)
     assert torch.equal(h, h2)
     cls = t((codes[:, 0] % 4).astype(np.float32))
-    hk.hist_level(t(codes), cls, t(w), node, act, L=2, lay=lay, n_classes=4)
+    h3 = hk.hist_level(t(codes), cls, t(w), node, act, L=2, lay=lay,
+                       n_classes=4)
+    hk.scan_level(h, fok, lay=lay, impurity="gini", min_inst=1, min_gain=0.0)
+    hk.scan_level(h3, fok, lay=lay, impurity="gini", min_inst=1,
+                  min_gain=0.0, n_classes=4)
     assert hk.reference_calls == {"hist_level": 1, "fused_level": 1,
-                                  "hist_level_mc": 1, "fused_level_mc": 0}
+                                  "scan_level": 1, "hist_level_mc": 1,
+                                  "fused_level_mc": 0, "scan_level_mc": 1}
     assert hk.launches == {"hist_level": 0, "fused_level": 0,
-                           "hist_level_mc": 0, "fused_level_mc": 0}
+                           "scan_level": 0, "hist_level_mc": 0,
+                           "fused_level_mc": 0, "scan_level_mc": 0}
     c8 = hk.codes8_of(t(codes), lay)
     assert c8.dtype == torch.int8
     np.testing.assert_array_equal(c8[:, :8].numpy(), codes[:, :8])

@@ -58,6 +58,18 @@ def _assert_forests_bit_equal(a, b):
         assert t0.weight == t1.weight
 
 
+def _scan_calls(depth, subtraction):
+    """`scan_level` calls a tree: one a subtraction level (the derived
+    sibling, or the whole level past 32 nodes), one a level past 32
+    nodes built whole."""
+    sub = ptt._sub_plan(ptt.TreeTrainConfig(max_depth=depth,
+                                            hist_subtraction=subtraction),
+                        1 << 30)
+    built, derived, _fb = ptt._plan_counts(sub[:depth], subtraction)
+    assert derived == sum(2 ** d // 2 for d in range(depth) if sub[d])
+    return sum(1 for d in range(depth) if sub[d] or 2 ** d > 32)
+
+
 @pytest.mark.parametrize("depth,subtraction", [(4, True), (7, False),
                                                (8, True)])
 def test_rf_forest_bit_equal(depth, subtraction):
@@ -80,6 +92,8 @@ def test_rf_forest_bit_equal(depth, subtraction):
         w <= 32 for w in widths)
     assert hk.reference_calls["hist_level"] == 3 * sum(w > 32 for w in widths)
     assert hk.reference_calls["hist_level"] > 0 or depth == 4
+    assert hk.reference_calls["scan_level"] == 3 * _scan_calls(depth,
+                                                                subtraction)
 
 
 def test_gbt_scores_within_tolerance():
@@ -222,6 +236,8 @@ def test_native_multiclass_rf_bit_equal(k, depth, impurity):
     assert hk.reference_calls["fused_level_mc"] > 0
     assert (hk.reference_calls["hist_level_mc"] > 0) == (depth == 8)
     assert hk.reference_calls["fused_level"] == 0
+    assert hk.reference_calls["scan_level_mc"] == 3 * _scan_calls(depth, True)
+    assert hk.reference_calls["scan_level"] == 0
 
 
 def test_native_multiclass_resume_is_bit_equal():
