@@ -52,6 +52,25 @@ Phases, each of which must pass:
            `gbt` shape, 5 trees, depth 6: three `model<k>.gbt`, a second
            card run bit-equal, scores within 0.03 of the CPU run.
 
+7. raw     `shifu init` + `shifu stats -correlation -psi` from raw text:
+           500,000 pipe-delimited rows of the bench `rf` width (a 0/1
+           target, a weight column of exact f32 values in [0.5, 2), 20
+           numeric columns printed %.5f with 2% missing tokens, 10
+           categorical columns of up to 64 tokens, a 12-value unit column
+           for -psi; about 130 MB, under the in-RAM memory budget) written
+           from --seed; `InitProcessor` then `StatsProcessor` twice on the
+           card and once on the CPU, each on its own copy, all in this
+           process, and a stats run again under the profiler on the first
+           card run's copy. The card runs' ColumnConfig.json, autotype
+           JSON and correlation CSV are byte-identical (the profiled run's
+           too); the CPU run's equal the card's but for `mean`
+           and `stdDev` (f32 sums, engine.py) and the correlation values,
+           within rtol 1e-6 atol 1e-6. It prints rows/s of each step, the
+           stats step's host split (parse, prepare, bins, codes, copy,
+           aggregate, write-back, correlation, psi; the aggregate's device
+           ms) of the second card run, unprofiled, and the idle share of
+           the profiled run's device busy against that run's stats time.
+
 Every main-path run (phases 3-6) must launch the scan entry once for each
 subtraction level of each tree (bench `gbt` 25, `rf` 70, NATIVE 70,
 ONEVSALL 75) and run no plain torch scan on the card.
@@ -218,7 +237,7 @@ def device_split_ms(torch, fn, reps: int = 5,
     return out
 
 
-def profile_run(torch, fn, wall_s: float, top: int = 8) -> dict:
+def profile_run(torch, fn, wall_s: float) -> dict:
     """Device busy time of one run of `fn` under the torch profiler, its
     share of `wall_s` (the same run's time unprofiled), and the kernels
     that took most device time."""
@@ -226,6 +245,11 @@ def profile_run(torch, fn, wall_s: float, top: int = 8) -> dict:
     with _profile(torch) as prof:
         fn()
         torch.cuda.synchronize()
+    return profile_summary(prof, wall_s)
+
+
+def profile_summary(prof, wall_s: float, top: int = 8) -> dict:
+    """`profile_run`'s fields from a profile of one run of `wall_s`."""
     times = _device_times(prof, 1)
     if not times:
         return dict(device_busy_s=None, idle_share=None, top_kernels=[],
@@ -290,6 +314,13 @@ def finalize_bound_ms(P: int, L: int, T: int) -> float:
     written once."""
     t_bytes = P * L * T * (8 + 4) + T + L * T * 12 + L * P * 4
     return t_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def convert_bound_ms(P: int, L: int, T: int) -> float:
+    """Bound of the histogram-only entries' finalize (convert only; ms,
+    bytes bound it): the int64 accumulator [P, L, T] read once, the f32
+    histogram written once."""
+    return P * L * T * (8 + 4) / HBM_BYTES_PER_S * 1e3
 
 
 def scan_bound_ms(P: int, L: int, lay, K: int) -> tuple:
@@ -513,7 +544,8 @@ def _time_entry(torch, hk, entry, codes, codes8, lay, L, y, w, node, act,
                                    lay.T, lay.s_max, fused)
     acc_bound = accumulate_bound_ms(n, _live_rows(w, act), F, cb,
                                     hk.planes_of(K), L, lay.T)
-    fin = finalize_bound_ms(hk.planes_of(K), L, lay.T) if fused else None
+    fin = (finalize_bound_ms if fused else convert_bound_ms)(
+        hk.planes_of(K), L, lay.T)
     return dict(ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
                 library_ms=(time_ms(torch, library) if library else None),
                 bound_ms=bound, bound_by=by, acc_bound_ms=acc_bound,
@@ -1348,6 +1380,202 @@ def phase_ova(torch, hk, tt, ptree, data_dir, gbt_data_, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: `shifu init` + `shifu stats` from raw text
+# ---------------------------------------------------------------------------
+
+RAW = dict(n=500_000, numeric=20, cat=10, cat_values=64, units=12,
+           missing=0.02)
+RAW_TOL = dict(rtol=1e-6, atol=1e-6)  # mean, stdDev, correlation: card/CPU
+
+
+def write_raw_set(root, seed, n=RAW["n"]):
+    """A model set of raw pipe-delimited text at the bench `rf` width:
+    a 0/1 target, a weight column of f32 values in [0.5, 2) printed
+    exactly (k / 256), 20 numeric columns printed %.5f with 2% missing
+    tokens ("" or "?"), 10 categorical columns of up to 64 tokens, and a
+    12-value unit column (meta, the -psi unit). ModelConfig.json is
+    written with the port's own config module."""
+    from shifu_tpu_torch.config.model_config import (Algorithm,
+                                                     new_model_config)
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    rng = np.random.default_rng(seed + 7)
+    y = rng.random(n) < 0.3
+    names = ["label", "wt"]
+    cols = [np.where(y, "1", "0").tolist(),
+            list(map("%.8f".__mod__, (rng.integers(128, 512, size=n)
+                                       / 256.0).tolist()))]
+    for j in range(RAW["numeric"]):
+        x = rng.normal(loc=y * (0.5 + 0.1 * j) * (j % 3 == 0), scale=1 + j)
+        col = list(map("%.5f".__mod__, x.tolist()))
+        for i in np.flatnonzero(rng.random(n) < RAW["missing"]).tolist():
+            col[i] = "" if j % 2 else "?"
+        names.append(f"num_{j}")
+        cols.append(col)
+    for j in range(RAW["cat"]):
+        k = RAW["cat_values"] - 3 * j
+        codes = np.minimum(rng.geometric(4.0 / k, size=n) - 1
+                           + y * (j % 4), k - 1)
+        names.append(f"cat_{j}")
+        cols.append([f"c{j}_{c}" for c in codes.tolist()])
+    names.append("unit")
+    cols.append([f"u{i % RAW['units'] + 1}" for i in range(n)])
+    data_dir = os.path.join(root, "data")
+    os.makedirs(data_dir, exist_ok=True)
+    with open(os.path.join(data_dir, "header.txt"), "w") as fh:
+        fh.write("|".join(names) + "\n")
+    with open(os.path.join(data_dir, "data.txt"), "w") as fh:
+        fh.write("\n".join(map("|".join, zip(*cols))))
+        fh.write("\n")
+    with open(os.path.join(root, "meta.names"), "w") as fh:
+        fh.write("unit\n")
+    mc = new_model_config("RawSmoke", Algorithm.parse("RF"))
+    ds = mc.data_set
+    ds.data_path, ds.header_path = "data/data.txt", "data/header.txt"
+    ds.target_column_name, ds.pos_tags, ds.neg_tags = "label", ["1"], ["0"]
+    ds.weight_column_name, ds.meta_column_name_file = "wt", "meta.names"
+    mc.stats.psi_column_name = "unit"
+    mc.save(PathFinder(root).model_config_path())
+    return os.path.getsize(os.path.join(data_dir, "data.txt"))
+
+
+def stats_step(torch, root, device):
+    """`shifu stats -correlation -psi` on `root`: its stage split."""
+    from shifu_tpu_torch.processor.stats import StatsProcessor
+
+    proc = StatsProcessor(root, correlation=True, psi=True, device=device)
+    rc = proc.run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    check(rc == 0, f"{root}: stats returned non-zero")
+    return dict(proc.timings)
+
+
+def artifacts(root):
+    """The bytes of ColumnConfig.json, the autotype JSON and the
+    correlation CSV of `root`."""
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    paths = PathFinder(root)
+    out = {}
+    for key, path in (("columns", paths.column_config_path()),
+                      ("autotype", paths.autotype_path()),
+                      ("correlation", paths.correlation_path())):
+        with open(path, "rb") as fh:
+            out[key] = fh.read()
+    return out
+
+
+def init_stats(torch, root, device):
+    """`shifu init` then `shifu stats -correlation -psi` on `root`: the
+    seconds of each, the stats step's stage split, the artifacts' bytes."""
+    from shifu_tpu_torch.processor.init import InitProcessor
+
+    t0 = time.perf_counter()
+    check(InitProcessor(root, device=device).run() == 0,
+          f"{root}: init returned non-zero")
+    t1 = time.perf_counter()
+    split = stats_step(torch, root, device)
+    t2 = time.perf_counter()
+    return t1 - t0, t2 - t1, split, artifacts(root)
+
+
+def _close_but(a, b, keys, path=""):
+    """The first place two JSON values differ: exactly, but for the
+    floats under `keys`, which must agree within RAW_TOL. None if none."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return path
+        for k in a:
+            bad = _close_but(a[k], b[k], keys, f"{path}.{k}")
+            if bad:
+                return bad
+        return None
+    if isinstance(a, list):
+        if len(a) != len(b):
+            return path
+        for i, (x, y) in enumerate(zip(a, b)):
+            bad = _close_but(x, y, keys, f"{path}[{i}]")
+            if bad:
+                return bad
+        return None
+    if path.rsplit(".", 1)[-1] in keys and isinstance(a, float) \
+            and isinstance(b, float):
+        return None if np.isclose(b, a, **RAW_TOL) else path
+    return None if a == b else path
+
+
+def _corr_values(blob):
+    lines = blob.decode().splitlines()
+    return lines[0], np.array([[float(v) for v in ln.split(",")[1:]]
+                               for ln in lines[1:]])
+
+
+def phase_raw(torch, data_dir, seed):
+    """init + stats from raw text, in this process: two card runs (the
+    second gives the times), a stats run of the first run's model set
+    under the profiler (its device busy against the second run's stats
+    wall; it must rewrite the same bytes), then the CPU run."""
+    base = os.path.join(data_dir, "raw")
+    t0 = time.perf_counter()
+    size = write_raw_set(base, seed)
+    write_s = time.perf_counter() - t0
+    roots = {}
+    for name in ("card1", "card2", "cpu"):
+        roots[name] = os.path.join(data_dir, f"raw-{name}")
+        shutil.copytree(base, roots[name])
+    runs = {name: init_stats(torch, roots[name], "cuda")
+            for name in ("card1", "card2")}
+    prof = profile_run(torch, lambda: stats_step(torch, roots["card1"],
+                                                 "cuda"), runs["card2"][1])
+    check(artifacts(roots["card1"]) == runs["card1"][3],
+          "raw: the profiled stats run rewrote other bytes")
+    runs["cpu"] = init_stats(torch, roots["cpu"], "cpu")
+    n = RAW["n"]
+    a, b, c = runs["card1"][3], runs["card2"][3], runs["cpu"][3]
+    for key in a:
+        check(a[key] == b[key],
+              f"raw: two card runs wrote different {key} bytes")
+    check(a["autotype"] == c["autotype"],
+          "raw: the CPU run wrote another autotype JSON")
+    bad = _close_but(json.loads(c["columns"]), json.loads(a["columns"]),
+                     ("mean", "stdDev"))
+    check(bad is None, f"raw: card and CPU ColumnConfig.json differ at {bad}")
+    (ha, ca), (hc, cc) = _corr_values(a["correlation"]), _corr_values(
+        c["correlation"])
+    check(ha == hc and ca.shape == cc.shape
+          and np.allclose(ca, cc, **RAW_TOL),
+          "raw: card and CPU correlation differ past "
+          f"rtol {RAW_TOL['rtol']} atol {RAW_TOL['atol']}")
+    cols = {x["columnName"]: x for x in json.loads(a["columns"])}
+    auto = json.loads(a["autotype"])
+    for j in range(RAW["numeric"]):
+        x = cols[f"num_{j}"]
+        check(x["columnType"] == "N" and auto[f"num_{j}"]["distinctCount"]
+              > 4096 and len(x["columnBinning"]["binBoundary"]) > 1
+              and np.isfinite(x["columnStats"]["ks"])
+              and x["columnStats"]["missingCount"] > 0,
+              f"raw: num_{j} is not a binned numeric column")
+    for j in range(RAW["cat"]):
+        x = cols[f"cat_{j}"]
+        check(x["columnType"] == "C" and 0 < len(
+            x["columnBinning"]["binCategory"]) <= RAW["cat_values"]
+            and len(x["columnStats"]["unitStats"]) == RAW["units"],
+            f"raw: cat_{j} is not a binned categorical column with PSI")
+    check(ca.shape == (RAW["numeric"] + RAW["cat"],) * 2
+          and np.allclose(np.diag(ca), 1.0, atol=2e-6)
+          and np.isfinite(ca).all(), "raw: correlation matrix malformed")
+    init_s, stats_s, split, _ = runs["card2"]
+    return dict(rows=n, file_bytes=size, write_seconds=write_s,
+                init_seconds=init_s, stats_seconds=stats_s,
+                seconds_second=stats_s,
+                init_rows_per_s=n / init_s, stats_rows_per_s=n / stats_s,
+                stats_split=split,
+                card1_seconds=runs["card1"][:2], cpu_seconds=runs["cpu"][:2],
+                cpu_stats_split=runs["cpu"][2], profile=prof)
+
+
+# ---------------------------------------------------------------------------
 
 
 def run(args) -> int:
@@ -1464,10 +1692,28 @@ def run(args) -> int:
               f"rows: {ova['trees_per_s']:.3f} trees/s (second run), max "
               f"|score - cpu score| {max(ova['max_score_diff_vs_cpu']):.3g},"
               f" launches {ova['launches']}")
+        raw = phase_raw(torch, data_dir, args.seed)
+        sp = raw["stats_split"]
+        print(f"raw: shifu init + stats -correlation -psi from "
+              f"{raw['file_bytes'] / 1e6:.1f} MB of text, {raw['rows']} rows "
+              f"x 33 columns: init {raw['init_seconds']:.3f} s "
+              f"({raw['init_rows_per_s']:.6g} rows/s), stats "
+              f"{raw['stats_seconds']:.3f} s ({raw['stats_rows_per_s']:.6g} "
+              f"rows/s) (second card run); two card runs byte-identical, "
+              f"the CPU run equal but mean/stdDev/correlation within rtol "
+              f"{RAW_TOL['rtol']} atol {RAW_TOL['atol']} (CPU init "
+              f"{raw['cpu_seconds'][0]:.3f} s, stats "
+              f"{raw['cpu_seconds'][1]:.3f} s)")
+        print("  stats split (s): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sp.items()
+            if k != "aggregate_device_ms")
+            + f"; aggregate on the device {sp['aggregate_device_ms']:.4f} ms")
+        print_profile(raw)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     report["gbt"], report["rf"] = g, r
     report["native"], report["ova"] = nat, ova
+    report["raw"] = raw
 
     kernels = []
     mc_lines = ":358-365,:408-430,:540-552,:767-769"

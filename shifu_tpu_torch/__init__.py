@@ -15,6 +15,13 @@ Slice 2: the `shifu train` step for trees (`processor.train`, CLI
 configs, paths and helpers it reads (`config`, `fs.pathfinder`,
 `utils.environment`), and NATIVE multi-class RF through the kernel's
 multi-class mode.
+
+Slice 6: `shifu init` and in-RAM `shifu stats` from raw text
+(`processor.init`, `processor.stats`, CLI `init` and `stats`), over an
+ingest of its own that needs no pandas (`data`: the reader and
+pandas' numeric grammar; `stats`: binning, the autotype sketches with
+pandas' hash, metrics, PSI, correlation), with the bin aggregation
+(`ops.binagg`) and the correlation on the device.
 """
 
 __version__ = "0.1.0"

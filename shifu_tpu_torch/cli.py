@@ -1,12 +1,14 @@
 """`python -m shifu_tpu_torch` — the port's CLI (counterpart of
 `shifu_tpu/cli.py`).
 
+    python -m shifu_tpu_torch init [--device cpu|cuda] [-Dk=v ...]
+    python -m shifu_tpu_torch stats [-correlation] [-psi] [-rebin]
+                                    [--device cpu|cuda] [-Dk=v ...]
     python -m shifu_tpu_torch train [-dry] [--resume] [--device cpu|cuda]
                                     [-Dk=v ...]
 
-run in a model-set directory. The `train` flags follow the JAX `train`
-subcommand; `--device` picks the device (default: the card, an error
-without one). Exit codes follow the JAX CLI: 0 ok, 1 ShifuError (or no
+run in a model-set directory. The flags follow the JAX subcommands;
+`--device` picks the device (default: the card, an error without one). Exit codes follow the JAX CLI: 0 ok, 1 ShifuError (or no
 card), 2 not implemented. Every other lifecycle subcommand exits 2 with
 the ROADMAP item that ports it. -Dk=v anywhere on the line sets an
 operational property (ShifuCLI.java:430-453).
@@ -27,7 +29,7 @@ log = get_logger("shifu")
 
 # the JAX CLI's other subcommands and the ROADMAP item that ports each
 NOT_PORTED = {
-    "new": "A.14", "init": "A.4", "stats": "A.5", "norm": "A.6",
+    "new": "A.14", "norm": "A.6",
     "normalize": "A.6", "varsel": "A.7", "varselect": "A.7",
     "retrain": "A.14", "posttrain": "A.14", "eval": "A.9",
     "export": "A.14", "combo": "A.14", "encode": "A.14", "test": "A.14",
@@ -54,6 +56,19 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("-v", "--verbose", action="store_true")
     sub = parser.add_subparsers(dest="command")
+    device_help = "device to run on (default: cuda)"
+    p_init = sub.add_parser("init", help="initialize ColumnConfig.json "
+                                         "from the data header")
+    p_init.add_argument("--device", choices=["cpu", "cuda"], default=None,
+                        help=device_help)
+    p_stats = sub.add_parser("stats", help="compute column statistics and "
+                                           "binning")
+    p_stats.add_argument("-correlation", "--correlation",
+                         action="store_true")
+    p_stats.add_argument("-psi", "--psi", action="store_true")
+    p_stats.add_argument("-rebin", "--rebin", action="store_true")
+    p_stats.add_argument("--device", choices=["cpu", "cuda"], default=None,
+                         help=device_help)
     p_train = sub.add_parser("train", help="train model(s)")
     p_train.add_argument("-dry", "--dry", action="store_true", help="dry run")
     p_train.add_argument("--resume", action="store_true",
@@ -61,7 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
                               "resumes from its per-tree checkpoint "
                               "either way)")
     p_train.add_argument("--device", choices=["cpu", "cuda"], default=None,
-                         help="device to train on (default: cuda)")
+                         help=device_help)
     for name in NOT_PORTED:
         p = sub.add_parser(name, help=f"not ported yet (ROADMAP "
                                       f"{NOT_PORTED[name]})")
@@ -100,6 +115,15 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 def dispatch(args: argparse.Namespace) -> int:
     cmd = args.command
+    if cmd == "init":
+        from shifu_tpu_torch.processor.init import InitProcessor
+
+        return InitProcessor(device=args.device).run()
+    if cmd == "stats":
+        from shifu_tpu_torch.processor.stats import StatsProcessor
+
+        return StatsProcessor(correlation=args.correlation, psi=args.psi,
+                              rebin=args.rebin, device=args.device).run()
     if cmd == "train":
         from shifu_tpu_torch.processor.train import TrainProcessor
 

@@ -1,0 +1,364 @@
+"""Stats engine, the in-RAM route (counterpart of `build_codes`,
+`_prepare_rows`, `compute_stats`, `_write_back` and `_column_slot_layout`
+in `shifu_tpu/stats/engine.py`; `compute_stats_streaming` is ROADMAP A.13).
+
+Pipeline parity with MapReducerStatsWorker.doStats
+(core/processor/stats/MapReducerStatsWorker.java:105): purify -> sample ->
+per-column bins -> bin-hit aggregation -> KS/IV/WOE -> ColumnConfig update.
+The bins and codes are built on the host; the codes, values, tags and
+weights go to the device once, and `ops/binagg.bin_aggregate` reduces
+them there.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from shifu_tpu_torch.config import ColumnConfig
+from shifu_tpu_torch.config.model_config import ModelConfig
+from shifu_tpu_torch.data.purify import combined_mask
+from shifu_tpu_torch.data.reader import (ColumnarData, make_tags_for,
+                                         make_weights)
+from shifu_tpu_torch.ops.binagg import bin_aggregate
+from shifu_tpu_torch.stats.binning import (
+    categorical_bins,
+    category_index,
+    hybrid_bin_index,
+    numeric_bin_index,
+    numeric_boundaries,
+)
+from shifu_tpu_torch.stats.metrics import column_metrics
+from shifu_tpu_torch.utils.log import get_logger
+
+log = get_logger(__name__)
+
+# Reference caps categorical cardinality at 10k (shifuconfig:107-108).
+MAX_CATEGORY_SIZE = 10_000
+
+
+def build_codes(
+    data: ColumnarData,
+    stats_cols: List[ColumnConfig],
+) -> Tuple[np.ndarray, np.ndarray, List[int], np.ndarray, List[ColumnConfig]]:
+    """Assign each row a bin code for every stats column.
+
+    Returns (codes [n, C] int32, col_offsets [C], slots_per_col, values
+    [n, Cn] float32 numeric matrix, numeric_cols). The slot layout comes
+    from _column_slot_layout, the one definition of it."""
+    n = data.n_rows
+    slots, col_offsets, numeric_cols = _column_slot_layout(stats_cols)
+    codes = np.zeros((n, len(stats_cols)), dtype=np.int32)
+    numeric_mat: List[np.ndarray] = []
+    for j, cc in enumerate(stats_cols):
+        if cc.is_categorical():
+            cats = cc.column_binning.bin_category or []
+            codes[:, j] = category_index(data, cc.column_name, cats)
+        elif cc.is_hybrid():
+            # hybrid: numeric bins then category bins then missing
+            # (Normalizer.java:622-638); numeric moments come from the
+            # parseable values only
+            bounds = cc.column_binning.bin_boundary or [float("-inf")]
+            cats = cc.column_binning.bin_category or []
+            miss = data.missing_mask(cc.column_name)
+            codes[:, j] = hybrid_bin_index(
+                data.column(cc.column_name), bounds, cats, miss
+            )
+            numeric_mat.append(data.numeric(cc.column_name).astype(np.float32))
+        else:
+            bounds = cc.column_binning.bin_boundary or [float("-inf")]
+            vals = data.numeric(cc.column_name)
+            codes[:, j] = numeric_bin_index(vals, bounds)
+            numeric_mat.append(vals.astype(np.float32))
+    values = (
+        np.stack(numeric_mat, axis=1)
+        if numeric_mat
+        else np.zeros((n, 0), dtype=np.float32)
+    )
+    return codes, col_offsets, slots, values, numeric_cols
+
+
+def _prepare_rows(
+    mc: ModelConfig, data: ColumnarData, seed, sample_rate: float,
+    sample_neg_only: bool, fold_multiclass: bool = False,
+) -> Tuple[ColumnarData, np.ndarray, np.ndarray]:
+    """purify + invalid-tag drop + sampling (reference samples in the Pig
+    job). `seed` may be a sequence (streaming passes [seed, chunk_idx] so
+    both passes sample identically).
+
+    `fold_multiclass` (stats callers): fold K class-index tags to
+    class0-vs-rest so the binary bin aggregation (binagg counts tags==1 pos /
+    ==0 neg) still sees EVERY valid row and binCountPos+binCountNeg ==
+    n_valid_rows. Norm callers keep the class indices — they ARE the
+    training targets."""
+    ds = mc.data_set
+    mask = combined_mask(ds.filter_expressions, data.raw, data.n_rows)
+    tags_all = make_tags_for(mc, data.column(ds.target_column_name))
+    if fold_multiclass and mc.is_multi_classification():
+        tags_all = np.where(tags_all > 0, 1, tags_all).astype(tags_all.dtype)
+    mask &= tags_all >= 0
+    if sample_rate < 1.0:
+        rng = np.random.default_rng(seed)
+        keep = rng.random(data.n_rows) < sample_rate
+        if sample_neg_only:
+            keep |= tags_all >= 1
+        mask &= keep
+    if not mask.all():  # else the same rows: keep the column caches
+        data = data.select_rows(mask)
+    tags = tags_all[mask]
+    weights = make_weights(data, ds.weight_column_name)
+    return data, tags, weights
+
+
+def compute_stats(
+    mc: ModelConfig,
+    columns: List[ColumnConfig],
+    data: ColumnarData,
+    device: torch.device,
+    seed: int = 0,
+    timings: Optional[Dict[str, float]] = None,
+) -> None:
+    """Fill stats + binning for every non-target/meta/weight column, in
+    place. `timings`, when given, receives the seconds of each host stage
+    (prepare, bins, codes, copy, aggregate, write_back) and the device
+    milliseconds of the aggregate (`aggregate_device_ms`, cuda only)."""
+    t = {} if timings is None else timings
+    t0 = time.perf_counter()
+    data, tags, weights = _prepare_rows(
+        mc, data, seed, mc.stats.sample_rate, mc.stats.sample_neg_only,
+        fold_multiclass=True,
+    )
+    n_pos, n_neg = int((tags == 1).sum()), int((tags == 0).sum())
+    log.info("stats over %d rows (%d pos / %d neg)", data.n_rows,
+             n_pos, n_neg)
+
+    stats_cols = [
+        c for c in columns if not (c.is_target() or c.is_meta() or c.is_weight())
+    ]
+
+    # ---- pass 1: bin construction (host, exact quantiles) ----
+    max_bins = mc.stats.max_num_bin
+    cate_max = mc.stats.cate_max_num_bin or MAX_CATEGORY_SIZE
+    t1 = time.perf_counter()
+    t["prepare"] = t1 - t0
+    for cc in stats_cols:
+        if cc.is_categorical():
+            miss = data.missing_mask(cc.column_name)
+            cats = categorical_bins(data.column(cc.column_name), miss, cate_max)
+            cc.column_binning.bin_category = cats
+            cc.column_binning.bin_boundary = None
+            cc.column_binning.length = len(cats)
+        elif cc.is_hybrid():
+            # hybrid: numeric boundaries from parseable values PLUS
+            # categories from non-parseable non-missing tokens
+            # (udf/stats/NumericalVarStats hybrid handling)
+            vals = data.numeric(cc.column_name)
+            miss = data.missing_mask(cc.column_name)
+            bounds = numeric_boundaries(
+                vals, tags, weights, mc.stats.binning_method, max_bins
+            )
+            unparseable = np.isnan(vals) & ~miss
+            cats = categorical_bins(
+                data.column(cc.column_name)[unparseable],
+                np.zeros(int(unparseable.sum()), dtype=bool),
+                cate_max,
+            ) if unparseable.any() else []
+            cc.column_binning.bin_boundary = bounds
+            cc.column_binning.bin_category = cats
+            cc.column_binning.length = len(bounds) + len(cats)
+        else:
+            vals = data.numeric(cc.column_name)
+            bounds = numeric_boundaries(
+                vals, tags, weights, mc.stats.binning_method, max_bins
+            )
+            cc.column_binning.bin_boundary = bounds
+            cc.column_binning.bin_category = None
+            cc.column_binning.length = len(bounds)
+    t2 = time.perf_counter()
+    t["bins"] = t2 - t1
+
+    # ---- pass 2: one aggregation over the code matrix, on the device ----
+    codes, col_offsets, slots, values, numeric_cols = build_codes(
+        data, stats_cols)
+    total_slots = int(sum(slots))
+    t3 = time.perf_counter()
+    t["codes"] = t3 - t2
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (codes, col_offsets, tags.astype(np.int32),
+                      weights.astype(np.float32), values)]
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t4 = time.perf_counter()
+    t["copy"] = t4 - t3
+    if cuda:
+        ev[0].record()
+    agg = bin_aggregate(args[0], args[1], total_slots, *args[2:])
+    if cuda:
+        ev[1].record()
+    agg = [a.cpu().numpy() for a in agg]
+    t5 = time.perf_counter()
+    t["aggregate"] = t5 - t4
+    if cuda:
+        t["aggregate_device_ms"] = ev[0].elapsed_time(ev[1])
+
+    medians = []
+    for cc in numeric_cols:
+        vals = data.numeric(cc.column_name)
+        finite = vals[np.isfinite(vals)]
+        medians.append(float(np.median(finite)) if finite.size else None)
+    cat_missing = {}
+    for cc in stats_cols:
+        if cc.is_categorical():
+            miss = data.missing_mask(cc.column_name)
+            cat_missing[cc.column_name] = (
+                int(miss.sum()),
+                float(miss.mean()) if data.n_rows else 0.0,
+            )
+
+    _write_back(
+        stats_cols,
+        slots,
+        col_offsets,
+        *agg,
+        medians=medians,
+        cat_missing=cat_missing,
+        numeric_cols=numeric_cols,
+        n_valid_rows=int((tags >= 0).sum()),
+    )
+    t["write_back"] = time.perf_counter() - t5
+
+
+def _write_back(
+    stats_cols: List[ColumnConfig],
+    slots: List[int],
+    col_offsets: np.ndarray,
+    pos: np.ndarray,
+    neg: np.ndarray,
+    wpos: np.ndarray,
+    wneg: np.ndarray,
+    vsum: np.ndarray,
+    vsumsq: np.ndarray,
+    vmin: np.ndarray,
+    vmax: np.ndarray,
+    vcount: np.ndarray,
+    vmissing: np.ndarray,
+    numeric_cols: List[ColumnConfig],
+    medians: List[Optional[float]],
+    cat_missing: Dict[str, Tuple[int, float]],
+    n_valid_rows: int,
+) -> None:
+    """Fill ColumnStats/ColumnBinning from flat bin aggregates (the f32
+    sums and the int64 counts of `bin_aggregate`)."""
+    # ---- metrics: vectorized KS/IV/WOE over padded [C, max_slots] ----
+    max_slots = max(slots) if slots else 1
+    C = len(stats_cols)
+    pos_pad = np.zeros((C, max_slots), dtype=np.float64)
+    neg_pad = np.zeros_like(pos_pad)
+    wpos_pad = np.zeros_like(pos_pad)
+    wneg_pad = np.zeros_like(pos_pad)
+    bin_mask = np.zeros_like(pos_pad)
+    for j, cc in enumerate(stats_cols):
+        o, s = col_offsets[j], slots[j]
+        pos_pad[j, :s] = pos[o : o + s]
+        neg_pad[j, :s] = neg[o : o + s]
+        wpos_pad[j, :s] = wpos[o : o + s]
+        wneg_pad[j, :s] = wneg[o : o + s]
+        bin_mask[j, :s] = 1.0
+    cm = column_metrics(pos_pad, neg_pad, bin_mask)
+    wcm = column_metrics(wpos_pad, wneg_pad, bin_mask)
+
+    ks, iv, woe, bin_woe, cvalid = cm.ks, cm.iv, cm.woe, cm.bin_woe, cm.valid
+    wks, wiv, wwoe, wbin_woe = wcm.ks, wcm.iv, wcm.woe, wcm.bin_woe
+    num_index = {id(cc): k for k, cc in enumerate(numeric_cols)}
+
+    for j, cc in enumerate(stats_cols):
+        s = slots[j]
+        st = cc.column_stats
+        bn = cc.column_binning
+        bn.bin_count_pos = [int(x) for x in pos_pad[j, :s]]
+        bn.bin_count_neg = [int(x) for x in neg_pad[j, :s]]
+        bn.bin_weighted_pos = [float(x) for x in wpos_pad[j, :s]]
+        bn.bin_weighted_neg = [float(x) for x in wneg_pad[j, :s]]
+        tot = pos_pad[j, :s] + neg_pad[j, :s]
+        with np.errstate(invalid="ignore", divide="ignore"):
+            rate = np.where(tot > 0, pos_pad[j, :s] / np.maximum(tot, 1e-12), 0.0)
+        bn.bin_pos_rate = [float(x) for x in rate]
+        if bool(cvalid[j]):
+            bn.bin_count_woe = [float(x) for x in bin_woe[j, :s]]
+            bn.bin_weighted_woe = [float(x) for x in wbin_woe[j, :s]]
+            st.ks = float(ks[j])
+            st.iv = float(iv[j])
+            st.woe = float(woe[j])
+            st.weighted_ks = float(wks[j])
+            st.weighted_iv = float(wiv[j])
+            st.weighted_woe = float(wwoe[j])
+        st.total_count = n_valid_rows
+
+        k = num_index.get(id(cc))
+        if k is not None:
+            cnt = float(vcount[k])
+            st.missing_count = int(vmissing[k])
+            st.missing_percentage = (
+                float(vmissing[k]) / max(n_valid_rows, 1) if n_valid_rows else 0.0
+            )
+            if cnt > 0:
+                mean = float(vsum[k]) / cnt
+                st.mean = mean
+                var = max(float(vsumsq[k]) / cnt - mean * mean, 0.0)
+                # sample std like the reference (BasicStatsCalculator)
+                st.std_dev = math.sqrt(var * cnt / max(cnt - 1, 1.0))
+                st.min = float(vmin[k])
+                st.max = float(vmax[k])
+                st.median = medians[k]
+        else:
+            miss_cnt, miss_pct = cat_missing.get(cc.column_name, (0, 0.0))
+            st.missing_count = miss_cnt
+            st.missing_percentage = miss_pct
+            # Categorical stats are over the posrate-encoded variable (the
+            # reference's CategoricalVarStats maps value -> binPosRate then
+            # runs BasicStats) — closed form from the bin counts, incl. the
+            # missing bin. Norm's categorical z-scale depends on these.
+            tot_all = float(tot.sum())
+            if tot_all > 0:
+                mean = float((tot * rate).sum() / tot_all)
+                e2 = float((tot * rate * rate).sum() / tot_all)
+                var = max(e2 - mean * mean, 0.0)
+                st.mean = mean
+                st.std_dev = math.sqrt(var * tot_all / max(tot_all - 1.0, 1.0))
+                occupied = rate[tot > 0]
+                st.min = float(occupied.min()) if occupied.size else None
+                st.max = float(occupied.max()) if occupied.size else None
+            else:
+                st.mean = None
+
+
+def _column_slot_layout(
+    stats_cols: List[ColumnConfig],
+) -> Tuple[List[int], np.ndarray, List[ColumnConfig]]:
+    """(slots_per_col, col_offsets, numeric_cols) from finalized bins —
+    the same layout build_codes derives per chunk, but computable with
+    zero chunks in hand (a resumed pass 2 may have none left)."""
+    slots: List[int] = []
+    numeric_cols: List[ColumnConfig] = []
+    for cc in stats_cols:
+        if cc.is_categorical():
+            slots.append(len(cc.column_binning.bin_category or []) + 1)
+        elif cc.is_hybrid():
+            slots.append(
+                len(cc.column_binning.bin_boundary or [float("-inf")])
+                + len(cc.column_binning.bin_category or []) + 1)
+            numeric_cols.append(cc)
+        else:
+            slots.append(
+                len(cc.column_binning.bin_boundary or [float("-inf")]) + 1)
+            numeric_cols.append(cc)
+    col_offsets = np.zeros(len(stats_cols), dtype=np.int32)
+    if slots:
+        col_offsets[1:] = np.cumsum(slots[:-1])
+    return slots, col_offsets, numeric_cols

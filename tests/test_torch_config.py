@@ -4,8 +4,16 @@ Model sets are made by `tests/helpers` and passed through the JAX init →
 stats → norm steps; the port loads their `ModelConfig.json` and
 `ColumnConfig.json` and must save the same bytes, and its inspector must
 give the same causes for the same faults.
+
+Every JAX step a port test runs as its reference runs under
+`jax_inline_ingest()`: the JAX property `shifu.ingest.prefetchChunks=0`
+makes the JAX ingest parse on the calling thread (the JAX package's own
+docstring, `shifu_tpu/data/pipeline.py` `prefetch_iter`: the identical
+pull/transform inline). pandas/pyarrow parsing in that package's
+prefetch worker thread has crashed test workers with SIGSEGV.
 """
 
+import contextlib
 import os
 import shutil
 
@@ -29,6 +37,24 @@ from shifu_tpu_torch.utils import environment  # noqa: E402
 from tests.helpers import make_model_set, make_multiclass_model_set  # noqa: E402
 
 
+@contextlib.contextmanager
+def jax_inline_ingest():
+    """The JAX steps inside parse inline (`prefetchChunks=0`); the
+    property is restored afterwards."""
+    from shifu_tpu.utils import environment as jenv
+
+    key = "shifu.ingest.prefetchChunks"
+    before = jenv.all_properties().get(key)
+    jenv.set_property(key, "0")
+    try:
+        yield
+    finally:
+        if before is None:
+            jenv._props.pop(key, None)
+        else:
+            jenv.set_property(key, before)
+
+
 def prepare_model_set(root, kind, rows=600, **params):
     """A model set through the JAX init -> stats -> norm steps. kind:
     'binary' (make_model_set) or 'native' / 'onevsall'
@@ -48,8 +74,9 @@ def prepare_model_set(root, kind, rows=600, **params):
     mc = JModelConfig.load(path)
     mc.train.params.update(params)
     mc.save(path)
-    for proc in (InitProcessor, StatsProcessor, NormProcessor):
-        assert proc(root).run() == 0
+    with jax_inline_ingest():
+        for proc in (InitProcessor, StatsProcessor, NormProcessor):
+            assert proc(root).run() == 0
     return root
 
 
