@@ -71,9 +71,26 @@ Phases, each of which must pass:
            ms) of the second card run, unprofiled, and the idle share of
            the profiled run's device busy against that run's stats time.
 
-Every main-path run (phases 3-6) must launch the scan entry once for each
-subtraction level of each tree (bench `gbt` 25, `rf` 70, NATIVE 70,
-ONEVSALL 75) and run no plain torch scan on the card.
+8. prep    the chain `shifu norm` -> `varsel` -> `norm` -> `train` on
+           phase 7's card model sets after their stats: varSelect KS, 20
+           of the 30 candidates, the auto-filter with correlationThreshold
+           0.9; norm ZSCALE (value columns and categorical posrate tables
+           on the device); RF, 10 trees, depth 8, TWOTHIRDS. Twice on the
+           card, once on the CPU on a copy of the first card set taken
+           after stats, and a norm run again under the profiler: the
+           NormalizedData, CleanedData (20 columns after varsel) and
+           post-varsel ColumnConfig.json of all runs byte-identical, the
+           card runs' model0.rf too; the CPU forest's scores within 0.03
+           of the card's (the weight column's sums are exact on the card
+           and f32 on the CPU, as GBT's are). It prints the second card run's norm rows/s
+           and split (read, normalize, write, bincode; the normalize
+           stage's device ms), varsel s, train s and trees/s, and the
+           idle share of the profiled norm run.
+
+Every main-path run (phases 3-6 and 8's train) must launch the scan entry
+once for each subtraction level of each tree (bench `gbt` 25, `rf` 70,
+NATIVE 70, ONEVSALL 75, the prep chain's RF 70) and run no plain torch
+scan on the card.
 
 It prints the card and its power limit, a `kernels` JSON line, and as its
 last line {"ok": true, "device": {...}}. It exits non-zero without a CUDA
@@ -1102,7 +1119,8 @@ def print_profile(rep: dict) -> None:
 
 # scan_level(_mc) launches of each main-path run: one a tree for every
 # subtraction level (the derived sibling; past 32 nodes the whole level)
-SCAN_LAUNCHES = {"gbt": 25, "rf": 70, "native": 70, "ova": 75}
+SCAN_LAUNCHES = {"gbt": 25, "rf": 70, "native": 70, "ova": 75,
+                 "prep": 70}
 
 
 def check_scans(name, launches, plain_widths):
@@ -1576,6 +1594,175 @@ def phase_raw(torch, data_dir, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the prep chain norm -> varsel -> norm -> train
+# ---------------------------------------------------------------------------
+
+PREP = dict(filter_num=20, corr=0.9, trees=RF["trees"], depth=RF["depth"])
+
+
+def prep_config(root):
+    """varSelect KS, 20 of the 30 candidates, the auto-filter with
+    correlationThreshold 0.9; train: the bench `rf` forest (10 trees,
+    depth 8, TWOTHIRDS). Written with the port's config module."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    path = PathFinder(root).model_config_path()
+    mc = ModelConfig.load(path)
+    vs = mc.var_select
+    vs.filter_by, vs.filter_num = "KS", PREP["filter_num"]
+    vs.force_enable, vs.correlation_threshold = True, PREP["corr"]
+    mc.train.params.update(TreeNum=PREP["trees"], MaxDepth=PREP["depth"],
+                           FeatureSubsetStrategy="TWOTHIRDS")
+    mc.save(path)
+
+
+def norm_step(torch, root, device):
+    """`shifu norm` on `root`: its seconds and its stage split."""
+    from shifu_tpu_torch.processor.norm import NormProcessor
+
+    proc = NormProcessor(root, device=device)
+    t0 = time.perf_counter()
+    rc = proc.run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    check(rc == 0, f"{root}: norm returned non-zero")
+    return time.perf_counter() - t0, dict(proc.timings)
+
+
+def prep_artifacts(root):
+    """The bytes of NormalizedData, CleanedData, ColumnConfig.json and
+    models/model0.rf of `root`, by path."""
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    paths = PathFinder(root)
+    out = {}
+    for d in (paths.normalized_data_dir(), paths.cleaned_data_dir()):
+        for name in sorted(os.listdir(d)):
+            with open(os.path.join(d, name), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, name), root)] = fh.read()
+    for path in (paths.column_config_path(), paths.model_path(0, "rf")):
+        with open(path, "rb") as fh:
+            out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def prep_chain(torch, hk, tt, root, device):
+    """norm -> varsel -> norm -> train on `root`; the train step counted
+    as a main-path run (counts zeroed just before, read just after)."""
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+    from shifu_tpu_torch.norm.dataset import read_meta
+    from shifu_tpu_torch.processor.train import TrainProcessor
+    from shifu_tpu_torch.processor.varsel import VarSelProcessor
+
+    paths = PathFinder(root)
+    norm1_s, _ = norm_step(torch, root, device)
+    check(len(read_meta(paths.cleaned_data_dir()).columns)
+          == RAW["numeric"] + RAW["cat"],
+          f"{root}: the first norm did not write every candidate")
+    t0 = time.perf_counter()
+    check(VarSelProcessor(root, device=device).run() == 0,
+          f"{root}: varsel returned non-zero")
+    varsel_s = time.perf_counter() - t0
+    norm2_s, split = norm_step(torch, root, device)
+    check(len(read_meta(paths.cleaned_data_dir()).columns)
+          == PREP["filter_num"],
+          f"{root}: the second CleanedData does not hold "
+          f"{PREP['filter_num']} columns")
+    train_s, launches, refs, plain = run_step(torch, hk, tt, TrainProcessor,
+                                              root, device)
+    return dict(norm1_seconds=norm1_s, varsel_seconds=varsel_s,
+                norm_seconds=norm2_s, norm_split=split,
+                train_seconds=train_s, launches=launches, refs=refs,
+                plain=plain, bytes=prep_artifacts(root))
+
+
+def phase_prep(torch, hk, tt, ptree, data_dir):
+    """Phase 7's card model sets after their stats: the chain twice on
+    the card (the second gives the times), a norm run of the first under
+    the profiler (it must rewrite the same bytes), and the chain on the
+    CPU on a copy of the first card set taken after stats."""
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+    from shifu_tpu_torch.norm.dataset import load_codes
+
+    roots = {name: os.path.join(data_dir, f"raw-{name}")
+             for name in ("card1", "card2")}
+    roots["cpu"] = os.path.join(data_dir, "prep-cpu")
+    shutil.copytree(roots["card1"], roots["cpu"])
+    for root in roots.values():
+        prep_config(root)
+    runs = {name: prep_chain(torch, hk, tt, roots[name], "cuda")
+            for name in ("card1", "card2")}
+    for name, run_ in runs.items():
+        check(all(v == 0 for v in run_["refs"].values()),
+              f"prep {name}: the train on the card reached a plain version: "
+              f"{run_['refs']}")
+        check(run_["launches"]["fused_level"] > 0
+              and run_["launches"]["hist_level"] > 0,
+              f"prep {name}: a kernel entry never launched: "
+              f"{run_['launches']}")
+        check_scans("prep", run_["launches"], run_["plain"])
+    second = runs["card2"]
+    prof = profile_run(torch, lambda: norm_step(torch, roots["card1"],
+                                                "cuda"),
+                       second["norm_seconds"])
+    check(prep_artifacts(roots["card1"]) == runs["card1"]["bytes"],
+          "prep: the profiled norm run rewrote other bytes")
+    runs["cpu"] = prep_chain(torch, hk, tt, roots["cpu"], "cpu")
+    a = runs["card1"]["bytes"]
+    model = os.path.relpath(PathFinder(roots["card1"]).model_path(0, "rf"),
+                            roots["card1"])
+    for name in ("card2", "cpu"):
+        b = runs[name]["bytes"]
+        check(sorted(a) == sorted(b), f"prep {name}: other files: "
+              f"{sorted(set(a) ^ set(b))}")
+        for key in sorted(a, key=lambda k: k == model):
+            check(a[key] == b[key] or (name, key) == ("cpu", model),
+                  f"prep: card1 and {name} wrote different bytes in {key}")
+    # the weight column's k/256 weights sum past 2^24 units: the card's
+    # fixed point is exact, the CPU's plain version sums in f32, so the
+    # CPU forest is held like GBT's, by its scores
+    paths = PathFinder(roots["card2"])
+    _meta, codes, tags, _w = load_codes(paths.cleaned_data_dir())
+    spec = ptree.TreeModelSpec.load(paths.model_path(0, "rf"))
+    scores = ptree.IndependentTreeModel(spec, device="cuda").compute(codes)
+    check(len(spec.trees) == PREP["trees"] and scores.shape == (len(tags),)
+          and np.isfinite(scores).all() and (scores >= 0).all()
+          and (scores <= 1).all(), "prep: the forest's scores are not "
+          "finite in [0, 1]")
+    cpu_spec = ptree.TreeModelSpec.load(
+        PathFinder(roots["cpu"]).model_path(0, "rf"))
+    cpu_scores = ptree.IndependentTreeModel(cpu_spec,
+                                            device="cpu").compute(codes)
+    diff = float(np.abs(scores - cpu_scores).max())
+    same_splits = sum(
+        np.array_equal(x.feature, y.feature)
+        and np.array_equal(x.left_mask, y.left_mask)
+        for x, y in zip(spec.trees, cpu_spec.trees))
+    check(diff <= GBT_SCORE_ATOL, f"prep: the CPU forest's scores differ "
+          f"from the card's by {diff} > {GBT_SCORE_ATOL}")
+    n = RAW["n"]
+    return dict(rows=n, columns_after_varsel=PREP["filter_num"],
+                trees=PREP["trees"], depth=PREP["depth"],
+                norm_seconds=second["norm_seconds"],
+                norm_rows_per_s=n / second["norm_seconds"],
+                norm_split=second["norm_split"],
+                first_norm_seconds=second["norm1_seconds"],
+                varsel_seconds=second["varsel_seconds"],
+                seconds_second=second["norm_seconds"],
+                train_seconds=second["train_seconds"],
+                trees_per_s=PREP["trees"] / second["train_seconds"],
+                valid_error=spec.valid_error,
+                cpu_model_bit_equal=runs["cpu"]["bytes"][model] == a[model],
+                max_score_diff_vs_cpu=diff, trees_same_splits_as_cpu=same_splits,
+                card1_seconds={k: v for k, v in runs["card1"].items()
+                               if k.endswith("seconds")},
+                cpu_seconds={k: v for k, v in runs["cpu"].items()
+                             if k.endswith("seconds")},
+                launches=runs["card1"]["launches"], profile=prof)
+
+
+# ---------------------------------------------------------------------------
 
 
 def run(args) -> int:
@@ -1709,11 +1896,37 @@ def run(args) -> int:
             if k != "aggregate_device_ms")
             + f"; aggregate on the device {sp['aggregate_device_ms']:.4f} ms")
         print_profile(raw)
+        prep = phase_prep(torch, hk, tt, ptree, data_dir)
+        sp = prep["norm_split"]
+        print(f"prep: shifu norm -> varsel -> norm -> train on phase 7's "
+              f"model sets ({prep['rows']} rows): norm "
+              f"{prep['norm_seconds']:.3f} s ({prep['norm_rows_per_s']:.6g} "
+              f"rows/s), varsel {prep['varsel_seconds']:.3f} s keeping "
+              f"{prep['columns_after_varsel']} of "
+              f"{RAW['numeric'] + RAW['cat']} columns, train RF "
+              f"{prep['trees']} trees depth {prep['depth']} "
+              f"{prep['train_seconds']:.3f} s ({prep['trees_per_s']:.3f} "
+              f"trees/s), valid error {prep['valid_error']:.6f} (second "
+              "card run); NormalizedData, CleanedData, ColumnConfig.json "
+              "and model0.rf byte-identical across two card runs, the "
+              "first three also in the CPU run, whose forest has "
+              f"{prep['trees_same_splits_as_cpu']} of {prep['trees']} trees"
+              " with the card's splits and max |score - cpu score| "
+              f"{prep['max_score_diff_vs_cpu']:.3g} (model bytes equal: "
+              f"{prep['cpu_model_bit_equal']}; CPU norm "
+              f"{prep['cpu_seconds']['norm_seconds']:.3f} s, train "
+              f"{prep['cpu_seconds']['train_seconds']:.3f} s), launches "
+              f"{prep['launches']}")
+        print("  norm split (s): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sp.items()
+            if k != "normalize_device_ms")
+            + f"; normalize on the device {sp['normalize_device_ms']:.4f} ms")
+        print_profile(prep)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     report["gbt"], report["rf"] = g, r
     report["native"], report["ova"] = nat, ova
-    report["raw"] = raw
+    report["raw"], report["prep"] = raw, prep
 
     kernels = []
     mc_lines = ":358-365,:408-430,:540-552,:767-769"
@@ -1723,7 +1936,7 @@ def run(args) -> int:
              else stats.timed[name])
         launches = (nat["launches"][name] if mc else
                     g["launches"][name] + r["launches"][name]
-                    + ova["launches"][name])
+                    + ova["launches"][name] + prep["launches"][name])
         if name.startswith("scan_level"):
             replaces = ("shifu_tpu/train/tree_trainer.py:631 _make_scan_fn "
                         "(XLA, outside pallas_call)"

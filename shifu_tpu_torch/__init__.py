@@ -22,6 +22,13 @@ ingest of its own that needs no pandas (`data`: the reader and
 pandas' numeric grammar; `stats`: binning, the autotype sketches with
 pandas' hash, metrics, PSI, correlation), with the bin aggregation
 (`ops.binagg`) and the correlation on the device.
+
+Slice 7: `shifu norm` and `shifu varsel` (`processor.norm`,
+`processor.varsel`, CLI `norm` and `varsel`): the NormType plans and the
+value and table norms on the device (`norm.normalizer`), NormalizedData
+and CleanedData (`norm.dataset`), the KS/IV/MIX/PARETO filters, the
+auto-filter and tree feature importance (`varsel`). Raw text -> init ->
+stats -> norm -> varsel -> norm -> train runs in this package alone.
 """
 
 __version__ = "0.1.0"

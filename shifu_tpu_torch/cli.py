@@ -4,14 +4,20 @@
     python -m shifu_tpu_torch init [--device cpu|cuda] [-Dk=v ...]
     python -m shifu_tpu_torch stats [-correlation] [-psi] [-rebin]
                                     [--device cpu|cuda] [-Dk=v ...]
+    python -m shifu_tpu_torch norm [-shuffle] [--device cpu|cuda] [-Dk=v ...]
+    python -m shifu_tpu_torch varsel [-list] [-reset] [-recover]
+                                     [--device cpu|cuda] [-Dk=v ...]
     python -m shifu_tpu_torch train [-dry] [--resume] [--device cpu|cuda]
                                     [-Dk=v ...]
 
 run in a model-set directory. The flags follow the JAX subcommands;
-`--device` picks the device (default: the card, an error without one). Exit codes follow the JAX CLI: 0 ok, 1 ShifuError (or no
-card), 2 not implemented. Every other lifecycle subcommand exits 2 with
-the ROADMAP item that ports it. -Dk=v anywhere on the line sets an
-operational property (ShifuCLI.java:430-453).
+`--device` picks the device (default: the card, an error without one).
+`normalize` and `varselect` are aliases of `norm` and `varsel`. Exit
+codes follow the JAX CLI: 0 ok, 1 ShifuError (or no card), 2 not
+implemented. Every other lifecycle subcommand exits 2 with the ROADMAP
+item that ports it, and so do the routes of a ported step that wait
+(the streamed norm, varsel's SE/ST and VOTED filters). -Dk=v anywhere
+on the line sets an operational property (ShifuCLI.java:430-453).
 """
 
 from __future__ import annotations
@@ -29,9 +35,7 @@ log = get_logger("shifu")
 
 # the JAX CLI's other subcommands and the ROADMAP item that ports each
 NOT_PORTED = {
-    "new": "A.14", "norm": "A.6",
-    "normalize": "A.6", "varsel": "A.7", "varselect": "A.7",
-    "retrain": "A.14", "posttrain": "A.14", "eval": "A.9",
+    "new": "A.14", "retrain": "A.14", "posttrain": "A.14", "eval": "A.9",
     "export": "A.14", "combo": "A.14", "encode": "A.14", "test": "A.14",
     "convert": "A.14", "serve": "A.10", "version": "A.14",
 }
@@ -69,6 +73,22 @@ def build_parser() -> argparse.ArgumentParser:
     p_stats.add_argument("-rebin", "--rebin", action="store_true")
     p_stats.add_argument("--device", choices=["cpu", "cuda"], default=None,
                          help=device_help)
+    p_norm = sub.add_parser("norm", aliases=["normalize"],
+                            help="normalize training data")
+    p_norm.add_argument("-shuffle", "--shuffle", action="store_true")
+    p_norm.add_argument("--resume", action="store_true",
+                        help="resume a preempted streamed norm (not ported "
+                             "yet: ROADMAP A.13)")
+    p_norm.add_argument("--device", choices=["cpu", "cuda"], default=None,
+                        help=device_help)
+    p_varsel = sub.add_parser("varsel", aliases=["varselect"],
+                              help="variable selection")
+    p_varsel.add_argument("-list", "--list", action="store_true",
+                          dest="list_vars")
+    p_varsel.add_argument("-reset", "--reset", action="store_true")
+    p_varsel.add_argument("-recover", "--recover", action="store_true")
+    p_varsel.add_argument("--device", choices=["cpu", "cuda"], default=None,
+                          help=device_help)
     p_train = sub.add_parser("train", help="train model(s)")
     p_train.add_argument("-dry", "--dry", action="store_true", help="dry run")
     p_train.add_argument("--resume", action="store_true",
@@ -124,6 +144,16 @@ def dispatch(args: argparse.Namespace) -> int:
 
         return StatsProcessor(correlation=args.correlation, psi=args.psi,
                               rebin=args.rebin, device=args.device).run()
+    if cmd in ("norm", "normalize"):
+        from shifu_tpu_torch.processor.norm import NormProcessor
+
+        return NormProcessor(shuffle=args.shuffle, device=args.device).run()
+    if cmd in ("varsel", "varselect"):
+        from shifu_tpu_torch.processor.varsel import VarSelProcessor
+
+        return VarSelProcessor(list_vars=args.list_vars, reset=args.reset,
+                               recover=args.recover,
+                               device=args.device).run()
     if cmd == "train":
         from shifu_tpu_torch.processor.train import TrainProcessor
 

@@ -1,13 +1,17 @@
-"""CleanedData: the sharded on-disk bin-code layout that tree training reads.
+"""NormalizedData and CleanedData: the sharded on-disk layouts that
+training reads (counterpart of `shifu_tpu/norm/dataset.py`, the in-RAM
+writers; the streamed norm's shard writers are ROADMAP A.13). The files
+are the same bytes in both packages, so each reads what the other wrote.
 
-Counterpart of `shifu_tpu/norm/dataset.py` (the code-matrix half only).
-The files are the same bytes in both packages, so each reads what the
-other wrote:
-
-    meta.json            columns, nRows, shardRows, normType "CODES",
-                         extra {"slots": [...]}
+Under PathFinder.normalized_data_dir():
+    meta.json            columns, nRows, shardRows, normType,
+                         extra {"sourceOf", ["classTags", "classPriors"]}
+    features-SSSSS.npy   [rows_s, n_cols] float32
+and under cleaned_data_dir() (tree-model input, bin codes not z-scores):
+    meta.json            normType "CODES", extra {"slots": [...]}
     codes-SSSSS.npy      [rows_s, n_feat] int16 (int32 past 2^15 slots)
-    tags-SSSSS.npy       [rows_s] int8   (1 pos / 0 neg)
+beside, in both:
+    tags-SSSSS.npy       [rows_s] int8   (1 pos / 0 neg, or class index)
     weights-SSSSS.npy    [rows_s] float32
 """
 
@@ -16,7 +20,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -87,6 +91,14 @@ def _write_sharded(out_dir: str, primary_prefix: str, primary: np.ndarray,
     return _write_meta(out_dir, columns, shard_rows, norm_type, extra)
 
 
+def write_normalized(out_dir: str, features: np.ndarray, tags: np.ndarray,
+                     weights: np.ndarray, columns: List[str],
+                     norm_type: str = "ZSCALE", n_shards: int = 1,
+                     extra: Optional[dict] = None) -> NormMeta:
+    return _write_sharded(out_dir, "features", features, np.float32, tags,
+                          weights, columns, norm_type, n_shards, extra)
+
+
 def write_codes(out_dir: str, codes: np.ndarray, tags: np.ndarray,
                 weights: np.ndarray, columns: List[str], slots: List[int],
                 n_shards: int = 1) -> NormMeta:
@@ -112,6 +124,16 @@ def _load_stack(data_dir: str, prefix: str, n_shards: int) -> np.ndarray:
             else np.asarray(parts[0]))
 
 
+def load_normalized(data_dir: str
+                    ) -> Tuple[NormMeta, np.ndarray, np.ndarray, np.ndarray]:
+    """(meta, features[n, C] f32, tags[n] i8, weights[n] f32)."""
+    meta = read_meta(data_dir)
+    k = len(meta.shard_rows)
+    return (meta, _load_stack(data_dir, "features", k),
+            _load_stack(data_dir, "tags", k),
+            _load_stack(data_dir, "weights", k))
+
+
 def load_codes(data_dir: str
                ) -> Tuple[NormMeta, np.ndarray, np.ndarray, np.ndarray]:
     """(meta, codes[n, C] i16, tags[n] i8, weights[n] f32)."""
@@ -120,3 +142,10 @@ def load_codes(data_dir: str
     return (meta, _load_stack(data_dir, "codes", k),
             _load_stack(data_dir, "tags", k),
             _load_stack(data_dir, "weights", k))
+
+
+def iter_shards(data_dir: str, prefix: str = "features") -> Iterator[np.ndarray]:
+    meta = read_meta(data_dir)
+    for s in range(len(meta.shard_rows)):
+        yield np.load(os.path.join(data_dir, f"{prefix}-{s:05d}.npy"),
+                      mmap_mode="r")

@@ -14,7 +14,8 @@ Tolerances:
     at 6 decimals); -rebin byte-identical.
   * The slice: port init -> port stats -> JAX norm -> port train writes
     the same RF model file as JAX init -> JAX stats -> JAX norm -> port
-    train.
+    train; the all-port chain init -> stats -> norm -> varsel -> norm ->
+    train writes the same RF model file as the JAX chain.
 """
 
 import json
@@ -34,11 +35,15 @@ from shifu_tpu.config.model_config import ModelConfig as JModelConfig  # noqa: E
 from shifu_tpu.ops import binagg as jbinagg  # noqa: E402
 from shifu_tpu.processor.norm import NormProcessor as JNormProcessor  # noqa: E402
 from shifu_tpu.processor.stats import StatsProcessor as JStatsProcessor  # noqa: E402
+from shifu_tpu.processor.train import TrainProcessor as JTrainProcessor  # noqa: E402
+from shifu_tpu.processor.varsel import VarSelProcessor as JVarSelProcessor  # noqa: E402
 from shifu_tpu.utils import environment as jenv  # noqa: E402
 from shifu_tpu_torch.ops import binagg as pbinagg  # noqa: E402
 from shifu_tpu_torch.processor.init import InitProcessor  # noqa: E402
+from shifu_tpu_torch.processor.norm import NormProcessor  # noqa: E402
 from shifu_tpu_torch.processor.stats import StatsProcessor  # noqa: E402
 from shifu_tpu_torch.processor.train import TrainProcessor  # noqa: E402
+from shifu_tpu_torch.processor.varsel import VarSelProcessor  # noqa: E402
 from shifu_tpu_torch.stats import binning as pbinning  # noqa: E402
 from shifu_tpu_torch.stats.correlation import load_correlation_csv  # noqa: E402
 from shifu_tpu_torch.utils import environment as penv  # noqa: E402
@@ -266,6 +271,44 @@ def test_slice_gives_the_same_rf_model(tmp_path):
     assert _bytes(jroot, model) == _bytes(proot, model)
 
 
+def test_all_port_chain_gives_the_jax_chains_rf_model(tmp_path):
+    """init -> stats -> norm -> varsel -> norm -> train, each package's
+    own steps: the varsel keeps 8 of 12 candidates by KS, and the second
+    norm writes their codes only (ROADMAP A.9's milestone, without eval)."""
+    from shifu_tpu.processor.init import InitProcessor as JInitProcessor
+
+    src = make_model_set(str(tmp_path / "src"), n_rows=500, algorithm="RF")
+    path = os.path.join(src, "ModelConfig.json")
+    mc = JModelConfig.load(path)
+    mc.train.params.update(TreeNum=4, MaxDepth=5)
+    mc.var_select.filter_num = 8
+    mc.save(path)
+    jroot, proot = str(tmp_path / "jax"), str(tmp_path / "port")
+    shutil.copytree(src, jroot)
+    shutil.copytree(src, proot)
+    with jax_inline_ingest():
+        for step in (JInitProcessor, JStatsProcessor, JNormProcessor,
+                     JVarSelProcessor, JNormProcessor, JTrainProcessor):
+            assert step(jroot).run() == 0
+    for step in (InitProcessor, StatsProcessor, NormProcessor,
+                 VarSelProcessor, NormProcessor, TrainProcessor):
+        assert step(proot, device="cpu").run() == 0
+    # the same codes; the JAX package writes a shard a device (8 here)
+    from shifu_tpu_torch.norm.dataset import load_codes
+
+    (jm, *jarrays), (pm, *parrays) = (
+        load_codes(os.path.join(r, "tmp", "norm", "CleanedData"))
+        for r in (jroot, proot))
+    assert len(pm.columns) == 8 and len(jm.shard_rows) == 8
+    jm.shard_rows = pm.shard_rows
+    assert jm.to_json() == pm.to_json()
+    for a, b in zip(jarrays, parrays):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    model = os.path.join("models", "model0.rf")
+    assert _bytes(jroot, model) == _bytes(proot, model)
+
+
 # ---- entry points ---------------------------------------------------------
 
 def test_stats_routes_that_wait_raise(stats_sets, monkeypatch):
@@ -302,9 +345,16 @@ def test_cli_init_stats_and_norm(tmp_path):
         assert proc.returncode == 0, proc.stderr
     assert os.path.isfile(os.path.join(root, "tmp", "stats",
                                        "correlation.csv"))
-    proc = _cli(root, "norm")
-    assert proc.returncode == 2 and "A.6" in proc.stderr
+    for args in (("norm", "--device", "cpu"), ("varsel", "--device", "cpu")):
+        proc = _cli(root, *args)
+        assert proc.returncode == 0, proc.stderr
+    assert os.path.isfile(os.path.join(root, "tmp", "norm", "CleanedData",
+                                       "meta.json"))
+    assert os.path.isfile(os.path.join(root, "tmp", "varsel",
+                                       "ColumnConfig.json.prevarsel"))
+    proc = _cli(root, "eval")
+    assert proc.returncode == 2 and "A.9" in proc.stderr
     if not torch.cuda.is_available():
-        for cmd in ("init", "stats"):
+        for cmd in ("init", "stats", "norm", "varsel"):
             proc = _cli(root, cmd)
             assert proc.returncode == 1 and "CUDA" in proc.stderr
