@@ -87,6 +87,24 @@ Phases, each of which must pass:
            stage's device ms), varsel s, train s and trees/s, and the
            idle share of the profiled norm run.
 
+9. nn      NN/LR on the card, torch ops and cuBLAS (no kernel of its own;
+           TF32 and bf16 reduced-precision reductions off): (a) bench
+           `SMALL` (1,000,000 x 30, hidden [50] tanh, RPROP, valid 0.1,
+           50 epochs, seed 1) in bf16 then f32, two card runs of each
+           with bit-equal weights (the second timed: row-epochs/s,
+           TFLOP/s by bench.py's formula), a profiled bf16 run (device
+           busy, idle share), and a CPU f32 run whose final valid error
+           is within 1e-3 of the card's; (b) bench `DENSE` (131,072 x
+           1024, [2048, 2048], 30 epochs) in bf16 the same way and once
+           in f32, and the first epoch's f32 descent gradient on 8,192
+           rows from one init on the card and the CPU, max |dg| <= 1e-4 x
+           max |g|; (c) `shifu train` NN (hidden [50] tanh, bagging 5, 30
+           epochs) on phase 8's selected 500,000-row set, twice on the
+           card (five model files, byte-identical) and once on the CPU
+           (valid errors within 1e-3); (d) varsel filterBy SE (10 of 20)
+           on the same sets, the card and the CPU selecting the same
+           columns.
+
 Every main-path run (phases 3-6 and 8's train) must launch the scan entry
 once for each subtraction level of each tree (bench `gbt` 25, `rf` 70,
 NATIVE 70, ONEVSALL 75, the prep chain's RF 70) and run no plain torch
@@ -1763,6 +1781,314 @@ def phase_prep(torch, hk, tt, ptree, data_dir):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: NN/LR on the card
+# ---------------------------------------------------------------------------
+
+# bench.py:63-64 SMALL and DENSE
+SMALL = dict(n=1_000_000, d=30, hidden=[50], epochs=50)
+DENSE = dict(n=131_072, d=1024, hidden=[2048, 2048], epochs=30)
+GRAD_ROWS = 8192  # rows of DENSE's first-epoch gradient check
+NN_STEP = dict(hidden=[50], bagging=5, epochs=30, filter_num=10)
+NN_TOL = 1e-3  # card vs CPU final valid error
+PEAK_TFLOPS = {"bf16": 989.0, "f32": 67.0}  # H100 SXM, dense, 700 W
+
+
+def mlp_flops_per_row_epoch(d: int, hidden: list) -> float:
+    """Training-step matmul FLOPs a row (bench.py:216): forward 2 a MAC,
+    backward 4 a MAC, less the first layer's input gradient, which is
+    never computed."""
+    sizes = [d] + list(hidden) + [1]
+    macs = sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    return 6.0 * macs - 2.0 * sizes[0] * sizes[1]
+
+
+def nn_bench_data(spec: dict):
+    """bench.py bench_nn's draws (seed 0): x [n, d], 0/1 t, unit w."""
+    rng = np.random.default_rng(0)
+    n, d = spec["n"], spec["d"]
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    logits = x[:, 0] * 1.5 - x[:, 1] + 0.5 * x[:, 2] * x[:, 3]
+    t = (logits + rng.normal(scale=0.5, size=n) > 0).astype(np.float32)
+    return x, t, np.ones(n, dtype=np.float32)
+
+
+def nn_bench_cfg(nt, spec: dict, bf16: bool):
+    """bench.py bench_nn's config: tanh, RPROP, valid 0.1, seed 1."""
+    return nt.NNTrainConfig(
+        hidden_nodes=list(spec["hidden"]),
+        activations=["tanh"] * len(spec["hidden"]),
+        propagation="R", num_epochs=spec["epochs"], valid_set_rate=0.1,
+        seed=1, mixed_precision=bf16)
+
+
+def nn_flat_bytes(params) -> bytes:
+    from shifu_tpu_torch.models.nn import flatten_params
+
+    return flatten_params(params)[0].tobytes()
+
+
+def nn_timed(torch, nt, data, cfg, device: str):
+    """(seconds, TrainResult) of one train_nn call, synchronized."""
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = nt.train_nn(*data, cfg, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, res
+
+
+def nn_bench(torch, nt, spec: dict, name: str, dtypes):
+    """Two card runs of each dtype (bit-equal weights; the second timed),
+    row-epochs/s and TFLOP/s by the bench.py formula, and the profile of
+    one more run of the first dtype."""
+    host = nn_bench_data(spec)
+    dev_data = tuple(torch.as_tensor(a, device="cuda") for a in host)
+    row_epochs = spec["n"] * spec["epochs"]
+    flops = row_epochs * mlp_flops_per_row_epoch(spec["d"], spec["hidden"])
+    out = dict(rows=spec["n"], d=spec["d"], hidden=spec["hidden"],
+               epochs=spec["epochs"])
+    for dt in dtypes:
+        cfg = nn_bench_cfg(nt, spec, dt == "bf16")
+        runs = [nn_timed(torch, nt, dev_data, cfg, "cuda") for _ in range(2)]
+        check(nn_flat_bytes(runs[0][1].params)
+              == nn_flat_bytes(runs[1][1].params),
+              f"{name} {dt}: two card runs gave other weights")
+        sec, res = runs[1]
+        tflops = flops / sec / 1e12
+        out[dt] = dict(seconds=sec, first_seconds=runs[0][0],
+                       row_epochs_per_s=row_epochs / sec, tflops=tflops,
+                       peak_share=tflops / PEAK_TFLOPS[dt],
+                       valid_error=res.valid_error,
+                       train_error=res.train_error,
+                       iterations=res.iterations)
+    dt = dtypes[0]
+    cfg = nn_bench_cfg(nt, spec, dt == "bf16")
+    out["seconds_second"] = out[dt]["seconds"]
+    out["profile"] = profile_run(
+        torch, lambda: nt.train_nn(*dev_data, cfg, device="cuda"),
+        out[dt]["seconds"])
+    return out, host
+
+
+def nn_phase_small(torch, nt):
+    """(a) bench SMALL at full width, bf16 then f32; the CPU's f32 run's
+    final valid error within NN_TOL of the card's."""
+    out, host = nn_bench(torch, nt, SMALL, "small", ("bf16", "f32"))
+    sec, cpu = nn_timed(torch, nt, host, nn_bench_cfg(nt, SMALL, False),
+                        "cpu")
+    out["cpu_seconds"] = sec
+    out["cpu_valid_error"] = cpu.valid_error
+    for dt in ("f32", "bf16"):
+        out[dt]["valid_error_diff_vs_cpu"] = abs(out[dt]["valid_error"]
+                                                 - cpu.valid_error)
+    check(out["f32"]["valid_error_diff_vs_cpu"] <= NN_TOL,
+          f"small: the CPU's valid error {cpu.valid_error} differs from "
+          f"the card's {out['f32']['valid_error']} by more than {NN_TOL}")
+    return out
+
+
+def nn_phase_dense(torch, nt):
+    """(b) bench DENSE at full width in bf16 (two runs, bit-equal) and
+    once in f32; the first epoch's f32 descent gradient on GRAD_ROWS rows
+    on the card and on the CPU from the same init."""
+    from shifu_tpu_torch.models.nn import flatten_params, init_params
+
+    out, host = nn_bench(torch, nt, DENSE, "dense", ("bf16",))
+    cfg = nn_bench_cfg(nt, dict(DENSE, epochs=1), False)
+    sec, res = nn_timed(torch, nt, tuple(torch.as_tensor(a, device="cuda")
+                                         for a in host),
+                        nn_bench_cfg(nt, DENSE, False), "cuda")
+    row_epochs = DENSE["n"] * DENSE["epochs"]
+    tflops = (row_epochs * mlp_flops_per_row_epoch(DENSE["d"],
+                                                   DENSE["hidden"])
+              / sec / 1e12)
+    out["f32"] = dict(seconds=sec, row_epochs_per_s=row_epochs / sec,
+                      tflops=tflops, peak_share=tflops / PEAK_TFLOPS["f32"],
+                      valid_error=res.valid_error, runs=1)
+    flat, shapes = flatten_params(init_params(
+        [DENSE["d"]] + DENSE["hidden"] + [1], seed=cfg.seed))
+    sig, _valid = nt.split_and_sample(DENSE["n"], cfg)
+    x, t, w = (a[:GRAD_ROWS] for a in host)
+    sig = (sig[:GRAD_ROWS] * w)[None]
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        g = nt.descent_gradient(
+            cfg, shapes, torch.as_tensor(flat[None], device=dev),
+            *(torch.as_tensor(a, device=dev) for a in (x, t, sig)))
+        grads[dev] = g.cpu().numpy()[0]
+    scale = float(np.abs(grads["cpu"]).max())
+    diff = float(np.abs(grads["cuda"] - grads["cpu"]).max())
+    out["grad_max_abs"] = scale
+    out["grad_max_abs_diff"] = diff
+    check(diff <= 1e-4 * scale, f"dense: the card's first-epoch gradient "
+          f"differs from the CPU's by {diff} > 1e-4 x {scale}")
+    return out
+
+
+def nn_step_config(root, hidden, bagging, epochs):
+    """`shifu train` NN on a prepared model set: tanh, RPROP."""
+    from shifu_tpu_torch.config.model_config import Algorithm, ModelConfig
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    path = PathFinder(root).model_config_path()
+    mc = ModelConfig.load(path)
+    mc.train.algorithm = Algorithm.NN
+    mc.train.params = {"NumHiddenNodes": list(hidden),
+                       "ActivationFunc": ["tanh"], "Propagation": "R",
+                       "LearningRate": 0.1}
+    mc.train.bagging_num = bagging
+    mc.train.num_train_epochs = epochs
+    mc.save(path)
+
+
+def nn_step(torch, root, device):
+    """`shifu train` on `root`: its seconds, the model files' bytes and
+    the valid errors of the val-error files."""
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+    from shifu_tpu_torch.processor.train import TrainProcessor
+
+    t0 = time.perf_counter()
+    check(TrainProcessor(root, device=device).run() == 0,
+          f"{root}: NN train returned non-zero")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    paths = PathFinder(root)
+    models = sorted(os.listdir(paths.models_dir()))
+    blobs = {}
+    for name in models:
+        with open(os.path.join(paths.models_dir(), name), "rb") as fh:
+            blobs[name] = fh.read()
+    errs = []
+    for i in range(len(models)):
+        with open(paths.val_error_path(i)) as fh:
+            errs.append(float(fh.read()))
+    return sec, blobs, errs
+
+
+def varsel_se(torch, root, device, filter_num):
+    """`shifu varsel` filterBy SE on `root`: seconds, the selected
+    columns, the se.csv rows."""
+    from shifu_tpu_torch.config import load_column_config_list
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+    from shifu_tpu_torch.processor.varsel import VarSelProcessor
+
+    paths = PathFinder(root)
+    mc = ModelConfig.load(paths.model_config_path())
+    mc.var_select.filter_by, mc.var_select.filter_num = "SE", filter_num
+    mc.save(paths.model_config_path())
+    t0 = time.perf_counter()
+    check(VarSelProcessor(root, device=device).run() == 0,
+          f"{root}: varsel SE returned non-zero")
+    sec = time.perf_counter() - t0
+    cols = load_column_config_list(paths.column_config_path())
+    with open(paths.se_report_path()) as fh:
+        rows = [ln.strip() for ln in fh][1:]
+    return sec, [c.column_name for c in cols if c.final_select], rows
+
+
+def nn_phase_step(torch, data_dir):
+    """(c) `shifu train` NN, bagging 5, on phase 8's selected 500,000-row
+    model set: twice on the card (model files byte-identical), once on
+    the CPU (valid errors within NN_TOL); (d) varsel SE on the same set,
+    card and CPU selecting the same columns."""
+    from shifu_tpu_torch.norm.dataset import read_meta
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    roots = {name: os.path.join(data_dir, f"nn-{name}")
+             for name in ("card1", "card2", "cpu")}
+    for root in roots.values():
+        shutil.copytree(os.path.join(data_dir, "raw-card2"), root)
+        paths = PathFinder(root)
+        # phase 8's RF model and its train files are not this step's
+        shutil.rmtree(paths.models_dir())
+        shutil.rmtree(paths.train_dir())
+        nn_step_config(root, NN_STEP["hidden"], NN_STEP["bagging"],
+                       NN_STEP["epochs"])
+    runs = {name: nn_step(torch, root, "cpu" if name == "cpu" else "cuda")
+            for name, root in roots.items()}
+    a = runs["card1"][1]
+    check(sorted(a) == [f"model{i}.nn" for i in range(NN_STEP["bagging"])],
+          f"nn step: model files {sorted(a)}")
+    check(runs["card2"][1] == a, "nn step: two card runs wrote other bytes")
+    diffs = [abs(x - y) for x, y in zip(runs["card2"][2], runs["cpu"][2])]
+    check(max(diffs) <= NN_TOL, f"nn step: the CPU's valid errors differ "
+          f"from the card's by {max(diffs)} > {NN_TOL}")
+    rows = read_meta(PathFinder(roots["card2"]).normalized_data_dir()).n_rows
+    sec = runs["card2"][0]
+    out = dict(rows=rows, columns=PREP["filter_num"],
+               hidden=NN_STEP["hidden"], bagging=NN_STEP["bagging"],
+               epochs=NN_STEP["epochs"], seconds=sec, rows_per_s=rows / sec,
+               member_row_epochs_per_s=(rows * NN_STEP["epochs"]
+                                        * NN_STEP["bagging"] / sec),
+               first_seconds=runs["card1"][0], cpu_seconds=runs["cpu"][0],
+               valid_errors=runs["card2"][2], cpu_valid_errors=runs["cpu"][2],
+               max_valid_error_diff_vs_cpu=max(diffs))
+    se = {name: varsel_se(torch, roots[name],
+                          "cpu" if name == "cpu" else "cuda",
+                          NN_STEP["filter_num"])
+          for name in ("card1", "cpu")}
+    check(se["card1"][1] == se["cpu"][1],
+          f"varsel SE: the card selected {se['card1'][1]}, the CPU "
+          f"{se['cpu'][1]}")
+    check(len(se["card1"][1]) == NN_STEP["filter_num"],
+          f"varsel SE selected {len(se['card1'][1])} columns")
+    out["varsel_se"] = dict(seconds=se["card1"][0], cpu_seconds=se["cpu"][0],
+                            selected=se["card1"][1],
+                            se_csv_card=se["card1"][2][:5],
+                            se_csv_cpu=se["cpu"][2][:5])
+    return out
+
+
+def phase_nn(torch, data_dir):
+    """Phase 9 (a)-(d), each part printed when it has passed."""
+    from shifu_tpu_torch.train import nn_trainer as nt
+
+    nn = {}
+    nn["small"] = nn_phase_small(torch, nt)
+    print_bench("small", nn["small"])
+    print(f"nn small: the CPU's f32 run {nn['small']['cpu_seconds']:.2f} s, "
+          f"valid error {nn['small']['cpu_valid_error']:.6f} (card f32 diff "
+          f"{nn['small']['f32']['valid_error_diff_vs_cpu']:.3g}, bf16 diff "
+          f"{nn['small']['bf16']['valid_error_diff_vs_cpu']:.3g})")
+    nn["dense"] = d = nn_phase_dense(torch, nt)
+    print_bench("dense", d)
+    print(f"nn dense: first-epoch f32 gradient on {GRAD_ROWS} rows, card vs"
+          f" CPU max |dg| {d['grad_max_abs_diff']:.3g} (max |g| "
+          f"{d['grad_max_abs']:.4g})")
+    nn["step"] = nn_phase_step(torch, data_dir)
+    print_step(nn["step"])
+    return nn
+
+
+def print_bench(name: str, b: dict) -> None:
+    for dt in ("bf16", "f32"):
+        r = b[dt]
+        print(f"nn {name} {dt}: {b['rows']} x {b['d']}, hidden "
+              f"{b['hidden']}, {b['epochs']} epochs: {r['seconds']:.4f} s"
+              f", {r['row_epochs_per_s']:.6g} row-epochs/s, "
+              f"{r['tflops']:.4g} TFLOP/s ({100 * r['peak_share']:.3g}% "
+              f"of {PEAK_TFLOPS[dt]:g}), valid error "
+              f"{r['valid_error']:.6f}")
+    print_profile(b)
+
+
+def print_step(st: dict) -> None:
+    print(f"nn step: shifu train NN hidden {st['hidden']} tanh, bagging "
+          f"{st['bagging']}, {st['epochs']} epochs on {st['rows']} rows x "
+          f"{st['columns']}: {st['seconds']:.3f} s ({st['rows_per_s']:.6g} "
+          f"rows/s, {st['member_row_epochs_per_s']:.6g} member-row-epochs/s;"
+          f" second card run), model files byte-identical across two card "
+          f"runs, CPU {st['cpu_seconds']:.2f} s with valid errors within "
+          f"{st['max_valid_error_diff_vs_cpu']:.3g}")
+    v = st["varsel_se"]
+    print(f"nn varsel SE: {v['seconds']:.3f} s (CPU {v['cpu_seconds']:.2f} "
+          f"s), card and CPU select the same {len(v['selected'])} columns")
+
+
+# ---------------------------------------------------------------------------
 
 
 def run(args) -> int:
@@ -1784,6 +2110,8 @@ def run(args) -> int:
         return 2
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 products reduce in f32, as XLA's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
@@ -1922,11 +2250,13 @@ def run(args) -> int:
             if k != "normalize_device_ms")
             + f"; normalize on the device {sp['normalize_device_ms']:.4f} ms")
         print_profile(prep)
+        nn = phase_nn(torch, data_dir)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     report["gbt"], report["rf"] = g, r
     report["native"], report["ova"] = nat, ova
     report["raw"], report["prep"] = raw, prep
+    report["nn"] = nn
 
     kernels = []
     mc_lines = ":358-365,:408-430,:540-552,:767-769"

@@ -29,6 +29,12 @@ value and table norms on the device (`norm.normalizer`), NormalizedData
 and CleanedData (`norm.dataset`), the KS/IV/MIX/PARETO filters, the
 auto-filter and tree feature importance (`varsel`). Raw text -> init ->
 stats -> norm -> varsel -> norm -> train runs in this package alone.
+
+Slice 8: `shifu train` for NN, LR and SVM in memory (`models.nn`, the
+`.nn` model file; `train.updaters`; `train.nn_trainer`, one epoch loop
+over a member axis for bagging, ONEVSALL, grid trials and k-fold;
+`train.grid_search`), and varsel's SE/ST sensitivity wrapper
+(`varsel.selector.sensitivity_scores`).
 """
 
 __version__ = "0.1.0"

@@ -16,7 +16,7 @@ run in a model-set directory. The flags follow the JAX subcommands;
 codes follow the JAX CLI: 0 ok, 1 ShifuError (or no card), 2 not
 implemented. Every other lifecycle subcommand exits 2 with the ROADMAP
 item that ports it, and so do the routes of a ported step that wait
-(the streamed norm, varsel's SE/ST and VOTED filters). -Dk=v anywhere
+(the streamed norm and trainers, varsel's VOTED filter). -Dk=v anywhere
 on the line sets an operational property (ShifuCLI.java:430-453).
 """
 

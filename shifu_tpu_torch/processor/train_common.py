@@ -8,7 +8,7 @@ TrainModelProcessor.java:1862) — it must exist in exactly one place.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, List
 
 
 def progress_line(trainer_id: int, epoch: int, train_err: float,
@@ -40,5 +40,17 @@ def progress_writer(path: str, trainer_id: int = 0,
         if echo:
             log.info("trainer %d epoch %d train %.6f valid %.6f",
                      trainer_id, it, tr, va)
+
+    return cb
+
+
+def member_progress_writer(paths: List[str]) -> Callable:
+    """Member-axis progress callback: ((member, epoch), tr, va)."""
+
+    def cb(member_it, tr, va):
+        i, it = member_it
+        with open(paths[i], "a") as fh:
+            fh.write(progress_line(i, it, tr, va))
+        record_epoch(i, it, tr, va)
 
     return cb

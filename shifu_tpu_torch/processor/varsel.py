@@ -3,8 +3,9 @@
 
 Parity: core/processor/VarSelectModelProcessor.java:121 — auto-filter, force
 select/remove files, filter by KS/IV/MIX/PARETO (:181-187), FI for tree
-models (:188), -list/-reset/-recover. The SE/ST sensitivity wrapper trains
-an NN (ROADMAP A.8) and the voted GA wrapper is ROADMAP A.14: both raise.
+models (:188), the SE/ST sensitivity wrapper (train a model then rank
+columns by knockout error delta, distributedSEWrapper :633),
+-list/-reset/-recover. The voted GA wrapper is ROADMAP A.14 and raises.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 import os
 import shutil
 from typing import List, Optional
+
+import numpy as np
 
 from shifu_tpu_torch.config.column_config import ColumnFlag
 from shifu_tpu_torch.processor.basic import BasicProcessor
@@ -22,7 +25,7 @@ from shifu_tpu_torch.utils.platform import DeviceLike
 log = get_logger(__name__)
 
 # the filters whose wrapper is not ported yet, and the ROADMAP item of each
-NOT_PORTED_FILTERS = {"SE": "A.8", "ST": "A.8", "VOTED": "A.14"}
+NOT_PORTED_FILTERS = {"VOTED": "A.14"}
 
 
 class VarSelProcessor(BasicProcessor):
@@ -101,7 +104,10 @@ class VarSelProcessor(BasicProcessor):
             for name, why in res.removed.items():
                 log.info("auto-filter removed %s: %s", name, why)
 
-        if filter_by == "FI":
+        if filter_by in ("SE", "ST"):
+            scores = self._sensitivity(filter_by)
+            self._select_by_scores(scores, vs.filter_num)
+        elif filter_by == "FI":
             scores = self._feature_importance()
             self._select_by_scores(scores, vs.filter_num)
         else:
@@ -164,6 +170,55 @@ class VarSelProcessor(BasicProcessor):
             cc = by_name.get(name)
             if cc is not None and cc.is_feature() and not cc.is_force_remove():
                 cc.final_select = True
+
+    def _sensitivity(self, se_type: str) -> dict:
+        """SE/ST wrapper: a quick NN train on all candidates, then the
+        knockout scan. Writes se.csv (column, score) like the reference's
+        SE report."""
+        from shifu_tpu_torch.norm.dataset import load_normalized
+        from shifu_tpu_torch.train.nn_trainer import NNTrainConfig, train_nn
+        from shifu_tpu_torch.varsel.selector import sensitivity_scores
+
+        norm_dir = self.paths.normalized_data_dir()
+        if not os.path.isdir(norm_dir):
+            raise ShifuError(ErrorCode.DATA_NOT_FOUND,
+                             f"{norm_dir} — run `shifu norm` first")
+        meta, feats, tags, weights = load_normalized(norm_dir)
+        feats = np.asarray(feats, np.float32)
+        tags = np.asarray(tags, np.float32)
+        cfg = NNTrainConfig.from_model_config(self.model_config)
+        cfg.num_epochs = min(cfg.num_epochs, 50)  # wrapper model, not final
+        res = train_nn(feats, tags, np.asarray(weights, np.float32), cfg,
+                       device=self.device)
+        scores = sensitivity_scores(res.params, cfg.activations, feats, tags,
+                                    se_type, device=self.device)
+        # meta.columns are norm-plan OUTPUT names; a one-hot style norm
+        # expands a source column into several outputs. Map outputs back
+        # to their source column (the mapping the norm step persisted)
+        # and keep the max knockout score per source.
+        src_of = (meta.extra or {}).get("sourceOf")
+        if not src_of:
+            log.warning(
+                "normalized data predates the persisted sourceOf mapping; "
+                "reconstructing from current configs — re-run `shifu norm` "
+                "if configs changed since, or scores may map to no column"
+            )
+            from shifu_tpu_torch.norm.normalizer import build_norm_plan
+
+            src_of = build_norm_plan(
+                self.model_config, self.column_configs
+            ).source_of
+        out: dict = {}
+        for name, s in zip(meta.columns, scores):
+            src = src_of.get(name, name)
+            out[src] = max(out.get(src, float("-inf")), float(s))
+        with open(self.paths.se_report_path(), "w") as fh:
+            fh.write("column,score\n")
+            for name, s in sorted(out.items(), key=lambda kv: -kv[1]):
+                fh.write(f"{name},{s:.8g}\n")
+        log.info("%s sensitivity computed for %d columns -> se.csv",
+                 se_type, len(out))
+        return out
 
     def _feature_importance(self) -> dict:
         """FI filter: requires a trained tree model

@@ -1,5 +1,5 @@
 """Atomic artifact writes (counterpart of `shifu_tpu/resilience/checkpoint.py`,
-its `atomic_write` / `atomic_write_json` only).
+its `atomic_write`, `atomic_write_json` and `atomic_save_npy` only).
 
 A kill mid-write must leave either the previous complete file or the new
 complete file, never a half-written one: write to a temp file in the same
@@ -16,6 +16,8 @@ import json
 import os
 import tempfile
 from typing import Callable, Union
+
+import numpy as np
 
 
 def atomic_write(path: str,
@@ -50,3 +52,10 @@ def atomic_write_json(path: str, obj, indent: int = 2,
     return atomic_write(
         path, json.dumps(obj, indent=indent, sort_keys=sort_keys,
                          default=str).encode("utf-8"))
+
+
+def atomic_save_npy(path: str, array: np.ndarray) -> str:
+    """Atomic `np.save`: the trainers' checkpoint write."""
+    buf = io.BytesIO()
+    np.save(buf, np.asarray(array))
+    return atomic_write(path, buf.getvalue())

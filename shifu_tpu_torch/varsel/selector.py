@@ -3,8 +3,8 @@
 
 Parity: core/VariableSelector.java:110 (selectByFilter: KS / IV / MIX
 alternating / PARETO front) and the VarSelectModelProcessor auto-filter
-(missing-rate / min-KS / min-IV / correlation thresholds). The SE/ST
-sensitivity wrapper needs the NN trainer and is ROADMAP A.8.
+(missing-rate / min-KS / min-IV / correlation thresholds), and the SE/ST
+sensitivity wrapper's knockout scan (`sensitivity_scores`) on the device.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from shifu_tpu_torch.config import ColumnConfig
 from shifu_tpu_torch.config.column_config import ColumnFlag
@@ -162,3 +163,39 @@ def auto_filter(
             c.column_flag = ColumnFlag.FORCE_REMOVE
             c.final_select = False
     return AutoFilterResult(removed=removed)
+
+
+def sensitivity_scores(
+    params,
+    activations: List[str],
+    feats: np.ndarray,
+    tags: np.ndarray,
+    se_type: str = "SE",
+    device=None,
+) -> np.ndarray:
+    """Per-column sensitivity: error increase when the column is knocked
+    out to its mean (0 after z-scale). SE = mean squared delta of scores;
+    ST = delta of MSE against labels (VarSelectMapper ColumnStatistics
+    semantics). One forward a column on `device` (None = cuda), one host
+    read at the end. Returns [C] float — higher = more important."""
+    from shifu_tpu_torch.models.nn import forward
+    from shifu_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device(device)
+    layers = [{k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+               for k, v in layer.items()} for layer in params]
+    x = torch.as_tensor(np.array(feats, np.float32), device=dev)
+    t = torch.as_tensor(np.asarray(tags, np.float32), device=dev)
+    st = se_type.upper() == "ST"
+    with torch.no_grad():
+        col_means = torch.mean(x, dim=0)
+        base = forward(layers, x, activations)[:, 0]
+        base_mse = torch.mean((t - base) ** 2)
+        scores = []
+        for j in range(x.shape[1]):
+            xj = x.clone()
+            xj[:, j] = col_means[j]
+            pj = forward(layers, xj, activations)[:, 0]
+            scores.append(torch.mean((t - pj) ** 2) - base_mse if st
+                          else torch.mean((base - pj) ** 2))
+        return torch.stack(scores).cpu().numpy()

@@ -23,7 +23,8 @@ MODULES = [
     "shifu_tpu_torch.eval.multiclass", "shifu_tpu_torch.eval.scorer",
     "shifu_tpu_torch.data.reader", "shifu_tpu_torch.data.stream",
     "shifu_tpu_torch.data.tokens", "shifu_tpu_torch.fs.listing",
-    "shifu_tpu_torch.fs.pathfinder", "shifu_tpu_torch.models.tree",
+    "shifu_tpu_torch.fs.pathfinder", "shifu_tpu_torch.models.nn",
+    "shifu_tpu_torch.models.tree",
     "shifu_tpu_torch.norm.dataset", "shifu_tpu_torch.norm.normalizer",
     "shifu_tpu_torch.ops.binagg", "shifu_tpu_torch.ops.build",
     "shifu_tpu_torch.ops.hist_kernel", "shifu_tpu_torch.processor.basic",
@@ -36,7 +37,9 @@ MODULES = [
     "shifu_tpu_torch.stats.binning", "shifu_tpu_torch.stats.correlation",
     "shifu_tpu_torch.stats.engine", "shifu_tpu_torch.stats.metrics",
     "shifu_tpu_torch.stats.psi", "shifu_tpu_torch.stats.rebin",
-    "shifu_tpu_torch.stats.sketch", "shifu_tpu_torch.train.streaming", "shifu_tpu_torch.train.tree_trainer",
+    "shifu_tpu_torch.stats.sketch", "shifu_tpu_torch.train.grid_search",
+    "shifu_tpu_torch.train.nn_trainer", "shifu_tpu_torch.train.streaming",
+    "shifu_tpu_torch.train.tree_trainer", "shifu_tpu_torch.train.updaters",
     "shifu_tpu_torch.utils.environment", "shifu_tpu_torch.utils.errors",
     "shifu_tpu_torch.utils.log", "shifu_tpu_torch.utils.platform",
     "shifu_tpu_torch.varsel.importance", "shifu_tpu_torch.varsel.selector",
