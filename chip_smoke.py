@@ -105,6 +105,25 @@ Phases, each of which must pass:
            on the same sets, the card and the CPU selecting the same
            columns.
 
+10. eval  `shifu posttrain` then `shifu eval -run` on the card, no kernel
+           of its own (the norm plan's torch ops, the MLP's cuBLAS GEMMs,
+           the forest traversal's gathers): a held-out raw file of phase
+           7's width, 200,000 rows written from --seed + 1, which `eval
+           -new` points each model set at; (a) phase 9(c)'s NN set (five
+           `.nn` on 20 selected columns: norm plan -> forward) and (b)
+           phase 8's RF set (`model0.rf`, 10 trees, depth 8:
+           `codes_from_raw` -> traversal). Each twice on the card, once on
+           the CPU, and the score stage once more under the profiler (it
+           must rewrite the same bytes). The card runs' score file,
+           EvalPerformance.json, confusion CSV, gain chart, post-posttrain
+           ColumnConfig.json and feature-importance file byte-identical;
+           the CPU run's tag and weight columns identical, its scores
+           within 0.001, AUC within 1e-6, binAvgScore within 0.01. It
+           prints eval rows/s and the stage split of the second card run
+           (read, normalize or codes, forward with its device ms by CUDA
+           events, aggregate, write, perf), posttrain seconds, the idle
+           share of the profiled score stage and the AUC.
+
 Every main-path run (phases 3-6 and 8's train) must launch the scan entry
 once for each subtraction level of each tree (bench `gbt` 25, `rf` 70,
 NATIVE 70, ONEVSALL 75, the prep chain's RF 70) and run no plain torch
@@ -2089,6 +2108,217 @@ def print_step(st: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: posttrain and eval on the card
+# ---------------------------------------------------------------------------
+
+# the held-out raw set, phase 7's width, from --seed + 1: 200,000 rows, not
+# phase 7's 500,000, which would take the phase past ~150 s on the host
+EVAL_ROWS = 200_000
+EVAL_NAME = "smoke"
+EVAL_TOL = dict(score=0.001, auc=1e-6, bin_avg=0.01)  # the CPU run's
+SCORE_STAGES = ("read", "normalize", "codes", "forward", "aggregate",
+                "reasons", "write")
+
+
+def eval_config(root, data, header):
+    """`shifu eval -new` on `root`, pointed at the held-out file. The
+    model set's own Eval1 (no data path) goes first: the step's config
+    check refuses an eval set without one."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+    from shifu_tpu_torch.processor.evaluate import EvalProcessor
+
+    path = PathFinder(root).model_config_path()
+    mc = ModelConfig.load(path)
+    mc.evals = []
+    mc.save(path)
+    check(EvalProcessor(root, new_name=EVAL_NAME, device="cpu").run() == 0,
+          f"{root}: eval -new returned non-zero")
+    mc = ModelConfig.load(path)
+    ds = mc.get_eval(EVAL_NAME).data_set
+    ds.data_path, ds.header_path = data, header
+    mc.save(path)
+
+
+def eval_set_copy(src, dst, data, header):
+    """A copy of the model set `src` (its raw data linked, not copied),
+    its eval set pointed at the held-out file."""
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("data"))
+    os.symlink(os.path.join(src, "data"), os.path.join(dst, "data"))
+    eval_config(dst, data, header)
+
+
+def eval_artifacts(root):
+    """The bytes of everything posttrain and eval write, by path."""
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    paths = PathFinder(root)
+    out = {}
+    for path in (paths.eval_score_path(EVAL_NAME),
+                 paths.eval_performance_path(EVAL_NAME),
+                 paths.eval_confusion_path(EVAL_NAME),
+                 paths.gain_chart_path(EVAL_NAME),
+                 paths.column_config_path(),
+                 paths.feature_importance_path()):
+        with open(path, "rb") as fh:
+            out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def posttrain_eval(torch, root, device):
+    """`shifu posttrain` then `shifu eval -run` on `root`: the seconds of
+    each, their stage splits, the artifacts' bytes."""
+    from shifu_tpu_torch.processor.evaluate import EvalProcessor
+    from shifu_tpu_torch.processor.posttrain import PostTrainProcessor
+
+    t0 = time.perf_counter()
+    post = PostTrainProcessor(root, device=device)
+    check(post.run() == 0, f"{root}: posttrain returned non-zero")
+    t1 = time.perf_counter()
+    ev = EvalProcessor(root, run_name=EVAL_NAME, device=device)
+    check(ev.run() == 0, f"{root}: eval returned non-zero")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return dict(posttrain_seconds=t1 - t0, eval_seconds=t2 - t1,
+                posttrain_split=dict(post.timings), eval_split=dict(ev.timings),
+                metrics=ev.metrics[EVAL_NAME], bytes=eval_artifacts(root))
+
+
+def _score_table(blob):
+    lines = blob.decode().splitlines()
+    rows = [ln.split("|") for ln in lines[1:]]
+    return lines[0], [r[:2] for r in rows], np.array(
+        [[float(v) for v in r[2:]] for r in rows])
+
+
+def _bin_avg(blob):
+    cols = json.loads(blob)
+    avg = {c["columnName"]: c["columnBinning"].pop("binAvgScore")
+           for c in cols}
+    return cols, avg
+
+
+def check_eval_cpu(kind, card, cpu):
+    """The CPU run against the card's: tag and weight columns identical,
+    scores within 0.001, AUC within 1e-6, binAvgScore within 0.01, the
+    rest of ColumnConfig.json equal. The largest differences."""
+    score = os.path.join("evals", EVAL_NAME, "EvalScore.csv")
+    (ha, ta, sa), (hc, tc, sc) = (_score_table(r["bytes"][score])
+                                  for r in (card, cpu))
+    check(ha == hc and ta == tc, f"eval {kind}: the CPU run's header or "
+          "tag and weight columns differ from the card's")
+    d_score = float(np.abs(sa - sc).max())
+    check(d_score <= EVAL_TOL["score"] + 1e-9,
+          f"eval {kind}: CPU scores differ by {d_score}")
+    d_auc = max(abs(card["metrics"][k] - cpu["metrics"][k])
+                for k in ("auc", "weighted_auc"))
+    check(d_auc <= EVAL_TOL["auc"], f"eval {kind}: CPU AUC differs by "
+          f"{d_auc}")
+    (ca, aa), (cc, ac) = (_bin_avg(r["bytes"]["ColumnConfig.json"])
+                          for r in (card, cpu))
+    check(ca == cc and aa.keys() == ac.keys(),
+          f"eval {kind}: the CPU run's ColumnConfig.json differs")
+    d_avg = max(float(np.abs(np.subtract(aa[k], ac[k])).max())
+                for k in aa if aa[k] is not None)
+    check(d_avg <= EVAL_TOL["bin_avg"] + 1e-9,
+          f"eval {kind}: CPU binAvgScore differs by {d_avg}")
+    return dict(max_score_diff=d_score, auc_diff=d_auc,
+                max_bin_avg_diff=d_avg)
+
+
+def eval_one(torch, kind, src, data_dir, data, header, n_models):
+    """(a) or (b): posttrain + eval twice on the card, once on the CPU,
+    and the score stage once more under the profiler."""
+    roots = {name: os.path.join(data_dir, f"eval-{kind}-{name}")
+             for name in ("card1", "card2", "cpu")}
+    for root in roots.values():
+        eval_set_copy(src, root, data, header)
+    runs = {name: posttrain_eval(torch, root,
+                                 "cpu" if name == "cpu" else "cuda")
+            for name, root in roots.items()}
+    a = runs["card1"]["bytes"]
+    for key in a:
+        check(a[key] == runs["card2"]["bytes"][key],
+              f"eval {kind}: two card runs wrote different {key} bytes")
+    second = runs["card2"]
+    split = second["eval_split"]
+    score_s = sum(split.get(k, 0.0) for k in SCORE_STAGES)
+    from shifu_tpu_torch.processor.evaluate import EvalProcessor
+
+    prof = profile_run(torch, lambda: EvalProcessor(
+        roots["card1"], score_name=EVAL_NAME, device="cuda").run(), score_s)
+    check(eval_artifacts(roots["card1"]) == a,
+          f"eval {kind}: the profiled score run rewrote other bytes")
+    cpu = check_eval_cpu(kind, second, runs["cpu"])
+    _h, tags, scores = _score_table(a[os.path.join("evals", EVAL_NAME,
+                                                   "EvalScore.csv")])
+    m = second["metrics"]
+    check(m["models"] == n_models and scores.shape == (m["records"],
+                                                      4 + n_models)
+          and np.isfinite(scores).all() and (scores >= 0).all()
+          and (scores <= 1000).all() and m["records"] == EVAL_ROWS,
+          f"eval {kind}: scores not finite in [0, 1000] of shape "
+          f"({EVAL_ROWS}, {4 + n_models}): {scores.shape}")
+    check(0.6 < m["auc"] <= 1.0, f"eval {kind}: AUC {m['auc']}")
+    return dict(rows=EVAL_ROWS, models=n_models, auc=m["auc"],
+                weighted_auc=m["weighted_auc"],
+                eval_seconds=second["eval_seconds"],
+                eval_rows_per_s=EVAL_ROWS / second["eval_seconds"],
+                score_seconds=score_s, eval_split=split,
+                posttrain_seconds=second["posttrain_seconds"],
+                posttrain_split=second["posttrain_split"],
+                seconds_second=score_s,
+                card1_seconds=[runs["card1"]["posttrain_seconds"],
+                               runs["card1"]["eval_seconds"]],
+                cpu_seconds=[runs["cpu"]["posttrain_seconds"],
+                             runs["cpu"]["eval_seconds"]],
+                cpu=cpu, profile=prof)
+
+
+def phase_eval(torch, data_dir, seed):
+    """Phase 10: the held-out raw set, then (a) the NN set of phase 9(c)
+    and (b) the RF set of phase 8."""
+    base = os.path.join(data_dir, "eval-raw")
+    t0 = time.perf_counter()
+    write_raw_set(base, seed + 1, n=EVAL_ROWS)
+    write_s = time.perf_counter() - t0
+    data = os.path.join(base, "data", "data.txt")
+    header = os.path.join(base, "data", "header.txt")
+    out = dict(write_seconds=write_s)
+    out["nn"] = eval_one(torch, "nn", os.path.join(data_dir, "nn-card2"),
+                         data_dir, data, header, NN_STEP["bagging"])
+    print_eval("nn", out["nn"])
+    out["rf"] = eval_one(torch, "rf", os.path.join(data_dir, "raw-card2"),
+                         data_dir, data, header, 1)
+    print_eval("rf", out["rf"])
+    return out
+
+
+def print_eval(kind, e):
+    what = {"nn": f"{NN_STEP['bagging']} NN models ([50] tanh), norm plan "
+                  "-> forward", "rf": f"model0.rf ({PREP['trees']} trees, "
+                  f"depth {PREP['depth']}), codes_from_raw -> traverse"}[kind]
+    sp = e["eval_split"]
+    print(f"eval {kind}: shifu posttrain + eval -run, {what}, on "
+          f"{e['rows']} held-out raw rows: eval {e['eval_seconds']:.3f} s "
+          f"({e['eval_rows_per_s']:.6g} rows/s), posttrain "
+          f"{e['posttrain_seconds']:.3f} s (second card run), AUC "
+          f"{e['auc']:.6f} (weighted {e['weighted_auc']:.6f}); card runs "
+          "byte-identical, the CPU run's scores within "
+          f"{e['cpu']['max_score_diff']:.3g}, AUC within "
+          f"{e['cpu']['auc_diff']:.3g}, binAvgScore within "
+          f"{e['cpu']['max_bin_avg_diff']:.3g} (CPU posttrain "
+          f"{e['cpu_seconds'][0]:.3f} s, eval {e['cpu_seconds'][1]:.3f} s)")
+    print("  eval split (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sp.items() if k != "forward_device_ms")
+        + f"; forwards on the device {sp.get('forward_device_ms', 0.0):.4f}"
+        " ms (CUDA events, copies included); posttrain split (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in e["posttrain_split"].items()))
+    print_profile(e)
+
+
+# ---------------------------------------------------------------------------
 
 
 def run(args) -> int:
@@ -2251,12 +2481,14 @@ def run(args) -> int:
             + f"; normalize on the device {sp['normalize_device_ms']:.4f} ms")
         print_profile(prep)
         nn = phase_nn(torch, data_dir)
+        ev = phase_eval(torch, data_dir, args.seed)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     report["gbt"], report["rf"] = g, r
     report["native"], report["ova"] = nat, ova
     report["raw"], report["prep"] = raw, prep
     report["nn"] = nn
+    report["eval"] = ev
 
     kernels = []
     mc_lines = ":358-365,:408-430,:540-552,:767-769"

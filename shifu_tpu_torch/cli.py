@@ -9,6 +9,11 @@
                                      [--device cpu|cuda] [-Dk=v ...]
     python -m shifu_tpu_torch train [-dry] [--resume] [--device cpu|cuda]
                                     [-Dk=v ...]
+    python -m shifu_tpu_torch posttrain [--device cpu|cuda] [-Dk=v ...]
+    python -m shifu_tpu_torch eval [-new NAME|-list|-delete NAME|-run [NAME]|
+                                   -score [NAME]|-perf [NAME]|-confmat [NAME]|
+                                   -norm [NAME]] [--device cpu|cuda]
+                                   [-Dk=v ...]
 
 run in a model-set directory. The flags follow the JAX subcommands;
 `--device` picks the device (default: the card, an error without one).
@@ -16,8 +21,9 @@ run in a model-set directory. The flags follow the JAX subcommands;
 codes follow the JAX CLI: 0 ok, 1 ShifuError (or no card), 2 not
 implemented. Every other lifecycle subcommand exits 2 with the ROADMAP
 item that ports it, and so do the routes of a ported step that wait
-(the streamed norm and trainers, varsel's VOTED filter). -Dk=v anywhere
-on the line sets an operational property (ShifuCLI.java:430-453).
+(the streamed norm, trainers and eval, varsel's VOTED filter, WDL and
+reference-format models in eval). -Dk=v anywhere on the line sets an
+operational property (ShifuCLI.java:430-453).
 """
 
 from __future__ import annotations
@@ -35,8 +41,7 @@ log = get_logger("shifu")
 
 # the JAX CLI's other subcommands and the ROADMAP item that ports each
 NOT_PORTED = {
-    "new": "A.14", "retrain": "A.14", "posttrain": "A.14", "eval": "A.9",
-    "export": "A.14", "combo": "A.14", "encode": "A.14", "test": "A.14",
+    "new": "A.14", "retrain": "A.14", "export": "A.14", "combo": "A.14", "encode": "A.14", "test": "A.14",
     "convert": "A.14", "serve": "A.10", "version": "A.14",
 }
 
@@ -97,6 +102,23 @@ def build_parser() -> argparse.ArgumentParser:
                               "either way)")
     p_train.add_argument("--device", choices=["cpu", "cuda"], default=None,
                          help=device_help)
+    p_post = sub.add_parser("posttrain", help="post-train bin metrics and "
+                                              "feature importance")
+    p_post.add_argument("--device", choices=["cpu", "cuda"], default=None,
+                        help=device_help)
+    p_eval = sub.add_parser("eval", help="evaluate model(s)")
+    p_eval.add_argument("-new", dest="new_name", default=None,
+                        help="create eval set")
+    p_eval.add_argument("-list", action="store_true", dest="list_sets")
+    p_eval.add_argument("-delete", dest="delete_name", default=None)
+    for flag in ("run", "score", "norm", "confmat", "perf"):
+        p_eval.add_argument(f"-{flag}", dest=f"{flag}_name", nargs="?",
+                            const="", default=None)
+    p_eval.add_argument("--resume", action="store_true",
+                        help="resume a preempted streamed eval (not ported "
+                             "yet: ROADMAP A.13)")
+    p_eval.add_argument("--device", choices=["cpu", "cuda"], default=None,
+                        help=device_help)
     for name in NOT_PORTED:
         p = sub.add_parser(name, help=f"not ported yet (ROADMAP "
                                       f"{NOT_PORTED[name]})")
@@ -158,5 +180,18 @@ def dispatch(args: argparse.Namespace) -> int:
         from shifu_tpu_torch.processor.train import TrainProcessor
 
         return TrainProcessor(dry=args.dry, device=args.device).run()
+    if cmd == "posttrain":
+        from shifu_tpu_torch.processor.posttrain import PostTrainProcessor
+
+        return PostTrainProcessor(device=args.device).run()
+    if cmd == "eval":
+        from shifu_tpu_torch.processor.evaluate import EvalProcessor
+
+        return EvalProcessor(
+            new_name=args.new_name, list_sets=args.list_sets,
+            delete_name=args.delete_name, run_name=args.run_name,
+            score_name=args.score_name, norm_name=args.norm_name,
+            confmat_name=args.confmat_name, perf_name=args.perf_name,
+            device=args.device).run()
     raise NotImplementedError(
         f"`{cmd}` is not ported yet: ROADMAP {NOT_PORTED[cmd]}")

@@ -178,9 +178,9 @@ class TreeModelSpec:
         return IndependentTreeModel(self, device=device)
 
 
-def traverse_trees(trees: List[DenseTree], codes: torch.Tensor
-                   ) -> torch.Tensor:
-    """codes [n, F] int tensor -> per-tree weighted leaf predictions
+def tree_leaves(trees: List[DenseTree], codes: torch.Tensor
+                ) -> torch.Tensor:
+    """codes [n, F] int tensor -> each tree's leaf value (unweighted)
     [n, n_trees] f32 on the codes' device."""
     dev = codes.device
     n = codes.shape[0]
@@ -205,16 +205,46 @@ def traverse_trees(trees: List[DenseTree], codes: torch.Tensor
             else:
                 child = torch.where(goes_left, lch[node], rch[node])
             node = torch.where(is_leaf, node, child)
-        outs.append(leaf_value[node] * t.weight)
+        outs.append(leaf_value[node])
     if not outs:
         return torch.zeros((n, 0), dtype=torch.float32, device=dev)
     return torch.stack(outs, dim=1)
 
 
+def _weights(trees: List[DenseTree], dev, dtype) -> torch.Tensor:
+    """The trees' weights as the f32 constants XLA makes of them."""
+    return torch.as_tensor(np.asarray([t.weight for t in trees], np.float32),
+                           device=dev).to(dtype)
+
+
+def traverse_trees(trees: List[DenseTree], codes: torch.Tensor
+                   ) -> torch.Tensor:
+    """codes [n, F] int tensor -> per-tree weighted leaf predictions
+    [n, n_trees] f32 on the codes' device."""
+    leaves = tree_leaves(trees, codes)
+    return leaves * _weights(trees, leaves.device, leaves.dtype)
+
+
+def weighted_tree_sum(trees: List[DenseTree], leaves: torch.Tensor
+                      ) -> torch.Tensor:
+    """sum_k leaf_k * weight_k per row, in tree order, each step one
+    rounding to f32 of the exact product plus the sum so far: XLA's CPU
+    code for `sum(leaf * weight)`, which fuses each product into the
+    reduce as an FMA (a reduce in tree order for forests of up to 17
+    trees). Done in f64 and rounded once a step, so every device gives
+    the same bits."""
+    w = _weights(trees, leaves.device, torch.float64)
+    out = torch.zeros(leaves.shape[0], dtype=torch.float32,
+                      device=leaves.device)
+    for k in range(leaves.shape[1]):
+        out = (leaves[:, k].double() * w[k] + out.double()).float()
+    return out
+
+
 class IndependentTreeModel:
-    """Scorer over bin codes (parity: dt/IndependentTreeModel.java:51
-    compute :352). Raw-record binning (`codes_from_raw`) needs the stats
-    binning module and comes with the stats slice."""
+    """Scorer (parity: dt/IndependentTreeModel.java:51 compute :352) over
+    bin codes, or over raw columns binned on the host by the embedded
+    boundaries/categories (`codes_from_raw`)."""
 
     def __init__(self, spec: TreeModelSpec, device: DeviceLike = None):
         self.spec = spec
@@ -225,6 +255,30 @@ class IndependentTreeModel:
              ) -> "IndependentTreeModel":
         return cls(TreeModelSpec.load(path), device=device)
 
+    def codes_from_raw(self, data) -> np.ndarray:
+        """ColumnarData -> [n, F] int32 codes by the embedded binning."""
+        from shifu_tpu_torch.stats.binning import (
+            categorical_bin_index,
+            hybrid_bin_index,
+            numeric_bin_index,
+        )
+
+        spec = self.spec
+        cols = []
+        for j, name in enumerate(spec.input_columns):
+            cats = spec.categories[j] if j < len(spec.categories) else None
+            bounds = spec.boundaries[j] if j < len(spec.boundaries) else None
+            if cats and bounds:  # hybrid column: numeric bins then cats
+                cols.append(hybrid_bin_index(data.column(name), bounds, cats,
+                                             data.missing_mask(name)))
+            elif cats:
+                cols.append(categorical_bin_index(data.column(name), cats,
+                                                  data.missing_mask(name)))
+            else:
+                cols.append(numeric_bin_index(data.numeric(name),
+                                              bounds or [float("-inf")]))
+        return np.stack(cols, axis=1).astype(np.int32)
+
     def compute(self, codes) -> np.ndarray:
         """codes [n, F] -> score [n] in [0, 1] (regression/binary) or
         per-class vote fractions [n, K] (NATIVE RF multi-class)."""
@@ -232,18 +286,24 @@ class IndependentTreeModel:
         c = torch.as_tensor(np.asarray(codes, dtype=np.int32)
                             if not isinstance(codes, torch.Tensor) else codes,
                             device=self.device)
-        per_tree = traverse_trees(spec.trees, c)
+        leaves = tree_leaves(spec.trees, c)
         if spec.n_classes >= 3:
+            per_tree = leaves * _weights(spec.trees, leaves.device,
+                                         leaves.dtype)
             cls = per_tree.long().clamp(0, spec.n_classes - 1)
             votes = torch.nn.functional.one_hot(
                 cls, spec.n_classes).to(torch.float32).sum(dim=1)
             out = votes / max(len(spec.trees), 1)
         elif spec.algorithm == "GBT":
-            raw = spec.init_pred + per_tree.sum(dim=1)
+            raw = spec.init_pred + weighted_tree_sum(spec.trees, leaves)
             if spec.loss == "log" or spec.convert_to_prob == "SIGMOID":
                 out = 1.0 / (1.0 + torch.exp(-raw))
             else:
                 out = raw.clamp(0.0, 1.0)
         else:  # RF: mean vote
-            out = per_tree.mean(dim=1).clamp(0.0, 1.0)
+            # XLA's mean: the sum times the f32 reciprocal of the count
+            inv = np.float32(1.0 / max(len(spec.trees), 1))
+            out = (weighted_tree_sum(spec.trees, leaves)
+                   * float(inv)).clamp(0.0, 1.0)
         return out.cpu().numpy()
+

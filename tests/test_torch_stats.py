@@ -352,9 +352,9 @@ def test_cli_init_stats_and_norm(tmp_path):
                                        "meta.json"))
     assert os.path.isfile(os.path.join(root, "tmp", "varsel",
                                        "ColumnConfig.json.prevarsel"))
-    proc = _cli(root, "eval")
-    assert proc.returncode == 2 and "A.9" in proc.stderr
+    proc = _cli(root, "export")
+    assert proc.returncode == 2 and "A.14" in proc.stderr
     if not torch.cuda.is_available():
-        for cmd in ("init", "stats", "norm", "varsel"):
+        for cmd in ("init", "stats", "norm", "varsel", "eval"):
             proc = _cli(root, cmd)
             assert proc.returncode == 1 and "CUDA" in proc.stderr

@@ -195,5 +195,7 @@ def test_cli_exit_codes(prepared, tmp_path, monkeypatch, capsys):
     finally:
         environment.set_property("shifu.train.forceStreaming", "")
     assert "ROADMAP A.13" in capsys.readouterr().err
-    assert cli.main(["eval"]) == 2
-    assert "ROADMAP A.9" in capsys.readouterr().err
+    assert cli.main(["eval"]) == 1  # no card, no --device
+    assert "CUDA" in capsys.readouterr().err
+    assert cli.main(["export"]) == 2
+    assert "ROADMAP A.14" in capsys.readouterr().err

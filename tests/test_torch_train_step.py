@@ -271,8 +271,15 @@ def test_cli_train_and_unported_steps(prepared, tmp_path):
     proc = run("train", "--device", "cpu", "-Dshifu.test.cli=1")
     assert proc.returncode == 0, proc.stderr
     assert os.path.isfile(os.path.join(root, "models", "model0.rf"))
-    proc = run("eval")
+    proc = run("eval", "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    assert os.path.isfile(os.path.join(root, "evals", "Eval1",
+                                       "EvalConfusionMatrix.csv"))
+    if not torch.cuda.is_available():
+        proc = run("eval")
+        assert proc.returncode == 1 and "CUDA" in proc.stderr
+    proc = run("export")
     assert proc.returncode == 2
-    assert "not ported yet: ROADMAP A.9" in proc.stderr
+    assert "not ported yet: ROADMAP A.14" in proc.stderr
     proc = run("train", "--device", "cpu", "-dry")
     assert proc.returncode == 0
