@@ -124,6 +124,26 @@ Phases, each of which must pass:
            events, aggregate, write, perf), posttrain seconds, the idle
            share of the profiled score stage and the AUC.
 
+11. serve `shifu serve` on the card, no kernel of its own (the registry's
+           fused program: the norm plan's torch ops, the MLPs' cuBLAS
+           GEMMs, the aggregates): (a) phase 9(c)'s NN set through
+           `ModelRegistry(device="cuda")`, every bucket warmed, phase
+           10's held-out rows in 1,024-row batches, twice (bit-identical),
+           within 2e-3 score units of the `ModelRunner` on the card and of
+           a CPU registry; the first 1,024 rows as JSON records (strings,
+           and typed numbers) and as the binary wire, bit for bit alike;
+           the largest |d| of 64 rows batched vs scored alone (printed,
+           not gated). (b) bench.py's `SERVE` set (30 columns, [50] tanh,
+           3 bags, a queue of 256) through `ScoringServer` over HTTP on
+           127.0.0.1: 240 single-record JSON requests at closed-loop
+           concurrency 1, 4 and 16 and again at 16 with barrier batching,
+           240 binary requests of 64 rows; p50, p99, QPS; every request
+           answered 200, /healthz 200, a clean drain. (c) phase 8's RF set
+           through the registry's `ModelRunner` fallback, bit-equal to the
+           runner. (d) a 1-row and a 1,024-row batch under the profiler:
+           device launches, exactly one HtoD and one DtoH memcpy (gated),
+           device busy against the unprofiled wall, the host split.
+
 Every main-path run (phases 3-6 and 8's train) must launch the scan entry
 once for each subtraction level of each tree (bench `gbt` 25, `rf` 70,
 NATIVE 70, ONEVSALL 75, the prep chain's RF 70) and run no plain torch
@@ -230,15 +250,15 @@ def _device_times(prof, reps: int) -> dict:
     return out
 
 
-def _profile(torch):
+def _profile(torch, **kw):
     """A torch profiler of the device that keeps every event it records
-    (acc_events, where this torch has it)."""
+    (acc_events, where this torch has it); `kw` go to the profiler."""
     import inspect
 
     from torch.profiler import ProfilerActivity, profile
 
-    kw = ({"acc_events": True}
-          if "acc_events" in inspect.signature(profile).parameters else {})
+    if "acc_events" in inspect.signature(profile).parameters:
+        kw["acc_events"] = True
     return profile(activities=[ProfilerActivity.CUDA], **kw)
 
 
@@ -2319,6 +2339,411 @@ def print_eval(kind, e):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: `shifu serve` on the card
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH = 1024  # rows a batch in (a), the batcher's default row cap
+SERVE_ALONE = 64    # rows of (a) scored alone (bucket 8) against their batch
+SERVE_ATOL = 2e-3   # score units: the JAX package's fused-vs-runner gate
+# bench.py's SERVE shape: 30 value columns, [50] tanh, 3 bags, a queue of
+# 256, 240 requests at closed-loop concurrency 1/4/16, 64-row binary ones
+SERVE = dict(cols=30, hidden=[50], bags=3, requests=240,
+             concurrency=(1, 4, 16), queue_depth=256, wire_rows=64)
+OUTPUTS = ("model_scores", "mean", "max", "min", "median")
+
+
+def _max_diff(a, b) -> float:
+    return max(float(np.abs(np.asarray(getattr(a, k), np.float64)
+                            - np.asarray(getattr(b, k), np.float64)).max())
+               for k in OUTPUTS)
+
+
+def _bit_equal(a, b) -> bool:
+    return all(np.array_equal(getattr(a, k), getattr(b, k)) for k in OUTPUTS)
+
+
+def _stack(results):
+    from shifu_tpu_torch.eval.scorer import ScoreResult
+
+    return ScoreResult(**{k: np.concatenate([getattr(r, k) for r in results])
+                          for k in OUTPUTS},
+                       model_names=results[0].model_names,
+                       model_widths=results[0].model_widths)
+
+
+def held_out(data_dir):
+    """Phase 10's held-out raw rows, read with the port's reader."""
+    from shifu_tpu_torch.data.reader import read_columnar, read_header
+
+    base = os.path.join(data_dir, "eval-raw", "data")
+    names = read_header(os.path.join(base, "header.txt"))
+    return read_columnar(os.path.join(base, "data.txt"), names)
+
+
+def _rows(data, cols, start, stop):
+    """Rows start..stop of `data` over `cols`, a fresh ColumnarData (no
+    caches carried from an earlier run)."""
+    from shifu_tpu_torch.data.reader import ColumnarData
+
+    stop = min(stop, data.n_rows)
+    return ColumnarData(names=list(cols), n_rows=stop - start,
+                        raw={c: data.raw[c][start:stop] for c in cols})
+
+
+def _batches(data, cols, n_rows):
+    """Every row of `data` in fresh batches of `n_rows`."""
+    return [_rows(data, cols, a, a + n_rows)
+            for a in range(0, data.n_rows, n_rows)]
+
+
+def serve_pass(torch, reg, data):
+    """Every held-out row through `reg.score_raw` in SERVE_BATCH-row
+    batches: (stacked result, seconds, summed host split)."""
+    batches = _batches(data, reg.input_columns, SERVE_BATCH)
+    split = dict(featurize=0.0, device=0.0, d2h=0.0)
+    t0 = time.perf_counter()
+    out = []
+    for b in batches:
+        out.append(reg.score_raw(b))
+        for k in split:
+            split[k] += reg.timings[k]
+    return _stack(out), time.perf_counter() - t0, split
+
+
+def _records(data, reg, n, typed):
+    """The first `n` held-out rows as JSON records: every token a string,
+    or (`typed`) the value columns as JSON numbers (null where the token
+    is not a number), as a JSON client sends them."""
+    values = {s.cc.column_name for f in reg._featurizers
+              for s in f.value_specs}
+    recs = []
+    for i in range(n):
+        r = {}
+        for c in reg.input_columns:
+            tok = data.raw[c][i]
+            if typed and c in values:
+                v = data.numeric(c)[i]
+                r[c] = None if v != v else float(v)
+            else:
+                r[c] = tok
+        recs.append(r)
+    return recs
+
+
+def serve_parity(torch, data_dir, data, device="cuda"):
+    """(a): phase 9(c)'s NN set on the held-out rows."""
+    from shifu_tpu_torch.eval.scorer import ModelRunner, find_model_paths
+    from shifu_tpu_torch.serve import wire
+    from shifu_tpu_torch.serve.registry import ModelRegistry
+
+    models = os.path.join(data_dir, "nn-card2", "models")
+    t0 = time.perf_counter()
+    reg = ModelRegistry(models, device=device)
+    warmed = reg.warm(range(1, SERVE_BATCH + 1))
+    warm_s = time.perf_counter() - t0
+    check(reg.fused and warmed == [8 << k for k in range(8)],
+          f"serve: registry not fused or warm buckets {warmed}")
+    card1, s1, split1 = serve_pass(torch, reg, data)
+    card2, s2, split2 = serve_pass(torch, reg, data)
+    check(_bit_equal(card1, card2), "serve: two card passes differ")
+    n = data.n_rows
+    w = sum(reg.model_widths)
+    check(card1.model_scores.shape == (n, w)
+          and all(np.isfinite(getattr(card1, k)).all() for k in OUTPUTS)
+          and (card1.model_scores >= 0).all()
+          and (card1.model_scores <= 1000).all(),
+          f"serve: scores not finite in [0, 1000] of shape ({n}, {w})")
+    runner = ModelRunner(find_model_paths(models), device=device)
+    d_runner = _max_diff(card1, runner.score_raw(data))
+    check(d_runner <= SERVE_ATOL,
+          f"serve: card registry vs ModelRunner differ by {d_runner}")
+    cpu, s_cpu, _ = serve_pass(torch, ModelRegistry(models, device="cpu"),
+                               data)
+    d_cpu = _max_diff(card1, cpu)
+    check(d_cpu <= SERVE_ATOL,
+          f"serve: card registry vs CPU registry differ by {d_cpu}")
+    wire_ok = {}
+    for typed in (False, True):
+        recs = _records(data, reg, SERVE_BATCH, typed)
+        via_json = reg.score_records(recs)
+        via_bin = reg.score_raw(wire.conform_columns(
+            wire.decode(wire.encode_records(recs)), reg.input_columns))
+        wire_ok["typed" if typed else "strings"] = _bit_equal(via_json,
+                                                              via_bin)
+    check(all(wire_ok.values()),
+          f"serve: JSON and binary bodies score differently: {wire_ok}")
+    from shifu_tpu_torch.serve.batcher import slice_result
+
+    cols = reg.input_columns
+    batch = reg.score_raw(_rows(data, cols, 0, SERVE_BATCH))
+    alone = _stack([reg.score_raw(_rows(data, cols, i, i + 1))
+                    for i in range(SERVE_ALONE)])
+    d_alone = _max_diff(slice_result(batch, 0, SERVE_ALONE), alone)
+    return dict(rows=n, models=len(reg.model_names), columns=len(
+        reg.input_columns), warm_seconds=warm_s, warm_buckets=warmed,
+        seconds=s2, rows_per_s=n / s2, first_seconds=s1, split=split2,
+        cpu_seconds=s_cpu, max_diff_vs_runner=d_runner,
+        max_diff_vs_cpu=d_cpu, json_binary_bit_equal=wire_ok,
+        max_diff_batch_vs_alone=d_alone, batches=-(-n // SERVE_BATCH))
+
+
+def write_serve_set(root, seed):
+    """bench.py's SERVE model set: 3 `.nn` of [30, 50, 1] tanh over 30
+    value columns (z-score, random means), weights from seeds 0..2."""
+    from shifu_tpu_torch.models.nn import NNModelSpec, init_params
+
+    rng = np.random.default_rng(seed)
+    cols = [f"c{i}" for i in range(SERVE["cols"])]
+    sizes = [SERVE["cols"]] + SERVE["hidden"] + [1]
+    models = os.path.join(root, "models")
+    os.makedirs(models, exist_ok=True)
+    for b in range(SERVE["bags"]):
+        specs = [{"name": c, "kind": "value", "outNames": [c],
+                  "mean": float(rng.normal()), "std": 1.0, "fill": 0.0,
+                  "zscore": True, "boundaries": [float("-inf")]}
+                 for c in cols]
+        NNModelSpec(layer_sizes=sizes, activations=["tanh"],
+                    input_columns=cols, norm_specs=specs,
+                    params=init_params(sizes, seed=b)).save(
+            os.path.join(models, f"model{b}.nn"))
+    return cols
+
+
+def _closed_loop(port, bodies, conc, ctype):
+    """`conc` client threads, each with one keep-alive connection,
+    posting its share of `bodies` in turn: (latencies s, wall s, status
+    codes)."""
+    import http.client
+    import threading
+
+    per = len(bodies) // conc
+    lat = [[] for _ in range(conc)]
+    codes = [[] for _ in range(conc)]
+
+    def client(t):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        for body in bodies[t * per:(t + 1) * per]:
+            t0 = time.perf_counter()
+            conn.request("POST", "/score", body=body,
+                         headers={"Content-Type": ctype})
+            resp = conn.getresponse()
+            resp.read()
+            lat[t].append(time.perf_counter() - t0)
+            codes[t].append(resp.status)
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(conc)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    return ([v for ts in lat for v in ts], wall,
+            [c for cs in codes for c in cs])
+
+
+def _latency(lat, wall) -> dict:
+    a = np.asarray(lat)
+    return dict(requests=int(a.size), p50_ms=float(np.percentile(a, 50)) * 1e3,
+                p99_ms=float(np.percentile(a, 99)) * 1e3,
+                qps=a.size / wall)
+
+
+def serve_latency(torch, data_dir, seed, device="cuda"):
+    """(b): bench SERVE through ScoringServer over HTTP on 127.0.0.1."""
+    import urllib.request
+
+    from shifu_tpu_torch.serve import wire
+    from shifu_tpu_torch.serve.server import ScoringServer
+
+    root = os.path.join(data_dir, "serve-bench")
+    cols = write_serve_set(root, seed)
+    srv = ScoringServer(root=root, port=0, replicas=1,
+                        queue_depth=SERVE["queue_depth"], device=device)
+    srv.registry.warm([1, max(SERVE["concurrency"]), SERVE["wire_rows"]])
+    srv.start()
+    rng = np.random.default_rng(seed + 11)
+    n = SERVE["requests"]
+    out = {}
+    codes = []
+    try:
+        singles = [json.dumps({c: f"{v:.4f}" for c, v in zip(
+            cols, rng.normal(size=len(cols)))}).encode() for _ in range(n)]
+        for conc in SERVE["concurrency"]:
+            lat, wall, c = _closed_loop(srv.port, singles, conc,
+                                        "application/json")
+            codes += c
+            out[f"json_c{conc}"] = _latency(lat, wall)
+        batcher = srv.registry.replicas[0].batcher
+        top = max(SERVE["concurrency"])
+        batcher.batching = "barrier"
+        lat, wall, c = _closed_loop(srv.port, singles, top,
+                                    "application/json")
+        codes += c
+        out[f"barrier_c{top}"] = _latency(lat, wall)
+        batcher.batching = "continuous"
+        rows = SERVE["wire_rows"]
+        payloads = [wire.encode_records(
+            [{cc: float(v) for cc, v in zip(cols, row)}
+             for row in rng.normal(size=(rows, len(cols)))])
+            for _ in range(n)]
+        lat, wall, c = _closed_loop(srv.port, payloads, 1,
+                                    wire.CONTENT_TYPE)
+        codes += c
+        out[f"binary_{rows}_rows_c1"] = _latency(lat, wall)
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/healthz",
+                                    timeout=30) as r:
+            health = r.status
+    finally:
+        snap = srv.shutdown(60)
+    answered = sum(1 for c in codes if c == 200)
+    check(answered == len(codes), f"serve: {len(codes) - answered} of "
+          f"{len(codes)} HTTP requests not answered 200")
+    check(health == 200, f"serve: /healthz answered {health}")
+    rep = snap["replicas"][0]
+    check(rep["queue"]["queued"] == 0 and rep["queue"]["closed"]
+          and rep["batcher"]["records"] == n * (len(SERVE["concurrency"])
+                                                + 1 + SERVE["wire_rows"])
+          and rep["batcher"]["batchErrors"] == 0,
+          f"serve: no clean drain: {rep['queue']}, {rep['batcher']}")
+    out.update(requests=len(codes), batches=rep["batcher"]["batches"])
+    return out
+
+
+def serve_trees(torch, data_dir, data, device="cuda"):
+    """(c): phase 8's RF set takes the ModelRunner fallback."""
+    from shifu_tpu_torch.eval.scorer import ModelRunner, find_model_paths
+    from shifu_tpu_torch.serve.registry import ModelRegistry
+
+    models = os.path.join(data_dir, "raw-card2", "models")
+    reg = ModelRegistry(models, device=device)
+    check(not reg.fused, "serve: the RF set was fused")
+    batch = _rows(data, reg.input_columns, 0, SERVE_BATCH)
+    got = reg.score_raw(batch)
+    want = ModelRunner(find_model_paths(models), device=device).score_raw(
+        _rows(data, reg.input_columns, 0, SERVE_BATCH))
+    check(_bit_equal(got, want),
+          "serve: the RF registry differs from the ModelRunner")
+    return dict(rows=batch.n_rows, models=len(reg.model_names))
+
+
+def serve_profile(torch, data_dir, data):
+    """(d): one single-record batch and one SERVE_BATCH-row batch under
+    the profiler: device launches, memcpys, busy vs wall, host split."""
+    from shifu_tpu_torch.serve.registry import ModelRegistry
+
+    reg = ModelRegistry(os.path.join(data_dir, "nn-card2", "models"),
+                        device="cuda")
+    reg.warm([1, SERVE_BATCH])
+    out = {}
+    for rows in (1, SERVE_BATCH):
+        walls, splits = [], []
+        for _ in range(5):  # unprofiled: the wall and the host split
+            t0 = time.perf_counter()
+            reg.score_raw(_rows(data, reg.input_columns, 0, rows))
+            walls.append(time.perf_counter() - t0)
+            splits.append(dict(reg.timings))
+        wall = float(np.median(walls))
+        # three calls profiled after one skipped and one warm-up call (the
+        # profiler can drop the first activities of a window); a window
+        # that lost events is taken again, a few times
+        for _attempt in range(4):
+            torch.cuda.synchronize()
+            with _profile(torch, schedule=torch.profiler.schedule(
+                    wait=1, warmup=1, active=3)) as prof:
+                for _ in range(5):
+                    reg.score_raw(_rows(data, reg.input_columns, 0, rows))
+                    prof.step()
+            counts = _device_counts(prof, 3)
+            h2d = sum(c for k, c in counts.items() if "Memcpy HtoD" in k)
+            d2h = sum(c for k, c in counts.items() if "Memcpy DtoH" in k)
+            if h2d == 1 and d2h == 1:
+                break
+        times = _device_times(prof, 3)
+        busy_s = sum(times.values()) / 1e6
+        out[rows] = dict(
+            launches=sum(counts.values()), h2d=h2d, d2h=d2h,
+            device_busy_ms=busy_s * 1e3, wall_ms=wall * 1e3,
+            idle_share=max(0.0, 1.0 - busy_s / wall) if counts else None,
+            split_ms={k: float(np.median([sp[k] for sp in splits])) * 1e3
+                      for k in splits[0]},
+            top=[[k[:60], v / 1e3] for k, v in sorted(
+                times.items(), key=lambda kv: -kv[1])[:6]])
+        if counts:
+            check(h2d == 1 and d2h == 1,
+                  f"serve: a {rows}-row batch made {h2d} HtoD and {d2h} "
+                  "DtoH copies, not one each")
+    return out
+
+
+def phase_serve(torch, data_dir, seed):
+    """Phase 11: (a) parity, (b) latency over HTTP, (c) the tree
+    fallback, (d) a profiled pass."""
+    t0 = time.perf_counter()
+    data = held_out(data_dir)
+    out = dict(read_seconds=time.perf_counter() - t0)
+    out["parity"] = serve_parity(torch, data_dir, data)
+    print_serve("parity", out["parity"])
+    out["latency"] = serve_latency(torch, data_dir, seed)
+    print_serve("latency", out["latency"])
+    out["trees"] = serve_trees(torch, data_dir, data)
+    print_serve("trees", out["trees"])
+    out["profile"] = serve_profile(torch, data_dir, data)
+    print_serve("profile", out["profile"])
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def print_serve(part, r):
+    if part == "parity":
+        sp = r["split"]
+        print(f"serve parity: ModelRegistry on the card, {r['models']} NN "
+              f"models ({r['columns']} columns), {r['rows']} held-out rows in "
+              f"{r['batches']} batches of {SERVE_BATCH}: {r['seconds']:.3f} s "
+              f"({r['rows_per_s']:.6g} rows/s; second pass; split s: "
+              f"featurize {sp['featurize']:.4f}, device {sp['device']:.4f}, "
+              f"d2h {sp['d2h']:.4f}); warm {r['warm_seconds']:.3f} s "
+              f"(buckets {r['warm_buckets']}); two passes bit-identical; "
+              f"max |d| vs ModelRunner {r['max_diff_vs_runner']:.3g}, vs the "
+              f"CPU registry {r['max_diff_vs_cpu']:.3g} (CPU "
+              f"{r['cpu_seconds']:.3f} s); JSON = binary bit for bit "
+              f"{r['json_binary_bit_equal']}; max |d| of {SERVE_ALONE} rows "
+              f"batched ({SERVE_BATCH}) vs alone (bucket 8) "
+              f"{r['max_diff_batch_vs_alone']:.6g} (not gated)")
+    elif part == "latency":
+        print(f"serve latency: bench SERVE ({SERVE['cols']} columns, "
+              f"{SERVE['hidden']} tanh, {SERVE['bags']} bags, queue "
+              f"{SERVE['queue_depth']}) through ScoringServer over HTTP on "
+              f"127.0.0.1, {r['requests']} requests all answered 200, "
+              f"{r['batches']} batches, /healthz 200, clean drain:")
+        for k, v in r.items():
+            if isinstance(v, dict):
+                print(f"  {k}: p50 {v['p50_ms']:.3f} ms, p99 "
+                      f"{v['p99_ms']:.3f} ms, {v['qps']:.1f} QPS "
+                      f"({v['requests']} requests)")
+    elif part == "trees":
+        print(f"serve trees: phase 8's RF set through the registry's "
+              f"ModelRunner fallback on {r['rows']} rows, bit-equal to the "
+              "ModelRunner")
+    else:
+        for rows, p in r.items():
+            print(f"serve profile, {rows}-row batch: {p['launches']:g} "
+                  f"device launches, {p['h2d']:g} HtoD + {p['d2h']:g} DtoH "
+                  "memcpy (a batch, 3 profiled), "
+                  f"device busy {p['device_busy_ms']:.4f} ms of "
+                  f"{p['wall_ms']:.4f} ms wall (median of 5 unprofiled; "
+                  "idle share "
+                  + (f"{p['idle_share']:.3f}" if p["idle_share"] is not None
+                     else "not measured")
+                  + "); host split (ms): " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in p["split_ms"].items())
+                  + "; top (ms): " + ", ".join(
+                      f"{k[:40]} {v:.4f}" for k, v in p["top"][:4]))
+
+
+# ---------------------------------------------------------------------------
 
 
 def run(args) -> int:
@@ -2482,6 +2907,7 @@ def run(args) -> int:
         print_profile(prep)
         nn = phase_nn(torch, data_dir)
         ev = phase_eval(torch, data_dir, args.seed)
+        sv = phase_serve(torch, data_dir, args.seed)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     report["gbt"], report["rf"] = g, r
@@ -2489,6 +2915,7 @@ def run(args) -> int:
     report["raw"], report["prep"] = raw, prep
     report["nn"] = nn
     report["eval"] = ev
+    report["serve"] = sv
 
     kernels = []
     mc_lines = ":358-365,:408-430,:540-552,:767-769"

@@ -35,6 +35,14 @@ Slice 8: `shifu train` for NN, LR and SVM in memory (`models.nn`, the
 over a member axis for bagging, ONEVSALL, grid trials and k-fold;
 `train.grid_search`), and varsel's SE/ST sensitivity wrapper
 (`varsel.selector.sensitivity_scores`).
+
+Slice 9: `shifu posttrain` and in-memory `shifu eval` (`processor.posttrain`,
+`processor.evaluate`, `eval`), so the whole lifecycle runs in this package.
+
+Slice 10: `shifu serve`, single-tenant (`serve`, CLI `serve`): the model
+registry's fused raw -> score program of torch ops, the micro-batcher,
+the admission queue, health and circuit breaker, the replica fleet and
+router, the columnar binary wire format and the HTTP front end.
 """
 
 __version__ = "0.1.0"

@@ -14,6 +14,11 @@
                                    -score [NAME]|-perf [NAME]|-confmat [NAME]|
                                    -norm [NAME]] [--device cpu|cuda]
                                    [-Dk=v ...]
+    python -m shifu_tpu_torch serve [--host H] [--port P] [--models-dir D]
+                                    [--replicas N] [--batching MODE]
+                                    [--queue-depth N] [--max-batch-rows N]
+                                    [--max-wait-ms MS] [--warm SIZES]
+                                    [--device cpu|cuda] [-Dk=v ...]
 
 run in a model-set directory. The flags follow the JAX subcommands;
 `--device` picks the device (default: the card, an error without one).
@@ -22,8 +27,9 @@ codes follow the JAX CLI: 0 ok, 1 ShifuError (or no card), 2 not
 implemented. Every other lifecycle subcommand exits 2 with the ROADMAP
 item that ports it, and so do the routes of a ported step that wait
 (the streamed norm, trainers and eval, varsel's VOTED filter, WDL and
-reference-format models in eval). -Dk=v anywhere on the line sets an
-operational property (ShifuCLI.java:430-453).
+reference-format models in eval, serve's `--zoo` and `--traffic-log`).
+-Dk=v anywhere on the line sets an operational property
+(ShifuCLI.java:430-453).
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ log = get_logger("shifu")
 # the JAX CLI's other subcommands and the ROADMAP item that ports each
 NOT_PORTED = {
     "new": "A.14", "retrain": "A.14", "export": "A.14", "combo": "A.14", "encode": "A.14", "test": "A.14",
-    "convert": "A.14", "serve": "A.10", "version": "A.14",
+    "convert": "A.14", "version": "A.14",
 }
 
 
@@ -119,6 +125,45 @@ def build_parser() -> argparse.ArgumentParser:
                              "yet: ROADMAP A.13)")
     p_eval.add_argument("--device", choices=["cpu", "cuda"], default=None,
                         help=device_help)
+    p_serve = sub.add_parser(
+        "serve", help="online scoring (HTTP: POST /score, GET /healthz; "
+                      "one scoring replica per card behind a drain-aware "
+                      "router)")
+    p_serve.add_argument("--host", default="127.0.0.1")
+    p_serve.add_argument("--port", type=int, default=8080,
+                         help="listen port (0 = ephemeral, printed on "
+                              "stdout)")
+    p_serve.add_argument("--models-dir", default=None, dest="models_dir",
+                         help="model spec dir (default: <root>/models)")
+    p_serve.add_argument("--replicas", type=int, default=None,
+                         help="scoring replicas (default "
+                              "-Dshifu.serve.replicas; 0 = one per card)")
+    p_serve.add_argument("--batching", default=None,
+                         choices=["continuous", "barrier"],
+                         help="micro-batch close policy (default "
+                              "continuous)")
+    p_serve.add_argument("--queue-depth", type=int, default=None,
+                         dest="queue_depth",
+                         help="admission queue depth a replica (default "
+                              "128; beyond it requests shed with 429)")
+    p_serve.add_argument("--max-batch-rows", type=int, default=None,
+                         dest="max_batch_rows",
+                         help="micro-batch row cap (default 1024)")
+    p_serve.add_argument("--max-wait-ms", type=float, default=None,
+                         dest="max_wait_ms",
+                         help="barrier-mode micro-batch deadline in ms "
+                              "(default 2.0)")
+    p_serve.add_argument("--warm", default=None,
+                         help="comma-separated batch sizes to run once at "
+                              "startup (e.g. 1,16,256)")
+    p_serve.add_argument("--traffic-log", nargs="?", const="1.0",
+                         default=None, dest="traffic_log", metavar="SAMPLE",
+                         help="not ported yet (ROADMAP A.14)")
+    p_serve.add_argument("--zoo", action="append", default=None,
+                         metavar="NAME=PATH[,NAME=PATH...]",
+                         help="not ported yet (ROADMAP A.14)")
+    p_serve.add_argument("--device", choices=["cpu", "cuda"], default=None,
+                         help=device_help)
     for name in NOT_PORTED:
         p = sub.add_parser(name, help=f"not ported yet (ROADMAP "
                                       f"{NOT_PORTED[name]})")
@@ -193,5 +238,50 @@ def dispatch(args: argparse.Namespace) -> int:
             score_name=args.score_name, norm_name=args.norm_name,
             confmat_name=args.confmat_name, perf_name=args.perf_name,
             device=args.device).run()
+    if cmd == "serve":
+        return serve(args)
     raise NotImplementedError(
         f"`{cmd}` is not ported yet: ROADMAP {NOT_PORTED[cmd]}")
+
+
+def serve(args: argparse.Namespace) -> int:
+    """The JAX CLI's serve branch: parse --warm before binding the port,
+    print `listening on HOST:PORT (N replica(s))` on stdout, drain on
+    SIGINT/SIGTERM on a helper thread."""
+    import signal
+    import threading
+
+    from shifu_tpu_torch.serve.server import ScoringServer
+
+    if args.zoo or args.traffic_log is not None:
+        flag = "--zoo" if args.zoo else "--traffic-log"
+        raise NotImplementedError(
+            f"serve {flag} is not ported yet: ROADMAP A.14")
+    try:
+        sizes = ([int(s) for s in args.warm.split(",") if s.strip()]
+                 if args.warm else [])
+        server = ScoringServer(
+            root=".", models_dir=args.models_dir, host=args.host,
+            port=args.port, queue_depth=args.queue_depth,
+            max_batch_rows=args.max_batch_rows,
+            max_wait_ms=args.max_wait_ms, replicas=args.replicas,
+            batching=args.batching, device=args.device)
+    except (ValueError, OSError, RuntimeError, ShifuError) as e:
+        # a bad --warm, no models, a taken port, no card: before
+        # "listening"
+        log.error("serve: %s", e)
+        return 1
+    if sizes:
+        log.info("warmed row buckets: %s", server.registry.warm(sizes))
+
+    def _stop(signum, frame):
+        log.info("signal %d: draining and shutting down", signum)
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    signal.signal(signal.SIGINT, _stop)
+    signal.signal(signal.SIGTERM, _stop)
+    # the bound port on stdout is the contract for scripted callers
+    print(f"listening on {server.host}:{server.port} "
+          f"({len(server.registry.replicas)} replica(s))", flush=True)
+    server.serve_forever()
+    return 0

@@ -351,10 +351,35 @@ def drop_stray_header_rows(raw: Dict[str, np.ndarray],
     return ~header_row
 
 
+def _strings_of_typed(arr: np.ndarray) -> np.ndarray:
+    """The canonical strings of a typed numeric column: what the JSON
+    path carries for the same values (`str()` of the Python scalar; NaN
+    is "", JSON null's missing token), so every string consumer sees a
+    typed column as its string twin."""
+    out = np.empty(len(arr), dtype=object)
+    if arr.dtype.kind == "f":
+        out[:] = ["" if v != v else str(v) for v in arr.tolist()]
+    else:
+        out[:] = [str(v) for v in arr.tolist()]
+    return out
+
+
+def _parses_as_number(token: str) -> bool:
+    """Python's `float()` accepts the stripped token (the JAX package's
+    guard of its typed shortcuts)."""
+    try:
+        float(str(token).strip())
+        return True
+    except (TypeError, ValueError):
+        return False
+
+
 @dataclass
 class ColumnarData:
-    """All columns as parallel numpy arrays of raw strings, plus the
-    numeric views and missing masks cached per column."""
+    """All columns as parallel numpy arrays of raw strings (or, from the
+    serving wire formats, typed f64/i64/f32/i32 arrays), plus the numeric
+    views and missing masks cached per column. A typed column reads as its
+    canonical strings (`column`) everywhere a string is consumed."""
 
     names: List[str]
     raw: Dict[str, np.ndarray]
@@ -365,6 +390,9 @@ class ColumnarData:
     _strip_cache: Dict[str, np.ndarray] = field(default_factory=dict, repr=False)
     # per-row results of stats stages, keyed by the stage (stats/binning.py)
     _index_cache: Dict[tuple, np.ndarray] = field(default_factory=dict, repr=False)
+    _string_cache: Dict[str, np.ndarray] = field(default_factory=dict, repr=False)
+    # which wire format carried the batch ("json" or "binary", serve/wire.py)
+    wire_format: str = field(default="json", repr=False)
 
     @classmethod
     def from_columns(cls, cols: List[np.ndarray], names: List[str],
@@ -379,24 +407,53 @@ class ColumnarData:
         return cls(names=list(names), raw=raw, n_rows=n,
                    missing_values=missing_values)
 
+    def typed_column(self, name: str) -> Optional[np.ndarray]:
+        """The column's typed numeric array (a wire batch), else None."""
+        arr = self.raw.get(name)
+        if isinstance(arr, np.ndarray) and arr.dtype.kind in "fiu":
+            return arr
+        return None
+
+    def _typed_fast_ok(self) -> bool:
+        """The typed shortcuts (`astype` for the parse, `isnan` for the
+        missing mask) equal the string path only while no missing token
+        itself parses as a number ("" aside: no canonical string of a
+        typed value is empty)."""
+        return not any(_parses_as_number(m)
+                       for m in self.missing_values if m != "")
+
     def column(self, name: str) -> np.ndarray:
-        return self.raw[name]
+        typed = self.typed_column(name)
+        if typed is None:
+            return self.raw[name]
+        cached = self._string_cache.get(name)
+        if cached is None:
+            cached = _strings_of_typed(typed)
+            self._string_cache[name] = cached
+        return cached
 
     def stripped(self, name: str) -> np.ndarray:
         """`.str.strip()` of the column, cached."""
         cached = self._strip_cache.get(name)
         if cached is None:
-            cached = strip_tokens(self.raw[name])
+            cached = strip_tokens(self.column(name))
             self._strip_cache[name] = cached
         return cached
 
     def numeric(self, name: str) -> np.ndarray:
         """float64 view of a column; missing/invalid tokens and non-numeric
-        values become NaN."""
+        values become NaN. A typed column needs no parse (the JAX
+        package's typed path: its doubles cast, non-finite -> NaN)."""
         cached = self._numeric_cache.get(name)
         if cached is not None:
             return cached
-        vals = parse_numeric(self.raw[name])
+        typed = self.typed_column(name)
+        if typed is not None and self._typed_fast_ok():
+            vals = typed.astype(np.float64)
+            vals[~np.isfinite(vals)] = np.nan
+            self._numeric_cache[name] = vals
+            return vals
+        vals = parse_numeric(self.column(name))
         tokens = [m for m in self.missing_values if m != ""]
         if numeric_mask(tokens).any():
             # strip before the missing-set check, exactly like missing_mask —
@@ -409,9 +466,21 @@ class ColumnarData:
     def missing_mask(self, name: str) -> np.ndarray:
         """True where the stripped token is in the configured missing set."""
         cached = self._missing_cache.get(name)
-        if cached is None:
-            cached = in_tokens(self.stripped(name), self.missing_values)
-            self._missing_cache[name] = cached
+        if cached is not None:
+            return cached
+        typed = self.typed_column(name)
+        if typed is not None and self._typed_fast_ok():
+            # NaN's canonical string is ""; every other typed value's
+            # parses, so it is in no missing set the guard lets through
+            if typed.dtype.kind != "f":
+                cached = np.zeros(len(typed), dtype=bool)
+            elif "" in self.missing_values:
+                cached = np.isnan(typed)
+            if cached is not None:
+                self._missing_cache[name] = cached
+                return cached
+        cached = in_tokens(self.stripped(name), self.missing_values)
+        self._missing_cache[name] = cached
         return cached
 
     def select_rows(self, mask: np.ndarray) -> "ColumnarData":
@@ -468,15 +537,31 @@ def flat_numeric_matrix(data: ColumnarData,
     ONE flattened parse: `to_numeric` of the concatenated tokens, then
     every stripped missing token (the parse already made those that are
     not numbers NaN) and every non-finite value -> NaN. The JAX package's version writes into a
-    read-only pandas buffer (ROADMAP C.1); this one owns its array."""
+    read-only pandas buffer (ROADMAP C.1); this one owns its array.
+
+    Typed columns (the serving wire formats) take `numeric()`'s typed
+    path, as in the JAX package, and only the string columns are parsed.
+    String tokens always go through the one grammar of `data/tokens.py`:
+    the JAX package's `float()` shortcut for them reads past 17 digits
+    another double (ROADMAP C.6)."""
     n = data.n_rows
-    flat = np.concatenate([np.asarray(data.column(c), dtype=object)
-                           for c in names]) if names else np.empty(0, object)
-    vals = parse_numeric(flat)
-    tokens = [m for m in data.missing_values if m != ""]
-    if numeric_mask(tokens).any():
-        vals[in_tokens(strip_tokens(flat), tokens)] = np.nan
-    return vals.reshape(len(names), n).T
+    out = np.empty((n, len(names)), dtype=np.float64)
+    typed = ([data.typed_column(c) is not None for c in names]
+             if data._typed_fast_ok() else [False] * len(names))
+    rest = [c for c, t in zip(names, typed) if not t]
+    if rest:
+        flat = np.concatenate([np.asarray(data.column(c), dtype=object)
+                               for c in rest])
+        vals = parse_numeric(flat)
+        tokens = [m for m in data.missing_values if m != ""]
+        if numeric_mask(tokens).any():
+            vals[in_tokens(strip_tokens(flat), tokens)] = np.nan
+        out[:, np.flatnonzero(~np.asarray(typed, dtype=bool))] = \
+            vals.reshape(len(rest), n).T
+    for j, c in enumerate(names):
+        if typed[j]:
+            out[:, j] = data.numeric(c)
+    return out
 
 
 def make_tags(

@@ -2,8 +2,8 @@
 
 The port's own copy of `shifu_tpu/stats/psi.py`, the same code but the
 categorical bin index, which the stats codes already made
-(`binning.category_index`); the serve-side drift monitor it mentions is
-ROADMAP A.10.
+(`binning.category_index`); the serve-side drift monitor it mentions
+(`loop/drift.py`) is ROADMAP A.14.
 
 Parity: the reference's PSI Pig job (PSI.pig, udf/PSICalculatorUDF.java,
 driven by MapReducerStatsWorker.runPSI:594) — per-unit bin distributions per

@@ -372,3 +372,81 @@ def test_flat_numeric_inf_is_nan_and_columns_line_up():
     np.testing.assert_array_equal(got[:, 0], [1.5, 2000.0, 4.0, 0.5])
     assert got[0, 1] == -1.0 and got[2, 1] == 3.0
     assert np.isnan(got[1, 1]) and np.isnan(got[3, 1])
+
+
+# ---- typed columns (the serving wire formats) ------------------------------
+
+TYPED = {
+    "f64": np.asarray([1.5, np.nan, -0.0, 1e300, np.inf, 999.0,
+                       0.30000000000000004, 3.0, 12.0], np.float64),
+    "i64": np.asarray([3, -7, 0, 2 ** 40, 999, 1, -1, 12, 3], np.int64),
+    "f32": np.asarray([1.5, np.nan, 2.25, -1.0, 999.0, 0.1, 7.0, 3.0,
+                       1e30], np.float32),
+    "i32": np.asarray([7, 8, 9, -1, 999, 0, 3, 3, 12], np.int32),
+}
+MISSING_SETS = {"default": preader.DEFAULT_MISSING,
+                "numeric_token": ("", "?", "999")}
+
+
+def _bin_configs(pkg):
+    """A numeric, a categorical and a hybrid ColumnConfig of `pkg`."""
+    config = pytest.importorskip(f"{pkg}.config.column_config")
+    out = []
+    for kind, bounds, cats in (("N", [float("-inf"), 0.0, 2.0, 10.0], None),
+                               ("C", None, ["3", "12", "1.5", "-7"]),
+                               ("H", [float("-inf"), 1.0], ["3", "999"])):
+        cc = config.ColumnConfig(column_name="x")
+        cc.column_type = config.ColumnType[kind]
+        cc.column_binning.bin_boundary = bounds
+        cc.column_binning.bin_category = cats
+        out.append(cc)
+    return out
+
+
+@pytest.mark.parametrize("missing", list(MISSING_SETS))
+@pytest.mark.parametrize("dtype", list(TYPED))
+def test_typed_columns_match_jax(dtype, missing):
+    """A typed column reads as its canonical strings in every consumer,
+    and numeric / missing_mask take the JAX typed shortcuts while no
+    missing token parses as a number (else the string path)."""
+    from shifu_tpu.norm import normalizer as jnorm
+    from shifu_tpu_torch.norm import normalizer as pnorm
+
+    arr = TYPED[dtype]
+    miss = MISSING_SETS[missing]
+    j = jreader.ColumnarData(names=["x"], raw={"x": arr}, n_rows=len(arr),
+                             missing_values=miss)
+    p = preader.ColumnarData(names=["x"], raw={"x": arr}, n_rows=len(arr),
+                             missing_values=miss)
+    assert p.typed_column("x") is arr
+    assert p._typed_fast_ok() == j._typed_fast_ok() == (missing == "default")
+    assert list(p.column("x")) == list(j.column("x"))
+    assert list(p.stripped("x")) == [s.strip() for s in j.column("x")]
+    assert _same_floats(p.numeric("x"), j.numeric("x"))
+    np.testing.assert_array_equal(p.missing_mask("x"), j.missing_mask("x"))
+    # the JAX flat_numeric_matrix's own string path faults on the
+    # numeric-token set (ROADMAP C.1): its documented semantics are
+    # numeric()'s
+    assert _same_floats(preader.flat_numeric_matrix(p, ["x"])[:, 0],
+                        j.numeric("x"))
+    for pcc, jcc in zip(_bin_configs("shifu_tpu_torch"),
+                        _bin_configs("shifu_tpu")):
+        np.testing.assert_array_equal(pnorm._bin_codes_for(pcc, p),
+                                      jnorm._bin_codes_for(jcc, j))
+    mask = np.arange(len(arr)) % 2 == 0
+    assert list(p.select_rows(mask).column("x")) == \
+        list(j.select_rows(mask).column("x"))
+
+
+def test_typed_and_string_columns_flatten_together():
+    """flat_numeric_matrix over typed and string columns at once keeps
+    each column in its place; the string ones take the port's grammar."""
+    raw = {"t": np.asarray([1.5, np.nan, 4.0]),
+           "s": np.asarray(["0.1234567890123456789", "?", " 2 "], object),
+           "i": np.asarray([1, 2, 3], np.int64)}
+    p = preader.ColumnarData(names=list(raw), raw=raw, n_rows=3)
+    got = preader.flat_numeric_matrix(p, ["s", "t", "i"])
+    assert got[0, 0] == 0.1234567890123456  # not float()'s ...568
+    assert np.isnan(got[1, 0]) and got[2, 0] == 2.0
+    assert _same_floats(got[:, 1], raw["t"])
+    np.testing.assert_array_equal(got[:, 2], [1.0, 2.0, 3.0])

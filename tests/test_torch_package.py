@@ -37,7 +37,11 @@ MODULES = [
     "shifu_tpu_torch.processor.train",
     "shifu_tpu_torch.processor.train_common",
     "shifu_tpu_torch.processor.train_tree",
-    "shifu_tpu_torch.resilience.checkpoint",
+    "shifu_tpu_torch.resilience.checkpoint", "shifu_tpu_torch.serve",
+    "shifu_tpu_torch.serve.batcher", "shifu_tpu_torch.serve.fleet",
+    "shifu_tpu_torch.serve.health", "shifu_tpu_torch.serve.queue",
+    "shifu_tpu_torch.serve.registry", "shifu_tpu_torch.serve.server",
+    "shifu_tpu_torch.serve.wire",
     "shifu_tpu_torch.stats.binning", "shifu_tpu_torch.stats.correlation",
     "shifu_tpu_torch.stats.engine", "shifu_tpu_torch.stats.metrics",
     "shifu_tpu_torch.stats.psi", "shifu_tpu_torch.stats.rebin",
