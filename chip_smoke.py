@@ -144,6 +144,36 @@ Phases, each of which must pass:
            device launches, exactly one HtoD and one DtoH memcpy (gated),
            device busy against the unprofiled wall, the host split.
 
+12. growers the leaf-wise and host-batched growers through the histogram-
+           only and scan-only entries, then the lifecycle's two ends:
+           (a) leaf-wise GBT on bench `gbt` (MaxLeaves 32, MaxDepth 10,
+           5 trees) and (b) leaf-wise RF on bench `rf` (MaxLeaves 64,
+           MaxDepth 10, 10 trees); (c) host-batched GBT on bench
+           `gbt_wide` (MaxDepth 12 at the default MaxStatsMemoryMB 256:
+           a node batch of 2,437, the 2,048-node level one batch, the
+           4,096-node level two) and (d) host-batched RF on bench `rf`
+           (MaxDepth 8, MaxStatsMemoryMB 1: a node batch of 66, the 128-
+           and 256-node levels in 2 and 4 batches). Each twice on the card
+           (bit-equal forests, child pointers included), `hist_level` and
+           `scan_level` launched as `hist_counters` and the level plan
+           say, no plain version called and no plain torch scan but on
+           (c)'s 2,001-slot column; one tree unprofiled and profiled
+           (device busy, idle share); RF's first trees bit-equal to a CPU
+           run's (3 trees), GBT's scores within 0.03 of a CPU run's (5
+           and 2 trees). (e) `new` twice (the same files but for the
+           creation time); `export` pmml, onebagging, columnstats,
+           woemapping (and corr) on phase 9(c)'s NN set and phase 8's RF
+           set, twice, byte-identical; `encode` of phase 10's held-out
+           rows with phase 8's RF set and of (b)'s leaf-wise forest (3
+           trees on 100,000 rows, raw values written back from the codes)
+           as a model set, on the card and the CPU byte-identical, the
+           leaf ids those of the child pointers; `combo -new NN,GBT,LR
+           -init -run -eval` on a 20,000-row raw set from --seed + 2 on
+           the card and the CPU: the same spec and member configs, the NN
+           member's scores within 10 x1000 units, the GBT member's within
+           10 on average (100 trees drift apart on near-tied gains), each
+           member's AUC and the combo's within 0.01.
+
 Every main-path run (phases 3-6 and 8's train) must launch the scan entry
 once for each subtraction level of each tree (bench `gbt` 25, `rf` 70,
 NATIVE 70, ONEVSALL 75, the prep chain's RF 70) and run no plain torch
@@ -169,6 +199,7 @@ compare them on one card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -1152,11 +1183,18 @@ def rf_data(seed: int):
 
 
 def forests_equal(a, b) -> bool:
+    """Bit for bit, explicit child pointers included."""
     if len(a.trees) != len(b.trees):
         return False
+
+    def same(p, q):
+        return (p is None and q is None) or (
+            p is not None and q is not None and np.array_equal(p, q))
+
     return all(np.array_equal(x.feature, y.feature)
                and np.array_equal(x.left_mask, y.left_mask)
                and np.array_equal(x.leaf_value, y.leaf_value)
+               and same(x.left, y.left) and same(x.right, y.right)
                and x.weight == y.weight for x, y in zip(a.trees, b.trees))
 
 
@@ -2744,6 +2782,484 @@ def print_serve(part, r):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the leaf-wise and host-batched growers, and the lifecycle's ends
+# ---------------------------------------------------------------------------
+
+# (a)-(d): leaf-wise GBT and RF, host-batched GBT (bench gbt_wide at the
+# default stats-memory budget) and RF (a 1 MB budget)
+LEAFWISE_GBT = dict(leaves=32, depth=10, trees=5)
+LEAFWISE_RF = dict(leaves=64, depth=10, trees=10, cpu_trees=3)
+BATCHED_GBT = dict(depth=12, trees=3, cpu_trees=2)
+BATCHED_RF = dict(depth=8, trees=3, memory_mb=1)
+COMBO_ROWS = 20_000  # (e): the raw set `combo` runs on
+# (e) card vs CPU: the NN member's scores at most 10 x1000 units apart;
+# the GBT member's (100 trees, depth 6: fixed-point and f32 sums split
+# near-tied gains apart over the forest) 10 units apart on average; each
+# member's AUC on the rows and the combo's within 0.01
+COMBO_TOL = dict(nn=10.0, gbt_mean=10.0, auc=0.01)
+
+
+def batched_plan(tt, cfg, cap: int):
+    """(histogram calls, built, derived, fallback rebuilds) of one
+    host-batched tree, from the static subtraction plan: a level derived
+    from its parent or kept for the next level is one call, any other
+    level one call a batch of at most `cap` nodes."""
+    sub = tt._sub_plan(cfg, cap)
+    calls = built = derived = fallback = 0
+    prev = False
+    for d in range(cfg.max_depth + 1):
+        L = 2 ** d
+        retain = (d < cfg.max_depth and cfg.hist_subtraction
+                  and sub[d + 1])
+        if prev:
+            calls, built, derived = calls + 1, built + L // 2, derived + L // 2
+        elif retain:
+            calls, built = calls + 1, built + L
+            fallback += int(d >= 1 and cfg.hist_subtraction)
+        else:
+            batches = -(-L // cap)
+            calls, built = calls + batches, built + L
+            fallback += batches if d >= 1 and cfg.hist_subtraction else 0
+        prev = retain
+    return calls, built, derived, fallback
+
+
+def grower_run(torch, hk, tt, args_, cfg, device):
+    """One counted run: launches, plain-version calls, the plain torch
+    scans on the card (their widths) and `hist_counters`, each zeroed
+    just before and read just after."""
+    hk.reset_counters()
+    for k in tt.hist_counters:
+        tt.hist_counters[k] = 0
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with PlainScans(tt) as ps:
+        res = tt.train_trees(*args_, cfg, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return dict(res=res, seconds=time.perf_counter() - t0,
+                launches=dict(hk.launches), refs=dict(hk.reference_calls),
+                plain=list(ps.widths), counters=dict(tt.hist_counters))
+
+
+def _scores(ptree, spec, codes, device):
+    return ptree.IndependentTreeModel(spec, device=device).compute(codes)
+
+
+def grower_case(torch, hk, tt, ptree, name, data, cfg, cpu_trees, plan,
+                device="cuda", wide=()):
+    """(a)-(d): the grower on the card twice (bit-equal forests), its
+    launches against `hist_counters` (leaf-wise: one `hist_level` a
+    built node, one `scan_level` a built or derived one; host-batched:
+    `plan` = batched_plan), no plain version called and no plain torch
+    scan but on the `wide` columns; one tree unprofiled and profiled
+    (device busy, idle share); then `cpu_trees` trees on the CPU: RF
+    bit-equal to the card's first trees, GBT scores within
+    GBT_SCORE_ATOL."""
+    codes, y, slots, is_cat = data
+    n, F = codes.shape
+    args_ = (codes, y, np.ones(n, np.float32), slots, is_cat,
+             [f"f{i}" for i in range(F)])
+    mc = "_mc" if cfg.n_classes >= 3 else ""
+    first = grower_run(torch, hk, tt, args_, cfg, device)
+    second = grower_run(torch, hk, tt, args_, cfg, device)
+    res, launches, cnt = first["res"], first["launches"], first["counters"]
+    check(forests_equal(res.spec, second["res"].spec),
+          f"{name}: a second run on the card gave another forest")
+    check(all(v == 0 for v in first["refs"].values()) or device == "cpu",
+          f"{name}: the run on the card reached a plain version: "
+          f"{first['refs']}")
+    check(set(first["plain"]) <= set(wide),
+          f"{name}: the plain torch scan ran on the card: {first['plain']}")
+    counted = first["refs"] if device == "cpu" else launches
+    hist, scan = counted["hist_level" + mc], counted["scan_level" + mc]
+    check(counted["fused_level" + mc] == 0,
+          f"{name}: the fused entry ran: {counted}")
+    trees = len(res.spec.trees)
+    if cfg.max_leaves > 0:
+        check(all(t.left is not None for t in res.spec.trees),
+              f"{name}: a tree without child pointers")
+        check(hist == cnt["built"] and scan == cnt["built"] + cnt["derived"]
+              and cnt["derived"] > 0,
+              f"{name}: launches {counted} against hist_counters {cnt}")
+    else:
+        calls, built, derived, fallback = plan
+        check(hist == scan == trees * calls,
+              f"{name}: launches {counted}, expected {trees * calls} each")
+        check(cnt == dict(built=trees * built, derived=trees * derived,
+                          fallback_rebuilds=trees * fallback),
+              f"{name}: hist_counters {cnt} against the plan {plan}")
+    one = dataclasses.replace(cfg, tree_num=1)
+    t0 = time.perf_counter()
+    tt.train_trees(*args_, one, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    tree_s = time.perf_counter() - t0
+    prof = (profile_run(torch, lambda: tt.train_trees(*args_, one,
+                                                      device=device), tree_s)
+            if device == "cuda" else None)
+
+    cpu_cfg = dataclasses.replace(cfg, tree_num=cpu_trees)
+    t0 = time.perf_counter()
+    cpu = tt.train_trees(*args_, cpu_cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    head = dataclasses.replace(res.spec, trees=res.spec.trees[:cpu_trees])
+    out = dict(rows=n, T=int(sum(slots)), trees=trees, depth=cfg.max_depth,
+               max_leaves=cfg.max_leaves, seconds_first=first["seconds"],
+               seconds_second=second["seconds"],
+               trees_per_s=trees / second["seconds"],
+               tree_seconds=tree_s, cpu_trees=cpu_trees, cpu_seconds=cpu_s,
+               nodes=[int(t.n_nodes) for t in res.spec.trees],
+               valid_error=res.valid_error, launches=launches,
+               hist_counters=cnt, plain_scan_widths=sorted(
+                   set(first["plain"])), profile=prof)
+    if cfg.algorithm == "RF":
+        check(forests_equal(head, cpu.spec),
+              f"{name}: the card's first {cpu_trees} trees differ from the "
+              "CPU run's")
+        out["bit_equal_to_cpu"] = True
+    else:
+        diff = float(np.abs(_scores(ptree, head, codes, device)
+                            - _scores(ptree, cpu.spec, codes, "cpu")).max())
+        check(diff <= GBT_SCORE_ATOL,
+              f"{name}: scores differ from the CPU run by {diff} > "
+              f"{GBT_SCORE_ATOL}")
+        out["max_score_diff_vs_cpu"] = diff
+    return out
+
+
+def growers_data(seed: int):
+    """(c)'s bench gbt_wide rows with 0/1 labels from a numeric and the
+    wide column."""
+    codes, slots, is_cat = wide_data(seed)
+    rng = np.random.default_rng(seed + 12)
+    y = ((codes[:, 0] >= 16) ^ (codes[:, -1] % 3 == 0)
+         ^ (rng.random(codes.shape[0]) < 0.1)).astype(np.float32)
+    return codes, y, slots, is_cat
+
+
+def write_forest_set(root, spec, codes, y):
+    """A raw model set for a forest of bench `rf` codes: numeric column f
+    holds its code as the raw value (bin boundaries -inf, 1, 2, ...),
+    categorical column f the token `v<code>`, the target 0/1;
+    ColumnConfig.json and ModelConfig.json from the port's own config
+    module, the forest under models/."""
+    from shifu_tpu_torch.config import (ColumnBinning, ColumnConfig,
+                                        ColumnFlag, ColumnType,
+                                        save_column_config_list)
+    from shifu_tpu_torch.config.model_config import (Algorithm,
+                                                     new_model_config)
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    paths = PathFinder(root)
+    os.makedirs(os.path.join(root, "data"), exist_ok=True)
+    mc = new_model_config("Forest", Algorithm.parse(spec.algorithm))
+    ds = mc.data_set
+    ds.data_path, ds.header_path = "data/data.txt", "data/header.txt"
+    ds.target_column_name, ds.pos_tags, ds.neg_tags = "label", ["1"], ["0"]
+    mc.save(paths.model_config_path())
+    columns = [ColumnConfig(column_num=0, column_name="label",
+                            column_type=ColumnType.C,
+                            column_flag=ColumnFlag.TARGET)]
+    cols = [np.where(y > 0, "1", "0")]
+    for f, name in enumerate(spec.input_columns):
+        cats = spec.categories[f]
+        columns.append(ColumnConfig(
+            column_num=f + 1, column_name=name,
+            column_type=ColumnType.C if cats else ColumnType.N,
+            final_select=True, column_binning=ColumnBinning(
+                length=spec.slots[f] - 1, bin_category=cats,
+                bin_boundary=spec.boundaries[f])))
+        cols.append(np.char.add("v", codes[:, f].astype(str)) if cats
+                    else codes[:, f].astype(str))
+    save_column_config_list(paths.column_config_path(), columns)
+    with open(os.path.join(root, ds.header_path), "w") as fh:
+        fh.write("|".join(["label"] + list(spec.input_columns)) + "\n")
+    with open(os.path.join(root, ds.data_path), "w") as fh:
+        fh.write("\n".join(map("|".join, zip(*[c.tolist() for c in cols]))))
+        fh.write("\n")
+    os.makedirs(paths.models_dir(), exist_ok=True)
+    spec.save(paths.model_path(0, "rf"))
+
+
+def _file_tree(root, skip=()):
+    """relative path -> bytes of every file under `root`."""
+    out = {}
+    for d, _dirs, files in os.walk(root):
+        for f in files:
+            rel = os.path.relpath(os.path.join(d, f), root)
+            if not rel.startswith(skip):
+                with open(os.path.join(d, f), "rb") as fh:
+                    out[rel] = fh.read()
+    return out
+
+
+def ends_new(base):
+    """`new` twice: the same files but for the creation time."""
+    from shifu_tpu_torch.processor.create import run_new
+
+    trees = []
+    for i in range(2):
+        root = os.path.join(base, f"new{i}")
+        check(run_new("Smoke", "GBT", root=root) == 0, "new returned 1")
+        files = _file_tree(root)
+        mc = json.loads(files["Smoke/ModelConfig.json"])
+        mc["basic"].pop("description")
+        files["Smoke/ModelConfig.json"] = json.dumps(mc).encode()
+        trees.append(files)
+    check(trees[0] == trees[1] and len(trees[0]) == 5,
+          f"new: two runs wrote other files: {sorted(trees[0])}")
+    return sorted(trees[0])
+
+
+EXPORTS = {"nn": ("pmml", "onebagging", "columnstats", "woemapping"),
+           "rf": ("pmml", "onebagging", "columnstats", "woemapping", "corr")}
+
+
+def ends_export(kind, root):
+    """`export -t <type>` of each type twice on one set: the same
+    bytes."""
+    from shifu_tpu_torch.processor.export import ExportProcessor
+
+    out_dir = os.path.join(root, "export")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    files = {}
+    for t in EXPORTS[kind]:
+        check(ExportProcessor(root, kind=t).run() == 0,
+              f"export {kind} -t {t} returned 1")
+        files.update(_file_tree(out_dir))
+    again = {}
+    for t in EXPORTS[kind]:
+        ExportProcessor(root, kind=t).run()
+        again.update(_file_tree(out_dir))
+    check(files == again and len(files) >= len(EXPORTS[kind]),
+          f"export {kind}: two runs wrote other bytes")
+    return {k: len(v) for k, v in files.items()}
+
+
+def ends_encode(name, root, dataset=None, device="cuda"):
+    """`encode` on the card and on the CPU: byte-identical EncodedData.
+    Returns (bytes, [card seconds, cpu seconds])."""
+    from shifu_tpu_torch.processor.encode import EncodeProcessor
+
+    out = os.path.join(root, "tmp", "encode", "EncodedData")
+    got, secs = [], []
+    for device in (device, "cpu"):
+        t0 = time.perf_counter()
+        check(EncodeProcessor(root, dataset=dataset, device=device).run()
+              == 0, f"encode {name} on {device} returned 1")
+        secs.append(time.perf_counter() - t0)
+        with open(out, "rb") as fh:
+            got.append(fh.read())
+    check(got[0] == got[1], f"encode {name}: the card and the CPU wrote "
+          "other bytes")
+    return got[0], secs
+
+
+def ends_combo(base, seed, device="cuda"):
+    """`combo -new NN,GBT,LR -init -run -eval` on a 20,000-row raw set,
+    on the card and on the CPU: the same spec and member configs, member
+    scores and the AUC within COMBO_TOL."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.processor.combo import ComboProcessor
+
+    runs = []
+    for i, device in enumerate((device, "cpu")):
+        root = os.path.join(base, f"combo-{i}")
+        write_raw_set(root, seed + 2, n=COMBO_ROWS)
+        path = os.path.join(root, "ModelConfig.json")
+        mc = ModelConfig.load(path)
+        # the members' model sets sit one directory down: no meta file
+        mc.data_set.meta_column_name_file = ""
+        mc.stats.psi_column_name = ""
+        mc.save(path)
+        t0 = time.perf_counter()
+        check(ComboProcessor(root, new_algs="NN,GBT,LR",
+                             device=device).run() == 0, "combo -new")
+        check(ComboProcessor(root, do_init=True, do_run=True, do_eval=True,
+                             device=device).run() == 0,
+              f"combo on {device} returned non-zero")
+        secs = time.perf_counter() - t0
+        with open(os.path.join(root, "evals", "Combo",
+                               "EvalPerformance.json")) as fh:
+            auc = json.load(fh)["areaUnderRoc"]
+        scores = np.loadtxt(os.path.join(root, "assembler_LR", "data",
+                                         "data.txt"), delimiter="|")
+        configs = {}
+        for d in ("sub_0_NN", "sub_1_GBT", "assembler_LR"):
+            with open(os.path.join(root, d, "ModelConfig.json")) as fh:
+                configs[d] = json.load(fh)
+            configs[d]["basic"].pop("description")  # its creation time
+        with open(os.path.join(root, "ComboTrain.json"), "rb") as fh:
+            configs["spec"] = fh.read()
+        runs.append(dict(seconds=secs, auc=auc, scores=scores,
+                         configs=configs))
+    a, b = runs
+    check(a["configs"] == b["configs"],
+          "combo: the card and the CPU wrote other specs or member configs")
+    check(a["scores"].shape == b["scores"].shape
+          and np.array_equal(a["scores"][:, 0], b["scores"][:, 0]),
+          "combo: the assembler's rows differ")
+    from shifu_tpu_torch.eval.metrics import evaluate_performance
+
+    tags = a["scores"][:, 0]
+    d = np.abs(a["scores"][:, 1:] - b["scores"][:, 1:])
+    aucs = [[evaluate_performance(r["scores"][:, m], tags).area_under_roc
+             for m in (1, 2)] for r in (a, b)]
+    check(d[:, 0].max() <= COMBO_TOL["nn"]
+          and d[:, 1].mean() <= COMBO_TOL["gbt_mean"]
+          and np.abs(np.subtract(*aucs)).max() <= COMBO_TOL["auc"]
+          and abs(a["auc"] - b["auc"]) <= COMBO_TOL["auc"]
+          and 0.5 < a["auc"] <= 1.0,
+          f"combo: NN scores {d[:, 0].max()} apart, GBT scores "
+          f"{d[:, 1].mean()} apart on average, member AUCs {aucs}, AUC "
+          f"{a['auc']} vs {b['auc']}")
+    return dict(rows=COMBO_ROWS, seconds=a["seconds"],
+                cpu_seconds=b["seconds"], auc=a["auc"], cpu_auc=b["auc"],
+                member_aucs=aucs[0], cpu_member_aucs=aucs[1],
+                max_nn_score_diff=float(d[:, 0].max()),
+                max_gbt_score_diff=float(d[:, 1].max()),
+                mean_gbt_score_diff=float(d[:, 1].mean()))
+
+
+def phase_growers(torch, hk, tt, ptree, data_dir, gbt, rf, seed,
+                  device="cuda"):
+    """Phase 12: (a)-(d) the growers, (e) the lifecycle's ends."""
+    t_all = time.perf_counter()
+    out = {}
+    gcfg = dict(algorithm="GBT", learning_rate=0.1, valid_set_rate=0.1,
+                seed=3)
+    rcfg = dict(algorithm="RF", feature_subset_strategy="TWOTHIRDS",
+                valid_set_rate=0.1, seed=3)
+    out["leafwise_gbt"] = grower_case(
+        torch, hk, tt, ptree, "leafwise_gbt", gbt, tt.TreeTrainConfig(
+            tree_num=LEAFWISE_GBT["trees"], max_depth=LEAFWISE_GBT["depth"],
+            max_leaves=LEAFWISE_GBT["leaves"], **gcfg),
+        LEAFWISE_GBT["trees"], None, device)
+    print_grower("leafwise_gbt", out["leafwise_gbt"])
+    lay_rf = tt.make_layout(rf[2], rf[3])
+    # (e) scores (b)'s forest from raw values: numeric code k is the
+    # value k, categorical code k the token v<k>
+    bounds = [None if c else [-float("inf")] + [float(b)
+                                                for b in range(1, s - 1)]
+              for s, c in zip(rf[2], rf[3])]
+    cats = [[f"v{j}" for j in range(s - 1)] if c else None
+            for s, c in zip(rf[2], rf[3])]
+    lw_cfg = tt.TreeTrainConfig(
+        tree_num=LEAFWISE_RF["trees"], max_depth=LEAFWISE_RF["depth"],
+        max_leaves=LEAFWISE_RF["leaves"], **rcfg)
+    out["leafwise_rf"] = grower_case(
+        torch, hk, tt, ptree, "leafwise_rf", rf, lw_cfg,
+        LEAFWISE_RF["cpu_trees"], None, device)
+    print_grower("leafwise_rf", out["leafwise_rf"])
+
+    wide = growers_data(seed)
+    lay_w = tt.make_layout(wide[2], wide[3])
+    cap_w = tt._node_batch_size(lay_w.T, 256)
+    b_cfg = tt.TreeTrainConfig(tree_num=BATCHED_GBT["trees"],
+                               max_depth=BATCHED_GBT["depth"], **gcfg)
+    check(2 ** b_cfg.max_depth > cap_w,
+          f"batched_gbt: {2 ** b_cfg.max_depth} nodes fit the node batch "
+          f"{cap_w}")
+    out["batched_gbt"] = grower_case(
+        torch, hk, tt, ptree, "batched_gbt", wide, b_cfg,
+        BATCHED_GBT["cpu_trees"], batched_plan(tt, b_cfg, cap_w), device,
+        wide=(WIDE["wide_cat"] + 1,))
+    out["batched_gbt"]["node_batch"] = cap_w
+    print_grower("batched_gbt", out["batched_gbt"])
+    del wide
+    cap_r = tt._node_batch_size(lay_rf.T, BATCHED_RF["memory_mb"])
+    br_cfg = tt.TreeTrainConfig(tree_num=BATCHED_RF["trees"],
+                                max_depth=BATCHED_RF["depth"],
+                                max_stats_memory_mb=BATCHED_RF["memory_mb"],
+                                **rcfg)
+    out["batched_rf"] = grower_case(
+        torch, hk, tt, ptree, "batched_rf", rf, br_cfg, BATCHED_RF["trees"],
+        batched_plan(tt, br_cfg, cap_r), device)
+    out["batched_rf"]["node_batch"] = cap_r
+    print_grower("batched_rf", out["batched_rf"])
+
+    # (e) the lifecycle's ends
+    t0 = time.perf_counter()
+    base = os.path.join(data_dir, "ends")
+    os.makedirs(base, exist_ok=True)
+    ends = dict(new=ends_new(base))
+    # phase 9(c)'s NN set, phase 8's RF set and its copy with phase 10's
+    # held-out eval set
+    ends["export"] = {
+        "nn": ends_export("nn", os.path.join(data_dir, "nn-card2")),
+        "rf": ends_export("rf", os.path.join(data_dir, "raw-card2"))}
+    enc, ends["encode_rf_seconds"] = ends_encode(
+        "rf", os.path.join(data_dir, "eval-rf-card1"), EVAL_NAME, device)
+    check(enc.count(b"\n") == EVAL_ROWS + 1,
+          "encode rf: not one line a held-out row")
+    # (b)'s leaf-wise forest as a model set on the first 100,000 rows
+    n_lw = min(100_000, rf[0].shape[0])
+    lw = tt.train_trees(rf[0][:n_lw], rf[1][:n_lw], np.ones(n_lw, np.float32),
+                        rf[2], rf[3], [f"f{i}" for i in range(len(rf[2]))],
+                        dataclasses.replace(lw_cfg, tree_num=3),
+                        boundaries=bounds, categories=cats, device=device)
+    lw_root = os.path.join(base, "leafwise-set")
+    write_forest_set(lw_root, lw.spec, rf[0][:n_lw], rf[1][:n_lw])
+    enc, ends["encode_leafwise_seconds"] = ends_encode("leafwise", lw_root,
+                                                       device=device)
+    ids = np.loadtxt(enc.decode().splitlines()[1:], delimiter="|",
+                     dtype=np.int64)
+    want = ptree.leaf_nodes(lw.spec.trees,
+                            torch.as_tensor(rf[0][:n_lw])).numpy()
+    check(np.array_equal(ids[:, 1:], want),
+          "encode leafwise: the leaf ids are not the pointers' leaves")
+    ends["combo"] = ends_combo(base, seed, device)
+    ends["seconds"] = time.perf_counter() - t0
+    out["ends"] = ends
+    print_ends(ends)
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def print_grower(name, g):
+    what = (f"MaxLeaves {g['max_leaves']}, MaxDepth {g['depth']}"
+            if g["max_leaves"] > 0 else
+            f"MaxDepth {g['depth']}, node batch {g.get('node_batch')}")
+    cmp = (f"the first {g['cpu_trees']} trees bit-equal to the CPU run's"
+           if "bit_equal_to_cpu" in g else
+           f"max |score - cpu score| {g['max_score_diff_vs_cpu']:.3g} over "
+           f"{g['cpu_trees']} trees")
+    print(f"growers {name}: {g['trees']} trees ({what}) on {g['rows']} rows "
+          f"x T={g['T']}: {g['trees_per_s']:.3f} trees/s (second run, "
+          f"{g['seconds_second']:.3f} s), two card runs bit-equal, {cmp} "
+          f"(CPU {g['cpu_seconds']:.1f} s); hist_counters "
+          f"{g['hist_counters']}; launches {g['launches']}")
+    p = g["profile"]
+    if p is not None and p["device_busy_s"] is not None:
+        print(f"  one tree: {g['tree_seconds']:.4f} s, device busy "
+              f"{p['device_busy_s']:.4f} s, idle share "
+              f"{p['idle_share']:.3f}; top kernels (ms): " + ", ".join(
+                  f"{k[:40]} {v:.2f}" for k, v in p["top_kernels"][:4]))
+    elif p is not None:
+        print("  one tree: no device time recorded, not measured")
+
+
+def print_ends(e):
+    c = e["combo"]
+    print(f"ends: new ({len(e['new'])} files, two runs the same), export "
+          f"nn {sorted(e['export']['nn'])}, rf {sorted(e['export']['rf'])} "
+          f"(two runs byte-identical); encode phase 10's held-out rows with "
+          f"phase 8's RF set card {e['encode_rf_seconds'][0]:.2f} s / CPU "
+          f"{e['encode_rf_seconds'][1]:.2f} s and (b)'s leaf-wise forest "
+          f"card {e['encode_leafwise_seconds'][0]:.2f} s / CPU "
+          f"{e['encode_leafwise_seconds'][1]:.2f} s, byte-identical, leaf "
+          f"ids by the pointers; combo NN,GBT,LR on {c['rows']} rows: card "
+          f"{c['seconds']:.1f} s, CPU {c['cpu_seconds']:.1f} s, AUC "
+          f"{c['auc']:.6f} (CPU {c['cpu_auc']:.6f}), member AUCs "
+          f"{c['member_aucs']} (CPU {c['cpu_member_aucs']}), member scores "
+          f"within {c['max_nn_score_diff']:.3g} (NN) and "
+          f"{c['max_gbt_score_diff']:.3g} (GBT, mean "
+          f"{c['mean_gbt_score_diff']:.3g}) x1000 units")
+
+
+# ---------------------------------------------------------------------------
 
 
 def run(args) -> int:
@@ -2908,6 +3424,8 @@ def run(args) -> int:
         nn = phase_nn(torch, data_dir)
         ev = phase_eval(torch, data_dir, args.seed)
         sv = phase_serve(torch, data_dir, args.seed)
+        gr = phase_growers(torch, hk, tt, ptree, data_dir, gbt, rf,
+                           args.seed)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     report["gbt"], report["rf"] = g, r
@@ -2916,6 +3434,9 @@ def run(args) -> int:
     report["nn"] = nn
     report["eval"] = ev
     report["serve"] = sv
+    report["growers"] = gr
+    grown = [gr[k]["launches"] for k in ("leafwise_gbt", "leafwise_rf",
+                                         "batched_gbt", "batched_rf")]
 
     kernels = []
     mc_lines = ":358-365,:408-430,:540-552,:767-769"
@@ -2923,9 +3444,10 @@ def run(args) -> int:
         mc = name.endswith("_mc")
         c = (stats.timed_mc[(name, MC_MAIN_K)] if mc
              else stats.timed[name])
-        launches = (nat["launches"][name] if mc else
-                    g["launches"][name] + r["launches"][name]
-                    + ova["launches"][name] + prep["launches"][name])
+        launches = sum(lc[name] for lc in grown) + (
+            nat["launches"][name] if mc else
+            g["launches"][name] + r["launches"][name]
+            + ova["launches"][name] + prep["launches"][name])
         if name.startswith("scan_level"):
             replaces = ("shifu_tpu/train/tree_trainer.py:631 _make_scan_fn "
                         "(XLA, outside pallas_call)"

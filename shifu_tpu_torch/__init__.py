@@ -43,6 +43,15 @@ Slice 10: `shifu serve`, single-tenant (`serve`, CLI `serve`): the model
 registry's fused raw -> score program of torch ops, the micro-batcher,
 the admission queue, health and circuit breaker, the replica fleet and
 router, the columnar binary wire format and the HTTP front end.
+
+Then the leaf-wise grower (`train.tree_trainer.build_tree_leafwise`,
+max_leaves > 0) and the host-batched one (`build_tree`, 2**max_depth past
+the stats-memory node batch), both on the histogram-only and scan-only
+CUDA entries; the lifecycle's ends and small host steps: `new`
+(`processor.create`), `export` (`processor.export` over its own PMML
+writer `export.pmml`), `save` / `switch` / `show` (`processor.manage`),
+`test` (`processor.testdata`), `analysis`, `encode` (the tree path
+follows leaf-wise trees' child pointers) and `combo`, and `version`.
 """
 
 __version__ = "0.1.0"

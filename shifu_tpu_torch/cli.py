@@ -19,9 +19,19 @@
                                     [--queue-depth N] [--max-batch-rows N]
                                     [--max-wait-ms MS] [--warm SIZES]
                                     [--device cpu|cuda] [-Dk=v ...]
+    python -m shifu_tpu_torch new NAME [-t NN|LR|GBT|RF|...]
+    python -m shifu_tpu_torch export [-t pmml|onebagging|columnstats|corr|
+                                     woemapping] [-c]
+    python -m shifu_tpu_torch encode [-d EVALSET] [--device cpu|cuda]
+    python -m shifu_tpu_torch combo [-new ALGS] [-init] [-run] [-eval]
+                                    [--device cpu|cuda]
+    python -m shifu_tpu_torch save [VERSION] | switch VERSION | show
+    python -m shifu_tpu_torch test [-n N] | analysis | version
 
 run in a model-set directory. The flags follow the JAX subcommands;
-`--device` picks the device (default: the card, an error without one).
+`--device` picks the device (default: the card, an error without one);
+`new`, `export`, `save`, `switch`, `show`, `test`, `analysis` and
+`version` touch no device and take none.
 `normalize` and `varselect` are aliases of `norm` and `varsel`. Exit
 codes follow the JAX CLI: 0 ok, 1 ShifuError (or no card), 2 not
 implemented. Every other lifecycle subcommand exits 2 with the ROADMAP
@@ -47,8 +57,9 @@ log = get_logger("shifu")
 
 # the JAX CLI's other subcommands and the ROADMAP item that ports each
 NOT_PORTED = {
-    "new": "A.14", "retrain": "A.14", "export": "A.14", "combo": "A.14", "encode": "A.14", "test": "A.14",
-    "convert": "A.14", "version": "A.14",
+    "retrain": "A.14", "promote": "A.14",
+    "convert": "A.14 (compat/, after WDL in A.12)", "check": "A.14",
+    "trace": "A.14", "top": "A.14", "runs": "A.14", "profile": "A.14",
 }
 
 
@@ -164,6 +175,37 @@ def build_parser() -> argparse.ArgumentParser:
                          help="not ported yet (ROADMAP A.14)")
     p_serve.add_argument("--device", choices=["cpu", "cuda"], default=None,
                          help=device_help)
+    p_new = sub.add_parser("new", help="create a new model set")
+    p_new.add_argument("name")
+    p_new.add_argument("-t", "--type", default="NN",
+                       help="algorithm (NN/LR/GBT/RF/WDL)")
+    p_export = sub.add_parser("export", help="export model (pmml, "
+                                             "columnstats, ...)")
+    p_export.add_argument("-t", "--type", default="pmml")
+    p_export.add_argument("-c", "--concise", action="store_true")
+    p_combo = sub.add_parser("combo", help="ensemble-of-algorithms workflow")
+    p_combo.add_argument("-new", dest="new_algs", default=None,
+                         help="e.g. NN,GBT,LR")
+    p_combo.add_argument("-init", action="store_true", dest="do_init")
+    p_combo.add_argument("-run", action="store_true", dest="do_run")
+    p_combo.add_argument("-eval", action="store_true", dest="do_eval")
+    p_combo.add_argument("--device", choices=["cpu", "cuda"], default=None,
+                         help=device_help)
+    p_encode = sub.add_parser("encode", help="encode dataset with a trained "
+                                             "model")
+    p_encode.add_argument("-d", "--dataset", default=None)
+    p_encode.add_argument("--device", choices=["cpu", "cuda"], default=None,
+                          help=device_help)
+    p_test = sub.add_parser("test", help="dry-run filter expressions on "
+                                         "sample rows")
+    p_test.add_argument("-n", type=int, default=100)
+    sub.add_parser("analysis", help="model/data analysis report")
+    p_save = sub.add_parser("save", help="save current model-set version")
+    p_save.add_argument("version", nargs="?")
+    p_switch = sub.add_parser("switch", help="switch model-set version")
+    p_switch.add_argument("version")
+    sub.add_parser("show", help="show model-set versions")
+    sub.add_parser("version", help="print version")
     for name in NOT_PORTED:
         p = sub.add_parser(name, help=f"not ported yet (ROADMAP "
                                       f"{NOT_PORTED[name]})")
@@ -240,6 +282,40 @@ def dispatch(args: argparse.Namespace) -> int:
             device=args.device).run()
     if cmd == "serve":
         return serve(args)
+    if cmd == "version":
+        import shifu_tpu_torch
+
+        print(shifu_tpu_torch.__version__)
+        return 0
+    if cmd == "new":
+        from shifu_tpu_torch.processor.create import run_new
+
+        return run_new(args.name, args.type)
+    if cmd == "export":
+        from shifu_tpu_torch.processor.export import ExportProcessor
+
+        return ExportProcessor(kind=args.type, concise=args.concise).run()
+    if cmd == "combo":
+        from shifu_tpu_torch.processor.combo import ComboProcessor
+
+        return ComboProcessor.from_args(args).run()
+    if cmd == "encode":
+        from shifu_tpu_torch.processor.encode import EncodeProcessor
+
+        return EncodeProcessor(dataset=args.dataset,
+                               device=args.device).run()
+    if cmd == "test":
+        from shifu_tpu_torch.processor.testdata import TestDataProcessor
+
+        return TestDataProcessor(n=args.n).run()
+    if cmd == "analysis":
+        from shifu_tpu_torch.processor.analysis import AnalysisProcessor
+
+        return AnalysisProcessor().run()
+    if cmd in ("save", "switch", "show"):
+        from shifu_tpu_torch.processor.manage import ManageProcessor
+
+        return ManageProcessor(cmd, getattr(args, "version", None)).run()
     raise NotImplementedError(
         f"`{cmd}` is not ported yet: ROADMAP {NOT_PORTED[cmd]}")
 

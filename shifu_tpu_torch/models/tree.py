@@ -178,10 +178,12 @@ class TreeModelSpec:
         return IndependentTreeModel(self, device=device)
 
 
-def tree_leaves(trees: List[DenseTree], codes: torch.Tensor
-                ) -> torch.Tensor:
-    """codes [n, F] int tensor -> each tree's leaf value (unweighted)
-    [n, n_trees] f32 on the codes' device."""
+def leaf_nodes(trees: List[DenseTree], codes: torch.Tensor
+               ) -> torch.Tensor:
+    """codes [n, F] int tensor -> the node each row ends at in each tree
+    [n, n_trees] long on the codes' device: children at 2i+1/2i+2 in a
+    dense tree, by the explicit `left`/`right` pointers in a leaf-wise
+    one."""
     dev = codes.device
     n = codes.shape[0]
     codes = codes.long()
@@ -189,7 +191,6 @@ def tree_leaves(trees: List[DenseTree], codes: torch.Tensor
     for t in trees:
         feature = torch.as_tensor(t.feature, device=dev).long()
         left_mask = torch.as_tensor(t.left_mask, device=dev)
-        leaf_value = torch.as_tensor(t.leaf_value, device=dev)
         dense = t.is_dense_layout
         lch = None if dense else torch.as_tensor(t.left, device=dev).long()
         rch = None if dense else torch.as_tensor(t.right, device=dev).long()
@@ -205,10 +206,22 @@ def tree_leaves(trees: List[DenseTree], codes: torch.Tensor
             else:
                 child = torch.where(goes_left, lch[node], rch[node])
             node = torch.where(is_leaf, node, child)
-        outs.append(leaf_value[node])
+        outs.append(node)
     if not outs:
-        return torch.zeros((n, 0), dtype=torch.float32, device=dev)
+        return torch.zeros((n, 0), dtype=torch.long, device=dev)
     return torch.stack(outs, dim=1)
+
+
+def tree_leaves(trees: List[DenseTree], codes: torch.Tensor
+                ) -> torch.Tensor:
+    """codes [n, F] int tensor -> each tree's leaf value (unweighted)
+    [n, n_trees] f32 on the codes' device."""
+    nodes = leaf_nodes(trees, codes)
+    if not trees:
+        return nodes.to(torch.float32)
+    return torch.stack([
+        torch.as_tensor(t.leaf_value, device=codes.device)[nodes[:, k]]
+        for k, t in enumerate(trees)], dim=1)
 
 
 def _weights(trees: List[DenseTree], dev, dtype) -> torch.Tensor:

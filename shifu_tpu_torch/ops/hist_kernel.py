@@ -148,6 +148,16 @@ def _prep(labels, weights, node_slot, active, L: int, low_precision: bool,
     return comps, nl
 
 
+def _live_rows(codes, comps, nl, active):
+    """The active rows only: an inactive row adds zeros, so dropping it
+    leaves every slot's sum as it was (the leaf-wise grower builds one
+    leaf's rows out of all n at a time)."""
+    if bool(active.all()):
+        return codes, comps, nl
+    idx = torch.nonzero(active).squeeze(1)
+    return codes[idx], comps[idx], nl[idx]
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
@@ -162,6 +172,7 @@ def hist_level_reference(codes, labels, weights, node_slot, active, *,
     reference_calls[_entry("hist_level", n_classes)] += 1
     comps, nl = _prep(labels, weights, node_slot, active, L, low_precision,
                       n_classes)
+    codes, comps, nl = _live_rows(codes, comps, nl, active)
     return _tt().hist_scatter(codes, comps.float(), nl, L, lay)
 
 
@@ -176,7 +187,8 @@ def fused_level_reference(codes, labels, weights, node_slot, active,
     tt = _tt()
     comps, nl = _prep(labels, weights, node_slot, active, L, low_precision,
                       n_classes)
-    hist = tt.hist_scatter(codes, comps.float(), nl, L, lay)
+    hist = tt.hist_scatter(*_live_rows(codes, comps.float(), nl, active), L,
+                           lay)
     sl = tt.scan_layout(lay, hist.device)
     return hist, tt.scan_of(n_classes)(hist, feat_ok_t, sl, impurity,
                                        min_inst, min_gain)

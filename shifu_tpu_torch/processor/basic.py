@@ -5,7 +5,9 @@ Contract parity with core/processor/BasicModelProcessor.java:57 — load both
 configs from the working directory, validate via the inspector for the current
 step, expose save helpers, and resolve data paths relative to the model-set
 root. Every processor of the port runs on one device: `device=None` means
-the card, and the constructor raises without one.
+the card, and the constructor raises without one. A step that only reads
+and writes files (`host_only`: new, export, save/switch/show, test,
+analysis) takes no device.
 
 `run` keeps the JAX package's return code and its start/finish log lines.
 It leaves out the observability envelope around the step (the run-ledger
@@ -36,10 +38,11 @@ log = get_logger(__name__)
 
 class BasicProcessor:
     step: str = ""
+    host_only: bool = False  # the step touches no device
 
     def __init__(self, root: str = ".", device: DeviceLike = None):
         self.root = os.path.abspath(root)
-        self.device = resolve_device(device)
+        self.device = None if self.host_only else resolve_device(device)
         self.paths = PathFinder(self.root)
         self.model_config: Optional[ModelConfig] = None
         self.column_configs: List[ColumnConfig] = []

@@ -33,9 +33,12 @@ draws are numpy `default_rng` streams keyed exactly as the JAX package
 keys them, so one seed gives the same valid split, feature subsets, RF
 bags and DART keep masks in both packages.
 
-Not ported yet (each raises NotImplementedError): leaf-wise growth
-(max_leaves > 0) and the host-batched `build_tree` path (2**max_depth >
-the stats-memory node batch). ROADMAP.md queue A item 11 lists them.
+Two more growers drive the histogram-only and scan-only entries from the
+host, as the JAX package's do: `build_tree_leafwise` (max_leaves > 0,
+the best-gain leaf split first, explicit child pointers) and the
+host-batched `build_tree` (2**max_depth past the stats-memory node
+batch: a level's nodes in batches of at most that many). `train_trees`
+routes between the three as the JAX `train_trees` does.
 """
 
 from __future__ import annotations
@@ -73,7 +76,7 @@ class TreeTrainConfig:
     algorithm: str = "GBT"  # GBT | RF
     tree_num: int = 100
     max_depth: int = 6
-    max_leaves: int = -1  # > 0 switches to leaf-wise growth (not ported)
+    max_leaves: int = -1  # > 0 switches to leaf-wise growth
     impurity: str = "variance"  # variance | friedmanmse | entropy | gini
     loss: str = "squared"  # squared | log (GBT label relabeling)
     learning_rate: float = 0.05
@@ -629,6 +632,24 @@ def _derive(p_hist, built, p_split, left_small):
 # ---------------------------------------------------------------------------
 
 
+def _route_rows(codes, node, active, resting, L: int, out, sl: ScanLayout):
+    """Settle the rows of non-split nodes at (L-1) + slot and send the
+    rest to slot 2i / 2i+1 of the next level (`row_update`). Returns
+    (node, active, resting)."""
+    (bf, br, rank_flat, _lv, is_split, _g, _lm, _nc, _lc) = out
+    nl = node.clamp(0, L - 1).long()
+    settled = active & ~is_split[nl]
+    resting = torch.where(settled, (L - 1) + nl, resting)
+    f = torch.where(is_split, bf, torch.zeros_like(bf))[nl].long()
+    code = codes.gather(1, f[:, None])[:, 0].long()
+    cf = sl.off_f[f] + torch.minimum(code.clamp_min(0), sl.clip_f[f])
+    goes_left = rank_flat[nl, cf] <= br[nl]
+    still = is_split[nl] & active
+    node = torch.where(still, torch.where(goes_left, 2 * nl, 2 * nl + 1),
+                       torch.zeros_like(nl)).to(torch.int32)
+    return node, still, resting
+
+
 def _grow_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
                sub_levels: tuple, lowp: bool, int_planes: bool = False):
     """One level-wise tree (counterpart of `_get_tree_program`'s body).
@@ -685,20 +706,11 @@ def _grow_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
             hist = hist_kernel.hist_level(codes, labels, weights, node,
                                           active, L=L, **kw)
             out = scan(hist)
-        (bf, br, rank_flat, lv, is_split, _g, lm, nc, lc) = out
+        (bf, _br, _rank, lv, is_split, _g, lm, nc, lc) = out
         prev = ((hist, is_split, lc, nc)
                 if d + 1 < D and sub_levels[d + 1] else None)
-        nl = node.clamp(0, L - 1).long()
-        settled = active & ~is_split[nl]
-        resting = torch.where(settled, (L - 1) + nl, resting)
-        f = torch.where(is_split, bf, torch.zeros_like(bf))[nl].long()
-        code = codes.gather(1, f[:, None])[:, 0].long()
-        cf = sl.off_f[f] + torch.minimum(code.clamp_min(0), sl.clip_f[f])
-        goes_left = rank_flat[nl, cf] <= br[nl]
-        still = is_split[nl] & active
-        node = torch.where(still, torch.where(goes_left, 2 * nl, 2 * nl + 1),
-                           torch.zeros_like(nl)).to(torch.int32)
-        active = still
+        node, active, resting = _route_rows(codes, node, active, resting, L,
+                                            out, sl)
         feats_l.append(torch.where(is_split, bf, torch.full_like(bf, -1)))
         masks_l.append(lm)
         leaves_l.append(lv)
@@ -715,6 +727,207 @@ def _grow_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
                                                  device=dev)])
     leaf_flat = torch.cat(leaves_l)
     return feat_flat, mask_flat, leaf_flat, resting, leaf_flat[resting]
+
+
+def build_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
+               sub_levels: tuple, batch_cap: int, lowp: bool,
+               int_planes: bool = False) -> Tuple[DenseTree, torch.Tensor]:
+    """One level-wise tree driven level by level from the host
+    (counterpart of `build_tree`'s batched loop, taken when 2**max_depth
+    nodes pass the stats-memory node batch `batch_cap`). A level builds
+    its histogram one of three ways: the smaller children only, the
+    sibling derived from the retained parent (`sub_levels`); a full
+    rebuild kept for the next level's derivation; or batches of at most
+    `batch_cap` nodes, each scanned as it is built and dropped. The final
+    level's leaf values come from its scan. Returns (tree, resting slot
+    [n])."""
+    D = cfg.max_depth
+    dev = codes.device
+    n = codes.shape[0]
+    sl = scan_layout(lay, dev)
+    K = cfg.n_classes
+    kw = dict(lay=lay, low_precision=lowp, codes8=codes8, n_classes=K,
+              int_planes=int_planes)
+
+    def hist(node_slot, act, L):
+        return hist_kernel.hist_level(codes, labels, weights, node_slot, act,
+                                      L=L, **kw)
+
+    def scan(h):
+        return hist_kernel.scan_level(
+            h, feat_ok_t, lay=lay, impurity=cfg.impurity,
+            min_inst=cfg.min_instances_per_node,
+            min_gain=cfg.min_info_gain, n_classes=K)
+
+    node = torch.zeros(n, dtype=torch.int32, device=dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    resting = torch.zeros(n, dtype=torch.long, device=dev)
+    sub_on = cfg.hist_subtraction
+    n_built = n_derived = n_fallback = 0
+    feats_l, masks_l, leaves_l = [], [], []
+    prev = None  # retained parent level (hist, is_split, lcnt, ncnt)
+    for depth in range(D + 1):
+        L = 2 ** depth
+        final = depth == D
+        # retention for the next level's derivation implies that level
+        # passed the gate, so this level is at most cap/4 nodes: one batch
+        retain_next = (not final) and sub_on and sub_levels[depth + 1]
+        level_hist = None
+        if prev is not None:  # half-width build + derive
+            p_hist, p_split, p_lcnt, p_ncnt = prev
+            left_small = p_lcnt <= p_ncnt - p_lcnt
+            nhalf, build_row = _sub_row_masks(node, active, left_small)
+            built = hist(nhalf, build_row, L // 2)
+            _derived, level_hist = _derive(p_hist, built, p_split, left_small)
+            out = scan(level_hist)
+            n_built += L // 2
+            n_derived += L // 2
+        elif retain_next:  # full rebuild, kept whole for the next level
+            level_hist = hist(node, active, L)
+            out = scan(level_hist)
+            n_built += L
+            if sub_on and depth >= 1:
+                n_fallback += 1
+        else:  # budget-batched full rebuild, each batch dropped once scanned
+            parts = []
+            for b0 in range(0, L, batch_cap):
+                Lb = min(batch_cap, L - b0)
+                in_batch = active & (node >= b0) & (node < b0 + Lb)
+                parts.append(scan(hist(node - b0, in_batch, Lb)))
+            out = tuple(torch.cat(xs) for xs in zip(*parts))
+            n_built += L
+            if sub_on and depth >= 1:
+                n_fallback += -(-L // batch_cap)
+        (bf, _br, _rank, lv, is_split, _g, lm, nc, lc) = out
+        if final:  # leaf values of the deepest nodes, leftovers settle
+            leaves_l.append(lv)
+            feats_l.append(torch.full((L,), -1, dtype=torch.int32,
+                                      device=dev))
+            masks_l.append(torch.zeros((L, lay.s_max), dtype=torch.bool,
+                                       device=dev))
+            resting = torch.where(active, (L - 1) + node.long(), resting)
+            break
+        prev = (level_hist, is_split, lc, nc) if retain_next else None
+        node, active, resting = _route_rows(codes, node, active, resting, L,
+                                            out, sl)
+        feats_l.append(torch.where(is_split, bf, torch.full_like(bf, -1)))
+        masks_l.append(lm)
+        leaves_l.append(lv)
+    _record_hist_counters(n_built, n_derived, n_fallback)
+    tree = DenseTree(
+        feature=torch.cat(feats_l).cpu().numpy().astype(np.int32),
+        left_mask=torch.cat(masks_l).cpu().numpy().astype(bool),
+        leaf_value=torch.cat(leaves_l).cpu().numpy().astype(np.float32))
+    return tree, resting
+
+
+def build_tree_leafwise(codes, codes8, labels, weights, feat_ok_t, *, lay,
+                        cfg, batch_cap: int, lowp: bool,
+                        int_planes: bool = False
+                        ) -> Tuple[DenseTree, torch.Tensor]:
+    """Leaf-wise growth under max_leaves (counterpart of
+    `build_tree_leafwise`; DTMaster.java:137's toSplitQueue splits the
+    best-gain leaf first). Each split evaluates only the two new leaves,
+    each a one-node histogram (`hist_level` at L = 1 over the rows of
+    that leaf) and its scan. A split leaf's histogram is kept while
+    (kept + 1) node planes fit `batch_cap`; its split then builds the
+    smaller child only and derives the sibling as parent - built (f32,
+    as the JAX package without x64). Nodes append parent before child,
+    so children get explicit pointers and the tree may be lopsided.
+    Returns (tree, resting node id [n])."""
+    dev = codes.device
+    n = codes.shape[0]
+    K = cfg.n_classes
+    kw = dict(lay=lay, low_precision=lowp, codes8=codes8, n_classes=K,
+              int_planes=int_planes)
+    max_nodes = 2 * cfg.max_leaves - 1
+    node_id = torch.zeros(n, dtype=torch.int32, device=dev)
+    slot0 = torch.zeros(n, dtype=torch.int32, device=dev)
+
+    # the growing tree on the host, parent before child
+    feature, left_c, right_c = [-1], [-1], [-1]
+    leaf_val = [0.0]
+    masks = [np.zeros(lay.s_max, bool)]
+    depth_of = {0: 0}
+    # leaf id -> (gain, feature, cut rank, rank row [T], mask, lcnt, ncnt)
+    candidates: Dict[int, tuple] = {}
+    stored: Dict[int, torch.Tensor] = {}  # leaf id -> its [C, 1, T] hist
+    sub_on = cfg.hist_subtraction
+    n_built = n_derived = n_fallback = 0
+
+    def build_hist(lid: int) -> torch.Tensor:
+        return hist_kernel.hist_level(codes, labels, weights, slot0,
+                                      node_id == lid, L=1, **kw)
+
+    def evaluate(lid: int, hist: torch.Tensor) -> None:
+        """The candidate split of one leaf from its (built or derived)
+        histogram; one host copy of its scalars and mask."""
+        (f, c, r, lv, sp, g, m, nc, lc) = hist_kernel.scan_level(
+            hist, feat_ok_t, lay=lay, impurity=cfg.impurity,
+            min_inst=cfg.min_instances_per_node,
+            min_gain=cfg.min_info_gain, n_classes=K)
+        h = torch.cat([torch.stack([x[0].double() for x in
+                                    (lv, sp, g, f, c, lc, nc)]),
+                       m[0].double()]).cpu().numpy()
+        leaf_val[lid] = float(h[0])
+        if h[1] and depth_of[lid] < cfg.max_depth:
+            candidates[lid] = (float(h[2]), int(h[3]), int(h[4]), r[0],
+                               h[7:] > 0.5, float(h[5]), float(h[6]))
+            if sub_on and len(stored) + 1 <= batch_cap:
+                stored[lid] = hist
+
+    evaluate(0, build_hist(0))
+    n_built += 1
+    n_leaves = 1
+    while n_leaves < cfg.max_leaves and candidates:
+        best_id = max(candidates, key=lambda k: candidates[k][0])
+        (_gain, bf, cut, rank_row, mask_row, lcnt,
+         ncnt) = candidates.pop(best_id)
+        parent_hist = stored.pop(best_id, None)
+        li, ri = len(feature), len(feature) + 1
+        if ri > max_nodes:
+            break
+        feature[best_id] = bf
+        left_c[best_id] = li
+        right_c[best_id] = ri
+        masks[best_id] = mask_row
+        for _ in range(2):
+            feature.append(-1)
+            left_c.append(-1)
+            right_c.append(-1)
+            leaf_val.append(0.0)
+            masks.append(np.zeros(lay.s_max, bool))
+        depth_of[li] = depth_of[ri] = depth_of[best_id] + 1
+        # reroute the rows of the split leaf
+        code = codes[:, bf].long().clamp(0, int(lay.clip_max[bf]))
+        goes_left = rank_row[int(lay.off[bf]) + code] <= cut
+        sel = node_id == best_id
+        node_id = torch.where(sel & goes_left, li,
+                              torch.where(sel, ri, node_id))
+        n_leaves += 1
+        if parent_hist is not None:
+            # build the smaller child, derive the sibling from the parent
+            smaller, larger = ((li, ri) if lcnt <= ncnt - lcnt
+                               else (ri, li))
+            built = build_hist(smaller)
+            derived = parent_hist - built
+            evaluate(smaller, built)
+            evaluate(larger, derived)
+            n_built += 1
+            n_derived += 1
+        else:
+            evaluate(li, build_hist(li))
+            evaluate(ri, build_hist(ri))
+            n_built += 2
+            if sub_on:
+                n_fallback += 1
+    _record_hist_counters(n_built, n_derived, n_fallback)
+    tree = DenseTree(feature=np.asarray(feature, np.int32),
+                     left_mask=np.stack(masks).astype(bool),
+                     leaf_value=np.asarray(leaf_val, np.float32),
+                     left=np.asarray(left_c, np.int32),
+                     right=np.asarray(right_c, np.int32))
+    return tree, node_id
 
 
 # ---------------------------------------------------------------------------
@@ -868,19 +1081,6 @@ def _score_existing(trees: List[DenseTree], codes) -> torch.Tensor:
     return score
 
 
-def _check_ported(cfg: TreeTrainConfig, batch_cap: int) -> None:
-    if cfg.max_leaves and cfg.max_leaves > 0:
-        raise NotImplementedError(
-            "leaf-wise growth (max_leaves > 0) is not ported yet: ROADMAP "
-            "queue A, leaf-wise and build_tree growers")
-    if 2 ** cfg.max_depth > batch_cap:
-        raise NotImplementedError(
-            f"2**max_depth = {2 ** cfg.max_depth} nodes exceed the "
-            f"stats-memory node batch ({batch_cap}); the host-batched "
-            "build_tree path is not ported yet: ROADMAP queue A, leaf-wise "
-            "and build_tree growers")
-
-
 def _as_device(a, dtype, dev):
     if isinstance(a, torch.Tensor):
         return a.to(device=dev, dtype=dtype).contiguous()
@@ -948,7 +1148,6 @@ def train_trees(
             "supports GBT multi-class via ONEVSALL, "
             "TrainModelProcessor.java:341-349)"
         )
-    _check_ported(cfg, batch_cap)
 
     k_sub = subset_count(cfg.feature_subset_strategy, F)
     trees: List = list(init_trees or [])
@@ -992,6 +1191,11 @@ def train_trees(
     need_sync = bool(progress_cb or checkpoint_cb or cfg.early_stop_rounds
                      or decider is not None)
 
+    # leaf-wise under max_leaves; else the level-wise tree of `_grow_tree`
+    # while its widest level fits the stats-memory node batch, else the
+    # host-batched `build_tree`
+    leaf_wise = cfg.max_leaves > 0
+    fused = not leaf_wise and 2 ** cfg.max_depth <= batch_cap
     sub_levels = _sub_plan(cfg, batch_cap)
     sub_counts = _plan_counts(sub_levels[:cfg.max_depth],
                               cfg.hist_subtraction)
@@ -1037,13 +1241,30 @@ def train_trees(
                         else y_t - pred)
         fot = fot_all if fot_all is not None else torch.as_tensor(
             feat_oks[k][lay.seg_of_t], device=dev)
-        feats_d, masks_d, leaves_d, _resting, tree_pred = _grow_tree(
-            codes_t, codes8, labels_k, w_k, fot, lay=lay, cfg=cfg,
-            sub_levels=sub_levels, lowp=lowp, int_planes=int_planes)
-        _record_hist_counters(*sub_counts)
         weight_k = 1.0 if (is_gbt and k == 0) else (lr if is_gbt else 1.0)
-        deferred.append((k, weight_k, feats_d, masks_d, leaves_d))
-        trees.append(None)  # assembled from `deferred`
+        grow_kw = dict(lay=lay, cfg=cfg, lowp=lowp, int_planes=int_planes)
+        if fused:
+            feats_d, masks_d, leaves_d, _resting, tree_pred = _grow_tree(
+                codes_t, codes8, labels_k, w_k, fot, sub_levels=sub_levels,
+                **grow_kw)
+            _record_hist_counters(*sub_counts)
+            deferred.append((k, weight_k, feats_d, masks_d, leaves_d))
+            trees.append(None)  # assembled from `deferred`
+        else:
+            # these growers sync with the host as they go: their trees
+            # come back one at a time
+            if leaf_wise:
+                tree, resting = build_tree_leafwise(
+                    codes_t, codes8, labels_k, w_k, fot,
+                    batch_cap=batch_cap, **grow_kw)
+            else:
+                tree, resting = build_tree(
+                    codes_t, codes8, labels_k, w_k, fot,
+                    sub_levels=sub_levels, batch_cap=batch_cap, **grow_kw)
+            tree.weight = weight_k
+            trees.append(tree)
+            tree_pred = torch.as_tensor(tree.leaf_value,
+                                        device=dev)[resting.long()]
 
         if is_cls:
             votes = votes + _one_vote(tree_pred, cfg.n_classes)

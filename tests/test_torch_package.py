@@ -23,14 +23,19 @@ MODULES = [
     "shifu_tpu_torch.eval.gainchart", "shifu_tpu_torch.eval.metrics",
     "shifu_tpu_torch.eval.multiclass", "shifu_tpu_torch.eval.reasoner",
     "shifu_tpu_torch.eval.scorefile", "shifu_tpu_torch.eval.scorer",
+    "shifu_tpu_torch.export.pmml",
     "shifu_tpu_torch.data.reader", "shifu_tpu_torch.data.stream",
     "shifu_tpu_torch.data.tokens", "shifu_tpu_torch.fs.listing",
     "shifu_tpu_torch.fs.pathfinder", "shifu_tpu_torch.models.nn",
     "shifu_tpu_torch.models.tree",
     "shifu_tpu_torch.norm.dataset", "shifu_tpu_torch.norm.normalizer",
     "shifu_tpu_torch.ops.binagg", "shifu_tpu_torch.ops.build",
-    "shifu_tpu_torch.ops.hist_kernel", "shifu_tpu_torch.processor.basic",
+    "shifu_tpu_torch.ops.hist_kernel", "shifu_tpu_torch.processor.analysis",
+    "shifu_tpu_torch.processor.basic", "shifu_tpu_torch.processor.combo",
+    "shifu_tpu_torch.processor.create", "shifu_tpu_torch.processor.encode",
     "shifu_tpu_torch.processor.evaluate",
+    "shifu_tpu_torch.processor.export", "shifu_tpu_torch.processor.manage",
+    "shifu_tpu_torch.processor.testdata",
     "shifu_tpu_torch.processor.init", "shifu_tpu_torch.processor.norm",
     "shifu_tpu_torch.processor.posttrain",
     "shifu_tpu_torch.processor.stats", "shifu_tpu_torch.processor.varsel",

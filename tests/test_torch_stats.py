@@ -352,7 +352,10 @@ def test_cli_init_stats_and_norm(tmp_path):
                                        "meta.json"))
     assert os.path.isfile(os.path.join(root, "tmp", "varsel",
                                        "ColumnConfig.json.prevarsel"))
-    proc = _cli(root, "export")
+    proc = _cli(root, "export", "-t", "columnstats")
+    assert proc.returncode == 0, proc.stderr
+    assert os.path.isfile(os.path.join(root, "export", "columnstats.csv"))
+    proc = _cli(root, "retrain")
     assert proc.returncode == 2 and "A.14" in proc.stderr
     if not torch.cuda.is_available():
         for cmd in ("init", "stats", "norm", "varsel", "eval"):

@@ -279,6 +279,9 @@ def test_cli_train_and_unported_steps(prepared, tmp_path):
         proc = run("eval")
         assert proc.returncode == 1 and "CUDA" in proc.stderr
     proc = run("export")
+    assert proc.returncode == 0, proc.stderr
+    assert os.path.isfile(os.path.join(root, "export", "model0.pmml"))
+    proc = run("retrain")
     assert proc.returncode == 2
     assert "not ported yet: ROADMAP A.14" in proc.stderr
     proc = run("train", "--device", "cpu", "-dry")

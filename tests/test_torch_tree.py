@@ -265,11 +265,140 @@ def test_native_multiclass_gbt_raises():
             train(*data, algorithm="GBT", tree_num=1, n_classes=3)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(max_leaves=7),
-    dict(max_depth=9, max_stats_memory_mb=1),
+def _jax_hist_counters():
+    from shifu_tpu.obs import registry
+
+    reg = registry()
+    return {k: reg.counter(f"tree.hist.{k}").value
+            for k in ("built", "derived", "fallback_rebuilds")}
+
+
+def _assert_pointers_equal(a, b):
+    for t0, t1 in zip(a.spec.trees, b.spec.trees):
+        assert (t0.left is None) == (t1.left is None)
+        if t0.left is not None:
+            np.testing.assert_array_equal(t0.left, t1.left)
+            np.testing.assert_array_equal(t0.right, t1.right)
+
+
+# T = 183 slots: MaxStatsMemoryMB 1 gives a node batch of 477, so depth 9
+# builds the 256-node level whole and the 512-node level in 2 batches
+_BATCHED = dict(max_depth=9, max_stats_memory_mb=1)
+
+
+def _wide_forest_data(n=2500, seed=6):
+    """_forest_data plus one 5,500-slot numeric column of noise: T = 5,683
+    gives a node batch of 15 at MaxStatsMemoryMB 1, so a depth-5 GBT
+    builds its 16- and 32-node levels in 2 and 3 batches. (Deeper GBT
+    trees on 2,500 noisy rows drift apart on near-tied gains between any
+    two f32 scans, the level-wise path's too.)"""
+    codes, y, w, slots, is_cat, cols = _forest_data(n=n, seed=seed)
+    extra = np.random.default_rng(seed + 50).integers(0, 5499, size=n)
+    return (np.concatenate([codes, extra[:, None].astype(np.int32)], 1), y,
+            w, slots + [5500], is_cat + [False], cols + ["wide"])
+
+
+@pytest.mark.parametrize("case,kw", [
+    ("leafwise_gbt", dict(algorithm="GBT", max_leaves=12, max_depth=6,
+                          learning_rate=0.3)),
+    ("leafwise_rf", dict(algorithm="RF", max_leaves=12, max_depth=6,
+                         feature_subset_strategy="TWOTHIRDS")),
+    ("leafwise_rf_nosub", dict(algorithm="RF", max_leaves=12, max_depth=6,
+                               hist_subtraction=False)),
+    ("leafwise_rf_budget", dict(algorithm="RF", max_leaves=16, max_depth=8,
+                                max_stats_memory_mb=0)),
+    ("leafwise_native3", dict(algorithm="RF", max_leaves=10, max_depth=6,
+                              n_classes=3, impurity="gini")),
+    ("batched_gbt", dict(algorithm="GBT", learning_rate=0.3, max_depth=5,
+                         max_stats_memory_mb=1)),
+    ("batched_rf", dict(algorithm="RF", feature_subset_strategy="HALF",
+                        **_BATCHED)),
+    ("batched_rf_nosub", dict(algorithm="RF", hist_subtraction=False,
+                              **_BATCHED)),
+    ("batched_native3", dict(algorithm="RF", n_classes=3, impurity="gini",
+                             **_BATCHED)),
 ])
-def test_unported_branches_raise(kw):
-    data = _forest_data(n=200)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_train(*data, **{"tree_num": 1, **kw})
+def test_grower_parity(case, kw):
+    """The leaf-wise and host-batched growers against the JAX package's:
+    RF forests bit-equal (explicit child pointers included), GBT scores
+    within 0.03, and the port's `hist_counters` equal to the JAX
+    `tree.hist.*` deltas. The histogram-only and scan-only entries run,
+    the fused one never."""
+    if kw.get("n_classes"):
+        data = _class_data(k=kw["n_classes"])
+    elif case == "batched_gbt":
+        data = _wide_forest_data()
+    else:
+        data = _forest_data(seed=6 if kw["algorithm"] == "GBT" else 0)
+    kw = dict(tree_num=3, seed=3, valid_set_rate=0.1, **kw)
+    before = _jax_hist_counters()
+    ref = _jax_train(*data, **kw)
+    after = _jax_hist_counters()
+    for k in ptt.hist_counters:
+        ptt.hist_counters[k] = 0
+    hk.reset_counters()
+    port = _port_train(*data, **kw)
+    assert ptt.hist_counters == {k: int(after[k] - before[k])
+                                 for k in after}
+    leafwise = kw.get("max_leaves", 0) > 0
+    assert all((t.left is not None) == leafwise for t in port.spec.trees)
+    mc = "_mc" if kw.get("n_classes") else ""
+    assert hk.reference_calls["fused_level" + mc] == 0
+    assert hk.reference_calls["hist_level" + mc] > 0
+    assert hk.reference_calls["scan_level" + mc] > 0
+    if leafwise:  # one histogram a built node, one scan a leaf
+        assert hk.reference_calls["hist_level" + mc] == \
+            ptt.hist_counters["built"]
+        assert hk.reference_calls["scan_level" + mc] == (
+            ptt.hist_counters["built"] + ptt.hist_counters["derived"])
+    if kw["algorithm"] == "GBT":
+        codes = data[0]
+        np.testing.assert_allclose(
+            port.spec.independent(device="cpu").compute(codes),
+            ref.spec.independent().compute(codes), atol=0.03)
+        return
+    assert _first_diff(ref, port) is None, _first_diff(ref, port)
+    _assert_forests_bit_equal(ref, port)
+    _assert_pointers_equal(ref, port)
+    assert port.valid_error == pytest.approx(ref.valid_error, abs=1e-6)
+
+
+@pytest.mark.parametrize("alg", ["GBT", "RF"])
+def test_leafwise_resume_is_bit_equal(alg):
+    """2 leaf-wise trees, then 2 more from init_trees, equal the
+    uninterrupted 4-tree run bit for bit, pointers included."""
+    data = _forest_data(n=1500, seed=4)
+    kw = dict(algorithm=alg, tree_num=4, max_depth=5, max_leaves=9,
+              learning_rate=0.2, feature_subset_strategy="HALF", seed=5)
+    full = _port_train(*data, **kw)
+    head = _port_train(*data, **{**kw, "tree_num": 2})
+    tail = ptt.train_trees(*data, ptt.TreeTrainConfig(**kw),
+                           init_trees=head.spec.trees, device="cpu")
+    _assert_forests_bit_equal(full, tail)
+    _assert_pointers_equal(full, tail)
+
+
+def test_leafwise_gbt_model_file_crosses_packages(tmp_path):
+    """A leaf-wise `.gbt` written by the port loads and scores in the JAX
+    package, and the JAX package's in the port: the same bytes after a
+    round trip, the same scores."""
+    codes, y, w, slots, is_cat, cols = _forest_data(n=1200, seed=2)
+    kw = dict(algorithm="GBT", tree_num=3, max_depth=5, max_leaves=8,
+              learning_rate=0.2, seed=1, valid_set_rate=0.1)
+    port = _port_train(codes, y, w, slots, is_cat, cols, **kw)
+    ref = _jax_train(codes, y, w, slots, is_cat, cols, **kw)
+    p_path, j_path = tmp_path / "port.gbt", tmp_path / "jax.gbt"
+    port.spec.save(str(p_path))
+    ref.spec.save(str(j_path))
+    in_jax = jtree.TreeModelSpec.load(str(p_path))
+    in_port = ptree.TreeModelSpec.load(str(j_path))
+    assert all(t.left is not None for t in in_jax.trees + in_port.trees)
+    np.testing.assert_allclose(
+        in_jax.independent().compute(codes),
+        port.spec.independent(device="cpu").compute(codes), rtol=1e-6)
+    np.testing.assert_allclose(
+        in_port.independent(device="cpu").compute(codes),
+        ref.spec.independent().compute(codes), rtol=1e-6)
+    again = tmp_path / "again.gbt"
+    in_jax.save(str(again))
+    assert again.read_bytes() == p_path.read_bytes()
