@@ -173,6 +173,36 @@ Phases, each of which must pass:
            member's scores within 10 x1000 units, the GBT member's within
            10 on average (100 trees drift apart on near-tied gains), each
            member's AUC and the combo's within 0.01.
+13. wdl    (~120 s) WDL, the reference formats and `convert`; no kernel
+           of its own (torch gathers by indexing, whose backward sums in
+           a fixed order on the card, cuBLAS GEMMs, autograd). First the
+           backward of both gathers, indexing and `embedding`, three
+           times at bench `WDL`'s first field and at its 10 stacked
+           fields: indexing must give the same bits each time on the
+           card, `embedding` on the CPU (the other is reported); then
+           their forward and backward timed in two designs, one gather
+           a field against one over the stacked tables. (a)
+           `train_wdl` at bench `WDL` (200,000 rows, 20 dense, 10 fields
+           of vocab 100, embed 8, [100, 50] relu, 20 epochs, valid 0.1,
+           seed 1; data from --seed): two card runs bit-equal, the second
+           timed (row-epochs/s), a third profiled (device busy, idle
+           share, largest items), the CPU run's valid error within 1e-3
+           with the same iterations; (b) `train_wdl_bagged` at the same
+           shape, 5 members, two card runs bit-equal. (c) phase 7's raw
+           set (phase 8's card2 copy, `varsel -reset`) switched to WDL
+           ([100, 50] relu, embed 8, ADAM 0.05, bagging 3, 5 epochs): `norm`, then
+           `train` through the CLI twice on the card (model files
+           byte-identical) and once with `--device cpu` (headers equal
+           but for the two errors, which agree within 1e-3). (d)
+           posttrain + `eval -run` of (c)'s set on phase 10's held-out
+           rows as in phase 10 (card runs byte-identical; CPU scores
+           0.001, AUC 1e-6). (e) the set through `ScoringServer` over
+           HTTP (the ModelRunner fallback): 64 held-out rows as JSON, the
+           scores (d)'s. (f) `convert -toref` of (c)'s model0.wdl scored
+           as a reference WDL, and `-toeg` of phase 9's model0.nn scored
+           as EG text, each within 1e-5 relative of the native file on
+           20,000 held-out rows; `-tozip` then `-tobin` of the `.wdl`,
+           the `.nn` and phase 8's `.rf` byte-identical to the originals.
 
 Every main-path run (phases 3-6 and 8's train) must launch the scan entry
 once for each subtraction level of each tree (bench `gbt` 25, `rf` 70,
@@ -2198,11 +2228,16 @@ def eval_config(root, data, header):
     mc.save(path)
 
 
-def eval_set_copy(src, dst, data, header):
-    """A copy of the model set `src` (its raw data linked, not copied),
-    its eval set pointed at the held-out file."""
+def set_copy(src, dst):
+    """A copy of the model set `src`, its raw data linked, not copied."""
     shutil.copytree(src, dst, ignore=shutil.ignore_patterns("data"))
     os.symlink(os.path.join(src, "data"), os.path.join(dst, "data"))
+
+
+def eval_set_copy(src, dst, data, header):
+    """A copy of the model set `src` (its raw data linked), its eval set
+    pointed at the held-out file."""
+    set_copy(src, dst)
     eval_config(dst, data, header)
 
 
@@ -2285,15 +2320,17 @@ def check_eval_cpu(kind, card, cpu):
                 max_bin_avg_diff=d_avg)
 
 
-def eval_one(torch, kind, src, data_dir, data, header, n_models):
+def eval_one(torch, kind, src, data_dir, data, header, n_models,
+             device="cuda"):
     """(a) or (b): posttrain + eval twice on the card, once on the CPU,
-    and the score stage once more under the profiler."""
+    and the score stage once more under the profiler (`device` "cpu" in
+    a rehearsal: no profile)."""
     roots = {name: os.path.join(data_dir, f"eval-{kind}-{name}")
              for name in ("card1", "card2", "cpu")}
     for root in roots.values():
         eval_set_copy(src, root, data, header)
     runs = {name: posttrain_eval(torch, root,
-                                 "cpu" if name == "cpu" else "cuda")
+                                 "cpu" if name == "cpu" else device)
             for name, root in roots.items()}
     a = runs["card1"]["bytes"]
     for key in a:
@@ -2304,10 +2341,13 @@ def eval_one(torch, kind, src, data_dir, data, header, n_models):
     score_s = sum(split.get(k, 0.0) for k in SCORE_STAGES)
     from shifu_tpu_torch.processor.evaluate import EvalProcessor
 
-    prof = profile_run(torch, lambda: EvalProcessor(
-        roots["card1"], score_name=EVAL_NAME, device="cuda").run(), score_s)
-    check(eval_artifacts(roots["card1"]) == a,
-          f"eval {kind}: the profiled score run rewrote other bytes")
+    prof = dict(device_busy_s=None)
+    if device == "cuda":
+        prof = profile_run(torch, lambda: EvalProcessor(
+            roots["card1"], score_name=EVAL_NAME, device="cuda").run(),
+            score_s)
+        check(eval_artifacts(roots["card1"]) == a,
+              f"eval {kind}: the profiled score run rewrote other bytes")
     cpu = check_eval_cpu(kind, second, runs["cpu"])
     _h, tags, scores = _score_table(a[os.path.join("evals", EVAL_NAME,
                                                    "EvalScore.csv")])
@@ -2356,7 +2396,10 @@ def phase_eval(torch, data_dir, seed):
 def print_eval(kind, e):
     what = {"nn": f"{NN_STEP['bagging']} NN models ([50] tanh), norm plan "
                   "-> forward", "rf": f"model0.rf ({PREP['trees']} trees, "
-                  f"depth {PREP['depth']}), codes_from_raw -> traverse"}[kind]
+                  f"depth {PREP['depth']}), codes_from_raw -> traverse",
+            "wdl": f"{WDL_STEP['bagging']} WDL models "
+                   f"({WDL_STEP['hidden']} relu, embed {WDL_STEP['embed']}),"
+                   " norm plan + category codes -> forward"}[kind]
     sp = e["eval_split"]
     print(f"eval {kind}: shifu posttrain + eval -run, {what}, on "
           f"{e['rows']} held-out raw rows: eval {e['eval_seconds']:.3f} s "
@@ -3262,6 +3305,479 @@ def print_ends(e):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 13: WDL on the card, the reference formats and `shifu convert`
+# ---------------------------------------------------------------------------
+
+# bench.py:69 WDL: 200,000 rows, 20 dense columns, 10 fields of vocab 100,
+# embed 8, [100, 50] relu, 20 epochs
+WDL = dict(n=200_000, dense=20, wide=10, vocab=100, embed=8,
+           hidden=[100, 50], epochs=20)
+WDL_MEMBERS = 5  # (b)
+# (c): `shifu train` WDL on phase 7's raw set, every column a candidate
+WDL_STEP = dict(hidden=[100, 50], embed=8, epochs=5, bagging=3, lr=0.05)
+WDL_SERVE = dict(rows=64, per_request=16)  # (e): held-out rows as JSON
+CONVERT_ROWS = 20_000  # (f): held-out rows the converted files score
+REF_RTOL = 1e-5  # (f): converted files' scores against the native ones
+
+
+def wdl_bench_data(seed):
+    """bench.py bench_wdl's draws (seed 0 there): dense [n, 20] f32,
+    codes [n, 10] in [0, 100), a 0/1 target, unit weights."""
+    rng = np.random.default_rng(seed)
+    n = WDL["n"]
+    dense = rng.normal(size=(n, WDL["dense"])).astype(np.float32)
+    codes = rng.integers(0, WDL["vocab"],
+                         size=(n, WDL["wide"])).astype(np.int32)
+    t = (dense[:, 0] + 0.1 * codes[:, 0] - 5
+         + rng.normal(scale=2.0, size=n) > 0).astype(np.float32)
+    return dense, codes, t, np.ones(n, dtype=np.float32)
+
+
+def wdl_bench_cfg(wt):
+    """bench.py bench_wdl's config: [100, 50] relu, ADAM 0.005, embed 8,
+    valid 0.1, seed 1."""
+    return wt.WDLTrainConfig(hidden=list(WDL["hidden"]),
+                             embed_dim=WDL["embed"],
+                             num_epochs=WDL["epochs"], valid_set_rate=0.1,
+                             seed=1)
+
+
+def wdl_state(results) -> bytes:
+    """The weights and the three numbers of each result, as bytes."""
+    from shifu_tpu_torch.models.wdl import flatten_wdl
+
+    return b"".join(flatten_wdl(r.params).tobytes() + np.asarray(
+        [r.train_error, r.valid_error, r.iterations]).tobytes()
+        for r in results)
+
+
+def synced(torch, fn, device):
+    """(seconds, result) of fn(), synchronized on the card."""
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def gather_runs(torch, codes, device, runs=3) -> dict:
+    """Whether the backward of each of the two gathers gives the same
+    bits in `runs` runs on `device`, at bench WDL's first field (200,000
+    indices into a [100, 8] table) and at the model's embedding gather
+    (the 10 fields' tables stacked, 200,000 x 10 indices). The model
+    gathers by indexing on the card and by `embedding` on the CPU
+    (models/wdl.py); that one must, at both shapes."""
+    rng = np.random.default_rng(5)
+    v, e, f = WDL["vocab"], WDL["embed"], WDL["wide"]
+    out = {}
+    for shape, idx_np in (("field", codes[:, 0]),
+                          ("stacked", codes + v * np.arange(f))):
+        idx = torch.as_tensor(idx_np, device=device).long()
+        rows = v if shape == "field" else v * f
+        table = torch.as_tensor(rng.normal(size=(rows, e))
+                                .astype(np.float32), device=device)
+        up = torch.as_tensor(rng.normal(size=(*idx.shape, e))
+                             .astype(np.float32), device=device)
+        for name, fn in (("index", lambda t: t[idx]),
+                         ("embedding",
+                          lambda t: torch.nn.functional.embedding(idx, t))):
+            grads = []
+            for _ in range(runs):
+                t = table.clone().requires_grad_(True)
+                (grad,) = torch.autograd.grad((fn(t) * up).sum(), t)
+                grads.append(grad)
+            out[f"{name}_{shape}"] = all(torch.equal(grads[0], g)
+                                         for g in grads[1:])
+    used = "index" if device == "cuda" else "embedding"
+    check(out[f"{used}_field"] and out[f"{used}_stacked"],
+          f"wdl: the {used} gather's backward gave other bits from run to "
+          f"run on {device}: {out}")
+    return out
+
+
+def gather_design_ms(torch, codes, device="cuda", reps=10) -> dict:
+    """The embedding gather's forward and backward on the card at bench
+    WDL's shape (200,000 rows x 10 fields into tables of [100, 8]), in
+    two designs, by indexing: one gather a field (10 calls, 10 sorted
+    backwards) against the model's one gather over the stacked tables
+    (`_gather_fields`). Median ms of `reps` synchronized runs each."""
+    from shifu_tpu_torch.models.wdl import _gather_fields
+
+    rng = np.random.default_rng(6)
+    v, e, f = WDL["vocab"], WDL["embed"], WDL["wide"]
+    idx = torch.as_tensor(codes, device=device).long()
+    tables = [torch.as_tensor(rng.normal(size=(v, e)).astype(np.float32),
+                              device=device).requires_grad_(True)
+              for _ in range(f)]
+    up = torch.as_tensor(rng.normal(size=(*idx.shape, e))
+                         .astype(np.float32), device=device)
+
+    def per_field():
+        out = torch.stack([t[idx[:, j]] for j, t in enumerate(tables)], 1)
+        return torch.autograd.grad((out * up).sum(), tables)
+
+    def stacked():
+        return torch.autograd.grad(
+            (_gather_fields(tables, idx) * up).sum(), tables)
+
+    out = {}
+    for name, fn in (("per_field", per_field), ("stacked", stacked)):
+        fn()  # warm
+        out[f"{name}_ms"] = float(np.median(
+            [synced(torch, fn, device)[0] for _ in range(reps)])) * 1e3
+    return out
+
+
+def wdl_bench(torch, seed, device="cuda"):
+    """(a) `train_wdl` at bench WDL: two card runs bit-equal (the second
+    timed), a third under the profiler, the CPU run's valid error within
+    NN_TOL with the same iterations; (b) `train_wdl_bagged` at the same
+    shape with WDL_MEMBERS members, two card runs bit-equal."""
+    from shifu_tpu_torch.train import wdl_trainer as wt
+
+    host = wdl_bench_data(seed)
+    gathers = gather_runs(torch, host[1], device)
+    on_dev = tuple(torch.as_tensor(a, device=device) for a in host)
+    vocab = [WDL["vocab"]] * WDL["wide"]
+    cfg = wdl_bench_cfg(wt)
+    n, epochs = host[0].shape[0], WDL["epochs"]
+
+    def single(data, dev):
+        return wt.train_wdl(*data, vocab, cfg, device=dev)
+
+    runs = [synced(torch, lambda: single(on_dev, device), device)
+            for _ in range(2)]
+    check(wdl_state([runs[0][1]]) == wdl_state([runs[1][1]]),
+          "wdl: two card runs of train_wdl gave other weights or errors")
+    sec, res = runs[1]
+    check(res.iterations == epochs and np.isfinite(res.valid_error)
+          and 0.0 < res.valid_error < 0.25,
+          f"wdl: {res.iterations} iterations, valid error "
+          f"{res.valid_error}")
+    out = dict(rows=n, dense=WDL["dense"], fields=WDL["wide"],
+               vocab=WDL["vocab"], embed=WDL["embed"], hidden=WDL["hidden"],
+               epochs=epochs, seconds=sec, first_seconds=runs[0][0],
+               seconds_second=sec, row_epochs_per_s=n * epochs / sec,
+               valid_error=res.valid_error, train_error=res.train_error,
+               gather_backward_bit_equal=gathers,
+               gather_design=(gather_design_ms(torch, host[1], device)
+                              if device == "cuda" else None))
+    out["profile"] = (profile_run(torch, lambda: single(on_dev, device), sec)
+                      if device == "cuda" else dict(device_busy_s=None))
+    cpu_s, cpu = synced(torch, lambda: single(host, "cpu"), "cpu")
+    out.update(cpu_seconds=cpu_s, cpu_valid_error=cpu.valid_error,
+               valid_error_diff_vs_cpu=abs(cpu.valid_error
+                                           - res.valid_error))
+    check(cpu.iterations == res.iterations
+          and out["valid_error_diff_vs_cpu"] <= NN_TOL,
+          f"wdl: the CPU run ({cpu.iterations} iterations, valid error "
+          f"{cpu.valid_error}) differs from the card's past {NN_TOL}")
+
+    def bagged():
+        return wt.train_wdl_bagged(*on_dev, vocab, cfg, WDL_MEMBERS,
+                                   device=device)
+
+    bruns = [synced(torch, bagged, device) for _ in range(2)]
+    check(wdl_state(bruns[0][1]) == wdl_state(bruns[1][1]),
+          "wdl bagged: two card runs gave other weights or errors")
+    bsec, members = bruns[1]
+    check(len({wdl_state([m]) for m in members}) == WDL_MEMBERS
+          and all(np.isfinite(m.valid_error) for m in members),
+          "wdl bagged: members not distinct or errors not finite")
+    out["bagged"] = dict(
+        members=WDL_MEMBERS, seconds=bsec, first_seconds=bruns[0][0],
+        member_row_epochs_per_s=n * epochs * WDL_MEMBERS / bsec,
+        train_errors=[m.train_error for m in members],
+        valid_errors=[m.valid_error for m in members],
+        iterations=[m.iterations for m in members])
+    return out
+
+
+def cli_in(root, *args):
+    """`python -m shifu_tpu_torch ARGS` in `root`, in this process: its
+    seconds. A non-zero exit fails the phase."""
+    from shifu_tpu_torch import cli
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(list(args))
+    finally:
+        os.chdir(cwd)
+    check(rc == 0, f"{root}: shifu {' '.join(args)} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def wdl_step_config(root):
+    """`shifu train` WDL: [100, 50] relu, embed 8, ADAM at WDL_STEP's
+    rate (5 full-batch epochs at 0.005 hardly leave the init), bagging 3."""
+    from shifu_tpu_torch.config.model_config import Algorithm, ModelConfig
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    path = PathFinder(root).model_config_path()
+    mc = ModelConfig.load(path)
+    mc.train.algorithm = Algorithm.WDL
+    mc.train.params = {"NumHiddenNodes": list(WDL_STEP["hidden"]),
+                       "ActivationFunc": ["relu", "relu"],
+                       "EmbedOutputs": WDL_STEP["embed"],
+                       "LearningRate": WDL_STEP["lr"], "Optimizer": "ADAM"}
+    mc.train.bagging_num = WDL_STEP["bagging"]
+    mc.train.num_train_epochs = WDL_STEP["epochs"]
+    mc.save(path)
+
+
+def wdl_step(torch, data_dir, device="cuda"):
+    """(c) phase 7's raw set (phase 8's card2 copy, varsel reset so every
+    column is a candidate again) switched to WDL: norm, then train
+    through the CLI twice on the card (model files byte-identical) and
+    once on the CPU (the headers equal but for the two errors, which
+    agree within NN_TOL)."""
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+    from shifu_tpu_torch.models.wdl import WDLModelSpec
+    from shifu_tpu_torch.norm.dataset import read_meta
+
+    base = os.path.join(data_dir, "wdl-base")
+    set_copy(os.path.join(data_dir, "raw-card2"), base)
+    paths = PathFinder(base)
+    # phase 8's RF model and its train files are not this step's
+    shutil.rmtree(paths.models_dir())
+    shutil.rmtree(paths.train_dir())
+    dev = [] if device == "cuda" else ["--device", device]
+    cli_in(base, "varsel", "-reset", *dev)
+    wdl_step_config(base)
+    norm_s = cli_in(base, "norm", *dev)
+    check(len(read_meta(paths.cleaned_data_dir()).columns)
+          == RAW["numeric"] + RAW["cat"],
+          "wdl step: norm did not write every column")
+    roots = {name: os.path.join(data_dir, f"wdl-{name}")
+             for name in ("card1", "card2", "cpu")}
+    secs, blobs, specs = {}, {}, {}
+    for name, root in roots.items():
+        set_copy(base, root)
+        secs[name] = cli_in(root, "train",
+                            *(["--device", "cpu"] if name == "cpu" else dev))
+        mdir = PathFinder(root).models_dir()
+        blobs[name] = {m: open(os.path.join(mdir, m), "rb").read()
+                       for m in sorted(os.listdir(mdir))}
+        specs[name] = [WDLModelSpec.load(os.path.join(mdir, m))
+                       for m in sorted(blobs[name])]
+    want = [f"model{i}.wdl" for i in range(WDL_STEP["bagging"])]
+    check(sorted(blobs["card1"]) == want, f"wdl step: models "
+          f"{sorted(blobs['card1'])}")
+    check(blobs["card1"] == blobs["card2"],
+          "wdl step: two card runs wrote other model bytes")
+    diffs = []
+    for a, b in zip(specs["card2"], specs["cpu"]):
+        ha, hb = a.header(), b.header()
+        for key in ("trainError", "validError"):
+            diffs.append(abs(ha.pop(key) - hb.pop(key)))
+        check(ha == hb, "wdl step: the CPU model header differs from the "
+              "card's beyond the two errors")
+    check(max(diffs) <= NN_TOL, f"wdl step: the CPU's errors differ from "
+          f"the card's by {max(diffs)} > {NN_TOL}")
+    spec = specs["card2"][0]
+    rows = read_meta(paths.normalized_data_dir()).n_rows
+    sec = secs["card2"]
+    return dict(rows=rows, dense=len(spec.dense_columns),
+                fields=len(spec.cat_columns), vocab=spec.vocab_sizes,
+                hidden=WDL_STEP["hidden"], embed=WDL_STEP["embed"],
+                bagging=WDL_STEP["bagging"], epochs=WDL_STEP["epochs"],
+                norm_seconds=norm_s, seconds=sec, first_seconds=secs["card1"],
+                cpu_seconds=secs["cpu"],
+                member_row_epochs_per_s=(rows * WDL_STEP["epochs"]
+                                         * WDL_STEP["bagging"] / sec),
+                valid_errors=[s.valid_error for s in specs["card2"]],
+                cpu_valid_errors=[s.valid_error for s in specs["cpu"]],
+                max_error_diff_vs_cpu=max(diffs))
+
+
+def wdl_serve(torch, data_dir, data, eval_scores, device="cuda"):
+    """(e) the WDL set through ScoringServer over HTTP (the registry's
+    ModelRunner fallback): held-out rows as JSON records, every request
+    answered 200 with (d)'s scores for the same rows (within the score
+    file's and the response's rounding). A correctness check: a few
+    requests time nothing worth reporting."""
+    import urllib.request
+
+    from shifu_tpu_torch.serve.server import ScoringServer
+
+    srv = ScoringServer(root=os.path.join(data_dir, "wdl-card2"), port=0,
+                        replicas=1, device=device)
+    reg = srv.registry
+    check(not reg.fused and len(reg.model_names) == WDL_STEP["bagging"],
+          "wdl serve: the WDL set was fused or lost models")
+    cols = reg.input_columns
+    check(all(f"cat_{j}" in cols for j in range(RAW["cat"])),
+          f"wdl serve: the record schema lacks the categoricals: {cols}")
+    n, per = WDL_SERVE["rows"], WDL_SERVE["per_request"]
+    recs = [{c: data.raw[c][i] for c in cols} for i in range(n)]
+    srv.start()
+    got, codes = [], []
+    try:
+        for a in range(0, n, per):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.port}/score",
+                data=json.dumps({"records": recs[a:a + per]}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                codes.append(r.status)
+                body = json.loads(r.read())
+            got += [[s["mean"], s["max"], s["min"], s["median"], *s["models"]]
+                    for s in body["scores"]]
+    finally:
+        srv.shutdown(60)
+    check(codes == [200] * len(codes), f"wdl serve: answers {codes}")
+    diff = float(np.abs(np.asarray(got) - eval_scores[:n]).max())
+    # the score file rounds to 3 places, the response to 4; the forwards
+    # ran on batches of other sizes
+    check(diff <= 1e-3, f"wdl serve: scores differ from eval -run's by "
+          f"{diff}")
+    return dict(rows=n, requests=len(codes), columns=len(cols),
+                max_diff_vs_eval=diff)
+
+
+def wdl_convert(torch, data_dir, data, device="cuda"):
+    """(f) `convert -toref` of (c)'s model0.wdl scored through the
+    ModelRunner (a RefModelAdapter) against the native file; -tozip then
+    -tobin of that `.wdl`, phase 9's `.nn` and phase 8's `.rf`
+    byte-identical to the originals; -toeg of the `.nn` scored as EG text
+    with the set's norm plan against the native `.nn`."""
+    from shifu_tpu_torch.compat.adapters import RefModelAdapter
+    from shifu_tpu_torch.config import load_column_config_list
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.eval.scorer import ModelRunner
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    out_dir = os.path.join(data_dir, "convert")
+    os.makedirs(out_dir)
+    roots = {"wdl": os.path.join(data_dir, "wdl-card2"),
+             "nn": os.path.join(data_dir, "nn-card2"),
+             "rf": os.path.join(data_dir, "raw-card2")}
+    src = {k: PathFinder(r).model_path(0, k) for k, r in roots.items()}
+    rows = _rows(data, data.names, 0, CONVERT_ROWS)
+    out = dict(rows=rows.n_rows)
+
+    def scored(path, root, ref_kind=None):
+        paths = PathFinder(root)
+        runner = ModelRunner(
+            [path], device=device,
+            column_configs=load_column_config_list(
+                paths.column_config_path()),
+            model_config=ModelConfig.load(paths.model_config_path()))
+        if ref_kind is not None:
+            check(isinstance(runner.specs[0], RefModelAdapter)
+                  and runner.specs[0].kind == ref_kind,
+                  f"convert: {path} did not load as {ref_kind}")
+        return runner.score_raw(rows).model_scores[:, 0].astype(np.float64)
+
+    for kind, flag, name in (("wdl", "-toref", "model0.wdl"),
+                             ("nn", "-toeg", "model0.nn")):
+        conv = os.path.join(out_dir, name)
+        cli_in(roots[kind], "convert", flag, src[kind], conv)
+        native = scored(src[kind], roots[kind])
+        got = scored(conv, roots[kind],
+                     "ref-wdl" if kind == "wdl" else "eg-nn")
+        rel = float((np.abs(got - native)
+                     / np.maximum(np.abs(native), 1e-3)).max())
+        check(rel <= REF_RTOL, f"convert {flag}: the converted {kind} "
+              f"scores differ from the native by {rel} relative")
+        out[f"{kind}{flag}_max_rel_diff"] = rel
+    for kind, path in src.items():
+        js = os.path.join(out_dir, f"{kind}.json")
+        back = os.path.join(out_dir, f"back.{kind}")
+        cli_in(roots[kind], "convert", "-tozip", path, js)
+        cli_in(roots[kind], "convert", "-tobin", js, back)
+        check(open(back, "rb").read() == open(path, "rb").read(),
+              f"convert: -tozip then -tobin of {path} changed its bytes")
+    out["round_trips_byte_identical"] = sorted(src)
+    return out
+
+
+def phase_wdl(torch, data_dir, seed, device="cuda"):
+    """Phase 13: (a)-(b) the trainer at bench WDL, (c) `shifu train` WDL,
+    (d) posttrain + eval -run, (e) serving, (f) convert."""
+    t0 = time.perf_counter()
+    out = dict(bench=wdl_bench(torch, seed, device))
+    print_wdl("bench", out["bench"])
+    out["step"] = wdl_step(torch, data_dir, device)
+    print_wdl("step", out["step"])
+    base = os.path.join(data_dir, "eval-raw", "data")
+    out["eval"] = eval_one(torch, "wdl", os.path.join(data_dir, "wdl-card2"),
+                           data_dir, os.path.join(base, "data.txt"),
+                           os.path.join(base, "header.txt"),
+                           WDL_STEP["bagging"], device)
+    print_eval("wdl", out["eval"])
+    blob = open(os.path.join(data_dir, "eval-wdl-card2", "evals", EVAL_NAME,
+                             "EvalScore.csv"), "rb").read()
+    data = held_out(data_dir)
+    out["serve"] = wdl_serve(torch, data_dir, data, _score_table(blob)[2],
+                             device)
+    print_wdl("serve", out["serve"])
+    out["convert"] = wdl_convert(torch, data_dir, data, device)
+    print_wdl("convert", out["convert"])
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def print_wdl(part, r):
+    if part == "bench":
+        b = r["bagged"]
+        print(f"wdl: train_wdl bench WDL ({r['rows']} rows, {r['dense']} "
+              f"dense, {r['fields']} fields of vocab {r['vocab']}, embed "
+              f"{r['embed']}, {r['hidden']} relu, {r['epochs']} epochs): "
+              f"{r['seconds']:.4f} s, {r['row_epochs_per_s']:.6g} "
+              f"row-epochs/s (second card run; first {r['first_seconds']:.3f}"
+              f" s), valid error {r['valid_error']:.6f}; two card runs "
+              f"bit-equal; CPU {r['cpu_seconds']:.2f} s, valid error "
+              f"{r['cpu_valid_error']:.6f} (diff "
+              f"{r['valid_error_diff_vs_cpu']:.3g})")
+        print_profile(r)
+        g = r["gather_backward_bit_equal"]
+        print("wdl gathers: backward bit-equal over 3 runs (one field; "
+              f"the 10 stacked): indexing {g['index_field']}; "
+              f"{g['index_stacked']}, embedding {g['embedding_field']}; "
+              f"{g['embedding_stacked']} (the model gathers by indexing on"
+              " the card, by embedding on the CPU)")
+        gd = r["gather_design"]
+        if gd is not None:
+            print("wdl gather design: forward + backward at bench WDL's "
+                  f"shape, one gather a field (10 calls) "
+                  f"{gd['per_field_ms']:.4f} ms, one over the stacked "
+                  f"tables {gd['stacked_ms']:.4f} ms (median of 10)")
+        print(f"wdl bagged: {b['members']} members, {b['seconds']:.4f} s "
+              f"({b['member_row_epochs_per_s']:.6g} member-row-epochs/s; "
+              "second card run), two card runs bit-equal; valid errors "
+              + ", ".join(f"{v:.6f}" for v in b["valid_errors"])
+              + "; train errors "
+              + ", ".join(f"{v:.6f}" for v in b["train_errors"]))
+    elif part == "step":
+        print(f"wdl step: shifu norm + train WDL {r['hidden']} relu, embed "
+              f"{r['embed']}, bagging {r['bagging']}, {r['epochs']} epochs on"
+              f" {r['rows']} rows ({r['dense']} dense, {r['fields']} fields "
+              f"of {max(r['vocab'])} slots at most): norm "
+              f"{r['norm_seconds']:.3f} s, train {r['seconds']:.3f} s "
+              f"({r['member_row_epochs_per_s']:.6g} member-row-epochs/s; "
+              "second card run); model files byte-identical across two card"
+              f" runs; CPU train {r['cpu_seconds']:.2f} s, headers equal but"
+              f" the errors, within {r['max_error_diff_vs_cpu']:.3g}")
+    elif part == "serve":
+        print(f"wdl serve: the WDL set through ScoringServer over HTTP "
+              f"(ModelRunner fallback, {r['columns']} record columns), "
+              f"{r['rows']} held-out rows in {r['requests']} JSON requests, "
+              f"all 200; max |score - eval -run's| {r['max_diff_vs_eval']:.3g}")
+    else:
+        print(f"wdl convert: -toref of model0.wdl scored as ref-wdl on "
+              f"{r['rows']} held-out rows, max relative diff vs native "
+              f"{r['wdl-toref_max_rel_diff']:.3g}; -toeg of phase 9's "
+              f"model0.nn scored as EG text, {r['nn-toeg_max_rel_diff']:.3g};"
+              " -tozip then -tobin byte-identical for "
+              + ", ".join(r["round_trips_byte_identical"]))
+
+
 def run(args) -> int:
     import torch
 
@@ -3426,6 +3942,7 @@ def run(args) -> int:
         sv = phase_serve(torch, data_dir, args.seed)
         gr = phase_growers(torch, hk, tt, ptree, data_dir, gbt, rf,
                            args.seed)
+        wd = phase_wdl(torch, data_dir, args.seed)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     report["gbt"], report["rf"] = g, r
@@ -3435,6 +3952,7 @@ def run(args) -> int:
     report["eval"] = ev
     report["serve"] = sv
     report["growers"] = gr
+    report["wdl"] = wd
     grown = [gr[k]["launches"] for k in ("leafwise_gbt", "leafwise_rf",
                                          "batched_gbt", "batched_rf")]
 

@@ -27,17 +27,19 @@
                                     [--device cpu|cuda]
     python -m shifu_tpu_torch save [VERSION] | switch VERSION | show
     python -m shifu_tpu_torch test [-n N] | analysis | version
+    python -m shifu_tpu_torch convert [-tozip|-tobin|-toref|-toeg|
+                                      -tozipref|-fromref] INPUT [OUTPUT]
 
 run in a model-set directory. The flags follow the JAX subcommands;
 `--device` picks the device (default: the card, an error without one);
-`new`, `export`, `save`, `switch`, `show`, `test`, `analysis` and
-`version` touch no device and take none.
+`new`, `export`, `save`, `switch`, `show`, `test`, `analysis`,
+`convert` and `version` touch no device and take none.
 `normalize` and `varselect` are aliases of `norm` and `varsel`. Exit
 codes follow the JAX CLI: 0 ok, 1 ShifuError (or no card), 2 not
 implemented. Every other lifecycle subcommand exits 2 with the ROADMAP
 item that ports it, and so do the routes of a ported step that wait
-(the streamed norm, trainers and eval, varsel's VOTED filter, WDL and
-reference-format models in eval, serve's `--zoo` and `--traffic-log`).
+(the streamed norm, trainers and eval, varsel's VOTED filter, serve's
+`--zoo` and `--traffic-log`).
 -Dk=v anywhere on the line sets an operational property
 (ShifuCLI.java:430-453).
 """
@@ -57,8 +59,7 @@ log = get_logger("shifu")
 
 # the JAX CLI's other subcommands and the ROADMAP item that ports each
 NOT_PORTED = {
-    "retrain": "A.14", "promote": "A.14",
-    "convert": "A.14 (compat/, after WDL in A.12)", "check": "A.14",
+    "retrain": "A.14", "promote": "A.14", "check": "A.14",
     "trace": "A.14", "top": "A.14", "runs": "A.14", "profile": "A.14",
 }
 
@@ -206,6 +207,22 @@ def build_parser() -> argparse.ArgumentParser:
     p_switch.add_argument("version")
     sub.add_parser("show", help="show model-set versions")
     sub.add_parser("version", help="print version")
+    p_convert = sub.add_parser("convert", help="convert model spec formats")
+    p_convert.add_argument("-tozip", action="store_true")
+    p_convert.add_argument("-tobin", action="store_true")
+    p_convert.add_argument("-toref", action="store_true",
+                           help="export to the reference's binary spec "
+                                "(EGB .nn / BinaryDTSerializer .gbt/.rf / "
+                                "BinaryWDLSerializer .wdl)")
+    p_convert.add_argument("-toeg", action="store_true",
+                           help="export an NN model to Encog EG text")
+    p_convert.add_argument("-tozipref", action="store_true",
+                           help="export a tree model to the reference zip "
+                                "spec")
+    p_convert.add_argument("-fromref", action="store_true",
+                           help="load a reference spec and report its kind")
+    p_convert.add_argument("input", nargs="?")
+    p_convert.add_argument("output", nargs="?")
     for name in NOT_PORTED:
         p = sub.add_parser(name, help=f"not ported yet (ROADMAP "
                                       f"{NOT_PORTED[name]})")
@@ -312,6 +329,10 @@ def dispatch(args: argparse.Namespace) -> int:
         from shifu_tpu_torch.processor.analysis import AnalysisProcessor
 
         return AnalysisProcessor().run()
+    if cmd == "convert":
+        from shifu_tpu_torch.processor.convert import ConvertProcessor
+
+        return ConvertProcessor.from_args(args).run()
     if cmd in ("save", "switch", "show"):
         from shifu_tpu_torch.processor.manage import ManageProcessor
 

@@ -4,15 +4,15 @@
 Parity: core/Scorer.java:53 (per-model dispatch, DEFAULT_SCORE_SCALE=1000,
 Scorer.java:56), core/ModelRunner.java:54 (header map -> per-model scores,
 mean/max/min/median aggregation). Models are loaded once; the raw eval
-dataset is normalized with each model's embedded norm plan (NN/LR) or binned
-by its embedded boundaries (trees), and each model scores the batch in one
-forward or traversal on `device`. The scale and the aggregates are numpy on
-the host over the f32 score matrix, as in the JAX package: `np.median`
-averages the two middle values of an even count (`torch.median` takes the
-lower one) and `np.mean` of f32 is numpy's pairwise sum.
-
-What waits: `.wdl` models (ROADMAP A.12) and reference-format files (Encog
-text, the Java gzip streams, zip specs: A.14) raise naming the item.
+dataset is normalized with each model's embedded norm plan (NN/LR, WDL's
+dense part), binned by its embedded boundaries (trees) or coded by its
+embedded categories (WDL), and each model scores the batch in one forward
+or traversal on `device`. Reference-format files (Encog EG text, the Java
+binary serializers, zip specs) score through `compat.adapters`. The scale
+and the aggregates are numpy on the host over the f32 score matrix, as
+in the JAX package: `np.median` averages the two middle values of an
+even count (`torch.median` takes the lower one) and `np.mean` of f32 is
+numpy's pairwise sum.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import re
 import time
 import weakref
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -66,23 +66,21 @@ def find_model_paths(models_dir: str) -> List[str]:
     return sorted(out, key=key)
 
 
-def _reference_format(head: bytes) -> bool:
-    """The magic bytes the JAX `compat.sniff_model_format` reads as a
-    reference-format model: Encog EG text, a gzip Java stream, a zip."""
-    return head[:6] == b"encog," or head[:2] in (b"\x1f\x8b", b"PK")
-
-
-def load_model(path: str):
+def load_model(path: str, column_configs=None, model_config=None,
+               device: DeviceLike = None):
     """Dispatch on extension to the model spec (NNModelSpec for .nn/.lr,
-    TreeModelSpec for .gbt/.rf). A reference-format file is sniffed by its
-    magic bytes first, as the JAX package does, so it is never misread as
-    `STNN`/`STDT`."""
-    with open(path, "rb") as fh:
-        head = fh.read(8)
-    if _reference_format(head):
-        raise NotImplementedError(
-            f"{path}: reference-format models (Encog, the Java binary "
-            "serializers, zip specs) are not ported yet: ROADMAP A.14")
+    TreeModelSpec for .gbt/.rf, WDLModelSpec for .wdl). Reference-format
+    files (Encog EG text, BinaryNNSerializer gzip, BinaryDTSerializer,
+    zip spec) are sniffed by magic bytes first and wrapped in a
+    RefModelAdapter on `device` (ModelSpecLoaderUtils.java:389 parity:
+    one models/ dir can mix native and reference specs); an EG `.nn`
+    normalizes with the plan of `column_configs` and `model_config`."""
+    from shifu_tpu_torch.compat.adapters import load_ref_model
+
+    adapter = load_ref_model(path, column_configs, model_config,
+                             device=device)
+    if adapter is not None:
+        return adapter
     suffix = os.path.splitext(path)[1]
     if suffix in (".nn", ".lr"):
         from shifu_tpu_torch.models.nn import NNModelSpec
@@ -93,8 +91,9 @@ def load_model(path: str):
 
         return TreeModelSpec.load(path)
     if suffix == ".wdl":
-        raise NotImplementedError(
-            f"{path}: WDL scoring is not ported yet: ROADMAP A.12")
+        from shifu_tpu_torch.models.wdl import WDLModelSpec
+
+        return WDLModelSpec.load(path)
     raise ValueError(f"unknown model type: {path}")
 
 
@@ -124,12 +123,14 @@ class ModelRunner:
 
     def __init__(self, model_paths: List[str],
                  scale: float = DEFAULT_SCORE_SCALE,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, column_configs=None,
+                 model_config=None):
         if not model_paths:
             raise ValueError("no models to score with")
         self.device = resolve_device(device)
         self.paths = model_paths
-        self.specs = [load_model(p) for p in model_paths]
+        self.specs = [load_model(p, column_configs, model_config,
+                                 device=self.device) for p in model_paths]
         # independent scorers are made once, with their weights on device
         self.models = [self._independent(spec) for spec in self.specs]
         self.scale = scale
@@ -159,8 +160,11 @@ class ModelRunner:
                 self._cached_data_ref = None
 
     def _independent(self, spec):
+        from shifu_tpu_torch.compat.adapters import RefModelAdapter
         from shifu_tpu_torch.models.nn import IndependentNNModel, NNModelSpec
 
+        if isinstance(spec, RefModelAdapter):
+            return spec
         if isinstance(spec, NNModelSpec):
             return IndependentNNModel(spec, device=self.device)
         return spec.independent(device=self.device)
@@ -186,6 +190,21 @@ class ModelRunner:
         self._add("normalize", time.perf_counter() - t0)
         self._norm_cache[key] = mat
         return mat
+
+    def _wdl_codes(self, spec, data: ColumnarData) -> np.ndarray:
+        """Categorical index matrix for a WDL model, cached per batch like
+        tree codes."""
+        from shifu_tpu_torch.models.wdl import wdl_codes
+
+        key = json.dumps(["wdl", spec.cat_columns, spec.categories],
+                         sort_keys=True)
+        if key in self._codes_cache:
+            return self._codes_cache[key]
+        t0 = time.perf_counter()
+        codes = wdl_codes(spec, data)
+        self._add("codes", time.perf_counter() - t0)
+        self._codes_cache[key] = codes
+        return codes
 
     def _tree_codes(self, spec, model, data: ColumnarData) -> np.ndarray:
         """Bin codes per tree model, cached by the model's own binning
@@ -222,18 +241,28 @@ class ModelRunner:
         return out
 
     def score_raw(self, data: ColumnarData) -> ScoreResult:
-        """Score raw records. NN/LR models normalize via their embedded
-        plan; tree models bin via their embedded boundaries/categories
-        (EvalScoreUDF loads models once, then scores row batches)."""
+        """Score raw records. NN/LR/WDL models normalize via their embedded
+        plan; tree models bin via their embedded boundaries/categories,
+        WDL codes via its categories (EvalScoreUDF loads models once, then
+        scores row batches)."""
+        from shifu_tpu_torch.compat.adapters import RefModelAdapter
         from shifu_tpu_torch.models.tree import TreeModelSpec
+        from shifu_tpu_torch.models.wdl import WDLModelSpec
 
         self.timings = {}
         self._check_batch(data)
         cols = []
         for spec, model in zip(self.specs, self.models):
-            if isinstance(spec, TreeModelSpec):
+            if isinstance(spec, RefModelAdapter):
+                cols.append(self._forward(spec.score_raw, data) * self.scale)
+            elif isinstance(spec, TreeModelSpec):
                 codes = self._tree_codes(spec, model, data)
                 cols.append(self._forward(model.compute, codes) * self.scale)
+            elif isinstance(spec, WDLModelSpec):
+                dense = self._normalized_input(spec, data)
+                wcodes = self._wdl_codes(spec, data)
+                cols.append(self._forward(model.compute_parts, dense, wcodes)
+                            * self.scale)
             else:
                 x = self._normalized_input(spec, data)
                 cols.append(self._nn_scores(spec, model, x))
@@ -246,15 +275,46 @@ class ModelRunner:
         return self._forward(model.compute, x) * self.scale
 
     def score_normalized(self, feats: np.ndarray) -> ScoreResult:
+        from shifu_tpu_torch.compat.adapters import RefModelAdapter
         from shifu_tpu_torch.models.nn import NNModelSpec
+        from shifu_tpu_torch.models.wdl import WDLModelSpec
 
         self.timings = {}
         cols = []
         for spec, m in zip(self.specs, self.models):
-            if isinstance(spec, NNModelSpec):
+            if isinstance(spec, WDLModelSpec):
+                raise ValueError(
+                    "a WDL model reads dense columns and categorical "
+                    "codes, not one normalized matrix: use score_wdl")
+            if isinstance(m, RefModelAdapter):
+                cols.append(self._forward(m.score_normalized, feats)
+                            * self.scale)
+            elif isinstance(spec, NNModelSpec):
                 cols.append(self._nn_scores(spec, m, feats))
             else:
                 cols.append(self._forward(m.compute, feats) * self.scale)
+        return self._aggregate(cols)
+
+    def score_wdl(self, feats: np.ndarray, feat_columns: Sequence[str],
+                  codes: np.ndarray, code_columns: Sequence[str]
+                  ) -> ScoreResult:
+        """Score a WDL set on prepared data, as training read it: each
+        model's dense columns by name from `feats` (NormalizedData, its
+        columns `feat_columns`), its categorical codes by name from
+        `codes` (CleanedData, its columns `code_columns`)."""
+        from shifu_tpu_torch.models.wdl import WDLModelSpec
+
+        self.timings = {}
+        feat_at = {c: i for i, c in enumerate(feat_columns)}
+        code_at = {c: i for i, c in enumerate(code_columns)}
+        cols = []
+        for spec, model, path in zip(self.specs, self.models, self.paths):
+            if not isinstance(spec, WDLModelSpec):
+                raise ValueError(f"{path} is not a WDL model")
+            dense = feats[:, [feat_at[c] for c in spec.dense_columns]]
+            wcodes = codes[:, [code_at[c] for c in spec.cat_columns]]
+            cols.append(self._forward(model.compute_parts, dense, wcodes)
+                        * self.scale)
         return self._aggregate(cols)
 
     def _aggregate(self, cols: List[np.ndarray]) -> ScoreResult:

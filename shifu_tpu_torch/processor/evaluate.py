@@ -246,7 +246,9 @@ class EvalProcessor(BasicProcessor):
         data, tags, weights = self._load_eval_data(ec)
         t1 = time.perf_counter()
         self._add("read", t1 - t0)
-        runner = ModelRunner(paths, device=self.device)
+        runner = ModelRunner(paths, device=self.device,
+                             column_configs=self.column_configs,
+                             model_config=self.model_config)
         if data.n_rows:
             result = runner.score_raw(data)
             for k, v in runner.timings.items():

@@ -7,10 +7,14 @@ written back into ColumnConfig, :187-192), plus a feature-importance report
 (FeatureImportanceMapper/Reducer). FI here: tree models use split-based
 importance; NN/LR use SE knockout sensitivity.
 
-The models score the training set's CleanedData (trees) or NormalizedData
-(NN) on the device; the per-bin sums are f64 on the host in row order, as
+The models score the training set's CleanedData (trees), NormalizedData
+(NN) or both (WDL: the dense columns of NormalizedData, the codes of
+CleanedData) on the device; the per-bin sums are f64 on the host in row order, as
 the JAX package's `np.add.at` sums them, so two runs give the same bytes
 (an `index_add_` on the card sums in an order that changes between runs).
+A WDL set scores as eval scores it; the JAX step raises on one, since
+its `IndependentWDLModel.compute` takes no normalized matrix (ROADMAP
+C.11).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ class PostTrainProcessor(BasicProcessor):
         self.setup()
         from shifu_tpu_torch.eval.scorer import ModelRunner, find_model_paths
         from shifu_tpu_torch.models.tree import TreeModelSpec
+        from shifu_tpu_torch.models.wdl import WDLModelSpec
 
         self.timings = t = {}
         model_paths = find_model_paths(self.paths.models_dir())
@@ -56,15 +61,20 @@ class PostTrainProcessor(BasicProcessor):
 
         t0 = time.perf_counter()
         cmeta, codes, tags, _weights = load_codes(codes_dir)
-        _, feats, _, _ = load_normalized(norm_dir)
+        nmeta, feats, _, _ = load_normalized(norm_dir)
         codes = np.asarray(codes)
-        runner = ModelRunner(model_paths, device=self.device)
+        runner = ModelRunner(model_paths, device=self.device,
+                             column_configs=self.column_configs,
+                             model_config=self.model_config)
         t1 = time.perf_counter()
         t["load"] = t1 - t0
         if all(isinstance(s, TreeModelSpec) for s in runner.specs):
             scores = np.stack(
                 [m.compute(codes) * runner.scale for m in runner.models],
                 axis=1).mean(axis=1)
+        elif all(isinstance(s, WDLModelSpec) for s in runner.specs):
+            scores = runner.score_wdl(feats, nmeta.columns, codes,
+                                      cmeta.columns).mean
         else:
             scores = runner.score_normalized(
                 np.asarray(feats, np.float32)).mean

@@ -3,10 +3,10 @@
 Parity: core/processor/TrainModelProcessor.java:105 — per-algorithm
 dispatch, bagging, k-fold, grid search, continuous training, model-file
 suffixes, progress and val-error files. The port trains the tree family
-(GBT, RF, DT) and NN/LR/SVM in memory on one device; bagging members,
-ONEVSALL classes, k-fold folds and grid trials of one program signature
-train together on the NN trainer's member axis. WDL, the streamed
-(larger-than-memory) NN route and the co-resident route raise
+(GBT, RF, DT), NN/LR/SVM and WDL in memory on one device; bagging
+members, ONEVSALL classes, k-fold folds and grid trials of one program
+signature train together on a trainer's member axis. The streamed
+(larger-than-memory) routes and the co-resident route raise
 NotImplementedError until their slices land.
 """
 
@@ -61,8 +61,9 @@ class TrainProcessor(BasicProcessor):
         elif alg in (Algorithm.GBT, Algorithm.RF, Algorithm.DT):
             self._train_tree_family(alg)
         elif alg == Algorithm.WDL:
-            raise NotImplementedError(
-                "WDL training is not ported yet: ROADMAP A.12")
+            from shifu_tpu_torch.processor.train_wdl import train_wdl_models
+
+            train_wdl_models(self)
         else:
             raise ShifuError(
                 ErrorCode.INVALID_MODEL_CONFIG, f"algorithm {alg.value} not supported"

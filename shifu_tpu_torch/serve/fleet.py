@@ -293,7 +293,8 @@ class ReplicaFleet:
               max_restarts: Optional[int] = None,
               deadline_ms: Optional[float] = None,
               batching: Optional[str] = None,
-              drift=None) -> "ReplicaFleet":
+              drift=None, column_configs=None,
+              model_config=None) -> "ReplicaFleet":
         """One replica per card (see `replica_devices`), each with the
         model set on its own device. `device=None` is the card."""
         if drift is not None:
@@ -303,7 +304,9 @@ class ReplicaFleet:
         replicas: List[ScoringReplica] = []
         try:
             for i, dev in enumerate(devices):
-                reg = ModelRegistry(models_dir, scale=scale, device=dev)
+                reg = ModelRegistry(models_dir, scale=scale, device=dev,
+                                    column_configs=column_configs,
+                                    model_config=model_config)
                 replicas.append(ScoringReplica(
                     reg, index=i, queue_depth=queue_depth,
                     max_batch_rows=max_batch_rows,

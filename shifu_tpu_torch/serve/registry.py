@@ -30,14 +30,20 @@ Batches pad to power-of-two row buckets (at least 8 rows), so a
 deployment sees O(log max_batch_rows) shapes; `warm()` runs the buckets
 it expects once.
 
-Sets with a tree spec fall back to the port's `ModelRunner` (`fused` is
-False); a `.wdl` raises naming ROADMAP A.12 (eval/scorer.py `load_model`).
-What waits for ROADMAP A.14: the drift fold (`drift=` raises) and the
-model zoo's seams (put/cost hooks, memory analysis, release).
+Sets with a tree, WDL or reference-format spec fall back to the port's
+`ModelRunner` (`fused` is False); `column_configs` and `model_config`
+give an Encog EG-text `.nn` its norm plan, as in the runner. Their
+record schema holds every raw column a model reads, a WDL model's
+categorical columns and a reference model's columns included (the JAX
+registry leaves those out, so its `score_records` fails on a WDL set:
+ROADMAP C.10). What waits for ROADMAP A.14: the drift fold
+(`drift=` raises) and the model zoo's seams (put/cost hooks, memory
+analysis, release).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -258,7 +264,8 @@ class ModelRegistry:
     def __init__(self, models_dir: str,
                  scale: float = DEFAULT_SCORE_SCALE,
                  device: DeviceLike = None,
-                 drift=None) -> None:
+                 drift=None, column_configs=None,
+                 model_config=None) -> None:
         if drift is not None:
             raise NotImplementedError(
                 "the serving drift monitor (loop/drift.py) is not ported "
@@ -271,7 +278,8 @@ class ModelRegistry:
         self.sha = model_set_sha(self.paths)
         self.scale = float(scale)
         self.model_names = [os.path.basename(p) for p in self.paths]
-        self.specs = [load_model(p) for p in self.paths]
+        self.specs = [load_model(p, column_configs, model_config,
+                                 device=self.device) for p in self.paths]
         self.fused = self._fusable()
         self.weights_bytes = 0
         self.timings: Dict[str, float] = {}
@@ -286,7 +294,9 @@ class ModelRegistry:
             self._build_fused()
         else:
             self._runner = ModelRunner(self.paths, scale=scale,
-                                       device=self.device)
+                                       device=self.device,
+                                       column_configs=column_configs,
+                                       model_config=model_config)
             self.weights_bytes = sum(
                 int(a.nbytes) for s in self.specs
                 for a in _arrays(vars(s)))
@@ -383,10 +393,11 @@ class ModelRegistry:
                         seen.append(s.cc.column_name)
             return seen
         for spec in self.specs:
-            for cd in getattr(spec, "norm_specs", None) or []:
-                if cd["name"] not in seen:
-                    seen.append(cd["name"])
-            for name in getattr(spec, "input_columns", None) or []:
+            names = [cd["name"] for cd in getattr(spec, "norm_specs", None)
+                     or []]
+            names += getattr(spec, "input_columns", None) or []
+            names += getattr(spec, "cat_columns", None) or []
+            for name in names:
                 if name not in seen:
                     seen.append(name)
         return seen
@@ -518,9 +529,12 @@ def _aggregates(m: torch.Tensor) -> List[torch.Tensor]:
 
 
 def _arrays(obj) -> List[np.ndarray]:
-    """Every numpy array reachable under `obj` (lists, tuples, dicts)."""
+    """Every numpy array reachable under `obj` (lists, tuples, dicts,
+    dataclass fields such as a WDL spec's params)."""
     if isinstance(obj, np.ndarray):
         return [obj]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return _arrays(vars(obj))
     if isinstance(obj, dict):
         return [a for v in obj.values() for a in _arrays(v)]
     if isinstance(obj, (list, tuple)):

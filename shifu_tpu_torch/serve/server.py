@@ -167,6 +167,28 @@ def _all_objects(records: List) -> List[dict]:
     return records
 
 
+def load_set_configs(root: str):
+    """(column configs, model config) of the model set at `root`, each
+    None where its file is absent or malformed: serving degrades to
+    plain scoring, never to a failed start."""
+    from shifu_tpu_torch.config import ModelConfig, load_column_config_list
+
+    ccs = mc = None
+    cc_path = os.path.join(root, "ColumnConfig.json")
+    mc_path = os.path.join(root, "ModelConfig.json")
+    try:
+        if os.path.isfile(cc_path):
+            ccs = load_column_config_list(cc_path)
+    except Exception as e:  # a malformed config degrades, never kills
+        log.warning("cannot load %s (%s)", cc_path, e)
+    try:
+        if os.path.isfile(mc_path):
+            mc = ModelConfig.load(mc_path)
+    except Exception as e:  # a malformed config degrades, never kills
+        log.warning("cannot load %s (%s)", mc_path, e)
+    return ccs, mc
+
+
 class _HTTPServer(ThreadingHTTPServer):
     # the listen backlog: socketserver's default of 5 drops the SYNs of a
     # burst of new connections, which then wait a second to retry
@@ -186,17 +208,27 @@ class ScoringServer:
                  replicas: Optional[int] = None,
                  batching: Optional[str] = None,
                  device: DeviceLike = None,
+                 column_configs=None, model_config=None,
                  zoo: Optional[dict] = None) -> None:
         if zoo:
             raise NotImplementedError(
                 "the multi-tenant model zoo (serve/zoo.py) is not ported "
                 "yet: " + _WAITS)
         self.root = os.path.abspath(root)
+        # the set's configs give an Encog EG-text model its norm plan; a
+        # models_dir outside a model set still serves without them
+        if column_configs is None or model_config is None:
+            ccs, mc = load_set_configs(self.root)
+            column_configs = column_configs or ccs
+            model_config = model_config or mc
+        self.column_configs = column_configs
+        self.model_config = model_config
         self.registry = ReplicaFleet.build(
             models_dir or os.path.join(self.root, "models"),
             n_replicas=replicas, device=device, queue_depth=queue_depth,
             max_batch_rows=max_batch_rows, max_wait_ms=max_wait_ms,
-            batching=batching)
+            batching=batching, column_configs=column_configs,
+            model_config=model_config)
         self.scorer = Scorer(fleet=self.registry)
         self.started_at = time.time()
         self._serve_thread: Optional[threading.Thread] = None

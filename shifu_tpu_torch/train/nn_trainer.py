@@ -476,22 +476,25 @@ def _train_members(cfg: NNTrainConfig, shapes, flat0s: List[np.ndarray],
     m, n_flat = flat0.shape
     c = _Members(flat0, loop.init_state(m, n_flat, dev),
                  torch.as_tensor(np.asarray(lrs, np.float32), device=dev))
-    max_iters = cfg.num_epochs
-    every = cfg.checkpoint_every
-    if every and every > 0:
-        # segmented run: progress + checkpoints between segments
-        # (NNOutput.postIteration:158)
-        e = 0
-        while e < max_iters:
-            limit = min(e + every, max_iters)
-            e = loop.run(c, e, limit)
-            if report is not None:
-                report(c)
-            if e >= max_iters or bool(c.halt.all()):
-                break
-    else:
-        loop.run(c, 0, max_iters)
+    run_segments(loop, c, cfg.num_epochs, cfg.checkpoint_every, report)
     return c
+
+
+def run_segments(loop, c: _Members, epochs: int, every: int,
+                 report: Optional[Callable[[_Members], None]]) -> None:
+    """`loop.run` over `epochs` epochs; with `every` > 0 in segments of
+    that many, `report(c)` after each (progress and checkpoints between
+    segments, NNOutput.postIteration:158)."""
+    if not (every and every > 0):
+        loop.run(c, 0, epochs)
+        return
+    e = 0
+    while e < epochs:
+        e = loop.run(c, e, min(e + every, epochs))
+        if report is not None:
+            report(c)
+        if e >= epochs or bool(c.halt.all()):
+            break
 
 
 def _layer_sizes(d: int, cfg: NNTrainConfig) -> List[int]:

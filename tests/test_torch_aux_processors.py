@@ -310,19 +310,35 @@ def _subcommands(parser):
     raise AssertionError("no subcommands")
 
 
+def _subcommand_flags(parser, name):
+    import argparse
+
+    for action in parser._actions:
+        if isinstance(action, argparse._SubParsersAction):
+            return {(tuple(a.option_strings), a.dest, a.nargs)
+                    for a in action.choices[name]._actions}
+    raise AssertionError("no subcommands")
+
+
 def test_cli_subcommands_cover_jax_cli(capsys):
     """C.7: the port's subcommands (aliases included) are the JAX CLI's;
     each one still waiting exits 2 naming its ROADMAP item."""
     jax_cmds = _subcommands(jcli.build_parser())
     port_cmds = _subcommands(cli.build_parser())
     assert port_cmds == jax_cmds
-    assert set(cli.NOT_PORTED) == {"retrain", "promote", "convert", "check",
+    assert set(cli.NOT_PORTED) == {"retrain", "promote", "check",
                                    "trace", "top", "runs", "profile"}
     for name, item in cli.NOT_PORTED.items():
         assert item.startswith("A.14")
         assert cli.main([name]) == 2
         assert f"ROADMAP {item}" in capsys.readouterr().err
-    assert "A.12" in cli.NOT_PORTED["convert"]
+    # `convert` is ported (A.12 and A.14's compat part), with the JAX
+    # CLI's flags; without an input it is a ShifuError, not exit 2
+    assert "convert" not in cli.NOT_PORTED
+    assert (_subcommand_flags(cli.build_parser(), "convert")
+            == _subcommand_flags(jcli.build_parser(), "convert"))
+    assert cli.main(["convert"]) == 1
+    assert "needs an input model path" in capsys.readouterr().err
     assert cli.main(["version"]) == 0
     assert capsys.readouterr().out.strip() == "0.1.0"
 

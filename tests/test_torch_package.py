@@ -19,6 +19,10 @@ MODULES = [
     "shifu_tpu_torch.config", "shifu_tpu_torch.config.column_config",
     "shifu_tpu_torch.config.inspector", "shifu_tpu_torch.config.jsonbase",
     "shifu_tpu_torch.config.meta", "shifu_tpu_torch.config.model_config",
+    "shifu_tpu_torch.compat", "shifu_tpu_torch.compat.adapters",
+    "shifu_tpu_torch.compat.egb", "shifu_tpu_torch.compat.encog",
+    "shifu_tpu_torch.compat.javaio", "shifu_tpu_torch.compat.treespec",
+    "shifu_tpu_torch.compat.wdl",
     "shifu_tpu_torch.convert", "shifu_tpu_torch.data.purify",
     "shifu_tpu_torch.eval.gainchart", "shifu_tpu_torch.eval.metrics",
     "shifu_tpu_torch.eval.multiclass", "shifu_tpu_torch.eval.reasoner",
@@ -27,11 +31,12 @@ MODULES = [
     "shifu_tpu_torch.data.reader", "shifu_tpu_torch.data.stream",
     "shifu_tpu_torch.data.tokens", "shifu_tpu_torch.fs.listing",
     "shifu_tpu_torch.fs.pathfinder", "shifu_tpu_torch.models.nn",
-    "shifu_tpu_torch.models.tree",
+    "shifu_tpu_torch.models.tree", "shifu_tpu_torch.models.wdl",
     "shifu_tpu_torch.norm.dataset", "shifu_tpu_torch.norm.normalizer",
     "shifu_tpu_torch.ops.binagg", "shifu_tpu_torch.ops.build",
     "shifu_tpu_torch.ops.hist_kernel", "shifu_tpu_torch.processor.analysis",
     "shifu_tpu_torch.processor.basic", "shifu_tpu_torch.processor.combo",
+    "shifu_tpu_torch.processor.convert",
     "shifu_tpu_torch.processor.create", "shifu_tpu_torch.processor.encode",
     "shifu_tpu_torch.processor.evaluate",
     "shifu_tpu_torch.processor.export", "shifu_tpu_torch.processor.manage",
@@ -42,6 +47,7 @@ MODULES = [
     "shifu_tpu_torch.processor.train",
     "shifu_tpu_torch.processor.train_common",
     "shifu_tpu_torch.processor.train_tree",
+    "shifu_tpu_torch.processor.train_wdl",
     "shifu_tpu_torch.resilience.checkpoint", "shifu_tpu_torch.serve",
     "shifu_tpu_torch.serve.batcher", "shifu_tpu_torch.serve.fleet",
     "shifu_tpu_torch.serve.health", "shifu_tpu_torch.serve.queue",
@@ -53,6 +59,7 @@ MODULES = [
     "shifu_tpu_torch.stats.sketch", "shifu_tpu_torch.train.grid_search",
     "shifu_tpu_torch.train.nn_trainer", "shifu_tpu_torch.train.streaming",
     "shifu_tpu_torch.train.tree_trainer", "shifu_tpu_torch.train.updaters",
+    "shifu_tpu_torch.train.wdl_trainer",
     "shifu_tpu_torch.utils.environment", "shifu_tpu_torch.utils.errors",
     "shifu_tpu_torch.utils.log", "shifu_tpu_torch.utils.platform",
     "shifu_tpu_torch.varsel.importance", "shifu_tpu_torch.varsel.selector",

@@ -9,7 +9,9 @@
   (the mean of the two middle values).
 * The per-batch caches invalidate by weakref identity, as
   `tests/test_eval.py` pins for the JAX runner.
-* `.wdl` models raise naming ROADMAP A.12, reference-format files A.14.
+* A `.wdl` beside `.nn` models and an Encog EG text `.nn` score as in the
+  JAX package (the port raised naming ROADMAP A.12 and A.14 on them
+  before they were ported); files neither package can score raise alike.
 * The score-file reader against `pd.read_csv(path, sep="|")` on a JAX
   score file (meta and reason columns, invalid tags), bit for bit.
 """
@@ -208,23 +210,115 @@ def test_batch_cache_survives_address_reuse(tmp_path):
 
 
 def test_unported_model_kinds_raise(mixed, tmp_path):
+    """Files the port cannot score raise as the JAX package's loader
+    does: a `.nn` under a `.wdl` name, a file with a reference magic but
+    no body, an unknown extension, an empty set. (Before they were
+    ported, `.wdl` raised naming ROADMAP A.12 and reference formats
+    A.14; they score now: test_wdl_and_eg_text_models_score_like_jax.)"""
     nn = os.path.join(mixed, "models", "model0.nn")
-    wdl = str(tmp_path / "model0.wdl")
-    shutil.copy(nn, wdl)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        pscorer.load_model(wdl)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        pscorer.ModelRunner([nn, wdl], device="cpu")
+    bad = str(tmp_path / "bad.wdl")
+    shutil.copy(nn, bad)
+    for load in (pscorer.load_model, jscorer.load_model):
+        with pytest.raises(ValueError, match="wdl"):
+            load(bad)
     for i, head in enumerate((b"encog,BasicNetwork,java,3.0.0\n",
                               b"\x1f\x8b\x08\x00rest", b"PK\x03\x04rest")):
         for suffix in ("nn", "rf"):
-            path = str(tmp_path / f"model{i}.{suffix}")
+            path = str(tmp_path / f"junk{i}.{suffix}")
             with open(path, "wb") as fh:
                 fh.write(head + b"\x00" * 16)
-            with pytest.raises(NotImplementedError, match="A.14"):
+            with pytest.raises(Exception) as jerr:
+                jscorer.load_model(path)
+            with pytest.raises(jerr.type):
                 pscorer.load_model(path)
+    other = str(tmp_path / "model0.tf")
+    shutil.copy(nn, other)
+    for load in (pscorer.load_model, jscorer.load_model):
+        with pytest.raises(ValueError, match="unknown model type"):
+            load(other)
     with pytest.raises(ValueError, match="no models"):
         pscorer.ModelRunner([], device="cpu")
+
+
+def test_wdl_and_eg_text_models_score_like_jax(mixed, tmp_path):
+    """A `.wdl` beside the `.nn` models, and the `.nn` written as Encog
+    EG text (normalized with the set's ColumnConfig plan), score as in
+    the JAX package. `score_wdl` on the WDL model's dense columns and
+    codes, taken by name (a column-major selection), gives `score_raw`'s
+    bits; `score_normalized` refuses a WDL model."""
+    from shifu_tpu.compat.adapters import nn_spec_to_eg_bytes as jeg
+    from shifu_tpu.config import load_column_config_list as jload_cc
+    from shifu_tpu_torch.compat.adapters import RefModelAdapter
+    from shifu_tpu_torch.config import load_column_config_list
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.models import nn as pnn
+    from shifu_tpu_torch.models import wdl as pwdl
+
+    nn = os.path.join(mixed, "models", "model0.nn")
+    # a WDL model over the set's value columns and its two categoricals
+    nspec = pnn.NNModelSpec.load(nn)
+    dense = [cd for cd in nspec.norm_specs if cd["kind"] == "value"][:4]
+    ccs = {c["columnName"]: c for c in json.load(
+        open(os.path.join(mixed, "ColumnConfig.json")))}
+    cats = ["cat_0", "cat_1"]
+    categories = [ccs[c]["columnBinning"]["binCategory"] for c in cats]
+    vocab = [len(c) + 1 for c in categories]
+    p = pwdl.init_wdl_params(len(dense), vocab, 3, [6], seed=4)
+    flat = pwdl.flatten_wdl(p)
+    flat = flat + np.random.default_rng(4).normal(
+        scale=0.3, size=flat.size).astype(np.float32)
+    wdl = str(tmp_path / "model1.wdl")
+    pwdl.WDLModelSpec(
+        hidden=[6], activations=["tanh"], embed_dim=3,
+        dense_columns=[cd["name"] for cd in dense], cat_columns=cats,
+        vocab_sizes=vocab, norm_specs=dense, categories=categories,
+        norm_type=nspec.norm_type,
+        params=pwdl.unflatten_wdl(flat.astype(np.float32), p)).save(wdl)
+    assert isinstance(pscorer.load_model(wdl), pwdl.WDLModelSpec)
+    want = jscorer.ModelRunner([nn, wdl]).score_raw(_read(jreader, mixed))
+    runner = pscorer.ModelRunner([nn, wdl], device="cpu")
+    got = runner.score_raw(_read(preader, mixed))
+    np.testing.assert_allclose(got.model_scores, want.model_scores,
+                               rtol=NN_RTOL)
+    assert isinstance(runner.specs[1], pwdl.WDLModelSpec)
+    assert "codes" in runner.timings
+    # score_wdl on prepared columns, as posttrain reads them
+    only = pscorer.ModelRunner([wdl], device="cpu")
+    data = _read(preader, mixed)
+    spec = only.specs[0]
+    feats = only._normalized_input(spec, data)
+    codes = only._wdl_codes(spec, data)
+    by_name = only.score_wdl(feats[:, ::-1], spec.dense_columns[::-1],
+                             codes, spec.cat_columns)
+    np.testing.assert_array_equal(by_name.model_scores,
+                                  only.score_raw(data).model_scores)
+    with pytest.raises(ValueError, match="score_wdl"):
+        only.score_normalized(feats)
+    # the `.nn` as Encog EG text, normalized by the set's own plan
+    eg = str(tmp_path / "model0.nn")
+    with open(eg, "wb") as fh:
+        fh.write(jeg(_jax_nn_spec(nn)))
+    mc_path = os.path.join(mixed, "ModelConfig.json")
+    cc_path = os.path.join(mixed, "ColumnConfig.json")
+    want = jscorer.ModelRunner(
+        [eg], column_configs=jload_cc(cc_path),
+        model_config=JModelConfig.load(mc_path)).score_raw(
+            _read(jreader, mixed))
+    runner = pscorer.ModelRunner(
+        [eg], device="cpu", column_configs=load_column_config_list(cc_path),
+        model_config=ModelConfig.load(mc_path))
+    assert isinstance(runner.specs[0], RefModelAdapter)
+    assert runner.specs[0].kind == "eg-nn"
+    got = runner.score_raw(_read(preader, mixed))
+    np.testing.assert_allclose(got.model_scores, want.model_scores,
+                               rtol=NN_RTOL)
+
+
+def _jax_nn_spec(path):
+    """The JAX package's NNModelSpec of `path` (the EG writer's input)."""
+    from shifu_tpu.models.nn import NNModelSpec
+
+    return NNModelSpec.load(path)
 
 
 def test_score_file_reader_matches_read_csv(mixed, tmp_path):

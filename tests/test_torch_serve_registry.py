@@ -375,12 +375,47 @@ def test_sha_tracks_content(sets, tmp_path):
 
 
 def test_what_waits_raises(sets, tmp_path):
+    """A `.wdl` set (the registry raised naming A.12 before WDL was
+    ported) is served through the ModelRunner fallback: its schema holds
+    the categorical columns, its scores are the port runner's bit for
+    bit and the JAX runner's within ATOL. The JAX registry leaves the
+    categorical columns out of its schema and fails on the same records
+    (ROADMAP C.10). What waits for A.14 (`drift=`) still raises."""
+    from shifu_tpu_torch.models import wdl as pwdl
+    from tests.test_torch_serve import CATS, NUM, records
+
     d = str(tmp_path / "wdl")
-    os.makedirs(d)
-    with open(os.path.join(d, "model0.wdl"), "wb") as fh:
-        fh.write(b"{}")
-    with pytest.raises(NotImplementedError, match="A.12"):
-        pregistry.ModelRegistry(d, device="cpu")
+    rng = np.random.default_rng(3)
+    norm = [{"name": c, "kind": "value", "outNames": [c], "fill": 0.0,
+             "mean": float(rng.normal()), "std": 1.5, "zscore": True,
+             "boundaries": [float("-inf"), 0.0]} for c in NUM]
+    cats = ["cat_0", "cat_1"]
+    for b in range(2):
+        p = pwdl.init_wdl_params(len(NUM), [4, 4], 3, [8], seed=b)
+        flat = pwdl.flatten_wdl(p) + rng.normal(
+            scale=0.3, size=pwdl.flatten_wdl(p).size).astype(np.float32)
+        pwdl.WDLModelSpec(
+            hidden=[8], activations=["relu"], embed_dim=3,
+            dense_columns=NUM, cat_columns=cats, vocab_sizes=[4, 4],
+            norm_specs=norm, categories=[CATS, CATS],
+            params=pwdl.unflatten_wdl(flat.astype(np.float32), p)).save(
+            os.path.join(d, f"model{b}.wdl"))
+    reg = pregistry.ModelRegistry(d, device="cpu")
+    assert not reg.fused
+    assert reg.input_columns == NUM + cats
+    assert reg.warm([1]) == [8]
+    recs = records(16)
+    got = reg.score_records(recs)
+    cols = reg.input_columns
+    want = pscorer.ModelRunner(pscorer.find_model_paths(d),
+                               device="cpu").score_raw(
+        pregistry.records_to_columnar(recs, cols))
+    assert_bits(got, want)
+    assert_close(got, jax_runner_result(d, cols, recs))
+    jreg = jregistry.ModelRegistry(d)
+    assert jreg.input_columns == NUM
+    with pytest.raises(KeyError, match="cat_0"):
+        jreg.score_records(recs)
     with pytest.raises(NotImplementedError, match="A.14"):
         pregistry.ModelRegistry(_models(sets("HYBRID")), device="cpu",
                                 drift=object())
