@@ -204,6 +204,33 @@ Phases, each of which must pass:
            20,000 held-out rows; `-tozip` then `-tobin` of the `.wdl`,
            the `.nn` and phase 8's `.rf` byte-identical to the originals.
 
+14. stream the streamed (larger-than-memory) lifecycle. (a) bench `gbt`,
+           bench `rf`, NATIVE RF (phase 5's model set) and leaf-wise GBT
+           (bench `gbt`, 32 leaves), each written as 8 CleanedData
+           shards and trained by `train_trees_streamed` on the card
+           twice (bit-equal): `hist_level(_mc)` a shard a level (a
+           built leaf) and `scan_level(_mc)` a level (a leaf) but the
+           last, whose leaves are node totals, as the hist counters and
+           the shard count predict, never a fused entry or a plain
+           version; RF and NATIVE bit-equal to phases 4's and 5's
+           in-memory forests (NATIVE's valid error too) and to the
+           first tree of a CPU streamed run, GBT scores within 0.03 of
+           the in-memory card run's; trees/s, HtoD bytes and ms a level,
+           one run profiled. (b) phase 7's raw rows (the first
+           100,000, without the weight column: unit weights keep the RF
+           planes integers) with both memory budgets below the data, 4
+           chunks: stats -correlation -psi -> norm (and norm -shuffle)
+           -> train RF, NN, WDL -> eval -run (RF) on 50,000 of phase
+           10's held-out rows, every step streamed, twice on the card
+           (byte-identical artifacts); the RF model file equal to the
+           in-RAM route's on the same bins; rows/s of each step against
+           the in-RAM route's; the RF train profiled; the CPU run:
+           stats (phase 7's contract), norm bytes, NN and WDL valid
+           errors within 1e-3, eval of the card's models (scores 0.001,
+           AUC 1e-6). (c) a streamed norm and a streamed eval stopped by
+           a hook of the phase after one chunk, then resumed:
+           byte-identical to the unbroken runs.
+
 Every main-path run (phases 3-6 and 8's train) must launch the scan entry
 once for each subtraction level of each tree (bench `gbt` 25, `rf` 70,
 NATIVE 70, ONEVSALL 75, the prep chain's RF 70) and run no plain torch
@@ -1299,6 +1326,7 @@ def phase_main(torch, hk, tt, pds, ptree, name, data, cfg, data_dir):
     res2, secs2, _l2, _r2, _p2 = train_on_card(torch, hk, tt, args_, cfg)
     check(forests_equal(res.spec, res2.spec),
           f"{name}: a second run on the card gave another forest")
+    MEMORY_FORESTS[name] = res.spec
 
     prof = profile_run(torch, lambda: tt.train_trees(*args_, cfg,
                                                      device="cuda"), secs2)
@@ -1436,6 +1464,7 @@ def phase_native(torch, hk, tt, ptree, data_dir, rf_data, seed):
           f"native: a multi-class entry never launched: {launches}")
     check_scans("native", launches, plain)
     first = _model_bytes(paths, 1, "rf")
+    MEMORY_FORESTS["native"] = root
     secs2, launches2, _r, _p = run_step(torch, hk, tt, TrainProcessor, root,
                                         "cuda")
     check(_model_bytes(paths, 1, "rf") == first,
@@ -3778,6 +3807,663 @@ def print_wdl(part, r):
               + ", ".join(r["round_trips_byte_identical"]))
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the streamed (larger-than-memory) lifecycle
+# ---------------------------------------------------------------------------
+
+STREAM_SHARDS = 8  # (a): CleanedData shards of each streamed forest
+STREAM_LEAVES = 32  # (a): leaf-wise GBT
+STREAM_CPU_TREES = 1  # (a): trees of the CPU streamed runs (time)
+# (b): phase 7's raw rows sliced (the time limit), 4 chunks; the budgets
+# below the data's size, so that every step streams
+STREAM = dict(rows=100_000, chunk=25_000, eval_rows=50_000, ingest_mb=8,
+              train_mb=4, nn_hidden=[50], nn_epochs=10, wdl_epochs=5)
+# the in-memory forests of phases 3-5 on the card, for (a)
+MEMORY_FORESTS: dict = {}
+
+
+def counted_stream(torch, hk, tt, pst, fn, device="cuda"):
+    """One counted streamed run: every count zeroed just before, read
+    just after. (result, seconds, launches, plain calls, plain scan
+    widths, hist_counters, htod)."""
+    hk.reset_counters()
+    for d in (tt.hist_counters, pst.htod):
+        for k in d:
+            d[k] = 0
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with PlainScans(tt) as ps:
+        res = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0, dict(hk.launches),
+            dict(hk.reference_calls), ps.widths, dict(tt.hist_counters),
+            dict(pst.htod))
+
+
+def trees_equal(a, b) -> bool:
+    """The trees of `a` bit-equal to the first trees of `b`."""
+    from types import SimpleNamespace
+
+    return len(a) <= len(b) and forests_equal(
+        SimpleNamespace(trees=a), SimpleNamespace(trees=b[:len(a)]))
+
+
+def stream_forest(torch, hk, tt, pds, pst, name, data, cfg, data_dir,
+                  device="cuda"):
+    """(a) one forest: the codes as 8 CleanedData shards, then
+    `train_trees_streamed` on the card twice (bit-equal), launches as
+    hist_counters and the shard count predict, one run profiled, and a
+    CPU run of its first trees. (report, spec)."""
+    codes, y, slots, is_cat = data
+    n, F = codes.shape
+    cols = [f"f{i}" for i in range(F)]
+    out = os.path.join(data_dir, f"stream-{name}")
+    pds.write_codes(out, codes, y.astype(np.int8), np.ones(n, np.float32),
+                    cols, slots, n_shards=STREAM_SHARDS)
+
+    def train(dev, c=cfg):
+        return pst.train_trees_streamed(out, slots, is_cat, cols, c,
+                                        device=dev)
+
+    res, secs, launches, refs, plain, hc, htod = counted_stream(
+        torch, hk, tt, pst, lambda: train(device), device)
+    mc = "_mc" if cfg.n_classes >= 3 else ""
+    if device == "cuda":
+        check(all(v == 0 for v in refs.values()) and not plain,
+              f"stream {name}: a plain version ran on the card: {refs}, "
+              f"scans {plain}")
+    else:  # a CPU rehearsal counts the plain versions' calls instead
+        launches = refs
+    trees = len(res.spec.trees)
+    if cfg.max_leaves > 0:  # a histogram a built leaf a shard
+        want_hist, want_scan = (STREAM_SHARDS * hc["built"],
+                                hc["built"] + hc["derived"])
+    else:  # every level one batch: a histogram a shard, one scan; the
+        # final level's leaves are node totals where 2**depth nodes fit
+        # a batch (the in-memory route's)
+        depth = cfg.max_depth + int(2 ** cfg.max_depth > tt._node_batch_size(
+            sum(slots), cfg.max_stats_memory_mb, cfg.n_classes))
+        levels = trees * depth
+        check(hc["built"] + hc["derived"] == trees * (2 ** depth - 1)
+              and hc["fallback_rebuilds"] == 0,
+              f"stream {name}: hist_counters {hc}")
+        want_hist, want_scan = STREAM_SHARDS * levels, levels
+    got = dict(hist=launches["hist_level" + mc],
+               scan=launches["scan_level" + mc],
+               fused=launches["fused_level"] + launches["fused_level_mc"])
+    check(got == dict(hist=want_hist, scan=want_scan, fused=0),
+          f"stream {name}: launches {got}, expected hist {want_hist}, "
+          f"scan {want_scan}, fused 0")
+    res2, secs2, _l, _r, _p, _h, htod2 = counted_stream(
+        torch, hk, tt, pst, lambda: train(device), device)
+    check(forests_equal(res.spec, res2.spec),
+          f"stream {name}: a second card run gave another forest")
+    prof = (profile_run(torch, lambda: train(device), secs2)
+            if device == "cuda" else dict(device_busy_s=None))
+    levels_run = htod2["copies"] / STREAM_SHARDS
+    rep = dict(rows=n, shards=STREAM_SHARDS, trees=trees,
+               depth=cfg.max_depth, leaves=cfg.max_leaves,
+               seconds_first=secs, seconds_second=secs2,
+               trees_per_s=trees / secs2, hist_counters=hc,
+               htod_bytes_per_level=htod2["bytes"] / levels_run,
+               htod_ms_per_level=1e3 * htod2["seconds"] / levels_run,
+               htod_copies=htod2["copies"], launches=launches,
+               valid_error=res.valid_error, profile=prof)
+    if name in ("rf", "native"):  # integer planes: the CPU's bits too
+        cpu_cfg = dataclasses.replace(cfg, tree_num=STREAM_CPU_TREES)
+        t0 = time.perf_counter()
+        cpu = train("cpu", cpu_cfg)
+        rep["cpu_seconds"] = time.perf_counter() - t0
+        check(trees_equal(cpu.spec.trees, res.spec.trees),
+              f"stream {name}: the CPU run's {STREAM_CPU_TREES} trees "
+              "differ from the card's")
+    return rep, res.spec
+
+
+def stream_trees(torch, hk, tt, pds, ptree, pst, data_dir, gbt, rf, seed,
+                 device="cuda"):
+    """(a) bench `gbt`, bench `rf`, NATIVE RF (phase 5's classes) and
+    leaf-wise GBT, streamed from 8 shards."""
+    out = {}
+    gcfg = tt.TreeTrainConfig(algorithm="GBT", tree_num=GBT["trees"],
+                              max_depth=GBT["depth"], learning_rate=0.1,
+                              valid_set_rate=0.1, seed=3)
+    rep, spec = stream_forest(torch, hk, tt, pds, pst, "gbt", gbt, gcfg,
+                              data_dir, device)
+    codes = gbt[0]
+    score = ptree.IndependentTreeModel(spec, device=device).compute(codes)
+    mem = ptree.IndependentTreeModel(MEMORY_FORESTS["gbt"],
+                                     device=device).compute(codes)
+    rep["max_score_diff_vs_memory"] = float(np.abs(score - mem).max())
+    check(rep["max_score_diff_vs_memory"] <= GBT_SCORE_ATOL,
+          f"stream gbt: scores {rep['max_score_diff_vs_memory']} from the "
+          "in-memory card run's")
+    out["gbt"] = rep
+
+    rcfg = tt.TreeTrainConfig(algorithm="RF", tree_num=RF["trees"],
+                              max_depth=RF["depth"],
+                              feature_subset_strategy="TWOTHIRDS",
+                              valid_set_rate=0.1, seed=3)
+    rep, spec = stream_forest(torch, hk, tt, pds, pst, "rf", rf, rcfg,
+                              data_dir, device)
+    check(forests_equal(spec, MEMORY_FORESTS["rf"]),
+          "stream rf: the forest differs from phase 4's in-memory one")
+    out["rf"] = rep
+
+    # NATIVE: phase 5's model set, its CleanedData and config
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    paths = PathFinder(MEMORY_FORESTS["native"])
+    meta, c16, tags, _w = pds.load_codes(paths.cleaned_data_dir())
+    ncfg = tt.TreeTrainConfig.from_model_config(
+        ModelConfig.load(paths.model_config_path()))
+    rep, spec = stream_forest(
+        torch, hk, tt, pds, pst, "native",
+        (np.asarray(c16), np.asarray(tags), rf[2], rf[3]), ncfg, data_dir,
+        device)
+    mem = ptree.TreeModelSpec.load(paths.model_path(0, "rf"))
+    check(forests_equal(spec, mem) and spec.valid_error == mem.valid_error,
+          "stream native: the forest differs from phase 5's model file")
+    out["native"] = rep
+
+    lcfg = tt.TreeTrainConfig(algorithm="GBT", tree_num=GBT["trees"],
+                              max_depth=GBT["depth"] + 4,
+                              max_leaves=STREAM_LEAVES, learning_rate=0.1,
+                              valid_set_rate=0.1, seed=3)
+    rep, spec = stream_forest(torch, hk, tt, pds, pst, "leafwise_gbt", gbt,
+                              lcfg, data_dir, device)
+    memory = tt.train_trees(gbt[0], gbt[1], np.ones(len(gbt[1]), np.float32),
+                            gbt[2], gbt[3], [f"f{i}" for i in range(
+                                gbt[0].shape[1])], lcfg, device=device)
+    score = ptree.IndependentTreeModel(spec, device=device).compute(codes)
+    mem = ptree.IndependentTreeModel(memory.spec,
+                                     device=device).compute(codes)
+    rep["max_score_diff_vs_memory"] = float(np.abs(score - mem).max())
+    check(rep["max_score_diff_vs_memory"] <= GBT_SCORE_ATOL,
+          f"stream leaf-wise gbt: scores {rep['max_score_diff_vs_memory']} "
+          "from the in-memory card run's")
+    out["leafwise_gbt"] = rep
+    return out
+
+
+class stream_props:
+    """The streaming knobs of (b): both budgets below the data's size,
+    STREAM["chunk"] rows a chunk, and any extra properties; the previous
+    values come back on exit."""
+
+    def __init__(self, **extra):
+        self.props = {
+            "shifu.ingest.memoryBudgetMB": str(STREAM["ingest_mb"]),
+            "shifu.train.memoryBudgetMB": str(STREAM["train_mb"]),
+            "shifu.ingest.chunkRows": str(STREAM["chunk"]), **extra}
+
+    def __enter__(self):
+        from shifu_tpu_torch.utils import environment
+
+        self.saved = {k: environment.get_property(k, "")
+                      for k in self.props}
+        for k, v in self.props.items():
+            environment.set_property(k, v)
+
+    def __exit__(self, *exc):
+        from shifu_tpu_torch.utils import environment
+
+        for k, v in self.saved.items():
+            environment.set_property(k, v)
+
+
+def _head_lines(src, dst, n):
+    """The first n lines of the text file `src` into `dst`."""
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    with open(src) as fi, open(dst, "w") as fo:
+        for _i, line in zip(range(n), fi):
+            fo.write(line)
+
+
+def stream_base(torch, data_dir, device):
+    """(b)'s model set: phase 7's raw rows (their first STREAM["rows"]),
+    without the weight column (unit weights keep the RF planes integers,
+    so the streamed forest is the in-RAM one bit for bit; float weights
+    round a shard at a time), initialized in RAM, RF 10 trees depth 8;
+    the held-out slice of phase 10's file beside it. (base, held-out
+    data, header)."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+    from shifu_tpu_torch.processor.init import InitProcessor
+
+    src, base = os.path.join(data_dir, "raw"), os.path.join(data_dir,
+                                                              "stream-base")
+    os.makedirs(os.path.join(base, "data"))
+    for rel in ("ModelConfig.json", "meta.names",
+                os.path.join("data", "header.txt")):
+        shutil.copy(os.path.join(src, rel), os.path.join(base, rel))
+    _head_lines(os.path.join(src, "data", "data.txt"),
+                os.path.join(base, "data", "data.txt"), STREAM["rows"])
+    held = os.path.join(base, "heldout")
+    ev = os.path.join(data_dir, "eval-raw", "data")
+    _head_lines(os.path.join(ev, "data.txt"), os.path.join(held, "data.txt"),
+                STREAM["eval_rows"])
+    shutil.copy(os.path.join(ev, "header.txt"), held)
+    path = PathFinder(base).model_config_path()
+    mc = ModelConfig.load(path)
+    mc.data_set.weight_column_name = ""
+    mc.save(path)
+    check(InitProcessor(base, device=device).run() == 0,
+          "stream: init returned non-zero")
+    mc = ModelConfig.load(path)
+    mc.train.params.update(TreeNum=PREP["trees"], MaxDepth=PREP["depth"],
+                           FeatureSubsetStrategy="TWOTHIRDS")
+    mc.save(path)
+    return base, os.path.join(held, "data.txt"), os.path.join(held,
+                                                              "header.txt")
+
+
+def _files(root, *rels):
+    """The bytes of the files (and of the files in the directories)
+    `rels` of `root`, by path."""
+    out = {}
+    for rel in rels:
+        path = os.path.join(root, rel)
+        names = (sorted(os.path.join(rel, n) for n in os.listdir(path))
+                 if os.path.isdir(path) else [rel])
+        for name in names:
+            with open(os.path.join(root, name), "rb") as fh:
+                out[name] = fh.read()
+    return out
+
+
+NORM_DIRS = (os.path.join("tmp", "norm", "NormalizedData"),
+             os.path.join("tmp", "norm", "CleanedData"))
+STATS_FILES = ("ColumnConfig.json", os.path.join("tmp", "stats",
+                                                  "correlation.csv"))
+
+
+def _timed(torch, device, fn):
+    t0 = time.perf_counter()
+    rc = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return rc, time.perf_counter() - t0
+
+
+def _alg_copy(root, dst, config):
+    """A copy of `root` (data linked) for another algorithm's train."""
+    set_copy(root, dst)
+    shutil.rmtree(os.path.join(dst, "models"), ignore_errors=True)
+    config(dst)
+
+
+def stream_chain(torch, hk, base, root, held, device, shuffle=False):
+    """(b) on a copy of `base`: every step streamed — stats -correlation
+    -psi, norm (and -shuffle into a copy), train RF, NN and WDL, eval
+    -run of the RF set. The seconds of each step, the launches of the RF
+    train, the artifacts' bytes."""
+    from shifu_tpu_torch.processor.evaluate import EvalProcessor
+    from shifu_tpu_torch.processor.norm import NormProcessor
+    from shifu_tpu_torch.processor.stats import StatsProcessor
+    from shifu_tpu_torch.processor.train import TrainProcessor
+
+    set_copy(base, root)
+    eval_config(root, *held)
+    out = {}
+    with stream_props():
+        stats = StatsProcessor(root, correlation=True, psi=True,
+                               device=device)
+        rc, out["stats_seconds"] = _timed(torch, device, stats.run)
+        check(rc == 0 and "pass2" in stats.timings,
+              f"{root}: the streamed stats did not run")
+        norm = NormProcessor(root, device=device)
+        rc, out["norm_seconds"] = _timed(torch, device, norm.run)
+        check(rc == 0 and "stream" in norm.timings,
+              f"{root}: the streamed norm did not run")
+        if shuffle:
+            sroot = root + "-shuffle"
+            set_copy(root, sroot)
+            rc, out["shuffle_seconds"] = _timed(
+                torch, device, NormProcessor(sroot, shuffle=True,
+                                             device=device).run)
+            check(rc == 0, f"{sroot}: norm -shuffle returned non-zero")
+            out["shuffle"] = _files(sroot, *NORM_DIRS)
+        hk.reset_counters()
+        rc, out["train_seconds"] = _timed(
+            torch, device, TrainProcessor(root, device=device).run)
+        check(rc == 0, f"{root}: the streamed RF train returned {rc}")
+        out["launches"] = dict(hk.launches)
+        out["refs"] = dict(hk.reference_calls)
+        roots = dict(nn=root + "-nn", wdl=root + "-wdl")
+        _alg_copy(root, roots["nn"], lambda r: nn_step_config(
+            r, STREAM["nn_hidden"], 1, STREAM["nn_epochs"]))
+        out["nn_seconds"], nn_blobs, out["nn_errors"] = nn_step(
+            torch, roots["nn"], device)
+        _alg_copy(root, roots["wdl"], _wdl_stream_config)
+        out["wdl_seconds"], wdl_blobs, out["wdl_errors"] = nn_step(
+            torch, roots["wdl"], device)
+        ev = EvalProcessor(root, run_name=EVAL_NAME, device=device)
+        rc, out["eval_seconds"] = _timed(torch, device, ev.run)
+        check(rc == 0, f"{root}: the streamed eval returned {rc}")
+        out["eval_metrics"] = dict(ev.metrics[EVAL_NAME])
+    score = os.path.join("evals", EVAL_NAME)
+    out["bytes"] = {**_files(root, *STATS_FILES, *NORM_DIRS,
+                             os.path.join("models", "model0.rf"),
+                             os.path.join(score, "EvalScore.csv"),
+                             os.path.join(score, "EvalPerformance.json")),
+                    **{f"nn/{k}": v for k, v in nn_blobs.items()},
+                    **{f"wdl/{k}": v for k, v in wdl_blobs.items()}}
+    return out
+
+
+def _wdl_stream_config(root):
+    wdl_step_config(root)
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    path = PathFinder(root).model_config_path()
+    mc = ModelConfig.load(path)
+    mc.train.bagging_num = 1
+    mc.train.num_train_epochs = STREAM["wdl_epochs"]
+    mc.save(path)
+
+
+def stream_in_ram(torch, base, card1, held, device):
+    """The in-RAM route on the same rows: stats on a copy of `base`;
+    norm, train RF and eval -run on a copy of `card1` (the streamed
+    stats' bins), whose model file must equal the streamed one."""
+    from shifu_tpu_torch.processor.evaluate import EvalProcessor
+    from shifu_tpu_torch.processor.norm import NormProcessor
+    from shifu_tpu_torch.processor.stats import StatsProcessor
+    from shifu_tpu_torch.processor.train import TrainProcessor
+
+    sroot, root = base + "-ram", card1 + "-ram"
+    set_copy(base, sroot)
+    out = {}
+    rc, out["stats_seconds"] = _timed(torch, device, StatsProcessor(
+        sroot, correlation=True, psi=True, device=device).run)
+    check(rc == 0, "stream: the in-RAM stats returned non-zero")
+    set_copy(card1, root)
+    for step, key in ((NormProcessor, "norm_seconds"),
+                      (TrainProcessor, "train_seconds")):
+        rc, out[key] = _timed(torch, device,
+                              step(root, device=device).run)
+        check(rc == 0, f"stream: the in-RAM {key} step returned {rc}")
+    rc, out["eval_seconds"] = _timed(torch, device, EvalProcessor(
+        root, run_name=EVAL_NAME, device=device).run)
+    check(rc == 0, "stream: the in-RAM eval returned non-zero")
+    model = os.path.join("models", "model0.rf")
+    out["rf_model_equal"] = _files(root, model) == _files(card1, model)
+    return out
+
+
+def stream_cpu(torch, base, card1, held):
+    """The CPU run: stats on a copy of `base` (phase 7's contract: the
+    card's bytes but mean, stdDev and correlation within RAW_TOL); norm,
+    NN and WDL on a copy of the card's set after its stats (phase 8's:
+    the norm bytes equal; phase 9's: the valid error within NN_TOL, for
+    WDL too); eval -run of the card's models (phase 10's: scores within
+    0.001, AUC within 1e-6). The CPU RF train is left out (phase 8 only
+    reports it)."""
+    from shifu_tpu_torch.processor.evaluate import EvalProcessor
+    from shifu_tpu_torch.processor.stats import StatsProcessor
+
+    out = {}
+    sroot = base + "-cpu"
+    set_copy(base, sroot)
+    with stream_props():
+        rc, out["stats_seconds"] = _timed(torch, "cpu", StatsProcessor(
+            sroot, correlation=True, psi=True, device="cpu").run)
+    check(rc == 0, "stream cpu: stats returned non-zero")
+    a, c = _files(card1, *STATS_FILES), _files(sroot, *STATS_FILES)
+    bad = _close_but(json.loads(c["ColumnConfig.json"]),
+                     json.loads(a["ColumnConfig.json"]), ("mean", "stdDev"))
+    check(bad is None, f"stream cpu: ColumnConfig.json differs at {bad}")
+    corr = os.path.join("tmp", "stats", "correlation.csv")
+    (ha, ca), (hc, cc) = _corr_values(a[corr]), _corr_values(c[corr])
+    check(ha == hc and np.allclose(ca, cc, **RAW_TOL),
+          "stream cpu: the correlation differs past RAW_TOL")
+    root = card1 + "-cpu"
+    set_copy(card1, root)
+    for d in ("models", "evals", os.path.join("tmp", "norm")):
+        shutil.rmtree(os.path.join(root, d), ignore_errors=True)
+    chain = stream_chain_tail(torch, root, "cpu")
+    out.update(chain)
+    card = _files(card1, *NORM_DIRS)
+    check(_files(root, *NORM_DIRS) == card,
+          "stream cpu: the norm wrote other bytes than the card's")
+    for kind in ("nn", "wdl"):
+        want = float(np.mean(_val_errors(card1 + f"-{kind}")))
+        got = float(np.mean(chain[f"{kind}_errors"]))
+        out[f"{kind}_valid_error_diff"] = abs(got - want)
+        check(abs(got - want) <= NN_TOL,
+              f"stream cpu: {kind} valid error {got} vs the card's {want}")
+    eroot = card1 + "-cpu-eval"
+    set_copy(card1, eroot)
+    ev = EvalProcessor(eroot, run_name=EVAL_NAME, device="cpu")
+    with stream_props():
+        rc, out["eval_seconds"] = _timed(torch, "cpu", ev.run)
+    check(rc == 0, "stream cpu: eval returned non-zero")
+    score = os.path.join("evals", EVAL_NAME, "EvalScore.csv")
+    (hk_, tk, sk), (hp, tp, sp) = (_score_table(_files(r, score)[score])
+                                   for r in (card1, eroot))
+    out["eval_max_score_diff"] = float(np.abs(sk - sp).max())
+    check(hk_ == hp and np.array_equal(tk, tp)
+          and out["eval_max_score_diff"] <= EVAL_TOL["score"] + 1e-9,
+          "stream cpu: eval scores differ from the card's past 0.001")
+    perf = os.path.join("evals", EVAL_NAME, "EvalPerformance.json")
+    aucs = [json.loads(_files(r, perf)[perf])["areaUnderRoc"]
+            for r in (card1, eroot)]
+    check(abs(aucs[0] - aucs[1]) <= EVAL_TOL["auc"],
+          f"stream cpu: AUC {aucs[1]} vs the card's {aucs[0]}")
+    return out
+
+
+def _val_errors(root):
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    with open(PathFinder(root).val_error_path(0)) as fh:
+        return [float(fh.read())]
+
+
+def stream_chain_tail(torch, root, device):
+    """norm, then train NN and WDL, streamed on `root` (the CPU run's
+    part of the chain after stats)."""
+    from shifu_tpu_torch.processor.norm import NormProcessor
+
+    out = {}
+    with stream_props():
+        rc, out["norm_seconds"] = _timed(
+            torch, device, NormProcessor(root, device=device).run)
+        check(rc == 0, f"{root}: norm returned non-zero")
+        for kind, config in (("nn", lambda r: nn_step_config(
+                r, STREAM["nn_hidden"], 1, STREAM["nn_epochs"])),
+                             ("wdl", _wdl_stream_config)):
+            dst = root + f"-{kind}"
+            _alg_copy(root, dst, config)
+            secs, _b, errs = nn_step(torch, dst, device)
+            out[f"{kind}_seconds"], out[f"{kind}_errors"] = secs, errs
+    return out
+
+
+def stream_resume(torch, card1, device):
+    """(c): a streamed norm and a streamed eval stopped after a chunk by
+    an exception from a hook this phase installs (the shard writer's
+    add; the model runner's scoring), then resumed: the unbroken run's
+    bytes."""
+    from shifu_tpu_torch.eval.scorer import ModelRunner
+    from shifu_tpu_torch.norm import dataset as pds_mod
+    from shifu_tpu_torch.processor.evaluate import EvalProcessor
+    from shifu_tpu_torch.processor.norm import NormProcessor
+
+    def stopped(owner, name, at, fn):
+        real, calls = getattr(owner, name), [0]
+
+        def hook(*a, **k):
+            calls[0] += 1
+            if calls[0] == at:
+                raise RuntimeError("stopped by the phase's hook")
+            return real(*a, **k)
+
+        setattr(owner, name, hook)
+        try:
+            fn()
+        except RuntimeError as e:
+            check("hook" in str(e), f"stream resume: {e}")
+        else:
+            check(False, "stream resume: the hook never fired")
+        finally:
+            setattr(owner, name, real)
+
+    out = {}
+    norm_root, eval_root = card1 + "-resume-norm", card1 + "-resume-eval"
+    set_copy(card1, norm_root)
+    shutil.rmtree(os.path.join(norm_root, "tmp", "norm"))
+    set_copy(card1, eval_root)
+    shutil.rmtree(os.path.join(eval_root, "evals", EVAL_NAME))
+    every = {"shifu.ckpt.everyChunks": "1"}
+    with stream_props(**every):
+        # chunk 0's two shards written, the hook fires in chunk 1
+        stopped(pds_mod.ShardWriter, "add", 3,
+                lambda: NormProcessor(norm_root, device=device).run())
+        stopped(ModelRunner, "score_raw", 2,
+                lambda: EvalProcessor(eval_root, score_name=EVAL_NAME,
+                                      device=device).run())
+    with stream_props(**every, **{"shifu.resume": "true"}):
+        rc, out["norm_resume_seconds"] = _timed(
+            torch, device, NormProcessor(norm_root, device=device).run)
+        check(rc == 0, "stream resume: norm --resume returned non-zero")
+        rc, out["eval_resume_seconds"] = _timed(
+            torch, device, EvalProcessor(
+                eval_root, score_name=EVAL_NAME, device=device).run)
+        check(rc == 0, "stream resume: eval --resume returned non-zero")
+    check(_files(norm_root, *NORM_DIRS) == _files(card1, *NORM_DIRS),
+          "stream resume: the resumed norm wrote other bytes")
+    score = os.path.join("evals", EVAL_NAME, "EvalScore.csv")
+    check(_files(eval_root, score) == _files(card1, score),
+          "stream resume: the resumed eval wrote another score file")
+    return out
+
+
+def stream_lifecycle(torch, hk, data_dir, device="cuda"):
+    """(b) and (c): the chain twice on the card (byte-identical
+    artifacts), its RF model against the in-RAM route's, once on the CPU,
+    the RF train profiled, then the resumes."""
+    from shifu_tpu_torch.processor.train import TrainProcessor
+
+    base, *held = stream_base(torch, data_dir, device)
+    roots = {k: os.path.join(data_dir, f"stream-{k}")
+             for k in ("card1", "card2")}
+    runs = {k: stream_chain(torch, hk, base, r, held, device,
+                            shuffle=True)
+            for k, r in roots.items()}
+    a, b = runs["card1"], runs["card2"]
+    for key in a["bytes"]:
+        check(a["bytes"][key] == b["bytes"][key],
+              f"stream: two card runs wrote different {key}")
+    check(a["shuffle"] == b["shuffle"],
+          "stream: two card runs' norm -shuffle differ")
+    calls = a["launches"] if device == "cuda" else a["refs"]
+    check(calls["hist_level"] > 0 and calls["fused_level"] == 0
+          and (device != "cuda" or not any(a["refs"].values())),
+          f"stream: the RF train was not the streamed kernel path: "
+          f"{a['launches']}, plain {a['refs']}")
+    m = b["eval_metrics"]
+    check(m["records"] == STREAM["eval_rows"] and 0.6 < m["auc"] <= 1.0,
+          f"stream: eval metrics {m}")
+    ram = stream_in_ram(torch, base, roots["card1"], held, device)
+    check(ram["rf_model_equal"],
+          "stream: the streamed RF model file differs from the in-RAM "
+          "route's on the same bins")
+    prof = dict(device_busy_s=None)
+    if device == "cuda":
+        with stream_props():
+            prof = profile_run(torch, lambda: TrainProcessor(
+                roots["card1"], device=device).run(), b["train_seconds"])
+        check(_files(roots["card1"], os.path.join("models", "model0.rf"))
+              == {os.path.join("models", "model0.rf"): a["bytes"][
+                  os.path.join("models", "model0.rf")]},
+              "stream: the profiled train rewrote another model")
+    t0 = time.perf_counter()
+    cpu = stream_cpu(torch, base, roots["card1"], held)
+    cpu["seconds"] = time.perf_counter() - t0
+    resume = stream_resume(torch, roots["card1"], device)
+    n, ne = STREAM["rows"], STREAM["eval_rows"]
+    rates = {step: (ne if step == "eval" else n) / b[f"{step}_seconds"]
+             for step in ("stats", "norm", "train", "eval")}
+    ram_rates = {step: (ne if step == "eval" else n) / ram[f"{step}_seconds"]
+                 for step in ("stats", "norm", "train", "eval")}
+    seconds = {k: v for k, v in b.items()
+               if k not in ("bytes", "shuffle", "refs")}
+    return dict(rows=n, eval_rows=ne, chunk=STREAM["chunk"],
+                seconds=seconds, rows_per_s=rates, in_ram=ram,
+                in_ram_rows_per_s=ram_rates, launches=a["launches"],
+                seconds_second=b["train_seconds"], profile=prof, cpu=cpu,
+                resume=resume)
+
+
+def phase_stream(torch, hk, tt, pds, ptree, data_dir, gbt, rf, seed,
+                 device="cuda"):
+    """Phase 14: (a) the streamed growers, (b) the streamed lifecycle,
+    (c) resume."""
+    from shifu_tpu_torch.train import streaming_tree as pst
+
+    t0 = time.perf_counter()
+    out = dict(trees=stream_trees(torch, hk, tt, pds, ptree, pst, data_dir,
+                                  gbt, rf, seed, device))
+    for name, r in out["trees"].items():
+        print_stream_forest(name, r)
+    out["lifecycle"] = stream_lifecycle(torch, hk, data_dir, device)
+    print_stream_lifecycle(out["lifecycle"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"stream: phase 14 in {out['seconds']:.1f} s")
+    return out
+
+
+def print_stream_forest(name, r):
+    p = r["profile"]
+    busy = ("not measured" if p.get("device_busy_s") is None else
+            f"busy {p['device_busy_s']:.4f} s, idle share "
+            f"{p['idle_share']:.3f}")
+    print(f"stream {name}: {r['trees']} trees (depth {r['depth']}"
+          + (f", {r['leaves']} leaves" if r["leaves"] > 0 else "")
+          + f") on {r['rows']} rows in {r['shards']} shards: "
+          f"{r['trees_per_s']:.3f} trees/s (second card run, "
+          f"{r['seconds_second']:.4f} s), HtoD "
+          f"{r['htod_bytes_per_level']:.0f} B and "
+          f"{r['htod_ms_per_level']:.4f} ms a level; {busy}; launches "
+          + str({k: v for k, v in r["launches"].items() if v})
+          + (f"; max |score - in-memory| {r['max_score_diff_vs_memory']:.3g}"
+             if "max_score_diff_vs_memory" in r else
+             "; bit-equal to the in-memory card forest and the CPU's "
+             f"first {STREAM_CPU_TREES} trees (CPU {r['cpu_seconds']:.2f} s)"))
+
+
+def print_stream_lifecycle(lc):
+    s, ram, p = lc["seconds"], lc["in_ram"], lc["profile"]
+    busy = ("not measured" if p.get("device_busy_s") is None else
+            f"busy {p['device_busy_s']:.4f} s, idle share "
+            f"{p['idle_share']:.3f}")
+    print(f"stream lifecycle: {lc['rows']} raw rows in chunks of "
+          f"{lc['chunk']}, eval {lc['eval_rows']} rows; rows/s streamed "
+          "(in RAM): " + ", ".join(
+              f"{k} {lc['rows_per_s'][k]:.6g} ({lc['in_ram_rows_per_s'][k]:.6g})"
+              for k in ("stats", "norm", "train", "eval"))
+          + f"; NN {s['nn_seconds']:.3f} s, WDL {s['wdl_seconds']:.3f} s, "
+          f"norm -shuffle {s['shuffle_seconds']:.3f} s; two card runs "
+          "byte-identical, the RF model the in-RAM route's bytes; RF "
+          f"train {busy}, launches "
+          + str({k: v for k, v in lc["launches"].items() if v}))
+    c = lc["cpu"]
+    print(f"  CPU run {c['seconds']:.1f} s: stats {c['stats_seconds']:.2f} s,"
+          f" norm {c['norm_seconds']:.2f} s (the card's bytes), NN / WDL "
+          f"valid errors {c['nn_valid_error_diff']:.3g} / "
+          f"{c['wdl_valid_error_diff']:.3g} apart, eval of the card's "
+          f"models: max |score diff| {c['eval_max_score_diff']:.3g}")
+    r = lc["resume"]
+    print(f"  resume: norm {r['norm_resume_seconds']:.3f} s and eval "
+          f"{r['eval_resume_seconds']:.3f} s after a stop, byte-identical")
+
+
 def run(args) -> int:
     import torch
 
@@ -3943,6 +4629,8 @@ def run(args) -> int:
         gr = phase_growers(torch, hk, tt, ptree, data_dir, gbt, rf,
                            args.seed)
         wd = phase_wdl(torch, data_dir, args.seed)
+        st = phase_stream(torch, hk, tt, pds, ptree, data_dir, gbt, rf,
+                          args.seed)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     report["gbt"], report["rf"] = g, r
@@ -3953,8 +4641,12 @@ def run(args) -> int:
     report["serve"] = sv
     report["growers"] = gr
     report["wdl"] = wd
+    report["stream"] = st
     grown = [gr[k]["launches"] for k in ("leafwise_gbt", "leafwise_rf",
                                          "batched_gbt", "batched_rf")]
+    # the streamed grower's: (a)'s forests and (b)'s RF train
+    grown += [r["launches"] for r in st["trees"].values()]
+    grown.append(st["lifecycle"]["launches"])
 
     kernels = []
     mc_lines = ":358-365,:408-430,:540-552,:767-769"

@@ -2,9 +2,10 @@
 `shifu_tpu/cli.py`).
 
     python -m shifu_tpu_torch init [--device cpu|cuda] [-Dk=v ...]
-    python -m shifu_tpu_torch stats [-correlation] [-psi] [-rebin]
+    python -m shifu_tpu_torch stats [-correlation] [-psi] [-rebin] [--resume]
                                     [--device cpu|cuda] [-Dk=v ...]
-    python -m shifu_tpu_torch norm [-shuffle] [--device cpu|cuda] [-Dk=v ...]
+    python -m shifu_tpu_torch norm [-shuffle] [--resume] [--device cpu|cuda]
+                                   [-Dk=v ...]
     python -m shifu_tpu_torch varsel [-list] [-reset] [-recover]
                                      [--device cpu|cuda] [-Dk=v ...]
     python -m shifu_tpu_torch train [-dry] [--resume] [--device cpu|cuda]
@@ -12,8 +13,8 @@
     python -m shifu_tpu_torch posttrain [--device cpu|cuda] [-Dk=v ...]
     python -m shifu_tpu_torch eval [-new NAME|-list|-delete NAME|-run [NAME]|
                                    -score [NAME]|-perf [NAME]|-confmat [NAME]|
-                                   -norm [NAME]] [--device cpu|cuda]
-                                   [-Dk=v ...]
+                                   -norm [NAME]] [--resume]
+                                   [--device cpu|cuda] [-Dk=v ...]
     python -m shifu_tpu_torch serve [--host H] [--port P] [--models-dir D]
                                     [--replicas N] [--batching MODE]
                                     [--queue-depth N] [--max-batch-rows N]
@@ -84,6 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-v", "--verbose", action="store_true")
     sub = parser.add_subparsers(dest="command")
     device_help = "device to run on (default: cuda)"
+    resume_help = ("resume a preempted streamed run from its last stream "
+                   "checkpoint")
     p_init = sub.add_parser("init", help="initialize ColumnConfig.json "
                                          "from the data header")
     p_init.add_argument("--device", choices=["cpu", "cuda"], default=None,
@@ -94,14 +97,13 @@ def build_parser() -> argparse.ArgumentParser:
                          action="store_true")
     p_stats.add_argument("-psi", "--psi", action="store_true")
     p_stats.add_argument("-rebin", "--rebin", action="store_true")
+    p_stats.add_argument("--resume", action="store_true", help=resume_help)
     p_stats.add_argument("--device", choices=["cpu", "cuda"], default=None,
                          help=device_help)
     p_norm = sub.add_parser("norm", aliases=["normalize"],
                             help="normalize training data")
     p_norm.add_argument("-shuffle", "--shuffle", action="store_true")
-    p_norm.add_argument("--resume", action="store_true",
-                        help="resume a preempted streamed norm (not ported "
-                             "yet: ROADMAP A.13)")
+    p_norm.add_argument("--resume", action="store_true", help=resume_help)
     p_norm.add_argument("--device", choices=["cpu", "cuda"], default=None,
                         help=device_help)
     p_varsel = sub.add_parser("varsel", aliases=["varselect"],
@@ -115,9 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
     p_train = sub.add_parser("train", help="train model(s)")
     p_train.add_argument("-dry", "--dry", action="store_true", help="dry run")
     p_train.add_argument("--resume", action="store_true",
-                         help="resume a preempted run (the tree step "
-                              "resumes from its per-tree checkpoint "
-                              "either way)")
+                         help=resume_help + " (the tree step resumes "
+                              "from its per-tree checkpoint either way)")
     p_train.add_argument("--device", choices=["cpu", "cuda"], default=None,
                          help=device_help)
     p_post = sub.add_parser("posttrain", help="post-train bin metrics and "
@@ -132,9 +133,7 @@ def build_parser() -> argparse.ArgumentParser:
     for flag in ("run", "score", "norm", "confmat", "perf"):
         p_eval.add_argument(f"-{flag}", dest=f"{flag}_name", nargs="?",
                             const="", default=None)
-    p_eval.add_argument("--resume", action="store_true",
-                        help="resume a preempted streamed eval (not ported "
-                             "yet: ROADMAP A.13)")
+    p_eval.add_argument("--resume", action="store_true", help=resume_help)
     p_eval.add_argument("--device", choices=["cpu", "cuda"], default=None,
                         help=device_help)
     p_serve = sub.add_parser(

@@ -7,11 +7,10 @@ The operational knobs are the JAX package's:
                                   take the streamed route (default 512)
     shifu.ingest.forceStreaming   true/1: always the streamed route
 
-The port reads CSV/gzip chunks with its own reader (`data/reader.py`).
-Parquet needs pyarrow and the streamed stats, the multi-host plan and
-remote sources wait for ROADMAP A.13: each raises naming it. Chunks are
-read in order on the calling thread; every sketch the port folds over
-them merges exactly, so chunk boundaries change no result.
+The port reads CSV/gzip chunks with its own reader (`data/reader.py`);
+the streamed routes pull them through `data/pipeline.prefetch_iter`, in
+order. Parquet (it needs pyarrow), the multi-host plan and remote
+sources wait for ROADMAP A.13: each raises naming it.
 """
 
 from __future__ import annotations

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Dict, List, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -40,22 +40,50 @@ def read_score_header(path: str) -> List[str]:
         return fh.readline().rstrip("\r\n").split(SEP)
 
 
-def read_score_file(path: str, columns: Sequence[str]) -> ScoreTable:
-    """`tag`, `weight` and `columns` (names of the header) of the rows with
-    tag >= 0."""
+def _raw_batches(path: str, columns: Sequence[str],
+                 chunk_rows: Optional[int]):
+    """(names, batches of string columns) of `tag`, `weight` and
+    `columns` (names of the header)."""
     header = read_score_header(path)
     wanted = ["tag", "weight"] + [c for c in columns
                                   if c not in ("tag", "weight")]
     keep = [header.index(c) for c in wanted]
-    parts: List[List[np.ndarray]] = []
-    for batch in iter_column_batches(path, len(header), SEP, keep):
-        if not parts:  # the header line is the file's first row
-            batch = [col[1:] for col in batch]
-        parts.append(batch)
-    cols = [np.concatenate([p[j] for p in parts]) for j in range(len(keep))]
+
+    def batches():
+        first = True
+        for batch in iter_column_batches(path, len(header), SEP, keep,
+                                         chunk_rows):
+            if first:  # the header line is the file's first row
+                batch = [col[1:] for col in batch]
+                first = False
+            yield batch
+
+    return wanted, batches()
+
+
+def _table(wanted: List[str], cols: List[np.ndarray]) -> ScoreTable:
     vals = [to_numeric(c) for c in cols]
     tag = vals[0].astype(np.int64)
     ok = tag >= 0
     return ScoreTable(tag=tag[ok], weight=vals[1][ok],
                       columns={c: v[ok] for c, v in zip(wanted[2:],
                                                         vals[2:])})
+
+
+def read_score_file(path: str, columns: Sequence[str]) -> ScoreTable:
+    """`tag`, `weight` and `columns` (names of the header) of the rows with
+    tag >= 0."""
+    wanted, batches = _raw_batches(path, columns, None)
+    parts = list(batches)
+    return _table(wanted, [np.concatenate([p[j] for p in parts])
+                           for j in range(len(wanted))])
+
+
+def iter_score_tables(path: str, columns: Sequence[str],
+                      chunk_rows: int) -> Iterator[ScoreTable]:
+    """`read_score_file` a batch of at most about `chunk_rows` file rows
+    at a time: the streamed sweep and confusion of a score file past the
+    memory budget."""
+    wanted, batches = _raw_batches(path, columns, chunk_rows)
+    for batch in batches:
+        yield _table(wanted, batch)

@@ -1,7 +1,8 @@
 """NormalizedData and CleanedData: the sharded on-disk layouts that
-training reads (counterpart of `shifu_tpu/norm/dataset.py`, the in-RAM
-writers; the streamed norm's shard writers are ROADMAP A.13). The files
-are the same bytes in both packages, so each reads what the other wrote.
+training reads (counterpart of `shifu_tpu/norm/dataset.py`: the in-RAM
+writers and the streamed norm's `ShardWriter` and `ShuffleShardWriter`;
+the multi-host `HostPartWriter` is ROADMAP A.13). The files are the same
+bytes in both packages, so each reads what the other wrote.
 
 Under PathFinder.normalized_data_dir():
     meta.json            columns, nRows, shardRows, normType,
@@ -60,6 +61,144 @@ def _write_meta(out_dir: str, columns: List[str], shard_rows: List[int],
     with open(os.path.join(out_dir, "meta.json"), "w") as fh:
         json.dump(meta.to_json(), fh, indent=2)
     return meta
+
+
+class ShardWriter:
+    """Shard-at-a-time writer of the streamed norm: one shard an ingest
+    chunk, so peak memory is one chunk whatever the dataset size."""
+
+    def __init__(self, out_dir: str, primary_prefix: str, primary_dtype,
+                 columns: List[str], norm_type: str,
+                 extra: Optional[dict] = None):
+        os.makedirs(out_dir, exist_ok=True)
+        self.out_dir = out_dir
+        self.primary_prefix = primary_prefix
+        self.primary_dtype = primary_dtype
+        self.columns = columns
+        self.norm_type = norm_type
+        self.extra = extra
+        self.shard_rows: List[int] = []
+
+    def add(self, primary: np.ndarray, tags: np.ndarray,
+            weights: np.ndarray) -> None:
+        s = len(self.shard_rows)
+        np.save(os.path.join(self.out_dir,
+                             f"{self.primary_prefix}-{s:05d}.npy"),
+                primary.astype(self.primary_dtype, copy=False))
+        np.save(os.path.join(self.out_dir, f"tags-{s:05d}.npy"),
+                tags.astype(np.int8, copy=False))
+        np.save(os.path.join(self.out_dir, f"weights-{s:05d}.npy"),
+                weights.astype(np.float32, copy=False))
+        self.shard_rows.append(primary.shape[0])
+
+    def restore(self, shard_rows: List[int]) -> None:
+        """Resume: trust the first len(shard_rows) shards on disk (the
+        stream checkpoint recorded them); the next add() overwrites any
+        shard the killed run wrote past its last snapshot."""
+        self.shard_rows = [int(r) for r in shard_rows]
+
+    def close(self) -> NormMeta:
+        if not self.shard_rows:  # every chunk filtered empty
+            self.add(np.zeros((0, len(self.columns)),
+                              dtype=self.primary_dtype),
+                     np.zeros(0, dtype=np.int8),
+                     np.zeros(0, dtype=np.float32))
+        return _write_meta(self.out_dir, self.columns, self.shard_rows,
+                           self.norm_type, self.extra)
+
+
+class ShuffleShardWriter:
+    """External-shuffle shard writer, the streaming analog of the MR
+    shuffle (core/shuffle/MapReduceShuffle.java:47). Pass 1 (add): each
+    chunk's rows scatter to k bucket files under a draw keyed by [seed,
+    5_555, chunk]. Pass 2 (close): each bucket is permuted by [seed,
+    7_777, bucket] and written as a shard. Random buckets and in-bucket
+    permutations make a uniform global permutation with one bucket in
+    memory. Two writers with the same (seed, k) fed in lockstep draw the
+    same assignments, so the feature and code artifacts stay
+    row-aligned."""
+
+    _CLOSE_BLOCK_ROWS = 65536
+
+    def __init__(self, out_dir: str, primary_prefix: str, primary_dtype,
+                 columns: List[str], norm_type: str, n_buckets: int,
+                 seed: int = 0, extra: Optional[dict] = None):
+        os.makedirs(out_dir, exist_ok=True)
+        self.out_dir = out_dir
+        self.primary_prefix = primary_prefix
+        self.primary_dtype = np.dtype(primary_dtype)
+        self.columns = columns
+        self.norm_type = norm_type
+        self.extra = extra
+        self.seed = seed
+        self.k = max(1, n_buckets)
+        self._chunk_idx = 0
+        self._bucket_rows = [0] * self.k
+        for s in range(self.k):
+            for suffix in (".primary.bin", ".tags.bin", ".weights.bin"):
+                open(self._bucket_base(s) + suffix, "wb").close()
+
+    def _bucket_base(self, s: int) -> str:
+        return os.path.join(self.out_dir, f".bucket-{s:05d}")
+
+    def add(self, primary: np.ndarray, tags: np.ndarray,
+            weights: np.ndarray) -> None:
+        n = primary.shape[0]
+        # 5_555 keeps the bucket draw apart from the [seed, chunk]
+        # sampling draw (7_777 keys the close-time permutations)
+        assign = np.random.default_rng(
+            [self.seed, 5_555, self._chunk_idx]).integers(self.k, size=n)
+        self._chunk_idx += 1
+        order = np.argsort(assign, kind="stable")
+        counts = np.bincount(assign, minlength=self.k)
+        bounds = np.concatenate([[0], np.cumsum(counts)])
+        parts = (np.ascontiguousarray(
+                     primary.astype(self.primary_dtype, copy=False)[order]),
+                 np.ascontiguousarray(tags.astype(np.int8, copy=False)[order]),
+                 np.ascontiguousarray(
+                     weights.astype(np.float32, copy=False)[order]))
+        for s in np.nonzero(counts)[0]:
+            a, b = bounds[s], bounds[s + 1]
+            base = self._bucket_base(s)
+            for suffix, arr in zip((".primary.bin", ".tags.bin",
+                                    ".weights.bin"), parts):
+                with open(base + suffix, "ab") as fh:
+                    fh.write(arr[a:b].tobytes())
+            self._bucket_rows[s] += int(b - a)
+
+    def _permute_to_npy(self, src: str, dtype, shape, perm,
+                        dst: str) -> None:
+        if shape[0] == 0:
+            np.save(dst, np.zeros(shape, dtype=dtype))
+            return
+        src_mm = np.memmap(src, dtype=dtype, mode="r", shape=shape)
+        out = np.lib.format.open_memmap(dst, mode="w+", dtype=dtype,
+                                        shape=shape)
+        for a in range(0, shape[0], self._CLOSE_BLOCK_ROWS):
+            b = min(a + self._CLOSE_BLOCK_ROWS, shape[0])
+            out[a:b] = src_mm[perm[a:b]]
+        out.flush()
+        del out, src_mm
+
+    def close(self) -> NormMeta:
+        n_cols = len(self.columns)
+        for s in range(self.k):
+            base = self._bucket_base(s)
+            rows = self._bucket_rows[s]
+            perm = np.random.default_rng([self.seed, 7_777, s]).permutation(
+                rows)
+            for suffix, dtype, shape, prefix in (
+                    (".primary.bin", self.primary_dtype, (rows, n_cols),
+                     self.primary_prefix),
+                    (".tags.bin", np.int8, (rows,), "tags"),
+                    (".weights.bin", np.float32, (rows,), "weights")):
+                self._permute_to_npy(
+                    base + suffix, dtype, shape, perm,
+                    os.path.join(self.out_dir, f"{prefix}-{s:05d}.npy"))
+                os.remove(base + suffix)
+        return _write_meta(self.out_dir, self.columns,
+                           list(self._bucket_rows), self.norm_type,
+                           self.extra)
 
 
 def _shard_slices(n_rows: int, n_shards: int) -> List[Tuple[int, int]]:

@@ -1,6 +1,7 @@
 """Bin aggregation of `shifu stats` on the device (counterpart of
-`bin_aggregate` in `shifu_tpu/ops/binagg.py`; the sharded window folds of
-the streamed route are ROADMAP A.13).
+`bin_aggregate` in `shifu_tpu/ops/binagg.py`; the streamed route folds
+`bin_aggregate_exact` chunk by chunk in `data/pipeline.DeviceAccumulator`
+where the JAX package folds f32 windows).
 
 One pass over a flat (column offset + bin) slot space gives every
 per-column per-bin count, the analog of the reference's UpdateBinningInfo
@@ -42,7 +43,7 @@ class BinAggregates(NamedTuple):
     vmissing: torch.Tensor  # [n_numeric] int64 missing count (valid-tag rows)
 
 
-def bin_aggregate(
+def bin_aggregate_exact(
     codes: torch.Tensor,  # [n, C] int32, per-column bin index (missing = last slot)
     col_offsets: torch.Tensor,  # [C] int32 prefix offsets into the flat slot space
     total_slots: int,
@@ -50,6 +51,8 @@ def bin_aggregate(
     weights: torch.Tensor,  # [n] float32
     values: torch.Tensor,  # [n, Cn] float32 numeric matrix, NaN = missing
 ) -> BinAggregates:
+    """`bin_aggregate` before its one rounding: the weighted counts and
+    the moment sums stay f64, so folds of chunks add exactly."""
     valid = tags >= 0
     counted = (tags == 0) | (tags == 1)
     n, c = codes.shape
@@ -61,14 +64,14 @@ def bin_aggregate(
     w = weights[counted].double()[:, None].expand(-1, c).reshape(-1)
     wsum = torch.zeros(2 * total_slots, dtype=torch.float64,
                        device=codes.device).index_add_(0, idx, w)
-    wsum = wsum.view(total_slots, 2).float()
+    wsum = wsum.view(total_slots, 2)
 
     missing = torch.isnan(values)
     vvalid = ~missing & valid[:, None]
     v0 = torch.where(vvalid, values, torch.zeros((), dtype=values.dtype,
                                                  device=values.device))
-    vsum = v0.double().sum(0).float()
-    vsumsq = (v0 * v0).double().sum(0).float()
+    vsum = v0.double().sum(0)
+    vsumsq = (v0 * v0).double().sum(0)
     inf = torch.tensor(float("inf"), dtype=values.dtype, device=values.device)
     if n:
         vmin = torch.where(vvalid, values, inf).amin(0)
@@ -80,3 +83,18 @@ def bin_aggregate(
     vmissing = (missing & valid[:, None]).sum(0)
     return BinAggregates(counts[:, 1], counts[:, 0], wsum[:, 1], wsum[:, 0],
                          vsum, vsumsq, vmin, vmax, vcount, vmissing)
+
+
+def bin_aggregate(
+    codes: torch.Tensor,
+    col_offsets: torch.Tensor,
+    total_slots: int,
+    tags: torch.Tensor,
+    weights: torch.Tensor,
+    values: torch.Tensor,
+) -> BinAggregates:
+    """The aggregates of one pass, every f64 sum rounded once to f32."""
+    agg = bin_aggregate_exact(codes, col_offsets, total_slots, tags,
+                              weights, values)
+    return agg._replace(wpos=agg.wpos.float(), wneg=agg.wneg.float(),
+                        vsum=agg.vsum.float(), vsumsq=agg.vsumsq.float())

@@ -320,6 +320,32 @@ def fixed_planes(acc: torch.Tensor, maxabs: torch.Tensor,
     return (acc.double() * inv[:, None, None]).float()
 
 
+def _device_shifts(maxabs: torch.Tensor, n: int, planes: int) -> torch.Tensor:
+    """`_shifts` on the device, without a host read: [planes] int."""
+    s = 61 - torch.frexp(maxabs.double() * float(n)).exponent.long()
+    return s.expand(planes)
+
+
+def merge_acc(parts) -> torch.Tensor:
+    """f32 planes of the rows of several `hist_level_acc` calls, as one
+    call over all of them converts them: each call's sums rescaled to the
+    shift of the total (n summed, max|v| the largest), added in int64,
+    converted once. Exact, so the planes of one call over every row, while
+    each plane value is a multiple of the total's unit (2^-S, about
+    2^-42 at 500,000 rows of unit-scale values)."""
+    P = parts[0][0].shape[0]
+    n = sum(int(p[2]) for p in parts)
+    maxabs = torch.stack([p[1] for p in parts]).amax(0)
+    s_all = _device_shifts(maxabs, n, P)
+    total = torch.zeros_like(parts[0][0])
+    for acc, m, rows in parts:
+        shift = _device_shifts(m, rows, P) - s_all
+        total += torch.bitwise_right_shift(acc, shift[:, None, None])
+    inv = torch.ldexp(torch.ones(P, dtype=torch.float64,
+                                 device=total.device), -s_all)
+    return (total.double() * inv[:, None, None]).float()
+
+
 def hist_level_fixed_reference(codes, labels, weights, node_slot, active, *,
                                L: int, lay, low_precision: bool = False,
                                n_classes: int = 0) -> torch.Tensor:
@@ -869,6 +895,26 @@ def hist_level(codes, labels, weights, node_slot, active, *, L: int, lay,
     _raise_on(rc, "hist_convert launch")
     launches[_entry("hist_level", n_classes)] += 1
     return hist
+
+
+def hist_level_acc(codes, labels, weights, node_slot, active, *, L: int,
+                   lay, low_precision: bool = False,
+                   codes8: Optional[torch.Tensor] = None,
+                   n_classes: int = 0, int_planes: bool = False):
+    """`hist_level` on the card without its conversion: (acc int64
+    [C, L, T] fixed-point sums, maxabs, n rows), for a caller that adds
+    several calls' sums before one conversion (`merge_acc`: the streamed
+    grower, a call a shard). Two launches, the pre-pass and the
+    accumulate, counted as `hist_level`'s."""
+    if codes.device.type != "cuda":
+        raise ValueError(f"hist_level_acc runs on the card, not on "
+                         f"{codes.device}")
+    acc, maxabs, n, _feats = _accumulate(codes, codes8, labels, weights,
+                                         node_slot, active, L, lay,
+                                         low_precision, n_classes,
+                                         int_planes)
+    launches[_entry("hist_level", n_classes)] += 1
+    return acc, maxabs, n
 
 
 def fused_level(codes, labels, weights, node_slot, active, feat_ok_t, *,

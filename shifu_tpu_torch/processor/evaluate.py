@@ -12,10 +12,11 @@ aggregates, the score file, the sweep and the charts are numpy and text on
 the host, formatted as the JAX package formats them. The JAX package's
 `eval.*` counters and gauges are plain numbers here (`metrics`, by eval
 set), beside the stage seconds of the last run (`timings`); the obs
-envelope is ROADMAP A.14. The streamed route (an eval set past
-`shifu.ingest.memoryBudgetMB`, or `shifu.ingest.forceStreaming`), its
-`--resume`, the streamed perf sweep and multi-class confusion (a score file
-past the budget) and more than one host are ROADMAP A.13 and raise.
+envelope is ROADMAP A.14. An eval set past `shifu.ingest.memoryBudgetMB`
+(or `shifu.ingest.forceStreaming`) is scored chunk by chunk, appending to
+the score file, with stream checkpoints and `--resume`; a score file past
+the budget takes the streamed perf sweep and multi-class confusion. More
+than one host is ROADMAP A.13 and raises.
 """
 
 from __future__ import annotations
@@ -39,10 +40,10 @@ from shifu_tpu_torch.data.reader import (
 from shifu_tpu_torch.data.stream import (check_single_host,
                                          memory_budget_bytes, should_stream)
 from shifu_tpu_torch.eval.scorefile import (SCORE_COLUMN, SEP,
+                                            iter_score_tables,
                                             read_score_file,
                                             read_score_header)
 from shifu_tpu_torch.processor.basic import BasicProcessor
-from shifu_tpu_torch.utils import environment
 from shifu_tpu_torch.utils.errors import ErrorCode, ShifuError
 from shifu_tpu_torch.utils.log import get_logger
 from shifu_tpu_torch.utils.platform import DeviceLike
@@ -68,6 +69,20 @@ def _formatted(values: np.ndarray, spec: str) -> List[str]:
     """`f"{v:{spec}}"` of every value, as the JAX writer formats each numpy
     scalar (f32 and f64 alike go through the exact double)."""
     return list(map(f"{{:{spec}}}".format, values.tolist()))
+
+
+def _score_rows(tags, weights, result, meta_cols) -> str:
+    """The score file's rows of one scored block, each line ended."""
+    if not len(tags):
+        return ""
+    columns = [result.mean, result.max, result.min, result.median,
+               *result.model_scores.T]
+    fields = ([list(map(str, tags.tolist())), _formatted(weights, "g")]
+              + [_formatted(c, ".3f") for c in columns]
+              # raw meta values must not smuggle the field separator
+              + [[str(v).replace(SEP, " ") for v in vals]
+                 for _, vals in meta_cols])
+    return "\n".join(map(SEP.join, zip(*fields))) + "\n"
 
 
 class EvalProcessor(BasicProcessor):
@@ -233,15 +248,8 @@ class EvalProcessor(BasicProcessor):
         except OSError:  # unreadable size probe: assume in-memory path
             stream = False
         if stream:
-            raise NotImplementedError(
-                f"eval {ec.name}: the streamed score route (an eval set "
-                "past -Dshifu.ingest.memoryBudgetMB, or "
-                "shifu.ingest.forceStreaming) is not ported yet: ROADMAP "
-                "A.13")
-        if environment.get_bool("shifu.resume", False):
-            raise NotImplementedError(
-                "--resume resumes the streamed eval, which is not ported "
-                "yet: ROADMAP A.13")
+            self._score_streaming(ec, paths)
+            return
         t0 = time.perf_counter()
         data, tags, weights = self._load_eval_data(ec)
         t1 = time.perf_counter()
@@ -249,15 +257,13 @@ class EvalProcessor(BasicProcessor):
         runner = ModelRunner(paths, device=self.device,
                              column_configs=self.column_configs,
                              model_config=self.model_config)
+        result = None
         if data.n_rows:
             result = runner.score_raw(data)
             for k, v in runner.timings.items():
                 self._add(k, v)
-            columns = [result.mean, result.max, result.min, result.median,
-                       *result.model_scores.T]
             score_names = _score_names(result.model_widths)
         else:  # header-only file: the perf step reads a zero-row table
-            columns = []
             score_names = self._spec_score_names(runner)
         t2 = time.perf_counter()
         meta_cols = self._score_meta_columns(ec, data)
@@ -268,16 +274,11 @@ class EvalProcessor(BasicProcessor):
         self._add("reasons", t3 - t2)
         out = self.paths.eval_score_path(ec.name)
         self.paths.ensure(os.path.dirname(out))
-        fields = ([list(map(str, tags.tolist())), _formatted(weights, "g")]
-                  + [_formatted(c, ".3f") for c in columns]
-                  # raw meta values must not smuggle the field separator
-                  + [[str(v).replace(SEP, " ") for v in vals]
-                     for _, vals in meta_cols])
         header = SCORE_HEADER + score_names + [name for name, _ in meta_cols]
         with open(out, "w") as fh:
             fh.write(SEP.join(header) + "\n")
-            if data.n_rows:
-                fh.write("\n".join(map(SEP.join, zip(*fields))) + "\n")
+            if result is not None:
+                fh.write(_score_rows(tags, weights, result, meta_cols))
         self._add("write", time.perf_counter() - t3)
         n_pos = int((tags == 1).sum())
         n_neg = int((tags == 0).sum())
@@ -287,6 +288,145 @@ class EvalProcessor(BasicProcessor):
         log.info("eval %s scored %d records (%d pos / %d neg) with %d "
                  "models -> %s", ec.name, data.n_rows, n_pos, n_neg,
                  len(paths), out)
+
+    def _score_streaming(self, ec: EvalConfig, paths: List[str]) -> None:
+        """Bounded-memory scoring: raw records stream in ingest chunks,
+        each chunk is purified, tagged and scored on its own and its rows
+        append to the score file — host memory is one chunk x (2 +
+        prefetchChunks) whatever the eval set's size (Eval.pig's mapper
+        envelope). The chunks divide over the ShardPlan with per-shard
+        cursors; the score file is the shared state: a resume truncates
+        it to the snapshotted byte offset, so rows written after the last
+        snapshot are scored again."""
+        from shifu_tpu_torch.data.pipeline import ShardPlan, prefetch_iter
+        from shifu_tpu_torch.data.stream import iter_columnar_chunks
+        from shifu_tpu_torch.eval.scorer import ModelRunner
+        from shifu_tpu_torch.resilience import checkpoint as ckpt_mod
+
+        mc = self.model_config
+        ds = ec.data_set
+        header = ds.header_path or mc.data_set.header_path
+        if header:
+            names = read_header(self.resolve(header),
+                                ds.header_delimiter
+                                or mc.data_set.header_delimiter)
+        else:
+            names = [c.column_name for c in self.column_configs]
+        runner = ModelRunner(paths, device=self.device,
+                             column_configs=self.column_configs,
+                             model_config=self.model_config)
+        pos = ec.pos_tags if ec.pos_tags is not None else mc.data_set.pos_tags
+        neg = ec.neg_tags if ec.neg_tags is not None else mc.data_set.neg_tags
+        target = mc.data_set.target_column_name
+        reasoner = self._make_reasoner(ec)  # once a run, not a chunk
+        out = self.paths.eval_score_path(ec.name)
+        self.paths.ensure(os.path.dirname(out))
+
+        shard_plan = ShardPlan()
+        S = shard_plan.n_shards
+        cursors = [-1] * S
+        shard_rows = [0] * S
+        ck = None
+        meta: dict = {}
+        if ckpt_mod.ckpt_stream_enabled():
+            ck = ckpt_mod.ShardedStreamCheckpoint(
+                ckpt_mod.ckpt_base(self.root, "eval", f"score-{ec.name}"),
+                self._eval_stream_sha(ec, paths, S), S)
+            if ckpt_mod.resume_requested():
+                loaded = ck.load()
+                if loaded is not None and os.path.isfile(out):
+                    cursors = list(loaded[0])
+                    shard_rows = [int(m.get("rows", 0))
+                                  for _a, m, _b in loaded[1]]
+                    meta = loaded[2][1]
+                    log.info("resuming eval %s (shard cursors %s, offset "
+                             "%d)", ec.name, cursors, meta["offset"])
+            else:
+                ck.clear()
+        n_rows = int(meta.get("nRows", 0))
+        n_pos = int(meta.get("nPos", 0))
+        n_neg = int(meta.get("nNeg", 0))
+        wrote_header = bool(meta.get("wroteHeader", False))
+        chunks = iter_columnar_chunks(
+            self.resolve(ds.data_path or mc.data_set.data_path), names,
+            delimiter=ds.data_delimiter or mc.data_set.data_delimiter,
+            missing_values=tuple(mc.data_set.missing_or_invalid_values))
+        t0 = time.perf_counter()
+        with open(out, "r+" if meta else "w") as fh:
+            if meta:
+                fh.seek(int(meta["offset"]))
+                fh.truncate()
+            for ci, chunk in prefetch_iter(
+                    shard_plan.resume_slice(enumerate(chunks), cursors)):
+                mask = combined_mask(ds.filter_expressions, chunk.raw,
+                                     chunk.n_rows)
+                chunk = chunk.select_rows(mask)
+                if not chunk.n_rows:
+                    continue
+                tags = make_tags_for(mc, chunk.column(target), pos, neg)
+                weights = make_weights(
+                    chunk, ds.weight_column_name
+                    or mc.data_set.weight_column_name)
+                result = runner.score_raw(chunk)
+                for k, v in runner.timings.items():
+                    self._add(k, v)
+                meta_cols = self._score_meta_columns(ec, chunk)
+                if reasoner is not None:
+                    meta_cols.append(("reasons", [
+                        "^".join(r) for r in reasoner.reason_codes(chunk)]))
+                if not wrote_header:
+                    fh.write(SEP.join(
+                        SCORE_HEADER + _score_names(result.model_widths)
+                        + [n for n, _ in meta_cols]) + "\n")
+                    wrote_header = True
+                fh.write(_score_rows(tags, weights, result, meta_cols))
+                n_rows += chunk.n_rows
+                n_pos += int((tags == 1).sum())
+                n_neg += int((tags == 0).sum())
+                shard = shard_plan.shard_of(ci)
+                cursors[shard] = ci
+                shard_rows[shard] += chunk.n_rows
+                if ck is not None:
+                    def _state(_fh=fh):
+                        _fh.flush()
+                        os.fsync(_fh.fileno())
+                        return ([(cursors[s], None, {"rows": shard_rows[s]},
+                                  None) for s in range(S)],
+                                (None, {"offset": _fh.tell(),
+                                        "nRows": n_rows, "nPos": n_pos,
+                                        "nNeg": n_neg,
+                                        "wroteHeader": wrote_header},
+                                 None))
+                    ck.maybe_save(_state)
+            if not wrote_header:  # no rows: a header-only score table
+                fh.write(SEP.join(SCORE_HEADER
+                                  + self._spec_score_names(runner)) + "\n")
+        if ck is not None:
+            ck.clear()
+        self._add("stream", time.perf_counter() - t0)
+        self.metrics.setdefault(ec.name, {}).update(
+            records=n_rows, records_pos=n_pos, records_neg=n_neg,
+            models=len(paths))
+        log.info("eval %s STREAMED %d records (%d pos / %d neg) with %d "
+                 "models -> %s", ec.name, n_rows, n_pos, n_neg, len(paths),
+                 out)
+
+    def _eval_stream_sha(self, ec: EvalConfig, paths: List[str],
+                         n_shards: int) -> str:
+        """Identity of a streamed score run: the models (names and
+        sizes), the eval data source, the chunk geometry and shards."""
+        from shifu_tpu_torch.data.stream import chunk_rows_setting
+        from shifu_tpu_torch.resilience.checkpoint import config_sha
+
+        return config_sha({
+            "eval": ec.name,
+            "models": [(os.path.basename(p), os.path.getsize(p))
+                       for p in paths],
+            "data": (ec.data_set.data_path
+                     or self.model_config.data_set.data_path),
+            "chunkRows": chunk_rows_setting(),
+            "shards": int(n_shards),
+        })
 
     @staticmethod
     def _spec_score_names(runner) -> List[str]:
@@ -334,17 +474,43 @@ class EvalProcessor(BasicProcessor):
         return reasoner.reason_codes(data) if reasoner is not None else None
 
     def _score_file(self, ec: EvalConfig) -> str:
-        """The eval set's score file, scored first when there is none; a
-        file past the memory budget takes the streamed route (A.13)."""
+        """The eval set's score file, scored first when there is none."""
         path = self.paths.eval_score_path(ec.name)
         if not os.path.isfile(path):
             self._score(ec)
-        if os.path.getsize(path) > memory_budget_bytes():
-            raise NotImplementedError(
-                f"eval {ec.name}: the score file is past "
-                "-Dshifu.ingest.memoryBudgetMB; the streamed perf sweep "
-                "and confusion matrix are not ported yet: ROADMAP A.13")
         return path
+
+    def _streamed_sweep(self, ec: EvalConfig, score_path: str,
+                        score_col: str):
+        """Tie-aware confusion sweep over a score file past the budget:
+        chunked reads tally exact per-distinct-score sums (the file holds
+        3 decimals, so distinct scores are few), then one small sort
+        builds the sweep (ConfusionMatrix.bufferedComputeConfusionMatrix
+        AndPerformance:248's externally sorted matrix)."""
+        from shifu_tpu_torch.data.stream import chunk_rows_setting
+        from shifu_tpu_torch.eval.metrics import sweep_from_histogram
+
+        tally: dict = {}
+        for table in iter_score_tables(score_path, [score_col],
+                                       chunk_rows_setting()):
+            if not len(table.tag):
+                continue
+            sc = table.columns[score_col].astype(np.float64)
+            tg = table.tag.astype(np.float64)
+            w = table.weight.astype(np.float64)
+            uniq, inv = np.unique(sc, return_inverse=True)
+            sums = [np.bincount(inv, weights=x, minlength=len(uniq))
+                    for x in (tg, 1.0 - tg, tg * w, (1.0 - tg) * w)]
+            for i, sv in enumerate(uniq.tolist()):
+                acc = tally.setdefault(sv, [0.0, 0.0, 0.0, 0.0])
+                for j in range(4):
+                    acc[j] += sums[j][i]
+        scores = np.asarray(list(tally.keys()), np.float64)
+        agg = (np.asarray(list(tally.values()), np.float64) if tally
+               else np.zeros((0, 4)))
+        log.info("streamed perf sweep: %d distinct scores", len(scores))
+        return sweep_from_histogram(scores, agg[:, 0], agg[:, 1],
+                                    agg[:, 2], agg[:, 3])
 
     def _perf_from_scores(self, ec: EvalConfig) -> None:
         from shifu_tpu_torch.eval.gainchart import render_gain_chart
@@ -363,9 +529,12 @@ class EvalProcessor(BasicProcessor):
         selector = (ec.performance_score_selector or "mean").lower()
         score_col = (selector if selector in read_score_header(score_path)
                      else "mean")
-        table = read_score_file(score_path, [score_col])
-        cs = confusion_sweep(table.columns[score_col],
-                             table.tag.astype(np.float64), table.weight)
+        if os.path.getsize(score_path) > memory_budget_bytes():
+            cs = self._streamed_sweep(ec, score_path, score_col)
+        else:
+            table = read_score_file(score_path, [score_col])
+            cs = confusion_sweep(table.columns[score_col],
+                                 table.tag.astype(np.float64), table.weight)
 
         perf = evaluate_performance_from_sweep(
             cs, n_buckets=ec.performance_bucket_num or 10
@@ -424,18 +593,40 @@ class EvalProcessor(BasicProcessor):
         priors = self._training_class_priors(K)
         score_cols = [c for c in read_score_header(score_path)
                       if SCORE_COLUMN.match(c)]
-        table = read_score_file(score_path, score_cols)
-        scores = (np.stack([table.columns[c] for c in score_cols], axis=1)
-                  if score_cols else np.zeros((len(table.tag), 0)))
-        tags = table.tag
-        if priors is None:
-            priors = class_priors(tags, K)
-        if mc.train.is_one_vs_all():
-            pred = predict_one_vs_all(scores, priors,
-                                      scale=DEFAULT_SCORE_SCALE)
+
+        def scores_of(table):
+            return (np.stack([table.columns[c] for c in score_cols], axis=1)
+                    if score_cols else np.zeros((len(table.tag), 0)))
+
+        def predict(scores):
+            if mc.train.is_one_vs_all():
+                return predict_one_vs_all(scores, priors,
+                                          scale=DEFAULT_SCORE_SCALE)
+            return predict_native(scores, K)
+
+        if os.path.getsize(score_path) > memory_budget_bytes():
+            # the K x K matrix is the only state: stream the score file
+            # (the priors come from the norm meta; the eval set's own are
+            # unknowable a chunk at a time)
+            from shifu_tpu_torch.data.stream import chunk_rows_setting
+
+            if priors is None:
+                priors = np.full(K, 1.0 / K)
+                log.warning("streamed multi-class confusion without "
+                            "training classPriors (re-run `shifu norm`); "
+                            "using uniform priors")
+            matrix = np.zeros((K, K), np.int64)
+            for table in iter_score_tables(score_path, score_cols,
+                                           chunk_rows_setting()):
+                if len(table.tag):
+                    matrix += confusion_matrix_multi(
+                        table.tag, predict(scores_of(table)), K)
         else:
-            pred = predict_native(scores, K)
-        matrix = confusion_matrix_multi(tags, pred, K)
+            table = read_score_file(score_path, score_cols)
+            if priors is None:
+                priors = class_priors(table.tag, K)
+            matrix = confusion_matrix_multi(table.tag,
+                                            predict(scores_of(table)), K)
         cm_path = self.paths.eval_confusion_path(ec.name)
         self.paths.ensure(os.path.dirname(cm_path))
         with open(cm_path, "w") as fh:

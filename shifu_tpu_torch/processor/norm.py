@@ -13,12 +13,15 @@ purpose is balanced random shards — reference NormalizeModelProcessor.java:87)
 
 The data is read once on the host; the value and table norms run on the
 device (`norm/normalizer.py`), the bin codes on the host. A dataset past
-`shifu.ingest.memoryBudgetMB` (the streamed route and its shard
-writers), `--resume` and more than one host are ROADMAP A.13 and raise.
+`shifu.ingest.memoryBudgetMB` (or `shifu.ingest.forceStreaming`) takes
+the streamed route: one chunked pass, one shard a chunk (or the
+external shuffle), with stream checkpoints and `--resume`. More than one
+host is ROADMAP A.13 and raises.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict
 
@@ -42,7 +45,6 @@ from shifu_tpu_torch.norm.normalizer import (
     norm_columns,
 )
 from shifu_tpu_torch.processor.basic import BasicProcessor
-from shifu_tpu_torch.utils import environment
 from shifu_tpu_torch.utils.log import get_logger
 from shifu_tpu_torch.utils.platform import DeviceLike
 
@@ -66,7 +68,8 @@ class NormProcessor(BasicProcessor):
         self.shuffle = shuffle
         self.seed = seed
         # seconds of each stage of the last run (read, normalize, write,
-        # bincode) and the normalize stage's device ms (cuda only)
+        # bincode; streamed: the one pass, stream) and the normalize
+        # stage's device ms (cuda only)
         self.timings: Dict[str, float] = {}
 
     def run_step(self) -> None:
@@ -81,16 +84,10 @@ class NormProcessor(BasicProcessor):
         else:
             names = [c.column_name for c in self.column_configs]
 
-        if should_stream(self.resolve(ds.data_path)):
-            raise NotImplementedError(
-                "streamed norm (data past -Dshifu.ingest.memoryBudgetMB, "
-                "or shifu.ingest.forceStreaming) is not ported yet: "
-                "ROADMAP A.13")
         check_single_host()
-        if environment.get_bool("shifu.resume", False):
-            raise NotImplementedError(
-                "--resume resumes the streamed norm, which is not ported "
-                "yet: ROADMAP A.13")
+        if should_stream(self.resolve(ds.data_path)):
+            self._run_streaming(names)
+            return
 
         t0 = time.perf_counter()
         data = read_columnar(
@@ -184,3 +181,179 @@ class NormProcessor(BasicProcessor):
         extra["classPriors"] = class_priors(
             np.asarray(tags), len(class_tags)
         ).tolist()
+
+    def _stream_config_sha(self, plan, slots, n_shards):
+        """(sha, sections) of a streamed norm: the norm plan and code
+        layout in `norm`, chunk geometry, shard plan and sampling in
+        `data`."""
+        from shifu_tpu_torch.data.stream import chunk_rows_setting
+        from shifu_tpu_torch.norm.normalizer import plan_to_json
+        from shifu_tpu_torch.resilience.checkpoint import sectioned_sha
+
+        return sectioned_sha({
+            "norm": {"plan": plan_to_json(plan),
+                     "slots": [int(s) for s in slots]},
+            "data": {"seed": self.seed,
+                     "sampleRate": self.model_config.normalize.sample_rate,
+                     "chunkRows": chunk_rows_setting(),
+                     "shards": int(n_shards)},
+        })
+
+    def _n_buckets(self) -> int:
+        """Shuffle buckets: one bucket about a quarter of the memory
+        budget (gzip text counted 4x), at least one a device."""
+        from shifu_tpu_torch.data.stream import memory_budget_bytes
+        from shifu_tpu_torch.fs.listing import expand_paths
+
+        ds = self.model_config.data_set
+        raw_bytes = sum(os.path.getsize(p) * (4 if p.endswith(".gz") else 1)
+                        for p in expand_paths(self.resolve(ds.data_path)))
+        return max(default_shards(self.device),
+                   int(np.ceil(raw_bytes / max(memory_budget_bytes() // 4,
+                                               1))))
+
+    def _run_streaming(self, names) -> None:
+        """Bounded-memory norm: one chunked pass writes both artifacts
+        (NormalizedData f32, CleanedData codes), one shard a chunk, or
+        with -shuffle the two-pass external shuffle (ShuffleShardWriter).
+        Chunk ci samples by [seed, ci]; the chunks divide over the
+        ShardPlan, each shard keeping its cursor in its own snapshot
+        file, the writers' shard lists in the shared one. The shuffle
+        appends to bucket files and restarts instead of resuming."""
+        from shifu_tpu_torch.data.pipeline import ShardPlan, prefetch_iter
+        from shifu_tpu_torch.data.stream import iter_columnar_chunks
+        from shifu_tpu_torch.norm.dataset import (ShardWriter,
+                                                  ShuffleShardWriter)
+        from shifu_tpu_torch.resilience import checkpoint as ckpt_mod
+        from shifu_tpu_torch.stats.engine import _prepare_rows
+
+        mc = self.model_config
+        ds = mc.data_set
+        t = self.timings
+        t0 = time.perf_counter()
+        plan = build_norm_plan(mc, self.column_configs)
+        tree_cols = norm_columns(self.column_configs)
+        slots = [_slots(c) for c in tree_cols]
+        code_dtype = (np.int16 if (not slots or max(slots) < 2 ** 15)
+                      else np.int32)
+        feat_args = (self.paths.normalized_data_dir(), "features",
+                     np.float32, plan.out_names,
+                     mc.normalize.norm_type.value)
+        code_args = (self.paths.cleaned_data_dir(), "codes", code_dtype,
+                     [c.column_name for c in tree_cols], "CODES")
+        if self.shuffle:
+            k = self._n_buckets()
+            feat_writer = ShuffleShardWriter(
+                *feat_args, n_buckets=k, seed=self.seed,
+                extra={"sourceOf": plan.source_of})
+            code_writer = ShuffleShardWriter(*code_args, n_buckets=k,
+                                             seed=self.seed,
+                                             extra={"slots": slots})
+        else:
+            feat_writer = ShardWriter(*feat_args,
+                                      extra={"sourceOf": plan.source_of})
+            code_writer = ShardWriter(*code_args, extra={"slots": slots})
+        if ds.filter_expressions:
+            needed = None  # expressions may reference any column
+        else:
+            keep = {sp.cc.column_name for sp in plan.specs}
+            keep.update(c.column_name for c in tree_cols)
+            keep.add(ds.target_column_name)
+            if ds.weight_column_name:
+                keep.add(ds.weight_column_name)
+            needed = [n for n in names if n in keep]
+
+        def _normed(numbered):
+            """Prefetch-thread stage: purify, sample, norm and bin-code
+            one chunk; the consumer only appends to the writers."""
+            ci, chunk = numbered
+            chunk, tags, weights = _prepare_rows(
+                mc, chunk, [self.seed, ci], mc.normalize.sample_rate,
+                mc.normalize.sample_neg_only)
+            if not chunk.n_rows:
+                return None
+            code_cache: dict = {}
+            feats = apply_norm_plan(plan, chunk, device=self.device,
+                                    code_cache=code_cache)
+            codes = bin_code_matrix(tree_cols, chunk, cache=code_cache)
+            return ci, feats, codes, tags, weights
+
+        shard_plan = ShardPlan()
+        S = shard_plan.n_shards
+        cursors = [-1] * S
+        shard_rows = [0] * S
+        n_rows = 0
+        tag_counts: Dict[int, int] = {}
+        ck = None
+        if not self.shuffle and ckpt_mod.ckpt_stream_enabled():
+            sha, sections = self._stream_config_sha(plan, slots, S)
+            ck = ckpt_mod.ShardedStreamCheckpoint(
+                ckpt_mod.ckpt_base(self.root, self.step, "stream"), sha, S,
+                sections=sections)
+            if ckpt_mod.resume_requested():
+                loaded = ck.load()
+                if loaded is not None:
+                    cursors = list(loaded[0])
+                    shard_rows = [int(m.get("rows", 0))
+                                  for _a, m, _b in loaded[1]]
+                    meta = loaded[2][1]
+                    feat_writer.restore(meta["featShardRows"])
+                    code_writer.restore(meta["codeShardRows"])
+                    n_rows = int(meta["nRows"])
+                    tag_counts = {int(k): int(v)
+                                  for k, v in meta["tagCounts"].items()}
+                    log.info("resuming streaming norm (shard cursors %s)",
+                             cursors)
+            else:
+                ck.clear()
+        elif self.shuffle and ckpt_mod.resume_requested():
+            log.warning("--resume with -shuffle: the external-shuffle "
+                        "writer appends to bucket files and cannot resume "
+                        "mid-stream; restarting from row zero")
+
+        def _ckpt_state():
+            per_shard = [(cursors[s], None, {"rows": shard_rows[s]}, None)
+                         for s in range(S)]
+            return per_shard, (None, {
+                "featShardRows": list(feat_writer.shard_rows),
+                "codeShardRows": list(code_writer.shard_rows),
+                "nRows": n_rows,
+                "tagCounts": {str(k): v for k, v in tag_counts.items()},
+            }, None)
+
+        chunks = iter_columnar_chunks(
+            self.resolve(ds.data_path), names, delimiter=ds.data_delimiter,
+            missing_values=tuple(ds.missing_or_invalid_values),
+            columns=needed)
+        for item in prefetch_iter(
+                shard_plan.resume_slice(enumerate(chunks), cursors),
+                transform=_normed):
+            if item is None:
+                continue
+            ci, feats, codes, tags, weights = item
+            feat_writer.add(feats, tags, weights)
+            code_writer.add(codes, tags, weights)
+            n_rows += len(tags)
+            shard = shard_plan.shard_of(ci)
+            cursors[shard] = ci
+            shard_rows[shard] += len(tags)
+            for tg, c in zip(*np.unique(tags, return_counts=True)):
+                tag_counts[int(tg)] = tag_counts.get(int(tg), 0) + int(c)
+            if ck is not None:
+                ck.maybe_save(_ckpt_state)
+        if ck is not None:
+            ck.clear()
+        if mc.is_multi_classification():
+            class_tags = [str(tg) for tg in mc.tags()]
+            total = max(sum(tag_counts.values()), 1)
+            feat_writer.extra["classTags"] = class_tags
+            feat_writer.extra["classPriors"] = [
+                tag_counts.get(k, 0) / total for k in range(len(class_tags))]
+        feat_meta = feat_writer.close()
+        code_writer.close()
+        t["stream"] = time.perf_counter() - t0
+        log.info("streaming norm: %d rows x %d cols (%s) -> %s [%d shards] "
+                 "+ bin codes -> %s", n_rows, len(feat_meta.columns),
+                 mc.normalize.norm_type.value,
+                 self.paths.normalized_data_dir(),
+                 len(feat_meta.shard_rows), self.paths.cleaned_data_dir())

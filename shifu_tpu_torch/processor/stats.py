@@ -2,11 +2,14 @@
 of `shifu_tpu/processor/stats.py`).
 
 Parity: core/processor/StatsModelProcessor.java:116 (SPDTI executor path) +
-optional -correlation / -psi / -rebin flags. The port runs the in-RAM
-route: the data is read once, the bins and codes are built on the host,
-and the bin aggregation and the correlation run on the device. A dataset
-past `shifu.ingest.memoryBudgetMB` (the streamed route), more than one
-host, parquet and remote sources are ROADMAP A.13 and raise.
+optional -correlation / -psi / -rebin flags. In RAM the data is read
+once, the bins and codes are built on the host, and the bin aggregation
+and the correlation run on the device. A dataset past
+`shifu.ingest.memoryBudgetMB` (or `shifu.ingest.forceStreaming`) takes
+the streamed route: two chunked passes (`stats/engine.
+compute_stats_streaming`, sketch-based bins), a third for -correlation
+and -psi, with stream checkpoints and `--resume`. More than one host,
+parquet and remote sources are ROADMAP A.13 and raise.
 """
 
 from __future__ import annotations
@@ -43,19 +46,100 @@ class StatsProcessor(BasicProcessor):
         self.timings: Dict[str, float] = {}
 
     def _load_data(self):
-        mc = self.model_config
-        assert mc is not None
-        ds = mc.data_set
-        if ds.header_path:
-            names = read_header(self.resolve(ds.header_path), ds.header_delimiter)
-        else:
-            names = [c.column_name for c in self.column_configs]
+        ds = self.model_config.data_set
         return read_columnar(
             self.resolve(ds.data_path),
-            names,
+            self._names(),
             delimiter=ds.data_delimiter,
             missing_values=tuple(ds.missing_or_invalid_values),
         )
+
+    def _names(self):
+        ds = self.model_config.data_set
+        if ds.header_path:
+            return read_header(self.resolve(ds.header_path),
+                               ds.header_delimiter)
+        return [c.column_name for c in self.column_configs]
+
+    def _streaming_columns(self, names):
+        """Columns the streamed passes read: the target, the weight and
+        every stats candidate (and the PSI unit column); None (all) under
+        filter expressions, which may name any column."""
+        mc = self.model_config
+        if mc.data_set.filter_expressions:
+            return None
+        needed = {c.column_name for c in self.column_configs
+                  if not (c.is_meta() or c.is_weight())}
+        needed.add(mc.data_set.target_column_name)
+        if mc.data_set.weight_column_name:
+            needed.add(mc.data_set.weight_column_name)
+        if self.psi and (mc.stats.psi_column_name or "").strip():
+            needed.add(mc.stats.psi_column_name.strip())
+        return [n for n in names if n in needed]
+
+    def _run_streaming(self, psi_col: str) -> None:
+        """The streamed route: stats passes, then one more chunked pass
+        for -correlation / -psi, chunk ci on shard ci % S's accumulators,
+        merged in shard order (the correlation's shift from the first
+        chunk, shared by every shard)."""
+        from shifu_tpu_torch.data.pipeline import ShardPlan, prefetch_iter
+        from shifu_tpu_torch.data.stream import iter_columnar_chunks
+        from shifu_tpu_torch.resilience.checkpoint import resume_requested
+        from shifu_tpu_torch.stats.correlation import (StreamingCorrelation,
+                                                       save_correlation_csv)
+        from shifu_tpu_torch.stats.engine import compute_stats_streaming
+        from shifu_tpu_torch.stats.psi import PsiAccumulator
+
+        mc = self.model_config
+        ds = mc.data_set
+        names = self._names()
+        wanted = self._streaming_columns(names)
+
+        def factory():
+            return iter_columnar_chunks(
+                self.resolve(ds.data_path), names,
+                delimiter=ds.data_delimiter,
+                missing_values=tuple(ds.missing_or_invalid_values),
+                columns=wanted)
+
+        log.info("streaming stats in chunks on %s", self.device)
+        compute_stats_streaming(mc, self.column_configs, factory,
+                                self.device, checkpoint_root=self.root,
+                                resume=resume_requested(),
+                                timings=self.timings)
+        do_psi = self.psi and bool(psi_col)
+        if not (self.correlation or do_psi):
+            return
+        t0 = time.perf_counter()
+        plan = ShardPlan()
+        S = plan.n_shards
+        corr_accs = None
+        psi_accs = ([PsiAccumulator(self.column_configs, psi_col)
+                     for _ in range(S)] if do_psi else None)
+        for ci, chunk in prefetch_iter(enumerate(factory())):
+            if self.correlation and corr_accs is None:
+                shift = StreamingCorrelation.shift_of(chunk,
+                                                      self.column_configs)
+                corr_accs = [StreamingCorrelation(self.device, shift=shift)
+                             for _ in range(S)]
+            s = plan.shard_of(ci)
+            if corr_accs is not None:
+                corr_accs[s].update(chunk, self.column_configs)
+            if psi_accs is not None:
+                psi_accs[s].update(chunk)
+        if corr_accs is not None:
+            for other in corr_accs[1:]:
+                corr_accs[0].merge(other)
+            corr, cnames = corr_accs[0].finalize()
+            save_correlation_csv(self.paths.correlation_path(), corr, cnames)
+            log.info("correlation matrix (%d x %d) -> %s", len(cnames),
+                     len(cnames), self.paths.correlation_path())
+        if psi_accs is not None:
+            for other in psi_accs[1:]:
+                psi_accs[0].merge(other)
+            psi_accs[0].finalize()
+            log.info("PSI computed against unit column %s", psi_col)
+        self.timings["corr_psi"] = time.perf_counter() - t0
 
     def run_step(self) -> None:
         self.setup()
@@ -79,11 +163,16 @@ class StatsProcessor(BasicProcessor):
 
         check_single_host()
         ds = mc.data_set
+        psi_col = (mc.stats.psi_column_name or "").strip()
+        if self.psi and not psi_col:
+            log.warning("-psi requested but stats.psiColumnName is empty; "
+                        "skipped")
         if should_stream(self.resolve(ds.data_path)):
-            raise NotImplementedError(
-                "streamed stats (data past -Dshifu.ingest.memoryBudgetMB, "
-                "or shifu.ingest.forceStreaming) is not ported yet: "
-                "ROADMAP A.13")
+            if self.correlation or self.psi:
+                self.paths.ensure(self.paths.tmp_dir("stats"))
+            self._run_streaming(psi_col)
+            self.save_column_configs()
+            return
         t0 = time.perf_counter()
         data = self._load_data()
         self.timings["parse"] = time.perf_counter() - t0
@@ -95,9 +184,6 @@ class StatsProcessor(BasicProcessor):
 
         if self.correlation or self.psi:
             self.paths.ensure(self.paths.tmp_dir("stats"))
-        psi_col = (mc.stats.psi_column_name or "").strip()
-        if self.psi and not psi_col:
-            log.warning("-psi requested but stats.psiColumnName is empty; skipped")
 
         if self.correlation:
             from shifu_tpu_torch.stats.correlation import (

@@ -5,9 +5,10 @@ dispatch, bagging, k-fold, grid search, continuous training, model-file
 suffixes, progress and val-error files. The port trains the tree family
 (GBT, RF, DT), NN/LR/SVM and WDL in memory on one device; bagging
 members, ONEVSALL classes, k-fold folds and grid trials of one program
-signature train together on a trainer's member axis. The streamed
-(larger-than-memory) routes and the co-resident route raise
-NotImplementedError until their slices land.
+signature train together on a trainer's member axis. NormalizedData
+past `shifu.train.memoryBudgetMB` (or `train.trainOnDisk`) trains
+streamed, members one after another (`train/streaming.py`); the
+co-resident route raises NotImplementedError naming ROADMAP A.14.
 """
 
 from __future__ import annotations
@@ -88,17 +89,15 @@ class TrainProcessor(BasicProcessor):
         if getattr(self, "coresident_cfg", None) is not None:
             raise NotImplementedError(
                 "co-resident NN training is not ported yet: ROADMAP A.14")
-        if should_stream_training(norm_dir,
-                                  force_attr=bool(mc.train.train_on_disk)):
-            raise NotImplementedError(
-                "streamed NN training (NormalizedData past "
-                "-Dshifu.train.memoryBudgetMB, or train.trainOnDisk) is not "
-                "ported yet: ROADMAP A.13")
         plan = build_norm_plan(mc, self.column_configs)
         norm_json = plan_to_json(plan)
         suffix = self._model_suffix(alg)
         self.paths.ensure(self.paths.models_dir())
         self.paths.ensure(self.paths.train_dir())
+        if should_stream_training(norm_dir,
+                                  force_attr=bool(mc.train.train_on_disk)):
+            self._train_nn_streamed(alg, norm_dir, norm_json, suffix)
+            return
 
         meta, feats, tags, weights = load_normalized(norm_dir)
         feats = np.asarray(feats, dtype=np.float32)
@@ -156,6 +155,122 @@ class TrainProcessor(BasicProcessor):
                           device=self.device)
         self._save_model(0, alg, cfg, result, meta.columns, norm_json,
                          suffix)
+
+    def _train_nn_streamed(self, alg, norm_dir, norm_json, suffix) -> None:
+        """Larger-than-memory route: the normalized matrix never lands in
+        one host array; each member streams the mmap'd shards
+        (`train/streaming.py`, the reference's MemoryDiskFloatMLDataSet).
+        Bagging members, ONEVSALL classes, grid trials and folds run one
+        after another (the reference fans them out as Guagua jobs,
+        TrainModelProcessor.java:768-945)."""
+        from shifu_tpu_torch.norm.dataset import read_meta
+        from shifu_tpu_torch.processor.train_common import progress_writer
+        from shifu_tpu_torch.resilience.checkpoint import resume_requested
+        from shifu_tpu_torch.train.grid_search import flatten_params
+        from shifu_tpu_torch.train.nn_trainer import NNTrainConfig
+        from shifu_tpu_torch.train.streaming import train_nn_streamed
+
+        mc = self.model_config
+        composites = flatten_params(
+            mc.train.params or {},
+            self.resolve(mc.train.grid_config_file)
+            if mc.train.grid_config_file else None,
+        )
+        multi = mc.is_multi_classification()
+        is_ova = multi and mc.train.is_one_vs_all()
+        if len(composites) > 1:
+            best = self._grid_search_streamed(
+                norm_dir, composites, len(mc.tags()) if is_ova else 0)
+            log.info("streamed grid search best params: %s", best)
+            mc.train.params = best
+        columns = list(read_meta(norm_dir).columns)
+        num_kfold = mc.train.num_k_fold or -1
+        if num_kfold > 0:
+            if is_ova:
+                log.warning("num_k_fold is ignored under ONEVSALL "
+                            "multi-class (one model per class)")
+            else:
+                self._k_fold_streamed(alg, num_kfold, norm_dir, columns,
+                                      norm_json, suffix)
+                return
+        class_tags = [str(t) for t in mc.tags()] if multi else None
+        n_members = (len(class_tags) if is_ova
+                     else max(1, int(mc.train.bagging_num or 1)))
+        log.info("training STREAMED from %s (%d member(s)) on %s", norm_dir,
+                 n_members, self.device)
+        paths = self._checkpoint_paths(n_members)
+        for i in range(n_members):
+            cfg = NNTrainConfig.from_model_config(mc, trainer_id=i)
+            cfg.checkpoint_every = self._checkpoint_every()
+            cfg.checkpoint_path = paths[i]
+            cfg.progress_cb = progress_writer(self.paths.progress_path(i), i)
+            init_flat = (self._continuous_init(i, suffix)
+                         if mc.train.is_continuous else None)
+            res = train_nn_streamed(
+                norm_dir, cfg, init_flat=init_flat,
+                target_class=i if is_ova else None,
+                resume=resume_requested(), device=self.device)
+            self._save_model(i, alg, cfg, res, columns, norm_json, suffix,
+                             class_tags=class_tags)
+
+    def _grid_search_streamed(self, norm_dir, composites,
+                              n_classes: int = 0) -> dict:
+        """Grid trials one after another, each a full streamed run; under
+        ONEVSALL (n_classes > 0) a trial streams one run a class and
+        scores the mean class holdout error."""
+        from shifu_tpu_torch.train.streaming import train_nn_streamed
+
+        results = []
+        for gi, params in enumerate(composites):
+            cfg = self._config_for(params, gi)
+            if n_classes > 0:
+                err = float(np.mean([
+                    train_nn_streamed(norm_dir, cfg, target_class=k,
+                                      device=self.device).valid_error
+                    for k in range(n_classes)]))
+            else:
+                err = train_nn_streamed(norm_dir, cfg,
+                                        device=self.device).valid_error
+            results.append((err, gi, params))
+            log.info("streamed grid trial %d/%d valid err %.6f params=%s",
+                     gi + 1, len(composites), err, params)
+        results.sort(key=lambda r: r[0])
+        return results[0][2]
+
+    def _k_fold_streamed(self, alg, k: int, norm_dir, columns, norm_json,
+                         suffix) -> None:
+        """Streamed k-fold: fold membership is the global row index % k,
+        the in-memory fold geometry, carried into each shard through the
+        feed's `sig_override`; folds run one after another."""
+        from shifu_tpu_torch.train.nn_trainer import NNTrainConfig
+        from shifu_tpu_torch.train.streaming import train_nn_streamed
+
+        mc = self.model_config
+        errors = []
+        for i in range(k):
+            cfg = NNTrainConfig.from_model_config(mc, trainer_id=i)
+            cfg.valid_set_rate = 0.0  # the fold drives the split
+            cfg.early_stop_window = 0
+
+            def sig_override(s, rows, offset, w, _i=i, _cfg=cfg):
+                fold = np.arange(offset, offset + rows) % k
+                rng = np.random.default_rng(_i * 1000 + 7 + s)
+                if _cfg.bagging_with_replacement:
+                    bag = rng.poisson(_cfg.bagging_sample_rate, size=rows)
+                else:
+                    bag = rng.random(rows) < _cfg.bagging_sample_rate
+                return (np.where(fold == _i, 0.0, w * bag),
+                        np.where(fold == _i, w, 0.0))
+
+            res = train_nn_streamed(norm_dir, cfg, sig_override=sig_override,
+                                    device=self.device)
+            self._save_model(i, alg, cfg, res, columns, norm_json, suffix,
+                             val_error_file=False)
+            errors.append(res.valid_error)
+            log.info("streamed fold %d/%d holdout err %.6f", i + 1, k,
+                     res.valid_error)
+        log.info("streamed k-fold avg validation error: %.6f",
+                 float(np.mean(errors)))
 
     def _save_model(self, i: int, alg, cfg, result, columns, norm_json,
                     suffix: str, class_tags=None, val_error_file=True

@@ -4,7 +4,9 @@
 Parity: TrainModelProcessor tree path (input = CleanedDataPath, not norm —
 TrainModelProcessor.java:1366-1372) + DT param wiring (prepareDTParams:1312).
 One device: the processor's (the JAX step's multi-chip data mesh is
-ROADMAP A.13, as is the streamed trainer for data past the memory budget).
+ROADMAP A.13). CleanedData past `shifu.train.memoryBudgetMB`, or
+`train.trainOnDisk`, trains streamed shard by shard
+(`train/streaming_tree.py`) with the same per-tree checkpoints.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import os
 
 import numpy as np
 
-from shifu_tpu_torch.norm.dataset import load_codes
+from shifu_tpu_torch.norm.dataset import load_codes, read_meta
 from shifu_tpu_torch.utils.errors import ErrorCode, ShifuError
 from shifu_tpu_torch.utils.log import get_logger
 
@@ -38,6 +40,7 @@ def train_tree_models(proc, alg) -> None:
     from shifu_tpu_torch.processor.train_common import record_epoch
     from shifu_tpu_torch.resilience.checkpoint import atomic_write_json
     from shifu_tpu_torch.train.streaming import should_stream_training
+    from shifu_tpu_torch.train.streaming_tree import train_trees_streamed
     from shifu_tpu_torch.train.tree_trainer import (TreeTrainConfig,
                                                     train_trees)
 
@@ -47,16 +50,21 @@ def train_tree_models(proc, alg) -> None:
         raise ShifuError(
             ErrorCode.DATA_NOT_FOUND, f"{codes_dir} — run `shifu norm` first"
         )
-    if should_stream_training(codes_dir,
-                              force_attr=bool(mc.train.train_on_disk)):
-        raise NotImplementedError(
-            "streamed tree training (CleanedData past "
-            "-Dshifu.train.memoryBudgetMB, or train.trainOnDisk) is not "
-            "ported yet: ROADMAP A.13")
-    meta, codes, tags, weights = load_codes(codes_dir)
-    codes = np.asarray(codes, dtype=np.int32)
-    tags = np.asarray(tags, dtype=np.float32)
-    weights = np.asarray(weights, dtype=np.float32)
+    stream = should_stream_training(codes_dir,
+                                    force_attr=bool(mc.train.train_on_disk))
+    if stream:
+        # larger than memory: only the tags materialize; the code shards
+        # stream once a level
+        meta = read_meta(codes_dir)
+        tags = np.concatenate([
+            np.load(os.path.join(codes_dir, f"tags-{s:05d}.npy"))
+            for s in range(len(meta.shard_rows))]).astype(np.float32)
+        codes = weights = None
+    else:
+        meta, codes, tags, weights = load_codes(codes_dir)
+        codes = np.asarray(codes, dtype=np.int32)
+        tags = np.asarray(tags, dtype=np.float32)
+        weights = np.asarray(weights, dtype=np.float32)
     slots = [int(s) for s in meta.extra["slots"]]
 
     cols = norm_columns(proc.column_configs)
@@ -158,7 +166,9 @@ def train_tree_models(proc, alg) -> None:
             "nClasses": cfg.n_classes,
             "histSubtraction": cfg.hist_subtraction,
             "maxStatsMemoryMB": cfg.max_stats_memory_mb,
-            "pallasLowering": lowering_fingerprint(proc.device),
+            # the streamed trainer rounds GBT planes a shard at a time
+            "pallasLowering": (lowering_fingerprint(proc.device)
+                               + ("-streamed" if stream else "")),
             "oneVsAll": bool(mc.train.is_one_vs_all()),
             "dataSignature": data_sig,
         }
@@ -223,13 +233,18 @@ def train_tree_models(proc, alg) -> None:
                                            "validErrors": list(val_errs)})
 
         tags_i = one_vs_all_tags[i] if one_vs_all_tags is not None else tags
-        result = train_trees(
-            codes, tags_i, weights, slots, is_cat, meta.columns, cfg,
-            boundaries=boundaries, categories=categories,
-            progress_cb=progress, init_trees=init_trees,
-            init_valid_errors=init_val_errors, checkpoint_cb=checkpoint,
-            device=proc.device,
-        )
+        resume_kw = dict(boundaries=boundaries, categories=categories,
+                         progress_cb=progress, init_trees=init_trees,
+                         init_valid_errors=init_val_errors,
+                         checkpoint_cb=checkpoint, device=proc.device)
+        if stream:
+            result = train_trees_streamed(
+                codes_dir, slots, is_cat, meta.columns, cfg,
+                tags_override=(tags_i if one_vs_all_tags is not None
+                               else None), **resume_kw)
+        else:
+            result = train_trees(codes, tags_i, weights, slots, is_cat,
+                                 meta.columns, cfg, **resume_kw)
         path = proc.paths.model_path(i, suffix)
         result.spec.save(path)
         for leftover in (ck_path, ck_state_path):

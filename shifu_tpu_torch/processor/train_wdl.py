@@ -5,10 +5,11 @@ input wiring: numeric z-score + categorical sparse index).
 
 WDL trains as NN does: bagging members, grid trials (grouped by program
 signature, batched by LearningRate), k-fold folds and continuous
-training, all on the WDL trainer's member axis on one device. The
-streamed route (NormalizedData or CleanedData past
--Dshifu.train.memoryBudgetMB, or train.trainOnDisk) waits for ROADMAP
-A.13, the co-resident route for A.14.
+training, all on the WDL trainer's member axis on one device.
+NormalizedData or CleanedData past -Dshifu.train.memoryBudgetMB (or
+train.trainOnDisk) trains streamed, members one after another
+(`train/streaming_wdl.py`); the co-resident route waits for ROADMAP
+A.14.
 """
 
 from __future__ import annotations
@@ -83,10 +84,8 @@ def train_wdl_models(proc) -> None:
     if (should_stream_training(norm_dir,
                                force_attr=bool(mc.train.train_on_disk))
             or should_stream_training(codes_dir)):
-        raise NotImplementedError(
-            "streamed WDL training (NormalizedData or CleanedData past "
-            "-Dshifu.train.memoryBudgetMB, or train.trainOnDisk) is not "
-            "ported yet: ROADMAP A.13")
+        _train_wdl_streamed(proc)
+        return
 
     nmeta, feats, tags, weights = load_normalized(norm_dir)
     cmeta, codes, _, _ = load_codes(codes_dir)
@@ -241,3 +240,58 @@ def _save_wdl_member(proc, i, cfg, res, num_names, cat_names, vocab_sizes,
         fh.write(f"{res.valid_error}\n")
     log.info("model %d (WDL) -> %s (valid err %.6f)", i, path,
              res.valid_error)
+
+
+def _train_wdl_streamed(proc) -> None:
+    """Larger-than-memory WDL: per-shard gradients over the row-aligned
+    (NormalizedData, CleanedData) shard pairs (`train/streaming_wdl.py`).
+    Members run one after another; grid search and k-fold need the
+    in-memory trainer, as in the JAX package."""
+    from shifu_tpu_torch.norm.dataset import read_meta
+    from shifu_tpu_torch.norm.normalizer import build_norm_plan, spec_to_json
+    from shifu_tpu_torch.processor.train_common import progress_writer
+    from shifu_tpu_torch.resilience.checkpoint import resume_requested
+    from shifu_tpu_torch.train.grid_search import flatten_params
+    from shifu_tpu_torch.train.streaming_wdl import train_wdl_streamed
+    from shifu_tpu_torch.train.wdl_trainer import WDLTrainConfig
+
+    mc = proc.model_config
+    norm_dir = proc.paths.normalized_data_dir()
+    codes_dir = proc.paths.cleaned_data_dir()
+    composites = flatten_params(
+        mc.train.params or {},
+        proc.resolve(mc.train.grid_config_file)
+        if mc.train.grid_config_file else None,
+    )
+    if len(composites) > 1 or (mc.train.num_k_fold or -1) > 0:
+        raise ShifuError(
+            ErrorCode.INVALID_MODEL_CONFIG,
+            "WDL grid search / k-fold need the in-memory trainer; raise "
+            "-Dshifu.train.memoryBudgetMB or disable train.trainOnDisk",
+        )
+    (num_idx, num_names, cat_idx, cat_names, vocab_sizes,
+     categories) = _wdl_column_mapping(proc, read_meta(norm_dir),
+                                       read_meta(codes_dir))
+    plan = build_norm_plan(mc, proc.column_configs)
+    names = set(num_names)
+    dense_specs = [spec_to_json(s) for s in plan.specs
+                   if s.cc.column_name in names]
+    proc.paths.ensure(proc.paths.models_dir())
+    proc.paths.ensure(proc.paths.train_dir())
+    bagging = max(1, int(mc.train.bagging_num or 1))
+    log.info("WDL training STREAMED from %s + %s (%d member(s)) on %s",
+             norm_dir, codes_dir, bagging, proc.device)
+    checkpoints = proc._checkpoint_paths(bagging)
+    for i in range(bagging):
+        cfg = WDLTrainConfig.from_model_config(mc, trainer_id=i)
+        cfg.checkpoint_every = proc._checkpoint_every()
+        cfg.checkpoint_path = checkpoints[i]
+        cfg.progress_cb = progress_writer(proc.paths.progress_path(i), i)
+        init_flat = (_continuous_init(proc, i) if mc.train.is_continuous
+                     else None)
+        res = train_wdl_streamed(norm_dir, codes_dir, num_idx, cat_idx,
+                                 vocab_sizes, cfg, init_flat=init_flat,
+                                 resume=resume_requested(),
+                                 device=proc.device)
+        _save_wdl_member(proc, i, cfg, res, num_names, cat_names,
+                         vocab_sizes, dense_specs, plan.cutoff, categories)

@@ -1,13 +1,15 @@
-"""Stats engine, the in-RAM route (counterpart of `build_codes`,
-`_prepare_rows`, `compute_stats`, `_write_back` and `_column_slot_layout`
-in `shifu_tpu/stats/engine.py`; `compute_stats_streaming` is ROADMAP A.13).
+"""Stats engine (counterpart of `build_codes`, `_prepare_rows`,
+`compute_stats`, `compute_stats_streaming`, `_write_back` and
+`_column_slot_layout` in `shifu_tpu/stats/engine.py`).
 
 Pipeline parity with MapReducerStatsWorker.doStats
 (core/processor/stats/MapReducerStatsWorker.java:105): purify -> sample ->
 per-column bins -> bin-hit aggregation -> KS/IV/WOE -> ColumnConfig update.
 The bins and codes are built on the host; the codes, values, tags and
 weights go to the device once, and `ops/binagg.bin_aggregate` reduces
-them there.
+them there. The streamed route makes two passes over the chunks:
+sketches (bins), then each chunk's codes folded on the device
+(`data/pipeline.DeviceAccumulator`).
 """
 
 from __future__ import annotations
@@ -362,3 +364,259 @@ def _column_slot_layout(
     if slots:
         col_offsets[1:] = np.cumsum(slots[:-1])
     return slots, col_offsets, numeric_cols
+
+
+def _stats_config_sha(mc: ModelConfig, stats_cols: List[ColumnConfig],
+                      seed: int, n_shards: int):
+    """(sha, sections) of a streamed stats run: chunk geometry, shards,
+    sampling and columns in `data`, the binning in `stats`."""
+    from shifu_tpu_torch.data.stream import chunk_rows_setting
+    from shifu_tpu_torch.resilience.checkpoint import sectioned_sha
+
+    return sectioned_sha({
+        "data": {
+            "chunkRows": chunk_rows_setting(),
+            "shards": n_shards,
+            "sampleRate": mc.stats.sample_rate,
+            "sampleNegOnly": mc.stats.sample_neg_only,
+            "seed": seed,
+            "columns": [(c.column_name, str(c.column_type))
+                        for c in stats_cols],
+        },
+        "stats": {
+            "method": str(mc.stats.binning_method),
+            "maxBins": mc.stats.max_num_bin,
+            "cateMax": mc.stats.cate_max_num_bin,
+        },
+    })
+
+
+def compute_stats_streaming(
+    mc: ModelConfig,
+    columns: List[ColumnConfig],
+    chunk_factory,
+    device: torch.device,
+    seed: int = 0,
+    checkpoint_root: Optional[str] = None,
+    resume: bool = False,
+    timings: Optional[Dict[str, float]] = None,
+) -> None:
+    """Bounded-memory stats: two passes over a re-iterable chunk stream
+    (`chunk_factory()` -> chunks).
+
+    Pass 1 folds every chunk into per-column sketches (the SPDT histogram
+    of the reference's EqualPopulationBinning for numeric bins, moments,
+    a capped categorical counter), one sketch set a row shard (ShardPlan:
+    chunk ci on shard ci % S), merged in shard order at bin
+    finalization. Pass 2 bin-codes each chunk on the prefetch thread and
+    folds it on the device (DeviceAccumulator: int64 counts, f64 sums),
+    read back once. Peak host memory is one chunk x (2 + prefetch depth)
+    plus the sketches. Chunk ci samples by [seed, ci], so both passes
+    and a resume see the same rows.
+
+    With `checkpoint_root`, every shifu.ckpt.everyChunks chunks each
+    shard's cursor, counters and sketches land in its own snapshot and
+    the device fold in the shared one (ShardedStreamCheckpoint);
+    `resume=True` continues mid-pass, bit-identical to an unbroken run.
+    `timings` receives the seconds of pass 1, the bins, pass 2 and the
+    write-back."""
+    import pickle
+
+    from shifu_tpu_torch.config.model_config import BinningMethod
+    from shifu_tpu_torch.data.pipeline import (DeviceAccumulator, ShardPlan,
+                                               prefetch_iter)
+    from shifu_tpu_torch.resilience import checkpoint as ckpt_mod
+    from shifu_tpu_torch.stats.sketch import (CategoricalSketch,
+                                              NumericSketch)
+
+    t = {} if timings is None else timings
+    t0 = time.perf_counter()
+    stats_cols = [c for c in columns
+                  if not (c.is_target() or c.is_meta() or c.is_weight())]
+    method = mc.stats.binning_method
+    max_bins = mc.stats.max_num_bin
+    cate_max = mc.stats.cate_max_num_bin or MAX_CATEGORY_SIZE
+    use_weights = method in (BinningMethod.WEIGHT_EQUAL_POSITIVE,
+                             BinningMethod.WEIGHT_EQUAL_NEGATIVE,
+                             BinningMethod.WEIGHT_EQUAL_TOTAL)
+
+    def bin_subset(tags: np.ndarray) -> np.ndarray:
+        if method in (BinningMethod.EQUAL_POSITIVE,
+                      BinningMethod.WEIGHT_EQUAL_POSITIVE):
+            return tags == 1
+        if method in (BinningMethod.EQUAL_NEGATIVE,
+                      BinningMethod.WEIGHT_EQUAL_NEGATIVE):
+            return tags == 0
+        return tags >= 0
+
+    plan = ShardPlan()
+    S = plan.n_shards
+
+    def _fresh() -> Dict[str, object]:
+        return {cc.column_name: (CategoricalSketch() if cc.is_categorical()
+                                 else NumericSketch(max_bins=max_bins))
+                for cc in stats_cols}
+
+    sketches = [_fresh() for _ in range(S)]
+    shard_valid = np.zeros(S, dtype=np.int64)
+    shard_pos = np.zeros(S, dtype=np.int64)
+    shard_neg = np.zeros(S, dtype=np.int64)
+    cursors1 = [-1] * S
+    cursors2 = [-1] * S
+    acc = DeviceAccumulator(device)
+    ck = None
+    phase: Optional[str] = None
+    if checkpoint_root is not None and ckpt_mod.ckpt_stream_enabled():
+        sha, sections = _stats_config_sha(mc, stats_cols, seed, S)
+        ck = ckpt_mod.ShardedStreamCheckpoint(
+            ckpt_mod.ckpt_base(checkpoint_root, "stats", "stream"), sha, S,
+            sections=sections)
+        loaded = ck.load() if resume else None
+        if loaded is not None:
+            cursors, per_shard, shared = loaded
+            phase = shared[1].get("phase")
+            for s, (_arrays, meta, blob) in enumerate(per_shard):
+                sketches[s] = pickle.loads(blob)
+                shard_valid[s] = int(meta["nValid"])
+                shard_pos[s] = int(meta["nPos"])
+                shard_neg[s] = int(meta["nNeg"])
+            if phase == "pass1":
+                cursors1 = list(cursors)
+            elif phase == "pass2":
+                cursors2 = list(cursors)
+                acc.restore(shared[0])
+            log.info("resuming streaming stats from %s (shard cursors %s)",
+                     phase, list(cursors))
+        elif not resume:
+            ck.clear()  # a stale snapshot must not resurface
+
+    def _states(cursors, phase_name, shared_arrays=None):
+        per_shard = [(cursors[s], None,
+                      {"nValid": int(shard_valid[s]),
+                       "nPos": int(shard_pos[s]),
+                       "nNeg": int(shard_neg[s])},
+                      pickle.dumps(sketches[s])) for s in range(S)]
+        return per_shard, (shared_arrays, {"phase": phase_name}, None)
+
+    def _prepared(numbered):
+        ci, chunk = numbered
+        chunk, tags, weights = _prepare_rows(
+            mc, chunk, [seed, ci], mc.stats.sample_rate,
+            mc.stats.sample_neg_only, fold_multiclass=True)
+        return ci, chunk, tags, weights
+
+    def _prep1(numbered):
+        """`_prepared`, then the column parses the sketches read, all on
+        the prefetch thread."""
+        ci, chunk, tags, weights = _prepared(numbered)
+        for cc in stats_cols if chunk.n_rows else ():
+            if cc.is_categorical():
+                chunk.column(cc.column_name)
+                chunk.missing_mask(cc.column_name)
+            else:
+                chunk.numeric(cc.column_name)
+        return ci, chunk, tags, weights
+
+    # ---- pass 1: each shard folds its chunks into its own sketches ----
+    if phase in (None, "pass1"):
+        for ci, chunk, tags, weights in prefetch_iter(
+                plan.resume_slice(enumerate(chunk_factory()), cursors1),
+                transform=_prep1):
+            s = plan.shard_of(ci)
+            cursors1[s] = ci
+            if chunk.n_rows:
+                shard_valid[s] += chunk.n_rows
+                shard_pos[s] += int((tags == 1).sum())
+                shard_neg[s] += int((tags == 0).sum())
+                bm = bin_subset(tags)
+                for cc in stats_cols:
+                    sk = sketches[s][cc.column_name]
+                    if cc.is_categorical():
+                        sk.update(chunk.column(cc.column_name),
+                                  chunk.missing_mask(cc.column_name))
+                    else:
+                        sk.update(chunk.numeric(cc.column_name), bm,
+                                  weights if use_weights else None)
+            if ck is not None:
+                ck.maybe_save(lambda: _states(cursors1, "pass1"))
+        if ck is not None:  # pass 1 done: a resume never repeats it
+            ck.save(*_states([-1] * S, "pass1-done"))
+    n_valid_rows = int(shard_valid.sum())
+    log.info("streaming stats pass 1: %d rows (%d pos / %d neg) over %d "
+             "shard(s)", n_valid_rows, int(shard_pos.sum()),
+             int(shard_neg.sum()), S)
+    t1 = time.perf_counter()
+    t["pass1"] = t1 - t0
+
+    # ---- merge the shards' sketches in shard order (a copy: the
+    # per-shard ones stay as snapshotted) and finalize the bins ----
+    merged = (pickle.loads(pickle.dumps(sketches[0])) if ck is not None
+              else sketches[0])
+    for other in sketches[1:]:
+        for name, sk in merged.items():
+            sk.merge(other[name])
+    for cc in stats_cols:
+        sk = merged[cc.column_name]
+        bn = cc.column_binning
+        if cc.is_categorical():
+            cats = sk.top_categories(cate_max)
+            bn.bin_category = cats
+            bn.bin_boundary = None
+            bn.length = len(cats)
+            continue
+        if method == BinningMethod.EQUAL_INTERVAL:
+            lo, hi = sk.min, sk.max
+            if np.isfinite(lo) and np.isfinite(hi) and hi > lo:
+                step = (hi - lo) / max_bins
+                bounds = [float("-inf")] + [lo + k * step
+                                            for k in range(1, max_bins)]
+            else:
+                bounds = [float("-inf")]
+        else:
+            hist = sk.hist if sk.hist.total_weight > 0 else sk.hist_all
+            bounds = hist.boundaries(max_bins)
+        bn.bin_boundary = bounds
+        bn.bin_category = None
+        bn.length = len(bounds)
+    t2 = time.perf_counter()
+    t["bins"] = t2 - t1
+
+    # ---- pass 2: bin codes folded on the device ----
+    slots, col_offsets, numeric_cols = _column_slot_layout(stats_cols)
+    total_slots = int(sum(slots))
+
+    def _coded(numbered):
+        ci, chunk, tags, weights = _prepared(numbered)
+        if not chunk.n_rows:
+            return ci, None
+        codes, _offs, _sl, values, _nc = build_codes(chunk, stats_cols)
+        return ci, (codes, tags, weights, values)
+
+    for ci, item in prefetch_iter(
+            plan.resume_slice(enumerate(chunk_factory()), cursors2),
+            transform=_coded):
+        if item is not None:
+            codes, tags, weights, values = item
+            acc.fold(codes, col_offsets, total_slots, tags, weights, values)
+        cursors2[plan.shard_of(ci)] = ci
+        if ck is not None:
+            ck.maybe_save(lambda: _states(cursors2, "pass2",
+                                          acc.snapshot()))
+    agg = acc.fetch()
+    t3 = time.perf_counter()
+    t["pass2"] = t3 - t2
+    if ck is not None:
+        ck.clear()  # stream complete
+    if agg is None:
+        log.warning("streaming stats: no rows survived filtering")
+        return
+    medians = [merged[cc.column_name].median for cc in numeric_cols]
+    cat_missing = {
+        cc.column_name: (int(merged[cc.column_name].missing),
+                         float(merged[cc.column_name].missing)
+                         / max(n_valid_rows, 1))
+        for cc in stats_cols if cc.is_categorical()}
+    _write_back(stats_cols, slots, col_offsets, *agg, medians=medians,
+                cat_missing=cat_missing, numeric_cols=numeric_cols,
+                n_valid_rows=n_valid_rows)
+    t["write_back"] = time.perf_counter() - t3

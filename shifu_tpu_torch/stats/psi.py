@@ -11,7 +11,7 @@ column, PSI of each unit against the whole population, unitStats strings
 written back into ColumnConfig.
 
 State is pure bin counts (integers carried in f64), so folding chunks
-is exact in any order.
+and merging shards' accumulators (`merge`) is exact in any order.
 """
 
 from __future__ import annotations
@@ -69,6 +69,23 @@ class PsiAccumulator:
                     u, [np.zeros(k, dtype=np.float64) for k in self.n_slots]
                 )
                 per_col[j] += dist
+
+    def merge(self, other: "PsiAccumulator") -> None:
+        """Fold another shard's counts in (same columns, bins and unit
+        column)."""
+        if (self.psi_column != other.psi_column
+                or self.n_slots != other.n_slots
+                or [c.column_name for c in self.cols]
+                != [c.column_name for c in other.cols]):
+            raise ValueError("cannot merge PSI accumulators built over "
+                             "different columns/bins/unit column")
+        for j in range(len(self.cols)):
+            self.overall[j] += other.overall[j]
+        for u, per_col in other.unit_counts.items():
+            mine = self.unit_counts.setdefault(
+                u, [np.zeros(k, dtype=np.float64) for k in self.n_slots])
+            for j in range(len(self.cols)):
+                mine[j] += per_col[j]
 
     def finalize(self) -> None:
         """Write psi + per-unit PSI sequence into each ColumnConfig.

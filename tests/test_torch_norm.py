@@ -327,18 +327,32 @@ def test_norm_step_byte_identical(stats_roots, tmp_path, monkeypatch, case):
 
 
 def test_norm_routes_that_wait_raise(stats_roots, tmp_path, monkeypatch):
+    """More than one host still raises naming A.13; a dataset past the
+    budget takes the streamed route (one chunk here: the in-RAM route's
+    bytes) and `shifu.resume` without a snapshot runs fresh."""
     root = str(tmp_path / "port")
     shutil.copytree(stats_roots["binary"], root)
+    penv.set_property("shifu.lifecycle.hosts", "2")
+    try:
+        with pytest.raises(Exception, match="A.13"):
+            NormProcessor(root, device="cpu").run()
+    finally:
+        penv._props.pop("shifu.lifecycle.hosts", None)
+    assert NormProcessor(root, device="cpu").run() == 0
+    want = {sub: _tree_bytes(os.path.join(root, "tmp", "norm", sub))
+            for sub in ("NormalizedData", "CleanedData")}
     for key, value in (("shifu.ingest.memoryBudgetMB", "0"),
-                       ("shifu.resume", "true"),
-                       ("shifu.lifecycle.hosts", "2")):
+                       ("shifu.resume", "true")):
         penv.set_property(key, value)
         try:
-            with pytest.raises(Exception, match="A.13"):
-                NormProcessor(root, device="cpu").run()
+            proc = NormProcessor(root, device="cpu")
+            assert proc.run() == 0
         finally:
             penv._props.pop(key, None)
-    assert NormProcessor(root, device="cpu").run() == 0
+        assert ("stream" in proc.timings) == (key != "shifu.resume")
+        for sub, files in want.items():
+            assert _tree_bytes(os.path.join(root, "tmp", "norm",
+                                            sub)) == files, (key, sub)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceUnavailable):
         NormProcessor(root)

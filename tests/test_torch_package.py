@@ -23,7 +23,8 @@ MODULES = [
     "shifu_tpu_torch.compat.egb", "shifu_tpu_torch.compat.encog",
     "shifu_tpu_torch.compat.javaio", "shifu_tpu_torch.compat.treespec",
     "shifu_tpu_torch.compat.wdl",
-    "shifu_tpu_torch.convert", "shifu_tpu_torch.data.purify",
+    "shifu_tpu_torch.convert", "shifu_tpu_torch.data.pipeline",
+    "shifu_tpu_torch.data.purify",
     "shifu_tpu_torch.eval.gainchart", "shifu_tpu_torch.eval.metrics",
     "shifu_tpu_torch.eval.multiclass", "shifu_tpu_torch.eval.reasoner",
     "shifu_tpu_torch.eval.scorefile", "shifu_tpu_torch.eval.scorer",
@@ -58,6 +59,8 @@ MODULES = [
     "shifu_tpu_torch.stats.psi", "shifu_tpu_torch.stats.rebin",
     "shifu_tpu_torch.stats.sketch", "shifu_tpu_torch.train.grid_search",
     "shifu_tpu_torch.train.nn_trainer", "shifu_tpu_torch.train.streaming",
+    "shifu_tpu_torch.train.streaming_tree",
+    "shifu_tpu_torch.train.streaming_wdl",
     "shifu_tpu_torch.train.tree_trainer", "shifu_tpu_torch.train.updaters",
     "shifu_tpu_torch.train.wdl_trainer",
     "shifu_tpu_torch.utils.environment", "shifu_tpu_torch.utils.errors",
