@@ -53,11 +53,11 @@ Phases, each of which must pass:
            card run bit-equal, scores within 0.03 of the CPU run.
 
 7. raw     `shifu init` + `shifu stats -correlation -psi` from raw text:
-           500,000 pipe-delimited rows of the bench `rf` width (a 0/1
+           250,000 pipe-delimited rows of the bench `rf` width (a 0/1
            target, a weight column of exact f32 values in [0.5, 2), 20
            numeric columns printed %.5f with 2% missing tokens, 10
            categorical columns of up to 64 tokens, a 12-value unit column
-           for -psi; about 130 MB, under the in-RAM memory budget) written
+           for -psi; about 65 MB, under the in-RAM memory budget) written
            from --seed; `InitProcessor` then `StatsProcessor` twice on the
            card and once on the CPU, each on its own copy, all in this
            process, and a stats run again under the profiler on the first
@@ -99,7 +99,7 @@ Phases, each of which must pass:
            in f32, and the first epoch's f32 descent gradient on 8,192
            rows from one init on the card and the CPU, max |dg| <= 1e-4 x
            max |g|; (c) `shifu train` NN (hidden [50] tanh, bagging 5, 30
-           epochs) on phase 8's selected 500,000-row set, twice on the
+           epochs) on phase 8's selected 250,000-row set, twice on the
            card (five model files, byte-identical) and once on the CPU
            (valid errors within 1e-3); (d) varsel filterBy SE (10 of 20)
            on the same sets, the card and the CPU selecting the same
@@ -231,10 +231,43 @@ Phases, each of which must pass:
            a hook of the phase after one chunk, then resumed:
            byte-identical to the unbroken runs.
 
+15. mesh   data-parallel training over a device mesh: a virtual mesh of
+           4 row shards on cuda:0 (`data_mesh(virtual=4)`), which runs
+           every line of the meshed path but the copies between cards.
+           (a) bench `gbt`, `rf` and NATIVE RF (phase 5's CleanedData and
+           config) through `train_trees(mesh=)`, twice (bit-equal): RF
+           and NATIVE bit-equal to phases 4's and 5's `mesh=None`
+           forests, GBT scores within 0.03 of phase 3's (the largest
+           difference printed); `hist_level(_mc)` 4 x the levels,
+           `scan_level(_mc)` once a level, `fused_level(_mc)` never, no
+           plain version; trees/s, busy and idle share of a profiled
+           run, and the merge of one level (`merge_acc` of 4 parts,
+           held equal to one call over every row) in ms. (b) the
+           host-batched grower at bench `gbt_wide` (depth 12, 2 trees)
+           on the mesh, bit-equal to `mesh=None`. (c) phase 14(a)'s 8
+           CleanedData shards of bench `rf` streamed on the mesh (3
+           trees, each file shard's rows split over the 4 shards), the
+           first trees of phase 14(a)'s forest. (d) bench `SMALL` (f32)
+           and bench `WDL` on the mesh, twice (bit-equal): the same
+           iterations as `mesh=None`, valid errors within 1e-4; row-
+           epochs/s, `SMALL`'s TFLOP/s. (e) phase 14(b)'s streamed stats
+           -correlation -psi and norm at `shifu.lifecycle.shards=4` and
+           1: the categorical columns' stats and bins, every column's
+           counts and extrema and its bins' total counts alike; the
+           files and the numeric columns whose bins differ printed (pass
+           1 merges the shards' numeric sketches in shard order, an
+           approximate merge, as the JAX package does). (f) where `torch.cuda.device_count() > 1`:
+           the kernel entries on cuda:1 with cuda:0 current against
+           their plain versions, bench `rf` and `SMALL` over every card;
+           on one card one line says so.
+
 Every main-path run (phases 3-6 and 8's train) must launch the scan entry
 once for each subtraction level of each tree (bench `gbt` 25, `rf` 70,
 NATIVE 70, ONEVSALL 75, the prep chain's RF 70) and run no plain torch
 scan on the card.
+
+The `kernels` line counts every counted run's launches, phase 15's
+meshed runs among them (`mesh_launches` apart).
 
 It prints the card and its power limit, a `kernels` JSON line, and as its
 last line {"ok": true, "device": {...}}. It exits non-zero without a CUDA
@@ -1555,7 +1588,9 @@ def phase_ova(torch, hk, tt, ptree, data_dir, gbt_data_, seed):
 # phase 7: `shifu init` + `shifu stats` from raw text
 # ---------------------------------------------------------------------------
 
-RAW = dict(n=500_000, numeric=20, cat=10, cat_values=64, units=12,
+# rows of phase 7's raw set: the host-bound phases 7-8, 9(c) and 13(c)
+# take most of the run, which must end within its time limit
+RAW = dict(n=250_000, numeric=20, cat=10, cat_values=64, units=12,
            missing=0.02)
 RAW_TOL = dict(rtol=1e-6, atol=1e-6)  # mean, stdDev, correlation: card/CPU
 
@@ -2126,7 +2161,7 @@ def varsel_se(torch, root, device, filter_num):
 
 
 def nn_phase_step(torch, data_dir):
-    """(c) `shifu train` NN, bagging 5, on phase 8's selected 500,000-row
+    """(c) `shifu train` NN, bagging 5, on phase 8's selected 250,000-row
     model set: twice on the card (model files byte-identical), once on
     the CPU (valid errors within NN_TOL); (d) varsel SE on the same set,
     card and CPU selecting the same columns."""
@@ -2228,8 +2263,7 @@ def print_step(st: dict) -> None:
 # phase 10: posttrain and eval on the card
 # ---------------------------------------------------------------------------
 
-# the held-out raw set, phase 7's width, from --seed + 1: 200,000 rows, not
-# phase 7's 500,000, which would take the phase past ~150 s on the host
+# the held-out raw set, phase 7's width, from --seed + 1: 200,000 rows
 EVAL_ROWS = 200_000
 EVAL_NAME = "smoke"
 EVAL_TOL = dict(score=0.001, auc=1e-6, bin_avg=0.01)  # the CPU run's
@@ -4464,6 +4498,509 @@ def print_stream_lifecycle(lc):
           f"{r['eval_resume_seconds']:.3f} s after a stop, byte-identical")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: data-parallel training over a device mesh
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4  # a virtual mesh: 4 row shards on cuda:0
+MESH_WIDE_TREES = 2  # (b): host-batched gbt_wide trees
+MESH_STREAM_TREES = 3  # (c): streamed RF trees, phase 14(a)'s first ones
+NN_W_TOL = dict(rtol=2e-3, atol=2e-4)  # the CPU tests' meshed-vs-one bound
+MESH_ERR_TOL = 1e-4  # valid error, meshed vs mesh=None
+
+
+def mesh_run(torch, hk, tt, fn, device="cuda"):
+    """One counted meshed run: counts zeroed just before, read just
+    after. (result, seconds, launches, plain calls, plain scan widths)."""
+    hk.reset_counters()
+    for k in tt.hist_counters:
+        tt.hist_counters[k] = 0
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with PlainScans(tt) as ps:
+        res = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0, dict(hk.launches),
+            dict(hk.reference_calls), list(ps.widths))
+
+
+def mesh_forest(torch, hk, tt, name, fn, want_hist, want_scan, mc,
+                device="cuda", wide=()):
+    """A meshed grower twice (bit-equal forests, the second timed), its
+    launches as the level plan gives them (`want_hist` histograms, S a
+    level, `want_scan` scans, no fused entry), no plain version, and one
+    more run profiled. A CPU rehearsal counts the plain versions' calls
+    instead of launches."""
+    res, secs, launches, refs, plain = mesh_run(torch, hk, tt, fn, device)
+    if device == "cuda":
+        check(not any(refs.values()),
+              f"mesh {name}: a plain version ran on the card: {refs}")
+        check(all(w in wide for w in plain),
+              f"mesh {name}: the plain torch scan ran on the card: {plain}")
+    else:
+        launches = refs
+    got = dict(hist=launches["hist_level" + mc],
+               scan=launches["scan_level" + mc],
+               fused=launches["fused_level"] + launches["fused_level_mc"])
+    check(got == dict(hist=want_hist, scan=want_scan, fused=0),
+          f"mesh {name}: launches {got}, expected hist {want_hist}, scan "
+          f"{want_scan}, fused 0")
+    res2, secs2, _l, _r, _p = mesh_run(torch, hk, tt, fn, device)
+    spec = res.spec
+    check(forests_equal(spec, res2.spec),
+          f"mesh {name}: two meshed runs gave other forests")
+    prof = (profile_run(torch, fn, secs2) if device == "cuda"
+            else dict(device_busy_s=None))
+    return spec, dict(trees=len(spec.trees), seconds_first=secs,
+                      seconds_second=secs2,
+                      trees_per_s=len(spec.trees) / secs2,
+                      launches=launches, profile=prof)
+
+
+def merge_ms(torch, hk, tt, data, L, lowp, K=0, device="cuda"):
+    """The merge of one level on the mesh: MESH_SHARDS `hist_level_acc`
+    parts of `data`'s rows (L nodes) added by `merge_acc`, ms (CUDA
+    events; None on the CPU), and the planes against one call over
+    every row (on the CPU the parts are the fixed-point plain version's,
+    and the whole the plain `hist_level_fixed_reference`)."""
+    codes, y, slots, is_cat = data
+    lay = tt.make_layout(slots, is_cat)
+    n = codes.shape[0]
+    rng = np.random.default_rng(L)
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    lab = (y if K < 3 else codes[:, 0] % K).astype(np.float32)
+    cols = (t(codes.astype(np.int32)), t(lab), t(np.ones(n, np.float32)),
+            t(rng.integers(0, L, size=n).astype(np.int32)),
+            t(rng.random(n) < 0.9))
+    b = n // MESH_SHARDS
+    kw = dict(L=L, lay=lay, low_precision=lowp, n_classes=K)
+    if device == "cuda":
+        acc_of, whole_of = hk.hist_level_acc, hk.hist_level
+    else:
+        def acc_of(*c, **k):
+            return (*hk.fixed_acc_reference(*c, **k), c[0].shape[0])
+
+        whole_of = hk.hist_level_fixed_reference
+    parts = [acc_of(*(c[s * b:(s + 1) * b].contiguous() for c in cols),
+                    **kw) for s in range(MESH_SHARDS)]
+    check(torch.equal(hk.merge_acc(parts), whole_of(*cols, **kw)),
+          f"mesh merge L={L}: the merged planes differ from one call's")
+    if device != "cuda":
+        return None
+    return time_ms(torch, lambda: hk.merge_acc(parts))
+
+
+def _rows_of(pds, root):
+    meta, c16, tags, wts = pds.load_codes(root)
+    return c16, tags, wts, meta.extra["slots"], meta.columns
+
+
+def mesh_trees(torch, hk, tt, pds, ptree, data_dir, mesh, gbt, rf,
+               device="cuda"):
+    """(a) bench gbt, rf and NATIVE RF on the mesh against phases 3-5's
+    mesh=None forests."""
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    out = {}
+    S = MESH_SHARDS
+    gcfg = tt.TreeTrainConfig(algorithm="GBT", tree_num=GBT["trees"],
+                              max_depth=GBT["depth"], learning_rate=0.1,
+                              valid_set_rate=0.1, seed=3)
+    rcfg = tt.TreeTrainConfig(algorithm="RF", tree_num=RF["trees"],
+                              max_depth=RF["depth"],
+                              feature_subset_strategy="TWOTHIRDS",
+                              valid_set_rate=0.1, seed=3)
+    paths = PathFinder(MEMORY_FORESTS["native"])
+    ncfg = tt.TreeTrainConfig.from_model_config(
+        ModelConfig.load(paths.model_config_path()))
+    cases = (("gbt", os.path.join(data_dir, "gbt"), gcfg, gbt[3]),
+             ("rf", os.path.join(data_dir, "rf"), rcfg, rf[3]),
+             ("native", paths.cleaned_data_dir(), ncfg, rf[3]))
+    for name, root, cfg, is_cat in cases:
+        c16, tags, wts, slots, cols = _rows_of(pds, root)
+        levels = cfg.tree_num * cfg.max_depth  # leaf totals at the last
+
+        def fn(c=c16, t=tags, w=wts, s=slots, ic=is_cat, cl=cols, g=cfg):
+            return tt.train_trees(c, t, w, s, ic, cl, g, mesh=mesh)
+
+        mc = "_mc" if cfg.n_classes >= 3 else ""
+        spec, rep = mesh_forest(torch, hk, tt, name, fn, S * levels, levels,
+                                mc, device)
+        ref = (ptree.TreeModelSpec.load(paths.model_path(0, "rf"))
+               if name == "native" else MEMORY_FORESTS[name])
+        if name == "gbt":
+            score = ptree.IndependentTreeModel(spec, device=device).compute(
+                c16)
+            mem = ptree.IndependentTreeModel(ref, device=device).compute(c16)
+            rep["max_score_diff_vs_one_device"] = float(
+                np.abs(score - mem).max())
+            check(rep["max_score_diff_vs_one_device"] <= GBT_SCORE_ATOL,
+                  f"mesh gbt: scores {rep['max_score_diff_vs_one_device']}"
+                  " from the mesh=None forest's")
+            rep["forest_bit_equal_to_one_device"] = forests_equal(spec, ref)
+        else:
+            check(forests_equal(spec, ref),
+                  f"mesh {name}: the forest differs from the mesh=None one")
+        rep["merge_ms_a_level"] = merge_ms(
+            torch, hk, tt, (np.asarray(c16), np.asarray(tags), slots,
+                            is_cat),
+            2 ** (cfg.max_depth - 2), name == "gbt", cfg.n_classes, device)
+        out[name] = rep
+        print_mesh_forest(name, rep)
+    return out
+
+
+def mesh_batched(torch, hk, tt, ptree, mesh, seed, device="cuda"):
+    """(b) the host-batched grower at bench gbt_wide (depth 12) on the
+    mesh, bit-equal to the same call with mesh=None."""
+    wide = growers_data(seed)
+    lay_w = tt.make_layout(wide[2], wide[3])
+    cap = tt._node_batch_size(lay_w.T, 256)
+    cfg = tt.TreeTrainConfig(algorithm="GBT", tree_num=MESH_WIDE_TREES,
+                             max_depth=BATCHED_GBT["depth"],
+                             learning_rate=0.1, valid_set_rate=0.1, seed=3)
+    check(2 ** cfg.max_depth > cap, "mesh batched: the depth fits a batch")
+    codes, y, slots, is_cat = wide
+    n = codes.shape[0]
+    args_ = (codes, y, np.ones(n, np.float32), slots, is_cat,
+             [f"f{i}" for i in range(codes.shape[1])])
+    t0 = time.perf_counter()
+    one = tt.train_trees(*args_, cfg, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    calls = batched_plan(tt, cfg, cap)[0] * cfg.tree_num
+    spec, rep = mesh_forest(
+        torch, hk, tt, "batched_gbt",
+        lambda: tt.train_trees(*args_, cfg, mesh=mesh),
+        MESH_SHARDS * calls, calls, "", device, wide=(WIDE["wide_cat"] + 1,))
+    check(forests_equal(spec, one.spec),
+          "mesh batched_gbt: the forest differs from the mesh=None one")
+    rep["one_device_seconds"] = one_s
+    print_mesh_forest("batched_gbt", rep)
+    return rep
+
+
+def mesh_streamed(torch, hk, tt, mesh, data_dir, rf, device="cuda"):
+    """(c) phase 14(a)'s 8 CleanedData shards of bench rf streamed on
+    the mesh: each file shard's rows split over the mesh's shards, one
+    merge a level; the first trees bit-equal to phase 14(a)'s forest
+    (which is phase 4's)."""
+    from shifu_tpu_torch.train import streaming_tree as pst
+
+    cfg = tt.TreeTrainConfig(algorithm="RF", tree_num=MESH_STREAM_TREES,
+                             max_depth=RF["depth"],
+                             feature_subset_strategy="TWOTHIRDS",
+                             valid_set_rate=0.1, seed=3)
+    out = os.path.join(data_dir, "stream-rf")
+    cols = [f"f{i}" for i in range(len(rf[2]))]
+    levels = cfg.tree_num * cfg.max_depth
+    spec, rep = mesh_forest(
+        torch, hk, tt, "streamed_rf",
+        lambda: pst.train_trees_streamed(out, rf[2], rf[3], cols, cfg,
+                                         mesh=mesh),
+        STREAM_SHARDS * MESH_SHARDS * levels, levels, "", device)
+    check(trees_equal(spec.trees, MEMORY_FORESTS["rf"].trees),
+          "mesh streamed_rf: the trees differ from phase 14(a)'s")
+    print_mesh_forest("streamed_rf", rep)
+    return rep
+
+
+def _nn_diff(nt, a, b) -> float:
+    fa = np.concatenate([np.concatenate([p["W"].ravel(), p["b"].ravel()])
+                         for p in a.params])
+    fb = np.concatenate([np.concatenate([p["W"].ravel(), p["b"].ravel()])
+                         for p in b.params])
+    return float(np.abs(fa - fb).max())
+
+
+def mesh_nets(torch, mesh, seed, device="cuda"):
+    """(d) bench SMALL (f32) and bench WDL on the mesh: two meshed runs
+    bit-equal (the second timed), the same iterations as mesh=None and
+    valid errors within MESH_ERR_TOL; the weights' largest difference
+    from mesh=None printed."""
+    from shifu_tpu_torch.models.wdl import flatten_wdl
+    from shifu_tpu_torch.train import nn_trainer as nt
+    from shifu_tpu_torch.train import wdl_trainer as wt
+
+    out = {}
+    host = nn_bench_data(SMALL)
+    on_dev = tuple(torch.as_tensor(a, device=device) for a in host)
+    cfg = nn_bench_cfg(nt, SMALL, False)
+    one_s, one = synced(torch, lambda: nt.train_nn(*on_dev, cfg,
+                                                   device=device), device)
+    runs = [synced(torch, lambda: nt.train_nn(*on_dev, cfg, mesh=mesh),
+                   device) for _ in range(2)]
+    check(nn_flat_bytes(runs[0][1].params) == nn_flat_bytes(runs[1][1].params),
+          "mesh small: two meshed runs gave other weights")
+    sec, res = runs[1]
+    row_epochs = SMALL["n"] * SMALL["epochs"]
+    flops = row_epochs * mlp_flops_per_row_epoch(SMALL["d"], SMALL["hidden"])
+    out["small"] = dict(
+        seconds=sec, one_device_seconds=one_s,
+        row_epochs_per_s=row_epochs / sec,
+        one_device_row_epochs_per_s=row_epochs / one_s,
+        tflops=flops / sec / 1e12, iterations=res.iterations,
+        valid_error=res.valid_error, one_device_valid_error=one.valid_error,
+        max_weight_diff=_nn_diff(nt, res, one),
+        profile=(profile_run(torch, lambda: nt.train_nn(*on_dev, cfg,
+                                                        mesh=mesh), sec)
+                 if device == "cuda" else dict(device_busy_s=None)))
+    check(res.iterations == one.iterations
+          and abs(res.valid_error - one.valid_error) <= MESH_ERR_TOL,
+          f"mesh small: {res.iterations} iterations, valid error "
+          f"{res.valid_error} against mesh=None's {one.iterations}, "
+          f"{one.valid_error}")
+
+    host = wdl_bench_data(seed)
+    on_dev = tuple(torch.as_tensor(a, device=device) for a in host)
+    vocab = [WDL["vocab"]] * WDL["wide"]
+    wcfg = wdl_bench_cfg(wt)
+    one_s, one = synced(torch, lambda: wt.train_wdl(*on_dev, vocab, wcfg,
+                                                    device=device), device)
+    runs = [synced(torch, lambda: wt.train_wdl(*on_dev, vocab, wcfg,
+                                               mesh=mesh), device)
+            for _ in range(2)]
+    check(wdl_state([runs[0][1]]) == wdl_state([runs[1][1]]),
+          "mesh wdl: two meshed runs gave other weights or errors")
+    sec, res = runs[1]
+    n = host[0].shape[0]
+    out["wdl"] = dict(
+        seconds=sec, one_device_seconds=one_s,
+        row_epochs_per_s=n * WDL["epochs"] / sec,
+        one_device_row_epochs_per_s=n * WDL["epochs"] / one_s,
+        iterations=res.iterations, valid_error=res.valid_error,
+        one_device_valid_error=one.valid_error,
+        max_weight_diff=float(np.abs(flatten_wdl(res.params)
+                                     - flatten_wdl(one.params)).max()))
+    check(res.iterations == one.iterations
+          and abs(res.valid_error - one.valid_error) <= MESH_ERR_TOL,
+          f"mesh wdl: {res.iterations} iterations, valid error "
+          f"{res.valid_error} against mesh=None's {one.iterations}, "
+          f"{one.valid_error}")
+    return out
+
+
+# ColumnConfig fields the folds give alike at any shard count: integer
+# counts and extrema (the device fold's int64 counts, f32 extrema)
+FOLD_EXACT = ("totalCount", "missingCount", "min", "max")
+
+
+def fold_diff(want: dict, got: dict) -> dict:
+    """Where two ColumnConfig.json blobs of one set differ, by kind: the
+    columns whose stats or bins differ at all, the numeric columns whose
+    boundaries differ, and the gated differences (categorical columns,
+    FOLD_EXACT fields, the bins' total positive and negative counts)."""
+    out = dict(columns=[], boundaries=[], gated=[])
+    for w, g in zip(json.loads(want), json.loads(got)):
+        name = w["columnName"]
+        if w != g:
+            out["columns"].append(name)
+        wb, gb = w.get("columnBinning") or {}, g.get("columnBinning") or {}
+        ws, gs = w.get("columnStats") or {}, g.get("columnStats") or {}
+        if wb.get("binBoundary") != gb.get("binBoundary"):
+            out["boundaries"].append(name)
+        if wb.get("binCategory") is not None and (wb != gb or ws != gs):
+            out["gated"].append(f"{name} (categorical)")
+        for k in FOLD_EXACT:
+            if ws.get(k) != gs.get(k):
+                out["gated"].append(f"{name}.{k}")
+        for k in ("binCountPos", "binCountNeg"):
+            if sum(wb.get(k) or []) != sum(gb.get(k) or []):
+                out["gated"].append(f"{name}.sum({k})")
+    return out
+
+
+def mesh_folds(torch, data_dir, device="cuda"):
+    """(e) phase 14(b)'s streamed stats -correlation -psi and norm on its
+    model set at shifu.lifecycle.shards=4 (the device fold a state a
+    shard, merged in shard order) and at 1. Gated: the categorical
+    columns' stats and bins, every column's counts and extrema and its
+    bins' total counts, alike. Reported: the files that differ and the
+    numeric columns whose boundaries differ (pass 1 merges the shards'
+    numeric sketches in shard order, an approximate merge)."""
+    from shifu_tpu_torch.processor.norm import NormProcessor
+    from shifu_tpu_torch.processor.stats import StatsProcessor
+
+    base = os.path.join(data_dir, "stream-base")
+    out, blobs = {}, {}
+    for S in (MESH_SHARDS, 1):
+        root = os.path.join(data_dir, f"stream-mesh{S}")
+        set_copy(base, root)
+        with stream_props(**{"shifu.lifecycle.shards": str(S)}):
+            rc, out[f"stats_seconds_{S}"] = _timed(
+                torch, device, StatsProcessor(root, correlation=True,
+                                              psi=True, device=device).run)
+            check(rc == 0, f"mesh folds: stats at S = {S} returned {rc}")
+            rc, out[f"norm_seconds_{S}"] = _timed(
+                torch, device, NormProcessor(root, device=device).run)
+            check(rc == 0, f"mesh folds: norm at S = {S} returned {rc}")
+        blobs[S] = _files(root, *STATS_FILES, *NORM_DIRS)
+    got, want = blobs[MESH_SHARDS], blobs[1]
+    out["files"] = len(want)
+    out["files_differing"] = sorted(k for k in set(want) | set(got)
+                                    if got.get(k) != want.get(k))
+    diff = fold_diff(want["ColumnConfig.json"], got["ColumnConfig.json"])
+    check(not diff["gated"], f"mesh folds: S = {MESH_SHARDS} and S = 1 "
+          f"differ in {diff['gated']}")
+    out.update(columns_differing=diff["columns"],
+               boundaries_differing=diff["boundaries"])
+    return out
+
+
+def mesh_cards(torch, hk, tt, pds, data_dir, rf):
+    """(f) over the real cards, where there are more than one: the
+    kernel entries on cuda:1 with cuda:0 current against their plain
+    versions, bench rf meshed bit-equal to phase 4's forest, SMALL's
+    valid error within MESH_ERR_TOL of mesh=None. None on one card."""
+    from shifu_tpu_torch.parallel.mesh import data_mesh
+    from shifu_tpu_torch.train import nn_trainer as nt
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        return None
+    d1 = torch.device("cuda", 1)
+    codes, y, slots, is_cat = rf
+    lay = tt.make_layout(slots, is_cat)
+    n, L = 100_000, 64
+    rng = np.random.default_rng(64)
+    t = lambda a: torch.as_tensor(a, device=d1)  # noqa: E731
+    cols = (t(codes[:n]), t(y[:n]), t(np.ones(n, np.float32)),
+            t(rng.integers(0, L, size=n).astype(np.int32)),
+            t(rng.random(n) < 0.9))
+    fok = torch.ones(lay.T, dtype=torch.bool, device=d1)
+    skw = dict(impurity="variance", min_inst=5, min_gain=0.0)
+    with torch.cuda.device(0):
+        h = hk.hist_level(*cols, L=L, lay=lay,
+                          codes8=hk.codes8_of(cols[0], lay))
+        scan = hk.scan_level(h, fok, lay=lay, **skw)
+    plain = hk.hist_level_reference(*cols, L=L, lay=lay)
+    want = tt.split_scan(plain, fok, tt.scan_layout(lay, d1),
+                         skw["impurity"], skw["min_inst"], skw["min_gain"])
+    check(torch.equal(h, plain)
+          and all(torch.equal(a, b) for a, b in zip(scan, want)),
+          "mesh cards: the entries on cuda:1 differ from the plain versions")
+    mesh = data_mesh()
+    c16, tags, wts, slots_, cols_ = _rows_of(pds, os.path.join(data_dir,
+                                                               "rf"))
+    rcfg = tt.TreeTrainConfig(algorithm="RF", tree_num=RF["trees"],
+                              max_depth=RF["depth"],
+                              feature_subset_strategy="TWOTHIRDS",
+                              valid_set_rate=0.1, seed=3)
+    res, secs, launches, refs, _p = mesh_run(
+        torch, hk, tt, lambda: tt.train_trees(c16, tags, wts, slots_,
+                                              is_cat, cols_, rcfg,
+                                              mesh=mesh))
+    check(forests_equal(res.spec, MEMORY_FORESTS["rf"]),
+          f"mesh cards: rf over {count} cards differs from phase 4's")
+    host = nn_bench_data(SMALL)
+    cfg = nn_bench_cfg(nt, SMALL, False)
+    one = nt.train_nn(*host, cfg, device="cuda")
+    s_secs, got = synced(torch, lambda: nt.train_nn(*host, cfg, mesh=mesh),
+                         "cuda")
+    check(got.iterations == one.iterations
+          and abs(got.valid_error - one.valid_error) <= MESH_ERR_TOL,
+          f"mesh cards: SMALL over {count} cards: valid error "
+          f"{got.valid_error} against {one.valid_error}")
+    return dict(cards=count, rf_seconds=secs,
+                rf_trees_per_s=RF["trees"] / secs, rf_launches=launches,
+                small_seconds=s_secs,
+                small_row_epochs_per_s=SMALL["n"] * SMALL["epochs"] / s_secs)
+
+
+def phase_mesh(torch, hk, tt, pds, ptree, data_dir, gbt, rf, seed,
+               device="cuda"):
+    """Phase 15: (a)-(e) on a virtual mesh of MESH_SHARDS shards on
+    cuda:0 (on the CPU for a rehearsal), (f) over the real cards where
+    there are several."""
+    from shifu_tpu_torch.parallel.mesh import data_mesh
+
+    t0 = time.perf_counter()
+    mesh = data_mesh(virtual=MESH_SHARDS, device=device)
+    out = dict(shards=MESH_SHARDS)
+    out["trees"] = mesh_trees(torch, hk, tt, pds, ptree, data_dir, mesh,
+                              gbt, rf, device)
+    out["batched_gbt"] = mesh_batched(torch, hk, tt, ptree, mesh, seed,
+                                      device)
+    out["streamed_rf"] = mesh_streamed(torch, hk, tt, mesh, data_dir, rf,
+                                       device)
+    out["nets"] = mesh_nets(torch, mesh, seed, device)
+    print_mesh_nets(out["nets"])
+    out["folds"] = f = mesh_folds(torch, data_dir, device)
+    print(f"mesh folds: streamed stats -correlation -psi "
+          f"{f[f'stats_seconds_{MESH_SHARDS}']:.3f} s and norm "
+          f"{f[f'norm_seconds_{MESH_SHARDS}']:.3f} s at {MESH_SHARDS} "
+          f"shards ({f['stats_seconds_1']:.3f} s, {f['norm_seconds_1']:.3f}"
+          f" s at 1); counts, extrema and categorical columns alike; "
+          f"{f['files'] - len(f['files_differing'])} of {f['files']} files "
+          f"byte-identical (differing: {f['files_differing']}); numeric "
+          f"boundaries differ in {len(f['boundaries_differing'])} columns "
+          f"{f['boundaries_differing']}, stats or bins in "
+          f"{len(f['columns_differing'])}")
+    out["cards"] = c = (mesh_cards(torch, hk, tt, pds, data_dir, rf)
+                        if device == "cuda" else None)
+    if c is None:
+        print("mesh cards: one card, so the real-card mesh (f) and the "
+              "current-device check on cuda:1 did not run")
+    else:
+        print(f"mesh cards: {c['cards']} cards: the entries on cuda:1 with "
+              f"cuda:0 current equal the plain versions; rf "
+              f"{c['rf_trees_per_s']:.3f} trees/s bit-equal to phase 4, "
+              f"SMALL {c['small_row_epochs_per_s']:.6g} row-epochs/s")
+    out["launches"] = ([r["launches"] for r in out["trees"].values()]
+                       + [out["batched_gbt"]["launches"],
+                          out["streamed_rf"]["launches"]])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"mesh: phase 15 in {out['seconds']:.1f} s")
+    return out
+
+
+def print_mesh_forest(name, r):
+    p = r["profile"]
+    busy = ("not measured" if p.get("device_busy_s") is None else
+            f"busy {p['device_busy_s']:.4f} s, idle share "
+            f"{p['idle_share']:.3f}")
+    extra = ""
+    if "max_score_diff_vs_one_device" in r:
+        extra = (f"; max |score - mesh=None| "
+                 f"{r['max_score_diff_vs_one_device']:.3g} (forest bit-"
+                 f"equal: {r['forest_bit_equal_to_one_device']})")
+    elif name == "streamed_rf":
+        extra = "; bit-equal to phase 14(a)'s first trees"
+    else:
+        extra = "; bit-equal to the mesh=None forest"
+    if r.get("merge_ms_a_level") is not None:
+        extra += f"; merge {r['merge_ms_a_level']:.4f} ms a level"
+    print(f"mesh {name}: {r['trees']} trees on {MESH_SHARDS} shards: "
+          f"{r['trees_per_s']:.3f} trees/s (second meshed run, "
+          f"{r['seconds_second']:.4f} s), two runs bit-equal; {busy}; "
+          "launches " + str({k: v for k, v in r["launches"].items() if v})
+          + extra)
+
+
+def print_mesh_nets(n):
+    s, w = n["small"], n["wdl"]
+    p = s["profile"]
+    busy = ("not measured" if p.get("device_busy_s") is None else
+            f"busy {p['device_busy_s']:.4f} s, idle share "
+            f"{p['idle_share']:.3f}")
+    print(f"mesh small: f32 on {MESH_SHARDS} shards {s['seconds']:.4f} s, "
+          f"{s['row_epochs_per_s']:.6g} row-epochs/s, {s['tflops']:.4g} "
+          f"TFLOP/s (mesh=None {s['one_device_seconds']:.4f} s, "
+          f"{s['one_device_row_epochs_per_s']:.6g}); valid error "
+          f"{s['valid_error']:.6f} (mesh=None {s['one_device_valid_error']:.6f}"
+          f"), max |dw| {s['max_weight_diff']:.3g}; {busy}")
+    print(f"mesh wdl: {MESH_SHARDS} shards {w['seconds']:.4f} s, "
+          f"{w['row_epochs_per_s']:.6g} row-epochs/s (mesh=None "
+          f"{w['one_device_seconds']:.4f} s, "
+          f"{w['one_device_row_epochs_per_s']:.6g}); valid error "
+          f"{w['valid_error']:.6f} (mesh=None {w['one_device_valid_error']:.6f}"
+          f"), max |dw| {w['max_weight_diff']:.3g}")
+
+
 def run(args) -> int:
     import torch
 
@@ -4631,6 +5168,8 @@ def run(args) -> int:
         wd = phase_wdl(torch, data_dir, args.seed)
         st = phase_stream(torch, hk, tt, pds, ptree, data_dir, gbt, rf,
                           args.seed)
+        me = phase_mesh(torch, hk, tt, pds, ptree, data_dir, gbt, rf,
+                        args.seed)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     report["gbt"], report["rf"] = g, r
@@ -4642,11 +5181,14 @@ def run(args) -> int:
     report["growers"] = gr
     report["wdl"] = wd
     report["stream"] = st
+    report["mesh"] = me
     grown = [gr[k]["launches"] for k in ("leafwise_gbt", "leafwise_rf",
                                          "batched_gbt", "batched_rf")]
     # the streamed grower's: (a)'s forests and (b)'s RF train
     grown += [r["launches"] for r in st["trees"].values()]
     grown.append(st["lifecycle"]["launches"])
+    # phase 15's meshed runs, each counted on its own
+    grown += me["launches"]
 
     kernels = []
     mc_lines = ":358-365,:408-430,:540-552,:767-769"
@@ -4672,6 +5214,7 @@ def run(args) -> int:
             source="shifu_tpu_torch/csrc/hist_level.cu",
             replaces=replaces,
             launches=launches,
+            mesh_launches=sum(lc[name] for lc in me["launches"]),
             max_abs_err=stats.max_abs_err[name], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"]))

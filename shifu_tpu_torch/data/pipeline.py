@@ -10,8 +10,9 @@
     `prefetchChunks=0` runs the same pull and transform inline.
   * `ShardPlan` — the deterministic chunk -> row-shard assignment of the
     streamed folds (round-robin on the chunk index, `ci % S`) and the
-    per-shard resume cursors. S is `shifu.lifecycle.shards`, default 1:
-    the port drives one card.
+    per-shard resume cursors. S is `shifu.lifecycle.shards`, by default
+    the mesh's device count (`parallel.mesh.lifecycle_shards`: every
+    card on cuda, 1 on the CPU).
     More than one host (`shifu.lifecycle.hosts` > 1, the JAX
     `HostPlan`) raises naming ROADMAP A.13.
   * `DeviceAccumulator` — the streamed stats' bin aggregates folded on
@@ -20,8 +21,11 @@
     counts in int64 and sums in f64 (ROADMAP C.5), so the accumulator
     keeps that int64/f64 state on the device for the whole stream and
     rounds the f64 sums to f32 once, at `fetch`: one device-to-host copy
-    a stream, and one a checkpoint snapshot. The sums are exact, so the
-    fold equals the in-RAM aggregate of the same rows.
+    a stream, and one a checkpoint snapshot. Shard s's state lives on
+    the lifecycle mesh's device s (`parallel.mesh.lifecycle_mesh`) and
+    the shards merge in shard order at `fetch` and `snapshot`. The sums
+    are exact, so the fold equals the in-RAM aggregate of the same rows
+    for any shard count.
 
 `bucket_rows` (power-of-two row padding) is not ported: it bounds the
 JAX package's jit shapes, and torch compiles nothing per shape. The
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from shifu_tpu_torch.ops.binagg import bin_aggregate_exact
+from shifu_tpu_torch.parallel.mesh import lifecycle_mesh, lifecycle_shards
 from shifu_tpu_torch.utils import environment
 
 DEFAULT_PREFETCH_CHUNKS = 2
@@ -134,13 +139,6 @@ def prefetch_iter(source: Iterable[Any], depth: Optional[int] = None,
     return _consume()
 
 
-def lifecycle_shards() -> int:
-    """Row shards of the streamed folds: `shifu.lifecycle.shards` when
-    set (> 0), else 1 (the port drives one card)."""
-    n = environment.get_int("shifu.lifecycle.shards", 0)
-    return n if n > 0 else 1
-
-
 class ShardPlan:
     """Deterministic chunk -> row-shard assignment, `shard_of(ci) = ci %
     S` (counterpart of the JAX `ShardPlan` over the one-host `HostPlan`):
@@ -150,11 +148,12 @@ class ShardPlan:
     plan (`ci % H`, per-host part files and barriers) is ROADMAP A.13,
     and `shifu.lifecycle.hosts` > 1 raises."""
 
-    def __init__(self, n_shards: Optional[int] = None) -> None:
+    def __init__(self, n_shards: Optional[int] = None,
+                 device=None) -> None:
         from shifu_tpu_torch.data.stream import check_single_host
 
         check_single_host()
-        self.n_shards = (lifecycle_shards() if n_shards is None
+        self.n_shards = (lifecycle_shards(device) if n_shards is None
                          else max(1, int(n_shards)))
 
     def shard_of(self, chunk_index: int) -> int:
@@ -177,18 +176,29 @@ _FIELDS = ("pos", "neg", "wpos", "wneg", "vsum", "vsumsq", "vmin", "vmax",
 
 class DeviceAccumulator:
     """The streamed stats' bin aggregates, folded on the device chunk by
-    chunk (int64 counts, f64 sums, f32 extrema), read back once."""
+    chunk (int64 counts, f64 sums, f32 extrema), a state a row shard on
+    its device of the lifecycle mesh, read back once."""
 
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, device: torch.device, n_shards: int = 1) -> None:
         self.device = device
-        self._acc: Optional[List[torch.Tensor]] = None
+        self.mesh = lifecycle_mesh(n_shards, device)
+        self._acc: List[Optional[List[torch.Tensor]]] = [None] * n_shards
         self.rows = 0
+
+    @staticmethod
+    def _add(acc, part):
+        if acc is None:
+            return list(part)
+        return [torch.minimum(a, p) if k == 6 else
+                torch.maximum(a, p) if k == 7 else a + p
+                for k, (a, p) in enumerate(zip(acc, part))]
 
     def fold(self, codes: np.ndarray, col_offsets: np.ndarray,
              total_slots: int, tags: np.ndarray, weights: np.ndarray,
-             values: np.ndarray) -> None:
-        """Copy one chunk to the device, aggregate it and add it in."""
-        dev = self.device
+             values: np.ndarray, shard: int = 0) -> None:
+        """Copy one chunk to shard `shard`'s device, aggregate it and add
+        it to that shard's state."""
+        dev = self.mesh.devices[shard]
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for a in (codes.astype(np.int32, copy=False),
                           col_offsets.astype(np.int32, copy=False),
@@ -198,35 +208,41 @@ class DeviceAccumulator:
         part = bin_aggregate_exact(args[0], args[1], int(total_slots),
                                    *args[2:])
         self.rows += int((tags >= 0).sum())
-        if self._acc is None:
-            self._acc = list(part)
-            return
-        self._acc = [torch.minimum(a, p) if k == 6 else
-                     torch.maximum(a, p) if k == 7 else a + p
-                     for k, (a, p) in enumerate(zip(self._acc, part))]
+        self._acc[shard] = self._add(self._acc[shard], part)
+
+    def _merged(self) -> Optional[List[torch.Tensor]]:
+        """The shards' states added on the lead device in shard order."""
+        out = None
+        for acc in self._acc:
+            if acc is not None:
+                out = self._add(out, [a.to(self.mesh.lead) for a in acc])
+        return out
 
     def fetch(self) -> Optional[List[np.ndarray]]:
         """The aggregates as float64 numpy arrays in BinAggregates field
         order, the f64 sums rounded once to f32 (as `bin_aggregate`
         rounds them); None when nothing was folded."""
-        if self._acc is None:
+        acc = self._merged()
+        if acc is None:
             return None
         return [(a.float() if a.dtype == torch.float64 else a)
-                .cpu().numpy().astype(np.float64) for a in self._acc]
+                .cpu().numpy().astype(np.float64) for a in acc]
 
     def snapshot(self) -> dict:
-        """The exact running state as host arrays (one copy)."""
+        """The exact running state, the shards merged, as host arrays
+        (one copy)."""
         out: dict = {"rows": np.int64(self.rows)}
-        if self._acc is not None:
-            for name, a in zip(_FIELDS, self._acc):
+        acc = self._merged()
+        if acc is not None:
+            for name, a in zip(_FIELDS, acc):
                 out[name] = a.cpu().numpy()
         return out
 
     def restore(self, arrays: dict) -> None:
+        """A snapshot's state, held by shard 0 (the sums are exact, so
+        where it sits changes no result)."""
         self.rows = int(arrays["rows"])
+        self._acc = [None] * len(self._acc)
         if _FIELDS[0] in arrays:
-            self._acc = [torch.from_numpy(np.asarray(arrays[k])).to(
-                self.device) for k in _FIELDS]
-        else:
-            self._acc = None
-
+            self._acc[0] = [torch.from_numpy(np.asarray(arrays[k])).to(
+                self.mesh.lead) for k in _FIELDS]

@@ -50,6 +50,7 @@ kernels' exact yardstick: the same 64-bit fixed point, computed plainly.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -332,7 +333,13 @@ def merge_acc(parts) -> torch.Tensor:
     shift of the total (n summed, max|v| the largest), added in int64,
     converted once. Exact, so the planes of one call over every row, while
     each plane value is a multiple of the total's unit (2^-S, about
-    2^-42 at 500,000 rows of unit-scale values)."""
+    2^-42 at 500,000 rows of unit-scale values). The parts may lie on
+    several devices (a mesh's shards): each part's sums and max|v| are
+    copied to the first part's device, where they add in part order."""
+    lead = parts[0][0].device
+    parts = [(acc.to(lead, non_blocking=True),
+              m.to(lead, non_blocking=True), rows)
+             for acc, m, rows in parts]
     P = parts[0][0].shape[0]
     n = sum(int(p[2]) for p in parts)
     maxabs = torch.stack([p[1] for p in parts]).amax(0)
@@ -789,6 +796,19 @@ def _check_codes8(t: torch.Tensor, n: int, F: int, dev) -> None:
                          f"{_ROW_ALIGN} bytes")
 
 
+def _on_device(entry):
+    """Run a card entry with its first tensor's device current, so the
+    library's `cudaGetDevice` (the workspace plan, the shared-memory
+    opt-in) sees the device whose stream the kernels launch on."""
+    @functools.wraps(entry)
+    def run(t, *args, **kw):
+        if t.device.type != "cuda":
+            return entry(t, *args, **kw)
+        with torch.cuda.device(t.device):
+            return entry(t, *args, **kw)
+    return run
+
+
 def _accumulate(codes, codes8, labels, weights, node_slot, active, L: int,
                 lay, low_precision: bool, n_classes: int, int_planes: bool):
     """Checks the inputs, launches the pre-pass and the accumulate
@@ -868,6 +888,7 @@ def _scan_planes(hist, lay, feats, n_classes: int, scan, fixed=None):
     return gain, rank, lcnt, tot0
 
 
+@_on_device
 def hist_level(codes, labels, weights, node_slot, active, *, L: int, lay,
                low_precision: bool = False,
                codes8: Optional[torch.Tensor] = None,
@@ -897,6 +918,7 @@ def hist_level(codes, labels, weights, node_slot, active, *, L: int, lay,
     return hist
 
 
+@_on_device
 def hist_level_acc(codes, labels, weights, node_slot, active, *, L: int,
                    lay, low_precision: bool = False,
                    codes8: Optional[torch.Tensor] = None,
@@ -917,6 +939,7 @@ def hist_level_acc(codes, labels, weights, node_slot, active, *, L: int,
     return acc, maxabs, n
 
 
+@_on_device
 def fused_level(codes, labels, weights, node_slot, active, feat_ok_t, *,
                 L: int, lay, impurity: str, min_inst: int, min_gain: float,
                 low_precision: bool = False,
@@ -949,6 +972,7 @@ def fused_level(codes, labels, weights, node_slot, active, feat_ok_t, *,
                            min_gain, n_classes, cap)
 
 
+@_on_device
 def scan_planes(hist, feat_ok_t, *, lay, impurity: str, min_inst: int,
                 min_gain: float, n_classes: int = 0):
     """The scan kernel's per-slot planes (gain, rank, lcnt, tot0; see
@@ -974,6 +998,7 @@ def scan_planes(hist, feat_ok_t, *, lay, impurity: str, min_inst: int,
                         (feat_ok_t, impurity, min_inst, min_gain, cap)), cap
 
 
+@_on_device
 def scan_level(hist, feat_ok_t, *, lay, impurity: str, min_inst: int,
                min_gain: float, n_classes: int = 0):
     """Scan-only entry: the split-scan 9-tuple of an f32 [C, L, T]

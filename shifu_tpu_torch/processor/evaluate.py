@@ -322,7 +322,7 @@ class EvalProcessor(BasicProcessor):
         out = self.paths.eval_score_path(ec.name)
         self.paths.ensure(os.path.dirname(out))
 
-        shard_plan = ShardPlan()
+        shard_plan = ShardPlan(device=self.device)
         S = shard_plan.n_shards
         cursors = [-1] * S
         shard_rows = [0] * S

@@ -278,7 +278,7 @@ class NormProcessor(BasicProcessor):
             codes = bin_code_matrix(tree_cols, chunk, cache=code_cache)
             return ci, feats, codes, tags, weights
 
-        shard_plan = ShardPlan()
+        shard_plan = ShardPlan(device=self.device)
         S = shard_plan.n_shards
         cursors = [-1] * S
         shard_rows = [0] * S

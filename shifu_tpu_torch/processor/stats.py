@@ -111,7 +111,7 @@ class StatsProcessor(BasicProcessor):
         if not (self.correlation or do_psi):
             return
         t0 = time.perf_counter()
-        plan = ShardPlan()
+        plan = ShardPlan(device=self.device)
         S = plan.n_shards
         corr_accs = None
         psi_accs = ([PsiAccumulator(self.column_configs, psi_col)

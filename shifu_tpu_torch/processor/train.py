@@ -3,8 +3,9 @@
 Parity: core/processor/TrainModelProcessor.java:105 — per-algorithm
 dispatch, bagging, k-fold, grid search, continuous training, model-file
 suffixes, progress and val-error files. The port trains the tree family
-(GBT, RF, DT), NN/LR/SVM and WDL in memory on one device; bagging
-members, ONEVSALL classes, k-fold folds and grid trials of one program
+(GBT, RF, DT), NN/LR/SVM and WDL in memory, over every card when
+the step runs on cuda and there is more than one (`_mesh`, the trainers'
+`mesh=`), else on one device; bagging members, ONEVSALL classes, k-fold folds and grid trials of one program
 signature train together on a trainer's member axis. NormalizedData
 past `shifu.train.memoryBudgetMB` (or `train.trainOnDisk`) trains
 streamed, members one after another (`train/streaming.py`); the
@@ -35,6 +36,13 @@ class TrainProcessor(BasicProcessor):
                  device: DeviceLike = None):
         super().__init__(root, device=device)
         self.dry = dry
+
+    def _mesh(self):
+        """Every card when the step runs on cuda and there is more than
+        one, else None (JAX `processor/train.py:603-608`)."""
+        from shifu_tpu_torch.parallel import mesh as mesh_mod
+
+        return mesh_mod.train_mesh(self.device)
 
     # ---- helpers ----
     def _model_suffix(self, alg: Algorithm) -> str:
@@ -152,7 +160,8 @@ class TrainProcessor(BasicProcessor):
         cfg.progress_cb = progress_writer(self.paths.progress_path(0))
         result = train_nn(feats, tags, weights, cfg,
                           init_flat=self._continuous_inits(1, suffix)[0],
-                          device=self.device)
+                          device=self.device,
+                          mesh=self._mesh())
         self._save_model(0, alg, cfg, result, meta.columns, norm_json,
                          suffix)
 
@@ -209,7 +218,8 @@ class TrainProcessor(BasicProcessor):
             res = train_nn_streamed(
                 norm_dir, cfg, init_flat=init_flat,
                 target_class=i if is_ova else None,
-                resume=resume_requested(), device=self.device)
+                resume=resume_requested(), device=self.device,
+                mesh=self._mesh())
             self._save_model(i, alg, cfg, res, columns, norm_json, suffix,
                              class_tags=class_tags)
 
@@ -226,11 +236,13 @@ class TrainProcessor(BasicProcessor):
             if n_classes > 0:
                 err = float(np.mean([
                     train_nn_streamed(norm_dir, cfg, target_class=k,
-                                      device=self.device).valid_error
+                                      device=self.device,
+                                      mesh=self._mesh()).valid_error
                     for k in range(n_classes)]))
             else:
                 err = train_nn_streamed(norm_dir, cfg,
-                                        device=self.device).valid_error
+                                        device=self.device,
+                                        mesh=self._mesh()).valid_error
             results.append((err, gi, params))
             log.info("streamed grid trial %d/%d valid err %.6f params=%s",
                      gi + 1, len(composites), err, params)
@@ -263,7 +275,8 @@ class TrainProcessor(BasicProcessor):
                         np.where(fold == _i, w, 0.0))
 
             res = train_nn_streamed(norm_dir, cfg, sig_override=sig_override,
-                                    device=self.device)
+                                    device=self.device,
+                                    mesh=self._mesh())
             self._save_model(i, alg, cfg, res, columns, norm_json, suffix,
                              val_error_file=False)
             errors.append(res.valid_error)
@@ -303,7 +316,8 @@ class TrainProcessor(BasicProcessor):
             *data, base_cfg, bagging,
             init_flats=self._continuous_inits(bagging, suffix),
             checkpoint_paths=self._checkpoint_paths(bagging),
-            device=self.device)
+            device=self.device,
+            mesh=self._mesh())
         for i, result in enumerate(results):
             cfg_i = NNTrainConfig.from_model_config(mc, trainer_id=i)
             self._save_model(i, alg, cfg_i, result, columns, norm_json,
@@ -341,7 +355,8 @@ class TrainProcessor(BasicProcessor):
             trial = train_nn_bagged(
                 *data, cfg, K, member_tags=member_tags,
                 member_seed=lambda i, _g=gi: (_g * 100 + i) * 1000 + 7,
-                device=self.device)
+                device=self.device,
+                mesh=self._mesh())
             err = float(np.mean([r.valid_error for r in trial]))
             results.append((err, gi, params))
             log.info("OVA grid trial %d/%d mean class err %.6f params=%s",
@@ -374,7 +389,8 @@ class TrainProcessor(BasicProcessor):
             *data, base_cfg, K,
             init_flats=self._continuous_inits(K, suffix),
             checkpoint_paths=self._checkpoint_paths(K),
-            member_tags=self._member_tags(data[1], K), device=self.device)
+            member_tags=self._member_tags(data[1], K), device=self.device,
+            mesh=self._mesh())
         for k, result in enumerate(results):
             cfg_k = NNTrainConfig.from_model_config(mc, trainer_id=k)
             self._save_model(k, alg, cfg_k, result, columns, norm_json,
@@ -420,7 +436,8 @@ class TrainProcessor(BasicProcessor):
                 *data, cfgs[idxs[0]], len(idxs),
                 member_seed=lambda i, _idxs=idxs: _idxs[i] * 1000 + 7,
                 member_lrs=[cfgs[i].learning_rate for i in idxs],
-                device=self.device)
+                device=self.device,
+                mesh=self._mesh())
             for gi, res in zip(idxs, trial_results):
                 results.append((res.valid_error, gi, composites[gi]))
                 log.info("grid trial %d/%d valid err %.6f params=%s",
@@ -459,7 +476,8 @@ class TrainProcessor(BasicProcessor):
         sig_t = np.stack(sig_ts).astype(np.float32)
         sig_v = np.stack(sig_vs).astype(np.float32)
         results = train_nn_bagged(*data, base, k, member_sigs=(sig_t, sig_v),
-                                  device=self.device)
+                                  device=self.device,
+                                  mesh=self._mesh())
         for i, res in enumerate(results):
             cfg_i = NNTrainConfig.from_model_config(mc, trainer_id=i)
             self._save_model(i, alg, cfg_i, res, columns, norm_json,

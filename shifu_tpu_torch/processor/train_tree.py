@@ -3,8 +3,9 @@
 
 Parity: TrainModelProcessor tree path (input = CleanedDataPath, not norm —
 TrainModelProcessor.java:1366-1372) + DT param wiring (prepareDTParams:1312).
-One device: the processor's (the JAX step's multi-chip data mesh is
-ROADMAP A.13). CleanedData past `shifu.train.memoryBudgetMB`, or
+On cuda with more than one card the rows shard over every card
+(`parallel.mesh.train_mesh`, JAX `processor/train_tree.py:125`); else
+one device, the processor's. CleanedData past `shifu.train.memoryBudgetMB`, or
 `train.trainOnDisk`, trains streamed shard by shard
 (`train/streaming_tree.py`) with the same per-tree checkpoints.
 """
@@ -24,19 +25,21 @@ from shifu_tpu_torch.utils.log import get_logger
 log = get_logger(__name__)
 
 
-def lowering_fingerprint(device) -> str:
+def lowering_fingerprint(device, mesh=None) -> str:
     """The histogram lowering a run takes, for the checkpoint fingerprint:
-    the CUDA kernel on the card, the plain PyTorch versions on the CPU.
-    The two round GBT moment sums differently (and differ from the JAX
-    package's lowerings), so a checkpoint from another lowering starts a
-    fresh run instead of being grafted on."""
-    return "cuda" if device.type == "cuda" else "torch-plain"
+    the CUDA kernel on the card, the plain PyTorch versions on the CPU,
+    and the row shards of a mesh. They round GBT moment sums differently
+    (and differ from the JAX package's lowerings), so a checkpoint from
+    another lowering starts a fresh run instead of being grafted on."""
+    out = "cuda" if device.type == "cuda" else "torch-plain"
+    return out if mesh is None else f"{out}-mesh{mesh.size}"
 
 
 def train_tree_models(proc, alg) -> None:
     """proc: TrainProcessor (already set up)."""
     from shifu_tpu_torch.models.tree import TreeModelSpec
     from shifu_tpu_torch.norm.normalizer import norm_columns
+    from shifu_tpu_torch.parallel import mesh as mesh_mod
     from shifu_tpu_torch.processor.train_common import record_epoch
     from shifu_tpu_torch.resilience.checkpoint import atomic_write_json
     from shifu_tpu_torch.train.streaming import should_stream_training
@@ -52,6 +55,7 @@ def train_tree_models(proc, alg) -> None:
         )
     stream = should_stream_training(codes_dir,
                                     force_attr=bool(mc.train.train_on_disk))
+    mesh = mesh_mod.train_mesh(proc.device)
     if stream:
         # larger than memory: only the tags materialize; the code shards
         # stream once a level
@@ -167,7 +171,7 @@ def train_tree_models(proc, alg) -> None:
             "histSubtraction": cfg.hist_subtraction,
             "maxStatsMemoryMB": cfg.max_stats_memory_mb,
             # the streamed trainer rounds GBT planes a shard at a time
-            "pallasLowering": (lowering_fingerprint(proc.device)
+            "pallasLowering": (lowering_fingerprint(proc.device, mesh)
                                + ("-streamed" if stream else "")),
             "oneVsAll": bool(mc.train.is_one_vs_all()),
             "dataSignature": data_sig,
@@ -236,7 +240,8 @@ def train_tree_models(proc, alg) -> None:
         resume_kw = dict(boundaries=boundaries, categories=categories,
                          progress_cb=progress, init_trees=init_trees,
                          init_valid_errors=init_val_errors,
-                         checkpoint_cb=checkpoint, device=proc.device)
+                         checkpoint_cb=checkpoint, device=proc.device,
+                         mesh=mesh)
         if stream:
             result = train_trees_streamed(
                 codes_dir, slots, is_cat, meta.columns, cfg,

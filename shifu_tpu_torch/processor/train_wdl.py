@@ -5,7 +5,9 @@ input wiring: numeric z-score + categorical sparse index).
 
 WDL trains as NN does: bagging members, grid trials (grouped by program
 signature, batched by LearningRate), k-fold folds and continuous
-training, all on the WDL trainer's member axis on one device.
+training, all on the WDL trainer's member axis, over every card when
+there is more than one (`parallel.mesh.train_mesh`, rows only: JAX
+`processor/train_wdl.py:305-315` without the `model` axis).
 NormalizedData or CleanedData past -Dshifu.train.memoryBudgetMB (or
 train.trainOnDisk) trains streamed, members one after another
 (`train/streaming_wdl.py`); the co-resident route waits for ROADMAP
@@ -20,6 +22,7 @@ from typing import Optional
 
 import numpy as np
 
+from shifu_tpu_torch.parallel import mesh as mesh_mod
 from shifu_tpu_torch.utils.errors import ErrorCode, ShifuError
 from shifu_tpu_torch.utils.log import get_logger
 
@@ -137,7 +140,8 @@ def train_wdl_models(proc) -> None:
             trial_results = train_wdl_bagged(
                 *data, cfgs[idxs[0]], len(idxs),
                 member_lrs=[cfgs[i].learning_rate for i in idxs],
-                device=proc.device)
+                device=proc.device,
+                mesh=mesh_mod.train_mesh(proc.device))
             for gi, res in zip(idxs, trial_results):
                 scored.append((res.valid_error, gi, composites[gi]))
                 log.info("wdl grid trial %d/%d valid err %.6f params=%s",
@@ -160,7 +164,8 @@ def train_wdl_models(proc) -> None:
                           for i in range(num_kfold)]).astype(np.float32)
         results = train_wdl_bagged(*data, base, num_kfold,
                                    member_sigs=(sig_t, sig_v),
-                                   device=proc.device)
+                                   device=proc.device,
+                                   mesh=mesh_mod.train_mesh(proc.device))
         for i, res in enumerate(results):
             save_member(i, WDLTrainConfig.from_model_config(mc, trainer_id=i),
                         res)
@@ -182,7 +187,8 @@ def train_wdl_models(proc) -> None:
         results = train_wdl_bagged(*data, base_cfg, bagging,
                                    init_flats=init_flats,
                                    checkpoint_paths=checkpoints,
-                                   device=proc.device)
+                                   device=proc.device,
+                                   mesh=mesh_mod.train_mesh(proc.device))
         for i, res in enumerate(results):
             save_member(i, WDLTrainConfig.from_model_config(mc, trainer_id=i),
                         res)
@@ -191,7 +197,8 @@ def train_wdl_models(proc) -> None:
     base_cfg.checkpoint_path = checkpoints[0]
     base_cfg.progress_cb = progress_writer(proc.paths.progress_path(0))
     res = train_wdl(*data, base_cfg, init_flat=init_flats[0],
-                    device=proc.device)
+                    device=proc.device,
+                    mesh=mesh_mod.train_mesh(proc.device))
     save_member(0, base_cfg, res)
 
 
@@ -292,6 +299,7 @@ def _train_wdl_streamed(proc) -> None:
         res = train_wdl_streamed(norm_dir, codes_dir, num_idx, cat_idx,
                                  vocab_sizes, cfg, init_flat=init_flat,
                                  resume=resume_requested(),
-                                 device=proc.device)
+                                 device=proc.device,
+                                 mesh=mesh_mod.train_mesh(proc.device))
         _save_wdl_member(proc, i, cfg, res, num_names, cat_names,
                          vocab_sizes, dense_specs, plan.cutoff, categories)

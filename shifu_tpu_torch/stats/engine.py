@@ -449,7 +449,7 @@ def compute_stats_streaming(
             return tags == 0
         return tags >= 0
 
-    plan = ShardPlan()
+    plan = ShardPlan(device=device)
     S = plan.n_shards
 
     def _fresh() -> Dict[str, object]:
@@ -463,7 +463,7 @@ def compute_stats_streaming(
     shard_neg = np.zeros(S, dtype=np.int64)
     cursors1 = [-1] * S
     cursors2 = [-1] * S
-    acc = DeviceAccumulator(device)
+    acc = DeviceAccumulator(device, S)
     ck = None
     phase: Optional[str] = None
     if checkpoint_root is not None and ckpt_mod.ckpt_stream_enabled():
@@ -597,7 +597,8 @@ def compute_stats_streaming(
             transform=_coded):
         if item is not None:
             codes, tags, weights, values = item
-            acc.fold(codes, col_offsets, total_slots, tags, weights, values)
+            acc.fold(codes, col_offsets, total_slots, tags, weights, values,
+                     shard=plan.shard_of(ci))
         cursors2[plan.shard_of(ci)] = ci
         if ck is not None:
             ck.maybe_save(lambda: _states(cursors2, "pass2",

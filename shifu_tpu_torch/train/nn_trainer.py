@@ -1,5 +1,5 @@
-"""NN/LR/SVM trainer on one device (counterpart of
-`shifu_tpu/train/nn_trainer.py`).
+"""NN/LR/SVM trainer on one device or a mesh's row shards (counterpart
+of `shifu_tpu/train/nn_trainer.py`).
 
 What the reference spreads across NNMaster/NNWorker/Guagua (per-iteration
 gradient exchange, master gradient sum, Weight update, early-stop halt
@@ -7,7 +7,9 @@ flag) is one epoch loop over a leading MEMBER axis: bagging members,
 ONEVSALL classes, grid trials and k-fold folds are rows of one [M, n_flat]
 weight tensor and train together; a single model is the loop with M = 1.
 
-    worker gradients      -> torch.autograd over the whole matrix
+    worker gradients      -> torch.autograd over the whole matrix, or a
+                             shard's rows a mesh shard, added on the
+                             lead device in shard order (`_Loop`)
     master Weight update  -> updaters.make_updater on [M, n_flat]
     halt flag             -> a per-member bool tensor; a halted member is
                              frozen with torch.where (its `it`, weights and
@@ -53,10 +55,12 @@ from shifu_tpu_torch.models.nn import (
     init_params,
     unflatten_params,
 )
+from shifu_tpu_torch.parallel.mesh import (mesh_device, psum, replicate,
+                                           shard_padded)
 from shifu_tpu_torch.resilience.checkpoint import atomic_save_npy
 from shifu_tpu_torch.train.updaters import make_updater
 from shifu_tpu_torch.utils.log import get_logger
-from shifu_tpu_torch.utils.platform import DeviceLike, resolve_device
+from shifu_tpu_torch.utils.platform import DeviceLike
 
 log = get_logger(__name__)
 
@@ -357,22 +361,34 @@ class _Members:
 
 class _Loop:
     """The epochs of M members on one device (the JAX `one_iter` under
-    the vmapped `while_loop`)."""
+    the vmapped `while_loop`), or over a mesh's row shards: there x, t,
+    sig_t and sig_v are lists a shard (t and the significances split on
+    their last, row, axis), each shard runs forward and backward on its
+    rows with its device's copy of the weights, and the gradients and
+    error sums add on the lead device in shard order, in f32 (the JAX
+    psum); the update runs once there."""
 
     def __init__(self, cfg: NNTrainConfig, shapes, x, t, sig_t, sig_v,
-                 nts: torch.Tensor, seeds: Sequence[int]):
+                 nts: torch.Tensor, seeds: Sequence[int], mesh=None):
         self.cfg = cfg
         self.net = _Net(cfg, shapes)
-        self.x, self.t, self.sig_t, self.sig_v = x, t, sig_t, sig_v
+        self.mesh = mesh
+        self.parts = (list(zip(x, t, sig_t, sig_v)) if mesh is not None
+                      else [(x, t, sig_t, sig_v)])
+        self.lead = self.parts[0][0].device
         self.nts = nts
-        self.rows = x.shape[0]
+        sizes = [p[0].shape[0] for p in self.parts]
+        self.starts = np.cumsum([0] + sizes[:-1]).tolist()
+        self.rows = sum(sizes)
         self.n_batches = cfg.mini_batchs
         # ceil so rotating slices cover every row (the last slice overlaps
         # the tail instead of dropping rows % n_batches records)
         self.batch = (-(-self.rows // self.n_batches) if self.n_batches > 1
                       else self.rows)
-        self.den_t = torch.clamp_min(sig_t.sum(dim=-1), 1.0)
-        self.den_v = torch.clamp_min(sig_v.sum(dim=-1), 1.0)
+        self.den_t = torch.clamp_min(
+            self._sum([p[2].sum(dim=-1) for p in self.parts]), 1.0)
+        self.den_v = torch.clamp_min(
+            self._sum([p[3].sum(dim=-1) for p in self.parts]), 1.0)
         self.init_state, self.apply_update = make_updater(
             cfg.propagation, momentum=cfg.momentum,
             reg=cfg.regularized_constant, reg_level=cfg.reg_level,
@@ -381,43 +397,76 @@ class _Loop:
         if cfg.dropout_rate > 0.0:
             self.gens = []
             for s in seeds:
-                gen = torch.Generator(device=x.device)
+                gen = torch.Generator(device=self.lead)
                 gen.manual_seed(int(s))
                 self.gens.append(gen)
         self.can_halt = (cfg.early_stop_window > 0
                          or cfg.convergence_threshold > 0.0)
+
+    def _sum(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """The shards' partials added on the lead device in shard order."""
+        return parts[0] if self.mesh is None else psum(parts, self.mesh)
+
+    def _flats(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        """The weights, one copy a shard's device."""
+        return [flat] if self.mesh is None else replicate(flat, self.mesh)
 
     def _keep_masks(self, rows: int):
         if self.gens is None:
             return None
         keep = 1.0 - self.cfg.dropout_rate
         return [torch.stack([
-            torch.rand((rows, h), generator=gen, device=self.x.device) < keep
+            torch.rand((rows, h), generator=gen, device=self.lead) < keep
             for gen in self.gens]) for h in self.cfg.hidden_nodes]
 
-    def _errors(self, p, t):
-        sq = self.net.sq_error(p, t)
-        return ((self.sig_t * sq).sum(dim=-1) / self.den_t,
-                (self.sig_v * sq).sum(dim=-1) / self.den_v)
+    def _descent(self, flat, lo: int, hi: int, masks, full: bool):
+        """(g [M, n_flat] of rows [lo, hi) of the whole set, summed over
+        the shards; their predictions a shard when `full`, else None).
+        `masks` cover the rows [lo, hi) on the lead device; a shard takes
+        its part of them."""
+        net = self.net
+        gs, ps = [], []
+        for f, a, (x, t, st, _sv) in zip(self._flats(flat), self.starts,
+                                          self.parts):
+            n = x.shape[0]
+            lo_s, hi_s = min(max(lo - a, 0), n), min(max(hi - a, 0), n)
+            ms = (None if masks is None else
+                  [m[:, a + lo_s - lo:a + hi_s - lo].to(x.device)
+                   for m in masks])
+            g, p = net.descent(f, x[lo_s:hi_s], t[..., lo_s:hi_s],
+                               st[:, lo_s:hi_s], ms)
+            gs.append(g)
+            ps.append(p)
+        return self._sum(gs), (ps if full else None)
+
+    def _forward(self, flat) -> List[torch.Tensor]:
+        return [self.net.forward(f, p[0])
+                for f, p in zip(self._flats(flat), self.parts)]
+
+    def _errors(self, ps: List[torch.Tensor]):
+        sqs = [self.net.sq_error(p, part[1]) for p, part in zip(ps,
+                                                                 self.parts)]
+        return (self._sum([(part[2] * sq).sum(dim=-1)
+                           for sq, part in zip(sqs, self.parts)]) / self.den_t,
+                self._sum([(part[3] * sq).sum(dim=-1)
+                           for sq, part in zip(sqs, self.parts)]) / self.den_v)
 
     def epoch(self, c: _Members, e: int) -> None:
         """One epoch; every member not halted takes it (they share the
         epoch count `e`, so the mini-batch slice is a host integer)."""
-        net, cfg = self.net, self.cfg
+        cfg = self.cfg
         masks = self._keep_masks(self.batch)
         if self.n_batches > 1:
             start = min((e % self.n_batches) * self.batch,
                         self.rows - self.batch)
-            sl = slice(start, start + self.batch)
-            g, _ = net.descent(c.flat, self.x[sl], self.t[..., sl],
-                               self.sig_t[:, sl], masks)
-            p = None
+            g, ps = self._descent(c.flat, start, start + self.batch, masks,
+                                  full=False)
         else:
-            g, p = net.descent(c.flat, self.x, self.t, self.sig_t, masks)
-        if p is None or masks is not None:
+            g, ps = self._descent(c.flat, 0, self.rows, masks, full=True)
+        if ps is None or masks is not None:
             with torch.no_grad():  # errors on the full data, no dropout
-                p = net.forward(c.flat, self.x)
-        tr, va = self._errors(p, self.t)
+                ps = self._forward(c.flat)
+        tr, va = self._errors(ps)
         new_flat, new_opt = self.apply_update(c.opt, c.flat, g, c.lr,
                                               c.it + 1, self.nts)
         improved = va < c.best_val
@@ -466,12 +515,19 @@ def _train_members(cfg: NNTrainConfig, shapes, flat0s: List[np.ndarray],
                    x, t, sig_t, sig_v, ntss: Sequence[float],
                    lrs: Sequence[float], seeds: Sequence[int],
                    report: Optional[Callable[[_Members], None]],
-                   dev: torch.device) -> _Members:
+                   dev: torch.device, mesh=None) -> _Members:
     """Train M members; `report(carry)` at every checkpoint segment's end
-    (cfg.checkpoint_every > 0)."""
+    (cfg.checkpoint_every > 0). On a mesh the rows (x's first axis, the
+    last of t and the significances) pad with zero significance and
+    split over its shards."""
+    if mesh is not None:
+        x = shard_padded(x, mesh)
+        t = shard_padded(t, mesh, axis=-1 % t.dim())
+        sig_t, sig_v = (shard_padded(sig_t, mesh, axis=1),
+                        shard_padded(sig_v, mesh, axis=1))
     loop = _Loop(cfg, shapes, x, t, sig_t, sig_v,
                  torch.as_tensor(np.asarray(ntss, np.float32), device=dev),
-                 seeds)
+                 seeds, mesh)
     flat0 = torch.as_tensor(np.stack(flat0s).astype(np.float32), device=dev)
     m, n_flat = flat0.shape
     c = _Members(flat0, loop.init_state(m, n_flat, dev),
@@ -509,12 +565,15 @@ def train_nn(
     cfg: NNTrainConfig,
     init_flat: Optional[np.ndarray] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> TrainResult:
-    """Train one model on one device (`device=None` = cuda). features
+    """Train one model on one device (`device=None` = cuda), or over the
+    row shards of `mesh` (JAX `train_nn(mesh=)`: the draws on the
+    unpadded rows, the rows then padded with zero significance). features
     [n, d] f32 (normalized), tags [n] {0,1} (class index when NATIVE),
     weights [n] significance; numpy arrays or tensors (tensors already on
     the device stay there)."""
-    dev = resolve_device(device)
+    mesh, dev = mesh_device(mesh, device)
     n, d = features.shape
     params0 = init_params(_layer_sizes(d, cfg), seed=cfg.seed,
                           init=cfg.weight_init)
@@ -537,7 +596,7 @@ def train_nn(
             atomic_save_npy(cfg.checkpoint_path, c.flat[0].cpu().numpy())
 
     c = _train_members(cfg, shapes, [flat0], x, t, sig_t, sig_v, [nts],
-                       [cfg.learning_rate], [cfg.seed], report, dev)
+                       [cfg.learning_rate], [cfg.seed], report, dev, mesh)
     # one host read for all scalars
     it_n, bv, tr_h, va_h = torch.stack([
         c.it[0].to(torch.float32), c.best_val[0], c.tr[0], c.va[0]]).tolist()
@@ -565,6 +624,7 @@ def train_nn_bagged(
     member_lrs: Optional[List[float]] = None,
     member_sigs: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> List[TrainResult]:
     """Train M members in one loop on the member axis (the reference fans
     bag members out as parallel Guagua jobs, TrainModelProcessor.java:
@@ -576,8 +636,10 @@ def train_nn_bagged(
     in it, gs/GridSearch.java:44). `member_sigs` (sig_train [M, n],
     sig_valid [M, n]) overrides the sampling (k-fold: fold i's sig_valid
     marks its held-out fold, TrainModelProcessor.java:947-969); those
-    members keep their final weights and final holdout error."""
-    dev = resolve_device(device)
+    members keep their final weights and final holdout error. `mesh`
+    shards the rows as in `train_nn`; each shard holds [M, rows_s]
+    significances."""
+    mesh, dev = mesh_device(mesh, device)
     n, d = features.shape
     sizes = _layer_sizes(d, base_cfg)
     shapes = None
@@ -630,7 +692,7 @@ def train_nn_bagged(
                 atomic_save_npy(checkpoint_paths[i], flats[i])
 
     c = _train_members(base_cfg, shapes, flat0s, x, t, sig_t, sig_v, ntss,
-                       lrs, seeds, report, dev)
+                       lrs, seeds, report, dev, mesh)
     flat_f, best_flat = c.flat.cpu().numpy(), c.best_flat.cpu().numpy()
     best_val, tr_e, va_e = (c.best_val.tolist(), c.tr.tolist(),
                             c.va.tolist())

@@ -1,5 +1,5 @@
 """Larger-than-memory NN/LR/SVM training (counterpart of
-`shifu_tpu/train/streaming.py`, one card).
+`shifu_tpu/train/streaming.py`), on one device or a mesh.
 
 `should_stream_training` decides whether a data directory trains in
 memory or streams shard by shard. `train_nn_streamed` is a full-batch
@@ -31,6 +31,8 @@ from shifu_tpu_torch.data.pipeline import prefetch_iter
 from shifu_tpu_torch.models.nn import (flatten_params, init_params,
                                        unflatten_params)
 from shifu_tpu_torch.norm.dataset import NormMeta, read_meta
+from shifu_tpu_torch.parallel.mesh import (mesh_device, psum, replicate,
+                                           shard_padded)
 from shifu_tpu_torch.resilience import checkpoint as ckpt_mod
 from shifu_tpu_torch.train.nn_trainer import (NNTrainConfig, TrainResult,
                                               _layer_sizes, _Net,
@@ -38,7 +40,7 @@ from shifu_tpu_torch.train.nn_trainer import (NNTrainConfig, TrainResult,
 from shifu_tpu_torch.train.updaters import make_updater
 from shifu_tpu_torch.utils import environment
 from shifu_tpu_torch.utils.log import get_logger
-from shifu_tpu_torch.utils.platform import DeviceLike, resolve_device
+from shifu_tpu_torch.utils.platform import DeviceLike
 
 log = get_logger(__name__)
 
@@ -145,14 +147,20 @@ def _stream_train_sha(cfg: NNTrainConfig, meta: NormMeta,
 class StreamedLoop:
     """The epoch loop both streamed trainers share: sum the shard
     gradients and error sums, keep the pre-update weights when the valid
-    error improves, one update, the checkpoint. `shard_grad(flat, *shard)
-    -> (g [1, n_flat], tr_sum, va_sum, tr_w, va_w)`."""
+    error improves, one update, the checkpoint. `shard_grad(flats,
+    pieces, add) -> (g [1, n_flat], tr_sum, va_sum, tr_w, va_w)` of one
+    file shard: `pieces` its rows, one piece on one device, or on a mesh
+    padded with zero significance and split into one piece a mesh shard
+    (JAX `ShardFeed(mesh=)`), each with its device's copy of the weights
+    in `flats`; `add` adds the pieces' partials on the lead device in
+    piece order."""
 
     def __init__(self, cfg, feed, shard_grad: Callable, apply_update,
                  init_state, flat0: np.ndarray, dev: torch.device,
                  ck: Optional[ckpt_mod.StreamCheckpoint], resume: bool,
-                 decay: float = 0.0, convergence: float = 0.0):
+                 decay: float = 0.0, convergence: float = 0.0, mesh=None):
         self.cfg, self.feed, self.dev = cfg, feed, dev
+        self.mesh = mesh
         self.shard_grad, self.apply_update = shard_grad, apply_update
         self.decay, self.convergence = decay, convergence
         self.flat = torch.as_tensor(flat0, device=dev)[None]
@@ -198,10 +206,19 @@ class StreamedLoop:
         ckpt_mod.atomic_save_npy(self.cfg.checkpoint_path,
                                  self.flat[0].cpu().numpy())
 
+    def _add(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        return parts[0] if self.mesh is None else psum(parts, self.mesh)
+
     def epoch(self) -> None:
         sums = g_sum = None
         for shard in self.feed:
-            g, *s = self.shard_grad(self.flat, *shard)
+            if self.mesh is None:
+                flats, pieces = [self.flat], [shard]
+            else:
+                flats = replicate(self.flat, self.mesh)
+                pieces = list(zip(*(shard_padded(a, self.mesh)
+                                    for a in shard)))
+            g, *s = self.shard_grad(flats, pieces, self._add)
             if g_sum is None:
                 g_sum, sums = g, s
             else:
@@ -261,24 +278,34 @@ def _nn_shard_grad(cfg: NNTrainConfig, shapes, target_class, dev):
         gen.manual_seed(int(cfg.seed))
     keep = 1.0 - cfg.dropout_rate
 
-    def shard_grad(flat, x, t, sig_t, sig_v):
-        if target_class is not None:  # ONEVSALL member: tag == class
-            t = (t == float(target_class)).to(torch.float32)
+    def shard_grad(flats, pieces, add):
+        rows = sum(p[0].shape[0] for p in pieces)
         masks = None
-        if gen is not None:
-            masks = [torch.rand((1, x.shape[0], h), generator=gen,
+        if gen is not None:  # one draw a file shard, a piece its rows
+            masks = [torch.rand((1, rows, h), generator=gen,
                                 device=dev) < keep
                      for h in cfg.hidden_nodes]
-        g, p = net.descent(flat, x, t, sig_t[None], masks)
-        if masks is not None:  # errors without dropout
-            with torch.no_grad():
-                p = net.forward(flat, x)
-        sq = net.sq_error(p, t)[0]
-        tr_w, va_w = sig_t.sum(), sig_v.sum()
+        gs, sums, a = [], [], 0
+        for flat, (x, t, sig_t, sig_v) in zip(flats, pieces):
+            n = x.shape[0]
+            if target_class is not None:  # ONEVSALL member: tag == class
+                t = (t == float(target_class)).to(torch.float32)
+            ms = (None if masks is None
+                  else [m[:, a:a + n].to(x.device) for m in masks])
+            g, p = net.descent(flat, x, t, sig_t[None], ms)
+            if ms is not None:  # errors without dropout
+                with torch.no_grad():
+                    p = net.forward(flat, x)
+            sq = net.sq_error(p, t)[0]
+            gs.append(g)
+            sums.append(((sig_t * sq).sum(), (sig_v * sq).sum(),
+                         sig_t.sum(), sig_v.sum()))
+            a += n
+        tr, va, tr_w, va_w = (add(list(col)) for col in zip(*sums))
         # the JAX shard program's weighted means times their weights
-        tr = (sig_t * sq).sum() / torch.clamp_min(tr_w, 1.0) * tr_w
-        va = (sig_v * sq).sum() / torch.clamp_min(va_w, 1.0) * va_w
-        return g, tr, va, tr_w, va_w
+        tr = tr / torch.clamp_min(tr_w, 1.0) * tr_w
+        va = va / torch.clamp_min(va_w, 1.0) * va_w
+        return add(gs), tr, va, tr_w, va_w
 
     return shard_grad
 
@@ -291,14 +318,16 @@ def train_nn_streamed(
     sig_override=None,
     resume: bool = False,
     device: DeviceLike = None,
+    mesh=None,
 ) -> TrainResult:
     """Full-batch training streamed from the NormalizedData shards of
-    `data_dir` on one device (`device=None` = cuda). `target_class`
+    `data_dir` on one device (`device=None` = cuda), or with each shard's
+    rows split over the row shards of `mesh`. `target_class`
     trains the ONEVSALL member of that class; `sig_override(s, rows,
     offset, weights) -> (sig_t, sig_v)` replaces the per-shard draw
     (k-fold: membership by the global row index); `resume` continues
     from the member's stream checkpoint."""
-    dev = resolve_device(device)
+    mesh, dev = mesh_device(mesh, device)
     if cfg.mini_batchs > 1:
         log.warning("MiniBatchs=%d is ignored on the streamed path — each "
                     "epoch is one full-batch pass over the shards",
@@ -323,7 +352,7 @@ def train_nn_streamed(
                         _nn_shard_grad(cfg, shapes, target_class, dev),
                         apply_update, init_state, flat0, dev, ck, resume,
                         decay=cfg.learning_decay,
-                        convergence=cfg.convergence_threshold)
+                        convergence=cfg.convergence_threshold, mesh=mesh)
     loop.run()
     chosen, valid = loop.chosen()
     log.info("streamed train done: %d epochs over %d shards, train %.6f "

@@ -61,6 +61,7 @@ from shifu_tpu_torch.models.tree import (DenseTree, TreeModelSpec,
                                          traverse_trees)
 from shifu_tpu_torch.norm.dataset import read_meta
 from shifu_tpu_torch.ops import hist_kernel
+from shifu_tpu_torch.parallel.mesh import mesh_device, round_up_rows
 from shifu_tpu_torch.train.tree_trainer import (
     DTEarlyStopDecider,
     TreeTrainConfig,
@@ -73,6 +74,7 @@ from shifu_tpu_torch.train.tree_trainer import (
     _record_hist_counters,
     _route_rows,
     _score_existing,
+    _sharded_errors,
     _sub_plan,
     _sub_row_masks,
     _votes_of,
@@ -84,7 +86,7 @@ from shifu_tpu_torch.train.tree_trainer import (
     subset_count,
 )
 from shifu_tpu_torch.utils.log import get_logger
-from shifu_tpu_torch.utils.platform import DeviceLike, resolve_device
+from shifu_tpu_torch.utils.platform import DeviceLike
 
 log = get_logger(__name__)
 
@@ -134,14 +136,62 @@ def _to_device(host: np.ndarray, dev: torch.device, lay):
     return codes, codes8
 
 
-def _iter_codes(feed: CodesFeed, work: List[dict], dev, lay):
-    """(work item, codes, codes8) a shard, the disk read on the prefetch
-    thread: host RAM holds at most prefetchChunks + 2 shards of codes,
-    the device one."""
-    for wk, host in zip(work, prefetch_iter(range(feed.n_shards),
-                                            transform=feed.codes)):
-        codes, codes8 = _to_device(host, dev, lay)
-        yield wk, codes, codes8
+def _iter_codes(feed: CodesFeed, work: List[dict], lay, mesh=None):
+    """(work item, codes, codes8) a piece, the disk read on the prefetch
+    thread: host RAM holds at most prefetchChunks + 2 shards of codes.
+    On one device a piece is a file shard; on a mesh each file shard's
+    rows pad to a multiple of the shard count and split into one block a
+    mesh shard (`_pieces`), each copied to its device."""
+    items = iter(work)
+    for host in prefetch_iter(range(feed.n_shards), transform=feed.codes):
+        if mesh is None:
+            blocks = [host]
+        else:
+            rows = round_up_rows(host.shape[0], mesh)
+            b = rows // mesh.size
+            pad = np.zeros((rows - host.shape[0],) + host.shape[1:],
+                           host.dtype)
+            host = np.concatenate([host, pad]) if len(pad) else host
+            blocks = [host[j * b:(j + 1) * b] for j in range(mesh.size)]
+        for block in blocks:
+            wk = next(items)
+            codes, codes8 = _to_device(block, wk["dev"], lay)
+            yield wk, codes, codes8
+
+
+def _pieces(feed: CodesFeed, mesh, dev) -> List[dict]:
+    """Row pieces of the set, in file-shard order: (file shard, global
+    offset of its first row, its real rows, its rows with padding, its
+    device). One a file shard on one device; on a mesh one a (file
+    shard, mesh shard), padded with zero-weight rows."""
+    out = []
+    offset = 0
+    for s, rows in enumerate(feed.meta.shard_rows):
+        if mesh is None:
+            out.append(dict(file=s, offset=offset, real=rows, rows=rows,
+                            dev=dev))
+        else:
+            b = round_up_rows(rows, mesh) // mesh.size
+            for j, d in enumerate(mesh.devices):
+                out.append(dict(file=s, offset=offset + j * b,
+                                real=max(0, min(b, rows - j * b)), rows=b,
+                                dev=d))
+        offset += rows
+    return out
+
+
+def _padded(a: np.ndarray, pc: dict) -> np.ndarray:
+    """Piece `pc`'s slice of the set-wide row array `a`, zero-padded."""
+    out = np.zeros((pc["rows"],) + a.shape[1:], a.dtype)
+    out[:pc["real"]] = a[pc["offset"]:pc["offset"] + pc["real"]]
+    return out
+
+
+def _on(out: tuple, dev, cache: dict) -> tuple:
+    """A level's decisions on `dev`, copied once a device."""
+    if dev not in cache:
+        cache[dev] = tuple(x.to(dev) for x in out)
+    return cache[dev]
 
 
 def _scanner(lay, cfg, fot):
@@ -176,7 +226,7 @@ def _builders(kw, dev):
     return build, merge
 
 
-def _grow_levelwise_streamed(feed, work, lay, cfg, fot, kw, dev
+def _grow_levelwise_streamed(feed, work, lay, cfg, fot, kw, dev, mesh=None
                              ) -> DenseTree:
     """One level-wise tree. Each shard applies the previous level's
     decisions the next time its codes are on the device, so one shard's
@@ -187,9 +237,10 @@ def _grow_levelwise_streamed(feed, work, lay, cfg, fot, kw, dev
     nodes fit a batch (`_grow_tree`), its leaves are node totals
     (`leaf_acc`, f32 components, the shards' totals added in f64), else
     a scanned histogram (`build_tree`, and the JAX streamed grower at
-    every depth). Sets each work item's "resting" slot."""
+    every depth). On a mesh each piece routes by the decisions copied to
+    its device, and every piece's histogram joins the one merge of the
+    level. Sets each work item's "resting" slot."""
     D = cfg.max_depth
-    sl = scan_layout(lay, dev)
     scan = _scanner(lay, cfg, fot)
     build, merge = _builders(kw, dev)
     batch_cap = _node_batch_size(lay.T, cfg.max_stats_memory_mb,
@@ -205,12 +256,14 @@ def _grow_levelwise_streamed(feed, work, lay, cfg, fot, kw, dev
         L = 2 ** depth
         if depth == D and leaf_totals:
             acc = None
-            for wk, codes, _codes8 in _iter_codes(feed, work, dev, lay):
+            on: dict = {}
+            for wk, codes, _codes8 in _iter_codes(feed, work, lay, mesh):
                 wk["node"], wk["active"], wk["resting"] = _route_rows(
                     codes, wk["node"], wk["active"], wk["resting"],
-                    pending[1], pending[0], sl)
+                    pending[1], _on(pending[0], wk["dev"], on),
+                    scan_layout(lay, wk["dev"]))
                 a = leaf_acc(wk["labels"], wk["w"], wk["node"],
-                             wk["active"], L, cfg.n_classes).double()
+                             wk["active"], L, cfg.n_classes).double().to(dev)
                 acc = a if acc is None else acc + a
                 del codes, _codes8
             leaves_l.append(leaf_values(acc.float(), cfg.n_classes))
@@ -233,15 +286,17 @@ def _grow_levelwise_streamed(feed, work, lay, cfg, fot, kw, dev
             ranges = [(b0, min(batch_cap, L - b0))
                       for b0 in range(0, L, batch_cap)]
         parts: List[list] = [[] for _ in ranges]
-        for wk, codes, codes8 in _iter_codes(feed, work, dev, lay):
+        on = {}
+        for wk, codes, codes8 in _iter_codes(feed, work, lay, mesh):
             if pending is not None:
                 wk["node"], wk["active"], wk["resting"] = _route_rows(
                     codes, wk["node"], wk["active"], wk["resting"],
-                    pending[1], pending[0], sl)
+                    pending[1], _on(pending[0], wk["dev"], on),
+                    scan_layout(lay, wk["dev"]))
             for bi, (b0, Lb) in enumerate(ranges):
                 if use_sub:
                     nd, rows = _sub_row_masks(wk["node"], wk["active"],
-                                              left_small)
+                                              left_small.to(wk["dev"]))
                 else:
                     nd = wk["node"] - b0
                     rows = (wk["active"] & (wk["node"] >= b0)
@@ -314,7 +369,7 @@ def _grow_leafwise_streamed(feed, work, lay, cfg, fot, kw, dev
         listed leaf's histogram, summed over shards."""
         nonlocal pending
         hists: Dict[int, list] = {lid: [] for lid in leaf_ids}
-        for wk, codes, codes8 in _iter_codes(feed, work, dev, lay):
+        for wk, codes, codes8 in _iter_codes(feed, work, lay):
             if pending is not None:
                 best_id, bf, cut, rank_row, li, ri = pending
                 code = codes[:, bf].long().clamp(0, int(lay.clip_max[bf]))
@@ -390,34 +445,33 @@ def _grow_leafwise_streamed(feed, work, lay, cfg, fot, kw, dev
                      right=np.asarray(right_c, np.int32))
 
 
-def _resume_state(feed, shard_state, trees, cfg, lay, dev, n_total) -> None:
-    """Re-derive each shard's prediction state from a loaded forest (the
-    in-memory trainer's resume, shard by shard)."""
+def _resume_state(feed, shard_state, trees, cfg, lay, n_total,
+                  mesh=None) -> None:
+    """Re-derive each piece's prediction state from a loaded forest (the
+    in-memory trainer's resume, piece by piece)."""
     start_k = len(trees)
     is_gbt = cfg.algorithm == "GBT"
-    off = 0
     for st, (_wk, codes, _c8) in zip(shard_state, _iter_codes(
-            feed, shard_state, dev, lay)):
-        rows = st["rows"]
+            feed, shard_state, lay, mesh)):
+        dev = st["dev"]
         if cfg.n_classes >= 3:
             st["votes"] = _votes_of(trees, codes, cfg.n_classes)
         elif is_gbt and cfg.dropout_rate > 0.0:
             per_tree = traverse_trees(trees, codes)
-            s = torch.zeros(rows, dtype=torch.float32, device=dev)
+            s = torch.zeros(st["rows"], dtype=torch.float32, device=dev)
             for col in range(per_tree.shape[1]):
                 contrib = per_tree[:, col]
                 if col > 0:
                     keep = (np.random.default_rng([cfg.seed, col, 777])
-                            .random(n_total)[off:off + rows]
-                            >= cfg.dropout_rate)
+                            .random(n_total) >= cfg.dropout_rate)
                     contrib = contrib * torch.as_tensor(
-                        keep.astype(np.float32), device=dev)
+                        _padded(keep.astype(np.float32), st),
+                        device=dev)
                 s = s + contrib
             st["pred"] = s
         else:
             s = _score_existing(trees, codes)
             st["pred"] = s if is_gbt else s / start_k
-        off += rows
 
 
 def train_trees_streamed(
@@ -435,13 +489,20 @@ def train_trees_streamed(
     checkpoint_cb: Optional[
         Callable[[int, List[DenseTree], List[float]], None]] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> TreeTrainResult:
     """GBT/RF streamed from the CleanedData shards of `codes_dir` on one
-    device (`device=None` = cuda). `tags_override` [n] replaces the
+    device (`device=None` = cuda), or with each file shard's rows split
+    over the row shards of `mesh` (JAX `train_trees_streamed(mesh=)`:
+    padded with zero-weight rows to `round_up_rows`, every piece's
+    histogram in the level's one merge). `tags_override` [n] replaces the
     shards' tags (ONEVSALL members). `init_trees` continues a forest and
     `checkpoint_cb(k, trees, valid_errors)` fires after each tree, as in
-    the in-memory `train_trees`."""
-    dev = resolve_device(device)
+    the in-memory `train_trees`. Leaf-wise growth ignores the mesh."""
+    if mesh is not None and cfg.max_leaves and cfg.max_leaves > 0:
+        log.warning("leaf-wise growth runs single-device; ignoring mesh")
+        device, mesh = mesh.lead, None
+    mesh, dev = mesh_device(mesh, device)
     K = cfg.n_classes
     is_cls = K >= 3
     if is_cls and cfg.algorithm == "GBT":
@@ -455,40 +516,50 @@ def train_trees_streamed(
     lowp = is_gbt  # bf16 component planes for GBT, as in memory
     n_total = feed.n_rows
 
-    # per-shard resident state; ONE valid draw over the concatenated rows
+    # ONE valid draw over the concatenated rows, file shard by file shard
     rng_valid = np.random.default_rng([cfg.seed, 999_983])
-    shard_state: List[dict] = []
+    ys, ws, valids = [], [], []
     offset = 0
     for s in range(feed.n_shards):
         rows = feed.meta.shard_rows[s]
         valid = rng_valid.random(rows) < cfg.valid_set_rate
         y = (tags_override[offset:offset + rows] if tags_override is not None
              else np.asarray(feed.tags(s)))
-        w = np.where(valid, 0.0, np.asarray(feed.weights(s), np.float32))
-        shard_state.append({
-            "rows": rows, "offset": offset,
-            "y": torch.as_tensor(np.asarray(y, np.float32), device=dev),
-            "base_w": torch.as_tensor(w.astype(np.float32), device=dev),
-            "valid": torch.as_tensor(valid, device=dev),
-            "pred": torch.zeros(rows, dtype=torch.float32, device=dev),
-            "votes": (torch.zeros((rows, K), dtype=torch.float32,
-                                  device=dev) if is_cls else None),
-        })
+        ys.append(np.asarray(y, np.float32))
+        ws.append(np.where(valid, 0.0, np.asarray(feed.weights(s),
+                                                  np.float32))
+                  .astype(np.float32))
+        valids.append(valid)
         offset += rows
-    # the labels and the valid mask of every row, for the errors; the
-    # integer planes decided once a forest over every shard's rows, so
-    # each shard's calls take the same shared-bin width
-    y_all = torch.cat([st["y"] for st in shard_state])
-    vm_all = torch.cat([st["valid"] for st in shard_state])
-    int_planes = int_planes_of(
-        y_all, torch.cat([st["base_w"] for st in shard_state]), K, lowp)
+    y_np = np.concatenate(ys) if ys else np.zeros(0, np.float32)
+    w_np = np.concatenate(ws) if ws else np.zeros(0, np.float32)
+    vm_np = np.concatenate(valids) if valids else np.zeros(0, bool)
+    # per-piece resident state (padding: zero weight, not real)
+    shard_state: List[dict] = []
+    for pc in _pieces(feed, mesh, dev):
+        d, rows = pc["dev"], pc["rows"]
+        shard_state.append({
+            **pc,
+            "y": torch.as_tensor(_padded(y_np, pc), device=d),
+            "base_w": torch.as_tensor(_padded(w_np, pc), device=d),
+            "valid": torch.as_tensor(_padded(vm_np, pc), device=d),
+            "is_real": torch.as_tensor(_padded(np.ones(n_total, bool), pc),
+                                    device=d),
+            "pred": torch.zeros(rows, dtype=torch.float32, device=d),
+            "votes": (torch.zeros((rows, K), dtype=torch.float32,
+                                  device=d) if is_cls else None),
+        })
+    # the integer planes decided once a forest over every row, so each
+    # piece's calls take the same shared-bin width
+    int_planes = all(int_planes_of(st["y"], st["base_w"], K, lowp)
+                     for st in shard_state)
     kw = dict(lay=lay, low_precision=lowp, n_classes=K,
               int_planes=int_planes)
 
     trees: List[DenseTree] = list(init_trees or [])
     start_k = len(trees)
     if start_k:
-        _resume_state(feed, shard_state, trees, cfg, lay, dev, n_total)
+        _resume_state(feed, shard_state, trees, cfg, lay, n_total, mesh)
     valid_errors: List[float] = list(init_valid_errors or [])[:start_k]
     bad_rounds = 0
     decider = (DTEarlyStopDecider(cfg.max_depth)
@@ -518,21 +589,21 @@ def train_trees_streamed(
 
         work = []
         for st in shard_state:
-            a, rows = st["offset"], st["rows"]
+            d, rows = st["dev"], st["rows"]
             if bag_all is not None:
                 w_k = st["base_w"] * torch.as_tensor(
-                    bag_all[a:a + rows].astype(np.uint16)
-                    .astype(np.float32), device=dev)
+                    _padded(bag_all, st).astype(np.uint16)
+                    .astype(np.float32), device=d)
                 labels = st["y"]
             else:
                 w_k = st["base_w"]
                 labels = (st["y"] - 1.0 / (1.0 + torch.exp(-st["pred"]))
                           if log_loss else st["y"] - st["pred"])
             work.append({
-                "labels": labels, "w": w_k,
-                "node": torch.zeros(rows, dtype=torch.int32, device=dev),
-                "active": torch.ones(rows, dtype=torch.bool, device=dev),
-                "resting": torch.zeros(rows, dtype=torch.long, device=dev),
+                "labels": labels, "w": w_k, "dev": d,
+                "node": torch.zeros(rows, dtype=torch.int32, device=d),
+                "active": torch.ones(rows, dtype=torch.bool, device=d),
+                "resting": torch.zeros(rows, dtype=torch.long, device=d),
             })
 
         weight_k = 1.0 if (is_gbt and k == 0) else (lr if is_gbt else 1.0)
@@ -543,7 +614,7 @@ def train_trees_streamed(
                 wk["resting"] = wk["node"].long()  # explicit node ids
         else:
             tree = _grow_levelwise_streamed(feed, work, lay, cfg, fot, kw,
-                                            dev)
+                                            dev, mesh)
         tree.weight = weight_k
         trees.append(tree)
 
@@ -551,19 +622,19 @@ def train_trees_streamed(
         if is_gbt and cfg.dropout_rate > 0.0 and k > 0:
             drop_all = (np.random.default_rng([cfg.seed, k, 777])
                         .random(n_total) >= cfg.dropout_rate)
-        leaf_t = torch.as_tensor(tree.leaf_value, device=dev)
         scores = []
         for wk, st in zip(work, shard_state):
-            tree_pred = leaf_t[wk["resting"]]
+            tree_pred = torch.as_tensor(tree.leaf_value,
+                                        device=st["dev"])[wk["resting"]]
             if is_cls:
                 st["votes"] = st["votes"] + _one_vote(tree_pred, K)
                 scores.append(st["votes"])
                 continue
             if is_gbt:
                 if drop_all is not None:
-                    a, rows = st["offset"], st["rows"]
                     tree_pred = tree_pred * torch.as_tensor(
-                        drop_all[a:a + rows].astype(np.float32), device=dev)
+                        _padded(drop_all.astype(np.float32), st),
+                        device=st["dev"])
                 st["pred"] = st["pred"] + weight_k * tree_pred
                 score = (1.0 / (1.0 + torch.exp(-st["pred"])) if log_loss
                          else st["pred"].clamp(0.0, 1.0))
@@ -572,8 +643,19 @@ def train_trees_streamed(
                               else (st["pred"] * k + tree_pred) / (k + 1))
                 score = st["pred"].clamp(0.0, 1.0)
             scores.append(score)
-        errors = _cls_errors if is_cls else _errors
-        t_e, v_e = errors(torch.cat(scores), y_all, vm_all)
+        if mesh is None:
+            errors = _cls_errors if is_cls else _errors
+            t_e, v_e = errors(torch.cat(scores),
+                              torch.cat([st["y"] for st in shard_state]),
+                              torch.cat([st["valid"] for st in shard_state]))
+        else:
+            row_err = [((torch.argmax(sc, dim=1).to(torch.float32)
+                         != st["y"]).to(torch.float32) if is_cls
+                        else (st["y"] - sc) ** 2)
+                       for sc, st in zip(scores, shard_state)]
+            t_e, v_e = _sharded_errors(
+                row_err, [st["valid"] for st in shard_state],
+                [st["is_real"] for st in shard_state], mesh)
         terr, verr = float(t_e), float(v_e)  # one host read a tree
         valid_errors.append(verr)
         if progress_cb:

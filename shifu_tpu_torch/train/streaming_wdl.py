@@ -1,5 +1,6 @@
 """Larger-than-memory WDL: the dense and code shards stream each epoch
-(counterpart of `shifu_tpu/train/streaming_wdl.py`, one card).
+(counterpart of `shifu_tpu/train/streaming_wdl.py`), on one device or a
+mesh.
 
 The epoch gradient is the sum of per-shard gradients over row-aligned
 (NormalizedData dense slice, CleanedData categorical slice) pairs —
@@ -22,6 +23,7 @@ from shifu_tpu_torch.models.wdl import (flatten_wdl, init_wdl_params,
                                         unflatten_members, wdl_forward,
                                         wdl_shapes)
 from shifu_tpu_torch.norm.dataset import read_meta
+from shifu_tpu_torch.parallel.mesh import mesh_device
 from shifu_tpu_torch.resilience import checkpoint as ckpt_mod
 from shifu_tpu_torch.train.streaming import (StreamedLoop, load_shard,
                                              shard_sigs)
@@ -29,7 +31,7 @@ from shifu_tpu_torch.train.updaters import make_updater
 from shifu_tpu_torch.train.wdl_trainer import (LOG_EPS, WDLTrainConfig,
                                                WDLTrainResult, _host_params)
 from shifu_tpu_torch.utils.log import get_logger
-from shifu_tpu_torch.utils.platform import DeviceLike, resolve_device
+from shifu_tpu_torch.utils.platform import DeviceLike
 
 log = get_logger(__name__)
 
@@ -67,7 +69,7 @@ class WDLShardFeed:
 
 
 def _wdl_shard_grad(cfg: WDLTrainConfig, shapes, n_cat: int):
-    def shard_grad(flat, dense, codes, t, sig_t, sig_v):
+    def piece_grad(flat, dense, codes, t, sig_t, sig_v):
         w = flat.detach().requires_grad_(True)
         with torch.enable_grad():
             p = wdl_forward(unflatten_members(w, shapes, n_cat), dense,
@@ -78,6 +80,10 @@ def _wdl_shard_grad(cfg: WDLTrainConfig, shapes, n_cat: int):
         sq = (t - p.detach()[0]) ** 2
         return (-grad, (sig_t * sq).sum(), (sig_v * sq).sum(), sig_t.sum(),
                 sig_v.sum())
+
+    def shard_grad(flats, pieces, add):
+        parts = [piece_grad(f, *p) for f, p in zip(flats, pieces)]
+        return tuple(add(list(col)) for col in zip(*parts))
 
     return shard_grad
 
@@ -104,11 +110,14 @@ def train_wdl_streamed(
     init_flat: Optional[np.ndarray] = None,
     resume: bool = False,
     device: DeviceLike = None,
+    mesh=None,
 ) -> WDLTrainResult:
     """WDL trained from the shards of `norm_dir` (dense columns
     `num_idx`) and `codes_dir` (categorical columns `cat_idx`) on one
-    device (`device=None` = cuda)."""
-    dev = resolve_device(device)
+    device (`device=None` = cuda), or with each shard's rows split over
+    the row shards of `mesh` (JAX `train_wdl_streamed(mesh=)`, rows
+    only)."""
+    mesh, dev = mesh_device(mesh, device)
     feed = WDLShardFeed(norm_dir, codes_dir, num_idx, cat_idx, cfg, dev)
     template = init_wdl_params(len(num_idx), vocab_sizes, cfg.embed_dim,
                                cfg.hidden, seed=cfg.seed)
@@ -127,7 +136,8 @@ def train_wdl_streamed(
     loop = StreamedLoop(cfg, feed,
                         _wdl_shard_grad(cfg, wdl_shapes(template),
                                         len(template.embed)),
-                        apply_update, init_state, flat0, dev, ck, resume)
+                        apply_update, init_state, flat0, dev, ck, resume,
+                        mesh=mesh)
     loop.run()
     chosen, valid = loop.chosen()
     log.info("streamed WDL done: %d epochs over %d shards, train %.6f "

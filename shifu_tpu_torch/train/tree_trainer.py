@@ -1,4 +1,4 @@
-"""GBT/RF histogram tree builder, level-wise, single device.
+"""GBT/RF histogram tree builder, level-wise, on one device or a mesh.
 
 Counterpart of `shifu_tpu/train/tree_trainer.py` on its fused path
 (`_get_tree_program` with no mesh and no hoisted one-hot, driven by
@@ -39,6 +39,13 @@ the best-gain leaf split first, explicit child pointers) and the
 host-batched `build_tree` (2**max_depth past the stats-memory node
 batch: a level's nodes in batches of at most that many). `train_trees`
 routes between the three as the JAX `train_trees` does.
+
+`train_trees(mesh=)` shards the rows over a `parallel.mesh.Mesh` (the
+JAX package's `shard_map` growers): each shard builds its histogram with
+the histogram-only entry, the lead device merges the partials in shard
+order (`_Rows.hist`) and scans them with the scan-only entry, and every
+shard routes its own rows by the level's decisions. The fused entry is a
+one-device path only.
 """
 
 from __future__ import annotations
@@ -53,8 +60,10 @@ import torch
 from shifu_tpu_torch.models.tree import (DenseTree, TreeModelSpec,
                                          traverse_trees)
 from shifu_tpu_torch.ops import hist_kernel
+from shifu_tpu_torch.parallel.mesh import (mesh_device, pad_rows, psum,
+                                           shard_rows)
 from shifu_tpu_torch.utils.log import get_logger
-from shifu_tpu_torch.utils.platform import DeviceLike, resolve_device
+from shifu_tpu_torch.utils.platform import DeviceLike
 
 log = get_logger(__name__)
 
@@ -650,25 +659,102 @@ def _route_rows(codes, node, active, resting, L: int, out, sl: ScanLayout):
     return node, still, resting
 
 
-def _grow_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
-               sub_levels: tuple, lowp: bool, int_planes: bool = False):
+class _Rows:
+    """The rows of one tree: on one device, or over a mesh's row shards.
+    Per shard s its inputs (`codes[s]`, `codes8[s]`, `labels[s]`,
+    `weights[s]` on `mesh.devices[s]`) and its level state (`node`,
+    `active`, `resting`). `hist` builds a level's histogram: on one
+    device one `hist_level` call; on a mesh one call a shard, merged on
+    the lead device in shard order (JAX: the histogram-only kernel per
+    device inside shard_map, then the psum). On the card each shard's
+    fixed-point sums merge unconverted (`hist_level_acc`, `merge_acc`):
+    the planes of one call over every row. On the CPU the shards' f32
+    planes add in f64 and round once: exact for integer planes (RF, and
+    every NATIVE count plane), so RF forests equal the one-device forest
+    bit for bit."""
+
+    def __init__(self, mesh, codes, codes8, labels, weights, kw: dict):
+        self.mesh = mesh
+        self.codes, self.codes8 = codes, codes8
+        self.labels, self.weights = labels, weights
+        self.kw = kw
+        self.node = [torch.zeros(c.shape[0], dtype=torch.int32,
+                                 device=c.device) for c in codes]
+        self.active = [torch.ones(c.shape[0], dtype=torch.bool,
+                                  device=c.device) for c in codes]
+        self.resting = [torch.zeros(c.shape[0], dtype=torch.long,
+                                    device=c.device) for c in codes]
+
+    @property
+    def lead(self) -> torch.device:
+        return self.codes[0].device
+
+    def hist(self, L: int, select=None) -> torch.Tensor:
+        """[C, L, T] f32 histogram on the lead device of the rows that
+        `select(node, active) -> (node slot, build mask)` picks on each
+        shard (default: the level's active rows at their node)."""
+        parts = []
+        for s, c in enumerate(self.codes):
+            nd, ac = self.node[s], self.active[s]
+            if select is not None:
+                nd, ac = select(nd, ac)
+            args = (c, self.labels[s], self.weights[s], nd, ac)
+            kw = dict(L=L, codes8=self.codes8[s], **self.kw)
+            if self.mesh is None:
+                return hist_kernel.hist_level(*args, **kw)
+            parts.append(hist_kernel.hist_level_acc(*args, **kw)
+                         if c.device.type == "cuda"
+                         else hist_kernel.hist_level(*args, **kw))
+        if self.lead.type == "cuda":
+            return hist_kernel.merge_acc(parts)
+        return psum([p.double() for p in parts], self.mesh).float()
+
+    def route(self, out, L: int, lay) -> None:
+        """Each shard routes its own rows by the level's decisions, copied
+        once to each device."""
+        on: Dict[torch.device, tuple] = {}
+        for s, c in enumerate(self.codes):
+            dev = c.device
+            if dev not in on:
+                on[dev] = tuple(x.to(dev) for x in out)
+            self.node[s], self.active[s], self.resting[s] = _route_rows(
+                c, self.node[s], self.active[s], self.resting[s], L,
+                on[dev], scan_layout(lay, dev))
+
+    def leaf_totals(self, L: int, n_classes: int) -> torch.Tensor:
+        """`leaf_acc` node totals of the final level on the lead device:
+        a shard's f32 totals, added in f64 in shard order, rounded once."""
+        parts = [leaf_acc(self.labels[s], self.weights[s], self.node[s],
+                          self.active[s], L, n_classes)
+                 for s in range(len(self.codes))]
+        if self.mesh is None:
+            return parts[0]
+        return psum([p.double() for p in parts], self.mesh).float()
+
+    def settle(self, L: int) -> None:
+        """Rows still active rest at the final level's node."""
+        self.resting = [torch.where(a, (L - 1) + nd.long(), r) for nd, a, r
+                        in zip(self.node, self.active, self.resting)]
+
+    def gather(self, leaf_flat: torch.Tensor) -> List[torch.Tensor]:
+        """Each shard's rows' values at their resting slot."""
+        return [leaf_flat.to(r.device)[r] for r in self.resting]
+
+
+def _grow_tree(rows: _Rows, feat_ok_t, *, lay, cfg, sub_levels: tuple):
     """One level-wise tree (counterpart of `_get_tree_program`'s body).
-    Returns (feat_flat, mask_flat, leaf_flat, resting, row_pred) — the
-    flat arrays are the DenseTree level-order layout. `int_planes`: the
-    forest's `int_planes_of`."""
+    Returns (feat_flat, mask_flat, leaf_flat, row_pred a shard) — the
+    flat arrays are the DenseTree level-order layout. On one device the
+    levels of at most `_FUSED_SCAN_L_CAP` nodes take the fused entry; on
+    a mesh never (JAX `_pallas_state`: a shard's histogram is a partial
+    until merged), every level `rows.hist` then `scan_level`."""
     D = cfg.max_depth
-    dev = codes.device
-    n = codes.shape[0]
-    sl = scan_layout(lay, dev)
+    dev = rows.lead
+    fuse = rows.mesh is None
     min_inst = max(cfg.min_instances_per_node, 1)
     K = cfg.n_classes
-    kw = dict(lay=lay, low_precision=lowp, codes8=codes8, n_classes=K,
-              int_planes=int_planes)
     skw = dict(impurity=cfg.impurity, min_inst=min_inst,
                min_gain=cfg.min_info_gain)
-    node = torch.zeros(n, dtype=torch.int32, device=dev)
-    active = torch.ones(n, dtype=torch.bool, device=dev)
-    resting = torch.zeros(n, dtype=torch.long, device=dev)
     feats_l, masks_l, leaves_l = [], [], []
     prev = None  # retained parent level (hist, is_split, lcnt, ncnt)
 
@@ -676,82 +762,75 @@ def _grow_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
         return hist_kernel.scan_level(hist, feat_ok_t, lay=lay, n_classes=K,
                                       **skw)
 
+    def fused(node, active, L):
+        return hist_kernel.fused_level(
+            rows.codes[0], rows.labels[0], rows.weights[0], node, active,
+            feat_ok_t, L=L, codes8=rows.codes8[0], **rows.kw, **skw)
+
     for d in range(D):
         L = 2 ** d
         if prev is not None:
             p_hist, p_split, p_lcnt, p_ncnt = prev
             left_small = p_lcnt <= p_ncnt - p_lcnt
-            nhalf, build_row = _sub_row_masks(node, active, left_small)
-            if L // 2 <= _FUSED_SCAN_L_CAP:
+
+            def half(nd, ac, ls=left_small):
+                return _sub_row_masks(nd, ac, ls.to(nd.device))
+
+            if fuse and L // 2 <= _FUSED_SCAN_L_CAP:
                 # the kernel grows only the smaller child (histogram and
                 # its scan in one pass); the sibling derives in torch and
                 # takes the scan-only entry, then both interleave per
                 # parent
-                built, scan_b = hist_kernel.fused_level(
-                    codes, labels, weights, nhalf, build_row, feat_ok_t,
-                    L=L // 2, **kw, **skw)
+                built, scan_b = fused(*half(rows.node[0], rows.active[0]),
+                                      L // 2)
                 derived, hist = _derive(p_hist, built, p_split, left_small)
                 out = tuple(_interleave_children(left_small, xb, xd)
                             for xb, xd in zip(scan_b, scan(derived)))
             else:
-                built = hist_kernel.hist_level(codes, labels, weights, nhalf,
-                                               build_row, L=L // 2, **kw)
+                built = rows.hist(L // 2, half)
                 _derived, hist = _derive(p_hist, built, p_split, left_small)
                 out = scan(hist)
-        elif L <= _FUSED_SCAN_L_CAP:
-            hist, out = hist_kernel.fused_level(
-                codes, labels, weights, node, active, feat_ok_t, L=L, **kw,
-                **skw)
+        elif fuse and L <= _FUSED_SCAN_L_CAP:
+            hist, out = fused(rows.node[0], rows.active[0], L)
         else:
-            hist = hist_kernel.hist_level(codes, labels, weights, node,
-                                          active, L=L, **kw)
+            hist = rows.hist(L)
             out = scan(hist)
         (bf, _br, _rank, lv, is_split, _g, lm, nc, lc) = out
         prev = ((hist, is_split, lc, nc)
                 if d + 1 < D and sub_levels[d + 1] else None)
-        node, active, resting = _route_rows(codes, node, active, resting, L,
-                                            out, sl)
+        rows.route(out, L, lay)
         feats_l.append(torch.where(is_split, bf, torch.full_like(bf, -1)))
         masks_l.append(lm)
         leaves_l.append(lv)
 
     # final level: node totals only (no per-slot histogram)
     L2 = 2 ** D
-    acc = leaf_acc(labels, weights, node, active, L2, K)
-    leaves_l.append(leaf_values(acc, K))
-    resting = torch.where(active, (L2 - 1) + node.long(), resting)
+    leaves_l.append(leaf_values(rows.leaf_totals(L2, K), K))
+    rows.settle(L2)
     feat_flat = torch.cat(feats_l + [torch.full((L2,), -1, dtype=torch.int32,
                                                 device=dev)])
     mask_flat = torch.cat(masks_l + [torch.zeros((L2, lay.s_max),
                                                  dtype=torch.bool,
                                                  device=dev)])
     leaf_flat = torch.cat(leaves_l)
-    return feat_flat, mask_flat, leaf_flat, resting, leaf_flat[resting]
+    return feat_flat, mask_flat, leaf_flat, rows.gather(leaf_flat)
 
 
-def build_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
-               sub_levels: tuple, batch_cap: int, lowp: bool,
-               int_planes: bool = False) -> Tuple[DenseTree, torch.Tensor]:
+def build_tree(rows: _Rows, feat_ok_t, *, lay, cfg, sub_levels: tuple,
+               batch_cap: int) -> DenseTree:
     """One level-wise tree driven level by level from the host
     (counterpart of `build_tree`'s batched loop, taken when 2**max_depth
     nodes pass the stats-memory node batch `batch_cap`). A level builds
     its histogram one of three ways: the smaller children only, the
     sibling derived from the retained parent (`sub_levels`); a full
     rebuild kept for the next level's derivation; or batches of at most
-    `batch_cap` nodes, each scanned as it is built and dropped. The final
-    level's leaf values come from its scan. Returns (tree, resting slot
-    [n])."""
+    `batch_cap` nodes, each scanned as it is built and dropped. Each
+    histogram is `rows.hist`'s (on a mesh, a call a shard, merged). The
+    final level's leaf values come from its scan; `rows.resting` holds
+    each row's resting slot."""
     D = cfg.max_depth
-    dev = codes.device
-    n = codes.shape[0]
-    sl = scan_layout(lay, dev)
+    dev = rows.lead
     K = cfg.n_classes
-    kw = dict(lay=lay, low_precision=lowp, codes8=codes8, n_classes=K,
-              int_planes=int_planes)
-
-    def hist(node_slot, act, L):
-        return hist_kernel.hist_level(codes, labels, weights, node_slot, act,
-                                      L=L, **kw)
 
     def scan(h):
         return hist_kernel.scan_level(
@@ -759,9 +838,6 @@ def build_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
             min_inst=cfg.min_instances_per_node,
             min_gain=cfg.min_info_gain, n_classes=K)
 
-    node = torch.zeros(n, dtype=torch.int32, device=dev)
-    active = torch.ones(n, dtype=torch.bool, device=dev)
-    resting = torch.zeros(n, dtype=torch.long, device=dev)
     sub_on = cfg.hist_subtraction
     n_built = n_derived = n_fallback = 0
     feats_l, masks_l, leaves_l = [], [], []
@@ -776,14 +852,14 @@ def build_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
         if prev is not None:  # half-width build + derive
             p_hist, p_split, p_lcnt, p_ncnt = prev
             left_small = p_lcnt <= p_ncnt - p_lcnt
-            nhalf, build_row = _sub_row_masks(node, active, left_small)
-            built = hist(nhalf, build_row, L // 2)
+            built = rows.hist(L // 2, lambda nd, ac: _sub_row_masks(
+                nd, ac, left_small.to(nd.device)))
             _derived, level_hist = _derive(p_hist, built, p_split, left_small)
             out = scan(level_hist)
             n_built += L // 2
             n_derived += L // 2
         elif retain_next:  # full rebuild, kept whole for the next level
-            level_hist = hist(node, active, L)
+            level_hist = rows.hist(L)
             out = scan(level_hist)
             n_built += L
             if sub_on and depth >= 1:
@@ -792,8 +868,8 @@ def build_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
             parts = []
             for b0 in range(0, L, batch_cap):
                 Lb = min(batch_cap, L - b0)
-                in_batch = active & (node >= b0) & (node < b0 + Lb)
-                parts.append(scan(hist(node - b0, in_batch, Lb)))
+                parts.append(scan(rows.hist(Lb, lambda nd, ac, b0=b0, Lb=Lb: (
+                    nd - b0, ac & (nd >= b0) & (nd < b0 + Lb)))))
             out = tuple(torch.cat(xs) for xs in zip(*parts))
             n_built += L
             if sub_on and depth >= 1:
@@ -805,20 +881,18 @@ def build_tree(codes, codes8, labels, weights, feat_ok_t, *, lay, cfg,
                                       device=dev))
             masks_l.append(torch.zeros((L, lay.s_max), dtype=torch.bool,
                                        device=dev))
-            resting = torch.where(active, (L - 1) + node.long(), resting)
+            rows.settle(L)
             break
         prev = (level_hist, is_split, lc, nc) if retain_next else None
-        node, active, resting = _route_rows(codes, node, active, resting, L,
-                                            out, sl)
+        rows.route(out, L, lay)
         feats_l.append(torch.where(is_split, bf, torch.full_like(bf, -1)))
         masks_l.append(lm)
         leaves_l.append(lv)
     _record_hist_counters(n_built, n_derived, n_fallback)
-    tree = DenseTree(
+    return DenseTree(
         feature=torch.cat(feats_l).cpu().numpy().astype(np.int32),
         left_mask=torch.cat(masks_l).cpu().numpy().astype(bool),
         leaf_value=torch.cat(leaves_l).cpu().numpy().astype(np.float32))
-    return tree, resting
 
 
 def build_tree_leafwise(codes, codes8, labels, weights, feat_ok_t, *, lay,
@@ -1104,6 +1178,31 @@ def _assemble(trees: List, deferred: List[tuple]) -> None:
     deferred.clear()
 
 
+def _sharded_errors(row_err: List[torch.Tensor], vm: List[torch.Tensor],
+                    real: List[torch.Tensor], mesh):
+    """(train_err, valid_err) of per-row errors over a mesh's shards: each
+    shard's error sums and row counts on its real rows, added on the lead
+    device in shard order (JAX: the errors program over row-sharded
+    arrays, `real` masking the padding). The lists may hold several
+    groups of `mesh.size` shards (a streamed set's file shards, each over
+    the mesh): each group's sums `psum`, then the groups' in order."""
+    S = mesh.size
+
+    def sums(sel):
+        num = cnt = None
+        for g in range(0, len(sel), S):
+            n_g = psum([torch.where(m, e, torch.zeros_like(e)).sum()
+                        for e, m in zip(row_err[g:g + S], sel[g:g + S])],
+                       mesh)
+            c_g = psum([m.sum() for m in sel[g:g + S]], mesh)
+            num = n_g if num is None else num + n_g
+            cnt = c_g if cnt is None else cnt + c_g
+        return num / cnt.clamp_min(1)
+
+    return (sums([~v & r for v, r in zip(vm, real)]),
+            sums([v & r for v, r in zip(vm, real)]))
+
+
 def train_trees(
     codes,
     tags,
@@ -1120,22 +1219,54 @@ def train_trees(
     checkpoint_cb: Optional[
         Callable[[int, List[DenseTree], List[float]], None]] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> TreeTrainResult:
-    """Full GBT/RF training run on one device (`device=None` = cuda).
+    """Full GBT/RF training run on one device (`device=None` = cuda), or
+    over the row shards of `mesh` (`parallel.mesh.Mesh`; its devices
+    replace `device`; the DTWorker row shards). On a mesh the rows pad to
+    a multiple of the shard count with zero weight after every draw, so
+    the valid split, the bags and the feature subsets are the
+    one-device run's (JAX `train_trees`); a one-shard mesh is the
+    one-device run. Leaf-wise growth ignores the mesh, with the JAX
+    package's warning.
 
     `init_trees` continues from an existing forest: per-tree draws are
     keyed by (seed, tree index), so trees k..N after loading 0..k-1
     reproduce the uninterrupted run. `checkpoint_cb(k, trees,
     valid_errors)` fires after each tree."""
-    dev = resolve_device(device)
+    leaf_wise = cfg.max_leaves > 0
+    if mesh is not None and leaf_wise:
+        log.warning("leaf-wise growth runs single-device; ignoring mesh")
+        device, mesh = mesh.lead, None
+    mesh, dev = mesh_device(mesh, device)
     n, F = codes.shape
     valid_mask = np.random.default_rng([cfg.seed, 999_983]).random(n) \
         < cfg.valid_set_rate
-    codes_t = _as_device(codes, torch.int32, dev)
-    y_t = _as_device(tags, torch.float32, dev)
-    w_t = _as_device(weights, torch.float32, dev)
-    vm_t = torch.as_tensor(valid_mask, device=dev)
-    base_w = torch.where(vm_t, torch.zeros_like(w_t), w_t)
+    if mesh is None:
+        codes_s = [_as_device(codes, torch.int32, dev)]
+        y_s = [_as_device(tags, torch.float32, dev)]
+        w_t = _as_device(weights, torch.float32, dev)
+        vm_s = [torch.as_tensor(valid_mask, device=dev)]
+        base_w_s = [torch.where(vm_s[0], torch.zeros_like(w_t), w_t)]
+        real_s = None
+
+        def split(a):
+            return [torch.as_tensor(a, device=dev)]
+    else:
+        def host(a, dt):
+            a = a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+            return np.asarray(a, dt)
+
+        def split(a):  # zero rows to a multiple of the shards, sharded
+            return shard_rows(pad_rows([np.asarray(a)], mesh.size)[0][0],
+                              mesh)
+
+        codes_s = split(host(codes, np.int32))
+        y_s = split(host(tags, np.float32))
+        base_w_s = split(np.where(valid_mask, 0.0, host(weights, np.float32))
+                         .astype(np.float32))
+        vm_s = split(valid_mask)
+        real_s = split(np.ones(n, dtype=bool))
     slots_np = np.asarray(slots, dtype=np.int32)
     is_cat_np = np.asarray(is_cat, dtype=bool)
     lay = make_layout([int(s) for s in slots_np], [bool(c) for c in is_cat_np])
@@ -1149,6 +1280,10 @@ def train_trees(
             "TrainModelProcessor.java:341-349)"
         )
 
+    def keep_of(k):  # DART keep mask of tree k, a shard
+        return split((np.random.default_rng([cfg.seed, k, 777]).random(n)
+                      >= cfg.dropout_rate).astype(np.float32))
+
     k_sub = subset_count(cfg.feature_subset_strategy, F)
     trees: List = list(init_trees or [])
     start_k = len(trees)
@@ -1158,25 +1293,30 @@ def train_trees(
 
     # prediction state re-derived from loaded trees on resume: GBT keeps
     # the raw sum F(x), RF the running mean, classification per-class votes
-    votes = _votes_of(trees, codes_t, cfg.n_classes) if is_cls else None
+    votes = ([_votes_of(trees, c, cfg.n_classes) for c in codes_s]
+             if is_cls else None)
     if start_k and not is_cls:
         if is_gbt and cfg.dropout_rate > 0.0:
             # DART resume: regenerate each tree's keyed keep mask
-            per_tree = traverse_trees(trees, codes_t)
-            s = torch.zeros(n, dtype=torch.float32, device=dev)
-            for col in range(per_tree.shape[1]):
-                contrib = per_tree[:, col]
-                if col > 0:
-                    keep = (np.random.default_rng([cfg.seed, col, 777])
-                            .random(n) >= cfg.dropout_rate)
-                    contrib = contrib * torch.as_tensor(
-                        keep.astype(np.float32), device=dev)
-                s = s + contrib
+            ss = []
+            for c in codes_s:
+                per_tree = traverse_trees(trees, c)
+                ss.append([torch.zeros(c.shape[0], dtype=torch.float32,
+                                       device=c.device), per_tree])
+            for col in range(len(trees)):
+                keeps = keep_of(col) if col > 0 else None
+                for i, (acc, per_tree) in enumerate(ss):
+                    contrib = per_tree[:, col]
+                    if keeps is not None:
+                        contrib = contrib * keeps[i]
+                    ss[i][0] = acc + contrib
+            s = [acc for acc, _ in ss]
         else:
-            s = _score_existing(trees, codes_t)
-        pred = s if is_gbt else s / start_k
+            s = [_score_existing(trees, c) for c in codes_s]
+        pred = s if is_gbt else [x / start_k for x in s]
     else:
-        pred = torch.zeros(n, dtype=torch.float32, device=dev)
+        pred = [torch.zeros(c.shape[0], dtype=torch.float32, device=c.device)
+                for c in codes_s]
     valid_errors: List = list(init_valid_errors or [])[:start_k]
     bad_rounds = 0
     decider = (DTEarlyStopDecider(cfg.max_depth)
@@ -1194,7 +1334,6 @@ def train_trees(
     # leaf-wise under max_leaves; else the level-wise tree of `_grow_tree`
     # while its widest level fits the stats-memory node batch, else the
     # host-batched `build_tree`
-    leaf_wise = cfg.max_leaves > 0
     fused = not leaf_wise and 2 ** cfg.max_depth <= batch_cap
     sub_levels = _sub_plan(cfg, batch_cap)
     sub_counts = _plan_counts(sub_levels[:cfg.max_depth],
@@ -1203,11 +1342,15 @@ def train_trees(
     # (multi-class is RF-only, so its count planes are f32 too)
     # int8 code planes, hoisted once per forest (codes are tree- and
     # level-independent), when every feature fits 128 slots
-    codes8 = (hist_kernel.codes8_of(codes_t, lay) if lay.s_max <= 128
-              else None)
+    codes8_s = [hist_kernel.codes8_of(c, lay) if lay.s_max <= 128 else None
+                for c in codes_s]
     # RF planes under integer weights (and, for the moments, labels) are
     # integers: the kernels' 32-bit shared bins, decided once a forest
-    int_planes = int_planes_of(y_t, base_w, cfg.n_classes, lowp)
+    # (padding rows add zeros, integers)
+    int_planes = all(int_planes_of(y, w, cfg.n_classes, lowp)
+                     for y, w in zip(y_s, base_w_s))
+    hkw = dict(lay=lay, low_precision=lowp, n_classes=cfg.n_classes,
+               int_planes=int_planes)
     fot_all = (torch.ones(lay.T, dtype=torch.bool, device=dev)
                if k_sub >= F else None)
 
@@ -1232,60 +1375,75 @@ def train_trees(
     err_pairs: List[tuple] = []
     for k in range(start_k, cfg.tree_num):
         if cfg.algorithm == "RF":
-            w_k = base_w * torch.as_tensor(
-                bags[k].astype(np.uint16).astype(np.float32), device=dev)
-            labels_k = y_t
+            bag = split(bags[k].astype(np.uint16).astype(np.float32))
+            w_k = [w * b for w, b in zip(base_w_s, bag)]
+            labels_k = y_s
         else:  # GBT: fit the negative loss gradient
-            w_k = base_w
-            labels_k = (y_t - 1.0 / (1.0 + torch.exp(-pred)) if log_loss
-                        else y_t - pred)
+            w_k = base_w_s
+            labels_k = [(y - 1.0 / (1.0 + torch.exp(-p)) if log_loss
+                         else y - p) for y, p in zip(y_s, pred)]
         fot = fot_all if fot_all is not None else torch.as_tensor(
             feat_oks[k][lay.seg_of_t], device=dev)
         weight_k = 1.0 if (is_gbt and k == 0) else (lr if is_gbt else 1.0)
-        grow_kw = dict(lay=lay, cfg=cfg, lowp=lowp, int_planes=int_planes)
-        if fused:
-            feats_d, masks_d, leaves_d, _resting, tree_pred = _grow_tree(
-                codes_t, codes8, labels_k, w_k, fot, sub_levels=sub_levels,
-                **grow_kw)
-            _record_hist_counters(*sub_counts)
-            deferred.append((k, weight_k, feats_d, masks_d, leaves_d))
-            trees.append(None)  # assembled from `deferred`
-        else:
-            # these growers sync with the host as they go: their trees
-            # come back one at a time
-            if leaf_wise:
-                tree, resting = build_tree_leafwise(
-                    codes_t, codes8, labels_k, w_k, fot,
-                    batch_cap=batch_cap, **grow_kw)
-            else:
-                tree, resting = build_tree(
-                    codes_t, codes8, labels_k, w_k, fot,
-                    sub_levels=sub_levels, batch_cap=batch_cap, **grow_kw)
+        if leaf_wise:
+            # the leaf-wise grower syncs with the host as it goes: its
+            # trees come back one at a time
+            tree, node_id = build_tree_leafwise(
+                codes_s[0], codes8_s[0], labels_k[0], w_k[0], fot, lay=lay,
+                cfg=cfg, batch_cap=batch_cap, lowp=lowp,
+                int_planes=int_planes)
             tree.weight = weight_k
             trees.append(tree)
-            tree_pred = torch.as_tensor(tree.leaf_value,
-                                        device=dev)[resting.long()]
+            tree_pred = [torch.as_tensor(tree.leaf_value,
+                                         device=dev)[node_id.long()]]
+        else:
+            rows = _Rows(mesh, codes_s, codes8_s, labels_k, w_k, hkw)
+            if fused:
+                feats_d, masks_d, leaves_d, tree_pred = _grow_tree(
+                    rows, fot, lay=lay, cfg=cfg, sub_levels=sub_levels)
+                _record_hist_counters(*sub_counts)
+                deferred.append((k, weight_k, feats_d, masks_d, leaves_d))
+                trees.append(None)  # assembled from `deferred`
+            else:  # host-batched: its trees come back one at a time
+                tree = build_tree(rows, fot, lay=lay, cfg=cfg,
+                                  sub_levels=sub_levels, batch_cap=batch_cap)
+                tree.weight = weight_k
+                trees.append(tree)
+                tree_pred = rows.gather(torch.as_tensor(tree.leaf_value,
+                                                        device=dev))
 
         if is_cls:
-            votes = votes + _one_vote(tree_pred, cfg.n_classes)
-            t_e, v_e = _cls_errors(votes, y_t, vm_t)
-        elif is_gbt:
-            if cfg.dropout_rate > 0.0 and k > 0:
-                # DART-ish per-row dropout of this tree's contribution to
-                # the running prediction (never the model)
-                keep = (np.random.default_rng([cfg.seed, k, 777])
-                        .random(n) >= cfg.dropout_rate)
-                pred = pred + weight_k * tree_pred * torch.as_tensor(
-                    keep.astype(np.float32), device=dev)
+            votes = [v + _one_vote(tp, cfg.n_classes)
+                     for v, tp in zip(votes, tree_pred)]
+            if mesh is None:
+                t_e, v_e = _cls_errors(votes[0], y_s[0], vm_s[0])
             else:
-                pred = pred + weight_k * tree_pred
-            score = (1.0 / (1.0 + torch.exp(-pred)) if log_loss
-                     else pred.clamp(0.0, 1.0))
-        else:  # RF running mean over trees built so far
-            pred = tree_pred if k == 0 else (pred * k + tree_pred) / (k + 1)
-            score = pred.clamp(0.0, 1.0)
-        if not is_cls:
-            t_e, v_e = _errors(score, y_t, vm_t)
+                t_e, v_e = _sharded_errors(
+                    [(torch.argmax(v, dim=1).to(torch.float32) != y)
+                     .to(torch.float32) for v, y in zip(votes, y_s)],
+                    vm_s, real_s, mesh)
+        else:
+            if is_gbt:
+                if cfg.dropout_rate > 0.0 and k > 0:
+                    # DART-ish per-row dropout of this tree's contribution
+                    # to the running prediction (never the model)
+                    pred = [p + weight_k * tp * kp for p, tp, kp
+                            in zip(pred, tree_pred, keep_of(k))]
+                else:
+                    pred = [p + weight_k * tp
+                            for p, tp in zip(pred, tree_pred)]
+                score = [(1.0 / (1.0 + torch.exp(-p)) if log_loss
+                          else p.clamp(0.0, 1.0)) for p in pred]
+            else:  # RF running mean over trees built so far
+                pred = [tp if k == 0 else (p * k + tp) / (k + 1)
+                        for p, tp in zip(pred, tree_pred)]
+                score = [p.clamp(0.0, 1.0) for p in pred]
+            if mesh is None:
+                t_e, v_e = _errors(score[0], y_s[0], vm_s[0])
+            else:
+                t_e, v_e = _sharded_errors(
+                    [(y - sc) ** 2 for y, sc in zip(y_s, score)], vm_s,
+                    real_s, mesh)
         if not need_sync:
             err_pairs.append((t_e, v_e))
             valid_errors.append(None)  # filled after the final sync

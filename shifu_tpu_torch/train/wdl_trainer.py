@@ -19,8 +19,10 @@ records; the train and valid errors are the significance-weighted MSE
 of the pre-update probability; `best_flat` keeps the pre-update weights
 when the valid error improves; the window halt freezes a member.
 
-The JAX package's `mesh=` (row sharding, and the `model`-axis embedding
-sharding for wide vocab tables) waits for ROADMAP A.13.
+`mesh=` shards the rows over a `parallel.mesh.Mesh` (the NN loop's
+shards; each shard's gathers keep the fixed-order backward of one
+device). The JAX package's `model` axis (embedding tables sharded over
+devices) waits for ROADMAP A.13.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from shifu_tpu_torch.models.wdl import (
     wdl_forward,
     wdl_shapes,
 )
+from shifu_tpu_torch.parallel.mesh import mesh_device, shard_padded
 from shifu_tpu_torch.resilience.checkpoint import atomic_save_npy
 from shifu_tpu_torch.train import nn_trainer
 from shifu_tpu_torch.train.nn_trainer import (
@@ -51,7 +54,7 @@ from shifu_tpu_torch.train.nn_trainer import (
 )
 from shifu_tpu_torch.train.updaters import make_updater
 from shifu_tpu_torch.utils.log import get_logger
-from shifu_tpu_torch.utils.platform import DeviceLike, resolve_device
+from shifu_tpu_torch.utils.platform import DeviceLike
 
 log = get_logger(__name__)
 
@@ -110,38 +113,59 @@ class WDLTrainResult:
 
 class _Loop(nn_trainer._Loop):
     """The epochs of M members on one device (the JAX `one_iter` under
-    the vmapped `while_loop`); `run` is the NN loop's."""
+    the vmapped `while_loop`), or over a mesh's row shards (the NN loop's
+    `_sum` and `_flats`: a shard's gradient and error sums on its rows,
+    added on the lead device in shard order); `run` is the NN loop's."""
 
     def __init__(self, cfg: WDLTrainConfig, shapes, n_cat: int, dense,
-                 codes, t, sig_t, sig_v, nts: torch.Tensor):
+                 codes, t, sig_t, sig_v, nts: torch.Tensor, mesh=None):
         self.cfg = cfg
         self.shapes, self.n_cat = shapes, n_cat
-        self.dense, self.codes, self.t = dense, codes, t
-        self.sig_t, self.sig_v, self.nts = sig_t, sig_v, nts
-        self.den_t = torch.clamp_min(sig_t.sum(dim=-1), 1.0)
-        self.den_v = torch.clamp_min(sig_v.sum(dim=-1), 1.0)
+        self.mesh = mesh
+        self.parts = (list(zip(dense, codes, t, sig_t, sig_v))
+                      if mesh is not None
+                      else [(dense, codes, t, sig_t, sig_v)])
+        self.nts = nts
+        self.den_t = torch.clamp_min(
+            self._sum([p[3].sum(dim=-1) for p in self.parts]), 1.0)
+        self.den_v = torch.clamp_min(
+            self._sum([p[4].sum(dim=-1) for p in self.parts]), 1.0)
         self.init_state, self.apply_update = make_updater(
             cfg.optimizer if cfg.optimizer != "GD" else "B", momentum=0.0,
             reg=cfg.l2_reg, reg_level="L2" if cfg.l2_reg else "NONE")
         self.can_halt = cfg.early_stop_window > 0
 
-    def descent(self, flat: torch.Tensor):
-        """(g = -dE/dw [M, n_flat], the probability [M, n] detached)."""
+    def descent(self, flat: torch.Tensor, dense=None, codes=None, t=None,
+                sig_t=None):
+        """(g = -dE/dw [M, n_flat], the probability [M, n] detached) of
+        one part's rows (default: the one device's)."""
+        if dense is None:
+            dense, codes, t, sig_t, _sv = self.parts[0]
         w = flat.detach().requires_grad_(True)
         with torch.enable_grad():
             p = wdl_forward(unflatten_members(w, self.shapes, self.n_cat),
-                            self.dense, self.codes, self.cfg.activations)
+                            dense, codes, self.cfg.activations)
             pc = torch.clamp(p, LOG_EPS, 1 - LOG_EPS)
-            t = self.t
             ll = -(t * torch.log(pc) + (1 - t) * torch.log(1 - pc))
-            (grad,) = torch.autograd.grad(torch.sum(self.sig_t * ll), w)
+            (grad,) = torch.autograd.grad(torch.sum(sig_t * ll), w)
         return -grad, p.detach()
 
+    def _terms(self, flat: torch.Tensor):
+        """(g = -dE/dw [M, n_flat] summed over the shards, the train and
+        valid errors [M])."""
+        gs, trs, vas = [], [], []
+        for f, (dense, codes, t, sig_t, sig_v) in zip(self._flats(flat),
+                                                      self.parts):
+            g, p = self.descent(f, dense, codes, t, sig_t)
+            sq = (t - p) ** 2
+            gs.append(g)
+            trs.append((sig_t * sq).sum(dim=-1))
+            vas.append((sig_v * sq).sum(dim=-1))
+        return (self._sum(gs), self._sum(trs) / self.den_t,
+                self._sum(vas) / self.den_v)
+
     def epoch(self, c: _Members, e: int = 0) -> None:
-        g, p = self.descent(c.flat)
-        sq = (self.t - p) ** 2
-        tr = (self.sig_t * sq).sum(dim=-1) / self.den_t
-        va = (self.sig_v * sq).sum(dim=-1) / self.den_v
+        g, tr, va = self._terms(c.flat)
         new_flat, new_opt = self.apply_update(c.opt, c.flat, g, c.lr,
                                               c.it + 1, self.nts)
         improved = va < c.best_val
@@ -169,12 +193,18 @@ def _train_members(cfg: WDLTrainConfig, template: WDLParams,
                    flat0s: List[np.ndarray], dense, codes, t, sig_t, sig_v,
                    ntss: Sequence[float], lrs: Sequence[float],
                    report: Optional[Callable[[_Members], None]],
-                   dev: torch.device) -> _Members:
+                   dev: torch.device, mesh=None) -> _Members:
     """Train M members; `report(carry)` at every checkpoint segment's end
-    (cfg.checkpoint_every > 0)."""
+    (cfg.checkpoint_every > 0). On a mesh the rows pad with zero
+    significance and split over its shards."""
+    if mesh is not None:
+        dense, codes, t = (shard_padded(a, mesh) for a in (dense, codes, t))
+        sig_t, sig_v = (shard_padded(sig_t, mesh, axis=1),
+                        shard_padded(sig_v, mesh, axis=1))
     loop = _Loop(cfg, wdl_shapes(template), len(template.embed), dense,
                  codes, t, sig_t, sig_v,
-                 torch.as_tensor(np.asarray(ntss, np.float32), device=dev))
+                 torch.as_tensor(np.asarray(ntss, np.float32), device=dev),
+                 mesh)
     flat0 = torch.as_tensor(np.stack(flat0s).astype(np.float32), device=dev)
     m, n_flat = flat0.shape
     c = _Members(flat0, loop.init_state(m, n_flat, dev),
@@ -206,12 +236,15 @@ def train_wdl(
     cfg: WDLTrainConfig,
     init_flat: Optional[np.ndarray] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> WDLTrainResult:
-    """One WDL model on one device (`device=None` = cuda). dense [n, Dn]
-    f32, codes [n, Dc], tags [n] {0,1}, weights [n]: numpy arrays or
-    tensors (tensors already on the device stay there). `init_flat`
-    resumes continuous training from existing weights."""
-    dev = resolve_device(device)
+    """One WDL model on one device (`device=None` = cuda), or over the
+    row shards of `mesh` (rows only; JAX `train_wdl(mesh=)` without the
+    `model` axis). dense [n, Dn] f32, codes [n, Dc], tags [n] {0,1},
+    weights [n]: numpy arrays or tensors (tensors already on the device
+    stay there). `init_flat` resumes continuous training from existing
+    weights."""
+    mesh, dev = mesh_device(mesh, device)
     n = dense.shape[0]
     template = init_wdl_params(dense.shape[1], vocab_sizes, cfg.embed_dim,
                                cfg.hidden, seed=cfg.seed)
@@ -231,7 +264,7 @@ def train_wdl(
             atomic_save_npy(cfg.checkpoint_path, c.flat[0].cpu().numpy())
 
     c = _train_members(cfg, template, [flat0], d, c_, t, sig_t, sig_v,
-                       [nts], [cfg.learning_rate], report, dev)
+                       [nts], [cfg.learning_rate], report, dev, mesh)
     # one host read for all scalars
     it_n, bv, tr_h, va_h = torch.stack([
         c.it[0].to(torch.float32), c.best_val[0], c.tr[0], c.va[0]]).tolist()
@@ -258,6 +291,7 @@ def train_wdl_bagged(
     member_sigs: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     checkpoint_paths: Optional[List[str]] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> List[WDLTrainResult]:
     """All bagging members / grid trials / k-folds in one member loop (the
     reference fans WDL bagging out as Guagua jobs exactly like NN,
@@ -268,8 +302,8 @@ def train_wdl_bagged(
     trials that differ only in LearningRate; `member_sigs` (sig_train
     [M, n], sig_valid [M, n]) batches k-fold folds, which keep their final
     weights and final holdout error, with nts the COUNT of positive
-    train significance."""
-    dev = resolve_device(device)
+    train significance. `mesh` shards the rows as in `train_wdl`."""
+    mesh, dev = mesh_device(mesh, device)
     n = dense.shape[0]
     m = n_members
     template = init_wdl_params(dense.shape[1], vocab_sizes,
@@ -318,7 +352,7 @@ def train_wdl_bagged(
 
     c = _train_members(base_cfg, template, flat0s, d, c_, t,
                        torch.stack(sig_ts), torch.stack(sig_vs), ntss, lrs,
-                       report, dev)
+                       report, dev, mesh)
     flat_f, best_flat = c.flat.cpu().numpy(), c.best_flat.cpu().numpy()
     best_val, tr_e, va_e = (c.best_val.tolist(), c.tr.tolist(),
                             c.va.tolist())

@@ -457,3 +457,68 @@ def test_scan_level_raises_on_bad_inputs(dev):
                       fok, **kw)
     with pytest.raises(ValueError):
         hk.scan_level(hist, fok, **{**kw, "impurity": "mse"})
+
+
+@pytest.mark.cuda
+def test_entries_follow_their_tensors_device(dev):
+    """Each card entry makes its input's device current (the library's
+    workspace plan and shared-memory opt-in read `cudaGetDevice`): on
+    cuda:1 with cuda:0 current, `hist_level` and `scan_level` equal their
+    plain versions, and the current device is cuda:0 again after."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    d1 = torch.device("cuda", 1)
+    lay, codes, y, w, node, act = _case(d1, [33] * 20 + [65] * 10,
+                                        [False] * 20 + [True] * 10,
+                                        50_000, 64, 5)
+    fok = torch.ones(lay.T, dtype=torch.bool, device=d1)
+    with torch.cuda.device(0):
+        h_k = hk.hist_level(codes, y, w, node, act, L=64, lay=lay,
+                            codes8=hk.codes8_of(codes, lay))
+        kw = dict(lay=lay, impurity="variance", min_inst=2, min_gain=0.0)
+        out_k = hk.scan_level(h_k, fok, **kw)
+        assert torch.cuda.current_device() == 0
+    h_p = hk.hist_level_reference(codes, y, w, node, act, L=64, lay=lay)
+    out_p = tt.split_scan(h_p, fok, tt.scan_layout(lay, d1), "variance",
+                          2, 0.0)
+    torch.cuda.synchronize(d1)
+    assert torch.equal(h_k, h_p)
+    for nm, a, b in zip(NAMES, out_p, out_k):
+        assert torch.equal(a, b), nm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_classes", [0, 5])
+def test_meshed_rf_on_the_card_equals_one_device(dev, n_classes):
+    """RF (and NATIVE RF) on a 4-shard mesh of the card: each shard's
+    fixed-point sums merge unconverted (`merge_acc`), so the forest is
+    the one-device forest bit for bit; the mesh launches the
+    histogram-only entry 4 times a level and never the fused entry."""
+    from shifu_tpu_torch.parallel.mesh import data_mesh
+
+    rng = np.random.default_rng(11)
+    slots = [17] * 5 + [33, 65]
+    is_cat = [False] * 5 + [True] * 2
+    n = 30_001
+    codes = np.stack([rng.integers(0, s - 1, size=n) for s in slots],
+                     1).astype(np.int32)
+    y = ((codes[:, 0] // 6 + (codes[:, 6] >= 30)) % max(n_classes, 2)
+         ).astype(np.float32)
+    w = np.ones(n, np.float32)
+    cfg = tt.TreeTrainConfig(algorithm="RF", tree_num=3, max_depth=6,
+                             n_classes=n_classes, seed=2,
+                             impurity="gini" if n_classes else "variance")
+    cols = [f"f{i}" for i in range(len(slots))]
+    one = tt.train_trees(codes, y, w, slots, is_cat, cols, cfg,
+                         device="cuda")
+    hk.reset_counters()
+    got = tt.train_trees(codes, y, w, slots, is_cat, cols, cfg,
+                         mesh=data_mesh(virtual=4))
+    sfx = "_mc" if n_classes else ""
+    assert hk.launches["fused_level" + sfx] == 0
+    assert hk.launches["hist_level" + sfx] == 4 * 6 * 3
+    assert hk.launches["scan_level" + sfx] == 6 * 3
+    for a, b in zip(one.spec.trees, got.spec.trees):
+        np.testing.assert_array_equal(a.feature, b.feature)
+        np.testing.assert_array_equal(a.left_mask, b.left_mask)
+        np.testing.assert_array_equal(a.leaf_value, b.leaf_value)

@@ -35,7 +35,8 @@ MODULES = [
     "shifu_tpu_torch.models.tree", "shifu_tpu_torch.models.wdl",
     "shifu_tpu_torch.norm.dataset", "shifu_tpu_torch.norm.normalizer",
     "shifu_tpu_torch.ops.binagg", "shifu_tpu_torch.ops.build",
-    "shifu_tpu_torch.ops.hist_kernel", "shifu_tpu_torch.processor.analysis",
+    "shifu_tpu_torch.ops.hist_kernel", "shifu_tpu_torch.parallel.mesh",
+    "shifu_tpu_torch.processor.analysis",
     "shifu_tpu_torch.processor.basic", "shifu_tpu_torch.processor.combo",
     "shifu_tpu_torch.processor.convert",
     "shifu_tpu_torch.processor.create", "shifu_tpu_torch.processor.encode",
