@@ -53,11 +53,11 @@ Phases, each of which must pass:
            card run bit-equal, scores within 0.03 of the CPU run.
 
 7. raw     `shifu init` + `shifu stats -correlation -psi` from raw text:
-           250,000 pipe-delimited rows of the bench `rf` width (a 0/1
+           200,000 pipe-delimited rows of the bench `rf` width (a 0/1
            target, a weight column of exact f32 values in [0.5, 2), 20
            numeric columns printed %.5f with 2% missing tokens, 10
            categorical columns of up to 64 tokens, a 12-value unit column
-           for -psi; about 65 MB, under the in-RAM memory budget) written
+           for -psi; about 50 MB, under the in-RAM memory budget) written
            from --seed; `InitProcessor` then `StatsProcessor` twice on the
            card and once on the CPU, each on its own copy, all in this
            process, and a stats run again under the profiler on the first
@@ -99,7 +99,7 @@ Phases, each of which must pass:
            in f32, and the first epoch's f32 descent gradient on 8,192
            rows from one init on the card and the CPU, max |dg| <= 1e-4 x
            max |g|; (c) `shifu train` NN (hidden [50] tanh, bagging 5, 30
-           epochs) on phase 8's selected 250,000-row set, twice on the
+           epochs) on phase 8's selected 200,000-row set, twice on the
            card (five model files, byte-identical) and once on the CPU
            (valid errors within 1e-3); (d) varsel filterBy SE (10 of 20)
            on the same sets, the card and the CPU selecting the same
@@ -292,9 +292,12 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1590,7 +1593,7 @@ def phase_ova(torch, hk, tt, ptree, data_dir, gbt_data_, seed):
 
 # rows of phase 7's raw set: the host-bound phases 7-8, 9(c) and 13(c)
 # take most of the run, which must end within its time limit
-RAW = dict(n=250_000, numeric=20, cat=10, cat_values=64, units=12,
+RAW = dict(n=200_000, numeric=20, cat=10, cat_values=64, units=12,
            missing=0.02)
 RAW_TOL = dict(rtol=1e-6, atol=1e-6)  # mean, stdDev, correlation: card/CPU
 
@@ -2161,7 +2164,7 @@ def varsel_se(torch, root, device, filter_num):
 
 
 def nn_phase_step(torch, data_dir):
-    """(c) `shifu train` NN, bagging 5, on phase 8's selected 250,000-row
+    """(c) `shifu train` NN, bagging 5, on phase 8's selected 200,000-row
     model set: twice on the card (model files byte-identical), once on
     the CPU (valid errors within NN_TOL); (d) varsel SE on the same set,
     card and CPU selecting the same columns."""
@@ -5001,6 +5004,533 @@ def print_mesh_nets(n):
           f"), max |dw| {w['max_weight_diff']:.3g}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: more than one host, and the chaos seams
+# ---------------------------------------------------------------------------
+
+HOSTS = dict(n=100_000, chunks=16, numeric=20, cat=10, wait_ms=60_000,
+             chaos_rows=50_000, chaos_chunks=4, nn_epochs=8,
+             kill_epochs=200, kill_every=5, serve_rows=256)
+HOST_FILES = ("ColumnConfig.json",
+              os.path.join("tmp", "autotype", "count_info.json"))
+
+
+def write_host_set(root, seed, n=None):
+    """(a)'s raw set at the bench `rf` width, integral: a 0/1 target,
+    unit weights (no weight column), 20 integer-valued numeric columns
+    with 2% "?" tokens, 10 categorical columns of 16 - j tokens whose
+    counts all differ (no tie can reorder a bin across merge orders),
+    from `seed`; RF 10 trees depth 8, its eval set the same file."""
+    from shifu_tpu_torch.config.model_config import (Algorithm, EvalConfig,
+                                                     RawSourceData,
+                                                     new_model_config)
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    n = HOSTS["n"] if n is None else n
+    rng = np.random.default_rng(seed + 16)
+    y = rng.random(n) < 0.3
+    names, cols = ["label"], [np.where(y, "1", "0").tolist()]
+    for j in range(HOSTS["numeric"]):
+        x = rng.integers(0, 40 + 8 * j, size=n) + y * (3 + j % 5) * (j % 3
+                                                                    == 0)
+        col = list(map(str, x.tolist()))
+        for i in np.flatnonzero(rng.random(n) < 0.02).tolist():
+            col[i] = "?"
+        names.append(f"num_{j}")
+        cols.append(col)
+    for j in range(HOSTS["cat"]):
+        k = 16 - j
+        w = np.arange(k, 0, -1, dtype=np.float64) ** 2
+        counts = np.floor(n * w / w.sum()).astype(np.int64)
+        counts[0] += n - counts.sum()
+        codes = np.repeat(np.arange(k), counts)
+        rng.shuffle(codes)
+        names.append(f"cat_{j}")
+        cols.append([f"c{j}_{c}" for c in codes.tolist()])
+    data_dir = os.path.join(root, "data")
+    os.makedirs(data_dir, exist_ok=True)
+    with open(os.path.join(data_dir, "header.txt"), "w") as fh:
+        fh.write("|".join(names) + "\n")
+    with open(os.path.join(data_dir, "data.txt"), "w") as fh:
+        fh.write("\n".join(map("|".join, zip(*cols))))
+        fh.write("\n")
+    mc = new_model_config("HostSmoke", Algorithm.parse("RF"))
+    ds = mc.data_set
+    ds.data_path, ds.header_path = "data/data.txt", "data/header.txt"
+    ds.target_column_name, ds.pos_tags, ds.neg_tags = "label", ["1"], ["0"]
+    mc.train.params.update(TreeNum=RF["trees"], MaxDepth=RF["depth"],
+                           FeatureSubsetStrategy="TWOTHIRDS")
+    ev = EvalConfig(name=EVAL_NAME, data_set=RawSourceData())
+    ev.data_set.data_path, ev.data_set.header_path = (ds.data_path,
+                                                      ds.header_path)
+    mc.evals = [ev]
+    mc.save(PathFinder(root).model_config_path())
+
+
+def host_props(n_rows, chunks, **extra):
+    """The streamed route at `chunks` chunks of `n_rows`, and the host
+    wait: the -D properties of every step of the phase."""
+    return {"shifu.ingest.forceStreaming": "true",
+            "shifu.ingest.chunkRows": str(-(-n_rows // chunks)),
+            "shifu.lifecycle.hostWaitMs": str(HOSTS["wait_ms"]), **extra}
+
+
+class props_set:
+    """Properties set in this process for a block, the previous values
+    back on exit (what -Dk=v does for one CLI run)."""
+
+    def __init__(self, values):
+        self.values = values
+
+    def __enter__(self):
+        from shifu_tpu_torch.utils import environment
+
+        self.saved = {k: environment.get_property(k, "")
+                      for k in self.values}
+        for k, v in self.values.items():
+            environment.set_property(k, v)
+
+    def __exit__(self, *exc):
+        from shifu_tpu_torch.utils import environment
+
+        for k, v in self.saved.items():
+            environment.set_property(k, v)
+
+
+HOST_LOG = dict(
+    barrier=re.compile(r"host barrier '([^']+)': \d+ parts in ([0-9.]+) s"),
+    step=re.compile(r"Step (\w+) finished in ([0-9.]+) s"),
+    counters=re.compile(r"host (\d+)/\d+ counters (\{.*\})"))
+
+
+def run_fleet(root, pkg, args, props, hosts=(0, 1), n_hosts=2,
+              timeout=600):
+    """`python -m shifu_tpu_torch ARGS -Dk=v...` as host h of `n_hosts`
+    for each h in `hosts`, all started together in `root`: the exit
+    codes, the wall seconds, and what each process's log says (its step
+    seconds, barrier waits and host counters)."""
+    env = dict(os.environ, PYTHONPATH=pkg)
+    flags = [f"-D{k}={v}" for k, v in {
+        **props, "shifu.lifecycle.hosts": str(n_hosts)}.items()]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for h in hosts:
+            log = tempfile.TemporaryFile("w+")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "shifu_tpu_torch", *args, *flags,
+                 f"-Dshifu.lifecycle.hostIndex={h}"], cwd=root, env=env,
+                stdout=subprocess.DEVNULL, stderr=log), log))
+        rcs = [p.wait(timeout=timeout) for p, _log in procs]
+    finally:
+        for p, _log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    logs = []
+    for (p, log), h in zip(procs, hosts):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        steps = HOST_LOG["step"].findall(text)
+        logs.append(dict(
+            host=h, rc=p.returncode,
+            step_seconds=float(steps[-1][1]) if steps else None,
+            barriers={k: float(v) for k, v in
+                      HOST_LOG["barrier"].findall(text)},
+            counters=[json.loads(c) for _h, c in
+                      HOST_LOG["counters"].findall(text)],
+            tail=text[-2000:]))
+    return rcs, wall, logs
+
+
+def _check_fleet(what, rcs, logs, want=0):
+    for lg in logs:
+        check(lg["rc"] == want,
+              f"hosts: {what} host {lg['host']} exited {lg['rc']}:\n"
+              f"{lg['tail']}")
+
+
+def _dev(device):
+    """The CLI's device flags: none on the card (its default)."""
+    return [] if device == "cuda" else ["--device", device]
+
+
+def hosts_chains(torch, hk, data_dir, pkg, seed, device="cuda"):
+    """(a): the 1-process chain in this process, then the same steps as
+    two OS processes (init, stats, norm, eval) and one (train); (b) host
+    1's stats killed alone, then the fleet resumed."""
+    from shifu_tpu_torch.resilience import checkpoint as ckpt_mod
+
+    base = os.path.join(data_dir, "hosts-base")
+    write_host_set(base, seed)
+    one, two, kill = (os.path.join(data_dir, f"hosts-{k}")
+                      for k in ("one", "two", "kill"))
+    set_copy(base, one)
+    set_copy(base, two)
+    props = host_props(HOSTS["n"], HOSTS["chunks"])
+    out = dict(one={}, two={}, waits={}, chunks={})
+    with props_set(props):
+        for step, args in (("init", ["init"]), ("stats", ["stats"]),
+                           ("norm", ["norm"]), ("train", ["train"]),
+                           ("eval", ["eval", "-run"])):
+            if step == "train":
+                hk.reset_counters()
+            out["one"][step] = cli_in(one, *args, *_dev(device))
+            if step == "train":
+                out["launches_one"] = dict(hk.launches)
+    for step, args in (("init", ["init"]), ("stats", ["stats"]),
+                       ("norm", ["norm"]), ("train", None),
+                       ("eval", ["eval", "-run"])):
+        if args is None:
+            hk.reset_counters()
+            with props_set(props):
+                out["two"][step] = dict(wall=cli_in(two, "train",
+                                                    *_dev(device)))
+            out["launches_two"] = dict(hk.launches)
+            continue
+        rcs, wall, logs = run_fleet(two, pkg, args + _dev(device), props)
+        _check_fleet(step, rcs, logs)
+        out["two"][step] = dict(wall=wall, hosts=[lg["step_seconds"]
+                                                 for lg in logs])
+        out["waits"][step] = [lg["barriers"] for lg in logs]
+        if step != "eval":
+            per = [lg["counters"][-1]["host.chunks"] for lg in logs]
+            out["chunks"][step] = per
+            for stage in per[0]:
+                n = [p[stage] for p in per]
+                check(sum(n) == HOSTS["chunks"]
+                      and max(n) <= -(-HOSTS["chunks"] // 2),
+                      f"hosts: {stage} chunks a host {n}")
+        if step == "init":
+            set_copy(two, kill)  # (b)'s set: after init, before stats
+    score = os.path.join("evals", EVAL_NAME)
+    rels = (*HOST_FILES, *NORM_DIRS, os.path.join("models", "model0.rf"),
+            score)
+    a, b = _files(one, *rels), _files(two, *rels)
+    check(sorted(a) == sorted(b), f"hosts: other files {sorted(b)}")
+    for rel in a:
+        check(a[rel] == b[rel],
+              f"hosts: two hosts wrote another {rel} than one process")
+    out["files_equal"] = len(a)
+    check(out["launches_one"] == out["launches_two"],
+          f"hosts: the trains launched {out['launches_one']} and "
+          f"{out['launches_two']}")
+    check(device != "cuda" or (out["launches_two"]["scan_level"] > 0
+                               and not any(hk.reference_calls.values())),
+          f"hosts: the train was not the kernel path: "
+          f"{out['launches_two']}, plain {hk.reference_calls}")
+    # (b): host 1 alone dies on its 3rd chunk, before its barrier
+    kprops = {**props, "shifu.ckpt.everyChunks": "1"}
+    rcs, wall, logs = run_fleet(kill, pkg, ["stats", *_dev(device)], {
+        **kprops, "shifu.faults": "preempt@chunk=3"}, hosts=(1,))
+    _check_fleet("stats preempt@chunk=3", rcs, logs, want=1)
+    names = sorted(e["name"] for e in ckpt_mod.list_resumable(kill))
+    check(names and all(n.startswith("stats-stream-h001-") for n in names),
+          f"hosts: the killed host left {names}")
+    out["kill"] = dict(wall=wall, left=names)
+    rcs, wall, logs = run_fleet(kill, pkg,
+                                ["stats", "--resume", *_dev(device)], kprops)
+    _check_fleet("stats --resume", rcs, logs)
+    out["kill"].update(resume_wall=wall,
+                       resume_hosts=[lg["step_seconds"] for lg in logs],
+                       chunks=[lg["counters"][-1]["host.chunks"]
+                               for lg in logs])
+    check(_files(kill, "ColumnConfig.json") == _files(two,
+                                                      "ColumnConfig.json"),
+          "hosts: the resumed fleet wrote another ColumnConfig.json")
+    check(ckpt_mod.list_resumable(kill) == [],
+          "hosts: a checkpoint family outlived the resumed fleet")
+    return out
+
+
+def _preempted(fn, what):
+    """Run `fn`, which a fault plan must stop with PreemptionError."""
+    from shifu_tpu_torch.resilience.faults import PreemptionError
+
+    try:
+        fn()
+    except PreemptionError:
+        return
+    check(False, f"hosts chaos: {what} ran through its fault plan")
+
+
+def _nn_chaos_config(epochs, every):
+    def config(root):
+        nn_step_config(root, [16], 1, epochs)
+        from shifu_tpu_torch.config.model_config import ModelConfig
+        from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+        path = PathFinder(root).model_config_path()
+        mc = ModelConfig.load(path)
+        mc.train.epochs_per_iteration = every
+        mc.save(path)
+    return config
+
+
+def _wdl_chaos_config(root):
+    _wdl_stream_config(root)
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    path = PathFinder(root).model_config_path()
+    mc = ModelConfig.load(path)
+    mc.train.num_train_epochs = HOSTS["nn_epochs"]
+    mc.train.epochs_per_iteration = 1
+    mc.save(path)
+
+
+def hosts_chaos(torch, data_dir, pkg, device="cuda"):
+    """(c) on (a)'s first chaos_rows rows, one host: stats, norm and eval
+    under preempt@chunk=3, the streamed NN and WDL trains under
+    preempt@epoch=3, a SIGTERM sent to a streamed `shifu train`
+    subprocess, each resumed; stats under io:p=0.05:seed=7. Every one
+    against its unbroken run's bytes."""
+    from shifu_tpu_torch.processor.evaluate import EvalProcessor
+    from shifu_tpu_torch.processor.init import InitProcessor
+    from shifu_tpu_torch.processor.norm import NormProcessor
+    from shifu_tpu_torch.processor.stats import StatsProcessor
+    from shifu_tpu_torch.processor.train import TrainProcessor
+    from shifu_tpu_torch.resilience import checkpoint as ckpt_mod
+    from shifu_tpu_torch.resilience import faults, retry
+
+    src = os.path.join(data_dir, "hosts-base")
+    base = os.path.join(data_dir, "chaos-base")
+    os.makedirs(os.path.join(base, "data"))
+    shutil.copy(os.path.join(src, "ModelConfig.json"), base)
+    shutil.copy(os.path.join(src, "data", "header.txt"),
+                os.path.join(base, "data"))
+    _head_lines(os.path.join(src, "data", "data.txt"),
+                os.path.join(base, "data", "data.txt"), HOSTS["chaos_rows"])
+    props = host_props(HOSTS["chaos_rows"], HOSTS["chaos_chunks"],
+                       **{"shifu.ckpt.everyChunks": "1"})
+    roots = {k: os.path.join(data_dir, f"chaos-{k}") for k in
+             ("clean", "stats", "norm", "eval", "io", "nn", "nn-chaos",
+              "wdl", "wdl-chaos", "kill", "kill-ref")}
+    out = {}
+    score = os.path.join("evals", EVAL_NAME)
+
+    def timed(fn):
+        rc, sec = _timed(torch, device, fn)
+        check(rc == 0, "hosts chaos: a step returned non-zero")
+        return sec
+
+    def chaos(spec):
+        return props_set({**props, "shifu.faults": spec})
+
+    def resumed():
+        return props_set({**props, "shifu.resume": "true"})
+
+    with props_set(props):
+        check(InitProcessor(base, device=device).run() == 0,
+              "hosts chaos: init returned non-zero")
+        clean = roots["clean"]
+        set_copy(base, clean)
+        for step in (StatsProcessor, NormProcessor, TrainProcessor):
+            timed(step(clean, device=device).run)
+        timed(EvalProcessor(clean, run_name=EVAL_NAME, device=device).run)
+    # stats, norm, eval: preempt@chunk=3, then --resume
+    cases = (("stats", base, (), StatsProcessor, dict(),
+              ("ColumnConfig.json",)),
+             ("norm", clean, (os.path.join("tmp", "norm"),),
+              NormProcessor, dict(), NORM_DIRS),
+             ("eval", clean, (score,), EvalProcessor,
+              dict(score_name=EVAL_NAME), (os.path.join(score,
+                                                        "EvalScore.csv"),)))
+    for name, src_root, drop, step, kw, rels in cases:
+        root = roots[name]
+        set_copy(src_root, root)
+        for rel in drop:
+            shutil.rmtree(os.path.join(root, rel))
+        with chaos("preempt@chunk=3"):
+            _preempted(step(root, device=device, **kw).run, name)
+        check(ckpt_mod.list_resumable(root) != [],
+              f"hosts chaos: the killed {name} left no snapshot")
+        with resumed():
+            out[f"{name}_resume_seconds"] = timed(
+                step(root, device=device, **kw).run)
+        check(_files(root, *rels) == _files(clean, *rels),
+              f"hosts chaos: the resumed {name} wrote other bytes")
+        check(ckpt_mod.list_resumable(root) == [],
+              f"hosts chaos: {name}'s snapshot outlived its resume")
+    # transient io faults under the retry budget
+    set_copy(base, roots["io"])
+    faults.reset_counters()
+    retry.reset_counters()
+    with chaos("io:p=0.05:seed=7"):
+        out["io_seconds"] = timed(StatsProcessor(roots["io"],
+                                                 device=device).run)
+    out["io_injected"] = dict(faults.counters["fault.injected"])
+    out["io_retries"] = dict(retry.counters["retry.attempts"])
+    check(out["io_retries"].get("io", 0) > 0
+          and faults.counters["fault.survived"] == out["io_injected"],
+          f"hosts chaos: io faults {out['io_injected']}, retries "
+          f"{out['io_retries']}")
+    check(_files(roots["io"], "ColumnConfig.json")
+          == _files(clean, "ColumnConfig.json"),
+          "hosts chaos: stats under io faults wrote other bytes")
+    # the streamed NN and WDL trainers: preempt@epoch=3, then resume
+    models = "models"
+    for kind, config in (("nn", _nn_chaos_config(HOSTS["nn_epochs"], 1)),
+                         ("wdl", _wdl_chaos_config)):
+        for key in (kind, f"{kind}-chaos"):
+            _alg_copy(clean, roots[key], config)
+        train = {"shifu.train.forceStreaming": "true"}
+        with props_set({**props, **train}):
+            timed(TrainProcessor(roots[kind], device=device).run)
+        with chaos("preempt@epoch=3"), props_set(train):
+            _preempted(TrainProcessor(roots[f"{kind}-chaos"],
+                                      device=device).run, kind)
+        with resumed(), props_set(train):
+            out[f"{kind}_resume_seconds"] = timed(TrainProcessor(
+                roots[f"{kind}-chaos"], device=device).run)
+        check(_files(roots[kind], models)
+              == _files(roots[f"{kind}-chaos"], models),
+              f"hosts chaos: the resumed streamed {kind} train wrote "
+              "another model")
+    # SIGTERM to a streamed `shifu train` subprocess, then --resume
+    config = _nn_chaos_config(HOSTS["kill_epochs"], HOSTS["kill_every"])
+    for key in ("kill", "kill-ref"):
+        _alg_copy(clean, roots[key], config)
+    kill = roots["kill"]
+    state = os.path.join(kill, "tmp", "train", "checkpoint_0",
+                         "weights.npy.state" + ckpt_mod.CKPT_SUFFIX)
+    flags = [f"-D{k}={v}" for k, v in props.items()]
+    flags.append("-Dshifu.train.forceStreaming=true")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "shifu_tpu_torch", "train", *_dev(device),
+         *flags],
+        cwd=kill, env=dict(os.environ, PYTHONPATH=pkg),
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    try:
+        while not os.path.isfile(state):
+            check(proc.poll() is None,
+                  "hosts chaos: the train ended before its first snapshot")
+            check(time.perf_counter() - t0 < 300,
+                  "hosts chaos: no train snapshot in 300 s")
+            time.sleep(0.01)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(rc == 1, f"hosts chaos: SIGTERM'd train exited {rc}")
+    out["sigterm_after_seconds"] = time.perf_counter() - t0
+    with props_set({"shifu.train.forceStreaming": "true"}):
+        out["sigterm_resume_seconds"] = cli_in(kill, "train", "--resume",
+                                               *_dev(device))
+        out["sigterm_ref_seconds"] = cli_in(roots["kill-ref"], "train",
+                                            *_dev(device))
+    check(_files(kill, models) == _files(roots["kill-ref"], models),
+          "hosts chaos: the train resumed after SIGTERM wrote another "
+          "model")
+    return out
+
+
+def hosts_serve(torch, data_dir, device="cuda"):
+    """(d): the (c) NN set's model on 2 replicas on the card under
+    device_dead@replica=0: every request answered with the clean run's
+    scores, replica 0's breaker open."""
+    from shifu_tpu_torch.data.reader import read_header
+    from shifu_tpu_torch.data.stream import iter_columnar_chunks
+    from shifu_tpu_torch.resilience import faults
+    from shifu_tpu_torch.serve.fleet import ReplicaFleet
+    from shifu_tpu_torch.serve.health import BREAKER_OPEN
+
+    root = os.path.join(data_dir, "chaos-nn")
+    src = os.path.join(data_dir, "chaos-base", "data")
+    names = read_header(os.path.join(src, "header.txt"), "|")
+    n = HOSTS["serve_rows"]
+    batches = list(iter_columnar_chunks(os.path.join(src, "data.txt"),
+                                        names, chunk_rows=8, max_rows=n))
+    fleet = ReplicaFleet.build(os.path.join(root, "models"), n_replicas=2,
+                               device=device)
+    faults.reset_counters()
+    try:
+        want = [fleet.score_batch(b, timeout=60) for b in batches]
+        with faults.activate(faults.FaultPlan.parse("device_dead@replica=0")):
+            t0 = time.perf_counter()
+            got = [fleet.score_batch(b, timeout=60) for b in batches]
+            sec = time.perf_counter() - t0
+        for g, w in zip(got, want):
+            check(np.array_equal(g.model_scores, w.model_scores),
+                  "hosts serve: a failed-over batch scored otherwise")
+        check(fleet.replicas[0].breaker.state == BREAKER_OPEN,
+              "hosts serve: replica 0's breaker did not open")
+        out = dict(requests=len(batches), rows=n, seconds=sec,
+                   failovers=fleet.failovers,
+                   injected=dict(faults.counters["fault.injected"]),
+                   breaker0=fleet.replicas[0].breaker.state,
+                   breaker1=fleet.replicas[1].breaker.state)
+    finally:
+        fleet.close(30)
+    return out
+
+
+def phase_hosts(torch, hk, data_dir, pkg, seed, device="cuda"):
+    """Phase 16: (a) two hosts against one, (b) kill one host, (c) chaos
+    on one host, (d) a dead replica."""
+    t0 = time.perf_counter()
+    out = hosts_chains(torch, hk, data_dir, pkg, seed, device)
+    out["chaos"] = hosts_chaos(torch, data_dir, pkg, device)
+    out["serve"] = hosts_serve(torch, data_dir, device)
+    out["seconds"] = time.perf_counter() - t0
+    print_hosts(out)
+    return out
+
+
+def print_hosts(h):
+    one, two = h["one"], h["two"]
+    print(f"hosts: (a) {HOSTS['n']} integral rows at bench `rf` width in "
+          f"{HOSTS['chunks']} chunks; step seconds, 1 process (in this "
+          "process) vs 2 host processes (wall incl. start; each host's "
+          "step):")
+    for step in ("init", "stats", "norm", "train", "eval"):
+        t = two[step]
+        print(f"  {step}: {one[step]:.3f} s vs {t['wall']:.3f} s"
+              + (f" ({', '.join(f'{x:.3f}' for x in t['hosts'])})"
+                 if "hosts" in t else " (one process)"))
+    for step, w in h["waits"].items():
+        if any(w):
+            print(f"  barrier waits {step}: " + "; ".join(
+                f"host {i} " + ", ".join(f"{k} {v:.3f} s"
+                                         for k, v in ws.items())
+                for i, ws in enumerate(w)))
+    for step, per in h["chunks"].items():
+        print(f"  chunks a host {step}: {per}")
+    print(f"  {h['files_equal']} files byte-identical to the 1-process "
+          f"chain (ColumnConfig.json, count_info.json, NormalizedData, "
+          f"CleanedData, model0.rf, the eval set); train launches "
+          f"{h['launches_two']}")
+    k = h["kill"]
+    print(f"hosts: (b) host 1's stats under preempt@chunk=3 died in "
+          f"{k['wall']:.3f} s leaving {len(k['left'])} files of its own "
+          f"family; the fleet --resume {k['resume_wall']:.3f} s (hosts "
+          f"{k['resume_hosts']}, chunks {k['chunks']}); ColumnConfig.json "
+          "byte-identical to (a), no family left")
+    c = h["chaos"]
+    print(f"hosts: (c) {HOSTS['chaos_rows']} rows: resumes after "
+          f"preempt@chunk=3 stats {c['stats_resume_seconds']:.3f} s, norm "
+          f"{c['norm_resume_seconds']:.3f} s, eval "
+          f"{c['eval_resume_seconds']:.3f} s; after preempt@epoch=3 NN "
+          f"{c['nn_resume_seconds']:.3f} s, WDL {c['wdl_resume_seconds']:.3f}"
+          f" s; SIGTERM after {c['sigterm_after_seconds']:.3f} s, resume "
+          f"{c['sigterm_resume_seconds']:.3f} s (unbroken "
+          f"{c['sigterm_ref_seconds']:.3f} s); stats under io:p=0.05:seed=7"
+          f" {c['io_seconds']:.3f} s, injected {c['io_injected']}, retries "
+          f"{c['io_retries']}; every one byte-identical to its unbroken run")
+    s = h["serve"]
+    print(f"hosts: (d) device_dead@replica=0 over 2 replicas: "
+          f"{s['requests']} requests ({s['rows']} rows) answered in "
+          f"{s['seconds']:.3f} s with the clean scores, {s['failovers']} "
+          f"failovers, injected {s['injected']}, breakers "
+          f"{s['breaker0']} / {s['breaker1']}")
+    print(f"hosts: phase 16 in {h['seconds']:.1f} s")
+
+
 def run(args) -> int:
     import torch
 
@@ -5041,6 +5571,22 @@ def run(args) -> int:
     for ln in report["ptxas"]:
         print(f"  ptxas: {ln}")
 
+    pkg = os.path.abspath(args.package_root or REPO)
+    if args.hosts_only:
+        data_dir = os.path.join(build.BUILD_DIR, "smoke-data")
+        shutil.rmtree(data_dir, ignore_errors=True)
+        try:
+            report["hosts"] = phase_hosts(torch, hk, data_dir, pkg,
+                                          args.seed)
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
+        if args.out:
+            out = os.path.join(REPO, args.out)
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            with open(out, "w") as fh:
+                json.dump(report, fh, indent=1)
+        print(f"{card}")
+        return 0
     gbt = gbt_data(args.seed)
     rf = rf_data(args.seed)
     # the measurement-only modes write beside the details file
@@ -5170,6 +5716,7 @@ def run(args) -> int:
                           args.seed)
         me = phase_mesh(torch, hk, tt, pds, ptree, data_dir, gbt, rf,
                         args.seed)
+        ho = phase_hosts(torch, hk, data_dir, pkg, args.seed)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     report["gbt"], report["rf"] = g, r
@@ -5182,6 +5729,7 @@ def run(args) -> int:
     report["wdl"] = wd
     report["stream"] = st
     report["mesh"] = me
+    report["hosts"] = ho
     grown = [gr[k]["launches"] for k in ("leafwise_gbt", "leafwise_rf",
                                          "batched_gbt", "batched_rf")]
     # the streamed grower's: (a)'s forests and (b)'s RF train
@@ -5189,6 +5737,9 @@ def run(args) -> int:
     grown.append(st["lifecycle"]["launches"])
     # phase 15's meshed runs, each counted on its own
     grown += me["launches"]
+    # phase 16's two trains (after the 1-process and the 2-host chains)
+    host_runs = [ho["launches_one"], ho["launches_two"]]
+    grown += host_runs
 
     kernels = []
     mc_lines = ":358-365,:408-430,:540-552,:767-769"
@@ -5215,6 +5766,7 @@ def run(args) -> int:
             replaces=replaces,
             launches=launches,
             mesh_launches=sum(lc[name] for lc in me["launches"]),
+            hosts_launches=sum(lc[name] for lc in host_runs),
             max_abs_err=stats.max_abs_err[name], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"]))
@@ -5249,6 +5801,8 @@ def main() -> int:
                     "('' for none)")
     ap.add_argument("--entries", action="store_true",
                     help="only time one call of each entry")
+    ap.add_argument("--hosts-only", action="store_true",
+                    help="build the kernels, then run phase 16 alone")
     ap.add_argument("--package-root", default="",
                     help="directory to import shifu_tpu_torch from "
                     "(default: this checkout)")

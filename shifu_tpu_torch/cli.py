@@ -51,6 +51,7 @@ import argparse
 import sys
 from typing import List, Optional
 
+from shifu_tpu_torch.resilience.faults import PreemptionError
 from shifu_tpu_torch.utils import environment
 from shifu_tpu_torch.utils.errors import ShifuError
 from shifu_tpu_torch.utils.log import configure, get_logger
@@ -253,6 +254,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     except NotImplementedError as e:
         log.error("not implemented yet: %s", e)
         return 2
+    except PreemptionError as e:
+        log.error("preempted: %s (rerun with --resume)", e)
+        return 1
     finally:
         if resume:
             environment.set_property("shifu.resume", "")

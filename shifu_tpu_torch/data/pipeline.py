@@ -8,13 +8,16 @@
     chunks sit ready in the queue. One thread and a FIFO queue keep chunk
     order, so every fold is bit-identical to the serial run;
     `prefetchChunks=0` runs the same pull and transform inline.
+  * `HostPlan` — the chunk -> host (process) assignment of the
+    lifecycle data plane (`ci % H`), from `shifu.lifecycle.hosts` and
+    `shifu.lifecycle.hostIndex`; the hosts' partials meet at the
+    filesystem barriers of `parallel/hostsync.py`.
   * `ShardPlan` — the deterministic chunk -> row-shard assignment of the
-    streamed folds (round-robin on the chunk index, `ci % S`) and the
-    per-shard resume cursors. S is `shifu.lifecycle.shards`, by default
-    the mesh's device count (`parallel.mesh.lifecycle_shards`: every
-    card on cuda, 1 on the CPU).
-    More than one host (`shifu.lifecycle.hosts` > 1, the JAX
-    `HostPlan`) raises naming ROADMAP A.13.
+    streamed folds (round-robin on the host's dense local chunk ordinal,
+    `(ci // H) % S`) and the per-shard resume cursors. S is
+    `shifu.lifecycle.shards`, by default the mesh's device count
+    (`parallel.mesh.lifecycle_shards`: every card on cuda, 1 on the
+    CPU).
   * `DeviceAccumulator` — the streamed stats' bin aggregates folded on
     the device across chunks. The JAX package folds f32 windows and
     flushes them to a host f64 fold; the port's `ops/binagg` already
@@ -28,21 +31,26 @@
     for any shard count.
 
 `bucket_rows` (power-of-two row padding) is not ported: it bounds the
-JAX package's jit shapes, and torch compiles nothing per shape. The
-chaos seams of `prefetch_iter` wait for `resilience/faults.py` (A.13).
+JAX package's jit shapes, and torch compiles nothing per shape.
+`prefetch_iter` carries the `io` and `prefetch` fault seams
+(`resilience/faults.py`) when a fault plan is armed.
 """
 
 from __future__ import annotations
 
+import json
 import queue
 import threading
-from typing import Any, Callable, Iterable, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from shifu_tpu_torch.ops.binagg import bin_aggregate_exact
-from shifu_tpu_torch.parallel.mesh import lifecycle_mesh, lifecycle_shards
+from shifu_tpu_torch.parallel.mesh import (lifecycle_host_index,
+                                           lifecycle_hosts, lifecycle_mesh,
+                                           lifecycle_shards)
+from shifu_tpu_torch.resilience import faults, retry
 from shifu_tpu_torch.utils import environment
 
 DEFAULT_PREFETCH_CHUNKS = 2
@@ -62,13 +70,31 @@ def prefetch_iter(source: Iterable[Any], depth: Optional[int] = None,
     thread, keeping up to `depth` transformed items ready (default
     shifu.ingest.prefetchChunks; <= 0 runs inline). Items arrive in
     source order; a worker exception re-raises in the consumer at the
-    failing position; abandoning the iterator stops the worker."""
+    failing position; abandoning the iterator stops the worker.
+
+    With a fault plan armed, the `io` seam fires before each pull and
+    the `prefetch` seam before each transform, each under its retry
+    budget. Only the injected `io` fault is retried: an exception raised
+    inside `next(it)` closes a generator source, so retrying a real pull
+    error would read as a clean end of stream and truncate the data. The
+    transform is pure host work, so it reruns whole."""
     if depth is None:
         depth = prefetch_chunks_setting()
 
     def _produce(it: Iterator[Any]):
+        chaos = faults.plan_active()
+        if chaos:
+            retry.retry_call(lambda: faults.fault_point("io"), seam="io")
         item = next(it)
-        return transform(item) if transform is not None else item
+        if transform is None:
+            return item
+        if chaos:
+            def _apply(i=item):
+                faults.fault_point("prefetch")
+                return transform(i)
+
+            return retry.retry_call(_apply, seam="prefetch")
+        return transform(item)
 
     if depth <= 0:
         def _serial() -> Iterator[Any]:
@@ -139,32 +165,88 @@ def prefetch_iter(source: Iterable[Any], depth: Optional[int] = None,
     return _consume()
 
 
+class HostPlan:
+    """Deterministic chunk -> host assignment, the per-process layer above
+    `ShardPlan` (counterpart of the JAX `HostPlan`): `host_of(ci) = ci %
+    H`, so with H hosts over K chunks each process folds at most
+    ceil(K/H) of them, and every process derives the same partition with
+    no coordination. `local_index(ci) = ci // H` numbers a host's own
+    chunks densely for the shard round-robin underneath. H = 1 is the
+    one-process plan: every chunk owned. `record` counts `host.chunks` /
+    `host.rows` by host and stage (`counters`)."""
+
+    def __init__(self, n_hosts: Optional[int] = None,
+                 host_index: Optional[int] = None) -> None:
+        self.n_hosts = (lifecycle_hosts() if n_hosts is None
+                        else max(1, int(n_hosts)))
+        self.host_index = (lifecycle_host_index() if host_index is None
+                           else int(host_index))
+        if not (0 <= self.host_index < self.n_hosts):
+            raise ValueError(
+                f"host index {self.host_index} outside [0, {self.n_hosts})"
+                " — check -Dshifu.lifecycle.hostIndex vs"
+                " -Dshifu.lifecycle.hosts")
+        self.counters: Dict[str, Dict[str, int]] = {"host.chunks": {},
+                                                    "host.rows": {}}
+
+    @property
+    def active(self) -> bool:
+        return self.n_hosts > 1
+
+    @property
+    def is_merge_host(self) -> bool:
+        """Host 0 merges the hosts' partials in host order and writes the
+        final artifacts; every other host publishes its part only."""
+        return self.host_index == 0
+
+    def host_of(self, chunk_index: int) -> int:
+        return chunk_index % self.n_hosts
+
+    def owns(self, chunk_index: int) -> bool:
+        return chunk_index % self.n_hosts == self.host_index
+
+    def local_index(self, chunk_index: int) -> int:
+        """Dense ordinal of an owned chunk within this host's slice."""
+        return chunk_index // self.n_hosts
+
+    def record(self, rows: int, stage: str) -> None:
+        """One folded chunk of `rows` rows at `stage` on this host."""
+        for name, n in (("host.chunks", 1), ("host.rows", rows)):
+            d = self.counters[name]
+            d[stage] = d.get(stage, 0) + int(n)
+
+    def describe(self) -> str:
+        """`host h/H` and the counters as JSON: the line a multi-host
+        step logs when its barrier has passed."""
+        return (f"host {self.host_index}/{self.n_hosts} counters "
+                f"{json.dumps(self.counters, sort_keys=True)}")
+
+
 class ShardPlan:
-    """Deterministic chunk -> row-shard assignment, `shard_of(ci) = ci %
-    S` (counterpart of the JAX `ShardPlan` over the one-host `HostPlan`):
-    with S shards over K chunks each shard folds at most ceil(K/S) of
-    them, and a resume skips, per shard, the chunks at or below its
-    cursor. Every chunk is this process's: the JAX package's multi-host
-    plan (`ci % H`, per-host part files and barriers) is ROADMAP A.13,
-    and `shifu.lifecycle.hosts` > 1 raises."""
+    """Deterministic chunk -> row-shard assignment (counterpart of the
+    JAX `ShardPlan`): ownership filters first (only chunks with
+    `host.owns(ci)`), then `shard_of(ci) = host.local_index(ci) % S`, so
+    the S local shards divide the host's slice evenly whatever H is; at
+    one host that is `ci % S`. With S shards over K owned chunks each
+    shard folds at most ceil(K/S) of them, and a resume skips, per
+    shard, the chunks at or below its cursor."""
 
     def __init__(self, n_shards: Optional[int] = None,
-                 device=None) -> None:
-        from shifu_tpu_torch.data.stream import check_single_host
-
-        check_single_host()
+                 device=None, host: Optional[HostPlan] = None) -> None:
         self.n_shards = (lifecycle_shards(device) if n_shards is None
                          else max(1, int(n_shards)))
+        self.host = HostPlan() if host is None else host
 
     def shard_of(self, chunk_index: int) -> int:
-        return chunk_index % self.n_shards
+        return self.host.local_index(chunk_index) % self.n_shards
 
     def resume_slice(self, numbered: Iterable,
                      cursors: List[int]) -> Iterator:
-        """The (ci, item) pairs no shard has folded yet (ci > the cursor
-        of its shard); skipped chunks are never transformed."""
+        """The owned (ci, item) pairs no shard has folded yet (ci > the
+        cursor of its shard); skipped chunks are never transformed."""
         for pair in numbered:
-            if pair[0] > cursors[self.shard_of(pair[0])]:
+            ci = pair[0]
+            if self.host.owns(ci) and ci > cursors[self.shard_of(ci)]:
                 yield pair
 
 
@@ -172,6 +254,31 @@ class ShardPlan:
 # int64 and the sums in f64, the extrema in f32
 _FIELDS = ("pos", "neg", "wpos", "wneg", "vsum", "vsumsq", "vmin", "vmax",
            "vcount", "vmissing")
+
+
+def add_states(acc: Optional[Dict[str, np.ndarray]],
+               part: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Two exact fold states (`DeviceAccumulator.snapshot` fields) added
+    on the host: sums and counts added, the extrema min / max."""
+    part = {k: np.asarray(part[k]) for k in _FIELDS}
+    if acc is None:
+        return part
+    return {k: (np.minimum(acc[k], part[k]) if k == "vmin" else
+                np.maximum(acc[k], part[k]) if k == "vmax" else
+                acc[k] + part[k]) for k in _FIELDS}
+
+
+def rounded_state(state: Dict[str, np.ndarray]) -> List[np.ndarray]:
+    """An exact fold state as `DeviceAccumulator.fetch` returns it: the
+    f64 sums rounded once to f32, every field as float64, in
+    BinAggregates field order."""
+    out = []
+    for k in _FIELDS:
+        a = np.asarray(state[k])
+        if a.dtype == np.float64:
+            a = a.astype(np.float32)
+        out.append(a.astype(np.float64))
+    return out
 
 
 class DeviceAccumulator:
@@ -222,11 +329,8 @@ class DeviceAccumulator:
         """The aggregates as float64 numpy arrays in BinAggregates field
         order, the f64 sums rounded once to f32 (as `bin_aggregate`
         rounds them); None when nothing was folded."""
-        acc = self._merged()
-        if acc is None:
-            return None
-        return [(a.float() if a.dtype == torch.float64 else a)
-                .cpu().numpy().astype(np.float64) for a in acc]
+        state = self.snapshot()
+        return rounded_state(state) if _FIELDS[0] in state else None
 
     def snapshot(self) -> dict:
         """The exact running state, the shards merged, as host arrays

@@ -9,8 +9,8 @@ The operational knobs are the JAX package's:
 
 The port reads CSV/gzip chunks with its own reader (`data/reader.py`);
 the streamed routes pull them through `data/pipeline.prefetch_iter`, in
-order. Parquet (it needs pyarrow), the multi-host plan and remote
-sources wait for ROADMAP A.13: each raises naming it.
+order. Parquet (it needs pyarrow) and remote sources wait for ROADMAP
+A.13: each raises naming it.
 """
 
 from __future__ import annotations
@@ -50,15 +50,6 @@ def should_stream(data_path: str) -> bool:
     ):
         return True
     return dataset_size_bytes(data_path) > memory_budget_bytes()
-
-
-def check_single_host() -> None:
-    """The port runs one process: `shifu.lifecycle.hosts` > 1 raises."""
-    hosts = environment.get_int("shifu.lifecycle.hosts", 1)
-    if hosts > 1:
-        raise ShifuError(ErrorCode.ILLEGAL_ARGUMENT,
-                         f"shifu.lifecycle.hosts={hosts}: multi-host runs "
-                         "are not ported yet (ROADMAP A.13)")
 
 
 def iter_columnar_chunks(

@@ -1,8 +1,8 @@
 """NormalizedData and CleanedData: the sharded on-disk layouts that
 training reads (counterpart of `shifu_tpu/norm/dataset.py`: the in-RAM
-writers and the streamed norm's `ShardWriter` and `ShuffleShardWriter`;
-the multi-host `HostPartWriter` is ROADMAP A.13). The files are the same
-bytes in both packages, so each reads what the other wrote.
+writers, the streamed norm's `ShardWriter` and `ShuffleShardWriter`, and
+the multi-host `HostPartWriter`). The files are the same bytes in both
+packages, so each reads what the other wrote.
 
 Under PathFinder.normalized_data_dir():
     meta.json            columns, nRows, shardRows, normType,
@@ -18,10 +18,11 @@ beside, in both:
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 from dataclasses import dataclass
-from typing import Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -104,6 +105,79 @@ class ShardWriter:
                      np.zeros(0, dtype=np.int8),
                      np.zeros(0, dtype=np.float32))
         return _write_meta(self.out_dir, self.columns, self.shard_rows,
+                           self.norm_type, self.extra)
+
+
+class HostPartWriter:
+    """The per-host stage of the multi-host streamed norm: each host
+    writes its own chunks as part files keyed by global chunk index,
+        .part-<prefix>-CCCCCCCC.npy  (and .part-tags- / .part-weights-)
+    in the final directory, and after the host barrier the merge host
+    renames the fleet's union into the one-process shard layout. The
+    rename is a relabel ci -> rank(ci) over the sorted union, and
+    `np.save` of an equal array writes equal bytes, so the shards and
+    meta.json are byte-identical to the one-process run's."""
+
+    def __init__(self, out_dir: str, primary_prefix: str, primary_dtype,
+                 columns: List[str], norm_type: str,
+                 extra: Optional[dict] = None):
+        os.makedirs(out_dir, exist_ok=True)
+        self.out_dir = out_dir
+        self.primary_prefix = primary_prefix
+        self.primary_dtype = primary_dtype
+        self.columns = columns
+        self.norm_type = norm_type
+        self.extra = extra
+        self.part_rows: Dict[int, int] = {}
+
+    def _part(self, prefix: str, ci: int) -> str:
+        return os.path.join(self.out_dir, f".part-{prefix}-{ci:08d}.npy")
+
+    def add(self, ci: int, primary: np.ndarray, tags: np.ndarray,
+            weights: np.ndarray) -> None:
+        np.save(self._part(self.primary_prefix, ci),
+                primary.astype(self.primary_dtype, copy=False))
+        np.save(self._part("tags", ci), tags.astype(np.int8, copy=False))
+        np.save(self._part("weights", ci),
+                weights.astype(np.float32, copy=False))
+        self.part_rows[int(ci)] = int(primary.shape[0])
+
+    def restore(self, part_rows: Dict) -> None:
+        """Resume: the stream checkpoint recorded these parts as
+        complete; a chunk killed mid-save lies past the cursor and is
+        written again."""
+        self.part_rows = {int(k): int(v) for k, v in part_rows.items()}
+
+    def merge(self, union_rows: Dict[int, int]) -> NormMeta:
+        """Merge host only, after the barrier: rename the fleet's union of
+        parts ({global ci: rows}) into the shard layout, then write
+        meta.json."""
+        shard_rows: List[int] = []
+        for sid, ci in enumerate(sorted(union_rows)):
+            for prefix in (self.primary_prefix, "tags", "weights"):
+                os.replace(
+                    self._part(prefix, ci),
+                    os.path.join(self.out_dir, f"{prefix}-{sid:05d}.npy"))
+            shard_rows.append(int(union_rows[ci]))
+        if not shard_rows:  # as ShardWriter.close: one empty shard
+            np.save(os.path.join(self.out_dir,
+                                 f"{self.primary_prefix}-00000.npy"),
+                    np.zeros((0, len(self.columns)),
+                             dtype=self.primary_dtype))
+            np.save(os.path.join(self.out_dir, "tags-00000.npy"),
+                    np.zeros(0, dtype=np.int8))
+            np.save(os.path.join(self.out_dir, "weights-00000.npy"),
+                    np.zeros(0, dtype=np.float32))
+            shard_rows.append(0)
+        # every host has published its part list by now, so a .part-*
+        # file outside the union is debris of an earlier run
+        for leftover in sorted(glob.glob(os.path.join(self.out_dir,
+                                                      ".part-*.npy"))):
+            try:
+                os.unlink(leftover)
+            except OSError:  # already gone
+                pass
+        return _write_meta(self.out_dir, self.columns, shard_rows,
                            self.norm_type, self.extra)
 
 

@@ -21,7 +21,10 @@ no process group and no NCCL: NCCL wants a process a card.
 Axis names are the JAX package's: ('data',), or ('dcn', 'data') when
 `dcn_slices` groups the shards (the reduce then sums within each slice
 first, `hierarchical_reduce`). The `model` axis (WDL embedding tensor
-parallelism) and more than one host are ROADMAP A.13.
+parallelism) is ROADMAP A.13. More than one host is a data-plane
+matter, not a mesh one: `lifecycle_hosts` / `lifecycle_host_index` give
+the process count and index the lifecycle's `HostPlan` splits chunks by
+(`data/pipeline.py`, `parallel/hostsync.py`).
 """
 
 from __future__ import annotations
@@ -114,6 +117,20 @@ def train_mesh(device: torch.device) -> Optional[Mesh]:
     if device.type == "cuda" and torch.cuda.device_count() > 1:
         return data_mesh()
     return None
+
+
+def lifecycle_hosts() -> int:
+    """Host (process) count of the lifecycle data plane:
+    `shifu.lifecycle.hosts` when set (> 0), else 1."""
+    return max(1, environment.get_int("shifu.lifecycle.hosts", 1))
+
+
+def lifecycle_host_index() -> int:
+    """This process's host index in [0, lifecycle_hosts()):
+    `shifu.lifecycle.hostIndex` when set, else 0. The JAX package falls
+    back to `jax.process_index()`; torch has no process numbering
+    without a process group, so the launcher pins the index."""
+    return max(0, environment.get_int("shifu.lifecycle.hostIndex", 0))
 
 
 def lifecycle_shards(device: DeviceLike = None) -> int:

@@ -9,10 +9,13 @@ the card, and the constructor raises without one. A step that only reads
 and writes files (`host_only`: new, export, save/switch/show, test,
 analysis) takes no device.
 
-`run` keeps the JAX package's return code and its start/finish log lines.
-It leaves out the observability envelope around the step (the run-ledger
-manifest, the sanitizer, the fault hooks, the profiler capture): that is
-ROADMAP A.14.
+`run` keeps the JAX package's return code and its start/finish log lines,
+re-arms the fault plan (`-Dshifu.faults`, `resilience/faults.py`), turns
+SIGTERM into `PreemptionError` for the step (restoring the previous
+handler after it), and arms the sanitizer's divergence mode
+(`-Dshifu.sanitize=divergence`, `analysis/sanitize.py`). It leaves out
+the rest of the observability envelope (the run-ledger manifest, the
+profiler capture): that is ROADMAP A.14.
 """
 
 from __future__ import annotations
@@ -79,13 +82,24 @@ class BasicProcessor:
         return os.path.normpath(os.path.join(self.root, path))
 
     def run(self) -> int:
-        """Run the step; 0 on success, exceptions propagate."""
+        """Run the step; 0 on success, exceptions propagate (a SIGTERM as
+        PreemptionError, so the stream checkpoints stay resumable)."""
+        from shifu_tpu_torch.analysis import sanitize
+        from shifu_tpu_torch.resilience import faults
+
+        # a bad -Dshifu.sanitize raises before the step starts
+        san = sanitize.from_environment()
+        faults.reset()  # fresh fault-plan event counters a step
+        restore_sigterm = faults.install_preemption_handler()
         t0 = time.time()
         log.info("Step %s starts.", self.step)
         try:
-            self.run_step()
+            with sanitize.activate(san):
+                self.run_step()
         finally:
-            log.info("Step %s finished in %.1f s.", self.step,
+            if restore_sigterm is not None:
+                restore_sigterm()
+            log.info("Step %s finished in %.3f s.", self.step,
                      time.time() - t0)
         return 0
 

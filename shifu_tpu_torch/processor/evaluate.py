@@ -15,8 +15,10 @@ set), beside the stage seconds of the last run (`timings`); the obs
 envelope is ROADMAP A.14. An eval set past `shifu.ingest.memoryBudgetMB`
 (or `shifu.ingest.forceStreaming`) is scored chunk by chunk, appending to
 the score file, with stream checkpoints and `--resume`; a score file past
-the budget takes the streamed perf sweep and multi-class confusion. More
-than one host is ROADMAP A.13 and raises.
+the budget takes the streamed perf sweep and multi-class confusion.
+Under a multi-host plan (`HostPlan`) the merge host runs the whole eval
+and the other hosts skip: the score file is one append-order file, and
+the host split pays in stats and norm.
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ from shifu_tpu_torch.data.reader import (
     read_columnar,
     read_header,
 )
-from shifu_tpu_torch.data.stream import (check_single_host,
-                                         memory_budget_bytes, should_stream)
+from shifu_tpu_torch.data.pipeline import HostPlan
+from shifu_tpu_torch.data.stream import memory_budget_bytes, should_stream
 from shifu_tpu_torch.eval.scorefile import (SCORE_COLUMN, SEP,
                                             iter_score_tables,
                                             read_score_file,
@@ -100,8 +102,12 @@ class EvalProcessor(BasicProcessor):
         confmat_name: Optional[str] = None,
         perf_name: Optional[str] = None,
         device: DeviceLike = None,
+        host_plan: Optional[HostPlan] = None,
     ):
         super().__init__(root, device=device)
+        # an explicit HostPlan (in-process multi-host runs, tests);
+        # None reads the lifecycle knobs
+        self.host_plan = host_plan
         self.new_name = new_name
         self.list_sets = list_sets
         self.delete_name = delete_name
@@ -132,7 +138,13 @@ class EvalProcessor(BasicProcessor):
         self.timings[key] = self.timings.get(key, 0.0) + value
 
     def run_step(self) -> None:
-        check_single_host()
+        hp = self.host_plan if self.host_plan is not None else HostPlan()
+        if hp.active and not hp.is_merge_host:
+            # one append-order score file: the merge host runs the whole
+            # eval, the other hosts skip
+            log.info("eval skipped on host %d/%d: the merge host runs the "
+                     "full eval pass", hp.host_index, hp.n_hosts)
+            return
         self.setup()
         mc = self.model_config
         assert mc is not None
@@ -302,6 +314,7 @@ class EvalProcessor(BasicProcessor):
         from shifu_tpu_torch.data.stream import iter_columnar_chunks
         from shifu_tpu_torch.eval.scorer import ModelRunner
         from shifu_tpu_torch.resilience import checkpoint as ckpt_mod
+        from shifu_tpu_torch.resilience import faults
 
         mc = self.model_config
         ds = ec.data_set
@@ -322,7 +335,10 @@ class EvalProcessor(BasicProcessor):
         out = self.paths.eval_score_path(ec.name)
         self.paths.ensure(os.path.dirname(out))
 
-        shard_plan = ShardPlan(device=self.device)
+        # the merge host runs the whole eval (run_step sends the others
+        # home), so the plan is one host's whatever the knobs say
+        shard_plan = ShardPlan(device=self.device,
+                               host=HostPlan(n_hosts=1, host_index=0))
         S = shard_plan.n_shards
         cursors = [-1] * S
         shard_rows = [0] * S
@@ -339,6 +355,7 @@ class EvalProcessor(BasicProcessor):
                     shard_rows = [int(m.get("rows", 0))
                                   for _a, m, _b in loaded[1]]
                     meta = loaded[2][1]
+                    faults.survived("preempt")
                     log.info("resuming eval %s (shard cursors %s, offset "
                              "%d)", ec.name, cursors, meta["offset"])
             else:
@@ -358,6 +375,7 @@ class EvalProcessor(BasicProcessor):
                 fh.truncate()
             for ci, chunk in prefetch_iter(
                     shard_plan.resume_slice(enumerate(chunks), cursors)):
+                faults.fault_point("chunk")
                 mask = combined_mask(ds.filter_expressions, chunk.raw,
                                      chunk.n_rows)
                 chunk = chunk.select_rows(mask)

@@ -17,13 +17,17 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import List, Optional, Set
 
 from shifu_tpu_torch.config import ColumnConfig, ColumnFlag, ColumnType
+from shifu_tpu_torch.data.pipeline import HostPlan
 from shifu_tpu_torch.data.reader import read_header, strip_namespace
-from shifu_tpu_torch.data.stream import check_single_host, iter_columnar_chunks
+from shifu_tpu_torch.data.stream import iter_columnar_chunks
 from shifu_tpu_torch.fs.listing import expand_paths
+from shifu_tpu_torch.parallel import hostsync
 from shifu_tpu_torch.processor.basic import BasicProcessor
+from shifu_tpu_torch.resilience.checkpoint import config_sha
 from shifu_tpu_torch.stats.sketch import AutoTypeSketch
 from shifu_tpu_torch.utils.errors import ErrorCode, ShifuError
 from shifu_tpu_torch.utils.log import get_logger
@@ -53,11 +57,14 @@ def _read_names_file(path: Optional[str], root: str) -> Set[str]:
 class InitProcessor(BasicProcessor):
     step = "init"
 
-    def __init__(self, root: str = ".", device: DeviceLike = None):
+    def __init__(self, root: str = ".", device: DeviceLike = None,
+                 host_plan: Optional[HostPlan] = None):
         super().__init__(root, device=device)
+        # an explicit HostPlan (in-process multi-host runs, tests);
+        # None reads the lifecycle knobs
+        self.host_plan = host_plan
 
     def run_step(self) -> None:
-        check_single_host()
         self.setup(need_columns=False)
         mc = self.model_config
         assert mc is not None
@@ -104,8 +111,14 @@ class InitProcessor(BasicProcessor):
                 cc.column_type = ColumnType.C
             columns.append(cc)
 
-        self._auto_type(columns, names, cate_cols)
+        hp = self.host_plan if self.host_plan is not None else HostPlan()
+        self._auto_type(columns, names, cate_cols, hp)
         self.column_configs = columns
+        if hp.active and not hp.is_merge_host:
+            # every host merged the same sketches; one writes the files
+            log.info("autotype computed on host %d/%d; the merge host "
+                     "writes ColumnConfig.json", hp.host_index, hp.n_hosts)
+            return
         self.save_column_configs()
         log.info(
             "ColumnConfig.json initialized: %d columns (%d categorical, target=%s).",
@@ -115,7 +128,8 @@ class InitProcessor(BasicProcessor):
         )
 
     def _auto_type(
-        self, columns: List[ColumnConfig], names: List[str], user_cate: Set[str]
+        self, columns: List[ColumnConfig], names: List[str],
+        user_cate: Set[str], hp: HostPlan,
     ) -> None:
         mc = self.model_config
         assert mc is not None
@@ -127,17 +141,42 @@ class InitProcessor(BasicProcessor):
         missing = tuple(ds.missing_or_invalid_values)
         sketches = {cc.column_name: AutoTypeSketch(missing)
                     for cc in candidates}
+        if hp.active:
+            # a part an earlier run left must not satisfy a peer's barrier
+            hostsync.clear_part(self.root, "init-autotype", hp)
         # only the candidate columns are kept at all: target/meta/weight
-        # (fat padding fields included) never leave the tokenizer
-        for chunk in iter_columnar_chunks(
+        # (fat padding fields included) never leave the tokenizer; a host
+        # folds only the chunks it owns
+        for ci, chunk in enumerate(iter_columnar_chunks(
                 self.resolve(ds.data_path),
                 names,
                 delimiter=ds.data_delimiter,
                 missing_values=missing,
                 max_rows=AUTOTYPE_MAX_ROWS,
-                columns=[cc.column_name for cc in candidates]):
+                columns=[cc.column_name for cc in candidates])):
+            if not hp.owns(ci):
+                continue
             for cc in candidates:
                 sketches[cc.column_name].update(chunk.column(cc.column_name))
+            hp.record(chunk.n_rows, "init.autotype")
+        if hp.active:
+            # all-gather the hosts' sketch sets; every host merges them in
+            # host order, so the fleet agrees on every count
+            sha = config_sha({
+                "columns": [cc.column_name for cc in candidates],
+                "missing": list(missing),
+                "maxRows": AUTOTYPE_MAX_ROWS,
+            })
+            hostsync.publish_part(self.root, "init-autotype", hp, sha,
+                                  blob=pickle.dumps(sketches))
+            parts = hostsync.await_parts(self.root, "init-autotype", hp,
+                                         sha)
+            log.info("autotype: %s", hp.describe())
+            sketches = pickle.loads(parts[0][2])
+            for _arrays, _meta, blob in parts[1:]:
+                other = pickle.loads(blob)
+                for name, sk in sketches.items():
+                    sk.merge(other[name])
 
         threshold = ds.auto_type_threshold
         count_info = {}
@@ -166,6 +205,8 @@ class InitProcessor(BasicProcessor):
                     cc.column_type = ColumnType.N
             elif cc.column_type is None:
                 cc.column_type = ColumnType.N
+        if hp.active and not hp.is_merge_host:
+            return  # the merge host writes the autotype artifact
         out = self.paths.autotype_path()
         self.paths.ensure(os.path.dirname(out))
         with open(out, "w") as fh:

@@ -15,19 +15,24 @@ The data is read once on the host; the value and table norms run on the
 device (`norm/normalizer.py`), the bin codes on the host. A dataset past
 `shifu.ingest.memoryBudgetMB` (or `shifu.ingest.forceStreaming`) takes
 the streamed route: one chunked pass, one shard a chunk (or the
-external shuffle), with stream checkpoints and `--resume`. More than one
-host is ROADMAP A.13 and raises.
+external shuffle), with stream checkpoints and `--resume`. Under a
+multi-host plan (`HostPlan`) each host streams its own chunks into part
+files (`HostPartWriter`); after the hostsync barrier the merge host
+renames the union into the one-process layout, byte for byte. The in-RAM
+route and -shuffle cannot split across hosts and raise the JAX
+package's ValueErrors.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from shifu_tpu_torch.data.pipeline import HostPlan
 from shifu_tpu_torch.data.purify import combined_mask
 from shifu_tpu_torch.data.reader import (
     make_tags_for,
@@ -35,7 +40,7 @@ from shifu_tpu_torch.data.reader import (
     read_columnar,
     read_header,
 )
-from shifu_tpu_torch.data.stream import check_single_host, should_stream
+from shifu_tpu_torch.data.stream import should_stream
 from shifu_tpu_torch.norm.dataset import write_codes, write_normalized
 from shifu_tpu_torch.norm.normalizer import (
     _slots,
@@ -63,10 +68,14 @@ class NormProcessor(BasicProcessor):
     step = "norm"
 
     def __init__(self, root: str = ".", shuffle: bool = False, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 host_plan: Optional[HostPlan] = None):
         super().__init__(root, device=device)
         self.shuffle = shuffle
         self.seed = seed
+        # an explicit HostPlan (in-process multi-host runs, tests);
+        # None reads the lifecycle knobs
+        self.host_plan = host_plan
         # seconds of each stage of the last run (read, normalize, write,
         # bincode; streamed: the one pass, stream) and the normalize
         # stage's device ms (cuda only)
@@ -84,10 +93,16 @@ class NormProcessor(BasicProcessor):
         else:
             names = [c.column_name for c in self.column_configs]
 
-        check_single_host()
+        hp = self.host_plan if self.host_plan is not None else HostPlan()
         if should_stream(self.resolve(ds.data_path)):
-            self._run_streaming(names)
+            self._run_streaming(names, hp)
             return
+        if hp.active:
+            raise ValueError(
+                "-Dshifu.lifecycle.hosts > 1 requires the streaming norm "
+                "path (dataset under the memory budget loads in one "
+                "process) — drop the hosts knob or lower "
+                "shifu.stream.memoryBudgetMb")
 
         t0 = time.perf_counter()
         data = read_columnar(
@@ -212,20 +227,34 @@ class NormProcessor(BasicProcessor):
                    int(np.ceil(raw_bytes / max(memory_budget_bytes() // 4,
                                                1))))
 
-    def _run_streaming(self, names) -> None:
+    def _run_streaming(self, names, hp: HostPlan) -> None:
         """Bounded-memory norm: one chunked pass writes both artifacts
         (NormalizedData f32, CleanedData codes), one shard a chunk, or
         with -shuffle the two-pass external shuffle (ShuffleShardWriter).
         Chunk ci samples by [seed, ci]; the chunks divide over the
         ShardPlan, each shard keeping its cursor in its own snapshot
         file, the writers' shard lists in the shared one. The shuffle
-        appends to bucket files and restarts instead of resuming."""
+        appends to bucket files and restarts instead of resuming.
+
+        Multi-host: each host streams its own chunks into part files
+        (HostPartWriter); the hosts exchange their part lists at the
+        `norm` barrier and the merge host renames the union."""
         from shifu_tpu_torch.data.pipeline import ShardPlan, prefetch_iter
         from shifu_tpu_torch.data.stream import iter_columnar_chunks
-        from shifu_tpu_torch.norm.dataset import (ShardWriter,
+        from shifu_tpu_torch.norm.dataset import (HostPartWriter,
+                                                  ShardWriter,
                                                   ShuffleShardWriter)
+        from shifu_tpu_torch.parallel import hostsync
         from shifu_tpu_torch.resilience import checkpoint as ckpt_mod
+        from shifu_tpu_torch.resilience import faults
         from shifu_tpu_torch.stats.engine import _prepare_rows
+
+        if self.shuffle and hp.active:
+            raise ValueError(
+                "-shuffle is not multi-host capable: the external-shuffle "
+                "writer owns the global permutation and cannot be split "
+                "across processes — run the shuffle norm on one process "
+                "or drop -Dshifu.lifecycle.hosts")
 
         mc = self.model_config
         ds = mc.data_set
@@ -241,7 +270,11 @@ class NormProcessor(BasicProcessor):
                      mc.normalize.norm_type.value)
         code_args = (self.paths.cleaned_data_dir(), "codes", code_dtype,
                      [c.column_name for c in tree_cols], "CODES")
-        if self.shuffle:
+        if hp.active:
+            feat_writer = HostPartWriter(
+                *feat_args, extra={"sourceOf": plan.source_of})
+            code_writer = HostPartWriter(*code_args, extra={"slots": slots})
+        elif self.shuffle:
             k = self._n_buckets()
             feat_writer = ShuffleShardWriter(
                 *feat_args, n_buckets=k, seed=self.seed,
@@ -278,18 +311,19 @@ class NormProcessor(BasicProcessor):
             codes = bin_code_matrix(tree_cols, chunk, cache=code_cache)
             return ci, feats, codes, tags, weights
 
-        shard_plan = ShardPlan(device=self.device)
+        shard_plan = ShardPlan(device=self.device, host=hp)
         S = shard_plan.n_shards
         cursors = [-1] * S
         shard_rows = [0] * S
         n_rows = 0
         tag_counts: Dict[int, int] = {}
         ck = None
+        sha, sections = self._stream_config_sha(plan, slots, S)
         if not self.shuffle and ckpt_mod.ckpt_stream_enabled():
-            sha, sections = self._stream_config_sha(plan, slots, S)
             ck = ckpt_mod.ShardedStreamCheckpoint(
                 ckpt_mod.ckpt_base(self.root, self.step, "stream"), sha, S,
-                sections=sections)
+                sections=sections, n_hosts=hp.n_hosts,
+                host_index=hp.host_index)
             if ckpt_mod.resume_requested():
                 loaded = ck.load()
                 if loaded is not None:
@@ -297,11 +331,16 @@ class NormProcessor(BasicProcessor):
                     shard_rows = [int(m.get("rows", 0))
                                   for _a, m, _b in loaded[1]]
                     meta = loaded[2][1]
-                    feat_writer.restore(meta["featShardRows"])
-                    code_writer.restore(meta["codeShardRows"])
+                    if hp.active:
+                        feat_writer.restore(meta["featParts"])
+                        code_writer.restore(meta["codeParts"])
+                    else:
+                        feat_writer.restore(meta["featShardRows"])
+                        code_writer.restore(meta["codeShardRows"])
                     n_rows = int(meta["nRows"])
                     tag_counts = {int(k): int(v)
                                   for k, v in meta["tagCounts"].items()}
+                    faults.survived("preempt")
                     log.info("resuming streaming norm (shard cursors %s)",
                              cursors)
             else:
@@ -310,13 +349,25 @@ class NormProcessor(BasicProcessor):
             log.warning("--resume with -shuffle: the external-shuffle "
                         "writer appends to bucket files and cannot resume "
                         "mid-stream; restarting from row zero")
+        if hp.active and not ckpt_mod.resume_requested():
+            # a fresh fleet run: this host's part of an earlier run must
+            # not satisfy a peer's barrier
+            hostsync.clear_part(self.root, self.step, hp)
+
+        def _writer_state() -> dict:
+            if hp.active:
+                return {"featParts": {str(k): v for k, v in
+                                      feat_writer.part_rows.items()},
+                        "codeParts": {str(k): v for k, v in
+                                      code_writer.part_rows.items()}}
+            return {"featShardRows": list(feat_writer.shard_rows),
+                    "codeShardRows": list(code_writer.shard_rows)}
 
         def _ckpt_state():
             per_shard = [(cursors[s], None, {"rows": shard_rows[s]}, None)
                          for s in range(S)]
             return per_shard, (None, {
-                "featShardRows": list(feat_writer.shard_rows),
-                "codeShardRows": list(code_writer.shard_rows),
+                **_writer_state(),
                 "nRows": n_rows,
                 "tagCounts": {str(k): v for k, v in tag_counts.items()},
             }, None)
@@ -330,9 +381,15 @@ class NormProcessor(BasicProcessor):
                 transform=_normed):
             if item is None:
                 continue
+            faults.fault_point("chunk")
             ci, feats, codes, tags, weights = item
-            feat_writer.add(feats, tags, weights)
-            code_writer.add(codes, tags, weights)
+            if hp.active:
+                feat_writer.add(ci, feats, tags, weights)
+                code_writer.add(ci, codes, tags, weights)
+            else:
+                feat_writer.add(feats, tags, weights)
+                code_writer.add(codes, tags, weights)
+            hp.record(len(tags), "norm")
             n_rows += len(tags)
             shard = shard_plan.shard_of(ci)
             cursors[shard] = ci
@@ -343,14 +400,47 @@ class NormProcessor(BasicProcessor):
                 ck.maybe_save(_ckpt_state)
         if ck is not None:
             ck.clear()
+        feat_union: Dict[int, int] = {}
+        code_union: Dict[int, int] = {}
+        if hp.active:
+            # all-gather the hosts' part lists; every host learns the
+            # union and the merged tag counts in host order
+            t_b = time.perf_counter()
+            hostsync.publish_part(
+                self.root, self.step, hp, sha,
+                meta={**_writer_state(), "nRows": n_rows,
+                      "tagCounts": {str(k): int(v)
+                                    for k, v in tag_counts.items()}})
+            parts = hostsync.await_parts(self.root, self.step, hp, sha)
+            tag_counts, n_rows = {}, 0
+            for _arrays, pmeta, _blob in parts:
+                feat_union.update({int(k): int(v) for k, v in
+                                   pmeta["featParts"].items()})
+                code_union.update({int(k): int(v) for k, v in
+                                   pmeta["codeParts"].items()})
+                n_rows += int(pmeta["nRows"])
+                for k, v in pmeta["tagCounts"].items():
+                    tag_counts[int(k)] = tag_counts.get(int(k), 0) + int(v)
+            t["barrier"] = time.perf_counter() - t_b
+            log.info("streaming norm: %s", hp.describe())
         if mc.is_multi_classification():
             class_tags = [str(tg) for tg in mc.tags()]
             total = max(sum(tag_counts.values()), 1)
             feat_writer.extra["classTags"] = class_tags
             feat_writer.extra["classPriors"] = [
                 tag_counts.get(k, 0) / total for k in range(len(class_tags))]
-        feat_meta = feat_writer.close()
-        code_writer.close()
+        if hp.active:
+            if not hp.is_merge_host:
+                t["stream"] = time.perf_counter() - t0
+                log.info("streaming norm host %d/%d: %d parts staged; the "
+                         "merge host writes the artifacts", hp.host_index,
+                         hp.n_hosts, len(feat_writer.part_rows))
+                return
+            feat_meta = feat_writer.merge(feat_union)
+            code_writer.merge(code_union)
+        else:
+            feat_meta = feat_writer.close()
+            code_writer.close()
         t["stream"] = time.perf_counter() - t0
         log.info("streaming norm: %d rows x %d cols (%s) -> %s [%d shards] "
                  "+ bin codes -> %s", n_rows, len(feat_meta.columns),

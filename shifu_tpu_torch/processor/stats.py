@@ -8,17 +8,22 @@ and the correlation run on the device. A dataset past
 `shifu.ingest.memoryBudgetMB` (or `shifu.ingest.forceStreaming`) takes
 the streamed route: two chunked passes (`stats/engine.
 compute_stats_streaming`, sketch-based bins), a third for -correlation
-and -psi, with stream checkpoints and `--resume`. More than one host,
-parquet and remote sources are ROADMAP A.13 and raise.
+and -psi, with stream checkpoints and `--resume`. Under a multi-host
+plan (`HostPlan`) the streamed passes split the chunks over the hosts,
+which merge at the hostsync barriers; only the merge host writes
+ColumnConfig.json. The in-RAM route and -correlation / -psi cannot
+merge across hosts and raise the JAX package's ValueErrors. Parquet and
+remote sources are ROADMAP A.13 and raise.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict
+from typing import Dict, Optional
 
+from shifu_tpu_torch.data.pipeline import HostPlan
 from shifu_tpu_torch.data.reader import read_columnar, read_header
-from shifu_tpu_torch.data.stream import check_single_host, should_stream
+from shifu_tpu_torch.data.stream import should_stream
 from shifu_tpu_torch.processor.basic import BasicProcessor
 from shifu_tpu_torch.utils.log import get_logger
 from shifu_tpu_torch.utils.platform import DeviceLike
@@ -36,11 +41,15 @@ class StatsProcessor(BasicProcessor):
         psi: bool = False,
         rebin: bool = False,
         device: DeviceLike = None,
+        host_plan: Optional[HostPlan] = None,
     ):
         super().__init__(root, device=device)
         self.correlation = correlation
         self.psi = psi
         self.rebin = rebin
+        # an explicit HostPlan (in-process multi-host runs, tests);
+        # None reads the lifecycle knobs
+        self.host_plan = host_plan
         # seconds of each stage of the last run (parse, the engine's
         # stages, correlation, psi) and the aggregate's device ms
         self.timings: Dict[str, float] = {}
@@ -77,7 +86,7 @@ class StatsProcessor(BasicProcessor):
             needed.add(mc.stats.psi_column_name.strip())
         return [n for n in names if n in needed]
 
-    def _run_streaming(self, psi_col: str) -> None:
+    def _run_streaming(self, psi_col: str, hp: HostPlan) -> None:
         """The streamed route: stats passes, then one more chunked pass
         for -correlation / -psi, chunk ci on shard ci % S's accumulators,
         merged in shard order (the correlation's shift from the first
@@ -106,7 +115,7 @@ class StatsProcessor(BasicProcessor):
         compute_stats_streaming(mc, self.column_configs, factory,
                                 self.device, checkpoint_root=self.root,
                                 resume=resume_requested(),
-                                timings=self.timings)
+                                timings=self.timings, host_plan=hp)
         do_psi = self.psi and bool(psi_col)
         if not (self.correlation or do_psi):
             return
@@ -161,16 +170,36 @@ class StatsProcessor(BasicProcessor):
                      n, target)
             return
 
-        check_single_host()
         ds = mc.data_set
+        hp = self.host_plan if self.host_plan is not None else HostPlan()
+        streaming = should_stream(self.resolve(ds.data_path))
+        if hp.active and not streaming:
+            raise ValueError(
+                "-Dshifu.lifecycle.hosts > 1 requires the streaming stats "
+                "path (dataset under the memory budget loads in one "
+                "process) — drop the hosts knob or lower "
+                "shifu.stream.memoryBudgetMb")
+        if hp.active and (self.correlation or self.psi):
+            raise ValueError(
+                "-correlation/-psi are not multi-host capable: the "
+                "correlation moments share one shift derived from the "
+                "globally first chunk, which no single host owns — run "
+                "the extra pass on one process (the stats pass itself "
+                "can stay multi-host)")
         psi_col = (mc.stats.psi_column_name or "").strip()
         if self.psi and not psi_col:
             log.warning("-psi requested but stats.psiColumnName is empty; "
                         "skipped")
-        if should_stream(self.resolve(ds.data_path)):
+        if streaming:
             if self.correlation or self.psi:
                 self.paths.ensure(self.paths.tmp_dir("stats"))
-            self._run_streaming(psi_col)
+            self._run_streaming(psi_col, hp)
+            if hp.active and not hp.is_merge_host:
+                # every host computed the same merged stats; one writes
+                log.info("stats computed on host %d/%d; the merge host "
+                         "writes ColumnConfig.json", hp.host_index,
+                         hp.n_hosts)
+                return
             self.save_column_configs()
             return
         t0 = time.perf_counter()

@@ -14,10 +14,11 @@ chunks, and because the snapshot holds the exact fold state the resumed
 run is bit-identical to an unbroken one. A snapshot under another config
 sha, or a corrupt one, is rejected and the run starts fresh.
 `ShardedStreamCheckpoint` is the per-row-shard family of the streamed
-stats, norm and eval (two slots a shard and a shared commit pointer).
+stats, norm and eval (two slots a shard and a shared commit pointer);
+under a multi-host plan each host keeps its own `-hNNN` family.
 The snapshot files are the port's own; it does not read the JAX
-package's. The fault seams and the multi-host families wait for
-`resilience/faults.py` and the mesh (ROADMAP A.13).
+package's. The `ckpt` fault seam sits in `atomic_write` between the
+fsync and the rename, and a snapshot save retries it (`retry.py`).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from shifu_tpu_torch.resilience import faults, retry
 from shifu_tpu_torch.utils import environment
 from shifu_tpu_torch.utils.log import get_logger
 
@@ -80,6 +82,9 @@ def atomic_write(path: str,
                 fh.write(data)
             fh.flush()
             os.fsync(fh.fileno())
+        # the injectable failure window: the bytes are down, the rename
+        # not done — where a torn write would happen without temp+replace
+        faults.fault_point("ckpt")
         os.replace(tmp, path)
     except BaseException:
         try:
@@ -179,7 +184,11 @@ class StreamCheckpoint:
             payload[BLOB_KEY] = np.frombuffer(blob, dtype=np.uint8)
         buf = io.BytesIO()
         np.savez(buf, **payload)
-        return atomic_write(self.path, buf.getvalue())
+        data = buf.getvalue()
+        # retried: a transient failure of the snapshot write must not
+        # kill the stream it protects
+        return retry.retry_call(lambda: atomic_write(self.path, data),
+                                seam="ckpt")
 
     def maybe_save(self, chunk_index: int, state_fn: Callable[[], tuple]
                    ) -> bool:
@@ -240,26 +249,40 @@ class ShardedStreamCheckpoint:
     while the shard files are written touches only the new slot; the
     pointer still names the previous complete one. `load` rejects the
     whole family when a pointed-at file is missing, corrupt, of another
-    config, epoch or shard count."""
+    config, epoch, shard count or host count.
+
+    Under a multi-host plan (`n_hosts` > 1) the family is per host: host
+    h's files are `<base>-h00h-...`, hold only h's cursors and local
+    state, and h resumes from them alone. The committed stamp records
+    the host count, and a change of it rejects the family (the chunk ->
+    host assignment moved). At one host the names stay the un-prefixed
+    ones. `clear` at one host also sweeps leftover per-host families; at
+    several it touches only its own host's files."""
 
     _SLOTS = ("a", "b")
 
     def __init__(self, base: str, config_sha: str, n_shards: int,
                  every: Optional[int] = None,
-                 sections: Optional[Dict[str, str]] = None) -> None:
+                 sections: Optional[Dict[str, str]] = None,
+                 n_hosts: int = 1, host_index: int = 0) -> None:
         self.base = base
         self.n_shards = max(1, int(n_shards))
+        self.n_hosts = max(1, int(n_hosts))
+        self.host_index = int(host_index)
         self.every = every_chunks_setting() if every is None else int(every)
         self._since = 0
         self._epoch = 0
+        self._family = (base if self.n_hosts == 1
+                        else f"{base}-h{self.host_index:03d}")
         self._shards = [
             {slot: StreamCheckpoint(
-                f"{base}-shard{s:05d}-{slot}{CKPT_SUFFIX}", config_sha,
-                every=0, sections=sections) for slot in self._SLOTS}
+                f"{self._family}-shard{s:05d}-{slot}{CKPT_SUFFIX}",
+                config_sha, every=0, sections=sections)
+             for slot in self._SLOTS}
             for s in range(self.n_shards)]
-        self._shared = StreamCheckpoint(f"{base}-shared{CKPT_SUFFIX}",
-                                        config_sha, every=0,
-                                        sections=sections)
+        self._shared = StreamCheckpoint(
+            f"{self._family}-shared{CKPT_SUFFIX}", config_sha, every=0,
+            sections=sections)
 
     def save(self, per_shard: List[tuple], shared: tuple) -> None:
         """per_shard: [(cursor, arrays, meta, blob)] a shard; shared:
@@ -268,6 +291,9 @@ class ShardedStreamCheckpoint:
         epoch = self._epoch + 1
         slot = self._SLOTS[epoch % len(self._SLOTS)]
         stamp = {"epoch": epoch, "shards": self.n_shards}
+        if self.n_hosts > 1:
+            stamp["hosts"] = self.n_hosts
+            stamp["host"] = self.host_index
         for cks, (ci, arrays, meta, blob) in zip(self._shards, per_shard):
             cks[slot].save(ci, arrays=arrays,
                            meta={**(meta or {}), **stamp}, blob=blob)
@@ -304,6 +330,13 @@ class ShardedStreamCheckpoint:
                         "(now %d); starting fresh", self.base,
                         meta.get("shards"), self.n_shards)
             return None
+        if meta.get("hosts", 1) != self.n_hosts:
+            # the chunk -> host assignment moved: every stored cursor
+            # names a slice this run will never be handed
+            log.warning("sharded checkpoint %s was written with %s hosts "
+                        "(now %d); starting fresh", self._family,
+                        meta.get("hosts", 1), self.n_hosts)
+            return None
         loads = [cks[slot].load() for cks in self._shards]
         if any(ld is None for ld in loads) or \
                 {ld[2].get("epoch") for ld in loads} != {epoch}:
@@ -316,13 +349,17 @@ class ShardedStreamCheckpoint:
                 (shared[1], shared[2], shared[3]))
 
     def clear(self) -> None:
-        """Remove the whole family, stale slots and shard counts too."""
-        for path in sorted(glob.glob(glob.escape(self.base) + "-shard*"
-                                     + CKPT_SUFFIX)):
-            try:
-                os.unlink(path)
-            except OSError:  # already gone
-                pass
+        """Remove the whole family, stale slots and shard counts too (and,
+        at one host, the per-host families of an earlier fleet run)."""
+        patterns = [glob.escape(self._family) + "-shard*" + CKPT_SUFFIX]
+        if self.n_hosts == 1:
+            patterns.append(glob.escape(self.base) + "-h*" + CKPT_SUFFIX)
+        for pattern in patterns:
+            for path in sorted(glob.glob(pattern)):
+                try:
+                    os.unlink(path)
+                except OSError:  # already gone
+                    pass
         self._shared.clear()
 
 

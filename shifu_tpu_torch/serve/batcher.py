@@ -25,6 +25,12 @@ breaker. A request that outlives `shifu.serve.deadlineMs` before dispatch
 is shed with `DeadlineExceededError`. The observed drain rate gives the
 429 Retry-After hint.
 
+Two fault seams (`resilience/faults.py`): `serve` fires outside the
+per-batch guard, so an injected fault there crashes the worker and the
+supervisor answers the batch in flight; `serve.dispatch` fires inside
+it, with the replica's index, so `device_dead@replica=N` fails replica
+N's batches, its breaker counts them and the fleet fails over.
+
 The JAX package records serve.* counters and latency histograms in its
 metrics registry and per-request trace stages; here the counters are
 plain numbers on the batcher (`batches`, `records`, `requests`, ...) and
@@ -44,6 +50,7 @@ import numpy as np
 
 from shifu_tpu_torch.data.reader import ColumnarData
 from shifu_tpu_torch.eval.scorer import ScoreResult
+from shifu_tpu_torch.resilience import faults
 from shifu_tpu_torch.serve.health import HealthMonitor
 from shifu_tpu_torch.serve.queue import AdmissionQueue
 from shifu_tpu_torch.utils import environment
@@ -218,10 +225,13 @@ class MicroBatcher:
                  max_restarts: Optional[int] = None,
                  deadline_ms: Optional[float] = None,
                  batching: Optional[str] = None,
-                 breaker=None) -> None:
+                 breaker=None, replica: Optional[int] = None) -> None:
         self.score_fn = score_fn
         self.admission = admission
         self.breaker = breaker
+        # the replica index the fleet passes: the `serve.dispatch` seam's
+        # context, so `seam@replica=N` clauses target this batcher
+        self.replica = replica
         # the fleet's failover hook, set by ReplicaFleet: (request, error)
         # -> replay on a healthy replica or fail under the budget. None:
         # fail directly
@@ -383,13 +393,18 @@ class MicroBatcher:
                 self._inflight = None
                 continue
             # _inflight stays set until every request has its answer: a
-            # crash below is answered by the supervisor
+            # crash below (the injected `serve` fault on the next line
+            # too) is answered by the supervisor
             self._inflight = batch
+            faults.fault_point("serve")
             rows = sum(r.n_rows for r in batch)
             self.batches += 1
             self.batch_rows.observe(rows)
             t0 = time.perf_counter()
             try:
+                # a failed batch, not a crashed worker: the breaker counts
+                # it and failover replays its requests elsewhere
+                faults.fault_point("serve.dispatch", replica=self.replica)
                 result = self.score_fn(
                     concat_batches([r.data for r in batch]))
             except Exception as e:  # per-request answers, breaker told

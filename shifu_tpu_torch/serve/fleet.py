@@ -129,7 +129,7 @@ class ScoringReplica:
             max_batch_rows=max_batch_rows, max_wait_ms=max_wait_ms,
             health=self.health, max_restarts=max_restarts,
             deadline_ms=deadline_ms, batching=batching,
-            breaker=self.breaker)
+            breaker=self.breaker, replica=self.index)
 
     def snapshot(self) -> dict:
         snap = {

@@ -400,6 +400,7 @@ def compute_stats_streaming(
     checkpoint_root: Optional[str] = None,
     resume: bool = False,
     timings: Optional[Dict[str, float]] = None,
+    host_plan=None,
 ) -> None:
     """Bounded-memory stats: two passes over a re-iterable chunk stream
     (`chunk_factory()` -> chunks).
@@ -419,13 +420,26 @@ def compute_stats_streaming(
     the device fold in the shared one (ShardedStreamCheckpoint);
     `resume=True` continues mid-pass, bit-identical to an unbroken run.
     `timings` receives the seconds of pass 1, the bins, pass 2 and the
-    write-back."""
+    write-back.
+
+    Under a multi-host plan (`host_plan`, or the shifu.lifecycle.hosts /
+    hostIndex knobs) both passes fold only this host's chunks (ci % H),
+    and the hosts meet at two barriers under `checkpoint_root`
+    (`parallel/hostsync.py`): after pass 1 every host publishes its
+    shards' sketches and row counts and merges all hosts' in host-major,
+    then shard, order (the same bins everywhere); after pass 2 every
+    host publishes its exact fold (int64 counts, f64 sums, not rounded)
+    and adds all hosts' in host order, rounding once. The checkpoint
+    family is per host. The `chunk` fault seam fires before each fold."""
     import pickle
 
     from shifu_tpu_torch.config.model_config import BinningMethod
     from shifu_tpu_torch.data.pipeline import (DeviceAccumulator, ShardPlan,
-                                               prefetch_iter)
+                                               add_states, prefetch_iter,
+                                               rounded_state)
+    from shifu_tpu_torch.parallel import hostsync
     from shifu_tpu_torch.resilience import checkpoint as ckpt_mod
+    from shifu_tpu_torch.resilience import faults
     from shifu_tpu_torch.stats.sketch import (CategoricalSketch,
                                               NumericSketch)
 
@@ -449,8 +463,13 @@ def compute_stats_streaming(
             return tags == 0
         return tags >= 0
 
-    plan = ShardPlan(device=device)
+    plan = ShardPlan(device=device, host=host_plan)
     S = plan.n_shards
+    hp = plan.host
+    if hp.active and checkpoint_root is None:
+        raise ValueError(
+            "multi-host streaming stats needs the shared model-set root "
+            "(checkpoint_root) for the host part exchange")
 
     def _fresh() -> Dict[str, object]:
         return {cc.column_name: (CategoricalSketch() if cc.is_categorical()
@@ -466,11 +485,17 @@ def compute_stats_streaming(
     acc = DeviceAccumulator(device, S)
     ck = None
     phase: Optional[str] = None
+    sha, sections = _stats_config_sha(mc, stats_cols, seed, S)
+    if hp.active and not resume:
+        # a fresh fleet run: this host's parts of an earlier run must not
+        # satisfy a peer's barrier
+        hostsync.clear_part(checkpoint_root, "stats-pass1", hp)
+        hostsync.clear_part(checkpoint_root, "stats-pass2", hp)
     if checkpoint_root is not None and ckpt_mod.ckpt_stream_enabled():
-        sha, sections = _stats_config_sha(mc, stats_cols, seed, S)
         ck = ckpt_mod.ShardedStreamCheckpoint(
             ckpt_mod.ckpt_base(checkpoint_root, "stats", "stream"), sha, S,
-            sections=sections)
+            sections=sections, n_hosts=hp.n_hosts,
+            host_index=hp.host_index)
         loaded = ck.load() if resume else None
         if loaded is not None:
             cursors, per_shard, shared = loaded
@@ -485,6 +510,7 @@ def compute_stats_streaming(
             elif phase == "pass2":
                 cursors2 = list(cursors)
                 acc.restore(shared[0])
+            faults.survived("preempt")
             log.info("resuming streaming stats from %s (shard cursors %s)",
                      phase, list(cursors))
         elif not resume:
@@ -522,9 +548,13 @@ def compute_stats_streaming(
         for ci, chunk, tags, weights in prefetch_iter(
                 plan.resume_slice(enumerate(chunk_factory()), cursors1),
                 transform=_prep1):
+            # preemption seam: between folds, so a snapshot always holds
+            # whole chunks
+            faults.fault_point("chunk")
             s = plan.shard_of(ci)
             cursors1[s] = ci
             if chunk.n_rows:
+                hp.record(chunk.n_rows, "stats.pass1")
                 shard_valid[s] += chunk.n_rows
                 shard_pos[s] += int((tags == 1).sum())
                 shard_neg[s] += int((tags == 0).sum())
@@ -541,18 +571,39 @@ def compute_stats_streaming(
                 ck.maybe_save(lambda: _states(cursors1, "pass1"))
         if ck is not None:  # pass 1 done: a resume never repeats it
             ck.save(*_states([-1] * S, "pass1-done"))
-    n_valid_rows = int(shard_valid.sum())
-    log.info("streaming stats pass 1: %d rows (%d pos / %d neg) over %d "
-             "shard(s)", n_valid_rows, int(shard_pos.sum()),
-             int(shard_neg.sum()), S)
     t1 = time.perf_counter()
     t["pass1"] = t1 - t0
+    if hp.active:
+        # pass-1 barrier: publish this host's shards' sketches and
+        # counters, merge every host's (each host derives the same bins)
+        hostsync.publish_part(
+            checkpoint_root, "stats-pass1", hp, sha,
+            arrays={"nValid": shard_valid, "nPos": shard_pos,
+                    "nNeg": shard_neg},
+            blob=pickle.dumps(sketches))
+        parts1 = hostsync.await_parts(checkpoint_root, "stats-pass1", hp,
+                                      sha)
+        sketch_sets = [sk for _a, _m, blob in parts1
+                       for sk in pickle.loads(blob)]
+        n_valid_rows = int(sum(a["nValid"].sum() for a, _m, _b in parts1))
+        n_pos = int(sum(a["nPos"].sum() for a, _m, _b in parts1))
+        n_neg = int(sum(a["nNeg"].sum() for a, _m, _b in parts1))
+        t["barrier1"] = time.perf_counter() - t1
+    else:
+        sketch_sets = sketches
+        n_valid_rows = int(shard_valid.sum())
+        n_pos, n_neg = int(shard_pos.sum()), int(shard_neg.sum())
+    log.info("streaming stats pass 1: %d rows (%d pos / %d neg) over %d "
+             "shard(s) x %d host(s)", n_valid_rows, n_pos, n_neg, S,
+             hp.n_hosts)
+    t1 = time.perf_counter()
 
-    # ---- merge the shards' sketches in shard order (a copy: the
-    # per-shard ones stay as snapshotted) and finalize the bins ----
-    merged = (pickle.loads(pickle.dumps(sketches[0])) if ck is not None
-              else sketches[0])
-    for other in sketches[1:]:
+    # ---- merge the shards' sketches in host-major, then shard, order
+    # (a copy: the per-shard ones stay as snapshotted; the hosts' came
+    # off the barrier as copies) and finalize the bins ----
+    merged = (pickle.loads(pickle.dumps(sketch_sets[0]))
+              if ck is not None and not hp.active else sketch_sets[0])
+    for other in sketch_sets[1:]:
         for name, sk in merged.items():
             sk.merge(other[name])
     for cc in stats_cols:
@@ -596,14 +647,34 @@ def compute_stats_streaming(
             plan.resume_slice(enumerate(chunk_factory()), cursors2),
             transform=_coded):
         if item is not None:
+            faults.fault_point("chunk")
             codes, tags, weights, values = item
             acc.fold(codes, col_offsets, total_slots, tags, weights, values,
                      shard=plan.shard_of(ci))
+            hp.record(len(tags), "stats.pass2")
         cursors2[plan.shard_of(ci)] = ci
         if ck is not None:
             ck.maybe_save(lambda: _states(cursors2, "pass2",
                                           acc.snapshot()))
-    agg = acc.fetch()
+    if hp.active:
+        # pass-2 barrier: the exact (unrounded) folds, added in host
+        # order and rounded once, as one process rounds its shards' sum
+        t_b = time.perf_counter()
+        state = acc.snapshot()
+        state.pop("rows")
+        hostsync.publish_part(checkpoint_root, "stats-pass2", hp, sha,
+                              arrays=state)
+        parts2 = hostsync.await_parts(checkpoint_root, "stats-pass2", hp,
+                                      sha)
+        exact = None
+        for h_arrays, _meta, _blob in parts2:
+            if h_arrays:  # else that host's slice kept no rows
+                exact = add_states(exact, h_arrays)
+        agg = None if exact is None else rounded_state(exact)
+        t["barrier2"] = time.perf_counter() - t_b
+        log.info("streaming stats: %s", hp.describe())
+    else:
+        agg = acc.fetch()
     t3 = time.perf_counter()
     t["pass2"] = t3 - t2
     if ck is not None:

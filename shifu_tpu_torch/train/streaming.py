@@ -10,7 +10,8 @@ sum with disk shards standing in for workers. `MiniBatchs` > 1 is
 ignored with a warning, as in the JAX package. Every
 `checkpoint_every` epochs a `StreamCheckpoint` holds the whole training
 state (weights, optimizer state, learning rate, best-weights
-bookkeeping), so a resumed run is bit-identical to an unbroken one.
+bookkeeping), so a resumed run is bit-identical to an unbroken one; the
+`epoch` fault seam fires before each epoch (`preempt@epoch=N`).
 
 Per-shard sampling draws the JAX package's: shard s takes
 `split_and_sample(rows_s, seed * 100_003 + s)`; k-fold passes
@@ -34,6 +35,7 @@ from shifu_tpu_torch.norm.dataset import NormMeta, read_meta
 from shifu_tpu_torch.parallel.mesh import (mesh_device, psum, replicate,
                                            shard_padded)
 from shifu_tpu_torch.resilience import checkpoint as ckpt_mod
+from shifu_tpu_torch.resilience import faults
 from shifu_tpu_torch.train.nn_trainer import (NNTrainConfig, TrainResult,
                                               _layer_sizes, _Net,
                                               split_and_sample)
@@ -178,6 +180,7 @@ class StreamedLoop:
             loaded = ck.load()
             if loaded is not None:
                 self._restore(*loaded[1:3])
+                faults.survived("preempt")
                 log.info("resuming streamed train at epoch %d",
                          self.it_done)
 
@@ -245,6 +248,9 @@ class StreamedLoop:
         cfg = self.cfg
         every = cfg.checkpoint_every
         while self.it_done < cfg.num_epochs:
+            # SIGTERM-analog seam: -Dshifu.faults=preempt@epoch=N stops
+            # the run between epochs, after the last snapshot landed
+            faults.fault_point("epoch")
             self.epoch()
             if every and self.it_done % every == 0:
                 if cfg.progress_cb:

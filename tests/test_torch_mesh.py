@@ -106,12 +106,19 @@ def test_unported_axes_raise_naming_a13(monkeypatch):
     from shifu_tpu_torch.data import pipeline as pp
     from shifu_tpu_torch.utils import environment as penv
 
+    # more than one host is no mesh axis: the knobs give a HostPlan the
+    # lifecycle's ShardPlan composes on (host 1 of 2: the odd chunks)
     penv.set_property("shifu.lifecycle.hosts", "2")
+    penv.set_property("shifu.lifecycle.hostIndex", "1")
     try:
-        with pytest.raises(ShifuError, match="A.13"):
-            pp.ShardPlan()
+        plan = pp.ShardPlan(2)
+        assert (pmesh.lifecycle_hosts(), pmesh.lifecycle_host_index()) \
+            == (2, 1)
     finally:
         penv.set_property("shifu.lifecycle.hosts", "")
+        penv.set_property("shifu.lifecycle.hostIndex", "")
+    assert [c for c in range(7) if plan.host.owns(c)] == [1, 3, 5]
+    assert [plan.shard_of(c) for c in (1, 3, 5)] == [0, 1, 0]
     # the steps' mesh: one device on the CPU, and on one card
     assert pmesh.train_mesh(torch.device("cpu")) is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)

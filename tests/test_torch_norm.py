@@ -327,17 +327,35 @@ def test_norm_step_byte_identical(stats_roots, tmp_path, monkeypatch, case):
 
 
 def test_norm_routes_that_wait_raise(stats_roots, tmp_path, monkeypatch):
-    """More than one host still raises naming A.13; a dataset past the
-    budget takes the streamed route (one chunk here: the in-RAM route's
-    bytes) and `shifu.resume` without a snapshot runs fresh."""
+    """More than one host on the in-RAM route, or with -shuffle, raises
+    the JAX package's ValueError; a dataset past the budget takes the
+    streamed route (one chunk here: the in-RAM route's bytes) and
+    `shifu.resume` without a snapshot runs fresh."""
+    from shifu_tpu.data.pipeline import HostPlan as JHostPlan
+    from shifu_tpu_torch.data.pipeline import HostPlan
+
     root = str(tmp_path / "port")
     shutil.copytree(stats_roots["binary"], root)
+    jroot = str(tmp_path / "jax")
+    shutil.copytree(stats_roots["binary"], jroot)
     penv.set_property("shifu.lifecycle.hosts", "2")
     try:
-        with pytest.raises(Exception, match="A.13"):
+        with pytest.raises(ValueError) as pe:
             NormProcessor(root, device="cpu").run()
     finally:
         penv._props.pop("shifu.lifecycle.hosts", None)
+    with pytest.raises(ValueError) as je:
+        JNormProcessor(jroot, host_plan=JHostPlan(2, 0)).run()
+    assert str(pe.value) == str(je.value)
+    assert "requires the streaming norm path" in str(pe.value)
+    penv.set_property("shifu.ingest.memoryBudgetMB", "0")
+    try:
+        with pytest.raises(ValueError) as pe:
+            NormProcessor(root, shuffle=True, device="cpu",
+                          host_plan=HostPlan(2, 1)).run()
+    finally:
+        penv._props.pop("shifu.ingest.memoryBudgetMB", None)
+    assert "-shuffle is not multi-host capable" in str(pe.value)
     assert NormProcessor(root, device="cpu").run() == 0
     want = {sub: _tree_bytes(os.path.join(root, "tmp", "norm", sub))
             for sub in ("NormalizedData", "CleanedData")}

@@ -16,6 +16,9 @@ from shifu_tpu_torch.utils import platform  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "shifu_tpu_torch", "shifu_tpu_torch.__main__", "shifu_tpu_torch.cli",
+    "shifu_tpu_torch.analysis", "shifu_tpu_torch.analysis.sanitize",
+    "shifu_tpu_torch.parallel.hostsync",
+    "shifu_tpu_torch.resilience.faults", "shifu_tpu_torch.resilience.retry",
     "shifu_tpu_torch.config", "shifu_tpu_torch.config.column_config",
     "shifu_tpu_torch.config.inspector", "shifu_tpu_torch.config.jsonbase",
     "shifu_tpu_torch.config.meta", "shifu_tpu_torch.config.model_config",

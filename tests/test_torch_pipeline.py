@@ -98,12 +98,20 @@ def test_shard_plan_matches_jax():
         assert list(plan.resume_slice(items, cursors)) == list(
             jplan.resume_slice(items, cursors))
     assert pp.ShardPlan().n_shards == 1
+    # more than one host: the knobs give host 0 of a 2-host plan, which
+    # folds the JAX 2-host plan's chunks on the same shards
     penv.set_property("shifu.lifecycle.hosts", "2")
     try:
-        with pytest.raises(Exception, match="A.13"):
-            pp.ShardPlan()
+        plan = pp.ShardPlan(3)
     finally:
         penv._props.pop("shifu.lifecycle.hosts", None)
+    assert (plan.host.n_hosts, plan.host.host_index) == (2, 0)
+    jplan = JShardPlan(3, host=JHostPlan(n_hosts=2, host_index=0))
+    items = [(c, c * 10) for c in range(11)]
+    assert [plan.shard_of(c) for c in range(11)] == [
+        jplan.shard_of(c) for c in range(11)]
+    assert list(plan.resume_slice(items, [2, -1, -1])) == list(
+        jplan.resume_slice(items, [2, -1, -1]))
 
 
 def _chunks(seed: int, n_chunks: int, C: int = 4, slots: int = 6):

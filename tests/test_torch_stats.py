@@ -38,6 +38,7 @@ from shifu_tpu.processor.stats import StatsProcessor as JStatsProcessor  # noqa:
 from shifu_tpu.processor.train import TrainProcessor as JTrainProcessor  # noqa: E402
 from shifu_tpu.processor.varsel import VarSelProcessor as JVarSelProcessor  # noqa: E402
 from shifu_tpu.utils import environment as jenv  # noqa: E402
+from shifu_tpu_torch.data.pipeline import HostPlan as pp_HostPlan  # noqa: E402
 from shifu_tpu_torch.ops import binagg as pbinagg  # noqa: E402
 from shifu_tpu_torch.processor.init import InitProcessor  # noqa: E402
 from shifu_tpu_torch.processor.norm import NormProcessor  # noqa: E402
@@ -313,9 +314,10 @@ def test_all_port_chain_gives_the_jax_chains_rf_model(tmp_path):
 
 def test_stats_routes_that_wait_raise(stats_sets, tmp_path, monkeypatch):
     """A dataset past the budget takes the streamed route (sketch-based
-    bins: the counts still sum to the rows); more than one host still
-    raises naming A.13."""
-    _jroot, src = stats_sets["ints"]
+    bins: the counts still sum to the rows); more than one host on the
+    in-RAM route, or with -correlation, raises the JAX package's
+    ValueError."""
+    jroot, src = stats_sets["ints"]
     proot = str(tmp_path / "streamed")
     shutil.copytree(src, proot)
     penv.set_property("shifu.ingest.memoryBudgetMB", "0")
@@ -330,12 +332,27 @@ def test_stats_routes_that_wait_raise(stats_sets, tmp_path, monkeypatch):
     assert sum(n0["columnBinning"]["binCountPos"]) + sum(
         n0["columnBinning"]["binCountNeg"]) == n0["columnStats"][
             "totalCount"] > 0
+    from shifu_tpu.data.pipeline import HostPlan as JHostPlan
+
     penv.set_property("shifu.lifecycle.hosts", "2")
     try:
-        with pytest.raises(Exception, match="A.13"):
+        with pytest.raises(ValueError) as pe:
             StatsProcessor(proot, device="cpu").run()
     finally:
         penv._props.pop("shifu.lifecycle.hosts", None)
+    jcopy = str(tmp_path / "jax-hosts")
+    shutil.copytree(jroot, jcopy)
+    with pytest.raises(ValueError) as je:
+        JStatsProcessor(jcopy, host_plan=JHostPlan(2, 0)).run()
+    assert str(pe.value) == str(je.value)
+    assert "requires the streaming stats path" in str(pe.value)
+    penv.set_property("shifu.ingest.memoryBudgetMB", "0")
+    try:
+        with pytest.raises(ValueError, match="not multi-host capable"):
+            StatsProcessor(proot, correlation=True, device="cpu",
+                           host_plan=pp_HostPlan(2, 0)).run()
+    finally:
+        penv._props.pop("shifu.ingest.memoryBudgetMB", None)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceUnavailable):
         StatsProcessor(proot)
