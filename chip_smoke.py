@@ -155,7 +155,7 @@ Phases, each of which must pass:
            (MaxDepth 8, MaxStatsMemoryMB 1: a node batch of 66, the 128-
            and 256-node levels in 2 and 4 batches). Each twice on the card
            (bit-equal forests, child pointers included), `hist_level` and
-           `scan_level` launched as `hist_counters` and the level plan
+           `scan_level` launched as the `tree.hist.*` counters and the level plan
            say, no plain version called and no plain torch scan but on
            (c)'s 2,001-slot column; one tree unprofiled and profiled
            (device busy, idle share); RF's first trees bit-equal to a CPU
@@ -309,10 +309,6 @@ GBT = dict(n=500_000, f=30, bins=32, trees=5, depth=6)
 RF = dict(n=500_000, numeric=20, cat65=10, trees=10, depth=8)
 WIDE = dict(n=200_000, numeric=180, cat64=19, wide_cat=2000)
 
-# NVIDIA H100 SXM data sheet: HBM rate and f32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-
 GBT_SCORE_ATOL = 0.03  # the JAX package's kernel-on/off tolerance
 
 SPLIT_FIELDS = ("feature", "cut_rank", "rank_flat", "leaf_value", "is_split",
@@ -462,89 +458,6 @@ def profile_summary(prof, wall_s: float, top: int = 8) -> dict:
     return dict(device_busy_s=busy, idle_share=max(0.0, 1.0 - busy / wall_s),
                 top_kernels=[[k[:80], v / 1e3] for k, v in ranked],
                 hist_kernels=hist)
-
-
-def level_bound_ms(n_rows: int, n_live: int, F: int, code_bytes: int,
-                   comp_bytes: int, L: int, T: int, s_max: int,
-                   fused: bool) -> tuple:
-    """(bound ms, 'bytes' or 'operations') of one level: the codes and
-    component planes of the rows that carry weight, node ids and the row
-    mask of every row, each read once; the histogram (and in fused mode
-    the scan outputs) written once. Operations: 3 adds per live (row,
-    feature), and ~40 f32 ops per (node, slot) for the scan."""
-    read = (n_live * (F * code_bytes + 3 * comp_bytes)
-            + n_rows * (4 + 1))
-    write = 3 * L * T * 4
-    ops = 3 * n_live * F
-    if fused:
-        # rank_flat i32, left_mask, 7 per-node fields
-        write += L * T * 4 + L * s_max + 7 * L * 4
-        ops += 40 * L * T
-    t_bytes = read + write
-    b_ms = t_bytes / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / F32_OPS_PER_S * 1e3
-    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
-
-
-def class_level_bound_ms(n_rows: int, n_live: int, F: int,
-                         code_bytes: int, K: int, L: int, T: int,
-                         fused: bool) -> tuple:
-    """(bound ms, 'bytes' or 'operations') of one multi-class level: the
-    codes (n*F), the class ids, weights and node ids (4 + 4 + 4 bytes a
-    row) read once, the [K, L, T] f32 planes written once, and in scan
-    mode the gain/rank/left-count planes and [L, K] totals. Operations:
-    one add per live (row, feature), ~12 per class and ~20 more per
-    (node, slot) for the class scan."""
-    t_bytes = n_rows * F * code_bytes + n_rows * 12 + K * L * T * 4
-    ops = n_live * F
-    if fused:
-        t_bytes += 3 * L * T * 4 + L * K * 4
-        ops += L * T * (12 * K + 20)
-    b_ms = t_bytes / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / F32_OPS_PER_S * 1e3
-    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
-
-
-def finalize_bound_ms(P: int, L: int, T: int) -> float:
-    """Bound of the fused entry's finalize kernel (ms; bytes bound it):
-    the int64 accumulator [P, L, T] and feat_ok read once, the f32
-    histogram, gain/rank/left count [L, T] and node totals [L, P]
-    written once."""
-    t_bytes = P * L * T * (8 + 4) + T + L * T * 12 + L * P * 4
-    return t_bytes / HBM_BYTES_PER_S * 1e3
-
-
-def convert_bound_ms(P: int, L: int, T: int) -> float:
-    """Bound of the histogram-only entries' finalize (convert only; ms,
-    bytes bound it): the int64 accumulator [P, L, T] read once, the f32
-    histogram written once."""
-    return P * L * T * (8 + 4) / HBM_BYTES_PER_S * 1e3
-
-
-def scan_bound_ms(P: int, L: int, lay, K: int) -> tuple:
-    """(bound ms, 'bytes' or 'operations') of one scan-only entry call:
-    the f32 planes [P, L, T] and feat_ok read once, gain/rank/left count
-    [L, T] and node totals [L, P] written once. Operations: the pairwise
-    rank of this layout's categorical segments (size^2 a node), ~40 f32
-    ops per (node, slot), ~12 per class and ~20 more in class mode."""
-    T = lay.T
-    t_bytes = P * L * T * 4 + T + L * T * 12 + L * P * 4
-    cat = sum(int(s) ** 2 for s, o in zip(lay.slots, lay.off)
-              if lay.is_cat_t[o])
-    ops = L * (cat + T * ((12 * K + 20) if K >= 3 else 40))
-    b_ms = t_bytes / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / F32_OPS_PER_S * 1e3
-    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
-
-
-def accumulate_bound_ms(n_rows: int, n_live: int, F: int, code_bytes: int,
-                        P: int, L: int, T: int) -> float:
-    """Bound of a level's pre-pass + accumulate (ms; bytes bound them):
-    the label, weight, node id and active flag of every row (13 bytes)
-    and the codes of the live rows read once, the int64 accumulator
-    [P, L, T] written once."""
-    t_bytes = n_rows * 13 + n_live * F * code_bytes + P * L * T * 8
-    return t_bytes / HBM_BYTES_PER_S * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -732,18 +645,21 @@ def _time_entry(torch, hk, entry, codes, codes8, lay, L, y, w, node, act,
         def library():
             for p in planes:
                 torch.bincount(flat, weights=p, minlength=L * lay.T)
+    # the bounds: the package's counts, which the tree grower's profile
+    # seams record too, over the H100 SXM's HBM and f32 rates
+    from shifu_tpu_torch.ops import hist_bounds as hb
+
     cb = 1 if codes8 is not None else 4
     pb = 2 if kw.get("low_precision") else 4
-    if K >= 3:
-        bound, by = class_level_bound_ms(n, _live_rows(w, act), F, cb, K,
-                                         L, lay.T, fused)
-    else:
-        bound, by = level_bound_ms(n, _live_rows(w, act), F, cb, pb, L,
-                                   lay.T, lay.s_max, fused)
-    acc_bound = accumulate_bound_ms(n, _live_rows(w, act), F, cb,
-                                    hk.planes_of(K), L, lay.T)
-    fin = (finalize_bound_ms if fused else convert_bound_ms)(
-        hk.planes_of(K), L, lay.T)
+    n_live, P = _live_rows(w, act), hk.planes_of(K)
+    bound, by = hb.bound_ms(*(
+        hb.class_level_counts(n, n_live, F, cb, K, L, lay.T, fused)
+        if K >= 3 else
+        hb.level_counts(n, n_live, F, cb, pb, L, lay.T, lay.s_max, fused)))
+    acc_bound = hb.bound_ms(0.0, hb.accumulate_bytes(
+        n, n_live, F, cb, P, L, lay.T))[0]
+    fin = hb.bound_ms(0.0, (hb.finalize_bytes if fused else
+                            hb.convert_bytes)(P, L, lay.T))[0]
     return dict(ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
                 library_ms=(time_ms(torch, library) if library else None),
                 bound_ms=bound, bound_by=by, acc_bound_ms=acc_bound,
@@ -1081,6 +997,38 @@ def scan_hist(torch, hk, tt, dev, codes_np, codes, codes8, lay, Lh, K,
     return hist.contiguous()
 
 
+def reset_obs() -> None:
+    """A fresh obs scope of the port: its `tree.hist.*` counters at 0."""
+    from shifu_tpu_torch import obs
+
+    obs.reset()
+
+
+def labelled(name: str, label: str) -> dict:
+    """{value of `label`: count} of counter `name` in the port's obs
+    registry."""
+    from shifu_tpu_torch import obs
+    from shifu_tpu_torch.obs.metrics import _parse_key
+
+    out = {}
+    for key, v in obs.registry().snapshot()["counters"].items():
+        n, labels = _parse_key(key)
+        if n == name:
+            k = labels.get(label, "")
+            out[k] = out.get(k, 0) + int(v)
+    return out
+
+
+def hist_counts() -> dict:
+    """The `tree.hist.*` counters of the port's obs registry, by suffix
+    (the subtraction plan's built / derived / fallback_rebuilds)."""
+    from shifu_tpu_torch import obs
+
+    reg = obs.registry()
+    return {k: int(reg.counter(f"tree.hist.{k}").value)
+            for k in ("built", "derived", "fallback_rebuilds")}
+
+
 class PlainScans:
     """Counts the plain torch scans (`tree_trainer.split_scan` /
     `cls_scan`) that run on the card, by the width of the histogram they
@@ -1166,7 +1114,9 @@ def check_scan(torch, hk, tt, stats, tag, lay, hist, fok, K, impurity,
     if timed:
         sl = tt.scan_layout(lay, hist.device)
         P = hist.shape[0]
-        bound, by = scan_bound_ms(P, hist.shape[1], lay, K)
+        from shifu_tpu_torch.ops import hist_bounds as hb
+
+        bound, by = hb.bound_ms(*hb.scan_counts(P, hist.shape[1], lay, K))
         case.update(
             ms=time_ms(torch, lambda: hk.scan_level(hist, fok, lay=lay, **kw)),
             plain_ms=time_ms(torch, lambda: tt.scan_of(K)(
@@ -2707,6 +2657,7 @@ def serve_latency(torch, data_dir, seed, device="cuda"):
 
     root = os.path.join(data_dir, "serve-bench")
     cols = write_serve_set(root, seed)
+    reset_obs()  # the replica snapshot below reads the registry's series
     srv = ScoringServer(root=root, port=0, replicas=1,
                         queue_depth=SERVE["queue_depth"], device=device)
     srv.registry.warm([1, max(SERVE["concurrency"]), SERVE["wire_rows"]])
@@ -2935,11 +2886,10 @@ def batched_plan(tt, cfg, cap: int):
 
 def grower_run(torch, hk, tt, args_, cfg, device):
     """One counted run: launches, plain-version calls, the plain torch
-    scans on the card (their widths) and `hist_counters`, each zeroed
+    scans on the card (their widths) and the `tree.hist.*` counters, each zeroed
     just before and read just after."""
     hk.reset_counters()
-    for k in tt.hist_counters:
-        tt.hist_counters[k] = 0
+    reset_obs()
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2949,7 +2899,7 @@ def grower_run(torch, hk, tt, args_, cfg, device):
         torch.cuda.synchronize()
     return dict(res=res, seconds=time.perf_counter() - t0,
                 launches=dict(hk.launches), refs=dict(hk.reference_calls),
-                plain=list(ps.widths), counters=dict(tt.hist_counters))
+                plain=list(ps.widths), counters=hist_counts())
 
 
 def _scores(ptree, spec, codes, device):
@@ -2959,7 +2909,7 @@ def _scores(ptree, spec, codes, device):
 def grower_case(torch, hk, tt, ptree, name, data, cfg, cpu_trees, plan,
                 device="cuda", wide=()):
     """(a)-(d): the grower on the card twice (bit-equal forests), its
-    launches against `hist_counters` (leaf-wise: one `hist_level` a
+    launches against the `tree.hist.*` counters (leaf-wise: one `hist_level` a
     built node, one `scan_level` a built or derived one; host-batched:
     `plan` = batched_plan), no plain version called and no plain torch
     scan but on the `wide` columns; one tree unprofiled and profiled
@@ -3864,9 +3814,9 @@ def counted_stream(torch, hk, tt, pst, fn, device="cuda"):
     just after. (result, seconds, launches, plain calls, plain scan
     widths, hist_counters, htod)."""
     hk.reset_counters()
-    for d in (tt.hist_counters, pst.htod):
-        for k in d:
-            d[k] = 0
+    reset_obs()
+    for k in pst.htod:
+        pst.htod[k] = 0
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3875,7 +3825,7 @@ def counted_stream(torch, hk, tt, pst, fn, device="cuda"):
     if device == "cuda":
         torch.cuda.synchronize()
     return (res, time.perf_counter() - t0, dict(hk.launches),
-            dict(hk.reference_calls), ps.widths, dict(tt.hist_counters),
+            dict(hk.reference_calls), ps.widths, hist_counts(),
             dict(pst.htod))
 
 
@@ -4516,8 +4466,7 @@ def mesh_run(torch, hk, tt, fn, device="cuda"):
     """One counted meshed run: counts zeroed just before, read just
     after. (result, seconds, launches, plain calls, plain scan widths)."""
     hk.reset_counters()
-    for k in tt.hist_counters:
-        tt.hist_counters[k] = 0
+    reset_obs()
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5293,7 +5242,6 @@ def hosts_chaos(torch, data_dir, pkg, device="cuda"):
     from shifu_tpu_torch.processor.stats import StatsProcessor
     from shifu_tpu_torch.processor.train import TrainProcessor
     from shifu_tpu_torch.resilience import checkpoint as ckpt_mod
-    from shifu_tpu_torch.resilience import faults, retry
 
     src = os.path.join(data_dir, "hosts-base")
     base = os.path.join(data_dir, "chaos-base")
@@ -5356,15 +5304,14 @@ def hosts_chaos(torch, data_dir, pkg, device="cuda"):
               f"hosts chaos: {name}'s snapshot outlived its resume")
     # transient io faults under the retry budget
     set_copy(base, roots["io"])
-    faults.reset_counters()
-    retry.reset_counters()
     with chaos("io:p=0.05:seed=7"):
         out["io_seconds"] = timed(StatsProcessor(roots["io"],
                                                  device=device).run)
-    out["io_injected"] = dict(faults.counters["fault.injected"])
-    out["io_retries"] = dict(retry.counters["retry.attempts"])
+    # the step's obs scope: its manifest's fault.* / retry.* counters
+    out["io_injected"] = labelled("fault.injected", "seam")
+    out["io_retries"] = labelled("retry.attempts", "seam")
     check(out["io_retries"].get("io", 0) > 0
-          and faults.counters["fault.survived"] == out["io_injected"],
+          and labelled("fault.survived", "seam") == out["io_injected"],
           f"hosts chaos: io faults {out['io_injected']}, retries "
           f"{out['io_retries']}")
     check(_files(roots["io"], "ColumnConfig.json")
@@ -5448,7 +5395,7 @@ def hosts_serve(torch, data_dir, device="cuda"):
                                         names, chunk_rows=8, max_rows=n))
     fleet = ReplicaFleet.build(os.path.join(root, "models"), n_replicas=2,
                                device=device)
-    faults.reset_counters()
+    reset_obs()
     try:
         want = [fleet.score_batch(b, timeout=60) for b in batches]
         with faults.activate(faults.FaultPlan.parse("device_dead@replica=0")):
@@ -5462,7 +5409,7 @@ def hosts_serve(torch, data_dir, device="cuda"):
               "hosts serve: replica 0's breaker did not open")
         out = dict(requests=len(batches), rows=n, seconds=sec,
                    failovers=fleet.failovers,
-                   injected=dict(faults.counters["fault.injected"]),
+                   injected=labelled("fault.injected", "replica"),
                    breaker0=fleet.replicas[0].breaker.state,
                    breaker1=fleet.replicas[1].breaker.state)
     finally:
@@ -5529,6 +5476,344 @@ def print_hosts(h):
           f"failovers, injected {s['injected']}, breakers "
           f"{s['breaker0']} / {s['breaker1']}")
     print(f"hosts: phase 16 in {h['seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the observability layer (obs/, analysis/racetrack.py)
+# ---------------------------------------------------------------------------
+
+OBS = dict(gbt_trees=GBT["trees"], gbt_depth=GBT["depth"], requests=12,
+           fault="device@device=40", trace_id="smoke-obs-trace")
+# the tree seams of the port's grower (JAX names) and those whose cost is
+# the entries' analytic count
+OBS_SEAMS = ("tree.pallas_fused", "tree.split_scan", "tree.hist_derive",
+             "tree.row_update", "tree.errors")
+ANALYTIC_SEAMS = ("tree.pallas_fused", "tree.split_scan", "tree.hist")
+
+
+def obs_set(data_dir, alg):
+    """A copy of phase 8's trained card set (200,000 raw rows at the bench
+    `rf` width, 20 columns after varsel), its run ledger emptied; GBT
+    takes the bench `gbt` forest (5 trees, depth 6)."""
+    from shifu_tpu_torch.config.model_config import Algorithm, ModelConfig
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    root = os.path.join(data_dir, f"obs-{alg.lower()}")
+    shutil.copytree(os.path.join(data_dir, "raw-card2"), root)
+    shutil.rmtree(os.path.join(root, ".shifu"), ignore_errors=True)
+    if alg == "GBT":
+        path = PathFinder(root).model_config_path()
+        mc = ModelConfig.load(path)
+        mc.train.algorithm = Algorithm.parse("GBT")
+        mc.train.params.update(TreeNum=OBS["gbt_trees"],
+                               MaxDepth=OBS["gbt_depth"], LearningRate=0.1)
+        mc.save(path)
+    return root
+
+
+def obs_train(torch, hk, root, alg, props=None, device="cuda"):
+    """`shifu train` on `root` through the run envelope under `props`
+    (-Dk=v): counts zeroed just before, read just after. (seconds,
+    launches, the run's manifest, the model file's bytes)."""
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+    from shifu_tpu_torch.obs.ledger import list_runs
+    from shifu_tpu_torch.processor.train import TrainProcessor
+
+    hk.reset_counters()
+    cuda = device == "cuda"
+    with props_set(props or {}):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = TrainProcessor(root, device=device).run()
+        if cuda:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    check(rc == 0, f"obs: {root}: train returned {rc}")
+    (m,) = list_runs(root, step="train", last=1)
+    with open(PathFinder(root).model_path(0, alg.lower()), "rb") as fh:
+        model = fh.read()
+    return dict(seconds=secs, launches=dict(hk.launches), manifest=m,
+                model=model)
+
+
+def _hist_of(m):
+    c = m["metrics"]["counters"]
+    return {k: int(c.get(f"tree.hist.{k}", 0))
+            for k in ("built", "derived", "fallback_rebuilds")}
+
+
+def _seam_of(m, name):
+    return ((m.get("profile") or {}).get("programs") or {}).get(name)
+
+
+def obs_envelope(torch, hk, data_dir, device="cuda"):
+    """(a) RF, then GBT: on, off, off, on (-Dshifu.profile.mode=off) —
+    manifests, byte-identical models, seams and counters; (b) one GBT
+    run under -Dshifu.profile=xla; (c) one RF run under a `device`
+    fault."""
+    out = dict(runs={}, launches=[])
+    models = {}  # (a)'s model bytes, by algorithm
+    for alg in ("RF", "GBT"):
+        root = obs_set(data_dir, alg)
+        # on, off, off, on: each mode once first and once second in a pair
+        runs = [obs_train(torch, hk, root, alg,
+                          {"shifu.profile.mode": "off"} if i in (1, 2)
+                          else None, device=device)
+                for i in range(4)]
+        out["launches"] += [r["launches"] for r in runs]
+        on, off = runs[3], runs[2]
+        models[alg] = runs[0]["model"]
+        for i, r in enumerate(runs):
+            m = r["manifest"]
+            check(m["status"] == "ok" and m["seq"] == i + 1,
+                  f"obs {alg}: run {i + 1} wrote {m['step']}-{m['seq']} "
+                  f"[{m['status']}]")
+            check(r["model"] == runs[0]["model"],
+                  f"obs {alg}: run {i + 1} wrote other model bytes")
+            check(_hist_of(m) == _hist_of(runs[0]["manifest"]),
+                  f"obs {alg}: tree.hist.* {_hist_of(m)} against "
+                  f"{_hist_of(runs[0]['manifest'])}")
+            check(r["launches"] == runs[0]["launches"],
+                  f"obs {alg}: launches {r['launches']} against "
+                  f"{runs[0]['launches']}")
+        hist = _hist_of(on["manifest"])
+        check(hist["built"] > 0 and hist["derived"] > 0,
+              f"obs {alg}: tree.hist.* {hist}")
+        seams = OBS_SEAMS + (("tree.hist",) if alg == "RF" else ())
+        for name in seams:
+            row = _seam_of(on["manifest"], name)
+            check(row is not None and row["dispatches"] > 0,
+                  f"obs {alg}: seam {name} not dispatched: {row}")
+            check(row["synced"] is False,
+                  f"obs {alg}: seam {name} synchronized")
+            if name in ANALYTIC_SEAMS:
+                check(row["costSource"] == "analytic"
+                      and row["bytesAccessed"] > 0,
+                      f"obs {alg}: seam {name} cost {row['costSource']}")
+        check(not off["manifest"]["profile"]["programs"],
+              f"obs {alg}: mode off still profiled "
+              f"{sorted(off['manifest']['profile']['programs'])}")
+        out["runs"][alg] = dict(
+            root=root, on_seconds=[runs[0]["seconds"], on["seconds"]],
+            off_seconds=[runs[1]["seconds"], off["seconds"]],
+            hist=hist, launches=on["launches"],
+            seams={k: dict(dispatches=v["dispatches"],
+                           costSource=v["costSource"],
+                           bytes=v["bytesAccessed"], flops=v["flops"])
+                   for k, v in on["manifest"]["profile"]["programs"]
+                   .items()})
+    # (b): the torch profiler's Chrome trace of one GBT run
+    gbt = out["runs"]["GBT"]
+    xla = obs_train(torch, hk, gbt["root"], "GBT", {"shifu.profile": "xla"},
+                    device=device)
+    out["launches"].append(xla["launches"])
+    check(xla["model"] == models["GBT"],
+          "obs: the profiled run wrote other model bytes")
+    path = xla["manifest"].get("perfettoTrace")
+    check(path is not None and os.path.isfile(path),
+          f"obs: -Dshifu.profile=xla left no trace: {path}")
+    with open(path) as fh:
+        text = fh.read()
+    for kernel in (("hist_accumulate_kernel", "hist_scan_kernel")
+                   if device == "cuda" else ()):
+        check(kernel in text, f"obs: the profiler trace names no {kernel}")
+    out["xla"] = dict(trace_bytes=len(text), seconds=xla["seconds"])
+    # (c): an injected device fault, retried under shifu.retry.device.*
+    rf = out["runs"]["RF"]
+    faulted = obs_train(torch, hk, rf["root"], "RF",
+                        {"shifu.faults": OBS["fault"],
+                         "shifu.retry.baseMs": "1"}, device=device)
+    out["launches"].append(faulted["launches"])
+    c = faulted["manifest"]["metrics"]["counters"]
+    inj = c.get('fault.injected{seam="device"}', 0)
+    sur = c.get('fault.survived{seam="device"}', 0)
+    check(inj == 1 and sur == 1,
+          f"obs: device fault injected {inj}, survived {sur}")
+    check(faulted["model"] == models["RF"],
+          "obs: the faulted run wrote other model bytes")
+    check(_hist_of(faulted["manifest"]) == rf["hist"],
+          f"obs: the faulted run's tree.hist.* "
+          f"{_hist_of(faulted['manifest'])} against {rf['hist']}")
+    out["fault"] = dict(injected=inj, survived=sur,
+                        retries=c.get('retry.attempts{seam="device"}', 0),
+                        seconds=faulted["seconds"])
+    return out
+
+
+def _cli_out(root, *args):
+    """`python -m shifu_tpu_torch ARGS` in `root`, in this process: (exit
+    code, standard output)."""
+    import contextlib
+    import io
+
+    from shifu_tpu_torch import cli
+
+    buf = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(args))
+    finally:
+        os.chdir(cwd)
+    return rc, buf.getvalue()
+
+
+def obs_serve(torch, data_dir, root, pkg, race, device="cuda"):
+    """(d)/(e): `shifu serve` on (a)'s RF models as a subprocess: N
+    requests (one with X-Shifu-Trace); /metrics, /admin/traces and `shifu
+    top --once --json` read live; SIGTERM; the manifest, `shifu trace`,
+    `shifu runs` and `shifu profile` read after."""
+    import urllib.request
+
+    from shifu_tpu_torch.obs.ledger import list_runs
+    from shifu_tpu_torch.obs.metrics import parse_prometheus
+    from shifu_tpu_torch.serve.registry import ModelRegistry
+
+    data = held_out(data_dir)
+    cols = ModelRegistry(os.path.join(root, "models"),
+                         device=device).input_columns
+    n = OBS["requests"]
+    bodies = [json.dumps({"records": [
+        {c: str(data.raw[c][i * 8 + k]) for c in cols}
+        for k in range(8)]}).encode("utf-8") for i in range(n)]
+    flags = ["-Dshifu.obs.snapshotMs=100"]
+    if race:
+        flags.append("-Dshifu.sanitize=race")
+    env = dict(os.environ, PYTHONPATH=pkg)
+    log = tempfile.TemporaryFile("w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "shifu_tpu_torch", "serve", "--port", "0",
+         "--warm", "8", *flags, *_dev(device)], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=log, text=True)
+    out = dict(race=race)
+    try:
+        line = proc.stdout.readline()
+        m = re.match(r"listening on ([\d.]+):(\d+)", line)
+        if m is None:
+            log.seek(0)
+            raise PhaseFailed(f"obs serve did not start: {line!r}\n"
+                              f"{log.read()[-3000:]}")
+        base = f"http://{m.group(1)}:{m.group(2)}"
+        out["start_seconds"] = time.perf_counter() - t0
+        for i, body in enumerate(bodies):
+            headers = {"Content-Type": "application/json"}
+            if i == n // 2:
+                headers["X-Shifu-Trace"] = OBS["trace_id"]
+            req = urllib.request.Request(f"{base}/score", data=body,
+                                         headers=headers)
+            with urllib.request.urlopen(req, timeout=60) as r:
+                doc = json.loads(r.read())
+                check(r.status == 200 and len(doc["scores"]) == 8,
+                      f"obs serve: request {i} answered {r.status}")
+                if i == n // 2:
+                    check(r.headers.get("X-Shifu-Trace") == OBS["trace_id"],
+                          "obs serve: the trace id was not echoed")
+        with urllib.request.urlopen(f"{base}/metrics", timeout=30) as r:
+            check(r.status == 200, f"obs serve: /metrics {r.status}")
+            samples = parse_prometheus(r.read().decode("utf-8"))
+        got = sum(v for k, v in samples.items()
+                  if k.startswith("serve_requests_total"))
+        check(got == n, f"obs serve: /metrics counts {got} requests, "
+                        f"{n} sent")
+        out["metrics_samples"] = len(samples)
+        with urllib.request.urlopen(f"{base}/admin/traces",
+                                    timeout=30) as r:
+            traces = json.loads(r.read())
+        ids = [t["id"] for t in traces["traces"]]
+        check(OBS["trace_id"] in ids,
+              f"obs serve: /admin/traces lacks the traced request: {ids}")
+        (tr,) = [t for t in traces["traces"] if t["id"] == OBS["trace_id"]]
+        out["trace_stages_ms"] = tr["stages"]
+        rc, text = _cli_out(root, "top", "--once", "--json", "--url", base)
+        check(rc == 0, f"obs serve: shifu top exited {rc}")
+        payload = json.loads(text)
+        check(payload["liveProcesses"] == 1 and "device" in
+              payload["stages"], f"obs serve: top payload {payload}")
+        out["top_stages"] = payload["stages"]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait(10)
+        log.seek(0)
+        tail = log.read()[-3000:]
+        log.close()
+    check(rc == 0, f"obs serve: exit {rc} after SIGTERM:\n{tail}")
+    out["seconds"] = time.perf_counter() - t0
+    (m,) = list_runs(root, step="serve", last=1)
+    check(m["status"] == "ok" and m["traces"]["count"] >= 1,
+          f"obs serve: manifest {m['status']} traces {m.get('traces')}")
+    if race:
+        v = m.get("sanitizer") or {}
+        check(v.get("race", {}).get("armed") and v.get("clean") is True,
+              f"obs serve: the race verdict is not clean: {v}")
+        out["race"] = {k: v["race"][k] for k in
+                       ("acquisitions", "inversions", "guardViolations",
+                        "longHolds")}
+    rc, text = _cli_out(root, "trace", "--show", OBS["trace_id"])
+    check(rc == 0 and OBS["trace_id"] in text,
+          f"obs serve: shifu trace does not list the traced request "
+          f"({rc})")
+    return out
+
+
+def obs_readers(root):
+    """`shifu runs` lists (a)'s runs; `shifu profile` renders one."""
+    rc, text = _cli_out(root, "runs", "--step", "train")
+    rows = [ln for ln in text.splitlines() if ln.startswith("train")]
+    check(rc == 0 and len(rows) >= 4,
+          f"obs: shifu runs listed {len(rows)} train runs ({rc})")
+    rc, prof = _cli_out(root, "profile", "train")
+    check(rc == 0 and "tree.pallas_fused" in prof and "ROOFLINE" in prof,
+          f"obs: shifu profile rendered no train manifest ({rc})")
+    return dict(runs_listed=len(rows), profile_lines=len(prof.splitlines()))
+
+
+def phase_obs(torch, hk, data_dir, pkg, device="cuda"):
+    """Phase 17: the run envelope, the seams and the counters on the
+    card, a profiler trace, a device fault, and `shifu serve` with its
+    /metrics, traces and the reader CLIs (plain and race-armed)."""
+    t0 = time.perf_counter()
+    out = obs_envelope(torch, hk, data_dir, device)
+    root = out["runs"]["RF"]["root"]
+    out["serve"] = obs_serve(torch, data_dir, root, pkg, False, device)
+    out["serve_race"] = obs_serve(torch, data_dir, root, pkg, True, device)
+    out["readers"] = obs_readers(root)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def print_obs(o):
+    for alg in ("RF", "GBT"):
+        r = o["runs"][alg]
+        print(f"obs: (a) shifu train {alg} on phase 8's set, runs on, off, "
+              f"off, on: layer on {r['on_seconds'][0]:.3f} / "
+              f"{r['on_seconds'][1]:.3f} s, off {r['off_seconds'][0]:.3f} / "
+              f"{r['off_seconds'][1]:.3f} s; model bytes equal on/off; "
+              f"tree.hist.* {r['hist']}")
+        print("  seams: " + ", ".join(
+            f"{k} {v['dispatches']} ({v['costSource']})"
+            for k, v in sorted(r["seams"].items())))
+    print(f"obs: (b) -Dshifu.profile=xla trace {o['xla']['trace_bytes']} "
+          f"bytes naming hist_accumulate_kernel and hist_scan_kernel; "
+          f"(c) {OBS['fault']}: injected {o['fault']['injected']}, "
+          f"survived {o['fault']['survived']}, retries "
+          f"{o['fault']['retries']}, model bytes equal")
+    for key in ("serve", "serve_race"):
+        s = o[key]
+        print(f"obs: ({'e' if s['race'] else 'd'}) shifu serve"
+              f"{' -Dshifu.sanitize=race' if s['race'] else ''}: "
+              f"{OBS['requests']} requests counted by /metrics, the "
+              f"traced one in /admin/traces and `shifu trace` (stages ms "
+              f"{s['trace_stages_ms']}), top parsed, {s['seconds']:.1f} s"
+              + (f"; race verdict clean {s['race']}" if s["race"] else ""))
+    print(f"obs: shifu runs listed {o['readers']['runs_listed']} train "
+          f"runs, shifu profile rendered; phase {o['seconds']:.1f} s")
 
 
 def run(args) -> int:
@@ -5717,6 +6002,8 @@ def run(args) -> int:
         me = phase_mesh(torch, hk, tt, pds, ptree, data_dir, gbt, rf,
                         args.seed)
         ho = phase_hosts(torch, hk, data_dir, pkg, args.seed)
+        ob = phase_obs(torch, hk, data_dir, pkg)
+        print_obs(ob)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     report["gbt"], report["rf"] = g, r
@@ -5730,6 +6017,7 @@ def run(args) -> int:
     report["stream"] = st
     report["mesh"] = me
     report["hosts"] = ho
+    report["obs"] = ob
     grown = [gr[k]["launches"] for k in ("leafwise_gbt", "leafwise_rf",
                                          "batched_gbt", "batched_rf")]
     # the streamed grower's: (a)'s forests and (b)'s RF train
@@ -5740,6 +6028,8 @@ def run(args) -> int:
     # phase 16's two trains (after the 1-process and the 2-host chains)
     host_runs = [ho["launches_one"], ho["launches_two"]]
     grown += host_runs
+    # phase 17's trains (each counted on its own)
+    grown += ob["launches"]
 
     kernels = []
     mc_lines = ":358-365,:408-430,:540-552,:767-769"
@@ -5767,6 +6057,7 @@ def run(args) -> int:
             launches=launches,
             mesh_launches=sum(lc[name] for lc in me["launches"]),
             hosts_launches=sum(lc[name] for lc in host_runs),
+            obs_launches=sum(lc[name] for lc in ob["launches"]),
             max_abs_err=stats.max_abs_err[name], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"]))

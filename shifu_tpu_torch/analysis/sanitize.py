@@ -1,5 +1,5 @@
-"""Runtime sanitizer, the `divergence` mode (counterpart of the
-divergence parts of `shifu_tpu/analysis/sanitize.py`).
+"""Runtime sanitizer, the `divergence` and `race` modes (counterpart of
+those parts of `shifu_tpu/analysis/sanitize.py`).
 
 `-Dshifu.sanitize=divergence` arms a multi-host lockstep witness at the
 host barriers of `parallel/hostsync.py`: every part published while
@@ -10,9 +10,17 @@ or its sequence out of order, raises `DivergenceError` instead of
 merging divergent state. The stamps are the JAX package's, byte for
 byte, so both packages compute the same digest for the same barrier.
 
-The JAX package's other modes (`transfer`, `nan`, `recompile`, `race`)
-watch jit transfer guards, NaN traps, compile counters and tracked
-locks; they are ROADMAP A.14 here and raise when named.
+`-Dshifu.sanitize=race` arms the lock instrumentation of
+analysis/racetrack.py: every `tracked_lock` built while armed witnesses
+its acquisitions, and the verdict's `race` section reports the lock-order
+inversions, `guarded_by` breaches (both make the verdict unclean) and
+long holds (reported only) since the sanitizer was built. Locks are
+tracked from CONSTRUCTION, so set the property before building the
+objects whose locks should be watched.
+
+The JAX package's other modes (`transfer`, `nan`, `recompile`) watch jit
+transfer guards, NaN traps and compile counters; they are ROADMAP A.14
+here and raise when named.
 """
 
 from __future__ import annotations
@@ -30,9 +38,9 @@ from shifu_tpu_torch.utils.log import get_logger
 log = get_logger(__name__)
 
 SCHEMA = "shifu.sanitize/1"
-MODES = ("divergence",)
+MODES = ("divergence", "race")
 # the JAX package's other modes, and the ROADMAP item that ports them
-UNPORTED_MODES = ("transfer", "nan", "recompile", "race")
+UNPORTED_MODES = ("transfer", "nan", "recompile")
 
 
 class DivergenceError(RuntimeError):
@@ -56,7 +64,7 @@ def modes_from_environment() -> List[str]:
     if raw.lower() == "all":
         raise ValueError("shifu.sanitize=all: the modes "
                          f"{', '.join(UNPORTED_MODES)} are not ported yet "
-                         "(ROADMAP A.14); name divergence")
+                         "(ROADMAP A.14); name divergence,race")
     modes = [m.strip().lower() for m in raw.split(",") if m.strip()]
     unported = [m for m in modes if m in UNPORTED_MODES]
     if unported:
@@ -97,6 +105,11 @@ class Sanitizer:
         self.divergence_checks = 0
         self.events: List[dict] = []
         self._barrier_seq: Dict[tuple, int] = {}
+        # race-mode scope: the verdict reports the tracker's DELTA from
+        # this sanitizer's construction (the tracker is process-global)
+        from shifu_tpu_torch.analysis import racetrack
+
+        self._race_mark = racetrack.tracker().mark()
 
     @property
     def active(self) -> bool:
@@ -158,9 +171,20 @@ class Sanitizer:
                     f"sanitizer[divergence] {detail}; refusing to merge")
 
     def verdict(self) -> dict:
+        from shifu_tpu_torch.analysis import racetrack
+
+        race_armed = "race" in self.modes
+        race = {"armed": race_armed}
+        race_dirty = 0
+        if race_armed:
+            race.update(racetrack.tracker().verdict(self._race_mark))
+            # inversions + guard violations are correctness findings;
+            # long holds are a perf hazard — reported, never gating
+            race_dirty = race["inversions"] + race["guardViolations"]
         return {
             "schema": SCHEMA,
             "modes": sorted(self.modes),
+            "race": race,
             "divergence": {
                 "armed": "divergence" in self.modes,
                 "trips": self.divergence_trips,
@@ -168,7 +192,7 @@ class Sanitizer:
                 "barriersChecked": self.divergence_checks,
             },
             "events": list(self.events),
-            "clean": not self.divergence_trips,
+            "clean": not (race_dirty or self.divergence_trips),
         }
 
 

@@ -30,11 +30,19 @@
     python -m shifu_tpu_torch test [-n N] | analysis | version
     python -m shifu_tpu_torch convert [-tozip|-tobin|-toref|-toeg|
                                       -tozipref|-fromref] INPUT [OUTPUT]
+    python -m shifu_tpu_torch runs [--last N] [--step S] [--diff A B]
+                                   [--resumable] [--traces] [--json]
+    python -m shifu_tpu_torch profile [STEP] [--last N] [--diff A B] [--json]
+    python -m shifu_tpu_torch trace [--last N] [--slowest N [--stage S]]
+                                    [--show ID] [--fleet [--out P]] [--json]
+    python -m shifu_tpu_torch top [--url URL] [--interval S] [--once]
+                                  [--json]
 
 run in a model-set directory. The flags follow the JAX subcommands;
 `--device` picks the device (default: the card, an error without one);
 `new`, `export`, `save`, `switch`, `show`, `test`, `analysis`,
-`convert` and `version` touch no device and take none.
+`convert`, `version` and the run-ledger readers `trace`, `top`, `runs`
+and `profile` touch no device and take none.
 `normalize` and `varselect` are aliases of `norm` and `varsel`. Exit
 codes follow the JAX CLI: 0 ok, 1 ShifuError (or no card), 2 not
 implemented. Every other lifecycle subcommand exits 2 with the ROADMAP
@@ -48,6 +56,7 @@ item that ports it, and so do the routes of a ported step that wait
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import List, Optional
 
@@ -60,10 +69,7 @@ from shifu_tpu_torch.utils.platform import DeviceUnavailable
 log = get_logger("shifu")
 
 # the JAX CLI's other subcommands and the ROADMAP item that ports each
-NOT_PORTED = {
-    "retrain": "A.14", "promote": "A.14", "check": "A.14",
-    "trace": "A.14", "top": "A.14", "runs": "A.14", "profile": "A.14",
-}
+NOT_PORTED = {"retrain": "A.14", "promote": "A.14", "check": "A.14"}
 
 
 def _extract_props(argv: List[str]) -> List[str]:
@@ -223,6 +229,116 @@ def build_parser() -> argparse.ArgumentParser:
                            help="load a reference spec and report its kind")
     p_convert.add_argument("input", nargs="?")
     p_convert.add_argument("output", nargs="?")
+    p_trace = sub.add_parser(
+        "trace", help="inspect captured request traces "
+                      "(.shifu/runs/serve-<seq>.traces.json: per-stage "
+                      "timelines, Perfetto-loadable; captured by `shifu "
+                      "serve` head sampling / slow-tail capture)")
+    p_trace.add_argument("--last", type=int, default=None,
+                         help="show only the N most recent traces "
+                              "(default 10)")
+    p_trace.add_argument("--slowest", type=int, default=None,
+                         metavar="N",
+                         help="show the N slowest traces by total ms "
+                              "(or by one stage's ms with --stage)")
+    p_trace.add_argument("--stage", default=None,
+                         choices=["featurize", "route", "queue",
+                                  "coalesce", "device", "d2h",
+                                  "serialize"],
+                         help="with --slowest: rank by this stage's "
+                              "summed duration instead of the total")
+    p_trace.add_argument("--show", default=None, metavar="ID",
+                         help="print one trace's full per-stage "
+                              "timeline (searches all trace files, "
+                              "newest first)")
+    p_trace.add_argument("--fleet", action="store_true",
+                         help="stitch EVERY run/process trace file "
+                              "under .shifu/runs into ONE Perfetto "
+                              "export (.shifu/runs/fleet.traces.json) "
+                              "with a track group per process — a "
+                              "fleet promote round renders as one "
+                              "cross-process timeline")
+    p_trace.add_argument("--out", default=None, metavar="PATH",
+                         help="with --fleet: stitched export path")
+    p_trace.add_argument("--json", action="store_true", dest="as_json",
+                         help="emit the selected trace summaries as "
+                              "JSON")
+
+    p_top = sub.add_parser(
+        "top", help="terminal dashboard over one serve process: polls "
+                    "its /metrics + /healthz and renders QPS, per-stage "
+                    "p50/p99, SLO burn and breaker states")
+    p_top.add_argument("--url", default="http://127.0.0.1:8080",
+                       help="the serve process's base URL (default "
+                            "http://127.0.0.1:8080)")
+    p_top.add_argument("--interval", type=float, default=2.0,
+                       help="poll/refresh interval in seconds "
+                            "(default 2)")
+    p_top.add_argument("--once", action="store_true",
+                       help="render ONE frame and exit (no screen "
+                            "clear; for scripts and CI)")
+    p_top.add_argument("--json", action="store_true", dest="as_json",
+                       help="with --once: print the polled payload as "
+                            "JSON")
+
+    p_runs = sub.add_parser(
+        "runs", help="list run-ledger manifests (.shifu/runs)")
+    p_runs.add_argument("--last", type=int, default=None,
+                        help="show only the N most recent runs")
+    p_runs.add_argument("--step", default=None,
+                        help="filter by lifecycle step (stats/norm/train/...)")
+    p_runs.add_argument("--diff", nargs=2, metavar=("A", "B"), default=None,
+                        help="diff two manifests' metric snapshots "
+                             "(counters/gauges); A/B are step-seq ids "
+                             "(train-3), step names (newest run), or "
+                             "manifest paths")
+    p_runs.add_argument("--json", action="store_true", dest="as_json",
+                        help="dump the selected manifests as JSON")
+    p_runs.add_argument("--resumable", action="store_true",
+                        help="list mid-stream checkpoints a preempted "
+                             "step left under .shifu/runs/ckpt (resume "
+                             "with `shifu <step> --resume`)")
+    p_runs.add_argument("--traces", action="store_true",
+                        help="add a TRACES column (captured count + "
+                             "slowest ms) so serve-run listings point "
+                             "at their request-trace evidence "
+                             "(`shifu trace`)")
+
+    p_prof = sub.add_parser(
+        "profile", help="per-seam cost/roofline tables from "
+                        "run-ledger manifests; --diff gates on "
+                        "per-program regressions (exit 1 on breach)")
+    p_prof.add_argument("step", nargs="?", default=None,
+                        help="lifecycle step to show (default: all)")
+    p_prof.add_argument("--last", type=int, default=None,
+                        help="show only the N most recent runs "
+                             "(default 1 with a step, else 5)")
+    p_prof.add_argument("--diff", nargs=2, metavar=("A", "B"), default=None,
+                        help="compare two runs program-by-program; A/B as "
+                             "in `shifu runs --diff`. Exit 1 when a "
+                             "per-dispatch cost metric regresses beyond "
+                             "its threshold")
+    p_prof.add_argument("--flops-pct", type=float, default=None,
+                        dest="flops_pct",
+                        help="max tolerated per-dispatch FLOPs increase %% "
+                             "(default 10; also -Dshifu.profile.diff."
+                             "flopsPct)")
+    p_prof.add_argument("--bytes-pct", type=float, default=None,
+                        dest="bytes_pct",
+                        help="max tolerated bytes-accessed increase %% "
+                             "(default 25)")
+    p_prof.add_argument("--hbm-pct", type=float, default=None,
+                        dest="hbm_pct",
+                        help="max tolerated peak-HBM increase %% "
+                             "(default 25)")
+    p_prof.add_argument("--seconds-pct", type=float, default=None,
+                        dest="seconds_pct",
+                        help="max tolerated device-seconds increase %% "
+                             "(default 0 = timing not gated)")
+    p_prof.add_argument("--json", action="store_true", dest="as_json",
+                        help="emit profile sections (or the diff rows) "
+                             "as JSON")
+
     for name in NOT_PORTED:
         p = sub.add_parser(name, help=f"not ported yet (ROADMAP "
                                       f"{NOT_PORTED[name]})")
@@ -336,6 +452,219 @@ def dispatch(args: argparse.Namespace) -> int:
         from shifu_tpu_torch.processor.convert import ConvertProcessor
 
         return ConvertProcessor.from_args(args).run()
+    if cmd == "trace":
+        import json
+
+        from shifu_tpu_torch.obs.ledger import runs_dir
+        from shifu_tpu_torch.obs.reqtrace import (
+            FLEET_TRACE_BASENAME,
+            format_trace_detail,
+            format_trace_table,
+            load_trace_file,
+            slowest_summaries,
+            stitch_trace_files,
+            trace_files,
+        )
+
+        files = trace_files(".")
+        if not files:
+            print("(no trace files under .shifu/runs — serve with "
+                  "-Dshifu.trace.sample>0, -Dshifu.trace.slowMs>0 or an "
+                  "X-Shifu-Trace header, then shut down cleanly)")
+            return 0
+        if args.fleet:
+            out_path = args.out or os.path.join(runs_dir("."),
+                                                FLEET_TRACE_BASENAME)
+            doc = stitch_trace_files(files, out_path)
+            if doc is None:
+                log.error("trace --fleet: none of %d trace file(s) "
+                          "were readable", len(files))
+                return 2
+            summ = doc["summary"]
+            if args.as_json:
+                print(json.dumps({"file": out_path, "summary": summ},
+                                 indent=2, sort_keys=True))
+            else:
+                print(f"stitched {summ['count']} trace(s) from "
+                      f"{len(summ['sources'])} file(s) -> {out_path}")
+                for src in summ["sources"]:
+                    print(f"  {src['label']:<28} {src['traces']:>5} "
+                          f"trace(s)")
+                print("open it in Perfetto (ui.perfetto.dev) for the "
+                      "per-process track groups")
+            return 0
+        if args.show:
+            for path in files:
+                try:
+                    doc = load_trace_file(path)
+                except (OSError, ValueError):
+                    continue
+                for s in doc.get("shifuTraces", []):
+                    if s.get("id") == args.show:
+                        if args.as_json:
+                            print(json.dumps(s, indent=2, sort_keys=True))
+                        else:
+                            print(format_trace_detail(s, path=path))
+                        return 0
+            log.error("trace id %s not found in %d trace file(s)",
+                      args.show, len(files))
+            return 1
+        # the listing reads EVERY run/process trace file (newest file
+        # first), not just the newest run's — a fleet leaves one file
+        # per process behind
+        summaries = []
+        read_files = []
+        captured = dropped = 0
+        for path in files:
+            try:
+                doc = load_trace_file(path)
+            except (OSError, ValueError) as e:
+                log.warning("trace: cannot read %s: %s", path, e)
+                continue
+            read_files.append(path)
+            summaries.extend(doc.get("shifuTraces", []))
+            summ = doc.get("summary") or {}
+            captured += int(summ.get("count") or 0)
+            dropped += int(summ.get("dropped") or 0)
+        if not read_files:
+            log.error("trace: none of %d trace file(s) were readable",
+                      len(files))
+            return 2
+        if args.slowest is not None:
+            summaries = slowest_summaries(summaries, args.slowest,
+                                          stage=args.stage)
+        else:
+            summaries = summaries[:args.last
+                                  if args.last is not None else 10]
+        if args.as_json:
+            print(json.dumps({"files": read_files,
+                              "captured": captured,
+                              "dropped": dropped,
+                              "traces": summaries},
+                             indent=2, sort_keys=True))
+        else:
+            print(f"{len(read_files)} trace file(s), {captured} "
+                  f"trace(s), dropped {dropped}")
+            print(format_trace_table(summaries))
+        return 0
+    if cmd == "top":
+        from shifu_tpu_torch.obs.top import run_top
+
+        return run_top(args.url, interval_s=args.interval,
+                       once=args.once, as_json=args.as_json)
+    if cmd == "runs":
+        import json
+
+        from shifu_tpu_torch.obs.ledger import format_runs, list_runs
+
+        if args.resumable:
+            from shifu_tpu_torch.resilience.checkpoint import list_resumable
+
+            entries = list_resumable(".")
+            if args.as_json:
+                print(json.dumps(entries, indent=2, sort_keys=True))
+            elif not entries:
+                print("(no resumable stream checkpoints under "
+                      ".shifu/runs/ckpt)")
+            else:
+                print(f"{'STREAM':<24} {'CHUNK':>6} {'BYTES':>10} "
+                      f"CONFIG-SHA")
+                coresident = False
+                for e in entries:
+                    if e.get("corrupt"):
+                        print(f"{e['name']:<24} {'?':>6} "
+                              f"{e['bytes']:>10} (corrupt)")
+                    elif e.get("family") == "coresident":
+                        # an evicted co-resident trainer snapshot: one
+                        # aggregated row for the whole per-stage family
+                        coresident = True
+                        print(f"{e['name']:<24} {'-':>6} "
+                              f"{e['bytes']:>10} {e['configSha']} "
+                              f"(coresident epoch={e.get('epoch')} "
+                              f"stages={e.get('stages')})")
+                    else:
+                        print(f"{e['name']:<24} {e['chunkIndex']:>6} "
+                              f"{e['bytes']:>10} {e['configSha']}")
+                print("resume with: shifu <step> --resume")
+                if coresident:
+                    print("coresident rows resume with: shifu retrain "
+                          "--coresident --resume (same stage count — a "
+                          "changed -Dshifu.coresident.stages rejects "
+                          "the snapshot and starts fresh)")
+            return 0
+        if args.diff:
+            from shifu_tpu_torch.obs.profile import (
+                diff_metric_snapshots,
+                render_diff,
+                resolve_manifest,
+            )
+
+            try:
+                ma = resolve_manifest(".", args.diff[0])
+                mb = resolve_manifest(".", args.diff[1])
+            except (OSError, ValueError) as e:
+                log.error("runs --diff: %s", e)
+                return 2
+            rows = diff_metric_snapshots(ma, mb)
+            if args.as_json:
+                print(json.dumps(rows, indent=2, sort_keys=True))
+            else:
+                print(render_diff(
+                    f"metrics diff: {ma.get('step')}-{ma.get('seq')} -> "
+                    f"{mb.get('step')}-{mb.get('seq')}", rows))
+            return 0
+        manifests = list_runs(".", last=args.last, step=args.step)
+        if args.as_json:
+            print(json.dumps(manifests, indent=2, sort_keys=True))
+        else:
+            print(format_runs(manifests, show_traces=args.traces))
+        return 0
+    if cmd == "profile":
+        import json
+
+        from shifu_tpu_torch.obs.ledger import list_runs
+        from shifu_tpu_torch.obs.profile import (
+            diff_profiles,
+            format_profile,
+            render_diff,
+            resolve_manifest,
+        )
+
+        if args.diff:
+            try:
+                ma = resolve_manifest(".", args.diff[0])
+                mb = resolve_manifest(".", args.diff[1])
+            except (OSError, ValueError) as e:
+                log.error("profile --diff: %s", e)
+                return 2
+            rows, breaches = diff_profiles(ma, mb, {
+                "flopsPct": args.flops_pct,
+                "bytesPct": args.bytes_pct,
+                "hbmPct": args.hbm_pct,
+                "secondsPct": args.seconds_pct,
+            })
+            if args.as_json:
+                print(json.dumps({"rows": rows, "breaches": breaches},
+                                 indent=2, sort_keys=True))
+            else:
+                print(render_diff(
+                    f"profile diff: {ma.get('step')}-{ma.get('seq')} -> "
+                    f"{mb.get('step')}-{mb.get('seq')}", rows, breaches))
+            return 1 if breaches else 0
+        last = args.last if args.last is not None else (
+            1 if args.step else 5)
+        manifests = list_runs(".", last=last, step=args.step)
+        if not manifests:
+            print("(no runs recorded under .shifu/runs)")
+            return 0
+        if args.as_json:
+            print(json.dumps(
+                [{"step": m.get("step"), "seq": m.get("seq"),
+                  "path": m.get("path"), "profile": m.get("profile")}
+                 for m in manifests], indent=2, sort_keys=True))
+        else:
+            print("\n\n".join(format_profile(m) for m in manifests))
+        return 0
     if cmd in ("save", "switch", "show"):
         from shifu_tpu_torch.processor.manage import ManageProcessor
 
@@ -351,6 +680,7 @@ def serve(args: argparse.Namespace) -> int:
     import signal
     import threading
 
+    from shifu_tpu_torch.analysis import sanitize
     from shifu_tpu_torch.serve.server import ScoringServer
 
     if args.zoo or args.traffic_log is not None:
@@ -358,6 +688,9 @@ def serve(args: argparse.Namespace) -> int:
         raise NotImplementedError(
             f"serve {flag} is not ported yet: ROADMAP A.14")
     try:
+        # -Dshifu.sanitize=race: parsed (a bad mode fails here) before the
+        # server exists, so its race-tracked locks are built armed
+        san = sanitize.from_environment()
         sizes = ([int(s) for s in args.warm.split(",") if s.strip()]
                  if args.warm else [])
         server = ScoringServer(
@@ -383,5 +716,8 @@ def serve(args: argparse.Namespace) -> int:
     # the bound port on stdout is the contract for scripted callers
     print(f"listening on {server.host}:{server.port} "
           f"({len(server.registry.replicas)} replica(s))", flush=True)
-    server.serve_forever()
+    # the sanitizer scope of the whole serving run: the shutdown manifest
+    # embeds its shifu.sanitize/1 verdict
+    with sanitize.activate(san):
+        server.serve_forever()
     return 0

@@ -82,19 +82,23 @@ def prefetch_iter(source: Iterable[Any], depth: Optional[int] = None,
         depth = prefetch_chunks_setting()
 
     def _produce(it: Iterator[Any]):
+        from shifu_tpu_torch.obs import registry
+
         chaos = faults.plan_active()
         if chaos:
             retry.retry_call(lambda: faults.fault_point("io"), seam="io")
         item = next(it)
-        if transform is None:
-            return item
-        if chaos:
-            def _apply(i=item):
-                faults.fault_point("prefetch")
-                return transform(i)
+        if transform is not None:
+            if chaos:
+                def _apply(i=item):
+                    faults.fault_point("prefetch")
+                    return transform(i)
 
-            return retry.retry_call(_apply, seam="prefetch")
-        return transform(item)
+                item = retry.retry_call(_apply, seam="prefetch")
+            else:
+                item = transform(item)
+        registry().counter("pipeline.chunks").inc()
+        return item
 
     if depth <= 0:
         def _serial() -> Iterator[Any]:
@@ -173,7 +177,7 @@ class HostPlan:
     no coordination. `local_index(ci) = ci // H` numbers a host's own
     chunks densely for the shard round-robin underneath. H = 1 is the
     one-process plan: every chunk owned. `record` counts `host.chunks` /
-    `host.rows` by host and stage (`counters`)."""
+    `host.rows{host=,stage=}` in the obs registry."""
 
     def __init__(self, n_hosts: Optional[int] = None,
                  host_index: Optional[int] = None) -> None:
@@ -186,8 +190,6 @@ class HostPlan:
                 f"host index {self.host_index} outside [0, {self.n_hosts})"
                 " — check -Dshifu.lifecycle.hostIndex vs"
                 " -Dshifu.lifecycle.hosts")
-        self.counters: Dict[str, Dict[str, int]] = {"host.chunks": {},
-                                                    "host.rows": {}}
 
     @property
     def active(self) -> bool:
@@ -210,16 +212,33 @@ class HostPlan:
         return chunk_index // self.n_hosts
 
     def record(self, rows: int, stage: str) -> None:
-        """One folded chunk of `rows` rows at `stage` on this host."""
-        for name, n in (("host.chunks", 1), ("host.rows", rows)):
-            d = self.counters[name]
-            d[stage] = d.get(stage, 0) + int(n)
+        """Per-host obs: host.chunks / host.rows land in every manifest
+        labeled by host and lifecycle stage (each process only ever
+        increments its OWN host label, so two processes' manifests are
+        disjoint by construction)."""
+        from shifu_tpu_torch.obs import registry
+
+        reg = registry()
+        h = str(self.host_index)
+        reg.counter("host.chunks", host=h, stage=stage).inc()
+        reg.counter("host.rows", host=h, stage=stage).inc(rows)
 
     def describe(self) -> str:
-        """`host h/H` and the counters as JSON: the line a multi-host
-        step logs when its barrier has passed."""
+        """`host h/H` and this host's `host.chunks` / `host.rows` by
+        stage as JSON: the line a multi-host step logs when its barrier
+        has passed."""
+        from shifu_tpu_torch.obs import registry
+        from shifu_tpu_torch.obs.metrics import _parse_key
+
+        counters: Dict[str, Dict[str, int]] = {"host.chunks": {},
+                                               "host.rows": {}}
+        for key, v in registry().snapshot()["counters"].items():
+            name, labels = _parse_key(key)
+            if (name in counters
+                    and labels.get("host") == str(self.host_index)):
+                counters[name][labels["stage"]] = int(v)
         return (f"host {self.host_index}/{self.n_hosts} counters "
-                f"{json.dumps(self.counters, sort_keys=True)}")
+                f"{json.dumps(counters, sort_keys=True)}")
 
 
 class ShardPlan:
@@ -248,6 +267,15 @@ class ShardPlan:
             ci = pair[0]
             if self.host.owns(ci) and ci > cursors[self.shard_of(ci)]:
                 yield pair
+
+    def record(self, shard: int, rows: int, stage: str) -> None:
+        """Per-shard obs: shard.chunks / shard.rows land in every
+        manifest, labeled by shard and lifecycle stage."""
+        from shifu_tpu_torch.obs import registry
+
+        reg = registry()
+        reg.counter("shard.chunks", shard=str(shard), stage=stage).inc()
+        reg.counter("shard.rows", shard=str(shard), stage=stage).inc(rows)
 
 
 # BinAggregates fields in order; the running state keeps the counts in

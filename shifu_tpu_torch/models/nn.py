@@ -276,7 +276,10 @@ class IndependentNNModel:
     def compute_all(self, x: np.ndarray) -> np.ndarray:
         """All output neurons: [n, n_out] (multi-class NATIVE models emit
         one score per class)."""
+        from shifu_tpu_torch.obs import profile
+
         h = torch.as_tensor(np.asarray(x, dtype=np.float32),
                             device=self.device)
         with torch.no_grad():
-            return self.mlp(h).cpu().numpy()
+            return profile.dispatch("nn.forward", self.mlp, h,
+                                    sync=True).cpu().numpy()

@@ -54,6 +54,7 @@ from shifu_tpu_torch.config.model_config import (
     NormType,
 )
 from shifu_tpu_torch.data.reader import ColumnarData
+from shifu_tpu_torch.obs import profile
 from shifu_tpu_torch.stats.binning import (
     category_index,
     hybrid_bin_index,
@@ -510,9 +511,11 @@ def apply_norm_plan(
         ev[0].record()
     out = {}
     if "value" in args:
-        out["value"] = value_norm(*args["value"])
+        out["value"] = profile.dispatch("norm.value_kernel", value_norm,
+                                        *args["value"], sync=False)
     if "table" in args:
-        out["table"] = table_norm(*args["table"])
+        out["table"] = profile.dispatch("norm.table_kernel", table_norm,
+                                        *args["table"], sync=False)
     if cuda:
         ev[1].record()
     out = {k: v.cpu().numpy() for k, v in out.items()}

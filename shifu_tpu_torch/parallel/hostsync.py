@@ -20,8 +20,9 @@ by a run of other chunk geometry or columns). A fresh run calls
 `clear_part` before streaming, so a crashed fleet never leaves a part a
 later barrier could take for this run's.
 
-The JAX package's host.parts_published / host.parts_merged /
-host.await_seconds metrics are the plain `counters` here, by step.
+Each barrier records `host.parts_published{step=,host=}`,
+`host.parts_merged{step=}` and the timer `host.await_seconds{step=}` in
+the obs registry, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ from __future__ import annotations
 import io
 import json
 import os
-import threading
 import time
 import zipfile
 from typing import Dict, List, Optional, Tuple
@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from shifu_tpu_torch.analysis import sanitize
+from shifu_tpu_torch.obs import registry
 from shifu_tpu_torch.resilience.checkpoint import atomic_write
 from shifu_tpu_torch.utils import environment
 from shifu_tpu_torch.utils.log import get_logger
@@ -51,26 +52,6 @@ HOSTS_SUBDIR = os.path.join(".shifu", "runs", "hosts")
 DEFAULT_WAIT_MS = 600_000
 
 Part = Tuple[Dict[str, np.ndarray], dict, Optional[bytes]]
-
-# host.parts_published / host.parts_merged (counts) and
-# host.await_seconds (seconds), by step
-counters: Dict[str, Dict[str, float]] = {
-    "host.parts_published": {}, "host.parts_merged": {},
-    "host.await_seconds": {}}
-_counter_lock = threading.Lock()
-
-
-def _count(name: str, step: str, n: float) -> None:
-    with _counter_lock:
-        d = counters[name]
-        d[step] = d.get(step, 0) + n
-
-
-def reset_counters() -> None:
-    with _counter_lock:
-        for d in counters.values():
-            d.clear()
-
 
 def host_wait_ms_setting() -> float:
     """shifu.lifecycle.hostWaitMs — how long a host waits for its peers'
@@ -117,7 +98,8 @@ def publish_part(root: str, step: str, host_plan, sha: str,
     np.savez(buf, **payload)
     path = atomic_write(part_path(root, step, host_plan.host_index),
                         buf.getvalue())
-    _count("host.parts_published", step, 1)
+    registry().counter("host.parts_published", step=step,
+                       host=str(host_plan.host_index)).inc()
     return path
 
 
@@ -183,8 +165,9 @@ def await_parts(root: str, step: str, host_plan, sha: str,
         parts[own][1].get("sanitize") if own in parts else None,
         {h: hdr.get("sanitize") for h, (_a, hdr, _b) in parts.items()})
     waited = time.monotonic() - t0
-    _count("host.await_seconds", step, waited)
-    _count("host.parts_merged", step, H)
+    reg = registry()
+    reg.timer("host.await_seconds", step=step).add(waited)
+    reg.counter("host.parts_merged", step=step).inc(H)
     log.info("host barrier '%s': %d parts in %.3f s", step, H, waited)
     return [(a, hdr.get("meta", {}), b)
             for a, hdr, b in (parts[h] for h in range(H))]

@@ -35,6 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from shifu_tpu_torch.obs import registry
 from shifu_tpu_torch.utils import environment
 from shifu_tpu_torch.utils.errors import ErrorCode, ShifuError
 from shifu_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -101,6 +102,7 @@ def data_mesh(n_devices: Optional[int] = None, model_axis: int = 1,
             raise ValueError(f"data_mesh({n_devices}): {count} card(s)")
         devices = [torch.device("cuda", i) for i in range(n)]
     n = len(devices)
+    registry().gauge("mesh.devices").set(n)
     if dcn_slices and dcn_slices > 1:
         if n % dcn_slices:
             raise ValueError(f"{n} shards do not split into {dcn_slices} "
@@ -216,6 +218,9 @@ def shard_rows(array, mesh: Mesh) -> List[torch.Tensor]:
     if t.shape[0] % S:
         raise ValueError(f"{t.shape[0]} rows do not split over {S} shards")
     b = t.shape[0] // S
+    reg = registry()
+    reg.counter("mesh.shard_rows", axes="x".join(row_axes(mesh))).inc()
+    reg.counter("mesh.h2d_bytes").inc(float(t.numel() * t.element_size()))
     return [t[s * b:(s + 1) * b].to(d).contiguous()
             for s, d in enumerate(mesh.devices)]
 
@@ -252,6 +257,9 @@ def mesh_device(mesh: Optional[Mesh], device: DeviceLike
 def replicate(t: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
     """One copy of `t` a distinct device, as a list a shard (shards on
     one device share it)."""
+    reg = registry()
+    reg.counter("mesh.replicated_arrays").inc()
+    reg.counter("mesh.h2d_bytes").inc(float(t.numel() * t.element_size()))
     by_dev = {d: (t if t.device == d else t.to(d, non_blocking=True))
               for d in mesh.distinct()}
     return [by_dev[d] for d in mesh.devices]

@@ -9,10 +9,11 @@ tag|weight|mean|max|min|median|model0..modelN (+ scoreMetaColumns echo).
 The eval set is read on the host, normalized or binned there (the value and
 table norms on the device), each model scores it on the device, and the
 aggregates, the score file, the sweep and the charts are numpy and text on
-the host, formatted as the JAX package formats them. The JAX package's
-`eval.*` counters and gauges are plain numbers here (`metrics`, by eval
-set), beside the stage seconds of the last run (`timings`); the obs
-envelope is ROADMAP A.14. An eval set past `shifu.ingest.memoryBudgetMB`
+the host, formatted as the JAX package formats them. The `eval.*`
+counters and gauges go to the obs registry, labeled by eval set, as in
+the JAX package; `metrics` holds the last run's, read back by eval set
+for the caller, beside the stage seconds of the last run (`timings`). An eval set
+past `shifu.ingest.memoryBudgetMB`
 (or `shifu.ingest.forceStreaming`) is scored chunk by chunk, appending to
 the score file, with stream checkpoints and `--resume`; a score file past
 the budget takes the streamed perf sweep and multi-class confusion.
@@ -45,6 +46,8 @@ from shifu_tpu_torch.eval.scorefile import (SCORE_COLUMN, SEP,
                                             iter_score_tables,
                                             read_score_file,
                                             read_score_header)
+from shifu_tpu_torch.obs import registry
+from shifu_tpu_torch.obs.metrics import _parse_key
 from shifu_tpu_torch.processor.basic import BasicProcessor
 from shifu_tpu_torch.utils.errors import ErrorCode, ShifuError
 from shifu_tpu_torch.utils.log import get_logger
@@ -87,6 +90,19 @@ def _score_rows(tags, weights, result, meta_cols) -> str:
     return "\n".join(map(SEP.join, zip(*fields))) + "\n"
 
 
+def eval_metrics(snap: dict) -> Dict[str, Dict[str, float]]:
+    """{eval set: {records, records_pos, ..., auc, accuracy, ...}}: the
+    `eval.*` counters and gauges of a registry snapshot, by their `eval`
+    label."""
+    out: Dict[str, Dict[str, float]] = {}
+    for kind in ("counters", "gauges"):
+        for key, v in snap[kind].items():
+            name, labels = _parse_key(key)
+            if name.startswith("eval.") and "eval" in labels:
+                out.setdefault(labels["eval"], {})[name[len("eval."):]] = v
+    return out
+
+
 class EvalProcessor(BasicProcessor):
     step = "eval"
 
@@ -118,7 +134,7 @@ class EvalProcessor(BasicProcessor):
         self.perf_name = perf_name
         # seconds of each stage of the last run (read, normalize or codes,
         # forward, aggregate, reasons, write, perf) and the forwards'
-        # device ms (cuda only); the JAX package's eval.* metrics by set
+        # device ms (cuda only); the last run's eval.* series by set
         self.timings: Dict[str, float] = {}
         self.metrics: Dict[str, Dict[str, float]] = {}
 
@@ -138,6 +154,14 @@ class EvalProcessor(BasicProcessor):
         self.timings[key] = self.timings.get(key, 0.0) + value
 
     def run_step(self) -> None:
+        try:
+            self._run_step()
+        finally:
+            # the run's eval.* series, kept for the caller once the
+            # registry has moved on to the next step
+            self.metrics = eval_metrics(registry().snapshot())
+
+    def _run_step(self) -> None:
         hp = self.host_plan if self.host_plan is not None else HostPlan()
         if hp.active and not hp.is_merge_host:
             # one append-order score file: the merge host runs the whole
@@ -294,9 +318,8 @@ class EvalProcessor(BasicProcessor):
         self._add("write", time.perf_counter() - t3)
         n_pos = int((tags == 1).sum())
         n_neg = int((tags == 0).sum())
-        self.metrics.setdefault(ec.name, {}).update(
-            records=data.n_rows, records_pos=n_pos, records_neg=n_neg,
-            models=len(paths))
+        self._record_score_metrics(ec.name, data.n_rows, n_pos, n_neg,
+                                   len(paths))
         log.info("eval %s scored %d records (%d pos / %d neg) with %d "
                  "models -> %s", ec.name, data.n_rows, n_pos, n_neg,
                  len(paths), out)
@@ -404,6 +427,7 @@ class EvalProcessor(BasicProcessor):
                 shard = shard_plan.shard_of(ci)
                 cursors[shard] = ci
                 shard_rows[shard] += chunk.n_rows
+                shard_plan.record(shard, chunk.n_rows, "eval.score")
                 if ck is not None:
                     def _state(_fh=fh):
                         _fh.flush()
@@ -422,12 +446,18 @@ class EvalProcessor(BasicProcessor):
         if ck is not None:
             ck.clear()
         self._add("stream", time.perf_counter() - t0)
-        self.metrics.setdefault(ec.name, {}).update(
-            records=n_rows, records_pos=n_pos, records_neg=n_neg,
-            models=len(paths))
+        self._record_score_metrics(ec.name, n_rows, n_pos, n_neg, len(paths))
         log.info("eval %s STREAMED %d records (%d pos / %d neg) with %d "
                  "models -> %s", ec.name, n_rows, n_pos, n_neg, len(paths),
                  out)
+
+    def _record_score_metrics(self, name: str, n_rows: int, n_pos: int,
+                              n_neg: int, n_models: int) -> None:
+        reg = registry()
+        reg.counter("eval.records", eval=name).inc(n_rows)
+        reg.counter("eval.records_pos", eval=name).inc(n_pos)
+        reg.counter("eval.records_neg", eval=name).inc(n_neg)
+        reg.gauge("eval.models", eval=name).set(n_models)
 
     def _eval_stream_sha(self, ec: EvalConfig, paths: List[str],
                          n_shards: int) -> str:
@@ -575,9 +605,10 @@ class EvalProcessor(BasicProcessor):
         with open(self.paths.gain_chart_path(ec.name), "w") as fh:
             fh.write(chart)
         self._add("perf", time.perf_counter() - t0)
-        self.metrics.setdefault(ec.name, {}).update(
-            auc=perf.area_under_roc,
-            weighted_auc=perf.weighted_area_under_roc)
+        reg = registry()
+        reg.gauge("eval.auc", eval=ec.name).set(perf.area_under_roc)
+        reg.gauge("eval.weighted_auc", eval=ec.name).set(
+            perf.weighted_area_under_roc)
         log.info(
             "eval %s: AUC %.6f (weighted %.6f); perf -> %s, chart -> %s",
             ec.name, perf.area_under_roc, perf.weighted_area_under_roc,
@@ -650,9 +681,12 @@ class EvalProcessor(BasicProcessor):
         with open(cm_path, "w") as fh:
             fh.write(confusion_matrix_text(matrix, class_tags))
         acc = multiclass_accuracy(matrix)
-        self.metrics.setdefault(ec.name, {}).update(
-            accuracy=acc, confusion_diagonal=float(np.trace(matrix)),
-            confusion_offdiagonal=float(matrix.sum() - np.trace(matrix)))
+        reg = registry()
+        reg.gauge("eval.accuracy", eval=ec.name).set(acc)
+        reg.counter("eval.confusion_diagonal", eval=ec.name).inc(
+            float(np.trace(matrix)))
+        reg.counter("eval.confusion_offdiagonal", eval=ec.name).inc(
+            float(matrix.sum() - np.trace(matrix)))
         perf_path = self.paths.eval_performance_path(ec.name)
         with open(perf_path, "w") as fh:
             json.dump({

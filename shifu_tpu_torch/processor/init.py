@@ -21,10 +21,11 @@ import pickle
 from typing import List, Optional, Set
 
 from shifu_tpu_torch.config import ColumnConfig, ColumnFlag, ColumnType
-from shifu_tpu_torch.data.pipeline import HostPlan
+from shifu_tpu_torch.data.pipeline import HostPlan, ShardPlan
 from shifu_tpu_torch.data.reader import read_header, strip_namespace
 from shifu_tpu_torch.data.stream import iter_columnar_chunks
 from shifu_tpu_torch.fs.listing import expand_paths
+from shifu_tpu_torch.obs import registry
 from shifu_tpu_torch.parallel import hostsync
 from shifu_tpu_torch.processor.basic import BasicProcessor
 from shifu_tpu_torch.resilience.checkpoint import config_sha
@@ -141,6 +142,10 @@ class InitProcessor(BasicProcessor):
         missing = tuple(ds.missing_or_invalid_values)
         sketches = {cc.column_name: AutoTypeSketch(missing)
                     for cc in candidates}
+        # the JAX package folds a sketch set a row shard; one set here,
+        # the chunks still counted by the lifecycle shard they map to
+        plan = ShardPlan(device=self.device, host=hp)
+        reg = registry()
         if hp.active:
             # a part an earlier run left must not satisfy a peer's barrier
             hostsync.clear_part(self.root, "init-autotype", hp)
@@ -158,6 +163,8 @@ class InitProcessor(BasicProcessor):
                 continue
             for cc in candidates:
                 sketches[cc.column_name].update(chunk.column(cc.column_name))
+            reg.counter("pipeline.chunks").inc()
+            plan.record(plan.shard_of(ci), chunk.n_rows, "init.autotype")
             hp.record(chunk.n_rows, "init.autotype")
         if hp.active:
             # all-gather the hosts' sketch sets; every host merges them in

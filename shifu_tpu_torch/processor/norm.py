@@ -41,6 +41,7 @@ from shifu_tpu_torch.data.reader import (
     read_header,
 )
 from shifu_tpu_torch.data.stream import should_stream
+from shifu_tpu_torch.obs import registry, span
 from shifu_tpu_torch.norm.dataset import write_codes, write_normalized
 from shifu_tpu_torch.norm.normalizer import (
     _slots,
@@ -135,10 +136,16 @@ class NormProcessor(BasicProcessor):
         t1 = time.perf_counter()
         t["read"] = t1 - t0
 
+        reg = registry()
+        timers = reg.stage_timers("norm.stage")
         plan = build_norm_plan(mc, self.column_configs)
         code_cache: dict = {}
-        feats = apply_norm_plan(plan, data, device=self.device,
-                                code_cache=code_cache, timings=t)
+        with span("norm.normalize", rows=data.n_rows), \
+                timers.timer("normalize"):
+            feats = apply_norm_plan(plan, data, device=self.device,
+                                    code_cache=code_cache, timings=t)
+        reg.counter("norm.rows").inc(int(feats.shape[0]))
+        reg.gauge("norm.columns").set(int(feats.shape[1]))
         t2 = time.perf_counter()
         t["normalize"] = t2 - t1
         n_shards = default_shards(self.device)
@@ -148,16 +155,17 @@ class NormProcessor(BasicProcessor):
         # the plan against possibly-changed ColumnConfigs
         extra = {"sourceOf": plan.source_of}
         self._add_class_meta(extra, tags)
-        write_normalized(
-            out_dir,
-            feats,
-            tags,
-            weights,
-            plan.out_names,
-            norm_type=mc.normalize.norm_type.value,
-            n_shards=n_shards,
-            extra=extra,
-        )
+        with span("norm.write", shards=n_shards), timers.timer("write"):
+            write_normalized(
+                out_dir,
+                feats,
+                tags,
+                weights,
+                plan.out_names,
+                norm_type=mc.normalize.norm_type.value,
+                n_shards=n_shards,
+                extra=extra,
+            )
         t3 = time.perf_counter()
         t["write"] = t3 - t2
         log.info(
@@ -168,16 +176,17 @@ class NormProcessor(BasicProcessor):
 
         # tree-model bin codes
         tree_cols = norm_columns(self.column_configs)
-        codes = bin_code_matrix(tree_cols, data, cache=code_cache)
-        write_codes(
-            self.paths.cleaned_data_dir(),
-            codes,
-            tags,
-            weights,
-            [c.column_name for c in tree_cols],
-            [_slots(c) for c in tree_cols],
-            n_shards=n_shards,
-        )
+        with span("norm.bincode"), timers.timer("bincode"):
+            codes = bin_code_matrix(tree_cols, data, cache=code_cache)
+            write_codes(
+                self.paths.cleaned_data_dir(),
+                codes,
+                tags,
+                weights,
+                [c.column_name for c in tree_cols],
+                [_slots(c) for c in tree_cols],
+                n_shards=n_shards,
+            )
         t["bincode"] = time.perf_counter() - t3
         log.info("bin codes -> %s", self.paths.cleaned_data_dir())
 
@@ -389,9 +398,10 @@ class NormProcessor(BasicProcessor):
             else:
                 feat_writer.add(feats, tags, weights)
                 code_writer.add(codes, tags, weights)
-            hp.record(len(tags), "norm")
             n_rows += len(tags)
             shard = shard_plan.shard_of(ci)
+            shard_plan.record(shard, len(tags), "norm")
+            hp.record(len(tags), "norm")
             cursors[shard] = ci
             shard_rows[shard] += len(tags)
             for tg, c in zip(*np.unique(tags, return_counts=True)):
@@ -400,6 +410,9 @@ class NormProcessor(BasicProcessor):
                 ck.maybe_save(_ckpt_state)
         if ck is not None:
             ck.clear()
+        reg = registry()
+        reg.counter("norm.rows").inc(n_rows)  # this host's streamed rows
+        reg.gauge("norm.columns").set(len(plan.out_names))
         feat_union: Dict[int, int] = {}
         code_union: Dict[int, int] = {}
         if hp.active:

@@ -132,6 +132,7 @@ class StatsProcessor(BasicProcessor):
                 corr_accs = [StreamingCorrelation(self.device, shift=shift)
                              for _ in range(S)]
             s = plan.shard_of(ci)
+            plan.record(s, chunk.n_rows, "corrpsi")
             if corr_accs is not None:
                 corr_accs[s].update(chunk, self.column_configs)
             if psi_accs is not None:

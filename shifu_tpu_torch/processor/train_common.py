@@ -4,6 +4,10 @@
 The progress-line format is a CONTRACT (the reference's NNOutput progress
 files are tailed by TailThread and parsed by downstream tooling,
 TrainModelProcessor.java:1862) — it must exist in exactly one place.
+
+Both writers ALSO record the per-epoch errors as registry time series
+(train.train_error / train.valid_error labeled by trainer), so the run
+manifest carries the full loss curve, not just the tail of a progress file.
 """
 
 from __future__ import annotations
@@ -19,9 +23,15 @@ def progress_line(trainer_id: int, epoch: int, train_err: float,
 
 def record_epoch(trainer_id: int, epoch: int, train_err: float,
                  valid_err: float) -> None:
-    """No-op: the JAX package records each epoch's errors as registry time
-    series for its run manifest; the port's metrics registry is ROADMAP
-    A.14."""
+    """Per-epoch loss point -> registry series (resolved at call time so a
+    step-boundary registry reset redirects recording transparently)."""
+    from shifu_tpu_torch.obs import registry
+
+    reg = registry()
+    reg.series("train.train_error", trainer=trainer_id).append(
+        epoch, train_err)
+    reg.series("train.valid_error", trainer=trainer_id).append(
+        epoch, valid_err)
 
 
 def progress_writer(path: str, trainer_id: int = 0,

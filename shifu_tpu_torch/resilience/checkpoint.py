@@ -47,6 +47,14 @@ META_KEY = "__meta__"
 BLOB_KEY = "__blob__"
 
 
+def _registry():
+    """The obs registry (`ckpt.*` counters), imported late: obs imports
+    this module's atomic writes."""
+    from shifu_tpu_torch.obs import registry
+
+    return registry()
+
+
 def every_chunks_setting() -> int:
     """shifu.ckpt.everyChunks — chunks between snapshots (<= 0: none)."""
     return environment.get_int("shifu.ckpt.everyChunks",
@@ -187,8 +195,11 @@ class StreamCheckpoint:
         data = buf.getvalue()
         # retried: a transient failure of the snapshot write must not
         # kill the stream it protects
-        return retry.retry_call(lambda: atomic_write(self.path, data),
-                                seam="ckpt")
+        retry.retry_call(lambda: atomic_write(self.path, data), seam="ckpt")
+        reg = _registry()
+        reg.counter("ckpt.writes").inc()
+        reg.counter("ckpt.bytes").inc(len(data))
+        return self.path
 
     def maybe_save(self, chunk_index: int, state_fn: Callable[[], tuple]
                    ) -> bool:
@@ -220,6 +231,7 @@ class StreamCheckpoint:
         except Exception as e:  # corrupt or truncated: start fresh
             log.warning("checkpoint %s unreadable (%s); starting fresh",
                         self.path, e)
+            _registry().counter("ckpt.rejected", reason="corrupt").inc()
             return None
         if header.get("configSha") != self.config_sha:
             stored = header.get("sections") or {}
@@ -232,7 +244,10 @@ class StreamCheckpoint:
                         "(%s != %s; diverged section(s): %s); starting "
                         "fresh", self.path, header.get("configSha"),
                         self.config_sha, diverged)
+            _registry().counter("ckpt.rejected", reason="config",
+                                section=diverged).inc()
             return None
+        _registry().counter("ckpt.resumes").inc()
         return int(header["chunkIndex"]), arrays, header.get("meta", {}), blob
 
     def clear(self) -> None:
@@ -324,11 +339,13 @@ class ShardedStreamCheckpoint:
         meta = shared[2]
         epoch, slot = meta.get("epoch"), meta.get("slot")
         if epoch is None or slot not in self._SLOTS:
+            _registry().counter("ckpt.rejected", reason="partial").inc()
             return None
         if meta.get("shards") != self.n_shards:
             log.warning("sharded checkpoint %s was written with %s shards "
                         "(now %d); starting fresh", self.base,
                         meta.get("shards"), self.n_shards)
+            _registry().counter("ckpt.rejected", reason="shards").inc()
             return None
         if meta.get("hosts", 1) != self.n_hosts:
             # the chunk -> host assignment moved: every stored cursor
@@ -336,12 +353,16 @@ class ShardedStreamCheckpoint:
             log.warning("sharded checkpoint %s was written with %s hosts "
                         "(now %d); starting fresh", self._family,
                         meta.get("hosts", 1), self.n_hosts)
+            _registry().counter("ckpt.rejected", reason="hosts").inc()
             return None
         loads = [cks[slot].load() for cks in self._shards]
-        if any(ld is None for ld in loads) or \
-                {ld[2].get("epoch") for ld in loads} != {epoch}:
+        if any(ld is None for ld in loads):
+            _registry().counter("ckpt.rejected", reason="partial").inc()
+            return None
+        if {ld[2].get("epoch") for ld in loads} != {epoch}:
             log.warning("sharded checkpoint %s slot %s is incomplete; "
                         "starting fresh", self.base, slot)
+            _registry().counter("ckpt.rejected", reason="epoch").inc()
             return None
         self._epoch = int(epoch)
         return ([ld[0] for ld in loads],

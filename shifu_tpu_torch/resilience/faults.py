@@ -38,10 +38,11 @@ Examples::
   * `device_dead@replica=1` — serving replica 1's dispatches fail
     persistently: its breaker opens and its requests fail over.
 
-The `device` seam (compiled-program dispatch, `obs/profile.py` in the JAX
-package) and the `lease_stall` / `peer_kill` seams (the heartbeat leases,
-`resilience/lease.py`) have no seam in the port yet: a clause naming one
-raises `FaultSpecError` naming ROADMAP A.14 at parse, never arms silently.
+The `device` seam is every profile dispatch (`obs/profile.py`
+`dispatch`), retried under `shifu.retry.device.*`. The `lease_stall` /
+`peer_kill` seams (the heartbeat leases, `resilience/lease.py` in the JAX
+package) have no seam in the port yet: a clause naming one raises
+`FaultSpecError` naming ROADMAP A.14 at parse, never arms silently.
 
 Each seam calls `fault_point(counter)`; a scheduled clause fires when the
 1-based per-process event count reaches N, so a resumed run counts only
@@ -49,21 +50,21 @@ the chunks it re-processes. A caller may pass an absolute `index`
 (ordinal = index + 1); probabilistic draws are then a pure function of
 (seed, counter, index).
 
-The JAX package's `fault.injected{seam=}` / `fault.survived{seam=}`
-metrics are plain counter dicts here (`counters`), keyed by seam (and
-`seam@replica=N` when the firing seam carried a replica context).
+Every firing counts `fault.injected{seam=}` (with `replica=` when the
+firing seam carried a replica context) and every absorbed fault
+`fault.survived{seam=}` in the obs registry, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import signal
-import threading
 import time
 import zlib
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from shifu_tpu_torch.analysis.racetrack import tracked_lock
 from shifu_tpu_torch.utils import environment
 from shifu_tpu_torch.utils.log import get_logger
 
@@ -74,8 +75,7 @@ FAULTS_PROPERTY = "shifu.faults"
 SEAMS = ("io", "prefetch", "device", "ckpt", "serve", "preempt", "slow",
          "device_dead", "lease_stall", "peer_kill")
 # seams the port does not reach yet, and the ROADMAP item that adds each
-UNREACHED = {"device": "A.14 (obs/profile.py dispatch seam)",
-             "lease_stall": "A.14 (resilience/lease.py heartbeats)",
+UNREACHED = {"lease_stall": "A.14 (resilience/lease.py heartbeats)",
              "peer_kill": "A.14 (resilience/lease.py heartbeats)"}
 
 # seams that sleep instead of raising (latency injection)
@@ -85,24 +85,6 @@ CERTAIN_SEAMS = ("slow", "lease_stall", "device_dead", "peer_kill")
 
 DEFAULT_P = 0.01
 DEFAULT_SLOW_MS = 50.0
-
-# fault.injected / fault.survived, by seam label
-counters: Dict[str, Dict[str, int]] = {"fault.injected": {},
-                                       "fault.survived": {}}
-_counter_lock = threading.Lock()
-
-
-def _count(name: str, label: str, n: int = 1) -> None:
-    with _counter_lock:
-        d = counters[name]
-        d[label] = d.get(label, 0) + n
-
-
-def reset_counters() -> None:
-    with _counter_lock:
-        for d in counters.values():
-            d.clear()
-
 
 class FaultSpecError(ValueError):
     """Malformed -Dshifu.faults spec (raised at parse, not mid-run)."""
@@ -244,7 +226,7 @@ class FaultPlan:
         self.clauses = clauses
         self.spec = spec
         self._counts: Dict[str, int] = {}
-        self._lock = threading.Lock()
+        self._lock = tracked_lock("resilience.faults.plan")
 
     @classmethod
     def parse(cls, spec: str) -> "FaultPlan":
@@ -276,10 +258,13 @@ class FaultPlan:
             acting = sleeps + raisers[:1]
             for c in acting:
                 c.fired += 1
+        from shifu_tpu_torch.obs import registry
+
+        rep_label = ({} if replica is None
+                     else {"replica": str(replica)})
         for c in acting:
-            label = (c.seam if replica is None
-                     else f"{c.seam}@replica={replica}")
-            _count("fault.injected", label)
+            registry().counter("fault.injected", seam=c.seam,
+                               **rep_label).inc()
             if c.seam in SLEEP_SEAMS:
                 time.sleep(c.ms / 1000.0)
                 continue
@@ -295,7 +280,7 @@ class FaultPlan:
 # process-global plan (environment-armed) + test override
 # ---------------------------------------------------------------------------
 
-_lock = threading.Lock()
+_lock = tracked_lock("resilience.faults.module")
 _plan: Optional[FaultPlan] = None
 _plan_spec: Optional[str] = None
 _override: Optional[FaultPlan] = None
@@ -365,7 +350,9 @@ class activate:
 def survived(seam: str, n: int = 1) -> None:
     """Record that `n` injected faults at `seam` were absorbed (a retry
     recovered, a resume loaded its snapshot)."""
-    _count("fault.survived", seam, n)
+    from shifu_tpu_torch.obs import registry
+
+    registry().counter("fault.survived", seam=seam).inc(n)
 
 
 # ---------------------------------------------------------------------------

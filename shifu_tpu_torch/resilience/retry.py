@@ -15,17 +15,16 @@ Knobs (per-seam overrides take precedence over the globals)::
     shifu.retry.capMs          backoff ceiling, default 2000 ms
     shifu.retry.<seam>.max     e.g. -Dshifu.retry.io.max=5
 
-The JAX package's `retry.attempts` / `retry.recovered` /
-`retry.exhausted` metrics are plain counter dicts here (`counters`, by
-seam); recovered injected faults also count `fault.survived`.
+Each seam counts `retry.attempts` / `retry.recovered` /
+`retry.exhausted{seam=}` in the obs registry, as in the JAX package;
+recovered injected faults also count `fault.survived`.
 """
 
 from __future__ import annotations
 
 import random
-import threading
 import time
-from typing import Callable, Dict, Optional, Tuple, Type, TypeVar
+from typing import Callable, Optional, Tuple, Type, TypeVar
 
 from shifu_tpu_torch.resilience import faults
 from shifu_tpu_torch.resilience.faults import (InjectedFaultError,
@@ -47,24 +46,6 @@ DEFAULT_CAP_MS = 2000.0
 DEFAULT_TRANSIENT: Tuple[Type[BaseException], ...] = (
     InjectedFaultError, OSError, TimeoutError,
 )
-
-# retry.attempts / retry.recovered / retry.exhausted, by seam
-counters: Dict[str, Dict[str, int]] = {
-    "retry.attempts": {}, "retry.recovered": {}, "retry.exhausted": {}}
-_counter_lock = threading.Lock()
-
-
-def _count(name: str, seam: str) -> None:
-    with _counter_lock:
-        d = counters[name]
-        d[seam] = d.get(seam, 0) + 1
-
-
-def reset_counters() -> None:
-    with _counter_lock:
-        for d in counters.values():
-            d.clear()
-
 
 def max_attempts(seam: str) -> int:
     return max(1, environment.get_int(
@@ -117,7 +98,10 @@ def retry_call(
     """Call `fn()` under the seam's retry budget. Non-retryable
     exceptions (PreemptionError always) propagate untouched; a retryable
     one re-raises only once the budget is spent."""
+    from shifu_tpu_torch.obs import registry
+
     budget = max_attempts(seam)
+    reg = registry()
     failures = 0
     injected = 0
     while True:
@@ -130,18 +114,18 @@ def retry_call(
             if isinstance(e, InjectedFaultError):
                 injected += 1
             if failures >= budget:
-                _count("retry.exhausted", seam)
+                reg.counter("retry.exhausted", seam=seam).inc()
                 log.warning("%s: retry budget (%d) exhausted: %s",
                             seam, budget, e)
                 raise
-            _count("retry.attempts", seam)
+            reg.counter("retry.attempts", seam=seam).inc()
             delay = backoff_delay(seam, failures, rng=rng)
             log.debug("%s: attempt %d/%d failed (%s); retrying in %.0f ms",
                       seam, failures, budget, e, delay * 1000)
             sleeper(delay)
             continue
         if failures:
-            _count("retry.recovered", seam)
+            reg.counter("retry.recovered", seam=seam).inc()
             if injected:
                 faults.survived(seam, injected)
         return out

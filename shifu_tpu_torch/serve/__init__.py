@@ -24,9 +24,11 @@ shifu.serve.maxWaitMs (barrier window, 2.0), shifu.serve.deadlineMs,
 shifu.serve.routerPenalty, shifu.serve.wire.maxBodyMB, the
 shifu.serve.breaker.* settings and shifu.serve.sloMs/sloTarget.
 
-What waits for ROADMAP A.14: the model zoo, peers, the hot-swap rollout
-(stage, promote, shadow), the traffic log and drift monitor, request
-traces, the obs metrics and the shutdown manifest.
+Request traces (shifu.trace.sample, slowMs, maxTraces), the obs metrics
+behind /metrics, the metrics time series (shifu.obs.snapshotMs) and the
+shutdown manifest come from `shifu_tpu_torch/obs/`. What waits for
+ROADMAP A.14: the model zoo, peers, the hot-swap rollout (stage,
+promote, shadow), the traffic log and drift monitor.
 """
 
 from shifu_tpu_torch.serve.batcher import MicroBatcher, ScoreRequest

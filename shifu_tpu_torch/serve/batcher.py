@@ -31,16 +31,17 @@ supervisor answers the batch in flight; `serve.dispatch` fires inside
 it, with the replica's index, so `device_dead@replica=N` fails replica
 N's batches, its breaker counts them and the fleet fails over.
 
-The JAX package records serve.* counters and latency histograms in its
-metrics registry and per-request trace stages; here the counters are
-plain numbers on the batcher (`batches`, `records`, `requests`, ...) and
-the latencies a histogram over the same pinned edges (`latency`). The
-request traces wait for ROADMAP A.14.
+The serve.* counters, the batch-row and latency histograms and the
+batch-score timer go to the obs registry, labeled by replica, as in the
+JAX package; `snapshot()` reads its replica's series back from there. A
+request with a trace (obs/reqtrace.RequestTrace) gets its `queue` and
+`coalesce` stages here, and the registry's `featurize` / `device` /
+`d2h` notes, captured around the dispatch, fan out to every traced
+rider of the batch; the batch is recorded as the convoy witness.
 """
 
 from __future__ import annotations
 
-import bisect
 import threading
 import time
 from collections import deque
@@ -48,11 +49,13 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from shifu_tpu_torch.analysis.racetrack import tracked_lock
 from shifu_tpu_torch.data.reader import ColumnarData
 from shifu_tpu_torch.eval.scorer import ScoreResult
+from shifu_tpu_torch.obs import registry, reqtrace
 from shifu_tpu_torch.resilience import faults
 from shifu_tpu_torch.serve.health import HealthMonitor
-from shifu_tpu_torch.serve.queue import AdmissionQueue
+from shifu_tpu_torch.serve.queue import AdmissionQueue, labelled_values
 from shifu_tpu_torch.utils import environment
 from shifu_tpu_torch.utils.log import get_logger
 
@@ -111,27 +114,6 @@ def deadline_ms_setting() -> float:
         return DEFAULT_DEADLINE_MS
 
 
-class Histogram:
-    """Counts over fixed upper edges (the last one +inf), with the sum."""
-
-    def __init__(self, edges: Sequence[float]) -> None:
-        self.edges = tuple(edges)
-        self.counts = [0] * len(self.edges)
-        self.count = 0
-        self.sum = 0.0
-
-    def observe(self, v: float) -> None:
-        self.counts[bisect.bisect_left(self.edges, v)] += 1
-        self.count += 1
-        self.sum += v
-
-    def snapshot(self) -> dict:
-        return {"buckets": ["inf" if e == float("inf") else e
-                            for e in self.edges],
-                "counts": list(self.counts), "count": self.count,
-                "sum": self.sum}
-
-
 class DeadlineExceededError(TimeoutError):
     """The request outlived shifu.serve.deadlineMs before dispatch."""
 
@@ -140,11 +122,14 @@ class ScoreRequest:
     """One admitted request: a raw columnar slice and its completion."""
 
     __slots__ = ("data", "n_rows", "enqueued_at", "popped_at", "deadline",
-                 "_done", "result", "error", "failovers", "wire_format")
+                 "_done", "result", "error", "failovers", "wire_format",
+                 "trace")
 
     def __init__(self, data: ColumnarData,
-                 deadline_s: Optional[float] = None) -> None:
+                 deadline_s: Optional[float] = None,
+                 trace: Optional[reqtrace.RequestTrace] = None) -> None:
         self.data = data
+        self.trace = trace
         self.n_rows = data.n_rows
         self.wire_format = data.wire_format
         self.enqueued_at = time.perf_counter()
@@ -212,6 +197,14 @@ def slice_result(res: ScoreResult, start: int, stop: int) -> ScoreResult:
     )
 
 
+def _note_popped(req: ScoreRequest) -> None:
+    """A request leaves the admission queue: its `queue` stage ends."""
+    req.popped_at = time.perf_counter()
+    if req.trace is not None:
+        req.trace.add_stage("queue", req.popped_at - req.enqueued_at,
+                            t0=req.enqueued_at)
+
+
 class MicroBatcher:
     """Admission-queue consumer: coalesce -> score -> fan results out,
     under a supervisor that restarts a crashed worker (bounded) with the
@@ -232,6 +225,7 @@ class MicroBatcher:
         # the replica index the fleet passes: the `serve.dispatch` seam's
         # context, so `seam@replica=N` clauses target this batcher
         self.replica = replica
+        self.labels = {} if replica is None else {"replica": str(replica)}
         # the fleet's failover hook, set by ReplicaFleet: (request, error)
         # -> replay on a healthy replica or fail under the budget. None:
         # fail directly
@@ -253,22 +247,12 @@ class MicroBatcher:
                             if deadline_ms is None else float(deadline_ms))
                            / 1000.0)
         self.restarts = 0
-        # the counters the JAX package keeps in its metrics registry
-        self.batches = 0
-        self.batch_errors = 0
-        self.records = 0
-        self.crashes = 0
-        self.deadline_shed = 0
-        self.requests: Dict[str, int] = {}
-        self.latency: Dict[str, Histogram] = {}
-        self.batch_rows = Histogram(BATCH_ROWS_BUCKETS)
-        self.score_seconds = 0.0
         self._inflight: Optional[List[ScoreRequest]] = None
         self._drained = threading.Event()  # clean drain or give-up
         # (t_done, n_requests) per batch; the lock covers the worker's
         # append racing retry_after_seconds() on handler threads
         self._drain_log: deque = deque(maxlen=64)
-        self._drain_lock = threading.Lock()
+        self._drain_lock = tracked_lock("serve.batcher.drain_log")
         self._worker = self._spawn()
 
     def _spawn(self) -> threading.Thread:
@@ -311,7 +295,7 @@ class MicroBatcher:
             self._drained.set()  # queue closed and empty
             return
         except BaseException as e:  # any worker death is survived
-            self.crashes += 1
+            registry().counter("serve.worker.crashes", **self.labels).inc()
             log.warning("serve scoring worker crashed: %s: %s",
                         type(e).__name__, e)
             inflight, self._inflight = self._inflight, None
@@ -339,6 +323,7 @@ class MicroBatcher:
                 self._drained.set()
                 return
             self.restarts += 1
+            registry().counter("serve.worker.restarts", **self.labels).inc()
             log.info("restarting serve scoring worker (%d/%d)",
                      self.restarts, self.max_restarts)
             self._worker = self._spawn()
@@ -349,7 +334,7 @@ class MicroBatcher:
         first = self.admission.get()
         if first is None:
             return None
-        first.popped_at = time.perf_counter()
+        _note_popped(first)
         batch = [first]
         # registered with the supervisor at once (the same list, so
         # later appends show): a popped request is answerable only
@@ -368,7 +353,7 @@ class MicroBatcher:
                 nxt = self.admission.get(timeout=remaining)
             if nxt is None:
                 break
-            nxt.popped_at = time.perf_counter()
+            _note_popped(nxt)
             batch.append(nxt)
             rows += nxt.n_rows
         return batch
@@ -378,11 +363,12 @@ class MicroBatcher:
             batch = self._gather()
             if batch is None:
                 return
+            reg = registry()
             now = time.perf_counter()
             live: List[ScoreRequest] = []
             for r in batch:
                 if r.expired(now):
-                    self.deadline_shed += 1
+                    reg.counter("serve.deadline.shed", **self.labels).inc()
                     r.fail(DeadlineExceededError(
                         "request exceeded shifu.serve.deadlineMs before "
                         "dispatch"))
@@ -398,44 +384,76 @@ class MicroBatcher:
             self._inflight = batch
             faults.fault_point("serve")
             rows = sum(r.n_rows for r in batch)
-            self.batches += 1
-            self.batch_rows.observe(rows)
+            # coalesce-wait closes here: pop -> dispatch is the time a
+            # request waited for its bucket to close
             t0 = time.perf_counter()
+            dispatch_unix = time.time()
+            traced = [r for r in batch if r.trace is not None]
+            replica = self.labels.get("replica", "0")
+            for r in traced:
+                r.trace.add_stage("coalesce", t0 - r.popped_at,
+                                  t0=r.popped_at)
+                r.trace.annotate(replica=replica, batchRequests=len(batch),
+                                 batchRows=rows)
+            reg.counter("serve.batches", **self.labels).inc()
+            reg.histogram("serve.batch.rows", buckets=BATCH_ROWS_BUCKETS,
+                          **self.labels).observe(rows)
             try:
-                # a failed batch, not a crashed worker: the breaker counts
-                # it and failover replays its requests elsewhere
-                faults.fault_point("serve.dispatch", replica=self.replica)
-                result = self.score_fn(
-                    concat_batches([r.data for r in batch]))
+                # the registry notes featurize/device/d2h into the
+                # thread-local capture; they fan out to every traced
+                # rider. A failed batch, not a crashed worker: the
+                # breaker counts it and failover replays its requests
+                with reqtrace.capture_stages(enabled=bool(traced)) as cap:
+                    with reg.timer("serve.batch.score",
+                                   **self.labels).time():
+                        faults.fault_point("serve.dispatch",
+                                           replica=self.replica)
+                        result = self.score_fn(
+                            concat_batches([r.data for r in batch]))
             except Exception as e:  # per-request answers, breaker told
                 log.warning("serve batch of %d requests failed: %s",
                             len(batch), e)
-                self.batch_errors += 1
+                reg.counter("serve.batch.errors", **self.labels).inc()
                 if self.breaker is not None:
                     self.breaker.note_failure(f"{type(e).__name__}: {e}")
                 for r in batch:
                     self._dispose(r, e)
                 self._inflight = None
                 continue
+            if cap:
+                for stage, dur, st0 in cap.stages:
+                    for r in traced:
+                        r.trace.add_stage(stage, dur, st0)
+                if cap.attrs:
+                    for r in traced:
+                        r.trace.annotate(**cap.attrs)
             now = time.perf_counter()
-            self.score_seconds += now - t0
             off = 0
+            n_by_fmt: Dict[str, int] = {}
             for r in batch:
                 r.resolve(slice_result(result, off, off + r.n_rows))
                 off += r.n_rows
                 fmt = r.wire_format
-                hist = self.latency.get(fmt)
-                if hist is None:
-                    hist = self.latency[fmt] = Histogram(LATENCY_BUCKETS)
-                hist.observe(now - r.enqueued_at)
-                self.requests[fmt] = self.requests.get(fmt, 0) + 1
-            self.records += rows
+                reg.histogram("serve.latency_seconds",
+                              buckets=LATENCY_BUCKETS, format=fmt,
+                              **self.labels).observe(now - r.enqueued_at)
+                n_by_fmt[fmt] = n_by_fmt.get(fmt, 0) + 1
+            for fmt, cnt in n_by_fmt.items():
+                reg.counter("serve.requests", format=fmt,
+                            **self.labels).inc(cnt)
+            reg.counter("serve.records", **self.labels).inc(rows)
             self._inflight = None
             with self._drain_lock:
                 self._drain_log.append((now, len(batch)))
             self.health.note_ok()
             if self.breaker is not None:
                 self.breaker.note_ok()
+            if traced:
+                # the convoy witness: which traces shared this bucket
+                reqtrace.buffer().note_batch(
+                    replica, [r.trace.trace_id for r in traced],
+                    requests=len(batch), rows=rows,
+                    started_unix=dispatch_unix, dur_s=now - t0)
 
     # ---- load hints ----
     def drain_stats(self, now: Optional[float] = None
@@ -469,20 +487,39 @@ class MicroBatcher:
         depth, rate = self.drain_stats()
         hint = (depth / max(rate, 1e-3) if rate is not None
                 else RETRY_AFTER_MIN_S)
-        return min(max(hint, RETRY_AFTER_MIN_S), RETRY_AFTER_MAX_S)
+        hint = min(max(hint, RETRY_AFTER_MIN_S), RETRY_AFTER_MAX_S)
+        registry().gauge("serve.retry_after_seconds",
+                         **self.labels).set(hint)
+        return hint
 
     def snapshot(self) -> dict:
+        """Its replica's serve.* series, read from the obs registry (every
+        series when the batcher has no replica)."""
+        snap = registry().snapshot()
+
+        def series(kind, name):
+            return labelled_values(snap, kind, name, self.labels)
+
+        def count(name):
+            return int(sum(v for _, v in series("counters", name)))
+
+        rows = series("histograms", "serve.batch.rows")
+        requests: Dict[str, int] = {}
+        for lb, v in series("counters", "serve.requests"):
+            requests[lb["format"]] = requests.get(lb["format"], 0) + int(v)
         return {
             "batching": self.batching,
-            "batches": self.batches,
-            "batchErrors": self.batch_errors,
-            "records": self.records,
-            "requests": dict(self.requests),
-            "deadlineShed": self.deadline_shed,
-            "workerCrashes": self.crashes,
+            "batches": count("serve.batches"),
+            "batchErrors": count("serve.batch.errors"),
+            "records": count("serve.records"),
+            "requests": requests,
+            "deadlineShed": count("serve.deadline.shed"),
+            "workerCrashes": count("serve.worker.crashes"),
             "workerRestarts": self.restarts,
-            "scoreSeconds": self.score_seconds,
-            "batchRows": self.batch_rows.snapshot(),
-            "latencySeconds": {k: h.snapshot()
-                               for k, h in self.latency.items()},
+            "scoreSeconds": sum(t["seconds"] for _, t in
+                                series("timers", "serve.batch.score")),
+            "batchRows": rows[0][1] if rows else None,
+            "latencySeconds": {
+                lb["format"]: h for lb, h in
+                series("histograms", "serve.latency_seconds")},
         }

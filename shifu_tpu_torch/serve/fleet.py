@@ -20,23 +20,29 @@ drain-aware router (counterpart of `shifu_tpu/serve/fleet.py`).
                     batch's requests to other replicas, drain on close.
 
 Replica counts come from `shifu.serve.replicas` (0 = one per card).
-What waits for ROADMAP A.14: the hot-swap wrapper around each registry
-(`loop/hotswap.SwappableRegistry`) and with it stage / unstage / promote
-and the shadow evidence, the traffic log and drift observers, the model
-zoo's hooks and the obs metrics.
+Routing, failover and the replica count record `serve.router.*`,
+`serve.failover.*` and `serve.replicas` in the obs registry;
+`finish_trace` closes a request's trace into the bounded ring and the
+`serve.stage_seconds{stage=,replica=}` histograms and counts it against
+the SLO. What waits for ROADMAP A.14: the hot-swap wrapper around each
+registry (`loop/hotswap.SwappableRegistry`) and with it stage / unstage
+/ promote and the shadow evidence, the traffic log and drift observers,
+and the model zoo's hooks.
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import List, Optional, Sequence
 
 import torch
 
+from shifu_tpu_torch.analysis.racetrack import tracked_lock
 from shifu_tpu_torch.data.reader import ColumnarData
 from shifu_tpu_torch.eval.scorer import DEFAULT_SCORE_SCALE, ScoreResult
+from shifu_tpu_torch.obs import registry, reqtrace
 from shifu_tpu_torch.serve.batcher import (
+    LATENCY_BUCKETS,
     RETRY_AFTER_MAX_S,
     RETRY_AFTER_MIN_S,
     MicroBatcher,
@@ -118,12 +124,13 @@ class ScoringReplica:
                  queue_depth: Optional[int] = None) -> None:
         self.index = int(index)
         self.name = str(self.index)
+        self.labels = {"replica": self.name}
         self.registry = registry
         self.device = getattr(registry, "device", None)
-        self.admission = (AdmissionQueue(queue_depth)
+        self.admission = (AdmissionQueue(queue_depth, labels=self.labels)
                           if admission is None else admission)
-        self.health = HealthMonitor()
-        self.breaker = CircuitBreaker()
+        self.health = HealthMonitor(labels=self.labels)
+        self.breaker = CircuitBreaker(labels=self.labels)
         self.batcher = MicroBatcher(
             registry.score_raw, self.admission,
             max_batch_rows=max_batch_rows, max_wait_ms=max_wait_ms,
@@ -159,7 +166,7 @@ class DrainAwareRouter:
         self.replicas = list(replicas)
         self.penalty = (router_penalty_setting() if penalty is None
                         else float(penalty))
-        self._lock = threading.Lock()
+        self._lock = tracked_lock("serve.router")
         self._rr = 0
         self.routed = 0
         self.spilled = 0
@@ -207,25 +214,33 @@ class DrainAwareRouter:
             raise
         return True
 
-    def submit(self, data: ColumnarData) -> ScoreRequest:
+    def submit(self, data: ColumnarData, trace=None) -> ScoreRequest:
         """Admit one request on the best replica, spilling past full
         ones; RejectedError when none takes it."""
         order = self.order()
         if not order:
             raise RejectedError("closed")
+        reg = registry()
         last: Optional[RejectedError] = None
         for i, rep in enumerate(order):
             req = ScoreRequest(data,
-                               deadline_s=rep.batcher.deadline_s or None)
+                               deadline_s=rep.batcher.deadline_s or None,
+                               trace=trace)
             try:
                 if not self._place(rep, req):
                     continue
             except RejectedError as e:
                 last = e
                 if i == 0:
+                    # the PLANNED placement shed: everything after is a
+                    # drain-around
                     self.spilled += 1
+                    reg.counter("serve.router.spill", **rep.labels).inc()
                 continue
             self.routed += 1
+            reg.counter("serve.router.routed", **rep.labels).inc()
+            if trace is not None:
+                trace.annotate(replica=rep.name, spilled=bool(i))
             return req
         raise last if last is not None else RejectedError("closed")
 
@@ -241,6 +256,11 @@ class DrainAwareRouter:
             except RejectedError:
                 continue
             self.rerouted += 1
+            registry().counter("serve.failover.rerouted",
+                               **rep.labels).inc()
+            if req.trace is not None:
+                req.trace.annotate(failovers=req.failovers,
+                                   replica=rep.name)
             return True
         return False
 
@@ -266,20 +286,33 @@ class ReplicaFleet:
             rep.batcher.failover = (
                 lambda req, error, _src=rep:
                 self._failover(_src, req, error))
+        registry().gauge("serve.replicas").set(len(self.replicas))
 
     def _failover(self, src: ScoringReplica, req: ScoreRequest,
                   error: BaseException) -> None:
         """Replay a failed batch's request on another replica, or answer
         it with the error once its budget is spent."""
+        reg = registry()
         if req.failovers >= self.failover_max or len(self.replicas) < 2:
             if req.failovers:
                 self.failovers_exhausted += 1
+                reg.counter("serve.failover.exhausted", **src.labels).inc()
             req.fail(error)
             return
         req.failovers += 1
         self.failovers += 1
-        if not self.router.resubmit(req, exclude=src):
+        reg.counter("serve.failover.requests", **src.labels).inc()
+        if req.trace is not None:
+            # the hop is a stage on the request's own trace
+            with req.trace.stage("failover"):
+                req.trace.annotate(failoverFrom=src.name,
+                                   failoverError=type(error).__name__)
+                rerouted = self.router.resubmit(req, exclude=src)
+        else:
+            rerouted = self.router.resubmit(req, exclude=src)
+        if not rerouted:
             self.failovers_exhausted += 1
+            reg.counter("serve.failover.exhausted", **src.labels).inc()
             req.fail(error)
 
     # ---- construction ----
@@ -306,7 +339,8 @@ class ReplicaFleet:
             for i, dev in enumerate(devices):
                 reg = ModelRegistry(models_dir, scale=scale, device=dev,
                                     column_configs=column_configs,
-                                    model_config=model_config)
+                                    model_config=model_config,
+                                    labels={"replica": str(i)})
                 replicas.append(ScoringReplica(
                     reg, index=i, queue_depth=queue_depth,
                     max_batch_rows=max_batch_rows,
@@ -327,19 +361,56 @@ class ReplicaFleet:
         return len(self.replicas)
 
     # ---- scoring ----
-    def submit(self, data: ColumnarData) -> ScoreRequest:
-        return self.router.submit(data)
+    def submit(self, data: ColumnarData, trace=None) -> ScoreRequest:
+        return self.router.submit(data, trace=trace)
 
-    def score_batch(self, records, timeout: Optional[float] = None
-                    ) -> ScoreResult:
+    def score_batch(self, records, timeout: Optional[float] = None,
+                    trace=None) -> ScoreResult:
         """Routed scoring of raw records: a list of dicts (the JSON path)
-        or a decoded binary batch, which only conforms to the schema."""
+        or a decoded binary batch, which only conforms to the schema. A
+        `trace` (obs/reqtrace.RequestTrace) rides through record
+        conversion (featurize), placement (route) and the batcher
+        stages; the CALLER finishes it (`finish_trace`)."""
         cols = list(self.input_columns)
-        if isinstance(records, ColumnarData):
-            data = wire.conform_columns(records, cols)
-        else:
-            data = records_to_columnar(records, cols)
-        return self.submit(data).wait(timeout)
+
+        def featurize():
+            if isinstance(records, ColumnarData):
+                return wire.conform_columns(records, cols)
+            return records_to_columnar(records, cols)
+
+        if trace is None:
+            return self.submit(featurize()).wait(timeout)
+        with trace.stage("featurize"):
+            data = featurize()
+        trace.annotate(rows=data.n_rows)
+        t0 = time.perf_counter()
+        req = self.submit(data, trace=trace)
+        trace.add_stage("route", time.perf_counter() - t0, t0=t0)
+        return req.wait(timeout)
+
+    # ---- request tracing / SLO ----
+    def finish_trace(self, trace) -> bool:
+        """Close one request's trace: offer it to the bounded ring
+        (obs/reqtrace.buffer — head-sampled or slow-captured), feed the
+        per-stage `serve.stage_seconds{stage=,replica=}` histograms
+        (retained traces ride along as bucket exemplars) and count the
+        request against the SLO. Returns True when the trace was
+        retained."""
+        total = trace.finish()
+        kept = reqtrace.buffer().offer(trace)
+        reg = registry()
+        # a request shed before placement has no replica
+        replica = str(trace.attrs.get("replica", "unrouted"))
+        exemplar = trace.trace_id if kept else None
+        for stage, dur in trace.stage_totals().items():
+            reg.histogram("serve.stage_seconds", buckets=LATENCY_BUCKETS,
+                          stage=stage, replica=replica).observe(
+                dur, exemplar=exemplar)
+        # `status` is set only by the error paths: such a request got no
+        # score, so it counts BAD whatever its latency
+        self.slo.observe(total,
+                         ok=False if "status" in trace.attrs else None)
+        return kept
 
     # ---- registry facade (replica 0 is the canonical read) ----
     @property

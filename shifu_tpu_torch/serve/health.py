@@ -9,22 +9,24 @@ circuit breaker and the latency SLO tracker (counterpart of
   draining  not accepting work (shutdown, or the worker restart budget
             is spent): /healthz answers 503.
 
-Transitions are monotone toward draining. The JAX package counts each
-transition in its metrics registry and guards its locks with the race
-tracker; here the counts are plain numbers (`transitions`) and the locks
-plain `threading.Lock`s. The sticky (drift) degrade, the per-tenant SLO
-settings and the metric labels wait with the drift monitor and the
-model zoo (ROADMAP A.14).
+Transitions are monotone toward draining. Each transition counts in the
+obs registry (`serve.health.transitions`, `serve.breaker.transitions`,
+`serve.breaker.open`, `serve.breaker.trips`, `serve.slo.good/bad`,
+labeled by replica where the JAX package labels them), and the locks are
+race-tracked (`tracked_lock`, `-Dshifu.sanitize=race`). The sticky
+(drift) degrade and the per-tenant SLO settings wait with the drift
+monitor and the model zoo (ROADMAP A.14).
 """
 
 from __future__ import annotations
 
 import random
-import threading
 import time
 from collections import deque
 from typing import Dict, Optional
 
+from shifu_tpu_torch.analysis.racetrack import guarded_by, tracked_lock
+from shifu_tpu_torch.obs import registry
 from shifu_tpu_torch.utils import environment
 
 OK = "ok"
@@ -111,7 +113,7 @@ class SloTracker:
             target = slo_target_setting()
         self.target = min(max(float(target), 0.0), 0.9999)
         self.window_s = float(window_s)
-        self._lock = threading.Lock()
+        self._lock = tracked_lock("serve.slo")
         self._events: deque = deque(maxlen=SLO_WINDOW_EVENTS)
         self._good = 0
         self._bad = 0
@@ -134,8 +136,11 @@ class SloTracker:
                 self._good += 1
             else:
                 self._bad += 1
+        registry().counter("serve.slo.good" if ok else "serve.slo.bad").inc()
 
     def burn_rate(self, now: Optional[float] = None) -> float:
+        """Bad fraction over the rolling window / (1 - target); exported
+        as the `serve.slo.burn_rate` gauge on every read."""
         if not self.enabled:
             return 0.0
         if now is None:
@@ -144,9 +149,12 @@ class SloTracker:
             recent = [ok for t, ok in self._events
                       if now - t <= self.window_s]
         if not recent:
-            return 0.0
-        bad = sum(1 for ok in recent if not ok)
-        return (bad / len(recent)) / max(1e-9, 1.0 - self.target)
+            rate = 0.0
+        else:
+            bad = sum(1 for ok in recent if not ok)
+            rate = (bad / len(recent)) / max(1e-9, 1.0 - self.target)
+        registry().gauge("serve.slo.burn_rate").set(rate)
+        return rate
 
     def snapshot(self) -> dict:
         rate = self.burn_rate()
@@ -165,8 +173,10 @@ class SloTracker:
 class HealthMonitor:
     """Thread-safe tri-state health with crash-recovery hysteresis."""
 
-    def __init__(self, ok_after: int = DEFAULT_OK_AFTER) -> None:
-        self._lock = threading.Lock()
+    def __init__(self, ok_after: int = DEFAULT_OK_AFTER,
+                 labels: Optional[dict] = None) -> None:
+        self.labels = dict(labels or {})
+        self._lock = tracked_lock("serve.health")
         self._state = OK
         self._reason = ""
         self._ok_after = max(1, ok_after)
@@ -174,14 +184,17 @@ class HealthMonitor:
         self._crashes = 0
         self.transitions: Dict[str, int] = {}
 
+    @guarded_by("_lock")
     def _transition(self, state: str, reason: str) -> None:
-        # the caller holds the lock
+        # caller holds the lock (declared + race-checked via @guarded_by)
         if self._state == state:
             self._reason = reason
             return
         self._state = state
         self._reason = reason
         self.transitions[state] = self.transitions.get(state, 0) + 1
+        registry().counter("serve.health.transitions", to=state,
+                           **self.labels).inc()
 
     def note_crash(self, reason: str) -> None:
         with self._lock:
@@ -243,7 +256,8 @@ class CircuitBreaker:
                  probe_base_ms: Optional[float] = None,
                  probe_cap_ms: Optional[float] = None,
                  probe_oks: Optional[int] = None,
-                 rng=None) -> None:
+                 rng=None, labels: Optional[dict] = None) -> None:
+        self.labels = dict(labels or {})
         self.failures = (breaker_failures_setting() if failures is None
                          else int(failures))
         self.probe_base_ms = (breaker_probe_base_ms_setting()
@@ -255,7 +269,7 @@ class CircuitBreaker:
         self.probe_oks = max(1, breaker_probe_oks_setting()
                              if probe_oks is None else int(probe_oks))
         self._rng = rng or random.Random()
-        self._lock = threading.Lock()
+        self._lock = tracked_lock("serve.breaker")
         self._state = BREAKER_CLOSED
         self._fail_streak = 0
         self._ok_streak = 0
@@ -271,12 +285,18 @@ class CircuitBreaker:
         return (self._probe_inflight
                 and now - self._probe_started < PROBE_ABANDON_S)
 
+    @guarded_by("_lock")
     def _transition(self, state: str) -> None:
-        # the caller holds the lock
+        # caller holds the lock (declared + race-checked via @guarded_by)
         if self._state == state:
             return
         self._state = state
         self.transitions[state] = self.transitions.get(state, 0) + 1
+        reg = registry()
+        reg.counter("serve.breaker.transitions", to=state,
+                    **self.labels).inc()
+        reg.gauge("serve.breaker.open", **self.labels).set(
+            0.0 if state == BREAKER_CLOSED else 1.0)
 
     def _probe_delay_s(self) -> float:
         window = backoff_window_ms(self.probe_base_ms, self.probe_cap_ms,
@@ -354,6 +374,7 @@ class CircuitBreaker:
             self._trips += 1
             self._open_until = time.monotonic() + self._probe_delay_s()
             self._transition(BREAKER_OPEN)
+        registry().counter("serve.breaker.trips", **self.labels).inc()
 
     @property
     def state(self) -> str:

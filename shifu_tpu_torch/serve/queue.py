@@ -10,9 +10,10 @@ scores; everything past `depth` waiting requests is shed at the door.
 `close()` flips the queue to rejecting at once; admitted requests keep
 draining (`get` returns None only once the queue is closed AND empty).
 
-The JAX package counts admissions and sheds in its metrics registry;
-here they are plain numbers on the queue (`admitted`, `shed`), read by
-the replica's snapshot and /healthz.
+Admissions and sheds count in the obs registry (`serve.queue.admitted`,
+`serve.queue.shed{reason=}`, the `serve.queue.depth` gauge, labeled by
+replica) as in the JAX package; the replica's snapshot reads them
+back from there.
 """
 
 from __future__ import annotations
@@ -20,8 +21,10 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
+from shifu_tpu_torch.obs import registry
+from shifu_tpu_torch.obs.metrics import _parse_key
 from shifu_tpu_torch.utils import environment
 
 DEFAULT_QUEUE_DEPTH = 128
@@ -49,28 +52,33 @@ class RejectedError(RuntimeError):
 class AdmissionQueue:
     """Bounded FIFO with shed-on-full admission and drain-aware close."""
 
-    def __init__(self, depth: Optional[int] = None) -> None:
+    def __init__(self, depth: Optional[int] = None,
+                 labels: Optional[dict] = None) -> None:
         self.depth = queue_depth_setting() if depth is None else int(depth)
         if self.depth <= 0:
             raise ValueError("admission queue depth must be positive")
+        self.labels = dict(labels or {})
         self._items: deque = deque()
         self._cond = threading.Condition()
         self._closed = False
-        self.admitted = 0
-        self.shed: Dict[str, int] = {"full": 0, "closed": 0}
 
     def put(self, item: Any) -> None:
         """Admit `item` or raise RejectedError; never blocks."""
+        reg = registry()
         with self._cond:
             if self._closed:
-                self.shed["closed"] += 1
+                reg.counter("serve.queue.shed", reason="closed",
+                            **self.labels).inc()
                 raise RejectedError("closed")
             if len(self._items) >= self.depth:
-                self.shed["full"] += 1
+                reg.counter("serve.queue.shed", reason="full",
+                            **self.labels).inc()
                 raise RejectedError("full", depth=self.depth)
             self._items.append(item)
-            self.admitted += 1
+            depth = len(self._items)
             self._cond.notify()
+        reg.counter("serve.queue.admitted", **self.labels).inc()
+        reg.gauge("serve.queue.depth", **self.labels).set(depth)
 
     def get(self, timeout: Optional[float] = None) -> Optional[Any]:
         """The next admitted item; None when the queue is closed AND
@@ -106,7 +114,28 @@ class AdmissionQueue:
             return len(self._items)
 
     def snapshot(self) -> dict:
+        """Its state, and its counts read from the obs registry."""
+        snap = registry().snapshot()
+        shed = {"full": 0, "closed": 0}
+        for labels, v in labelled_values(snap, "counters", "serve.queue.shed",
+                                         self.labels):
+            shed[labels["reason"]] += int(v)
+        admitted = sum(v for _, v in labelled_values(
+            snap, "counters", "serve.queue.admitted", self.labels))
         with self._cond:
             return {"depth": self.depth, "queued": len(self._items),
-                    "admitted": self.admitted, "shed": dict(self.shed),
+                    "admitted": int(admitted), "shed": shed,
                     "closed": self._closed}
+
+
+def labelled_values(snap: dict, kind: str, name: str,
+                    labels: Dict[str, str]) -> List[Tuple[dict, Any]]:
+    """(labels, value) of each series of `name` in a registry snapshot's
+    `kind` section that carries every one of `labels` (a replica's
+    series; with no labels, every series)."""
+    out = []
+    for key, v in snap[kind].items():
+        n, got = _parse_key(key)
+        if n == name and all(got.get(k) == x for k, x in labels.items()):
+            out.append((got, v))
+    return out

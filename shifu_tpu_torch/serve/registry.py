@@ -62,6 +62,7 @@ from shifu_tpu_torch.eval.scorer import (
     find_model_paths,
     load_model,
 )
+from shifu_tpu_torch.obs import profile, registry, reqtrace
 from shifu_tpu_torch.serve import wire
 from shifu_tpu_torch.utils.log import get_logger
 from shifu_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -259,17 +260,19 @@ class ModelRegistry:
     """A loaded model set, its fused raw -> score program, its staging
     buffers. `device=None` is the card. `timings` holds the last batch's
     featurize, device and d2h seconds; `transfers` counts the staging
-    copies to the device and the result copies back."""
+    copies to the device and the result copies back. `labels` (the fleet
+    passes {"replica": "<i>"}) ride its `serve.score.rows` counter."""
 
     def __init__(self, models_dir: str,
                  scale: float = DEFAULT_SCORE_SCALE,
                  device: DeviceLike = None,
                  drift=None, column_configs=None,
-                 model_config=None) -> None:
+                 model_config=None, labels: Optional[dict] = None) -> None:
         if drift is not None:
             raise NotImplementedError(
                 "the serving drift monitor (loop/drift.py) is not ported "
                 "yet: ROADMAP A.14")
+        self.labels = dict(labels or {})
         self.models_dir = models_dir
         self.paths = find_model_paths(models_dir)
         if not self.paths:
@@ -284,8 +287,6 @@ class ModelRegistry:
         self.weights_bytes = 0
         self.timings: Dict[str, float] = {}
         self.transfers = {"h2d": 0, "d2h": 0}
-        self.batches = 0
-        self.rows = 0
         self._lock = threading.Lock()
         self._warm_buckets: set = set()
         self._staging: Dict[int, _Staging] = {}
@@ -430,9 +431,11 @@ class ModelRegistry:
             with self._lock:
                 result = self._runner.score_raw(data)
                 self.model_widths = list(result.model_widths)
+                dt = time.perf_counter() - t0
+                # the runner's featurize and scoring, one stage
+                reqtrace.note_stage("device", dt, t0=t0)
                 self._note(n, self.bucket(n), {
-                    "featurize": 0.0, "device": time.perf_counter() - t0,
-                    "d2h": 0.0})
+                    "featurize": 0.0, "device": dt, "d2h": 0.0})
             return result
         bucket = self.bucket(n)
         code_cache: dict = {}
@@ -456,18 +459,24 @@ class ModelRegistry:
                     with torch.cuda.device(self.device):
                         x = st.dev.copy_(st.host, non_blocking=True)
                         t_dev = time.perf_counter()
-                        out = self._program(x)
-                        torch.cuda.current_stream(self.device).synchronize()
+                        # the seam synchronizes the card before its clock
+                        # stops (sync=True): the device stage's end
+                        out = profile.dispatch("serve.fused_score",
+                                               self._program, x, sync=True)
                         t_d2h = time.perf_counter()
                         host = out.cpu()  # synchronizes: staging free again
                 else:
                     x = st.host  # a view of `buf`, used only in this call
                     t_dev = time.perf_counter()
-                    out = self._program(x)
+                    out = profile.dispatch("serve.fused_score",
+                                           self._program, x, sync=True)
                     t_d2h = time.perf_counter()
                     host = out
             res = host.numpy()[:n]
             t_end = time.perf_counter()
+            reqtrace.note_stage("featurize", t_dev - t_feat, t0=t_feat)
+            reqtrace.note_stage("device", t_d2h - t_dev, t0=t_dev)
+            reqtrace.note_stage("d2h", t_end - t_d2h, t0=t_d2h)
             self._note(n, bucket, {"featurize": t_dev - t_feat,
                                    "device": t_d2h - t_dev,
                                    "d2h": t_end - t_d2h})
@@ -482,9 +491,8 @@ class ModelRegistry:
 
     def _note(self, n: int, bucket: int, timings: Dict[str, float]) -> None:
         # the caller holds the lock
+        registry().counter("serve.score.rows", **self.labels).inc(n)
         self._warm_buckets.add(bucket)
-        self.batches += 1
-        self.rows += n
         if self.fused:
             self.transfers["h2d"] += 1
             self.transfers["d2h"] += 1
@@ -504,8 +512,6 @@ class ModelRegistry:
                 "stagingBytes": int(sum(s.nbytes
                                         for s in self._staging.values())),
                 "device": str(self.device),
-                "batches": self.batches,
-                "rows": self.rows,
                 "transfers": dict(self.transfers),
                 "timings": dict(self.timings),
             }

@@ -13,17 +13,29 @@
   POST /score/<set>  404: this server is single-tenant.
   GET  /healthz  200 with the fleet's health and identity; 503 while
                  draining.
-  GET  /metrics, /admin/*, /fleet/*  501 naming ROADMAP A.14: the obs
-                 exporter, the rollout control plane and the fleet views
-                 wait with the model zoo, peers, the traffic log, the
-                 drift monitor and the shutdown manifest.
+  GET  /metrics  the obs registry as Prometheus text (obs/metrics.py).
+  GET  /admin/traces  the retained request traces (obs/reqtrace.py) and
+                 the ring's summary.
+  GET|POST /admin/* (the rest), /fleet/*  501 naming ROADMAP A.14: the
+                 rollout control plane (stage, promote, evict,
+                 co-resident training), `/admin/metrics.json` and the
+                 fleet views wait with the model zoo, leases and peers,
+                 the traffic log and the drift monitor.
+
+Request traces: an inbound `X-Shifu-Trace` header is honored (and forces
+retention), otherwise a trace is kept under `shifu.trace.sample` head
+sampling and `shifu.trace.slowMs` tail capture; the id is echoed in the
+response header. `-Dshifu.obs.snapshotMs` arms the on-disk metrics time
+series (obs/timeseries.py) under the process's solo id.
 
 HTTP handler threads parse and answer; they never touch a tensor: every
 batch is scored on its replica's batcher thread. `Scorer.score_batch` is
 the same admission -> batcher -> registry path without HTTP.
 
 `ScoringServer.shutdown()` closes admission (new requests get 503), the
-batchers drain every admitted request, then the listener stops.
+batchers drain every admitted request, the listener stops, and the run
+ledger gets a `serve-<seq>.json` manifest with the retained traces
+beside it (`serve-<seq>.traces.json`, read by `shifu trace`).
 """
 
 from __future__ import annotations
@@ -36,7 +48,10 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 
+from shifu_tpu_torch.analysis.racetrack import tracked_lock
 from shifu_tpu_torch.eval.scorer import ScoreResult
+from shifu_tpu_torch.obs import registry as obs_registry
+from shifu_tpu_torch.obs import reqtrace
 from shifu_tpu_torch.serve import wire
 from shifu_tpu_torch.serve.batcher import MicroBatcher
 from shifu_tpu_torch.serve.fleet import ReplicaFleet, ScoringReplica
@@ -60,11 +75,12 @@ _JSON_CONTENT_TYPES = frozenset({
 _WAITS = "ROADMAP A.14"
 # the routes that wait, and what each is in the JAX package
 _NOT_PORTED = (
-    ("/metrics", "the Prometheus exporter (obs/metrics.py)"),
     ("/admin/", "the rollout control plane (stage, promote, evict, "
-                "co-resident training) and request traces"),
+                "co-resident training) and the lossless metrics snapshot "
+                "a peer's fleet collector reads"),
     ("/fleet/", "the fleet-of-processes views (obs/fleetview.py)"),
 )
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4"
 
 
 class Scorer:
@@ -104,19 +120,31 @@ class Scorer:
         return self.fleet.retry_after_seconds()
 
     def score_batch(self, records,
-                    timeout: Optional[float] = DEFAULT_SCORE_TIMEOUT_S
-                    ) -> ScoreResult:
+                    timeout: Optional[float] = DEFAULT_SCORE_TIMEOUT_S,
+                    trace=None) -> ScoreResult:
         """Score raw records (dicts, or a decoded binary batch); blocks
-        until their micro-batch completes. RejectedError on shed; the
-        latency counts against the SLO when shifu.serve.sloMs is set."""
-        t0 = time.perf_counter()
+        until their micro-batch completes. RejectedError on shed.
+
+        Tracing: with an explicit `trace` (the HTTP path) the CALLER
+        finishes it; without one, a trace is made per request when
+        tracing or SLO accounting is armed, and finished here (the
+        latency counts against the SLO when shifu.serve.sloMs is set)."""
+        own = None
+        if trace is None:
+            buf = reqtrace.buffer()
+            if buf.active or self.fleet.slo.enabled:
+                own = trace = reqtrace.RequestTrace(
+                    sampled=buf.head_sampled())
         try:
-            res = self.fleet.score_batch(records, timeout=timeout)
-        except Exception:
-            self.fleet.slo.observe(time.perf_counter() - t0, ok=False)
+            return self.fleet.score_batch(records, timeout=timeout,
+                                          trace=trace)
+        except Exception as e:
+            if own is not None:
+                own.annotate(status=type(e).__name__)
             raise
-        self.fleet.slo.observe(time.perf_counter() - t0)
-        return res
+        finally:
+            if own is not None:
+                self.fleet.finish_trace(own)
 
     def close(self, timeout: Optional[float] = 30.0) -> None:
         """Stop admitting and drain every admitted request."""
@@ -232,7 +260,8 @@ class ScoringServer:
         self.scorer = Scorer(fleet=self.registry)
         self.started_at = time.time()
         self._serve_thread: Optional[threading.Thread] = None
-        self._shutdown_lock = threading.Lock()
+        self._shutdown_lock = tracked_lock("serve.server.shutdown")
+        self.manifest_path: Optional[str] = None
         self._shutdown_started = False
         self._shutdown_done = threading.Event()
         try:
@@ -240,6 +269,17 @@ class ScoringServer:
         except BaseException:
             self.scorer.close(5.0)
             raise
+        # on-disk metrics time series (obs/timeseries.py), armed by
+        # -Dshifu.obs.snapshotMs: without leases (ROADMAP A.14) the
+        # process snapshots under a solo id, as a lease-less JAX server
+        import socket
+
+        from shifu_tpu_torch.obs.timeseries import MetricsSnapshotter
+
+        self.lease_id = f"{socket.gethostname()}-{os.getpid()}-solo"
+        self.obs_snap = MetricsSnapshotter(self.root, self.lease_id,
+                                           registry_cb=obs_registry)
+        self.obs_snap.start()
 
     @property
     def host(self) -> str:
@@ -263,8 +303,6 @@ class ScoringServer:
             "workerRestarts": sum(r.batcher.restarts
                                   for r in fleet.replicas),
             "uptimeSeconds": round(time.time() - self.started_at, 1),
-            "requests": sum(sum(r.batcher.requests.values())
-                            for r in fleet.replicas),
         })
         slo = fleet.slo
         if slo.enabled:
@@ -292,11 +330,12 @@ class ScoringServer:
                 log.debug("http: " + fmt, *args)
 
             def _reply(self, code: int, payload,
-                       extra_headers: Optional[dict] = None) -> None:
+                       extra_headers: Optional[dict] = None,
+                       content_type: str = "application/json") -> None:
                 body = (payload if isinstance(payload, bytes)
                         else json.dumps(payload).encode("utf-8"))
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", content_type)
                 self.send_header("Content-Length", str(len(body)))
                 for k, v in (extra_headers or {}).items():
                     self.send_header(k, v)
@@ -320,6 +359,16 @@ class ScoringServer:
                     health = server.health()
                     self._reply(503 if health["status"] == DRAINING
                                 else 200, health)
+                    return
+                if self.path == "/metrics":
+                    self._reply(
+                        200, obs_registry().to_prometheus().encode("utf-8"),
+                        content_type=PROMETHEUS_CONTENT_TYPE)
+                    return
+                if self.path == "/admin/traces":
+                    buf = reqtrace.buffer()
+                    self._reply(200, {**buf.snapshot(),
+                                      "traces": buf.traces()})
                     return
                 if self._waits():
                     return
@@ -385,27 +434,66 @@ class ScoringServer:
                 if not n_rows:
                     self._reply(400, {"error": "no records in body"})
                     return
+                # trace id contract: an inbound X-Shifu-Trace header is
+                # honored (and FORCES retention), otherwise one is made
+                # under the head-sampling / slow-capture policy; the id
+                # is echoed in the response header either way
+                hdr = reqtrace.clean_trace_id(
+                    self.headers.get(reqtrace.TRACE_HEADER))
+                buf = reqtrace.buffer()
+                fleet = server.registry
+                trace = None
+                if hdr or buf.active or fleet.slo.enabled:
+                    trace = reqtrace.RequestTrace(
+                        trace_id=hdr,
+                        sampled=bool(hdr) or buf.head_sampled())
+                err_headers = {}
+
+                def _failed(status: str, **attrs) -> None:
+                    if trace is not None:
+                        trace.annotate(status=status, **attrs)
+                        fleet.finish_trace(trace)
+                        err_headers[reqtrace.TRACE_HEADER] = trace.trace_id
+
                 try:
-                    res = server.scorer.score_batch(records)
+                    res = server.scorer.score_batch(records, trace=trace)
                 except RejectedError as e:
+                    _failed("rejected", reason=e.reason)
                     if e.reason == "closed":
                         self._reply(503, {"error": str(e),
-                                          "reason": e.reason})
+                                          "reason": e.reason},
+                                    extra_headers=err_headers)
                         return
                     hint = server.scorer.retry_after_seconds()
+                    err_headers["Retry-After"] = str(int(math.ceil(hint)))
                     self._reply(429, {"error": str(e), "reason": e.reason,
                                       "retryAfterSeconds": round(hint, 3)},
-                                extra_headers={
-                                    "Retry-After": str(int(math.ceil(hint)))})
+                                extra_headers=err_headers)
                     return
                 except TimeoutError as e:
-                    self._reply(503, {"error": str(e)})
+                    _failed("timeout")
+                    self._reply(503, {"error": str(e)},
+                                extra_headers=err_headers)
                     return
                 except Exception as e:  # a failed batch: never a hang
-                    self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+                    _failed(type(e).__name__)
+                    self._reply(500, {"error": f"{type(e).__name__}: {e}"},
+                                extra_headers=err_headers)
                     return
-                self._reply(200, {"models": server.registry.model_names,
-                                  "scores": _result_rows(res)})
+                doc = {"models": fleet.model_names, "scores": None}
+                if trace is None:
+                    doc["scores"] = _result_rows(res)
+                    self._reply(200, doc)
+                    return
+                # serialize is a measured stage: the response-row build
+                # and JSON encode is host work the client waits on
+                with trace.stage("serialize"):
+                    doc["scores"] = _result_rows(res)
+                    doc["trace"] = trace.trace_id
+                    body = json.dumps(doc).encode("utf-8")
+                fleet.finish_trace(trace)
+                self._reply(200, body, extra_headers={
+                    reqtrace.TRACE_HEADER: trace.trace_id})
 
             def _drain_body(self, length: Optional[int] = None) -> None:
                 """Read an unused body so the connection stays in step."""
@@ -439,8 +527,9 @@ class ScoringServer:
 
     def shutdown(self, drain_timeout: float = 30.0) -> Optional[dict]:
         """Reject new work -> drain every admitted request -> stop the
-        listener. Returns the fleet's final snapshot to the first caller,
-        None to any later one."""
+        listener -> write the serve manifest (and the retained traces).
+        Returns the fleet's final snapshot to the first caller, None to
+        any later one."""
         with self._shutdown_lock:
             if self._shutdown_started:
                 return None
@@ -451,6 +540,54 @@ class ScoringServer:
                 self.httpd.shutdown()
                 self._serve_thread.join(5.0)
             self.httpd.server_close()
-            return self.registry.snapshot()
+            # final time-series window AFTER the drain: the last chunk
+            # carries the terminal counter state
+            self.obs_snap.stop()
+            snap = self.registry.snapshot()
+            self.manifest_path = self._write_manifest(snap)
+            return snap
         finally:
             self._shutdown_done.set()
+
+    def _write_manifest(self, fleet_snapshot: dict) -> Optional[str]:
+        """`serve-<seq>.json` in the run ledger, with the registry, the
+        profile section, the fleet snapshot, the sanitizer verdict and
+        the summary of the retained traces, written beside it as
+        `serve-<seq>.traces.json`."""
+        import sys
+
+        from shifu_tpu_torch import obs
+        from shifu_tpu_torch.analysis import sanitize
+        from shifu_tpu_torch.obs.ledger import RunLedger
+
+        ledger = RunLedger(self.root)
+        try:
+            extra = {"serve": fleet_snapshot}
+            san = sanitize.current()
+            if san is not None and san.active:
+                extra["sanitizer"] = san.verdict()
+            if self.registry.slo.enabled:
+                extra["slo"] = self.registry.slo.snapshot()
+            if self.obs_snap.enabled:
+                extra["obsTimeseries"] = self.obs_snap.snapshot()
+            seq = ledger.next_seq("serve")
+            buf = reqtrace.buffer()
+            if buf.active or buf.count:
+                written = buf.write_traces(os.path.join(
+                    ledger.dir, f"serve-{seq}.traces.json"))
+                extra["traces"] = dict(
+                    buf.snapshot(),
+                    path=(os.path.relpath(written, self.root)
+                          if written else None))
+            path = ledger.write(
+                "serve", seq, status="ok", exit_status=0,
+                started_at=self.started_at,
+                elapsed_seconds=time.time() - self.started_at,
+                argv=list(sys.argv), registry=obs.registry(),
+                tracer=obs.tracer(), profile=obs.profiler().snapshot(),
+                extra=extra)
+            log.info("serve manifest -> %s", path)
+            return path
+        except OSError as e:  # a broken ledger must not mask shutdown
+            log.warning("cannot write serve manifest: %s", e)
+            return None

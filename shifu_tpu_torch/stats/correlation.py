@@ -21,6 +21,7 @@ import torch
 
 from shifu_tpu_torch.config import ColumnConfig
 from shifu_tpu_torch.data.reader import ColumnarData
+from shifu_tpu_torch.obs import profile
 
 
 def _corr_matrix(x: torch.Tensor) -> torch.Tensor:
@@ -77,7 +78,8 @@ def column_correlation(
     x, names = feature_matrix(data, columns)
     if not names:
         return np.zeros((0, 0)), []
-    corr = _corr_matrix(torch.from_numpy(x).to(device))
+    corr = profile.dispatch("stats.correlation", _corr_matrix,
+                            torch.from_numpy(x).to(device), sync=False)
     return corr.cpu().numpy(), names
 
 
@@ -127,7 +129,8 @@ class StreamingCorrelation:
         if self._shift is None:
             self._shift = self.shift_of(data, columns)
         xt = torch.from_numpy(x - self._shift[None, :]).to(self.device)
-        part = [a.cpu().numpy() for a in _corr_moments(xt)]
+        part = [a.cpu().numpy() for a in profile.dispatch(
+            "stats.correlation_moments", _corr_moments, xt, sync=False)]
         if self._acc is None:
             self._acc = part
         else:

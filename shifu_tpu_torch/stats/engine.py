@@ -26,6 +26,7 @@ from shifu_tpu_torch.config.model_config import ModelConfig
 from shifu_tpu_torch.data.purify import combined_mask
 from shifu_tpu_torch.data.reader import (ColumnarData, make_tags_for,
                                          make_weights)
+from shifu_tpu_torch.obs import profile, registry, span
 from shifu_tpu_torch.ops.binagg import bin_aggregate
 from shifu_tpu_torch.stats.binning import (
     categorical_bins,
@@ -141,6 +142,12 @@ def compute_stats(
     stats_cols = [
         c for c in columns if not (c.is_target() or c.is_meta() or c.is_weight())
     ]
+    reg = registry()
+    reg.counter("stats.rows_valid").inc(data.n_rows)
+    reg.counter("stats.rows_pos").inc(n_pos)
+    reg.counter("stats.rows_neg").inc(n_neg)
+    reg.gauge("stats.columns").set(len(stats_cols))
+    timers = reg.stage_timers("stats.stage")
 
     # ---- pass 1: bin construction (host, exact quantiles) ----
     max_bins = mc.stats.max_num_bin
@@ -182,32 +189,37 @@ def compute_stats(
             cc.column_binning.length = len(bounds)
     t2 = time.perf_counter()
     t["bins"] = t2 - t1
+    timers.add("bins", t2 - t1)
 
     # ---- pass 2: one aggregation over the code matrix, on the device ----
-    codes, col_offsets, slots, values, numeric_cols = build_codes(
-        data, stats_cols)
-    total_slots = int(sum(slots))
-    t3 = time.perf_counter()
-    t["codes"] = t3 - t2
-    args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in (codes, col_offsets, tags.astype(np.int32),
-                      weights.astype(np.float32), values)]
-    cuda = device.type == "cuda"
-    if cuda:
-        torch.cuda.synchronize(device)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    t4 = time.perf_counter()
-    t["copy"] = t4 - t3
-    if cuda:
-        ev[0].record()
-    agg = bin_aggregate(args[0], args[1], total_slots, *args[2:])
-    if cuda:
-        ev[1].record()
-    agg = [a.cpu().numpy() for a in agg]
-    t5 = time.perf_counter()
-    t["aggregate"] = t5 - t4
-    if cuda:
-        t["aggregate_device_ms"] = ev[0].elapsed_time(ev[1])
+    with span("stats.aggregate", rows=data.n_rows, columns=len(stats_cols)), \
+            timers.timer("aggregate"):
+        codes, col_offsets, slots, values, numeric_cols = build_codes(
+            data, stats_cols)
+        total_slots = int(sum(slots))
+        t3 = time.perf_counter()
+        t["codes"] = t3 - t2
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in (codes, col_offsets, tags.astype(np.int32),
+                          weights.astype(np.float32), values)]
+        cuda = device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(device)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t4 = time.perf_counter()
+        t["copy"] = t4 - t3
+        if cuda:
+            ev[0].record()
+        agg = profile.dispatch("stats.bin_aggregate", bin_aggregate,
+                               args[0], args[1], total_slots, *args[2:],
+                               sync=False)
+        if cuda:
+            ev[1].record()
+        agg = [a.cpu().numpy() for a in agg]
+        t5 = time.perf_counter()
+        t["aggregate"] = t5 - t4
+        if cuda:
+            t["aggregate_device_ms"] = ev[0].elapsed_time(ev[1])
 
     medians = []
     for cc in numeric_cols:
@@ -554,6 +566,7 @@ def compute_stats_streaming(
             s = plan.shard_of(ci)
             cursors1[s] = ci
             if chunk.n_rows:
+                plan.record(s, chunk.n_rows, "stats.pass1")
                 hp.record(chunk.n_rows, "stats.pass1")
                 shard_valid[s] += chunk.n_rows
                 shard_pos[s] += int((tags == 1).sum())
@@ -593,6 +606,11 @@ def compute_stats_streaming(
         sketch_sets = sketches
         n_valid_rows = int(shard_valid.sum())
         n_pos, n_neg = int(shard_pos.sum()), int(shard_neg.sum())
+    reg = registry()
+    reg.counter("stats.rows_valid").inc(n_valid_rows)
+    reg.counter("stats.rows_pos").inc(n_pos)
+    reg.counter("stats.rows_neg").inc(n_neg)
+    reg.gauge("stats.columns").set(len(stats_cols))
     log.info("streaming stats pass 1: %d rows (%d pos / %d neg) over %d "
              "shard(s) x %d host(s)", n_valid_rows, n_pos, n_neg, S,
              hp.n_hosts)
@@ -643,14 +661,17 @@ def compute_stats_streaming(
         codes, _offs, _sl, values, _nc = build_codes(chunk, stats_cols)
         return ci, (codes, tags, weights, values)
 
+    n_chunks = 0  # chunks this host folds in pass 2 (stats.chunks)
     for ci, item in prefetch_iter(
             plan.resume_slice(enumerate(chunk_factory()), cursors2),
             transform=_coded):
         if item is not None:
+            n_chunks += 1
             faults.fault_point("chunk")
             codes, tags, weights, values = item
             acc.fold(codes, col_offsets, total_slots, tags, weights, values,
                      shard=plan.shard_of(ci))
+            plan.record(plan.shard_of(ci), len(tags), "stats.pass2")
             hp.record(len(tags), "stats.pass2")
         cursors2[plan.shard_of(ci)] = ci
         if ck is not None:
@@ -663,7 +684,7 @@ def compute_stats_streaming(
         state = acc.snapshot()
         state.pop("rows")
         hostsync.publish_part(checkpoint_root, "stats-pass2", hp, sha,
-                              arrays=state)
+                              arrays=state, meta={"chunks": n_chunks})
         parts2 = hostsync.await_parts(checkpoint_root, "stats-pass2", hp,
                                       sha)
         exact = None
@@ -671,10 +692,12 @@ def compute_stats_streaming(
             if h_arrays:  # else that host's slice kept no rows
                 exact = add_states(exact, h_arrays)
         agg = None if exact is None else rounded_state(exact)
+        n_chunks = int(sum(m.get("chunks", 0) for _a, m, _b in parts2))
         t["barrier2"] = time.perf_counter() - t_b
         log.info("streaming stats: %s", hp.describe())
     else:
         agg = acc.fetch()
+    reg.counter("stats.chunks").inc(n_chunks)
     t3 = time.perf_counter()
     t["pass2"] = t3 - t2
     if ck is not None:

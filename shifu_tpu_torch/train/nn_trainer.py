@@ -55,6 +55,7 @@ from shifu_tpu_torch.models.nn import (
     init_params,
     unflatten_params,
 )
+from shifu_tpu_torch.obs import profile, registry
 from shifu_tpu_torch.parallel.mesh import (mesh_device, psum, replicate,
                                            shard_padded)
 from shifu_tpu_torch.resilience.checkpoint import atomic_save_npy
@@ -595,8 +596,11 @@ def train_nn(
         if cfg.checkpoint_path:
             atomic_save_npy(cfg.checkpoint_path, c.flat[0].cpu().numpy())
 
-    c = _train_members(cfg, shapes, [flat0], x, t, sig_t, sig_v, [nts],
-                       [cfg.learning_rate], [cfg.seed], report, dev, mesh)
+    with profile.scaled(cfg.num_epochs):
+        c = profile.dispatch(
+            "nn.train_program", _train_members, cfg, shapes, [flat0], x, t,
+            sig_t, sig_v, [nts], [cfg.learning_rate], [cfg.seed], report,
+            dev, mesh, sync=True)
     # one host read for all scalars
     it_n, bv, tr_h, va_h = torch.stack([
         c.it[0].to(torch.float32), c.best_val[0], c.tr[0], c.va[0]]).tolist()
@@ -605,6 +609,10 @@ def train_nn(
     use_best = cfg.valid_set_rate > 0 and math.isfinite(bv)
     chosen = c.best_flat[0] if use_best else c.flat[0]
     params = unflatten_params(chosen.cpu().numpy(), shapes)
+    reg = registry()
+    reg.gauge("train.train_error").set(float(tr_h))
+    reg.gauge("train.valid_error").set(final_valid)
+    reg.counter("train.iterations").inc(it_n)
     log.info("train done: %d iterations, train_err %.6f valid_err %.6f",
              it_n, tr_h, final_valid)
     return TrainResult(params=params, train_error=float(tr_h),
@@ -691,8 +699,11 @@ def train_nn_bagged(
             if checkpoint_paths and checkpoint_paths[i]:
                 atomic_save_npy(checkpoint_paths[i], flats[i])
 
-    c = _train_members(base_cfg, shapes, flat0s, x, t, sig_t, sig_v, ntss,
-                       lrs, seeds, report, dev, mesh)
+    with profile.scaled(base_cfg.num_epochs):
+        c = profile.dispatch(
+            "nn.train_program_bagged", _train_members, base_cfg, shapes,
+            flat0s, x, t, sig_t, sig_v, ntss, lrs, seeds, report, dev, mesh,
+            sync=True)
     flat_f, best_flat = c.flat.cpu().numpy(), c.best_flat.cpu().numpy()
     best_val, tr_e, va_e = (c.best_val.tolist(), c.tr.tolist(),
                             c.va.tolist())
@@ -711,6 +722,11 @@ def train_nn_bagged(
             valid_error=bv if use_best else float(va_e[i]),
             iterations=int(its[i]),
         ))
+    avg_valid = float(np.mean([r.valid_error for r in results]))
+    reg = registry()
+    reg.gauge("train.valid_error").set(avg_valid)
+    reg.counter("train.members").inc(n_members)
+    reg.counter("train.iterations").inc(sum(r.iterations for r in results))
     log.info("bagged train done: %d members in one loop, avg valid %.6f",
-             n_members, float(np.mean([r.valid_error for r in results])))
+             n_members, avg_valid)
     return results

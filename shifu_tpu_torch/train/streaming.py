@@ -32,6 +32,7 @@ from shifu_tpu_torch.data.pipeline import prefetch_iter
 from shifu_tpu_torch.models.nn import (flatten_params, init_params,
                                        unflatten_params)
 from shifu_tpu_torch.norm.dataset import NormMeta, read_meta
+from shifu_tpu_torch.obs import profile
 from shifu_tpu_torch.parallel.mesh import (mesh_device, psum, replicate,
                                            shard_padded)
 from shifu_tpu_torch.resilience import checkpoint as ckpt_mod
@@ -355,7 +356,8 @@ def train_nn_streamed(
             cfg.checkpoint_path + ".state" + ckpt_mod.CKPT_SUFFIX, sha,
             every=0, sections=sections)
     loop = StreamedLoop(cfg, feed,
-                        _nn_shard_grad(cfg, shapes, target_class, dev),
+                        profile.wrap("nn.shard_grad", _nn_shard_grad(
+                            cfg, shapes, target_class, dev)),
                         apply_update, init_state, flat0, dev, ck, resume,
                         decay=cfg.learning_decay,
                         convergence=cfg.convergence_threshold, mesh=mesh)

@@ -60,6 +60,7 @@ from shifu_tpu_torch.data.pipeline import prefetch_iter
 from shifu_tpu_torch.models.tree import (DenseTree, TreeModelSpec,
                                          traverse_trees)
 from shifu_tpu_torch.norm.dataset import read_meta
+from shifu_tpu_torch.obs import profile
 from shifu_tpu_torch.ops import hist_kernel
 from shifu_tpu_torch.parallel.mesh import mesh_device, round_up_rows
 from shifu_tpu_torch.train.tree_trainer import (
@@ -69,10 +70,12 @@ from shifu_tpu_torch.train.tree_trainer import (
     _cls_errors,
     _derive,
     _errors,
+    _hist,
     _node_batch_size,
     _one_vote,
     _record_hist_counters,
     _route_rows,
+    _scan,
     _score_existing,
     _sharded_errors,
     _sub_plan,
@@ -196,10 +199,9 @@ def _on(out: tuple, dev, cache: dict) -> tuple:
 
 def _scanner(lay, cfg, fot):
     def scan(hist):
-        return hist_kernel.scan_level(
-            hist, fot, lay=lay, impurity=cfg.impurity,
-            min_inst=max(cfg.min_instances_per_node, 1),
-            min_gain=cfg.min_info_gain, n_classes=cfg.n_classes)
+        return _scan(hist, fot, lay=lay, impurity=cfg.impurity,
+                     min_inst=max(cfg.min_instances_per_node, 1),
+                     min_gain=cfg.min_info_gain, n_classes=cfg.n_classes)
     return scan
 
 
@@ -208,14 +210,14 @@ def _builders(kw, dev):
     merge of a batch's shard histograms (see the module docstring)."""
     if dev.type == "cuda":
         def build(codes, codes8, wk, node_slot, rows, L):
-            return hist_kernel.hist_level_acc(
-                codes, wk["labels"], wk["w"], node_slot, rows, L=L,
-                codes8=codes8, **kw)
+            return _hist(hist_kernel.hist_level_acc,
+                         codes, wk["labels"], wk["w"], node_slot, rows, L=L,
+                         codes8=codes8, **kw)
         return build, hist_kernel.merge_acc
 
     def build(codes, codes8, wk, node_slot, rows, L):
-        return hist_kernel.hist_level(codes, wk["labels"], wk["w"],
-                                      node_slot, rows, L=L, **kw)
+        return _hist(hist_kernel.hist_level, codes, wk["labels"], wk["w"],
+                     node_slot, rows, L=L, **kw)
 
     def merge(hists):
         out = hists[0]
@@ -644,18 +646,21 @@ def train_trees_streamed(
                 score = st["pred"].clamp(0.0, 1.0)
             scores.append(score)
         if mesh is None:
-            errors = _cls_errors if is_cls else _errors
-            t_e, v_e = errors(torch.cat(scores),
-                              torch.cat([st["y"] for st in shard_state]),
-                              torch.cat([st["valid"] for st in shard_state]))
+            t_e, v_e = profile.dispatch(
+                "tree.shard_cls_errors" if is_cls else "tree.shard_errors",
+                _cls_errors if is_cls else _errors, torch.cat(scores),
+                torch.cat([st["y"] for st in shard_state]),
+                torch.cat([st["valid"] for st in shard_state]), sync=False)
         else:
             row_err = [((torch.argmax(sc, dim=1).to(torch.float32)
                          != st["y"]).to(torch.float32) if is_cls
                         else (st["y"] - sc) ** 2)
                        for sc, st in zip(scores, shard_state)]
-            t_e, v_e = _sharded_errors(
-                row_err, [st["valid"] for st in shard_state],
-                [st["is_real"] for st in shard_state], mesh)
+            t_e, v_e = profile.dispatch(
+                "tree.shard_cls_errors" if is_cls else "tree.shard_errors",
+                _sharded_errors, row_err,
+                [st["valid"] for st in shard_state],
+                [st["is_real"] for st in shard_state], mesh, sync=False)
         terr, verr = float(t_e), float(v_e)  # one host read a tree
         valid_errors.append(verr)
         if progress_cb:

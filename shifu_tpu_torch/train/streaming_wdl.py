@@ -23,6 +23,7 @@ from shifu_tpu_torch.models.wdl import (flatten_wdl, init_wdl_params,
                                         unflatten_members, wdl_forward,
                                         wdl_shapes)
 from shifu_tpu_torch.norm.dataset import read_meta
+from shifu_tpu_torch.obs import profile
 from shifu_tpu_torch.parallel.mesh import mesh_device
 from shifu_tpu_torch.resilience import checkpoint as ckpt_mod
 from shifu_tpu_torch.train.streaming import (StreamedLoop, load_shard,
@@ -134,8 +135,8 @@ def train_wdl_streamed(
             _wdl_stream_sha(cfg, feed.meta, num_idx, cat_idx, vocab_sizes),
             every=0)
     loop = StreamedLoop(cfg, feed,
-                        _wdl_shard_grad(cfg, wdl_shapes(template),
-                                        len(template.embed)),
+                        profile.wrap("wdl.shard_grad", _wdl_shard_grad(
+                            cfg, wdl_shapes(template), len(template.embed))),
                         apply_update, init_state, flat0, dev, ck, resume,
                         mesh=mesh)
     loop.run()

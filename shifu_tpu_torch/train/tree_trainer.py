@@ -59,18 +59,14 @@ import torch
 
 from shifu_tpu_torch.models.tree import (DenseTree, TreeModelSpec,
                                          traverse_trees)
-from shifu_tpu_torch.ops import hist_kernel
+from shifu_tpu_torch.obs import profile
+from shifu_tpu_torch.ops import hist_bounds, hist_kernel
 from shifu_tpu_torch.parallel.mesh import (mesh_device, pad_rows, psum,
                                            shard_rows)
 from shifu_tpu_torch.utils.log import get_logger
 from shifu_tpu_torch.utils.platform import DeviceLike
 
 log = get_logger(__name__)
-
-# node-histograms built and derived, and levels that fell back to a full
-# rebuild under the stats-memory budget (tree.hist.* in the JAX package)
-hist_counters: Dict[str, int] = {"built": 0, "derived": 0,
-                                 "fallback_rebuilds": 0}
 
 # widest level (in nodes) that takes the fused histogram + scan entry;
 # deeper levels run the histogram-only entry and the scan-only entry
@@ -603,9 +599,32 @@ def _plan_counts(sub_levels: tuple, enabled: bool) -> Tuple[int, int, int]:
 
 
 def _record_hist_counters(built: int, derived: int, fallback: int) -> None:
-    hist_counters["built"] += built
-    hist_counters["derived"] += derived
-    hist_counters["fallback_rebuilds"] += fallback
+    """Run-ledger counters for the subtraction win (`tree.hist.built` /
+    `tree.hist.derived` / `tree.hist.fallback_rebuilds`, units =
+    node-histograms resp. fallback batch rebuilds)."""
+    from shifu_tpu_torch.obs import registry
+
+    reg = registry()
+    if built:
+        reg.counter("tree.hist.built").inc(built)
+    if derived:
+        reg.counter("tree.hist.derived").inc(derived)
+    if fallback:
+        reg.counter("tree.hist.fallback_rebuilds").inc(fallback)
+
+
+def _hist(entry, *args, **kw):
+    """A histogram entry call under the `tree.hist` seam, its cost the
+    entry's analytic count (ops/hist_bounds.py)."""
+    return profile.dispatch("tree.hist", entry, *args, sync=False,
+                            cost=hist_bounds.hist_cost, **kw)
+
+
+def _scan(hist, feat_ok_t, **kw):
+    """`scan_level` under the `tree.split_scan` seam."""
+    return profile.dispatch("tree.split_scan", hist_kernel.scan_level, hist,
+                            feat_ok_t, sync=False,
+                            cost=hist_bounds.scan_cost, **kw)
 
 
 def _sub_row_masks(node, active, left_small):
@@ -701,10 +720,10 @@ class _Rows:
             args = (c, self.labels[s], self.weights[s], nd, ac)
             kw = dict(L=L, codes8=self.codes8[s], **self.kw)
             if self.mesh is None:
-                return hist_kernel.hist_level(*args, **kw)
-            parts.append(hist_kernel.hist_level_acc(*args, **kw)
+                return _hist(hist_kernel.hist_level, *args, **kw)
+            parts.append(_hist(hist_kernel.hist_level_acc, *args, **kw)
                          if c.device.type == "cuda"
-                         else hist_kernel.hist_level(*args, **kw))
+                         else _hist(hist_kernel.hist_level, *args, **kw))
         if self.lead.type == "cuda":
             return hist_kernel.merge_acc(parts)
         return psum([p.double() for p in parts], self.mesh).float()
@@ -717,9 +736,11 @@ class _Rows:
             dev = c.device
             if dev not in on:
                 on[dev] = tuple(x.to(dev) for x in out)
-            self.node[s], self.active[s], self.resting[s] = _route_rows(
-                c, self.node[s], self.active[s], self.resting[s], L,
-                on[dev], scan_layout(lay, dev))
+            self.node[s], self.active[s], self.resting[s] = (
+                profile.dispatch(
+                    "tree.row_update", _route_rows, c, self.node[s],
+                    self.active[s], self.resting[s], L, on[dev],
+                    scan_layout(lay, dev), sync=False))
 
     def leaf_totals(self, L: int, n_classes: int) -> torch.Tensor:
         """`leaf_acc` node totals of the final level on the lead device:
@@ -759,13 +780,14 @@ def _grow_tree(rows: _Rows, feat_ok_t, *, lay, cfg, sub_levels: tuple):
     prev = None  # retained parent level (hist, is_split, lcnt, ncnt)
 
     def scan(hist):
-        return hist_kernel.scan_level(hist, feat_ok_t, lay=lay, n_classes=K,
-                                      **skw)
+        return _scan(hist, feat_ok_t, lay=lay, n_classes=K, **skw)
 
     def fused(node, active, L):
-        return hist_kernel.fused_level(
+        return profile.dispatch(
+            "tree.pallas_fused", hist_kernel.fused_level,
             rows.codes[0], rows.labels[0], rows.weights[0], node, active,
-            feat_ok_t, L=L, codes8=rows.codes8[0], **rows.kw, **skw)
+            feat_ok_t, L=L, codes8=rows.codes8[0], sync=False,
+            cost=hist_bounds.fused_cost, **rows.kw, **skw)
 
     for d in range(D):
         L = 2 ** d
@@ -783,12 +805,16 @@ def _grow_tree(rows: _Rows, feat_ok_t, *, lay, cfg, sub_levels: tuple):
                 # parent
                 built, scan_b = fused(*half(rows.node[0], rows.active[0]),
                                       L // 2)
-                derived, hist = _derive(p_hist, built, p_split, left_small)
+                derived, hist = profile.dispatch(
+                    "tree.hist_derive", _derive, p_hist, built, p_split,
+                    left_small, sync=False)
                 out = tuple(_interleave_children(left_small, xb, xd)
                             for xb, xd in zip(scan_b, scan(derived)))
             else:
                 built = rows.hist(L // 2, half)
-                _derived, hist = _derive(p_hist, built, p_split, left_small)
+                _derived, hist = profile.dispatch(
+                    "tree.hist_derive", _derive, p_hist, built, p_split,
+                    left_small, sync=False)
                 out = scan(hist)
         elif fuse and L <= _FUSED_SCAN_L_CAP:
             hist, out = fused(rows.node[0], rows.active[0], L)
@@ -833,10 +859,9 @@ def build_tree(rows: _Rows, feat_ok_t, *, lay, cfg, sub_levels: tuple,
     K = cfg.n_classes
 
     def scan(h):
-        return hist_kernel.scan_level(
-            h, feat_ok_t, lay=lay, impurity=cfg.impurity,
-            min_inst=cfg.min_instances_per_node,
-            min_gain=cfg.min_info_gain, n_classes=K)
+        return _scan(h, feat_ok_t, lay=lay, impurity=cfg.impurity,
+                     min_inst=cfg.min_instances_per_node,
+                     min_gain=cfg.min_info_gain, n_classes=K)
 
     sub_on = cfg.hist_subtraction
     n_built = n_derived = n_fallback = 0
@@ -854,7 +879,9 @@ def build_tree(rows: _Rows, feat_ok_t, *, lay, cfg, sub_levels: tuple,
             left_small = p_lcnt <= p_ncnt - p_lcnt
             built = rows.hist(L // 2, lambda nd, ac: _sub_row_masks(
                 nd, ac, left_small.to(nd.device)))
-            _derived, level_hist = _derive(p_hist, built, p_split, left_small)
+            _derived, level_hist = profile.dispatch(
+                "tree.hist_derive", _derive, p_hist, built, p_split,
+                left_small, sync=False)
             out = scan(level_hist)
             n_built += L // 2
             n_derived += L // 2
@@ -1416,12 +1443,15 @@ def train_trees(
             votes = [v + _one_vote(tp, cfg.n_classes)
                      for v, tp in zip(votes, tree_pred)]
             if mesh is None:
-                t_e, v_e = _cls_errors(votes[0], y_s[0], vm_s[0])
+                t_e, v_e = profile.dispatch(
+                    "tree.errors", _cls_errors, votes[0], y_s[0], vm_s[0],
+                    sync=False)
             else:
-                t_e, v_e = _sharded_errors(
+                t_e, v_e = profile.dispatch(
+                    "tree.errors", _sharded_errors,
                     [(torch.argmax(v, dim=1).to(torch.float32) != y)
                      .to(torch.float32) for v, y in zip(votes, y_s)],
-                    vm_s, real_s, mesh)
+                    vm_s, real_s, mesh, sync=False)
         else:
             if is_gbt:
                 if cfg.dropout_rate > 0.0 and k > 0:
@@ -1439,11 +1469,14 @@ def train_trees(
                         for p, tp in zip(pred, tree_pred)]
                 score = [p.clamp(0.0, 1.0) for p in pred]
             if mesh is None:
-                t_e, v_e = _errors(score[0], y_s[0], vm_s[0])
+                t_e, v_e = profile.dispatch(
+                    "tree.errors", _errors, score[0], y_s[0], vm_s[0],
+                    sync=False)
             else:
-                t_e, v_e = _sharded_errors(
+                t_e, v_e = profile.dispatch(
+                    "tree.errors", _sharded_errors,
                     [(y - sc) ** 2 for y, sc in zip(y_s, score)], vm_s,
-                    real_s, mesh)
+                    real_s, mesh, sync=False)
         if not need_sync:
             err_pairs.append((t_e, v_e))
             valid_errors.append(None)  # filled after the final sync

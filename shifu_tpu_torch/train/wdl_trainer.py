@@ -43,6 +43,7 @@ from shifu_tpu_torch.models.wdl import (
     wdl_forward,
     wdl_shapes,
 )
+from shifu_tpu_torch.obs import profile
 from shifu_tpu_torch.parallel.mesh import mesh_device, shard_padded
 from shifu_tpu_torch.resilience.checkpoint import atomic_save_npy
 from shifu_tpu_torch.train import nn_trainer
@@ -263,8 +264,11 @@ def train_wdl(
         if cfg.checkpoint_path:
             atomic_save_npy(cfg.checkpoint_path, c.flat[0].cpu().numpy())
 
-    c = _train_members(cfg, template, [flat0], d, c_, t, sig_t, sig_v,
-                       [nts], [cfg.learning_rate], report, dev, mesh)
+    with profile.scaled(cfg.num_epochs):
+        c = profile.dispatch(
+            "wdl.train_program", _train_members, cfg, template, [flat0], d,
+            c_, t, sig_t, sig_v, [nts], [cfg.learning_rate], report, dev,
+            mesh, sync=True)
     # one host read for all scalars
     it_n, bv, tr_h, va_h = torch.stack([
         c.it[0].to(torch.float32), c.best_val[0], c.tr[0], c.va[0]]).tolist()
@@ -350,9 +354,11 @@ def train_wdl_bagged(
             if checkpoint_paths and checkpoint_paths[i]:
                 atomic_save_npy(checkpoint_paths[i], flats[i])
 
-    c = _train_members(base_cfg, template, flat0s, d, c_, t,
-                       torch.stack(sig_ts), torch.stack(sig_vs), ntss, lrs,
-                       report, dev, mesh)
+    with profile.scaled(base_cfg.num_epochs):
+        c = profile.dispatch(
+            "wdl.train_program_bagged", _train_members, base_cfg, template,
+            flat0s, d, c_, t, torch.stack(sig_ts), torch.stack(sig_vs),
+            ntss, lrs, report, dev, mesh, sync=True)
     flat_f, best_flat = c.flat.cpu().numpy(), c.best_flat.cpu().numpy()
     best_val, tr_e, va_e = (c.best_val.tolist(), c.tr.tolist(),
                             c.va.tolist())

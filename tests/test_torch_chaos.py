@@ -37,11 +37,12 @@ from shifu_tpu_torch.norm.dataset import (write_codes,  # noqa: E402
                                           write_normalized)
 from shifu_tpu_torch.processor.evaluate import EvalProcessor  # noqa: E402
 from shifu_tpu_torch.processor.init import InitProcessor  # noqa: E402
+from shifu_tpu_torch import obs  # noqa: E402
 from shifu_tpu_torch.processor.norm import NormProcessor  # noqa: E402
 from shifu_tpu_torch.processor.stats import StatsProcessor  # noqa: E402
 from shifu_tpu_torch.processor.train import TrainProcessor  # noqa: E402
 from shifu_tpu_torch.resilience import checkpoint as ckpt_mod  # noqa: E402
-from shifu_tpu_torch.resilience import faults, retry  # noqa: E402
+from shifu_tpu_torch.resilience import faults  # noqa: E402
 from shifu_tpu_torch.resilience.faults import (FaultPlan,  # noqa: E402
                                                PreemptionError)
 from shifu_tpu_torch.serve.fleet import ReplicaFleet  # noqa: E402
@@ -53,6 +54,7 @@ from shifu_tpu_torch.train import wdl_trainer as PW  # noqa: E402
 from tests.test_torch_hosts import (STREAM, make_host_set,  # noqa: E402
                                     props, run_hosts)
 from tests.test_torch_nn_trainer import make_xor_like  # noqa: E402
+from tests.test_torch_obs import counts, host_counts, obs_scope  # noqa: E402
 from tests.test_torch_serve import records, write_model_set  # noqa: E402
 from tests.test_torch_wdl import VOCAB  # noqa: E402
 from tests.test_torch_wdl import _data as wdl_data  # noqa: E402
@@ -111,8 +113,7 @@ def base(tmp_path_factory):
 def test_stats_preempt_resume_bit_identical(base, tmp_path, at, label):
     """12 chunks a pass: event 4 dies in pass 1, event 16 in pass 2."""
     root = _copy(base["init"], str(tmp_path / label))
-    faults.reset_counters()
-    with props(**CHAOS):
+    with props(**CHAOS), obs_scope():
         with faults.activate(FaultPlan.parse(f"preempt@chunk={at}")):
             with pytest.raises(PreemptionError):
                 StatsProcessor(root, device="cpu").run()
@@ -121,11 +122,11 @@ def test_stats_preempt_resume_bit_identical(base, tmp_path, at, label):
                 "stats-stream-shard00000-a"} & names, names
         with resumed():
             assert StatsProcessor(root, device="cpu").run() == 0
+        assert counts("fault.injected", "seam") == {"preempt": 1}
+        assert counts("fault.survived", "seam") == {"preempt": 1}
     assert _bytes(root, "ColumnConfig.json") == \
         _bytes(base["stats"], "ColumnConfig.json")
     assert ckpt_mod.list_resumable(root) == []
-    assert faults.counters["fault.injected"] == {"preempt": 1}
-    assert faults.counters["fault.survived"] == {"preempt": 1}
 
 
 def test_norm_preempt_resume_bit_identical(base, tmp_path):
@@ -168,16 +169,17 @@ def test_eval_preempt_resume_bit_identical(base, tmp_path):
 
 def test_stats_io_faults_retried_byte_identical(base, tmp_path):
     root = _copy(base["init"], str(tmp_path / "io"))
-    faults.reset_counters()
-    retry.reset_counters()
     with props(**CHAOS, **{"shifu.faults": "io:p=0.05:seed=7",
-                           "shifu.retry.baseMs": "1"}):
+                           "shifu.retry.baseMs": "1"}), obs_scope():
         assert StatsProcessor(root, device="cpu").run() == 0
+        injected = counts("fault.injected", "seam")
+        survived = counts("fault.survived", "seam")
+        attempts = counts("retry.attempts", "seam")
     assert _bytes(root, "ColumnConfig.json") == \
         _bytes(base["stats"], "ColumnConfig.json")
-    n = faults.counters["fault.injected"].get("io", 0)
-    assert n > 0 and faults.counters["fault.survived"] == {"io": n}
-    assert retry.counters["retry.attempts"] == {"io": n}
+    n = injected.get("io", 0)
+    assert n > 0 and survived == {"io": n}
+    assert attempts == {"io": n}
 
 
 # ---- the streamed trainers ---------------------------------------------------
@@ -261,15 +263,15 @@ def test_multi_host_kill_one_host_resume_byte_identical(base, tmp_path):
         assert not any(n.startswith("stats-stream-s") for n in names)
         # the fleet resumes: host 1 from its cursors, host 0 fresh
         plans = [HostPlan(2, h) for h in range(2)]
-        with resumed():
+        with resumed(), obs_scope():
             run_hosts(lambda h: StatsProcessor(
                 root, device="cpu", host_plan=plans[h]).run())
+            chunks = host_counts("host.chunks", "stats.pass1")
     assert _bytes(root, "ColumnConfig.json") == \
         _bytes(base["stats"], "ColumnConfig.json")
     assert ckpt_mod.list_resumable(root) == []
     # host 1 re-folded only the chunks past its snapshot in pass 1
-    assert plans[0].counters["host.chunks"]["stats.pass1"] == 6
-    assert plans[1].counters["host.chunks"]["stats.pass1"] == 4
+    assert chunks == {"0": 6, "1": 4}
 
 
 # ---- SIGTERM to a `shifu train` subprocess -------------------------------------
@@ -336,21 +338,61 @@ def test_device_dead_replica_fails_over_with_clean_scores(tmp_path):
     models = os.path.join(write_model_set(str(tmp_path)), "models")
     fleet = ReplicaFleet.build(models, n_replicas=2, device="cpu",
                                max_batch_rows=64, max_wait_ms=1)
-    faults.reset_counters()
     try:
         recs = records(5)
         want = fleet.replicas[1].registry.score_records(recs)
-        with faults.activate(FaultPlan.parse("device_dead@replica=0")):
+        with obs_scope(), \
+                faults.activate(FaultPlan.parse("device_dead@replica=0")):
             for _ in range(8):
                 got = fleet.score_batch(recs, timeout=30)
                 np.testing.assert_array_equal(got.model_scores,
                                               want.model_scores)
+            injected = counts("fault.injected", "replica")
         assert fleet.replicas[0].breaker.state == BREAKER_OPEN
         assert fleet.replicas[1].breaker.state != BREAKER_OPEN
         assert fleet.failovers >= 1
-        assert faults.counters["fault.injected"].get(
-            "device_dead@replica=0", 0) >= 1
-        assert not any(k.endswith("replica=1")
-                       for k in faults.counters["fault.injected"])
+        assert injected.get("0", 0) >= 1 and "1" not in injected
     finally:
         fleet.close(10)
+
+
+# ---- the device seam over a tree train ---------------------------------------------
+
+@pytest.mark.parametrize("alg", ["RF", "GBT"])
+@pytest.mark.parametrize("spec", ["device:p=0.5:seed=4", "device@device=5",
+                                  "device@device=5,device@device=6"])
+def test_tree_train_device_faults_fail_or_write_the_clean_model(
+        base, tmp_path, alg, spec):
+    """Each tree seam is retried whole under the `device` budget; a seam
+    that spends it (two faults in a row under `shifu.retry.device.max=2`)
+    fails the step. The step never writes a model other than the
+    unfaulted run's; a single fault (`@device=5`) is survived."""
+    roots = {}
+    for name in ("clean", "faulted"):
+        root = roots[name] = _copy(base["norm"], str(tmp_path / name))
+        path = os.path.join(root, "ModelConfig.json")
+        mc = json.load(open(path))
+        mc["train"]["algorithm"] = alg
+        json.dump(mc, open(path, "w"), indent=2)
+    assert TrainProcessor(roots["clean"], device="cpu").run() == 0
+    clean = _tree(os.path.join(roots["clean"], "models"))
+    with props(**{"shifu.faults": spec, "shifu.retry.device.max": "2",
+                  "shifu.retry.baseMs": "1"}), obs_scope():
+        try:
+            rc = TrainProcessor(roots["faulted"], device="cpu").run()
+        except Exception:  # noqa: BLE001 - failing loudly is allowed
+            rc = None
+        injected = counts("fault.injected", "seam")
+        survived = counts("fault.survived", "seam")
+        seams = obs.profiler().snapshot()["programs"]
+    assert injected.get("device", 0) > 0
+    assert seams["tree.row_update"]["dispatches"] > 0
+    assert "tree.whole_tree" not in seams
+    if spec == "device@device=5":
+        assert rc == 0 and injected == {"device": 1}
+    if rc == 0:
+        assert survived == injected
+        assert _tree(os.path.join(roots["faulted"], "models")) == clean
+    else:
+        assert not os.path.isdir(os.path.join(roots["faulted"], "models")) \
+            or _tree(os.path.join(roots["faulted"], "models")) in ({}, clean)

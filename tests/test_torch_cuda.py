@@ -522,3 +522,45 @@ def test_meshed_rf_on_the_card_equals_one_device(dev, n_classes):
         np.testing.assert_array_equal(a.feature, b.feature)
         np.testing.assert_array_equal(a.left_mask, b.left_mask)
         np.testing.assert_array_equal(a.leaf_value, b.leaf_value)
+
+
+@pytest.mark.cuda
+def test_profiled_entry_seams_add_no_synchronisation(dev, monkeypatch):
+    """Under the armed profiler (obs/profile.py) the tree grower's
+    histogram and scan seams (`sync=False`) record a dispatch with the
+    entries' analytic cost and never call `torch.cuda.synchronize`; the
+    results equal the unprofiled calls."""
+    from shifu_tpu_torch import obs
+    from shifu_tpu_torch.ops import hist_bounds
+
+    lay, codes, y, w, node, act = _case(dev, [9, 17, 33], [False] * 3,
+                                        20_000, 4, 3)
+    fok = torch.ones(lay.T, dtype=torch.bool, device=dev)
+    kw = dict(L=4, lay=lay)
+    skw = dict(impurity="variance", min_inst=1, min_gain=0.0)
+    want_h = hk.hist_level(codes, y, w, node, act, **kw)
+    want_s = hk.scan_level(want_h, fok, lay=lay, **skw)
+    torch.cuda.synchronize()
+    syncs = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: syncs.append(a) or real(*a, **k))
+    obs.begin_run()
+    try:
+        got_h = tt._hist(hk.hist_level, codes, y, w, node, act, **kw)
+        got_s = tt._scan(got_h, fok, lay=lay, **skw)
+        assert syncs == []
+        progs = obs.profiler().snapshot()["programs"]
+    finally:
+        obs.end_run()
+    monkeypatch.setattr(torch.cuda, "synchronize", real)
+    torch.cuda.synchronize()
+    assert torch.equal(got_h, want_h)
+    for a, b in zip(got_s, want_s):
+        assert torch.equal(a, b)
+    row = progs["tree.hist"]
+    assert row["dispatches"] == 1 and row["synced"] is False
+    assert row["costSource"] == "analytic"
+    assert row["bytesAccessed"] == hist_bounds.hist_cost(
+        codes, y, w, node, act, **kw)[1]
+    assert progs["tree.split_scan"]["dispatches"] == 1

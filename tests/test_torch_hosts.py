@@ -46,6 +46,7 @@ from shifu_tpu_torch.resilience import checkpoint as ckpt_mod  # noqa: E402
 from shifu_tpu_torch.utils import environment as penv  # noqa: E402
 from tests.helpers import make_model_set, write_dataset  # noqa: E402
 from tests.test_torch_config import jax_inline_ingest  # noqa: E402
+from tests.test_torch_obs import counts, host_counts, obs_scope  # noqa: E402
 
 ROWS = 1200
 CHUNK = 100  # 12 chunks: 6 a host
@@ -179,10 +180,11 @@ def test_host_plan_knobs_and_counters():
         hp = HostPlan()
     assert (hp.n_hosts, hp.host_index) == (4, 2)
     assert (HostPlan().n_hosts, HostPlan().host_index) == (1, 0)
-    hp.record(10, "norm")
-    hp.record(5, "norm")
-    assert hp.counters == {"host.chunks": {"norm": 2},
-                           "host.rows": {"norm": 15}}
+    with obs_scope():
+        hp.record(10, "norm")
+        hp.record(5, "norm")
+        assert host_counts("host.chunks", "norm") == {"2": 2}
+        assert host_counts("host.rows", "norm") == {"2": 15}
 
 
 @pytest.mark.parametrize("S", [1, 2, 4])
@@ -207,19 +209,19 @@ def test_shard_plan_with_host_matches_jax(S):
 
 def test_publish_await_in_host_order(tmp_path):
     root, sha = str(tmp_path), "cafe" * 10
-    hostsync.reset_counters()
-    for h in (1, 0):  # published out of order on purpose
-        hostsync.publish_part(
-            root, "stats-pass1", HostPlan(2, h), sha,
-            arrays={"acc": np.full(3, h, np.float64)},
-            meta={"nRows": 10 + h}, blob=pickle.dumps({"host": h}))
-    parts = hostsync.await_parts(root, "stats-pass1", HostPlan(2, 0), sha,
-                                 timeout_ms=5000)
+    with obs_scope():
+        for h in (1, 0):  # published out of order on purpose
+            hostsync.publish_part(
+                root, "stats-pass1", HostPlan(2, h), sha,
+                arrays={"acc": np.full(3, h, np.float64)},
+                meta={"nRows": 10 + h}, blob=pickle.dumps({"host": h}))
+        parts = hostsync.await_parts(root, "stats-pass1", HostPlan(2, 0),
+                                     sha, timeout_ms=5000)
+        assert counts("host.parts_published", "host") == {"0": 1, "1": 1}
+        assert counts("host.parts_merged", "step") == {"stats-pass1": 2}
     assert [p[1]["nRows"] for p in parts] == [10, 11]
     assert [int(p[0]["acc"][0]) for p in parts] == [0, 1]
     assert [pickle.loads(p[2])["host"] for p in parts] == [0, 1]
-    assert hostsync.counters["host.parts_published"] == {"stats-pass1": 2}
-    assert hostsync.counters["host.parts_merged"] == {"stats-pass1": 2}
     assert hostsync.part_path(root, "s", 3).endswith(
         os.path.join(".shifu", "runs", "hosts", "s", "part-h003.npz"))
 
@@ -396,20 +398,21 @@ def test_init_autotype_two_hosts_byte_identical(tmp_path):
     with props(**STREAM):
         assert InitProcessor(one, device="cpu").run() == 0
         plans = [HostPlan(2, h) for h in range(2)]
-        run_hosts(lambda h: InitProcessor(
-            two, device="cpu", host_plan=plans[h]).run())
+        with obs_scope():
+            run_hosts(lambda h: InitProcessor(
+                two, device="cpu", host_plan=plans[h]).run())
+            chunks = host_counts("host.chunks", "init.autotype")
     for rel in ("ColumnConfig.json",
                 os.path.join("tmp", "autotype", "count_info.json")):
         assert _bytes(one, rel) == _bytes(two, rel), rel
     # each host folded its own 6 chunks
-    assert [p.counters["host.chunks"]["init.autotype"] for p in plans] \
-        == [6, 6]
+    assert chunks == {"0": 6, "1": 6}
 
 
 @pytest.fixture(scope="module")
 def stats_pair(inited, tmp_path_factory):
     """Streamed stats on one host and on two: (one root, two root, the
-    two hosts' plans)."""
+    two hosts' obs counters, their processors)."""
     base = tmp_path_factory.mktemp("stats_pair")
     one = _copy(inited, str(base / "one"))
     two = _copy(inited, str(base / "two"))
@@ -419,18 +422,20 @@ def stats_pair(inited, tmp_path_factory):
         assert proc.run() == 0
         procs = [StatsProcessor(two, device="cpu", host_plan=plans[h])
                  for h in range(2)]
-        run_hosts(lambda h: procs[h].run())
-    return one, two, plans, procs
+        with obs_scope() as reg:
+            run_hosts(lambda h: procs[h].run())
+            snap = reg.snapshot()
+    return one, two, snap, procs
 
 
 def test_stats_two_hosts_byte_identical(stats_pair):
-    one, two, plans, procs = stats_pair
+    one, two, snap, procs = stats_pair
     assert _bytes(one, "ColumnConfig.json") == \
         _bytes(two, "ColumnConfig.json")
     for stage in ("stats.pass1", "stats.pass2"):
-        per_host = [p.counters["host.chunks"][stage] for p in plans]
-        assert per_host == [6, 6], stage
-    rows = sum(p.counters["host.rows"]["stats.pass2"] for p in plans)
+        per_host = host_counts("host.chunks", stage, snap)
+        assert per_host == {"0": 6, "1": 6}, stage
+    rows = sum(host_counts("host.rows", "stats.pass2", snap).values())
     assert rows == ROWS
     assert all({"barrier1", "barrier2"} <= set(p.timings) for p in procs)
     # the run cleared its checkpoint families; the parts stay
@@ -456,14 +461,16 @@ def test_norm_two_hosts_byte_identical(stats_pair, tmp_path):
     plans = [HostPlan(2, h) for h in range(2)]
     with props(**STREAM):
         assert NormProcessor(one, device="cpu").run() == 0
-        run_hosts(lambda h: NormProcessor(
-            two, device="cpu", host_plan=plans[h]).run())
+        with obs_scope():
+            run_hosts(lambda h: NormProcessor(
+                two, device="cpu", host_plan=plans[h]).run())
+            chunks = host_counts("host.chunks", "norm")
     for sub in ("NormalizedData", "CleanedData"):
         d = os.path.join("tmp", "norm", sub)
         a, b = _tree(os.path.join(one, d)), _tree(os.path.join(two, d))
         assert list(a) == list(b) and a == b, sub
         assert not any(f.startswith(".part-") for f in b)
-    assert [p.counters["host.chunks"]["norm"] for p in plans] == [6, 6]
+    assert chunks == {"0": 6, "1": 6}
 
 
 def test_eval_runs_on_the_merge_host_only(stats_pair, tmp_path):

@@ -16,7 +16,14 @@ from shifu_tpu_torch.utils import platform  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "shifu_tpu_torch", "shifu_tpu_torch.__main__", "shifu_tpu_torch.cli",
-    "shifu_tpu_torch.analysis", "shifu_tpu_torch.analysis.sanitize",
+    "shifu_tpu_torch.analysis", "shifu_tpu_torch.analysis.racetrack",
+    "shifu_tpu_torch.analysis.sanitize",
+    "shifu_tpu_torch.obs", "shifu_tpu_torch.obs.costmodel",
+    "shifu_tpu_torch.obs.ledger", "shifu_tpu_torch.obs.metrics",
+    "shifu_tpu_torch.obs.profile", "shifu_tpu_torch.obs.reqtrace",
+    "shifu_tpu_torch.obs.timeseries", "shifu_tpu_torch.obs.top",
+    "shifu_tpu_torch.obs.tracing", "shifu_tpu_torch.ops.hist_bounds",
+    "shifu_tpu_torch.utils.timing",
     "shifu_tpu_torch.parallel.hostsync",
     "shifu_tpu_torch.resilience.faults", "shifu_tpu_torch.resilience.retry",
     "shifu_tpu_torch.config", "shifu_tpu_torch.config.column_config",

@@ -33,6 +33,7 @@ from shifu_tpu_torch.resilience.faults import (  # noqa: E402
     PreemptionError,
 )
 from shifu_tpu_torch.utils import environment as penv  # noqa: E402
+from tests.test_torch_obs import counts, obs_scope  # noqa: E402
 
 # the examples of the grammar's docstring (shifu_tpu/resilience/faults.py)
 EXAMPLES = ["io:p=0.01:seed=7", "device", "preempt@chunk=40",
@@ -95,13 +96,13 @@ def test_firing_ordinals_match_jax(spec, counter, indexed):
 
 
 def test_sleep_seam_and_counters():
-    faults.reset_counters()
-    with faults.activate(FaultPlan.parse("slow:ms=1,io:p=1:max=2")):
+    with obs_scope(), \
+            faults.activate(FaultPlan.parse("slow:ms=1,io:p=1:max=2")):
         for _ in range(2):
             with pytest.raises(InjectedFaultError):
                 faults.fault_point("io")
         faults.fault_point("io")  # the io budget is spent: sleep only
-    assert faults.counters["fault.injected"] == {"slow": 3, "io": 2}
+        assert counts("fault.injected", "seam") == {"slow": 3, "io": 2}
     faults.fault_point("io")  # no plan armed: a no-op
 
 
@@ -114,20 +115,26 @@ def test_unreachable_seams_raise_naming_a14():
     finally:
         penv.set_property(faults.FAULTS_PROPERTY, "")
         faults.reset()
-    for mode in ("transfer", "nan", "recompile", "race", "all"):
+    for mode in ("transfer", "nan", "recompile", "all"):
         penv.set_property("shifu.sanitize", mode)
         try:
             with pytest.raises(ValueError, match="A.14"):
                 psanitize.from_environment()
         finally:
             penv.set_property("shifu.sanitize", "")
+    # the device seam (every profile dispatch) and the race mode are
+    # ported: they parse and arm
+    assert FaultPlan.parse("device:p=0.5").clauses[0].seam == "device"
+    penv.set_property("shifu.sanitize", "race")
+    try:
+        assert psanitize.from_environment().modes == {"race"}
+    finally:
+        penv.set_property("shifu.sanitize", "")
 
 
 # ---- retry -----------------------------------------------------------------
 
 def test_retry_recovers_and_counts():
-    faults.reset_counters()
-    retry.reset_counters()
     calls, sleeps = [], []
 
     def flaky():
@@ -136,22 +143,23 @@ def test_retry_recovers_and_counts():
             raise InjectedFaultError("io", len(calls))
         return "ok"
 
-    assert retry.retry_call(flaky, seam="io", sleeper=sleeps.append) == "ok"
+    with obs_scope():
+        assert retry.retry_call(flaky, seam="io",
+                                sleeper=sleeps.append) == "ok"
+        assert counts("retry.attempts", "seam") == {"io": 2}
+        assert counts("retry.recovered", "seam") == {"io": 1}
+        assert counts("fault.survived", "seam") == {"io": 2}
     assert len(calls) == 3 and len(sleeps) == 2
-    assert retry.counters["retry.attempts"] == {"io": 2}
-    assert retry.counters["retry.recovered"] == {"io": 1}
-    assert faults.counters["fault.survived"] == {"io": 2}
 
 
 def test_retry_budget_exhaustion_reraises_original():
-    retry.reset_counters()
-
     def always():
         raise OSError("flaky disk")
 
-    with pytest.raises(OSError, match="flaky disk"):
-        retry.retry_call(always, seam="io", sleeper=lambda s: None)
-    assert retry.counters["retry.exhausted"] == {"io": 1}
+    with obs_scope():
+        with pytest.raises(OSError, match="flaky disk"):
+            retry.retry_call(always, seam="io", sleeper=lambda s: None)
+        assert counts("retry.exhausted", "seam") == {"io": 1}
     # a non-transient error is not retried at all
     calls = []
 
@@ -216,35 +224,39 @@ def test_kill_during_atomic_write_preserves_previous(tmp_path):
 
 
 def test_stream_checkpoint_save_retries_injected_ckpt_fault(tmp_path):
-    faults.reset_counters()
     ck = ckpt_mod.StreamCheckpoint(str(tmp_path / "s.ckpt.npz"), "sha")
-    with faults.activate(FaultPlan.parse("ckpt@ckpt=1")):
-        ck.save(3, arrays={"a": np.ones(2)}, meta={"k": 1})
-    ci, arrays, meta, blob = ck.load()
+    with obs_scope():
+        with faults.activate(FaultPlan.parse("ckpt@ckpt=1")):
+            ck.save(3, arrays={"a": np.ones(2)}, meta={"k": 1})
+        ci, arrays, meta, blob = ck.load()
+        assert counts("fault.survived", "seam") == {"ckpt": 1}
+        assert counts("ckpt.writes", None) == {"": 1}
+        assert counts("ckpt.resumes", None) == {"": 1}
     assert ci == 3 and meta == {"k": 1} and blob is None
     np.testing.assert_array_equal(arrays["a"], np.ones(2))
-    assert faults.counters["fault.survived"] == {"ckpt": 1}
 
 
 # ---- the prefetch seams ---------------------------------------------------
 
 @pytest.mark.parametrize("depth", [0, 2])
 def test_prefetch_io_and_prefetch_faults_are_absorbed(depth):
-    faults.reset_counters()
     penv.set_property("shifu.retry.max", "10")
     penv.set_property("shifu.retry.baseMs", "0")
     try:
-        with faults.activate(FaultPlan.parse(
+        with obs_scope(), faults.activate(FaultPlan.parse(
                 "io:p=0.3:seed=7,prefetch:p=0.3:seed=5")):
             got = list(pp.prefetch_iter(iter(range(40)), depth=depth,
                                         transform=lambda x: x * 2))
+            inj = counts("fault.injected", "seam")
+            survived = counts("fault.survived", "seam")
+            chunks = counts("pipeline.chunks", None)
     finally:
         penv.set_property("shifu.retry.max", "")
         penv.set_property("shifu.retry.baseMs", "")
     assert got == [2 * x for x in range(40)]
-    inj = faults.counters["fault.injected"]
     assert inj["io"] > 0 and inj["prefetch"] > 0
-    assert faults.counters["fault.survived"] == inj
+    assert survived == inj
+    assert chunks == {"": 40}
 
 
 def test_prefetch_real_read_error_stays_loud():

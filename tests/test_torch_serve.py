@@ -24,6 +24,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from shifu_tpu_torch import obs  # noqa: E402
 from shifu_tpu_torch.cli import main as cli_main  # noqa: E402
 from shifu_tpu_torch.data.reader import ColumnarData  # noqa: E402
 from shifu_tpu_torch.eval.scorer import ScoreResult  # noqa: E402
@@ -79,6 +80,13 @@ def write_model_set(root, n_models=3):
                     params=init_params(sizes, seed=b)).save(
             os.path.join(models, f"model{b}.nn"))
     return root
+
+
+@pytest.fixture(autouse=True)
+def fresh_obs():
+    """A fresh obs registry a test: the batchers' numbers live there, and
+    a test reads only those of its own batchers."""
+    obs.reset()
 
 
 @pytest.fixture(scope="module")
@@ -141,9 +149,10 @@ class TestBatcherQueue:
         for i, res in enumerate(results):
             assert res.mean[0] == pytest.approx(float(i))
         assert 1 <= len(batch_sizes) < 20
-        assert batcher.records == 20 and batcher.batches == len(batch_sizes)
-        assert batcher.requests == {"json": 20}
-        assert batcher.latency["json"].count == 20
+        snap = batcher.snapshot()
+        assert snap["records"] == 20 and snap["batches"] == len(batch_sizes)
+        assert snap["requests"] == {"json": 20}
+        assert snap["latencySeconds"]["json"]["count"] == 20
         batcher.admission.close()
         batcher.join(5)
 
@@ -183,7 +192,7 @@ class TestBatcherQueue:
             bad.wait(10)
         good = batcher.submit(_one_row(2))
         assert good.wait(10).mean[0] == pytest.approx(2.0)
-        assert batcher.batch_errors == 1
+        assert batcher.snapshot()["batchErrors"] == 1
         batcher.admission.close()
         batcher.join(5)
 
@@ -211,7 +220,7 @@ class TestBatcherQueue:
         with pytest.raises(RejectedError) as exc2:
             batcher.submit(_one_row(100))
         assert exc2.value.reason == "closed"
-        assert admission.shed == {"full": 1, "closed": 1}
+        assert admission.snapshot()["shed"] == {"full": 1, "closed": 1}
         gate.set()
         assert first.wait(10).mean[0] == pytest.approx(0.0)
         for i, req in enumerate(admitted):
@@ -270,7 +279,7 @@ class TestBatcherQueue:
         assert first.wait(10).mean[0] == 0.0
         with pytest.raises(DeadlineExceededError):
             late.wait(10)
-        assert batcher.deadline_shed == 1
+        assert batcher.snapshot()["deadlineShed"] == 1
         batcher.admission.close()
         batcher.join(5)
 
@@ -293,7 +302,8 @@ def test_worker_crash_restarts_then_drains():
     with pytest.raises(RuntimeError, match="crashed mid-batch"):
         batcher.submit(_one_row(-1)).wait(10)
     assert batcher.submit(_one_row(5)).wait(10).mean[0] == 5.0
-    assert batcher.restarts == 1 and batcher.crashes == 1
+    assert batcher.restarts == 1
+    assert batcher.snapshot()["workerCrashes"] == 1
     assert batcher.health.state == "degraded"
     for v in (6, 7, 8):  # clean batches lift the degrade
         batcher.submit(_one_row(v)).wait(10)
@@ -412,8 +422,8 @@ def test_router_skips_a_draining_replica(model_set):
         fleet.replicas[0].health.set_draining("maintenance")
         for _ in range(6):
             fleet.score_batch(records(2), timeout=30)
-        assert fleet.replicas[0].batcher.records == 0
-        assert fleet.replicas[1].batcher.records == 12
+        assert fleet.replicas[0].batcher.snapshot()["records"] == 0
+        assert fleet.replicas[1].batcher.snapshot()["records"] == 12
         assert fleet.health_snapshot()["status"] == "degraded"
         fleet.replicas[1].health.set_draining("maintenance")
         with pytest.raises(RejectedError):
@@ -486,7 +496,7 @@ def test_json_jsonl_and_binary_answer_the_same_rows(server):
     assert _post(f"{base}/score", json.dumps(recs[2]))[1]["scores"] == \
         want[2:3]
     batcher = server.registry.replicas[0].batcher
-    assert batcher.requests == {"json": 4, "binary": 1}
+    assert batcher.snapshot()["requests"] == {"json": 4, "binary": 1}
 
 
 def test_error_statuses_have_json_bodies(server):
@@ -505,7 +515,16 @@ def test_error_statuses_have_json_bodies(server):
     assert code == 404 and "single-tenant" in doc["error"]
     code, doc, _ = _http_error(f"{base}/nope", "{}")
     assert code == 404 and "error" in doc
-    for path in ("/metrics", "/admin/traces", "/fleet/healthz"):
+    # the obs routes answer (obs/metrics.py, obs/reqtrace.py); the
+    # rollout control plane, the lossless snapshot and the fleet views
+    # still wait for A.14
+    with urllib.request.urlopen(f"{base}/metrics", timeout=10) as r:
+        assert r.status == 200
+        assert r.headers["Content-Type"].startswith("text/plain")
+        assert "serve_replicas 1.0" in r.read().decode("utf-8")
+    code, doc = _get(f"{base}/admin/traces")
+    assert code == 200 and "traces" in doc and "capacity" in doc
+    for path in ("/admin/metrics.json", "/fleet/healthz"):
         code, doc = _get(f"{base}{path}")
         assert code == 501 and "A.14" in doc["error"], path
     code, doc, _ = _http_error(f"{base}/admin/stage", "{}")

@@ -5,7 +5,7 @@ histogram and scan entries on the CPU).
 
 Contracts: RF and NATIVE RF forests bit-equal to both references (child
 pointers included, leaf-wise), GBT scores within 0.03 (the JAX package's
-kernel-on/off tolerance), `hist_counters` equal to the in-memory
+kernel-on/off tolerance), `tree.hist.*` counters equal to the in-memory
 trainer's and to the JAX `tree.hist.*` deltas but for the final level,
 whose leaves the port takes from node totals where its in-memory route
 does (the JAX streamed grower scans a histogram there), and the
@@ -21,6 +21,7 @@ import pytest
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
+from shifu_tpu_torch import obs as pobs  # noqa: E402
 from shifu_tpu_torch.norm.dataset import write_codes  # noqa: E402
 from shifu_tpu_torch.ops import hist_kernel as hk  # noqa: E402
 from shifu_tpu_torch.train import streaming_tree as pst  # noqa: E402
@@ -29,6 +30,7 @@ from tests.test_torch_tree import (_assert_forests_bit_equal,  # noqa: E402
                                    _assert_pointers_equal, _class_data,
                                    _first_diff, _forest_data,
                                    _jax_hist_counters)
+from tests.test_torch_obs import port_hist_counters  # noqa: E402
 
 SHARDS = 4
 
@@ -122,11 +124,10 @@ def test_streamed_forest_parity(tmp_path, case, kw):
     before = _jax_hist_counters()
     ref = _jax_streamed(out, data, **dict(kw))
     after = _jax_hist_counters()
-    for k in ptt.hist_counters:
-        ptt.hist_counters[k] = 0
+    pobs.reset()
     hk.reset_counters()
     port = _port_streamed(out, data, **dict(kw))
-    counters = dict(ptt.hist_counters)
+    counters = port_hist_counters()
     jax_deltas = {k: int(after[k] - before[k]) for k in after}
     assert _with_final_level(counters, data, kw) == jax_deltas
     mc = "_mc" if kw.get("n_classes") else ""
@@ -135,12 +136,11 @@ def test_streamed_forest_parity(tmp_path, case, kw):
     assert hk.reference_calls["hist_level" + mc] % SHARDS == 0
     if kw.get("max_leaves"):
         assert hk.reference_calls["hist_level" + mc] == \
-            SHARDS * ptt.hist_counters["built"]
+            SHARDS * port_hist_counters()["built"]
     assert hk.reference_calls["scan_level" + mc] > 0
-    for k in ptt.hist_counters:
-        ptt.hist_counters[k] = 0
+    pobs.reset()
     mem = _port_memory(data, **dict(kw))
-    assert ptt.hist_counters == counters
+    assert port_hist_counters() == counters
     codes = data[0]
     if kw["algorithm"] == "GBT":
         got = port.spec.independent(device="cpu").compute(codes)

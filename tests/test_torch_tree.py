@@ -14,10 +14,12 @@ torch = pytest.importorskip("torch")
 from shifu_tpu.models import tree as jtree  # noqa: E402
 from shifu_tpu.train import tree_trainer as jtt  # noqa: E402
 from shifu_tpu.utils import environment  # noqa: E402
+from shifu_tpu_torch import obs as pobs  # noqa: E402
 from shifu_tpu_torch import convert  # noqa: E402
 from shifu_tpu_torch.models import tree as ptree  # noqa: E402
 from shifu_tpu_torch.ops import hist_kernel as hk  # noqa: E402
 from shifu_tpu_torch.train import tree_trainer as ptt  # noqa: E402
+from tests.test_torch_obs import port_hist_counters  # noqa: E402
 
 
 def _forest_data(n=2500, seed=0):
@@ -166,13 +168,12 @@ def test_resume_is_bit_equal(alg):
 
 def test_hist_counters_follow_subtraction_plan():
     data = _forest_data(n=800, seed=1)
-    for k in ptt.hist_counters:
-        ptt.hist_counters[k] = 0
+    pobs.reset()
     _port_train(*data, algorithm="GBT", tree_num=2, max_depth=4, seed=1)
     leaves = 2 ** 4
-    assert ptt.hist_counters["built"] == 2 * (leaves // 2)
-    assert ptt.hist_counters["derived"] == 2 * (leaves // 2 - 1)
-    assert ptt.hist_counters["fallback_rebuilds"] == 0
+    assert port_hist_counters()["built"] == 2 * (leaves // 2)
+    assert port_hist_counters()["derived"] == 2 * (leaves // 2 - 1)
+    assert port_hist_counters()["fallback_rebuilds"] == 0
 
 
 def test_early_stop_decider_matches_jax():
@@ -321,7 +322,7 @@ def _wide_forest_data(n=2500, seed=6):
 def test_grower_parity(case, kw):
     """The leaf-wise and host-batched growers against the JAX package's:
     RF forests bit-equal (explicit child pointers included), GBT scores
-    within 0.03, and the port's `hist_counters` equal to the JAX
+    within 0.03, and the port's `tree.hist.*` counters equal to the JAX
     `tree.hist.*` deltas. The histogram-only and scan-only entries run,
     the fused one never."""
     if kw.get("n_classes"):
@@ -334,11 +335,10 @@ def test_grower_parity(case, kw):
     before = _jax_hist_counters()
     ref = _jax_train(*data, **kw)
     after = _jax_hist_counters()
-    for k in ptt.hist_counters:
-        ptt.hist_counters[k] = 0
+    pobs.reset()
     hk.reset_counters()
     port = _port_train(*data, **kw)
-    assert ptt.hist_counters == {k: int(after[k] - before[k])
+    assert port_hist_counters() == {k: int(after[k] - before[k])
                                  for k in after}
     leafwise = kw.get("max_leaves", 0) > 0
     assert all((t.left is not None) == leafwise for t in port.spec.trees)
@@ -348,9 +348,9 @@ def test_grower_parity(case, kw):
     assert hk.reference_calls["scan_level" + mc] > 0
     if leafwise:  # one histogram a built node, one scan a leaf
         assert hk.reference_calls["hist_level" + mc] == \
-            ptt.hist_counters["built"]
+            port_hist_counters()["built"]
         assert hk.reference_calls["scan_level" + mc] == (
-            ptt.hist_counters["built"] + ptt.hist_counters["derived"])
+            port_hist_counters()["built"] + port_hist_counters()["derived"])
     if kw["algorithm"] == "GBT":
         codes = data[0]
         np.testing.assert_allclose(
