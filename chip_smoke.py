@@ -261,6 +261,28 @@ Phases, each of which must pass:
            their plain versions, bench `rf` and `SMALL` over every card;
            on one card one line says so.
 
+16. hosts  and 17. obs: see `phase_hosts` and `phase_obs`.
+
+18. loop   the serving loop, varsel VOTED, WDL's model axis, remote
+           input; no kernel of its own (it counts the hand kernels it
+           launches: none). (a) `shifu varsel` VOTED on phase 8's
+           normalized set, timed; its GA on a 20,000-row slice on the
+           card and on the CPU, the errors within 1e-4. (b) `shifu serve
+           --traffic-log` (a subprocess) on phase 9's NN set: the drift
+           fold rides the device program; quiet held-out requests keep
+           /healthz ok, shifted ones degrade it with one recommendation;
+           /admin/stage, /admin/shadow, `shifu promote --serve-url`; the
+           promoted set scores as the candidate offline (2e-3); the
+           window counts equal a CPU fold; the traffic log reads back
+           every row sent. (c) bench `WDL` on `data_mesh(model_axis=2,
+           virtual=4)` against the data-only mesh of the same 2 row
+           shards (weights within 1e-6) and `mesh=None` (phase 15's
+           gate; the share of weights within rtol 3e-3, atol 3e-4).
+           (d) the remote and parquet routes raise naming the missing
+           package, or read the CSV's tokens. (e) bench `SERVE`'s JSON
+           closed loop with the drift fold off and on (p50, p99).
+           `--loop-only` runs it alone on small sets built on the CPU.
+
 Every main-path run (phases 3-6 and 8's train) must launch the scan entry
 once for each subtraction level of each tree (bench `gbt` 25, `rf` 70,
 NATIVE 70, ONEVSALL 75, the prep chain's RF 70) and run no plain torch
@@ -5816,6 +5838,551 @@ def print_obs(o):
           f"runs, shifu profile rendered; phase {o['seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the serving loop, varsel VOTED, WDL's model axis, remote input
+# ---------------------------------------------------------------------------
+
+# (a) VOTED on phase 8's normalized set: the GA's knobs and the candidate
+# network (the set is an RF set: its NN keys are only the GA's probe);
+# `slice` rows go through the GA on the card and on the CPU
+LOOP_VOTED = dict(population=16, generations=3, wrapper=10, hidden=[10],
+                  epochs=20, lr=0.05, slice=20_000, tol=1e-4)
+# (b) `shifu serve --traffic-log` on phase 9's NN set: 64-row requests,
+# `quiet` of held-out rows, then `shifted` with one numeric column moved
+# far out of its bins; the verdict binds past `min_rows`
+LOOP_SERVE = dict(rows=64, quiet=64, shifted=32, shadow=8, after=4,
+                  min_rows=2048, chunk_rows=1024, score_atol=2e-3)
+# (d): a parquet file of columns a = ["1", "2.5", null] and b = ["x",
+# null, "y"] (written by pyarrow 25, uncompressed), base64
+LOOP_PARQUET = (
+    "UEFSMRUEFRgVGEwVBBUAEgAAAQAAADEDAAAAMi41FQAVEhUSLBUGFRAVBhUGHDYC"
+    "KAMyLjUYATEREQAAAAIAAAADAwEDAhUEFRQVFEwVBBUAEgAAAQAAAHgBAAAAeRUA"
+    "FRIVEiwVBhUQFQYVBhw2AigBeRgBeBERAAAAAgAAAAMFAQMCFQQZPDUAGAZzY2hl"
+    "bWEVBAAVDCUCGAFhJQBMHAAAABUMJQIYAWIlAEwcAAAAFgYZHBksJgAcFQwZNQAG"
+    "EBkYAWEVABYGFoQBFoQBJjwmCBw2AigDMi41GAExEREAGSwVBBUAFQIAFQAVEBUC"
+    "ADwWCBkGGSYCBAAAACYAHBUMGTUABhAZGAFiFQAWBhZ8FnwmvAEmjAEcNgIoAXkY"
+    "AXgREQAZLBUEFQAVAgAVABUQFQIAPBYEGQYZJgIEAAAAFoACFgYmCBaAAgAZHBgM"
+    "QVJST1c6c2NoZW1hGNgBLy8vLy81Z0FBQUFRQUFBQUFBQUtBQXdBQmdBRkFBZ0FD"
+    "Z0FBQUFBQkJBQU1BQUFBQ0FBSUFBQUFCQUFJQUFBQUJBQUFBQUlBQUFBOEFBQUFC"
+    "QUFBQU56Ly8vOEFBQUVGRUFBQUFCUUFBQUFFQUFBQUFBQUFBQUVBQUFCaUFBQUF6"
+    "UC8vL3hBQUZBQUlBQVlBQndBTUFBQUFFQUFRQUFBQUFBQUJCUkFBQUFBWUFBQUFC"
+    "QUFBQUFBQUFBQUJBQUFBWVFBQUFBUUFCQUFFQUFBQUFBQUFBQT09ABggcGFycXVl"
+    "dC1jcHAtYXJyb3cgdmVyc2lvbiAyNS4wLjAZLBwAABwAAADfAQAAUEFSMQ=="
+)
+# (e) bench SERVE's JSON closed loop with the drift fold off and on
+LOOP_BENCH = dict(bins=10, concurrency=(1, 4, 16))
+
+
+def loop_voted(torch, data_dir, device="cuda"):
+    """(a): `shifu varsel` VOTED on a copy of phase 8's card set (timed on
+    the card), then the GA on a `slice`-row slice on the card and on the
+    CPU: generation 0's errors within `tol`, each later generation's too
+    wherever both ran the same population, a split of the populations
+    only at a near-tie (a gap under `tol`), and the same best seed where
+    its margin exceeds `tol`."""
+    from shifu_tpu_torch.config import load_column_config_list
+    from shifu_tpu_torch.config.model_config import ModelConfig
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+    from shifu_tpu_torch.norm.dataset import load_normalized
+    from shifu_tpu_torch.processor.varsel import VarSelProcessor
+    from shifu_tpu_torch.varsel.voted import VotedConfig, voted_selection
+
+    root = os.path.join(data_dir, "loop-voted")
+    set_copy(os.path.join(data_dir, "raw-card2"), root)
+    paths = PathFinder(root)
+    mc = ModelConfig.load(paths.model_config_path())
+    vs = mc.var_select
+    vs.filter_by, vs.wrapper_num = "VOTED", LOOP_VOTED["wrapper"]
+    vs.params = {"population_live_size": LOOP_VOTED["population"],
+                 "population_multiply_cnt": LOOP_VOTED["generations"]}
+    mc.train.params.update(NumHiddenNodes=list(LOOP_VOTED["hidden"]),
+                           ActivationFunc=["tanh"],
+                           LearningRate=LOOP_VOTED["lr"])
+    mc.train.num_train_epochs = LOOP_VOTED["epochs"]
+    mc.save(paths.model_config_path())
+    sec, rc = synced(torch, lambda: VarSelProcessor(root, device=device).run(),
+                     device)
+    check(rc == 0, f"voted: varsel returned {rc}")
+    check(os.path.isfile(os.path.join(paths.varsel_dir(), "voted.csv")),
+          "voted: no voted.csv")
+    chosen = [c.column_name for c in load_column_config_list(
+        paths.column_config_path()) if c.final_select]
+    check(0 < len(chosen) <= LOOP_VOTED["wrapper"],
+          f"voted: {len(chosen)} columns final-selected")
+    meta, feats, tags, weights = load_normalized(paths.normalized_data_dir())
+    n = min(LOOP_VOTED["slice"], feats.shape[0])
+    x = np.asarray(feats[:n], np.float32)
+    t = np.asarray(tags[:n], np.float32)
+    w = np.asarray(weights[:n], np.float32)
+    cfg = VotedConfig.from_model_config(
+        mc, expect_var_count=LOOP_VOTED["wrapper"],
+        population_size=LOOP_VOTED["population"],
+        generations=LOOP_VOTED["generations"])
+    hist = {}
+    best = {}
+    secs = {}
+    for dev in (device, "cpu"):
+        hist[dev] = []
+        secs[dev], (best[dev], _v) = synced(
+            torch, lambda: voted_selection(x, t, w, cfg, device=dev,
+                                           history=hist[dev]), dev)
+    tol = LOOP_VOTED["tol"]
+    diffs, split_at = [], None
+    for g, ((sa, ea), (sb, eb)) in enumerate(zip(hist[device], hist["cpu"])):
+        if sa != sb:
+            # the populations split: the earlier generation's order must
+            # have turned on a near-tie
+            prev = np.sort(hist["cpu"][g - 1][1])
+            gap = float(np.diff(prev).min())
+            check(gap <= tol, f"voted: generation {g}'s populations differ "
+                              f"without a near-tie (smallest gap {gap})")
+            split_at = g
+            break
+        diffs.append(float(np.abs(ea.astype(np.float64) - eb).max()))
+    check(diffs and max(diffs) <= tol,
+          f"voted: card vs CPU errors differ by {diffs}")
+    margin = float(np.diff(np.sort(hist["cpu"][-1][1]))[0])
+    if split_at is None and margin > tol:
+        check(best[device] == best["cpu"],
+              f"voted: best seeds differ: {best[device]} vs {best['cpu']}")
+    return dict(rows=int(feats.shape[0]), columns=int(feats.shape[1]),
+                varsel_seconds=sec, selected=len(chosen),
+                slice_rows=n, slice_seconds=secs[device],
+                cpu_slice_seconds=secs["cpu"], max_error_diff=max(diffs),
+                generations_compared=len(diffs), split_at=split_at,
+                best_margin=margin,
+                best_equal=best[device] == best["cpu"])
+
+
+def _http_doc(url, doc=None, timeout=60.0):
+    import urllib.error
+    import urllib.request
+
+    data = None if doc is None else json.dumps(doc).encode()
+    req = urllib.request.Request(
+        url, data=data, headers={"Content-Type": "application/json"},
+        method="GET" if doc is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _metric(base, prefix) -> float:
+    import urllib.request
+
+    from shifu_tpu_torch.obs.metrics import parse_prometheus
+
+    with urllib.request.urlopen(f"{base}/metrics", timeout=30) as r:
+        samples = parse_prometheus(r.read().decode("utf-8"))
+    return sum(v for k, v in samples.items() if k.startswith(prefix))
+
+
+def _wait_for(pred, what, timeout=60.0):
+    end = time.monotonic() + timeout
+    while not pred():
+        check(time.monotonic() < end, f"loop serve: timed out on {what}")
+        time.sleep(0.05)
+
+
+def loop_candidate(src_models, dst):
+    """A second model set: the NN models with their output bias moved by
+    1e-3 (a new sha, near-identical scores)."""
+    from shifu_tpu_torch.eval.scorer import find_model_paths
+    from shifu_tpu_torch.models.nn import NNModelSpec
+
+    os.makedirs(dst, exist_ok=True)
+    for path in find_model_paths(src_models):
+        spec = NNModelSpec.load(path)
+        spec.params[-1]["b"] = np.asarray(spec.params[-1]["b"]) + 1e-3
+        spec.save(os.path.join(dst, os.path.basename(path)))
+    return dst
+
+
+def loop_serve(torch, data_dir, pkg, device="cuda"):
+    """(b): `shifu serve --traffic-log` (a subprocess) on a copy of phase
+    9's NN set, whose ColumnConfig turns the drift fold on in the device
+    program: quiet held-out requests keep /healthz ok, shifted ones past
+    driftMinRows degrade it and write one recommendation; /admin/stage of
+    a second set, /admin/shadow, `shifu promote --serve-url`; then
+    requests score as the candidate's offline scores. After SIGTERM: the
+    manifest's window counts equal a CPU fold of the same rows, and the
+    logged chunks read back with every row sent."""
+    from shifu_tpu_torch.config import load_column_config_list
+    from shifu_tpu_torch.data.reader import read_columnar, read_header
+    from shifu_tpu_torch.eval.scorer import ModelRunner, find_model_paths
+    from shifu_tpu_torch.loop.drift import DriftMonitor
+    from shifu_tpu_torch.loop.traffic import traffic_source
+    from shifu_tpu_torch.obs.ledger import list_runs
+    from shifu_tpu_torch.serve.registry import ModelRegistry, \
+        records_to_columnar
+
+    p = LOOP_SERVE
+    root = os.path.join(data_dir, "loop-serve")
+    shutil.copytree(os.path.join(data_dir, "nn-card2"), root,
+                    ignore=shutil.ignore_patterns(".shifu", "data", "tmp"))
+    cand = loop_candidate(os.path.join(root, "models"),
+                          os.path.join(data_dir, "loop-candidate"))
+    ccs = load_column_config_list(os.path.join(root, "ColumnConfig.json"))
+    cols = ModelRegistry(os.path.join(root, "models"),
+                         device="cpu").input_columns
+    base_dir = os.path.join(data_dir, "eval-raw", "data")
+    n_req = p["quiet"] + p["shifted"] + p["shadow"] + p["after"]
+    data = read_columnar(os.path.join(base_dir, "data.txt"),
+                         read_header(os.path.join(base_dir, "header.txt")),
+                         max_rows=n_req * p["rows"])
+    mon0 = DriftMonitor(ccs)
+    moved = next(c.name for c in mon0.numeric_cols if c.name in cols)
+    recs = [{c: str(data.raw[c][i]) for c in cols}
+            for i in range(n_req * p["rows"])]
+    lo = p["quiet"] * p["rows"]
+    for r in recs[lo:lo + p["shifted"] * p["rows"]]:
+        try:
+            r[moved] = f"{float(r[moved]) * 4.0 + 25.0:.6g}"
+        except ValueError:
+            pass
+    bodies = [recs[i * p["rows"]:(i + 1) * p["rows"]] for i in range(n_req)]
+    flags = [f"-Dshifu.loop.driftMinRows={p['min_rows']}",
+             "-Dshifu.loop.driftCheckBatches=1",
+             "-Dshifu.loop.shadowSample=1.0",
+             f"-Dshifu.loop.logChunkRows={p['chunk_rows']}"]
+    env = dict(os.environ, PYTHONPATH=pkg)
+    log = tempfile.TemporaryFile("w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "shifu_tpu_torch", "serve", "--port", "0",
+         "--warm", str(p["rows"]), "--traffic-log", *flags, *_dev(device)],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=log, text=True)
+    out = dict(moved_column=moved)
+    sent = 0
+    try:
+        line = proc.stdout.readline()
+        m = re.match(r"listening on ([\d.]+):(\d+)", line)
+        if m is None:
+            log.seek(0)
+            raise PhaseFailed(f"loop serve did not start: {line!r}\n"
+                              f"{log.read()[-3000:]}")
+        base = f"http://{m.group(1)}:{m.group(2)}"
+        out["start_seconds"] = time.perf_counter() - t0
+
+        def post(i):
+            code, doc = _http_doc(f"{base}/score", {"records": bodies[i]})
+            check(code == 200 and len(doc["scores"]) == p["rows"],
+                  f"loop serve: request {i} answered {code}")
+            return doc
+
+        def settled(n):
+            # each batch's drift check flushes the window once
+            _wait_for(lambda: _metric(base, "loop_drift_flushes") >= n,
+                      f"{n} drift checks")
+
+        t_q = time.perf_counter()
+        for i in range(p["quiet"]):
+            post(i)
+        out["quiet_seconds"] = time.perf_counter() - t_q
+        sent += p["quiet"]
+        settled(p["quiet"])
+        code, health = _http_doc(f"{base}/healthz")
+        check(health["status"] == "ok" and health["drift"]["status"] == "ok",
+              f"loop serve: quiet traffic left /healthz {health['status']}, "
+              f"drift {health.get('drift')}")
+        out["quiet_max_psi"] = health["drift"]["maxPsi"]
+        for i in range(p["quiet"], p["quiet"] + p["shifted"]):
+            post(i)
+        sent += p["shifted"]
+        settled(sent)
+        code, health = _http_doc(f"{base}/healthz")
+        check(health["status"] == "degraded"
+              and moved in health["drift"]["driftedColumns"],
+              f"loop serve: shifted traffic left /healthz "
+              f"{health['status']}, drift {health.get('drift')}")
+        out["shifted_max_psi"] = health["drift"]["maxPsi"]
+        recs_written = list_runs(root, step="recommend")
+        check(len(recs_written) == 1, f"loop serve: "
+              f"{len(recs_written)} recommendation manifests")
+        code, doc = _http_doc(f"{base}/admin/stage", {"modelsDir": cand})
+        check(code == 200, f"loop serve: /admin/stage answered {code} {doc}")
+        for i in range(sent, sent + p["shadow"]):
+            post(i)
+        sent += p["shadow"]
+        want_rows = p["shadow"] * p["rows"]
+        _wait_for(lambda: (_http_doc(f"{base}/admin/shadow")[1]["shadow"]
+                           or {}).get("rows", 0) >= want_rows,
+                  "the shadow rows")
+        code, shadow = _http_doc(f"{base}/admin/shadow")
+        out["shadow"] = {k: shadow["shadow"][k] for k in
+                         ("sha", "rows", "agreement", "maxAbsDelta")}
+        t_p = time.perf_counter()
+        rc, _text = _cli_out(root, "promote", "--serve-url", base,
+                             "--candidate", cand)
+        out["promote_seconds"] = time.perf_counter() - t_p
+        check(rc == 0, f"loop serve: shifu promote exited {rc}")
+        code, health = _http_doc(f"{base}/healthz")
+        check(health["status"] == "ok" and health["sha"] ==
+              shadow["shadow"]["sha"], f"loop serve: after the promote "
+              f"/healthz {health['status']} sha {health['sha']}")
+        after = [post(i) for i in range(sent, sent + p["after"])]
+        after_recs = [r for b in bodies[sent:sent + p["after"]] for r in b]
+        sent += p["after"]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait(10)
+        log.seek(0)
+        tail = log.read()[-3000:]
+        log.close()
+    check(rc == 0, f"loop serve: exit {rc} after SIGTERM:\n{tail}")
+    out["seconds"] = time.perf_counter() - t0
+    want = ModelRunner(find_model_paths(cand), device="cpu").score_raw(
+        records_to_columnar(after_recs, cols))
+    got = np.asarray([s["mean"] for d in after for s in d["scores"]])
+    out["promoted_max_score_diff"] = float(np.abs(got - want.mean).max())
+    check(out["promoted_max_score_diff"] <= p["score_atol"],
+          f"loop serve: promoted scores differ from the candidate's "
+          f"offline scores by {out['promoted_max_score_diff']}")
+    (m,) = list_runs(root, step="serve", last=1)
+    # the promote reset the monitor: the manifest's fold holds the rows
+    # after it
+    cpu = DriftMonitor([cc for cc in ccs if cc.column_name in cols])
+    cpu.fold_host(records_to_columnar(after_recs, cols))
+    check(m["drift"]["rows"] == len(after_recs)
+          and m["drift"]["counts"] == cpu.counts().tolist(),
+          f"loop serve: window counts of {m['drift']['rows']} rows differ "
+          "from the CPU fold")
+    factory, _names = traffic_source(root)
+    logged = sum(c.n_rows for c in factory())
+    check(logged == sent * p["rows"], f"loop serve: the traffic log read "
+          f"back {logged} rows of {sent * p['rows']} sent")
+    out.update(requests=sent, logged_rows=logged,
+               chunks=m["traffic"]["chunks"],
+               drift_rows_after=m["drift"]["rows"])
+    return out
+
+
+def loop_wdl(torch, device="cuda"):
+    """(c): bench WDL on data_mesh(model_axis=2, virtual=4) — 2 row shards
+    of 2 model devices on the one card. Against the data-only mesh of the
+    same 2 row shards (the embedding split alone): weights within 1e-6;
+    against mesh=None (the rows' sums in another order): phase 15's gate,
+    the same iterations and the valid error within MESH_ERR_TOL, the
+    weights' largest difference and the share within rtol 3e-3 / atol
+    3e-4 reported (Adam moves a weight whose gradient is near zero by a
+    whole step whichever way the rounding tips it)."""
+    from shifu_tpu_torch.models.wdl import flatten_wdl
+    from shifu_tpu_torch.parallel.mesh import data_mesh
+    from shifu_tpu_torch.train import wdl_trainer as wt
+
+    host = wdl_bench_data(0)
+    on_dev = tuple(torch.as_tensor(a, device=device) for a in host)
+    vocab = [WDL["vocab"]] * WDL["wide"]
+    wcfg = wdl_bench_cfg(wt)
+    mesh = data_mesh(model_axis=2, virtual=4, device=device)
+    rows = data_mesh(virtual=2, device=device)
+    check(mesh.size == 2 and mesh.model_size == 2,
+          f"loop wdl: mesh {mesh.axis_names} {mesh.shape}")
+    one_s, one = synced(torch, lambda: wt.train_wdl(*on_dev, vocab, wcfg,
+                                                    device=device), device)
+    rows_s, res_rows = synced(torch, lambda: wt.train_wdl(
+        *on_dev, vocab, wcfg, mesh=rows), device)
+    sec, res = synced(torch, lambda: wt.train_wdl(*on_dev, vocab, wcfg,
+                                                  mesh=mesh), device)
+    a, b = flatten_wdl(res.params), flatten_wdl(one.params)
+    split = float(np.abs(a - flatten_wdl(res_rows.params)).max())
+    check(split <= 1e-6, f"loop wdl: the model axis moved the weights of "
+                         f"the data-only mesh by {split}")
+    check(res.iterations == one.iterations
+          and abs(res.valid_error - one.valid_error) <= MESH_ERR_TOL,
+          f"loop wdl: {res.iterations} iterations, valid error "
+          f"{res.valid_error} against mesh=None's {one.iterations}, "
+          f"{one.valid_error}")
+    close = np.abs(a - b) <= 3e-4 + 3e-3 * np.abs(b)
+    return dict(seconds=sec, one_device_seconds=one_s,
+                data_mesh_seconds=rows_s, max_diff_vs_data_mesh=split,
+                max_weight_diff=float(np.abs(a - b).max()),
+                share_within_tol=float(close.mean()),
+                valid_error=res.valid_error,
+                one_device_valid_error=one.valid_error)
+
+
+def loop_sources(data_dir):
+    """(d): the remote and parquet routes raise naming the missing
+    package, or, where it is present, read the CSV's tokens."""
+    import importlib.util
+
+    from shifu_tpu_torch.data.stream import iter_columnar_chunks
+    from shifu_tpu_torch.utils.errors import ShifuError
+
+    names = ["a", "b"]
+    base = os.path.join(data_dir, "loop-sources")
+    os.makedirs(base, exist_ok=True)
+    csv = os.path.join(base, "d.txt")
+    with open(csv, "w") as fh:
+        fh.write("1|x\n2.5|\n|y\n")
+    want = [list(c.column(n)) for c in iter_columnar_chunks(csv, names)
+            for n in names]
+    out = {}
+    for pkg, path in (("fsspec", "file://" + csv),
+                      ("pyarrow", os.path.join(base, "d.parquet"))):
+        have = importlib.util.find_spec(pkg) is not None
+        if pkg == "pyarrow":
+            import base64
+
+            with open(path, "wb") as fh:
+                fh.write(base64.b64decode("".join(LOOP_PARQUET)))
+        try:
+            got = [list(c.column(n))
+                   for c in iter_columnar_chunks(path, names)
+                   for n in names]
+            check(have and got == want,
+                  f"loop sources: {pkg} route read {got}, want {want}")
+            out[pkg] = "read"
+        except ShifuError as e:
+            check(not have and pkg in str(e),
+                  f"loop sources: {pkg} route raised {e}")
+            out[pkg] = "raised naming it"
+    return out
+
+
+def loop_serve_bench(torch, data_dir, seed, device="cuda"):
+    """(e): bench SERVE's JSON closed loop (phase 11's set and requests)
+    through ScoringServer with the drift fold off and on, in turns; the
+    fold's ColumnConfig bins each column at the deciles of the requests'
+    N(0, 1) draws."""
+    from shifu_tpu_torch.config.column_config import (ColumnBinning,
+                                                      ColumnConfig,
+                                                      ColumnType)
+    from shifu_tpu_torch.serve.server import ScoringServer
+
+    root = os.path.join(data_dir, "loop-serve-bench")
+    cols = write_serve_set(root, seed)
+    edges = [float(v) for v in np.quantile(
+        np.random.default_rng(seed).normal(size=100_000),
+        np.linspace(0, 1, LOOP_BENCH["bins"] + 1)[:-1])]
+    edges[0] = float("-inf")
+    per = [100] * LOOP_BENCH["bins"] + [0]
+    ccs = [ColumnConfig(column_name=c, column_num=i,
+                        column_type=ColumnType.N,
+                        column_binning=ColumnBinning(
+                            bin_boundary=edges, bin_count_pos=per,
+                            bin_count_neg=per))
+           for i, c in enumerate(cols)]
+    rng = np.random.default_rng(seed + 11)
+    n = SERVE["requests"]
+    singles = [json.dumps({c: f"{v:.4f}" for c, v in zip(
+        cols, rng.normal(size=len(cols)))}).encode() for _ in range(n)]
+    out = {}
+    for label, column_configs in (("off", None), ("on", ccs)):
+        srv = ScoringServer(root=root, port=0, replicas=1,
+                            queue_depth=SERVE["queue_depth"], device=device,
+                            column_configs=column_configs)
+        check((srv.drift is not None) == (label == "on"),
+              f"loop bench: drift {label} not {label}")
+        srv.registry.warm([1, max(LOOP_BENCH["concurrency"])])
+        srv.start()
+        try:
+            for conc in LOOP_BENCH["concurrency"]:
+                lat, wall, codes = _closed_loop(srv.port, singles, conc,
+                                                "application/json")
+                check(all(c == 200 for c in codes),
+                      f"loop bench: drift {label}: not all answered 200")
+                out[f"{label}_json_c{conc}"] = _latency(lat, wall)
+            if label == "on":
+                out["on_drift_rows"] = srv.drift.verdict()["rows"]
+        finally:
+            srv.shutdown(60)
+    check(out["on_drift_rows"] == n * len(LOOP_BENCH["concurrency"]),
+          f"loop bench: the fold counted {out['on_drift_rows']} rows")
+    return out
+
+
+# --loop-only: the sets phase 18 reads, built small on the CPU
+LOOP_ONLY_ROWS = 20_000
+
+
+def loop_only_sets(torch, hk, tt, data_dir, seed):
+    """Phases 8, 9(c) and 10's sets at LOOP_ONLY_ROWS raw rows, built on
+    the CPU (no hand kernel runs): `raw-card2` through init, stats, norm,
+    varsel, norm and RF train; `nn-card2`, its NN (bagging 2, 10
+    epochs); the held-out `eval-raw`."""
+    from shifu_tpu_torch.fs.pathfinder import PathFinder
+
+    base = os.path.join(data_dir, "raw-card2")
+    write_raw_set(base, seed, n=LOOP_ONLY_ROWS)
+    init_stats(torch, base, "cpu")
+    prep_config(base)
+    prep_chain(torch, hk, tt, base, "cpu")
+    nn = os.path.join(data_dir, "nn-card2")
+    shutil.copytree(base, nn)
+    paths = PathFinder(nn)
+    shutil.rmtree(paths.models_dir())
+    shutil.rmtree(paths.train_dir())
+    nn_step_config(nn, NN_STEP["hidden"], 2, 10)
+    nn_step(torch, nn, "cpu")
+    write_raw_set(os.path.join(data_dir, "eval-raw"), seed + 1,
+                  n=LOOP_ONLY_ROWS)
+
+
+def phase_loop(torch, hk, data_dir, pkg, seed, device="cuda"):
+    """Phase 18: (a) varsel VOTED, (b) `shifu serve --traffic-log` with
+    the drift fold, stage, shadow and promote, (c) WDL's model axis,
+    (d) the remote and parquet routes, (e) bench SERVE with the drift
+    fold off and on. Counts the hand kernels it launches (none: no tree
+    trains here)."""
+    t0 = time.perf_counter()
+    hk.reset_counters()
+    out = dict(voted=loop_voted(torch, data_dir, device))
+    out["serve"] = loop_serve(torch, data_dir, pkg, device)
+    out["wdl"] = loop_wdl(torch, device)
+    out["sources"] = loop_sources(data_dir)
+    out["bench"] = loop_serve_bench(torch, data_dir, seed, device)
+    out["launches"] = dict(hk.launches)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def print_loop(o):
+    v, s, w, b = o["voted"], o["serve"], o["wdl"], o["bench"]
+    print(f"loop: (a) varsel VOTED on phase 8's set ({v['rows']} rows x "
+          f"{v['columns']} columns, {LOOP_VOTED['population']} x "
+          f"{LOOP_VOTED['generations']} generations): "
+          f"{v['varsel_seconds']:.3f} s, {v['selected']} selected; "
+          f"{v['slice_rows']}-row slice card {v['slice_seconds']:.3f} s / "
+          f"CPU {v['cpu_slice_seconds']:.3f} s, errors within "
+          f"{v['max_error_diff']:.3g} over {v['generations_compared']} "
+          f"generation(s), split at {v['split_at']}, best seed equal "
+          f"{v['best_equal']} (margin {v['best_margin']:.3g})")
+    print(f"loop: (b) shifu serve --traffic-log: started in "
+          f"{s['start_seconds']:.1f} s, quiet max PSI "
+          f"{s['quiet_max_psi']:.4f}, shifted ({s['moved_column']}) max PSI "
+          f"{s['shifted_max_psi']:.4f} -> degraded + 1 recommendation; "
+          f"shadow {s['shadow']}; promote {s['promote_seconds']:.2f} s, "
+          f"after it max |score - candidate offline| "
+          f"{s['promoted_max_score_diff']:.3g}; {s['logged_rows']} rows "
+          f"logged in {s['chunks']} chunks, read back; window counts = CPU "
+          f"fold; {s['seconds']:.1f} s")
+    print(f"loop: (c) bench WDL on data_mesh(model_axis=2, virtual=4) "
+          f"{w['seconds']:.4f} s (data-only 2 shards "
+          f"{w['data_mesh_seconds']:.4f} s, max |w diff| "
+          f"{w['max_diff_vs_data_mesh']:.3g}) vs mesh=None "
+          f"{w['one_device_seconds']:.4f} s: max |w diff| "
+          f"{w['max_weight_diff']:.3g}, {w['share_within_tol']:.6f} of the "
+          f"weights within 3e-3 / 3e-4, valid error "
+          f"{w['valid_error']:.6f} / {w['one_device_valid_error']:.6f}")
+    print(f"loop: (d) remote/parquet: {o['sources']}")
+    print("loop: (e) bench SERVE JSON, drift fold off / on: " + "; ".join(
+        f"c{c} p50 {b[f'off_json_c{c}']['p50_ms']:.3f} / "
+        f"{b[f'on_json_c{c}']['p50_ms']:.3f} ms, p99 "
+        f"{b[f'off_json_c{c}']['p99_ms']:.3f} / "
+        f"{b[f'on_json_c{c}']['p99_ms']:.3f} ms"
+        for c in LOOP_BENCH["concurrency"]))
+    print(f"loop: phase {o['seconds']:.1f} s, hand-kernel launches "
+          f"{o['launches']}")
+
+
 def run(args) -> int:
     import torch
 
@@ -5844,6 +6411,27 @@ def run(args) -> int:
     report = dict(card=card, device=kind, seed=args.seed)
     t_all = time.perf_counter()
 
+    pkg = os.path.abspath(args.package_root or REPO)
+    if args.loop_only:
+        # phase 18 alone on small sets (its own paths launch no hand
+        # kernel, so nothing is built)
+        data_dir = os.path.join(build.BUILD_DIR, "smoke-data")
+        shutil.rmtree(data_dir, ignore_errors=True)
+        try:
+            loop_only_sets(torch, hk, tt, data_dir, args.seed)
+            report["loop"] = phase_loop(torch, hk, data_dir, pkg,
+                                        args.seed)
+            print_loop(report["loop"])
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
+        if args.out:
+            out = os.path.join(REPO, args.out)
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            with open(out, "w") as fh:
+                json.dump(report, fh, indent=1)
+        print(f"{card}")
+        return 0
+
     # phase 1: build every kernel of the path from the checkout's sources
     build.load("hist_level", rebuild=True)
     report["build_seconds"] = dict(build.build_seconds)
@@ -5856,7 +6444,6 @@ def run(args) -> int:
     for ln in report["ptxas"]:
         print(f"  ptxas: {ln}")
 
-    pkg = os.path.abspath(args.package_root or REPO)
     if args.hosts_only:
         data_dir = os.path.join(build.BUILD_DIR, "smoke-data")
         shutil.rmtree(data_dir, ignore_errors=True)
@@ -6004,6 +6591,8 @@ def run(args) -> int:
         ho = phase_hosts(torch, hk, data_dir, pkg, args.seed)
         ob = phase_obs(torch, hk, data_dir, pkg)
         print_obs(ob)
+        lp = phase_loop(torch, hk, data_dir, pkg, args.seed)
+        print_loop(lp)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     report["gbt"], report["rf"] = g, r
@@ -6018,6 +6607,7 @@ def run(args) -> int:
     report["mesh"] = me
     report["hosts"] = ho
     report["obs"] = ob
+    report["loop"] = lp
     grown = [gr[k]["launches"] for k in ("leafwise_gbt", "leafwise_rf",
                                          "batched_gbt", "batched_rf")]
     # the streamed grower's: (a)'s forests and (b)'s RF train
@@ -6058,6 +6648,7 @@ def run(args) -> int:
             mesh_launches=sum(lc[name] for lc in me["launches"]),
             hosts_launches=sum(lc[name] for lc in host_runs),
             obs_launches=sum(lc[name] for lc in ob["launches"]),
+            loop_launches=lp["launches"].get(name, 0),
             max_abs_err=stats.max_abs_err[name], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"]))
@@ -6094,6 +6685,9 @@ def main() -> int:
                     help="only time one call of each entry")
     ap.add_argument("--hosts-only", action="store_true",
                     help="build the kernels, then run phase 16 alone")
+    ap.add_argument("--loop-only", action="store_true",
+                    help="run phase 18 alone on small sets built on the "
+                    "CPU (no kernel build)")
     ap.add_argument("--package-root", default="",
                     help="directory to import shifu_tpu_torch from "
                     "(default: this checkout)")

@@ -19,7 +19,12 @@
                                     [--replicas N] [--batching MODE]
                                     [--queue-depth N] [--max-batch-rows N]
                                     [--max-wait-ms MS] [--warm SIZES]
+                                    [--traffic-log [SAMPLE]]
                                     [--device cpu|cuda] [-Dk=v ...]
+    python -m shifu_tpu_torch promote [--candidate DIR] [--serve-url URL]
+                                      [--stage] [--set NAME] [--agree-min A]
+                                      [--min-rows N] [--no-drift-gate]
+                                      [--force] [-Dk=v ...]
     python -m shifu_tpu_torch new NAME [-t NN|LR|GBT|RF|...]
     python -m shifu_tpu_torch export [-t pmml|onebagging|columnstats|corr|
                                      woemapping] [-c]
@@ -41,14 +46,13 @@
 run in a model-set directory. The flags follow the JAX subcommands;
 `--device` picks the device (default: the card, an error without one);
 `new`, `export`, `save`, `switch`, `show`, `test`, `analysis`,
-`convert`, `version` and the run-ledger readers `trace`, `top`, `runs`
-and `profile` touch no device and take none.
+`convert`, `version`, `promote` and the run-ledger readers `trace`,
+`top`, `runs` and `profile` touch no device and take none.
 `normalize` and `varselect` are aliases of `norm` and `varsel`. Exit
 codes follow the JAX CLI: 0 ok, 1 ShifuError (or no card), 2 not
 implemented. Every other lifecycle subcommand exits 2 with the ROADMAP
 item that ports it, and so do the routes of a ported step that wait
-(the streamed norm, trainers and eval, varsel's VOTED filter, serve's
-`--zoo` and `--traffic-log`).
+(serve's `--zoo`).
 -Dk=v anywhere on the line sets an operational property
 (ShifuCLI.java:430-453).
 """
@@ -69,7 +73,7 @@ from shifu_tpu_torch.utils.platform import DeviceUnavailable
 log = get_logger("shifu")
 
 # the JAX CLI's other subcommands and the ROADMAP item that ports each
-NOT_PORTED = {"retrain": "A.14", "promote": "A.14", "check": "A.14"}
+NOT_PORTED = {"retrain": "A.14", "check": "A.14"}
 
 
 def _extract_props(argv: List[str]) -> List[str]:
@@ -176,12 +180,52 @@ def build_parser() -> argparse.ArgumentParser:
                               "startup (e.g. 1,16,256)")
     p_serve.add_argument("--traffic-log", nargs="?", const="1.0",
                          default=None, dest="traffic_log", metavar="SAMPLE",
-                         help="not ported yet (ROADMAP A.14)")
+                         help="log served rows to .shifu/runs/traffic; "
+                              "optional sample fraction in (0, 1] "
+                              "(default 1.0; -Dshifu.loop.logSample)")
     p_serve.add_argument("--zoo", action="append", default=None,
                          metavar="NAME=PATH[,NAME=PATH...]",
-                         help="not ported yet (ROADMAP A.14)")
+                         help="not ported yet (ROADMAP A.14.4)")
     p_serve.add_argument("--device", choices=["cpu", "cuda"], default=None,
                          help=device_help)
+    p_promote = sub.add_parser(
+        "promote", help="gate a candidate rollout on shadow agreement + "
+                        "drift verdicts, then hot-swap it live (running "
+                        "server via --serve-url) or swap the models dir "
+                        "offline; every attempt writes a promote-<seq> "
+                        "ledger manifest")
+    p_promote.add_argument("--candidate", default=None,
+                           help="candidate model dir (default "
+                                "models.candidate)")
+    p_promote.add_argument("--serve-url", default=None, dest="serve_url",
+                           help="running server base URL (e.g. "
+                                "http://127.0.0.1:8080): stage/promote "
+                                "via /admin/* with zero downtime")
+    p_promote.add_argument("--stage", action="store_true",
+                           help="with --serve-url: stage the candidate "
+                                "as the shadow first (then gates "
+                                "evaluate on its live shadow stats)")
+    p_promote.add_argument("--set", default=None, dest="set_name",
+                           metavar="NAME",
+                           help="with --serve-url against a model-zoo "
+                                "server: the tenant to stage/promote "
+                                "(the zoo is ROADMAP A.14.4: a port "
+                                "server answers 409)")
+    p_promote.add_argument("--agree-min", type=float, default=None,
+                           dest="agree_min",
+                           help="min shadow agreement rate (default "
+                                "-Dshifu.loop.promoteAgree=0.95)")
+    p_promote.add_argument("--min-rows", type=int, default=None,
+                           dest="min_rows",
+                           help="min shadow-scored rows (default "
+                                "-Dshifu.loop.promoteMinRows=64)")
+    p_promote.add_argument("--no-drift-gate", action="store_true",
+                           dest="no_drift_gate",
+                           help="promote without a ledger retrain "
+                                "recommendation")
+    p_promote.add_argument("--force", action="store_true",
+                           help="promote even when a gate fails "
+                                "(recorded in the manifest)")
     p_new = sub.add_parser("new", help="create a new model set")
     p_new.add_argument("name")
     p_new.add_argument("-t", "--type", default="NN",
@@ -418,6 +462,18 @@ def dispatch(args: argparse.Namespace) -> int:
             device=args.device).run()
     if cmd == "serve":
         return serve(args)
+    if cmd == "promote":
+        from shifu_tpu_torch.loop.promote import (DEFAULT_CANDIDATE_DIR,
+                                                  run_promote)
+
+        candidate = args.candidate
+        if candidate is None and os.path.isdir(DEFAULT_CANDIDATE_DIR):
+            candidate = DEFAULT_CANDIDATE_DIR
+        return run_promote(
+            ".", candidate, serve_url=args.serve_url,
+            agree_min=args.agree_min, min_rows=args.min_rows,
+            require_drift=not args.no_drift_gate, force=args.force,
+            stage_first=args.stage, set_name=args.set_name)
     if cmd == "version":
         import shifu_tpu_torch
 
@@ -683,10 +739,21 @@ def serve(args: argparse.Namespace) -> int:
     from shifu_tpu_torch.analysis import sanitize
     from shifu_tpu_torch.serve.server import ScoringServer
 
-    if args.zoo or args.traffic_log is not None:
-        flag = "--zoo" if args.zoo else "--traffic-log"
+    if args.zoo:
         raise NotImplementedError(
-            f"serve {flag} is not ported yet: ROADMAP A.14")
+            "serve --zoo is not ported yet: ROADMAP A.14.4")
+    if args.traffic_log is not None:
+        # the flag is sugar for -Dshifu.loop.logSample=<fraction>; the
+        # server reads the property at construction. Parse it NOW: a typo
+        # must fail startup, not silently disable the log
+        try:
+            frac = float(args.traffic_log)
+            if not 0.0 < frac <= 1.0:
+                raise ValueError(f"{frac} not in (0, 1]")
+        except ValueError as e:
+            log.error("serve: bad --traffic-log fraction: %s", e)
+            return 1
+        environment.set_property("shifu.loop.logSample", args.traffic_log)
     try:
         # -Dshifu.sanitize=race: parsed (a bad mode fails here) before the
         # server exists, so its race-tracked locks are built armed

@@ -45,7 +45,8 @@ import numpy as np
 from shifu_tpu_torch.config.model_config import DEFAULT_MISSING_VALUES
 from shifu_tpu_torch.data.tokens import (in_tokens, numeric_mask,
                                          parse_numeric, strip_tokens)
-from shifu_tpu_torch.fs.listing import check_local, expand_paths
+from shifu_tpu_torch.fs.listing import expand_paths
+from shifu_tpu_torch.fs.source import is_remote, open_source
 from shifu_tpu_torch.utils.errors import ErrorCode, ShifuError
 
 # Default tokens treated as missing (ModelSourceDataConf.missingOrInvalidValues).
@@ -59,7 +60,16 @@ def strip_namespace(name: str) -> str:
 
 
 def read_header(header_path: str, delimiter: str = "|") -> List[str]:
-    check_local(header_path)
+    if is_remote(header_path):
+        try:
+            raw = _open_bytes(header_path)
+        except (OSError, FileNotFoundError) as e:
+            raise ShifuError(ErrorCode.HEADER_NOT_FOUND,
+                             f"{header_path} ({e})")
+        with io.TextIOWrapper(raw) as fh:
+            line = fh.readline().rstrip("\n\r")
+        names = [strip_namespace(c) for c in line.split(delimiter)]
+        return _dedupe_names(names)
     if not os.path.isfile(header_path):
         raise ShifuError(ErrorCode.HEADER_NOT_FOUND, header_path)
     opener = gzip.open if header_path.endswith(".gz") else open
@@ -85,7 +95,26 @@ def _dedupe_names(names: List[str]) -> List[str]:
     return out
 
 
+class _RemoteGzip(gzip.GzipFile):
+    """A gzip stream over a remote file object that closes it too."""
+
+    def __init__(self, raw):
+        super().__init__(fileobj=raw, mode="rb")
+        self._raw = raw
+
+    def close(self) -> None:
+        try:
+            super().close()
+        finally:
+            self._raw.close()
+
+
 def _open_bytes(path: str):
+    """A binary file object of a local path or a remote URL
+    (`fs/source.open_source`), gunzipped for `.gz`."""
+    if is_remote(path):
+        raw = open_source(path, "rb")
+        return _RemoteGzip(raw) if path.endswith(".gz") else raw
     return gzip.open(path, "rb") if path.endswith(".gz") else open(path, "rb")
 
 

@@ -7,16 +7,20 @@ The operational knobs are the JAX package's:
                                   take the streamed route (default 512)
     shifu.ingest.forceStreaming   true/1: always the streamed route
 
-The port reads CSV/gzip chunks with its own reader (`data/reader.py`);
-the streamed routes pull them through `data/pipeline.prefetch_iter`, in
-order. Parquet (it needs pyarrow) and remote sources wait for ROADMAP
-A.13: each raises naming it.
+The port reads CSV/gzip chunks with its own reader (`data/reader.py`),
+local or remote (`fs/source.py`); the streamed routes pull them through
+`data/pipeline.prefetch_iter`, in order. Parquet files (reference:
+ModelNormalizeConf.isParquet, udf/NormalizeParquetUDF.java) are read as
+pyarrow record batches, pyarrow imported only on a `.parquet` path (the
+CSV ingest never imports it, nor pandas); each batch's tokens are the
+strings the JAX package's `to_pandas()`, `fillna("")`, `astype(str)`
+makes of it (`_parquet_tokens`).
 """
 
 from __future__ import annotations
 
 from itertools import chain
-from typing import Iterator, List, Optional, Sequence
+from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -52,6 +56,82 @@ def should_stream(data_path: str) -> bool:
     return dataset_size_bytes(data_path) > memory_budget_bytes()
 
 
+def _import_pyarrow_parquet(path: str):
+    try:
+        import pyarrow.parquet as pq
+    except ImportError:
+        raise ShifuError(ErrorCode.DATA_NOT_FOUND,
+                         f"{path}: parquet input needs pyarrow, which is "
+                         "not installed")
+    return pq
+
+
+def _float_token(v: float, shortest32: bool) -> str:
+    if shortest32:
+        return str(np.float32(v))
+    return repr(float(v))
+
+
+def _parquet_tokens(arr) -> np.ndarray:
+    """One record batch column -> its object array of strings, as the JAX
+    package's pandas route makes them: nulls (and float NaN) are "";
+    an integer column with a null in the batch becomes float64 ("1.0");
+    a float32 column keeps its shortest float32 digits ("0.1") unless
+    the batch holds a null or NaN (then the float64 repr of the value,
+    "0.10000000149011612"); floats otherwise print as Python's repr, and
+    bools as "True" / "False"."""
+    import pyarrow as pa
+
+    t = arr.type
+    vals = arr.to_pylist()
+    out = np.empty(len(vals), dtype=object)
+    if pa.types.is_null(t):
+        out[:] = ""
+        return out
+    if pa.types.is_integer(t):
+        if arr.null_count:
+            out[:] = ["" if v is None else repr(float(v)) for v in vals]
+        else:
+            out[:] = [str(v) for v in vals]
+        return out
+    if pa.types.is_floating(t):
+        holes = arr.null_count or any(v != v for v in vals)
+        short = pa.types.is_float32(t) and not holes
+        out[:] = ["" if v is None or v != v else _float_token(v, short)
+                  for v in vals]
+        return out
+    out[:] = ["" if v is None else str(v) for v in vals]
+    return out
+
+
+def _iter_parquet_chunks(path: str, names: List[str], chunk_rows: int,
+                         missing_values: Sequence[str]
+                         ) -> Iterator[ColumnarData]:
+    """The record batches of one parquet file (at most chunk_rows rows
+    each) as ColumnarData over `names`: a name the file lacks reads as
+    all "" (missing), stray header rows dropped."""
+    from shifu_tpu_torch.fs.source import open_source
+
+    pq = _import_pyarrow_parquet(path)
+    with open_source(path, "rb") as fh:
+        pf = pq.ParquetFile(fh)
+        have = set(pf.schema_arrow.names)
+        cols = [c for c in names if c in have]
+        for batch in pf.iter_batches(batch_size=chunk_rows,
+                                     columns=cols or None):
+            n = batch.num_rows
+            arrays = []
+            for c in names:
+                if c in have:
+                    arrays.append(_parquet_tokens(batch.column(c)))
+                else:
+                    blank = np.empty(n, dtype=object)
+                    blank[:] = ""
+                    arrays.append(blank)
+            yield ColumnarData.from_columns(arrays, list(names),
+                                            missing_values)
+
+
 def iter_columnar_chunks(
     data_path: str,
     names: List[str],
@@ -75,9 +155,17 @@ def iter_columnar_chunks(
     remaining = max_rows
     for path in expand_paths(data_path):
         if path.endswith(PARQUET_SUFFIXES):
-            raise ShifuError(ErrorCode.DATA_NOT_FOUND,
-                             f"{path}: parquet input is not ported yet "
-                             "(ROADMAP A.13)")
+            for chunk in _iter_parquet_chunks(path, out_names, chunk_rows,
+                                              missing_values):
+                if remaining is not None:
+                    if remaining <= 0:
+                        return
+                    if chunk.n_rows > remaining:
+                        chunk = chunk.select_rows(slice(0, remaining))
+                    remaining -= chunk.n_rows
+                if chunk.n_rows:
+                    yield chunk
+            continue
         pending: List[List[np.ndarray]] = []
         n_pending = 0
         batches = iter_column_batches(path, len(names), delimiter, keep,
@@ -108,3 +196,24 @@ def iter_columnar_chunks(
                     remaining -= chunk.n_rows
                 if chunk.n_rows:
                     yield chunk
+
+
+def chunk_source(
+    data_path: str,
+    names: List[str],
+    delimiter: str = "|",
+    missing_values: Sequence[str] = DEFAULT_MISSING,
+    chunk_rows: Optional[int] = None,
+    max_rows: Optional[int] = None,
+    columns: Optional[Sequence[str]] = None,
+) -> Callable[[], Iterator[ColumnarData]]:
+    """A re-iterable chunk factory — multi-pass algorithms (two-pass stats)
+    call it once per pass."""
+
+    def factory() -> Iterator[ColumnarData]:
+        return iter_columnar_chunks(
+            data_path, names, delimiter, missing_values, chunk_rows,
+            max_rows, columns,
+        )
+
+    return factory

@@ -8,8 +8,8 @@ binAvgScore[binNum]); the top-N columns by that score, mapped through the
 reason-code dictionary, are the record's reasons.
 
 Vectorized on the host: one bin-index pass per column (the norm step's
-`_bin_codes_for`), one [n, C] gather, one argsort. A reason-code map on a
-remote source (hdfs://, s3://, ...) is ROADMAP A.13 and raises.
+`_bin_codes_for`), one [n, C] gather, one argsort. The reason-code map
+may sit on a remote source (hdfs://, s3://, ...: `fs/source.py`).
 """
 
 from __future__ import annotations
@@ -19,14 +19,13 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from shifu_tpu_torch.fs.listing import check_local
+from shifu_tpu_torch.fs.source import open_source
 
 
 def load_reason_code_map(path: str) -> Dict[str, str]:
     """column name -> reason code. JSON object, or lines of `column,code`.
-    Local paths only."""
-    check_local(path)
-    with open(path, "rb") as fh:
+    Local path or any fs/source.py scheme (hdfs://, s3://...)."""
+    with open_source(path, "rb") as fh:
         text = fh.read().decode("utf-8")
     try:
         data = json.loads(text)

@@ -4,10 +4,10 @@
 per filesystem and per run; any listing whose order can reach bytes of an
 artifact goes through these sorted helpers.
 
-`expand_paths` and `dataset_size_bytes` are the local half of the JAX
-package's `data/reader.py` `_expand_paths` and `data/stream.py`
-`dataset_size_bytes`; scheme-ful sources (hdfs://, s3://, ...) are
-ROADMAP A.13 and raise here.
+`expand_paths` and `dataset_size_bytes` are the JAX package's
+`data/reader.py` `_expand_paths` and `data/stream.py`
+`dataset_size_bytes`: scheme-ful sources (hdfs://, s3://, memory://, ...)
+route through the SourceType seam (`fs/source.py`, fsspec).
 """
 
 from __future__ import annotations
@@ -24,14 +24,6 @@ def sorted_glob(pattern: str, recursive: bool = False) -> List[str]:
     return sorted(_glob.glob(pattern, recursive=recursive))
 
 
-def check_local(path: str) -> None:
-    """Remote sources are not ported: raise naming the ROADMAP item."""
-    if "://" in path:
-        raise ShifuError(ErrorCode.DATA_NOT_FOUND,
-                         f"{path}: remote sources are not ported yet "
-                         "(ROADMAP A.13)")
-
-
 def is_data_file(path: str) -> bool:
     """Skip Hadoop markers (_SUCCESS, _temporary), dot-files, empty files."""
     base = os.path.basename(path)
@@ -42,8 +34,12 @@ def is_data_file(path: str) -> bool:
 
 def expand_paths(data_path: str) -> List[str]:
     """The data files of a data path: the file itself, the part files of
-    a directory, or the files a glob matches, in sorted order."""
-    check_local(data_path)
+    a directory, or the files a glob matches, in sorted order; a remote
+    path's through `fs/source.expand_remote`."""
+    from shifu_tpu_torch.fs.source import expand_remote, is_remote
+
+    if is_remote(data_path):
+        return expand_remote(data_path)
     if os.path.isdir(data_path):
         parts = [p for p in sorted_glob(os.path.join(data_path, "*"))
                  if is_data_file(p)]
@@ -60,4 +56,6 @@ def expand_paths(data_path: str) -> List[str]:
 
 
 def dataset_size_bytes(data_path: str) -> int:
-    return sum(os.path.getsize(p) for p in expand_paths(data_path))
+    from shifu_tpu_torch.fs.source import size_of
+
+    return sum(size_of(p) for p in expand_paths(data_path))

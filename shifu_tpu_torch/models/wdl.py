@@ -198,12 +198,33 @@ def _gather_fields(tables, idx: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.embedding(idx, table)
 
 
+def _gather_split(tables, idx: torch.Tensor, devices) -> torch.Tensor:
+    """`_gather_fields` with the tables' embed columns split into one
+    contiguous block a device of `devices` (a mesh's model group): each
+    device gathers its block, and the blocks concatenate on the tables'
+    device — the values (and, through autograd, each column's gradient)
+    of the one-device gather."""
+    home = tables[0].device
+    e = tables[0].shape[-1]
+    bounds = np.linspace(0, e, len(devices) + 1).round().astype(int)
+    blocks = []
+    for dev, lo, hi in zip(devices, bounds[:-1], bounds[1:]):
+        if hi <= lo:
+            continue
+        part = [t[..., lo:hi].to(dev) for t in tables]
+        blocks.append(_gather_fields(part, idx.to(dev)).to(home))
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=-1)
+
+
 def wdl_forward(p: WDLParams, dense: torch.Tensor, codes: torch.Tensor,
-                activations: Sequence[str], logits_only: bool = False
+                activations: Sequence[str], logits_only: bool = False,
+                embed_devices: Optional[Sequence[torch.device]] = None
                 ) -> torch.Tensor:
     """dense [n, Dn], codes [n, Dc] -> [n] probability (or raw logit);
     with a member axis on `p`, [M, n]. The hidden activation of layer i is
-    activations[i % len], relu when the list is empty."""
+    activations[i % len], relu when the list is empty. `embed_devices`
+    (a mesh's model group) splits the embedding lookup's columns over
+    those devices (`_gather_split`)."""
     members = p.bias.dim() == 2
     pieces = [dense.expand(p.bias.shape[0], *dense.shape)
               if members else dense]
@@ -212,7 +233,9 @@ def wdl_forward(p: WDLParams, dense: torch.Tensor, codes: torch.Tensor,
         idx = torch.stack([
             torch.clamp(codes[:, f].long(), 0, table.shape[-2] - 1)
             for f, table in enumerate(p.embed)], dim=1)
-        emb = _gather_fields(p.embed, idx)
+        emb = (_gather_split(p.embed, idx, embed_devices)
+               if embed_devices is not None and len(embed_devices) > 1
+               else _gather_fields(p.embed, idx))
         pieces.append(emb.reshape(*emb.shape[:-2], -1))
     h = torch.cat(pieces, dim=-1)
     n_hidden = len(p.dense_layers) - 1

@@ -20,8 +20,14 @@ no process group and no NCCL: NCCL wants a process a card.
 
 Axis names are the JAX package's: ('data',), or ('dcn', 'data') when
 `dcn_slices` groups the shards (the reduce then sums within each slice
-first, `hierarchical_reduce`). The `model` axis (WDL embedding tensor
-parallelism) is ROADMAP A.13. More than one host is a data-plane
+first, `hierarchical_reduce`), with a trailing 'model' axis when
+`model_axis` > 1: the JAX layout, devices row-major over (dcn, data,
+model). Rows shard over the data axes only; each row shard's model group
+(`model_devices[s]`, its first device the shard's own) is where the WDL
+trainer splits each embedding table's embed columns (the JAX package's
+`with_sharding_constraint(e, P(None, "model"))`): each device looks up
+its column block and the blocks gather on the shard's device. More than
+one host is a data-plane
 matter, not a mesh one: `lifecycle_hosts` / `lifecycle_host_index` give
 the process count and index the lifecycle's `HostPlan` splits chunks by
 (`data/pipeline.py`, `parallel/hostsync.py`).
@@ -37,25 +43,33 @@ import torch
 
 from shifu_tpu_torch.obs import registry
 from shifu_tpu_torch.utils import environment
-from shifu_tpu_torch.utils.errors import ErrorCode, ShifuError
 from shifu_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
 @dataclass(frozen=True)
 class Mesh:
     """Row shards over devices: `devices[s]` holds shard s; `shape` is
-    the device grid over `axis_names` (row-major, shard s = flat index)."""
+    the device grid over `axis_names` (row-major, shard s = flat index
+    over the row axes). With a 'model' axis, `model_devices[s]` is row
+    shard s's model group (`devices[s]` first)."""
 
     devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...] = ("data",)
     shape: Tuple[int, ...] = ()
+    model_devices: Tuple[Tuple[torch.device, ...], ...] = ()
 
     def __post_init__(self):
         if not self.shape:
             object.__setattr__(self, "shape", (len(self.devices),))
-        if int(np.prod(self.shape)) != len(self.devices):
+        if int(np.prod(self.shape)) != len(self.devices) * self.model_size:
             raise ValueError(f"mesh shape {self.shape} does not hold "
-                             f"{len(self.devices)} devices")
+                             f"{len(self.devices)} row shards of "
+                             f"{self.model_size} model device(s)")
+
+    @property
+    def model_size(self) -> int:
+        """Devices a row shard's embedding columns split over."""
+        return dict(zip(self.axis_names, self.shape)).get("model", 1)
 
     @property
     def lead(self) -> torch.device:
@@ -74,11 +88,6 @@ class Mesh:
         return out
 
 
-def _not_ported(what: str) -> ShifuError:
-    return ShifuError(ErrorCode.ILLEGAL_ARGUMENT,
-                      f"{what} is not ported yet (ROADMAP A.13)")
-
-
 def data_mesh(n_devices: Optional[int] = None, model_axis: int = 1,
               dcn_slices: Optional[int] = None, *,
               device: DeviceLike = None,
@@ -86,11 +95,10 @@ def data_mesh(n_devices: Optional[int] = None, model_axis: int = 1,
     """Mesh over the first `n_devices` of the `torch.cuda.device_count()`
     cards (all by default), or with `virtual=S`, S shards on `device`
     (cuda by default; "cpu" in the tests). `dcn_slices` groups the
-    shards into that many slices, outermost, as the JAX mesh's `dcn`
-    axis. `model_axis` > 1 raises naming ROADMAP A.13."""
-    if model_axis > 1:
-        raise _not_ported(f"data_mesh(model_axis={model_axis}): the WDL "
-                          "embedding tables' model axis")
+    devices into that many slices, outermost, as the JAX mesh's `dcn`
+    axis; `model_axis` = M > 1 groups every M consecutive devices of a
+    slice into one row shard's model group (the JAX ('data', 'model')
+    layout), so the rows split over n / M shards."""
     if virtual is not None:
         dev = resolve_device(device)
         devices = [dev] * max(1, int(virtual))
@@ -103,13 +111,23 @@ def data_mesh(n_devices: Optional[int] = None, model_axis: int = 1,
         devices = [torch.device("cuda", i) for i in range(n)]
     n = len(devices)
     registry().gauge("mesh.devices").set(n)
-    if dcn_slices and dcn_slices > 1:
-        if n % dcn_slices:
-            raise ValueError(f"{n} shards do not split into {dcn_slices} "
-                             "slices")
-        return Mesh(tuple(devices), ("dcn", "data"),
-                    (dcn_slices, n // dcn_slices))
-    return Mesh(tuple(devices))
+    m = max(1, int(model_axis))
+    n_dcn = int(dcn_slices) if dcn_slices and dcn_slices > 1 else 1
+    if n % n_dcn:
+        raise ValueError(f"{n} shards do not split into {dcn_slices} "
+                         "slices")
+    per_slice = n // n_dcn
+    if per_slice % m:
+        raise ValueError(f"{per_slice} devices a slice do not split over "
+                         f"a model axis of {m}")
+    rows = tuple(devices[::m])
+    groups = (tuple(tuple(devices[i:i + m]) for i in range(0, n, m))
+              if m > 1 else ())
+    axes = ("dcn", "data") if n_dcn > 1 else ("data",)
+    shape = ((n_dcn, per_slice // m) if n_dcn > 1 else (per_slice // m,))
+    if m > 1:
+        axes, shape = axes + ("model",), shape + (m,)
+    return Mesh(rows, axes, shape, groups)
 
 
 def train_mesh(device: torch.device) -> Optional[Mesh]:
@@ -278,7 +296,7 @@ def psum(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
         return out
 
     if hierarchical_reduce(mesh):
-        per = mesh.shape[-1]
+        per = mesh.shape[mesh.axis_names.index("data")]
         return add([add(list(parts[i:i + per]))
                     for i in range(0, len(parts), per)])
     return add(list(parts))

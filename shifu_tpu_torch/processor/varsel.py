@@ -4,8 +4,9 @@
 Parity: core/processor/VarSelectModelProcessor.java:121 — auto-filter, force
 select/remove files, filter by KS/IV/MIX/PARETO (:181-187), FI for tree
 models (:188), the SE/ST sensitivity wrapper (train a model then rank
-columns by knockout error delta, distributedSEWrapper :633),
--list/-reset/-recover. The voted GA wrapper is ROADMAP A.14 and raises.
+columns by knockout error delta, distributedSEWrapper :633), the voted GA
+wrapper (VOTED, or V: core/dvarsel/VarSelMaster.java:39),
+-list/-reset/-recover.
 """
 
 from __future__ import annotations
@@ -23,9 +24,6 @@ from shifu_tpu_torch.utils.log import get_logger
 from shifu_tpu_torch.utils.platform import DeviceLike
 
 log = get_logger(__name__)
-
-# the filters whose wrapper is not ported yet, and the ROADMAP item of each
-NOT_PORTED_FILTERS = {"VOTED": "A.14"}
 
 
 class VarSelProcessor(BasicProcessor):
@@ -77,10 +75,6 @@ class VarSelProcessor(BasicProcessor):
 
         vs = mc.var_select
         filter_by = (vs.filter_by or "KS").upper()
-        if filter_by in NOT_PORTED_FILTERS:
-            raise NotImplementedError(
-                f"varSelect.filterBy {filter_by} is not ported yet: ROADMAP "
-                f"{NOT_PORTED_FILTERS[filter_by]}")
 
         # backup before changing anything (-recover support)
         self.paths.ensure(self.paths.varsel_dir())
@@ -110,6 +104,9 @@ class VarSelProcessor(BasicProcessor):
         elif filter_by == "FI":
             scores = self._feature_importance()
             self._select_by_scores(scores, vs.filter_num)
+        elif filter_by in ("VOTED", "V"):
+            scores = self._voted(vs)
+            self._select_by_scores(scores, vs.wrapper_num or vs.filter_num)
         else:
             from shifu_tpu_torch.varsel.selector import select_by_filter
 
@@ -218,6 +215,57 @@ class VarSelProcessor(BasicProcessor):
                 fh.write(f"{name},{s:.8g}\n")
         log.info("%s sensitivity computed for %d columns -> se.csv",
                  se_type, len(out))
+        return out
+
+    def _voted(self, vs) -> dict:
+        """Voted selection (dvarsel): the GA wrapper proposes candidate
+        variable subsets, every generation trains/validates the WHOLE
+        population as one batched function, and the best seed wins
+        (core/dvarsel/VarSelMaster.java:39, wrapper/CandidateGenerator).
+        Scores: best-seed members rank first (1 + vote share), the rest by
+        final-population vote share — so _select_by_scores keeps the seed.
+        Writes voted.csv (column, score)."""
+        from shifu_tpu_torch.norm.dataset import load_normalized
+        from shifu_tpu_torch.varsel.voted import VotedConfig, voted_selection
+
+        norm_dir = self.paths.normalized_data_dir()
+        if not os.path.isdir(norm_dir):
+            raise ShifuError(ErrorCode.DATA_NOT_FOUND,
+                             f"{norm_dir} — run `shifu norm` first")
+        meta, feats, tags, weights = load_normalized(norm_dir)
+        feats = np.asarray(feats, np.float32)
+        tags = np.asarray(tags, np.float32)
+        weights = np.asarray(weights, np.float32)
+        params = vs.params or {}
+        # candidates train the model's CONFIGURED network, not a fixed
+        # surrogate (ValidationConductor.java trains the configured net)
+        cfg = VotedConfig.from_model_config(
+            self.model_config,
+            expect_var_count=int(params.get(
+                "expect_variable_cnt", vs.wrapper_num or 20)),
+            population_size=int(params.get("population_live_size", 30)),
+            generations=int(params.get("population_multiply_cnt", 5)),
+            cross_percent=int(params.get("hybrid_percent", 60)),
+            mutation_percent=int(params.get("mutation_percent", 20)),
+        )
+        best, votes = voted_selection(feats, tags, weights, cfg,
+                                      device=self.device)
+
+        # map normalized output columns back to source columns (one-hot
+        # expansion etc.), as the SE path does
+        src_of = (meta.extra or {}).get("sourceOf") or {}
+        best_set = set(best)
+        out: dict = {}
+        for j, name in enumerate(meta.columns):
+            src = src_of.get(name, name)
+            score = (1.0 + float(votes[j])) if j in best_set else float(votes[j])
+            out[src] = max(out.get(src, float("-inf")), score)
+        with open(os.path.join(self.paths.varsel_dir(), "voted.csv"),
+                  "w") as fh:
+            fh.write("column,score\n")
+            for name, s in sorted(out.items(), key=lambda kv: -kv[1]):
+                fh.write(f"{name},{s:.6g}\n")
+        log.info("voted selection: best seed has %d columns", len(best))
         return out
 
     def _feature_importance(self) -> dict:

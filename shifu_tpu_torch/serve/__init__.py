@@ -26,9 +26,10 @@ shifu.serve.breaker.* settings and shifu.serve.sloMs/sloTarget.
 
 Request traces (shifu.trace.sample, slowMs, maxTraces), the obs metrics
 behind /metrics, the metrics time series (shifu.obs.snapshotMs) and the
-shutdown manifest come from `shifu_tpu_torch/obs/`. What waits for
-ROADMAP A.14: the model zoo, peers, the hot-swap rollout (stage,
-promote, shadow), the traffic log and drift monitor.
+shutdown manifest come from `shifu_tpu_torch/obs/`; the drift monitor,
+the traffic log, the hot-swap rollout (stage, shadow, promote) and the
+promote gates from `shifu_tpu_torch/loop/`. What waits for ROADMAP
+A.14: the model zoo (A.14.4), leases and peers (A.14.7).
 """
 
 from shifu_tpu_torch.serve.batcher import MicroBatcher, ScoreRequest

@@ -38,6 +38,11 @@ request with a trace (obs/reqtrace.RequestTrace) gets its `queue` and
 `coalesce` stages here, and the registry's `featurize` / `device` /
 `d2h` notes, captured around the dispatch, fan out to every traced
 rider of the batch; the batch is recorded as the convoy witness.
+
+`observer(data, result)` runs after every request of a batch has its
+answer (the loop seams: traffic log, shadow scoring, drift checks), so
+it costs queue headroom, never request latency; a failing observer is
+counted (`serve.observer.errors`) and fails no request.
 """
 
 from __future__ import annotations
@@ -218,8 +223,11 @@ class MicroBatcher:
                  max_restarts: Optional[int] = None,
                  deadline_ms: Optional[float] = None,
                  batching: Optional[str] = None,
-                 breaker=None, replica: Optional[int] = None) -> None:
+                 breaker=None, replica: Optional[int] = None,
+                 observer: Optional[Callable[[ColumnarData, ScoreResult],
+                                             None]] = None) -> None:
         self.score_fn = score_fn
+        self.observer = observer
         self.admission = admission
         self.breaker = breaker
         # the replica index the fleet passes: the `serve.dispatch` seam's
@@ -408,8 +416,8 @@ class MicroBatcher:
                                    **self.labels).time():
                         faults.fault_point("serve.dispatch",
                                            replica=self.replica)
-                        result = self.score_fn(
-                            concat_batches([r.data for r in batch]))
+                        concat = concat_batches([r.data for r in batch])
+                        result = self.score_fn(concat)
             except Exception as e:  # per-request answers, breaker told
                 log.warning("serve batch of %d requests failed: %s",
                             len(batch), e)
@@ -454,6 +462,21 @@ class MicroBatcher:
                     replica, [r.trace.trace_id for r in traced],
                     requests=len(batch), rows=rows,
                     started_unix=dispatch_unix, dur_s=now - t0)
+            if self.observer is not None:
+                if traced:
+                    # per-row trace ids ride the batch into the traffic
+                    # log; rows of un-traced requests log the empty token
+                    concat.trace_ids = np.concatenate([
+                        np.full(r.n_rows,
+                                r.trace.trace_id if r.trace else "",
+                                dtype=object)
+                        for r in batch])
+                try:
+                    self.observer(concat, result)
+                except Exception as oe:  # observers must not kill serving
+                    log.warning("serve observer failed: %s", oe)
+                    reg.counter("serve.observer.errors",
+                                **self.labels).inc()
 
     # ---- load hints ----
     def drain_stats(self, now: Optional[float] = None

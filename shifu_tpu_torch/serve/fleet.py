@@ -17,23 +17,27 @@ drain-aware router (counterpart of `shifu_tpu/serve/fleet.py`).
                     the next, ties rotate.
   ReplicaFleet      construction and the fleet contract: aggregate
                     health, fleet-wide Retry-After, failover of a failed
-                    batch's requests to other replicas, drain on close.
+                    batch's requests to other replicas, drain on close,
+                    and the rollout plane: every replica's registry is a
+                    `loop/hotswap.SwappableRegistry`, so the fleet stages
+                    a candidate on every replica, merges their shadow
+                    evidence and promotes replica by replica.
 
 Replica counts come from `shifu.serve.replicas` (0 = one per card).
 Routing, failover and the replica count record `serve.router.*`,
 `serve.failover.*` and `serve.replicas` in the obs registry;
 `finish_trace` closes a request's trace into the bounded ring and the
 `serve.stage_seconds{stage=,replica=}` histograms and counts it against
-the SLO. What waits for ROADMAP A.14: the hot-swap wrapper around each
-registry (`loop/hotswap.SwappableRegistry`) and with it stage / unstage
-/ promote and the shadow evidence, the traffic log and drift observers,
-and the model zoo's hooks.
+the SLO. The observer (the server's traffic log, shadow scoring and
+drift checks) runs on each replica's batcher after the batch's answers.
+What waits for ROADMAP A.14.4: the model zoo's hooks.
 """
 
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Sequence
+from contextlib import contextmanager
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -73,9 +77,6 @@ log = get_logger(__name__)
 
 DEFAULT_ROUTER_PENALTY = 4.0
 DEFAULT_FAILOVER_MAX = 2
-
-_WAITS = "ROADMAP A.14"
-
 
 def replicas_setting() -> int:
     """shifu.serve.replicas: scoring replicas (0 = one per card)."""
@@ -121,7 +122,8 @@ class ScoringReplica:
                  max_restarts: Optional[int] = None,
                  deadline_ms: Optional[float] = None,
                  batching: Optional[str] = None,
-                 queue_depth: Optional[int] = None) -> None:
+                 queue_depth: Optional[int] = None,
+                 observer: Optional[Callable] = None) -> None:
         self.index = int(index)
         self.name = str(self.index)
         self.labels = {"replica": self.name}
@@ -131,12 +133,19 @@ class ScoringReplica:
                           if admission is None else admission)
         self.health = HealthMonitor(labels=self.labels)
         self.breaker = CircuitBreaker(labels=self.labels)
+        batch_observer = None
+        if observer is not None:
+            # the fleet observer wants to know WHICH replica resolved the
+            # batch (its scored sha stamps the traffic log)
+            def batch_observer(data, result, _rep=self):
+                observer(_rep, data, result)
         self.batcher = MicroBatcher(
             registry.score_raw, self.admission,
             max_batch_rows=max_batch_rows, max_wait_ms=max_wait_ms,
             health=self.health, max_restarts=max_restarts,
             deadline_ms=deadline_ms, batching=batching,
-            breaker=self.breaker, replica=self.index)
+            breaker=self.breaker, replica=self.index,
+            observer=batch_observer)
 
     def snapshot(self) -> dict:
         snap = {
@@ -282,6 +291,9 @@ class ReplicaFleet:
         self.failover_max = failover_max_setting()
         self.failovers = 0
         self.failovers_exhausted = 0
+        # one rollout operation (stage / unstage / promote) at a time
+        self._ctl_lock = tracked_lock("serve.fleet.control")
+        self._ctl_busy: Optional[str] = None
         for rep in self.replicas:
             rep.batcher.failover = (
                 lambda req, error, _src=rep:
@@ -327,25 +339,31 @@ class ReplicaFleet:
               deadline_ms: Optional[float] = None,
               batching: Optional[str] = None,
               drift=None, column_configs=None,
-              model_config=None) -> "ReplicaFleet":
+              model_config=None,
+              observer: Optional[Callable] = None) -> "ReplicaFleet":
         """One replica per card (see `replica_devices`), each with the
-        model set on its own device. `device=None` is the card."""
-        if drift is not None:
-            raise NotImplementedError(
-                "the serving drift monitor is not ported yet: " + _WAITS)
+        model set on its own device behind a SwappableRegistry.
+        `device=None` is the card; `drift` (one monitor) folds every
+        replica's batches; `observer(replica, data, result)` runs after
+        each batch's answers."""
+        from shifu_tpu_torch.loop.hotswap import SwappableRegistry
+
         devices = replica_devices(n_replicas, device)
         replicas: List[ScoringReplica] = []
         try:
             for i, dev in enumerate(devices):
+                labels = {"replica": str(i)}
                 reg = ModelRegistry(models_dir, scale=scale, device=dev,
                                     column_configs=column_configs,
                                     model_config=model_config,
-                                    labels={"replica": str(i)})
+                                    drift=drift, labels=labels)
                 replicas.append(ScoringReplica(
-                    reg, index=i, queue_depth=queue_depth,
+                    SwappableRegistry(reg, labels=labels), index=i,
+                    queue_depth=queue_depth,
                     max_batch_rows=max_batch_rows,
                     max_wait_ms=max_wait_ms, max_restarts=max_restarts,
-                    deadline_ms=deadline_ms, batching=batching))
+                    deadline_ms=deadline_ms, batching=batching,
+                    observer=observer))
         except BaseException:
             # a later replica failing must not leak the earlier ones'
             # worker threads
@@ -365,13 +383,18 @@ class ReplicaFleet:
         return self.router.submit(data, trace=trace)
 
     def score_batch(self, records, timeout: Optional[float] = None,
-                    trace=None) -> ScoreResult:
+                    trace=None,
+                    extra_columns: Optional[Sequence[str]] = None
+                    ) -> ScoreResult:
         """Routed scoring of raw records: a list of dicts (the JSON path)
-        or a decoded binary batch, which only conforms to the schema. A
-        `trace` (obs/reqtrace.RequestTrace) rides through record
-        conversion (featurize), placement (route) and the batcher
-        stages; the CALLER finishes it (`finish_trace`)."""
-        cols = list(self.input_columns)
+        or a decoded binary batch, which only conforms to the schema.
+        `extra_columns` (the label columns the traffic log keeps) ride
+        through untouched by scoring. A `trace`
+        (obs/reqtrace.RequestTrace) rides through record conversion
+        (featurize), placement (route) and the batcher stages; the
+        CALLER finishes it (`finish_trace`)."""
+        cols = list(self.input_columns) + [
+            c for c in (extra_columns or []) if c not in self.input_columns]
 
         def featurize():
             if isinstance(records, ColumnarData):
@@ -499,13 +522,120 @@ class ReplicaFleet:
                 else RETRY_AFTER_MIN_S)
         return min(max(hint, RETRY_AFTER_MIN_S), RETRY_AFTER_MAX_S)
 
-    # ---- what waits ----
-    def stage(self, *args, **kwargs):
-        raise NotImplementedError(
-            "staging a shadow model set (loop/hotswap.py) is not ported "
-            "yet: " + _WAITS)
+    # ---- rollout: stage / shadow evidence / rolling promote ----
+    @contextmanager
+    def _control(self, op: str):
+        with self._ctl_lock:
+            if self._ctl_busy is not None:
+                raise ValueError(
+                    f"fleet {self._ctl_busy} in progress — retry when "
+                    "it completes")
+            self._ctl_busy = op
+        try:
+            yield
+        finally:
+            with self._ctl_lock:
+                self._ctl_busy = None
 
-    unstage = promote = shadow_snapshot = stage
+    def stage(self, models_dir: str, column_configs=None,
+              model_config=None, drift=None) -> Optional[dict]:
+        """Stage + warm the candidate as the shadow on EVERY replica
+        (each loads it onto its own device). Returns the merged shadow
+        snapshot. Refused while another rollout operation is in
+        flight."""
+        with self._control("stage"):
+            staged = [rep.registry.stage(models_dir,
+                                         column_configs=column_configs,
+                                         model_config=model_config,
+                                         drift=drift)
+                      for rep in self.replicas]
+            shas = {st["sha"] for st in staged}
+            if len(shas) != 1:  # same dir: only a mid-stage redeploy
+                raise ValueError(
+                    f"staged shadow shas diverge across replicas "
+                    f"({shas}) — the candidate dir changed mid-stage; "
+                    "re-stage")
+            return self.shadow_snapshot()
+
+    def unstage(self) -> None:
+        with self._control("unstage"):
+            for rep in self.replicas:
+                rep.registry.unstage()
+
+    def shadow_snapshot(self) -> Optional[dict]:
+        """Fleet shadow evidence: the replicas' ShadowStats summed on the
+        host in replica order (additive counts sum, maxAbsDelta takes
+        the max), so `shifu promote`'s gates read one fleet-wide
+        agreement rate, and the replicas' score-delta histograms merged
+        bucket for bucket. None until every replica has a staged
+        shadow."""
+        per = [rep.registry.shadow_snapshot() for rep in self.replicas]
+        if any(p is None for p in per):
+            return None
+        if len(per) == 1:
+            agg = dict(per[0], replicas=per)
+        else:
+            agg = _reduce_shadow_stats(per)
+            agg.update({
+                "sha": per[0]["sha"],
+                "models": per[0]["models"],
+                "fused": per[0]["fused"],
+                "tolerance": per[0]["tolerance"],
+                "replicas": per,
+            })
+        delta = _merged_delta_histogram(self.replicas)
+        if delta.quantile(0.5) is not None:
+            agg["deltaHistogram"] = delta.as_dict()
+            agg["deltaP50"] = delta.quantile(0.50)
+            agg["deltaP99"] = delta.quantile(0.99)
+        return agg
+
+    def promote(self, expected_sha: Optional[str] = None,
+                step_cb: Optional[Callable] = None) -> dict:
+        """ROLLING promote: replicas flip shadow -> active ONE AT A TIME,
+        each swap atomic under its replica's lock (the in-flight batch
+        finishes on the old version, the next gathered batch scores on
+        the new). The staged sha is validated across ALL replicas (and
+        against `expected_sha`, the sha the caller's gate evidence
+        described) BEFORE the first swap, so a refusal always happens
+        with ZERO replicas swapped. `step_cb(replica, step)` fires after
+        each replica's swap."""
+        with self._control("promote"):
+            staged = [rep.registry.shadow_snapshot()
+                      for rep in self.replicas]
+            missing = [rep.name for rep, st in zip(self.replicas, staged)
+                       if st is None]
+            if missing:
+                raise ValueError("no staged candidate on replica(s) "
+                                 + ",".join(missing))
+            shas = {st["sha"] for st in staged}
+            if len(shas) != 1:
+                raise ValueError(
+                    f"staged shadow shas diverge across replicas "
+                    f"({shas}); re-stage before promoting")
+            sha = shas.pop()
+            if expected_sha and sha != expected_sha:
+                raise ValueError(
+                    f"staged shadow is {sha}, not the gated candidate "
+                    f"{expected_sha} — it was re-staged since the gates "
+                    "evaluated; re-run the gate on the current shadow")
+            shadow = self.shadow_snapshot()
+            steps = []
+            for rep in self.replicas:
+                swap = rep.registry.promote(expected_sha)
+                step = {"replica": rep.name, **swap}
+                steps.append(step)
+                registry().counter("serve.swap.steps", **rep.labels).inc()
+                if step_cb is not None:
+                    try:
+                        step_cb(rep, step)
+                    except Exception as e:  # audit trouble must not
+                        # stop the roll half-way
+                        log.warning("promote step callback failed on "
+                                    "replica %s: %s", rep.name, e)
+            return {"from": steps[0]["from"], "to": sha,
+                    "replicas": len(steps), "steps": steps,
+                    "shadow": shadow}
 
     def snapshot(self) -> dict:
         """Replica 0's registry view, every replica's stack, the router
@@ -535,3 +665,43 @@ class ReplicaFleet:
             remaining = (None if deadline is None
                          else max(0.0, deadline - time.monotonic()))
             rep.batcher.join(remaining)
+
+
+def _merged_delta_histogram(replicas: Sequence[ScoringReplica]):
+    """Every replica's staged-shadow score-delta histogram folded into one
+    fleet histogram (the registry's exact bucket merge)."""
+    from shifu_tpu_torch.loop.hotswap import SCORE_DELTA_BUCKETS
+    from shifu_tpu_torch.obs.metrics import Histogram
+
+    reg = registry()
+    merged = Histogram(SCORE_DELTA_BUCKETS)
+    for rep in replicas:
+        merged.merge(reg.histogram("serve.shadow.score_delta",
+                                   buckets=SCORE_DELTA_BUCKETS,
+                                   **rep.labels))
+    return merged
+
+
+def _reduce_shadow_stats(per: List[dict]) -> dict:
+    """The replicas' shadow stats summed in replica order, in f64 (the
+    JAX package's one psum / pmax over the fleet mesh)."""
+    batches = rows = agree = errors = 0
+    sum_abs = 0.0
+    max_abs = 0.0
+    for p in per:
+        batches += p["batches"]
+        rows += p["rows"]
+        agree += p["agreeRows"]
+        errors += p["errors"]
+        sum_abs += p["meanAbsDelta"] * p["rows"]
+        max_abs = max(max_abs, p["maxAbsDelta"])
+    rows_div = float(max(rows, 1))
+    return {
+        "batches": int(batches),
+        "rows": int(rows),
+        "agreeRows": int(agree),
+        "errors": int(errors),
+        "agreement": (agree / rows_div if rows else 0.0),
+        "meanAbsDelta": (sum_abs / rows_div if rows else 0.0),
+        "maxAbsDelta": float(max_abs),
+    }

@@ -5,7 +5,10 @@ circuit breaker and the latency SLO tracker (counterpart of
   ok        scoring normally.
   degraded  still scoring, but a worker crash was survived recently: a
             router de-prioritizes (does not eject) the replica. Clears
-            back to ok after `ok_after` consecutive clean batches.
+            back to ok after `ok_after` consecutive clean batches. The
+            drift monitor's degrade (`note_degraded`) is sticky: clean
+            batches do not clear it, only `clear_degraded` (a promote)
+            does, and that leaves a crash degrade underneath in place.
   draining  not accepting work (shutdown, or the worker restart budget
             is spent): /healthz answers 503.
 
@@ -13,9 +16,8 @@ Transitions are monotone toward draining. Each transition counts in the
 obs registry (`serve.health.transitions`, `serve.breaker.transitions`,
 `serve.breaker.open`, `serve.breaker.trips`, `serve.slo.good/bad`,
 labeled by replica where the JAX package labels them), and the locks are
-race-tracked (`tracked_lock`, `-Dshifu.sanitize=race`). The sticky
-(drift) degrade and the per-tenant SLO settings wait with the drift
-monitor and the model zoo (ROADMAP A.14).
+race-tracked (`tracked_lock`, `-Dshifu.sanitize=race`). The per-tenant
+SLO settings wait with the model zoo (ROADMAP A.14.4).
 """
 
 from __future__ import annotations
@@ -183,6 +185,12 @@ class HealthMonitor:
         self._ok_streak = 0
         self._crashes = 0
         self.transitions: Dict[str, int] = {}
+        self._sticky = False  # a degrade that clean batches must NOT clear
+        # the crash-caused degrade is tracked SEPARATELY from the sticky
+        # (drift) one: the two can layer, and clearing the sticky overlay
+        # must leave the crash degrade (and its hysteresis) underneath
+        self._crash_degraded = False
+        self._crash_reason = ""
 
     @guarded_by("_lock")
     def _transition(self, state: str, reason: str) -> None:
@@ -200,15 +208,45 @@ class HealthMonitor:
         with self._lock:
             self._crashes += 1
             self._ok_streak = 0
+            self._crash_degraded = True
+            self._crash_reason = reason
             if self._state != DRAINING:
                 self._transition(DEGRADED, reason)
 
+    def note_degraded(self, reason: str) -> None:
+        """Degrade WITHOUT counting a crash and WITHOUT the clean-batch
+        hysteresis clearing it (the drift path: scoring is healthy, the
+        MODEL is stale — only an operator action like `shifu promote`
+        resolves it, via clear_degraded)."""
+        with self._lock:
+            self._sticky = True
+            if self._state != DRAINING:
+                self._transition(DEGRADED, reason)
+
+    def clear_degraded(self) -> None:
+        """Drop a sticky (non-crash) degrade — called after a hot-swap
+        promoted a fresh model set. A crash-caused degrade is NOT
+        cleared: scoring itself was failing, and only the clean-batch
+        hysteresis (note_ok) may lift it."""
+        with self._lock:
+            was_sticky, self._sticky = self._sticky, False
+            self._ok_streak = 0
+            if self._state != DEGRADED or not was_sticky:
+                return
+            if self._crash_degraded:
+                # the crash degrade layered UNDER the drift one survives
+                self._reason = self._crash_reason
+                return
+            self._transition(OK, "")
+
     def note_ok(self) -> None:
         with self._lock:
-            if self._state != DEGRADED:
+            if self._state != DEGRADED or self._sticky:
                 return
             self._ok_streak += 1
             if self._ok_streak >= self._ok_after:
+                self._crash_degraded = False
+                self._crash_reason = ""
                 self._transition(OK, "")
 
     def set_draining(self, reason: str) -> None:

@@ -36,9 +36,17 @@ give an Encog EG-text `.nn` its norm plan, as in the runner. Their
 record schema holds every raw column a model reads, a WDL model's
 categorical columns and a reference model's columns included (the JAX
 registry leaves those out, so its `score_records` fails on a WDL set:
-ROADMAP C.10). What waits for ROADMAP A.14: the drift fold
-(`drift=` raises) and the model zoo's seams (put/cost hooks, memory
-analysis, release).
+ROADMAP C.10).
+
+Drift (`drift=`, a `loop/drift.DriftMonitor`): the monitor's raw numeric
+values, bin codes and a valid-row column ride the same staging tensor,
+and the program's second variant folds them into the monitor's resident
+device window after the forward pass (no extra copy either way); the
+fallback folds on the host (`fold_host`). `drift_live` gates the fold:
+`warm()`'s synthetic rows never fold, and a staged shadow registry
+shares the monitor without double-counting the batches it re-scores.
+What waits for ROADMAP A.14.4: the model zoo's seams (put/cost hooks,
+memory analysis, release).
 """
 
 from __future__ import annotations
@@ -100,6 +108,38 @@ def records_to_columnar(records: Sequence[dict],
         for c in columns
     }
     return ColumnarData(names=list(columns), raw=raw, n_rows=len(records))
+
+
+def schema_of(specs) -> List[str]:
+    """The raw source columns the model specs read, first-seen order: a
+    registry's record schema. A fused (all-NN) set reads its norm plans'
+    columns; the fallback adds each model's own input columns, a WDL
+    model's categorical columns and a reference model's columns (the JAX
+    registry leaves those out: ROADMAP C.10)."""
+    from shifu_tpu_torch.models.nn import NNModelSpec
+
+    fused = all(isinstance(sp, NNModelSpec) for sp in specs)
+    seen: List[str] = []
+    for spec in specs:
+        names = [cd["name"] for cd in getattr(spec, "norm_specs", None)
+                 or []]
+        if not fused:
+            names += getattr(spec, "input_columns", None) or []
+            names += getattr(spec, "cat_columns", None) or []
+        for name in names:
+            if name not in seen:
+                seen.append(name)
+    return seen
+
+
+def model_set_columns(models_dir: str, column_configs=None,
+                      model_config=None) -> List[str]:
+    """`schema_of` the models under `models_dir`, loaded on the CPU (no
+    device work): what a server's drift monitor may watch before the
+    registry exists."""
+    return schema_of([load_model(p, column_configs, model_config,
+                                 device="cpu")
+                      for p in find_model_paths(models_dir)])
 
 
 def pin_device(device: DeviceLike) -> torch.device:
@@ -268,10 +308,6 @@ class ModelRegistry:
                  device: DeviceLike = None,
                  drift=None, column_configs=None,
                  model_config=None, labels: Optional[dict] = None) -> None:
-        if drift is not None:
-            raise NotImplementedError(
-                "the serving drift monitor (loop/drift.py) is not ported "
-                "yet: ROADMAP A.14")
         self.labels = dict(labels or {})
         self.models_dir = models_dir
         self.paths = find_model_paths(models_dir)
@@ -284,6 +320,11 @@ class ModelRegistry:
         self.specs = [load_model(p, column_configs, model_config,
                                  device=self.device) for p in self.paths]
         self.fused = self._fusable()
+        # online PSI drift: the fold rides the program (or the runner's
+        # host fold); `drift_live` gates it (warm-up rows, staged shadow)
+        self.drift = drift if (drift is not None and drift.enabled) else None
+        self.drift_live = True
+        self._drift_dead_window: Optional[torch.Tensor] = None
         self.weights_bytes = 0
         self.timings: Dict[str, float] = {}
         self.transfers = {"h2d": 0, "d2h": 0}
@@ -359,14 +400,30 @@ class ModelRegistry:
             nv, nc = len(feat.value_specs), len(feat.coded_specs)
             self._slices.append(((off, off + nv), (off + nv, off + nv + nc)))
             off += nv + nc
+        drift = self.drift
+        drift_consts = None
+        self._drift_slices = None
+        if drift is not None:
+            # the monitor is fleet-shared; ITS constants live on THIS
+            # replica's device
+            drift_consts = drift.device_consts(dev)
+            self.weights_bytes += sum(int(t.numel() * t.element_size())
+                                      for t in drift_consts.values())
+            nv, nc = len(drift.numeric_cols), len(drift.coded_cols)
+            self._drift_slices = ((off, off + nv), (off + nv, off + nv + nc),
+                                  off + nv + nc)  # last: the valid column
+            off += nv + nc + 1
         self._staging_cols = off
         slices = self._slices
+        drift_slices = self._drift_slices
         specs = self.specs
         scale = self.scale
 
-        def fused(staging: torch.Tensor) -> torch.Tensor:
+        def fused(staging: torch.Tensor,
+                  drift_window: Optional[torch.Tensor] = None):
             """[bucket, C] staging -> [bucket, W + 4]: the model scores,
-            then mean, max, min and median."""
+            then mean, max, min and median; with a drift window, also the
+            window with this batch's bin counts folded in."""
             normed = []
             for c, ((v0, v1), (c0, c1)) in zip(consts, slices):
                 normed.append(_plan_norm(c, staging[:, v0:v1],
@@ -379,29 +436,21 @@ class ModelRegistry:
                     out = out[:, :1]
                 cols.append(out * scale)
             m = cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
-            return torch.cat([m, torch.stack(_aggregates(m), dim=1)], dim=1)
+            out = torch.cat([m, torch.stack(_aggregates(m), dim=1)], dim=1)
+            if drift_window is None:
+                return out
+            (dv0, dv1), (dc0, dc1), vcol = drift_slices
+            return out, drift.fold(drift_consts, drift_window,
+                                   staging[:, dv0:dv1],
+                                   staging[:, dc0:dc1].to(torch.int64),
+                                   staging[:, vcol])
 
         self._program = fused
 
     def _input_columns(self) -> List[str]:
         """The raw source columns of every plan, first-seen order: the
         record schema the front end accepts."""
-        seen: List[str] = []
-        if self.fused:
-            for plan in self._plans:
-                for s in plan.specs:
-                    if s.cc.column_name not in seen:
-                        seen.append(s.cc.column_name)
-            return seen
-        for spec in self.specs:
-            names = [cd["name"] for cd in getattr(spec, "norm_specs", None)
-                     or []]
-            names += getattr(spec, "input_columns", None) or []
-            names += getattr(spec, "cat_columns", None) or []
-            for name in names:
-                if name not in seen:
-                    seen.append(name)
-        return seen
+        return schema_of(self.specs)
 
     # ---- serving ----
     def bucket(self, n_rows: int) -> int:
@@ -412,10 +461,17 @@ class ModelRegistry:
         allocated, cuBLAS handles made) so the first request pays none
         of it; returns the buckets warmed."""
         warmed = []
-        for b in sorted({self.bucket(max(1, int(s))) for s in batch_sizes}):
-            rec = {c: "0" for c in self.input_columns}
-            self.score_records([rec] * b)
-            warmed.append(b)
+        # the synthetic all-"0" rows are not traffic: they must not fold
+        # into the live drift window
+        drift_live, self.drift_live = self.drift_live, False
+        try:
+            for b in sorted({self.bucket(max(1, int(s)))
+                             for s in batch_sizes}):
+                rec = {c: "0" for c in self.input_columns}
+                self.score_records([rec] * b)
+                warmed.append(b)
+        finally:
+            self.drift_live = drift_live
         return warmed
 
     def score_records(self, records: Sequence[dict]) -> ScoreResult:
@@ -432,6 +488,9 @@ class ModelRegistry:
                 result = self._runner.score_raw(data)
                 self.model_widths = list(result.model_widths)
                 dt = time.perf_counter() - t0
+                if self.drift is not None and self.drift_live:
+                    # the runner's path: the host fold, same binning
+                    self.drift.fold_host(data)
                 # the runner's featurize and scoring, one stage
                 reqtrace.note_stage("device", dt, t0=t0)
                 self._note(n, self.bucket(n), {
@@ -453,6 +512,16 @@ class ModelRegistry:
                 vals, codes = feat(data, code_cache, numeric_cache)
                 buf[:n, v0:v1] = vals
                 buf[:n, c0:c1] = codes
+            window = drift_gen = None
+            if self.drift is not None:
+                d_vals, d_codes = self.drift.featurize(data, code_cache,
+                                                       numeric_cache)
+                (dv0, dv1), (dc0, dc1), vcol = self._drift_slices
+                buf[:n, dv0:dv1] = d_vals
+                buf[:n, dc0:dc1] = d_codes
+                buf[:n, vcol] = 1.0
+                window, drift_gen = self._drift_window()
+            args = () if window is None else (window,)
             cuda = self.device.type == "cuda"
             with torch.inference_mode():
                 if cuda:
@@ -462,16 +531,27 @@ class ModelRegistry:
                         # the seam synchronizes the card before its clock
                         # stops (sync=True): the device stage's end
                         out = profile.dispatch("serve.fused_score",
-                                               self._program, x, sync=True)
+                                               self._program, x, *args,
+                                               sync=True)
                         t_d2h = time.perf_counter()
+                        if window is not None:
+                            out, window = out
                         host = out.cpu()  # synchronizes: staging free again
                 else:
                     x = st.host  # a view of `buf`, used only in this call
                     t_dev = time.perf_counter()
                     out = profile.dispatch("serve.fused_score",
-                                           self._program, x, sync=True)
+                                           self._program, x, *args,
+                                           sync=True)
                     t_d2h = time.perf_counter()
+                    if window is not None:
+                        out, window = out
                     host = out
+            if drift_gen is not None:  # a live fold: adopt its window
+                self.drift.note_window(window, n, gen=drift_gen,
+                                       device=self.device,
+                                       owner=self.labels.get("replica"))
+                registry().counter("loop.drift.rows").inc(n)
             res = host.numpy()[:n]
             t_end = time.perf_counter()
             reqtrace.note_stage("featurize", t_dev - t_feat, t0=t_feat)
@@ -488,6 +568,20 @@ class ModelRegistry:
             model_names=list(self.model_names),
             model_widths=list(self.model_widths),
         )
+
+    def _drift_window(self):
+        """(window, generation token) the fold adds into: the monitor's
+        resident window of this (replica, device) when live; else one
+        throwaway window of this registry's own (token None), so a staged
+        shadow never double-counts the batches it re-scores."""
+        if self.drift_live:
+            return self.drift.window(self.device,
+                                     owner=self.labels.get("replica"))
+        if self._drift_dead_window is None:
+            self._drift_dead_window = torch.zeros(
+                self.drift.total_slots, dtype=torch.float32,
+                device=self.device)
+        return self._drift_dead_window, None
 
     def _note(self, n: int, bucket: int, timings: Dict[str, float]) -> None:
         # the caller holds the lock
@@ -514,6 +608,8 @@ class ModelRegistry:
                 "device": str(self.device),
                 "transfers": dict(self.transfers),
                 "timings": dict(self.timings),
+                "driftMonitored": (len(self.drift.cols)
+                                   if self.drift is not None else 0),
             }
 
 

@@ -10,17 +10,30 @@
                  length (or a binary body past shifu.serve.wire.maxBodyMB),
                  415 on another Content-Type, 429 with Retry-After on
                  shed, 503 on shutdown or timeout. Error bodies are JSON.
-  POST /score/<set>  404: this server is single-tenant.
-  GET  /healthz  200 with the fleet's health and identity; 503 while
-                 draining.
+  POST /score/<set>  404: this server is single-tenant (the model zoo,
+                 ROADMAP A.14.4).
+  GET  /healthz  200 with the fleet's health, identity and the last
+                 drift verdict; 503 while draining.
   GET  /metrics  the obs registry as Prometheus text (obs/metrics.py).
   GET  /admin/traces  the retained request traces (obs/reqtrace.py) and
                  the ring's summary.
-  GET|POST /admin/* (the rest), /fleet/*  501 naming ROADMAP A.14: the
-                 rollout control plane (stage, promote, evict,
-                 co-resident training), `/admin/metrics.json` and the
-                 fleet views wait with the model zoo, leases and peers,
-                 the traffic log and the drift monitor.
+  GET  /admin/shadow  {"active": sha, "shadow": the staged candidate's
+                 merged shadow evidence or null}.
+  POST /admin/stage  {"modelsDir": DIR}: load + warm DIR as the shadow on
+                 every replica (409 on a schema change or a busy fleet).
+  POST /admin/promote  {"sha": SHA}: rolling hot-swap of the staged
+                 shadow (409 when SHA is not the staged one); the sticky
+                 drift degrade clears and the drift monitor resets.
+  /admin/evict (ROADMAP A.14.4), /admin/coresident/* (A.14.5),
+  /admin/metrics.json and /fleet/* (A.14.7)  501 naming the item.
+
+The loop seams (loop/): with a ColumnConfig.json beside the models the
+server builds a `DriftMonitor` whose fold rides every replica's scoring
+program, and checks it every `shifu.loop.driftCheckBatches` batches
+(past `shifu.loop.psiDegrade` /healthz degrades and a retrain
+recommendation lands in the ledger); `shifu.loop.logSample` > 0 (the
+CLI's `--traffic-log`) logs the served rows (`loop/traffic.py`). Both
+run on the batcher's observer, after the batch's answers.
 
 Request traces: an inbound `X-Shifu-Trace` header is honored (and forces
 retention), otherwise a trace is kept under `shifu.trace.sample` head
@@ -72,13 +85,15 @@ _JSON_CONTENT_TYPES = frozenset({
     "application/x-www-form-urlencoded",
 })
 
-_WAITS = "ROADMAP A.14"
-# the routes that wait, and what each is in the JAX package
+# the routes that wait, what each is in the JAX package, and its item
 _NOT_PORTED = (
-    ("/admin/", "the rollout control plane (stage, promote, evict, "
-                "co-resident training) and the lossless metrics snapshot "
-                "a peer's fleet collector reads"),
-    ("/fleet/", "the fleet-of-processes views (obs/fleetview.py)"),
+    ("/admin/evict", "tenant eviction (the model zoo)", "A.14.4"),
+    ("/admin/coresident/", "co-resident training (coresident/)",
+     "A.14.5"),
+    ("/admin/metrics.json", "the lossless metrics snapshot a peer's "
+                            "fleet collector reads", "A.14.7"),
+    ("/fleet/", "the fleet-of-processes views (obs/fleetview.py)",
+     "A.14.7"),
 )
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4"
 
@@ -96,7 +111,8 @@ class Scorer:
                  max_restarts: Optional[int] = None,
                  deadline_ms: Optional[float] = None,
                  batching: Optional[str] = None,
-                 fleet: Optional[ReplicaFleet] = None) -> None:
+                 fleet: Optional[ReplicaFleet] = None,
+                 extra_columns=None) -> None:
         if fleet is None:
             if registry is None:
                 raise ValueError("Scorer needs a registry or a fleet")
@@ -106,6 +122,11 @@ class Scorer:
                 max_restarts=max_restarts, deadline_ms=deadline_ms,
                 batching=batching)])
         self.fleet = fleet
+        # label plumbing: raw columns (target/weight) that ride through
+        # conversion and batching untouched by scoring, so the traffic
+        # log keeps outcomes (absent fields log as the missing token)
+        self.extra_columns = [c for c in (extra_columns or [])
+                              if c not in fleet.input_columns]
         self.registry = fleet.replicas[0].registry
         self.health = fleet.health
 
@@ -137,7 +158,8 @@ class Scorer:
                     sampled=buf.head_sampled())
         try:
             return self.fleet.score_batch(records, timeout=timeout,
-                                          trace=trace)
+                                          trace=trace,
+                                          extra_columns=self.extra_columns)
         except Exception as e:
             if own is not None:
                 own.annotate(status=type(e).__name__)
@@ -241,8 +263,22 @@ class ScoringServer:
         if zoo:
             raise NotImplementedError(
                 "the multi-tenant model zoo (serve/zoo.py) is not ported "
-                "yet: " + _WAITS)
+                "yet: ROADMAP A.14.4")
+        import socket
+
+        from shifu_tpu_torch.loop import (drift_check_batches_setting,
+                                          log_sample_setting)
+        from shifu_tpu_torch.loop.drift import DriftMonitor
+        from shifu_tpu_torch.loop.traffic import TrafficLog, traffic_columns
+
         self.root = os.path.abspath(root)
+        # the process's id in the ledger (recommendation reporter, metrics
+        # time series): without leases (ROADMAP A.14.7) a solo id, as a
+        # lease-less JAX server
+        self.lease_id = f"{socket.gethostname()}-{os.getpid()}-solo"
+        self._observe_lock = tracked_lock("serve.server.observe")
+        self._observed_batches = 0
+        self._last_drift_verdict: Optional[dict] = None
         # the set's configs give an Encog EG-text model its norm plan; a
         # models_dir outside a model set still serves without them
         if column_configs is None or model_config is None:
@@ -251,13 +287,44 @@ class ScoringServer:
             model_config = model_config or mc
         self.column_configs = column_configs
         self.model_config = model_config
+        models_dir = models_dir or os.path.join(self.root, "models")
+        # the drift baseline is the set's ColumnConfig (bins + counts),
+        # over the columns the models read: a column varsel dropped is
+        # not in the requests (the JAX server watches every binned column
+        # and fails each batch on such a set: ROADMAP C.16)
+        self.drift = None
+        if column_configs:
+            from shifu_tpu_torch.serve.registry import model_set_columns
+
+            schema = set(model_set_columns(models_dir, column_configs,
+                                           model_config))
+            self.drift = DriftMonitor([cc for cc in column_configs
+                                       if cc.column_name in schema])
+            if not self.drift.enabled:
+                self.drift = None
         self.registry = ReplicaFleet.build(
-            models_dir or os.path.join(self.root, "models"),
+            models_dir,
             n_replicas=replicas, device=device, queue_depth=queue_depth,
             max_batch_rows=max_batch_rows, max_wait_ms=max_wait_ms,
             batching=batching, column_configs=column_configs,
-            model_config=model_config)
-        self.scorer = Scorer(fleet=self.registry)
+            model_config=model_config, drift=self.drift,
+            observer=self._observe)
+        input_columns = self.registry.input_columns
+        # outcome columns (target/weight) ride the request conversion as
+        # extra raw columns so label-joined traffic keeps them
+        label_cols: List[str] = []
+        if model_config is not None:
+            for extra_col in (model_config.data_set.target_column_name,
+                              model_config.data_set.weight_column_name):
+                if (extra_col and extra_col not in label_cols
+                        and extra_col not in input_columns):
+                    label_cols.append(extra_col)
+        self.traffic: Optional[TrafficLog] = None
+        if log_sample_setting() > 0.0:
+            self.traffic = TrafficLog(self.root, traffic_columns(
+                list(input_columns) + label_cols))
+        self._drift_check_every = max(1, drift_check_batches_setting())
+        self.scorer = Scorer(fleet=self.registry, extra_columns=label_cols)
         self.started_at = time.time()
         self._serve_thread: Optional[threading.Thread] = None
         self._shutdown_lock = tracked_lock("serve.server.shutdown")
@@ -270,16 +337,81 @@ class ScoringServer:
             self.scorer.close(5.0)
             raise
         # on-disk metrics time series (obs/timeseries.py), armed by
-        # -Dshifu.obs.snapshotMs: without leases (ROADMAP A.14) the
-        # process snapshots under a solo id, as a lease-less JAX server
-        import socket
-
+        # -Dshifu.obs.snapshotMs, under the solo id
         from shifu_tpu_torch.obs.timeseries import MetricsSnapshotter
 
-        self.lease_id = f"{socket.gethostname()}-{os.getpid()}-solo"
         self.obs_snap = MetricsSnapshotter(self.root, self.lease_id,
                                            registry_cb=obs_registry)
         self.obs_snap.start()
+
+    # ---- the loop seams ----
+    def _observe(self, replica, data, result) -> None:
+        """Per-replica post-resolution observer: traffic log, shadow
+        scoring and the cadenced drift verdict, on THAT replica's worker
+        thread AFTER every request of the batch is answered; the traffic
+        log and the drift monitor are fleet-wide (one log, one
+        monitor)."""
+        if self.traffic is not None:
+            # the REPLICA's scored sha, not the fleet's: a promote
+            # between the score and this observe must not re-attribute
+            # the batch's logged rows
+            self.traffic.record(data, result, replica.registry.scored_sha)
+        replica.registry.observe(data, result)
+        with self._observe_lock:
+            self._observed_batches += 1
+            check = (self.drift is not None
+                     and self._observed_batches
+                     % self._drift_check_every == 0)
+        if check:
+            # check_degrade returns the verdict it computed — one window
+            # flush + PSI pass per cadence; outside the cadence lock (it
+            # copies the window to the host)
+            self._last_drift_verdict = self.drift.check_degrade(
+                self.scorer.health, self.root,
+                model_sha=self.registry.sha, reporter=self.lease_id)
+
+    def stage_candidate(self, models_dir: str) -> dict:
+        """Load + warm a candidate model set as the shadow version on
+        EVERY replica (each onto its own device)."""
+        return self.registry.stage(models_dir,
+                                   column_configs=self.column_configs,
+                                   model_config=self.model_config,
+                                   drift=self.drift)
+
+    def promote_candidate(self, expected_sha: Optional[str] = None) -> dict:
+        """ROLLING hot-swap: the fleet promotes one replica at a time
+        (requests keep flowing on the others), and each replica step
+        stamps a sha-bound `swap-<seq>.json` audit manifest. Afterwards
+        the sticky drift degrade clears — the recommendation was acted
+        on — and the drift monitor resets, so drift on the NEW version's
+        traffic re-degrades and re-recommends. `expected_sha` (from the
+        gate evidence) must match the staged shadow on every replica, or
+        the roll is refused before the first swap."""
+        swap = self.registry.promote(expected_sha,
+                                     step_cb=self._write_swap_manifest)
+        self.scorer.health.clear_degraded()
+        if self.drift is not None:
+            self.drift.reset()
+        self._last_drift_verdict = None
+        return swap
+
+    def _write_swap_manifest(self, replica, step: dict) -> None:
+        """One sha-bound audit manifest per replica promote step."""
+        import sys
+
+        from shifu_tpu_torch import obs
+        from shifu_tpu_torch.obs.ledger import RunLedger
+
+        ledger = RunLedger(self.root)
+        seq = ledger.next_seq("swap")
+        path = ledger.write(
+            "swap", seq, status="ok", exit_status=0,
+            started_at=time.time(), elapsed_seconds=0.0,
+            argv=list(sys.argv), registry=obs.registry(),
+            extra={"swap": dict(step,
+                                fleetReplicas=len(self.registry.replicas))})
+        log.info("promote step (replica %s) manifest -> %s",
+                 replica.name, path)
 
     @property
     def host(self) -> str:
@@ -304,6 +436,16 @@ class ScoringServer:
                                   for r in fleet.replicas),
             "uptimeSeconds": round(time.time() - self.started_at, 1),
         })
+        # drift summary from the CACHED cadence verdict — a health probe
+        # must never force a device copy
+        v = self._last_drift_verdict
+        if v is not None:
+            health["drift"] = {
+                "status": v["status"],
+                "maxPsi": round(v["maxPsi"], 6),
+                "driftedColumns": v["driftedColumns"],
+                "threshold": v["threshold"],
+            }
         slo = fleet.slo
         if slo.enabled:
             snap = slo.snapshot()
@@ -344,13 +486,11 @@ class ScoringServer:
 
             def _waits(self) -> bool:
                 """501 for a route that is not ported yet."""
-                for prefix, what in _NOT_PORTED:
-                    if (self.path == prefix
-                            or self.path.startswith(prefix)
-                            or self.path.startswith(prefix + "?")):
+                for prefix, what, item in _NOT_PORTED:
+                    if self.path.startswith(prefix):
                         self._reply(501, {
                             "error": f"{self.path}: {what} is not ported "
-                                     f"yet: {_WAITS}"})
+                                     f"yet: ROADMAP {item}"})
                         return True
                 return False
 
@@ -370,6 +510,22 @@ class ScoringServer:
                     self._reply(200, {**buf.snapshot(),
                                       "traces": buf.traces()})
                     return
+                if (self.path == "/admin/shadow"
+                        or self.path.startswith("/admin/shadow?")):
+                    from urllib.parse import parse_qs, urlsplit
+
+                    q = parse_qs(urlsplit(self.path).query)
+                    if (q.get("set") or [None])[0]:
+                        # answering the one shadow for ?set= would let
+                        # promote --set gate on the wrong tenant's evidence
+                        self._reply(409, {"error": "this server is "
+                                                   "single-tenant "
+                                                   "(no --zoo)"})
+                        return
+                    fleet = server.registry
+                    self._reply(200, {"active": fleet.sha,
+                                      "shadow": fleet.shadow_snapshot()})
+                    return
                 if self._waits():
                     return
                 self._reply(404, {"error": f"unknown path {self.path}"})
@@ -380,7 +536,10 @@ class ScoringServer:
                     self._reply(404, {
                         "error": "this server is single-tenant: POST "
                                  "/score (per-set routes come with the "
-                                 f"model zoo, {_WAITS})"})
+                                 "model zoo, ROADMAP A.14.4)"})
+                    return
+                if self.path in ("/admin/stage", "/admin/promote"):
+                    self._do_admin()
                     return
                 if self.path != "/score":
                     if not self._waits():
@@ -495,6 +654,40 @@ class ScoringServer:
                 self._reply(200, body, extra_headers={
                     reqtrace.TRACE_HEADER: trace.trace_id})
 
+            def _do_admin(self):
+                """Rollout control plane: stage a candidate as the shadow
+                version, or promote the staged one (zero-downtime swap).
+                `shifu promote --serve-url` drives both."""
+                try:
+                    length = int(self.headers.get("Content-Length", "0"))
+                    body = self.rfile.read(length) if length else b"{}"
+                    doc = json.loads(body.decode("utf-8") or "{}")
+                    if not isinstance(doc, dict):
+                        raise ValueError("body must be a JSON object")
+                except ValueError as e:
+                    self._reply(400, {"error": f"bad request body: {e}"})
+                    return
+                if doc.get("set"):
+                    self._reply(409, {"error": "this server is single-"
+                                               "tenant (no --zoo)"})
+                    return
+                try:
+                    if self.path == "/admin/stage":
+                        models_dir = doc.get("modelsDir")
+                        if not models_dir:
+                            self._reply(400,
+                                        {"error": "modelsDir required"})
+                            return
+                        self._reply(200, {
+                            "staged": server.stage_candidate(models_dir)})
+                        return
+                    self._reply(200, server.promote_candidate(
+                        doc.get("sha")))
+                except KeyError as e:
+                    self._reply(404, {"error": str(e)})
+                except (ValueError, OSError) as e:
+                    self._reply(409, {"error": str(e)})
+
             def _drain_body(self, length: Optional[int] = None) -> None:
                 """Read an unused body so the connection stays in step."""
                 if length is None:
@@ -540,6 +733,10 @@ class ScoringServer:
                 self.httpd.shutdown()
                 self._serve_thread.join(5.0)
             self.httpd.server_close()
+            if self.traffic is not None:
+                # buffered rows become a final (short) chunk — nothing
+                # logged is ever lost to shutdown
+                self.traffic.close()
             # final time-series window AFTER the drain: the last chunk
             # carries the terminal counter state
             self.obs_snap.stop()
@@ -566,6 +763,13 @@ class ScoringServer:
             san = sanitize.current()
             if san is not None and san.active:
                 extra["sanitizer"] = san.verdict()
+            if self.drift is not None:
+                # final flush: the per-column PSI state of everything
+                # this server served, with the live fold's slot counts
+                extra["drift"] = dict(self.drift.verdict(),
+                                      counts=self.drift.counts().tolist())
+            if self.traffic is not None:
+                extra["traffic"] = self.traffic.snapshot()
             if self.registry.slo.enabled:
                 extra["slo"] = self.registry.slo.snapshot()
             if self.obs_snap.enabled:

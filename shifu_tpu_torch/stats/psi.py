@@ -2,8 +2,9 @@
 
 The port's own copy of `shifu_tpu/stats/psi.py`, the same code but the
 categorical bin index, which the stats codes already made
-(`binning.category_index`); the serve-side drift monitor it mentions
-(`loop/drift.py`) is ROADMAP A.14.
+(`binning.category_index`). The serve-side drift monitor
+(`loop/drift.py`) reuses `psi_from_counts`, so offline PSI and online
+drift share one smoothing and zero-handling definition.
 
 Parity: the reference's PSI Pig job (PSI.pig, udf/PSICalculatorUDF.java,
 driven by MapReducerStatsWorker.runPSI:594) — per-unit bin distributions per
@@ -24,6 +25,18 @@ from shifu_tpu_torch.config import ColumnConfig
 from shifu_tpu_torch.data.reader import ColumnarData
 from shifu_tpu_torch.stats.binning import category_index, numeric_bin_index
 from shifu_tpu_torch.stats.metrics import psi_metric
+
+
+def psi_from_counts(expected: np.ndarray, actual: np.ndarray) -> float:
+    """PSI between two bin-count vectors — the one definition both the
+    offline unit-split pass and the online serve drift fold use.
+
+    Degenerate inputs are defined, not crashed on: an empty/zero side
+    (no expected traffic, or no live rows yet) is PSI 0.0, and
+    zero-frequency bins (a category unseen in training, or a training bin
+    live traffic never hits) are eps-smoothed inside `psi_metric` so a
+    single empty slot contributes a finite term instead of ±inf."""
+    return psi_metric(expected, actual)
 
 
 class PsiAccumulator:

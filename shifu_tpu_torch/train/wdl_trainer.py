@@ -21,8 +21,12 @@ when the valid error improves; the window halt freezes a member.
 
 `mesh=` shards the rows over a `parallel.mesh.Mesh` (the NN loop's
 shards; each shard's gathers keep the fixed-order backward of one
-device). The JAX package's `model` axis (embedding tables sharded over
-devices) waits for ROADMAP A.13.
+device). A mesh with a `model` axis (`data_mesh(model_axis=M)`) also
+splits each embedding table's embed columns over the shard's M model
+devices (`models/wdl._gather_split`: each device gathers its column
+block, the blocks gather on the shard's device), the counterpart of the
+JAX package's `with_sharding_constraint(e, P(None, "model"))`; the
+results are the data-only mesh's.
 """
 
 from __future__ import annotations
@@ -126,6 +130,10 @@ class _Loop(nn_trainer._Loop):
         self.parts = (list(zip(dense, codes, t, sig_t, sig_v))
                       if mesh is not None
                       else [(dense, codes, t, sig_t, sig_v)])
+        # each row shard's model group (None: the lookup stays whole)
+        self.groups = (list(mesh.model_devices)
+                       if mesh is not None and mesh.model_devices
+                       else [None] * len(self.parts))
         self.nts = nts
         self.den_t = torch.clamp_min(
             self._sum([p[3].sum(dim=-1) for p in self.parts]), 1.0)
@@ -137,15 +145,17 @@ class _Loop(nn_trainer._Loop):
         self.can_halt = cfg.early_stop_window > 0
 
     def descent(self, flat: torch.Tensor, dense=None, codes=None, t=None,
-                sig_t=None):
+                sig_t=None, embed_devices=None):
         """(g = -dE/dw [M, n_flat], the probability [M, n] detached) of
-        one part's rows (default: the one device's)."""
+        one part's rows (default: the one device's); `embed_devices`
+        splits the embedding lookup over a model group."""
         if dense is None:
             dense, codes, t, sig_t, _sv = self.parts[0]
         w = flat.detach().requires_grad_(True)
         with torch.enable_grad():
             p = wdl_forward(unflatten_members(w, self.shapes, self.n_cat),
-                            dense, codes, self.cfg.activations)
+                            dense, codes, self.cfg.activations,
+                            embed_devices=embed_devices)
             pc = torch.clamp(p, LOG_EPS, 1 - LOG_EPS)
             ll = -(t * torch.log(pc) + (1 - t) * torch.log(1 - pc))
             (grad,) = torch.autograd.grad(torch.sum(sig_t * ll), w)
@@ -155,9 +165,9 @@ class _Loop(nn_trainer._Loop):
         """(g = -dE/dw [M, n_flat] summed over the shards, the train and
         valid errors [M])."""
         gs, trs, vas = [], [], []
-        for f, (dense, codes, t, sig_t, sig_v) in zip(self._flats(flat),
-                                                      self.parts):
-            g, p = self.descent(f, dense, codes, t, sig_t)
+        for f, (dense, codes, t, sig_t, sig_v), group in zip(
+                self._flats(flat), self.parts, self.groups):
+            g, p = self.descent(f, dense, codes, t, sig_t, group)
             sq = (t - p) ** 2
             gs.append(g)
             trs.append((sig_t * sq).sum(dim=-1))

@@ -326,8 +326,11 @@ def test_cli_subcommands_cover_jax_cli(capsys):
     jax_cmds = _subcommands(jcli.build_parser())
     port_cmds = _subcommands(cli.build_parser())
     assert port_cmds == jax_cmds
-    # trace, top, runs and profile are ported with the obs layer
-    assert set(cli.NOT_PORTED) == {"retrain", "promote", "check"}
+    # trace, top, runs and profile are ported with the obs layer, and
+    # promote with the serving loop (A.14.3), with the JAX CLI's flags
+    assert set(cli.NOT_PORTED) == {"retrain", "check"}
+    assert (_subcommand_flags(cli.build_parser(), "promote")
+            == _subcommand_flags(jcli.build_parser(), "promote"))
     for name, item in cli.NOT_PORTED.items():
         assert item.startswith("A.14")
         assert cli.main([name]) == 2

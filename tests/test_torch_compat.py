@@ -395,7 +395,7 @@ def test_server_serves_reference_formats(sets, tmp_path, kind):
     srv = ScoringServer(root=str(set_dir), port=0, replicas=1,
                         device="cpu").start()
     try:
-        reg = srv.registry.replicas[0].registry
+        reg = srv.registry.replicas[0].registry.active
         assert not reg.fused and reg.specs[0].kind == kind
         cols = srv.registry.input_columns
         assert cols and set(cols) <= set(data.names)

@@ -274,8 +274,18 @@ def test_reason_codes_match_jax(evaluated):
     want = jr.reason_codes(jreader.read_columnar(ds.data_path, names))
     got = pr.reason_codes(preader.read_columnar(ds.data_path, names))
     assert got == want and any(len(r) == 3 for r in got)
-    with pytest.raises(Exception, match="A.13"):
-        load_reason_code_map("hdfs://host/codes.txt")
+    # a remote map (A.13.2): memory:// through fsspec reads as the JAX
+    # package reads it; a protocol without a connector names itself
+    import fsspec
+
+    with open(codes, "rb") as fh:
+        blob = fh.read()
+    with fsspec.open("memory://eval-test/codes.txt", "wb") as fh:
+        fh.write(blob)
+    assert load_reason_code_map("memory://eval-test/codes.txt") == \
+        jload_map("memory://eval-test/codes.txt") == jload_map(codes)
+    with pytest.raises(Exception, match="nosuchproto"):
+        load_reason_code_map("nosuchproto://host/codes.txt")
 
 
 def test_eval_set_management_and_norm(evaluated, tmp_path):

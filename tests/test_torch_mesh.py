@@ -33,7 +33,6 @@ from shifu_tpu_torch.ops import hist_kernel as hk  # noqa: E402
 from shifu_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from shifu_tpu_torch.train import streaming_tree as pst  # noqa: E402
 from shifu_tpu_torch.train import tree_trainer as ptt  # noqa: E402
-from shifu_tpu_torch.utils.errors import ShifuError  # noqa: E402
 from tests.test_torch_tree import (_assert_forests_bit_equal,  # noqa: E402
                                    _assert_pointers_equal, _class_data,
                                    _forest_data)
@@ -101,8 +100,24 @@ def test_psum_order_and_topology():
 
 
 def test_unported_axes_raise_naming_a13(monkeypatch):
-    with pytest.raises(ShifuError, match="A.13"):
-        pmesh.data_mesh(model_axis=2, virtual=4, device="cpu")
+    """Every axis is ported (the `model` axis with A.13.1): the model
+    axis lays out as the JAX mesh does, rows shard over the data axes
+    only, and a device count the model axis does not divide raises."""
+    for kw in (dict(model_axis=2), dict(model_axis=2, dcn_slices=2),
+               dict(model_axis=4), dict(model_axis=1, dcn_slices=2)):
+        jm = jmesh.data_mesh(8, **kw)
+        pm = pmesh.data_mesh(virtual=8, device="cpu", **kw)
+        assert pm.axis_names == tuple(jm.axis_names), kw
+        assert pm.shape == tuple(jm.devices.shape), kw
+        assert pmesh.row_axes(pm) == tuple(jmesh.row_axes(jm)), kw
+        assert pmesh.row_shard_count(pm) == jmesh.row_shard_count(jm)
+        assert pm.size == pmesh.row_shard_count(pm)
+        m = kw["model_axis"]
+        assert pm.model_size == m
+        assert len(pm.model_devices) == (pm.size if m > 1 else 0)
+        assert pmesh.round_up_rows(13, pm) == jmesh.round_up_rows(13, jm)
+    with pytest.raises(ValueError, match="model axis"):
+        pmesh.data_mesh(virtual=6, device="cpu", model_axis=4)
     from shifu_tpu_torch.data import pipeline as pp
     from shifu_tpu_torch.utils import environment as penv
 

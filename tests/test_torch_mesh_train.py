@@ -172,6 +172,58 @@ def test_meshed_wdl_matches_jax_and_one_device():
                                    pwdl.flatten_wdl(b.params), **WDL_TOL)
 
 
+@pytest.mark.parametrize("kw", [dict(model_axis=2),
+                                dict(model_axis=2, dcn_slices=2)])
+def test_wdl_model_axis_matches_jax_and_data_mesh(kw):
+    """WDL's `model` axis (A.13.1): on 8 virtual devices, 4 row shards of
+    2 model devices (and in 2 dcn slices), each embedding table's embed
+    columns split over a shard's model group. Against the JAX
+    model-axis run at the meshed tolerances, and against the port's
+    data-only mesh of the same 4 row shards within 1e-6."""
+    dense, codes, t, w, vocab = _wdl_data()
+    base = dict(hidden=[8], embed_dim=4, optimizer="ADAM",
+                learning_rate=0.05, num_epochs=15, valid_set_rate=0.25,
+                seed=3)
+    want = JW.train_wdl(dense, codes, t, w, vocab, JW.WDLTrainConfig(**base),
+                        mesh=jmesh.data_mesh(8, **kw))
+    pc = PW.WDLTrainConfig(**base)
+    mesh = _cpu(**kw)
+    assert mesh.size == 4 and mesh.model_size == 2
+    got = PW.train_wdl(dense, codes, t, w, vocab, pc, mesh=mesh)
+    data_only = _cpu(4, dcn_slices=kw.get("dcn_slices"))
+    rows = PW.train_wdl(dense, codes, t, w, vocab, pc, mesh=data_only)
+    from shifu_tpu.models.wdl import flatten_wdl as jflat
+
+    np.testing.assert_allclose(pwdl.flatten_wdl(got.params),
+                               jflat(want.params), **WDL_TOL)
+    np.testing.assert_allclose(pwdl.flatten_wdl(got.params),
+                               pwdl.flatten_wdl(rows.params),
+                               rtol=0, atol=1e-6)
+    assert got.valid_error == pytest.approx(want.valid_error, abs=1e-4)
+    assert got.iterations == rows.iterations
+    bag = PW.train_wdl_bagged(dense, codes, t, w, vocab, pc, 2, mesh=mesh)
+    bag_rows = PW.train_wdl_bagged(dense, codes, t, w, vocab, pc, 2,
+                                   mesh=data_only)
+    for a, b in zip(bag, bag_rows):
+        np.testing.assert_allclose(pwdl.flatten_wdl(a.params),
+                                   pwdl.flatten_wdl(b.params),
+                                   rtol=0, atol=1e-6)
+
+
+def test_wdl_embed_split_gathers_the_whole_lookup():
+    """`_gather_split` over 3 column blocks (an uneven split of E = 5):
+    the one-device gather's values and gradient, bit for bit."""
+    rng = np.random.default_rng(0)
+    tables = [torch.tensor(rng.normal(size=(2, v, 5)), dtype=torch.float32,
+                           requires_grad=True) for v in (4, 3)]
+    idx = torch.tensor(rng.integers(0, 3, size=(9, 2)))
+    whole = pwdl._gather_fields(tables, idx)
+    (g1,) = torch.autograd.grad((whole ** 2).sum(), tables[0])
+    split = pwdl._gather_split(tables, idx, [torch.device("cpu")] * 3)
+    (g2,) = torch.autograd.grad((split ** 2).sum(), tables[0])
+    assert torch.equal(whole, split) and torch.equal(g1, g2)
+
+
 # ---------------------------------------------------------------------------
 # streamed NN and WDL
 # ---------------------------------------------------------------------------

@@ -77,6 +77,10 @@ MODULES = [
     "shifu_tpu_torch.utils.environment", "shifu_tpu_torch.utils.errors",
     "shifu_tpu_torch.utils.log", "shifu_tpu_torch.utils.platform",
     "shifu_tpu_torch.varsel.importance", "shifu_tpu_torch.varsel.selector",
+    "shifu_tpu_torch.varsel.voted",
+    "shifu_tpu_torch.loop", "shifu_tpu_torch.loop.drift",
+    "shifu_tpu_torch.loop.traffic", "shifu_tpu_torch.loop.hotswap",
+    "shifu_tpu_torch.loop.promote", "shifu_tpu_torch.fs.source",
 ]
 
 

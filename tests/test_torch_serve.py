@@ -434,12 +434,18 @@ def test_router_skips_a_draining_replica(model_set):
 
 
 def test_fleet_what_waits(model_set):
+    """The rollout plane waits no more (loop/hotswap.py): no shadow until
+    a stage, a promote without one refuses, and a stage of a directory
+    without models raises before any replica changes."""
     fleet = ReplicaFleet.build(os.path.join(model_set, "models"),
                                n_replicas=1, device="cpu")
     try:
-        for op in (fleet.stage, fleet.promote, fleet.shadow_snapshot):
-            with pytest.raises(NotImplementedError, match="A.14"):
-                op("x")
+        assert fleet.shadow_snapshot() is None
+        with pytest.raises(ValueError, match="no staged candidate"):
+            fleet.promote()
+        with pytest.raises(ValueError, match="no models under x"):
+            fleet.stage("x")
+        assert fleet.shadow_snapshot() is None
     finally:
         fleet.close(10)
 
@@ -515,9 +521,8 @@ def test_error_statuses_have_json_bodies(server):
     assert code == 404 and "single-tenant" in doc["error"]
     code, doc, _ = _http_error(f"{base}/nope", "{}")
     assert code == 404 and "error" in doc
-    # the obs routes answer (obs/metrics.py, obs/reqtrace.py); the
-    # rollout control plane, the lossless snapshot and the fleet views
-    # still wait for A.14
+    # the obs routes and the rollout plane answer; the lossless snapshot
+    # and the fleet views still wait for A.14.7
     with urllib.request.urlopen(f"{base}/metrics", timeout=10) as r:
         assert r.status == 200
         assert r.headers["Content-Type"].startswith("text/plain")
@@ -526,9 +531,15 @@ def test_error_statuses_have_json_bodies(server):
     assert code == 200 and "traces" in doc and "capacity" in doc
     for path in ("/admin/metrics.json", "/fleet/healthz"):
         code, doc = _get(f"{base}{path}")
-        assert code == 501 and "A.14" in doc["error"], path
+        assert code == 501 and "A.14.7" in doc["error"], path
     code, doc, _ = _http_error(f"{base}/admin/stage", "{}")
-    assert code == 501 and "A.14" in doc["error"]
+    assert code == 400 and "modelsDir required" in doc["error"]
+    code, doc, _ = _http_error(f"{base}/admin/stage", "[1]")
+    assert code == 400 and "error" in doc
+    code, doc, _ = _http_error(f"{base}/admin/promote", "{}")
+    assert code == 409 and "no staged candidate" in doc["error"]
+    code, doc, _ = _http_error(f"{base}/admin/evict", "{}")
+    assert code == 501 and "A.14.4" in doc["error"]
 
 
 def test_oversize_binary_body_is_400(server):
@@ -651,8 +662,12 @@ def test_cli_serve_without_a_card_exits_1(model_set):
 
 def test_cli_serve_zoo_exits_2(capsys):
     assert cli_main(["serve", "--zoo", "a=b", "--device", "cpu"]) == 2
-    assert "A.14" in capsys.readouterr().err
-    assert cli_main(["serve", "--traffic-log", "--device", "cpu"]) == 2
+    assert "A.14.4" in capsys.readouterr().err
+    # --traffic-log is ported: a fraction outside (0, 1] fails startup
+    for bad in ("2", "0", "x"):
+        assert cli_main(["serve", "--traffic-log", bad, "--device",
+                         "cpu"]) == 1
+        assert "bad --traffic-log fraction" in capsys.readouterr().err
 
 
 def test_slo_burn_rate_degrades_healthz(server):

@@ -380,7 +380,9 @@ def test_what_waits_raises(sets, tmp_path):
     the categorical columns, its scores are the port runner's bit for
     bit and the JAX runner's within ATOL. The JAX registry leaves the
     categorical columns out of its schema and fails on the same records
-    (ROADMAP C.10). What waits for A.14 (`drift=`) still raises."""
+    (ROADMAP C.10). The `drift=` monitor (A.14.3, ported) rides the
+fallback as its host fold: the registry reports the monitored columns
+and the records' rows land in the monitor's counts."""
     from shifu_tpu_torch.models import wdl as pwdl
     from tests.test_torch_serve import CATS, NUM, records
 
@@ -416,9 +418,19 @@ def test_what_waits_raises(sets, tmp_path):
     assert jreg.input_columns == NUM
     with pytest.raises(KeyError, match="cat_0"):
         jreg.score_records(recs)
-    with pytest.raises(NotImplementedError, match="A.14"):
-        pregistry.ModelRegistry(_models(sets("HYBRID")), device="cpu",
-                                drift=object())
+    from shifu_tpu_torch.config import load_column_config_list
+    from shifu_tpu_torch.loop.drift import DriftMonitor
+
+    ccs = [c for c in load_column_config_list(os.path.join(
+        sets("HYBRID"), "ColumnConfig.json")) if c.column_name in cols]
+    mon = DriftMonitor(ccs, min_rows=1)
+    reg = pregistry.ModelRegistry(d, device="cpu", drift=mon)
+    assert reg.snapshot()["driftMonitored"] == len(mon.cols) > 0
+    reg.warm([1])
+    assert mon.verdict()["rows"] == 0  # warm-up rows never fold
+    reg.score_records(recs)
+    assert mon.verdict()["rows"] == len(recs)
+    assert mon.counts().sum() == len(recs) * len(mon.cols)
 
 
 def test_interleaved_plan_matches_runners(tmp_path):

@@ -237,16 +237,24 @@ def test_list_reset_recover(varsel_set, tmp_path):
         VarSelProcessor(roots[1], recover=True, device="cpu").run()
 
 
-@pytest.mark.parametrize("filter_by,item", [("VOTED", "A.14")])
+@pytest.mark.parametrize("filter_by,item", [("VOTED", "voted.csv")])
 def test_wrappers_that_wait_exit_2(varsel_set, tmp_path, monkeypatch, capsys,
                                    filter_by, item):
-    root = _pair(varsel_set, tmp_path, dict(filterBy=filter_by))[1]
+    """No wrapper waits any more: VOTED runs the port's GA
+    (tests/test_torch_voted.py holds it against the JAX package), writes
+    its report and final-selects the best seed; without a card the step
+    refuses to start."""
+    root = _pair(varsel_set, tmp_path, dict(
+        filterBy=filter_by, wrapperNum=3,
+        params={"population_live_size": 4, "population_multiply_cnt": 2}))[1]
     before = _read(root, "ColumnConfig.json")
     monkeypatch.chdir(root)
-    assert cli.main(["varsel", "--device", "cpu"]) == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
-    assert _read(root, "ColumnConfig.json") == before
-    assert not os.path.exists(os.path.join(root, "tmp", "varsel"))
+    assert cli.main(["varsel", "--device", "cpu"]) == 0
+    assert "ROADMAP" not in capsys.readouterr().err
+    assert _read(root, "ColumnConfig.json") != before
+    assert os.path.isfile(os.path.join(root, "tmp", "varsel", item))
+    cols = load_column_config_list(os.path.join(root, "ColumnConfig.json"))
+    assert 0 < sum(c.final_select for c in cols) <= 3
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceUnavailable):
         VarSelProcessor(root)
