@@ -217,7 +217,7 @@ Phases, each of which must pass:
            first tree of a CPU streamed run, GBT scores within 0.03 of
            the in-memory card run's; trees/s, HtoD bytes and ms a level,
            one run profiled. (b) phase 7's raw rows (the first
-           100,000, without the weight column: unit weights keep the RF
+           50,000, without the weight column: unit weights keep the RF
            planes integers) with both memory budgets below the data, 4
            chunks: stats -correlation -psi -> norm (and norm -shuffle)
            -> train RF, NN, WDL -> eval -run (RF) on 50,000 of phase
@@ -282,6 +282,33 @@ Phases, each of which must pass:
            package, or read the CSV's tokens. (e) bench `SERVE`'s JSON
            closed loop with the drift fold off and on (p50, p99).
            `--loop-only` runs it alone on small sets built on the CPU.
+  phase 19 the model zoo and the fleet of serve processes, no hand kernel
+           of its own (the `kernels` line's `zoo_launches`, 0). (a) one
+           `ScoringServer(zoo=...)` on bench `SERVE`, phase 9(c)'s NN
+           set, a second `SERVE` copy and phase 8's RF set (the
+           fallback), `shifu.serve.hbmBudgetMB` 2.5 x the largest NN
+           tenant's priced residentBytes: every tenant's 1,024-row
+           `/score/<set>` scores bit-identical to a single-tenant
+           `ModelRegistry` (JSON to its rounding); an eviction frees at
+           least the charged weights + staging of
+           `torch.cuda.memory_allocated`; a cold tenant answers 429 with
+           Retry-After, then 200, bit-identical; each warm bucket's lone
+           call grows the allocator's peak by at most the analytic
+           `programPeakBytes`; on a near-full budget (bytes held back)
+           stage -> shadow-score -> promote of SERVE keeps the ledger's
+           peak <= the budget, its `/admin/evict` is refused while the
+           candidate is staged, the stage's evictions take the LRU
+           tenant each time and count `reason="pressure"`; `/healthz`
+           has the `zoo` section. (b) two `shifu serve` processes on one
+           root: both leases live, `/fleet/metrics` the same sums from
+           either, `shifu promote` (fleet mode) commits on both; a
+           process restarted with `-Dshifu.faults=peer_kill@lease=N`
+           dies, the next round aborts, the survivor rolls back, answers
+           200 and reports the expiry within 2 x TTL, and the round
+           commits on the survivor alone. (c) bench `SERVE` JSON at
+           concurrency 1, 4, 16 through a zoo tenant against a
+           single-tenant server, in alternating pairs (printed).
+           `--zoo-only` runs it alone on phase 18's small CPU-built sets.
 
 Every main-path run (phases 3-6 and 8's train) must launch the scan entry
 once for each subtraction level of each tree (bench `gbt` 25, `rf` 70,
@@ -2628,10 +2655,10 @@ def write_serve_set(root, seed):
     return cols
 
 
-def _closed_loop(port, bodies, conc, ctype):
+def _closed_loop(port, bodies, conc, ctype, path="/score"):
     """`conc` client threads, each with one keep-alive connection,
-    posting its share of `bodies` in turn: (latencies s, wall s, status
-    codes)."""
+    posting its share of `bodies` to `path` in turn: (latencies s, wall
+    s, status codes)."""
     import http.client
     import threading
 
@@ -2643,7 +2670,7 @@ def _closed_loop(port, bodies, conc, ctype):
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
         for body in bodies[t * per:(t + 1) * per]:
             t0 = time.perf_counter()
-            conn.request("POST", "/score", body=body,
+            conn.request("POST", path, body=body,
                          headers={"Content-Type": ctype})
             resp = conn.getresponse()
             resp.read()
@@ -3823,10 +3850,11 @@ def print_wdl(part, r):
 STREAM_SHARDS = 8  # (a): CleanedData shards of each streamed forest
 STREAM_LEAVES = 32  # (a): leaf-wise GBT
 STREAM_CPU_TREES = 1  # (a): trees of the CPU streamed runs (time)
-# (b): phase 7's raw rows sliced (the time limit), 4 chunks; the budgets
-# below the data's size, so that every step streams
-STREAM = dict(rows=100_000, chunk=25_000, eval_rows=50_000, ingest_mb=8,
-              train_mb=4, nn_hidden=[50], nn_epochs=10, wdl_epochs=5)
+# (b): phase 7's raw rows sliced (the time limit: 50,000 rows, down from
+# 100,000, with the budgets halved), 4 chunks; the budgets below the
+# data's size, so that every step streams
+STREAM = dict(rows=50_000, chunk=12_500, eval_rows=50_000, ingest_mb=4,
+              train_mb=2, nn_hidden=[50], nn_epochs=10, wdl_epochs=5)
 # the in-memory forests of phases 3-5 on the card, for (a)
 MEMORY_FORESTS: dict = {}
 
@@ -6383,6 +6411,622 @@ def print_loop(o):
           f"{o['launches']}")
 
 
+# phase 19: the model zoo and the fleet of serve processes
+ZOO = dict(rows=1024, budget_factor=2.5, buckets=(8, 1024), shadow=4)
+FLEET = dict(ttl_ms=1500, kill_beat=8, deadline_ms=10_000,
+             abort_deadline_ms=3000, requests=4, rows=16)
+ZOO_BENCH = dict(concurrency=(1, 4, 16), pairs=2)
+MB = 1024.0 * 1024.0
+
+
+def _copy_set(src, dst):
+    """A model set's configs and models/ (no data, tmp or run ledger)."""
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns(
+        ".shifu", "data", "tmp", "evals", "*.psv"))
+    return dst
+
+
+def zoo_sets(data_dir, seed):
+    """The four tenants of (a): bench SERVE, phase 9(c)'s NN set, a
+    second copy of SERVE, phase 8's RF set (the fallback)."""
+    base = os.path.join(data_dir, "zoo-sets")
+    serve = os.path.join(base, "serve")
+    write_serve_set(serve, seed)
+    return {"serve": serve,
+            "nn": _copy_set(os.path.join(data_dir, "nn-card2"),
+                            os.path.join(base, "nn")),
+            "serve2": _copy_set(serve, os.path.join(base, "serve2")),
+            "rf": _copy_set(os.path.join(data_dir, "raw-card2"),
+                            os.path.join(base, "rf"))}
+
+
+def zoo_records(data_dir, cols, seed, n):
+    """`n` held-out records over `cols`: phase 10's raw rows where the
+    set reads raw columns, else bench SERVE's N(0, 1) draws."""
+    from shifu_tpu_torch.data.reader import read_columnar, read_header
+
+    if all(c.startswith("c") and c[1:].isdigit() for c in cols):
+        rng = np.random.default_rng(seed + 13)
+        return [{c: f"{v:.6g}" for c, v in zip(cols, row)}
+                for row in rng.normal(size=(n, len(cols)))]
+    base = os.path.join(data_dir, "eval-raw", "data")
+    data = read_columnar(os.path.join(base, "data.txt"),
+                         read_header(os.path.join(base, "header.txt")),
+                         max_rows=n)
+    return [{c: str(data.raw[c][i]) for c in cols} for i in range(n)]
+
+
+def _rounded(res):
+    """A ScoreResult as the JSON route answers it (serve/server.py)."""
+    from shifu_tpu_torch.serve.server import _result_rows
+
+    return _result_rows(res)
+
+
+def _sync(torch, device):
+    import gc
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def zoo_serve(torch, hk, data_dir, seed, device="cuda"):
+    """(a): one ScoringServer(zoo=...) on the four tenants, its budget
+    2.5 x the largest NN tenant's priced residentBytes."""
+    from shifu_tpu_torch.serve import zoo as zoo_mod
+    from shifu_tpu_torch.serve.registry import (ModelRegistry,
+                                                records_to_columnar)
+    from shifu_tpu_torch.serve.server import ScoringServer
+    from shifu_tpu_torch.utils import environment
+
+    sets = zoo_sets(data_dir, seed)
+    n = ZOO["rows"]
+    out = dict(tenants=list(sets), rows=n)
+    refs, recs, priced = {}, {}, {}
+    for name, root in sets.items():
+        ccs, mc = zoo_mod.load_set_configs(root)
+        models = os.path.join(root, "models")
+        ref = ModelRegistry(models, device=device, column_configs=ccs,
+                            model_config=mc,
+                            drift=zoo_mod.drift_monitor_for(models, ccs, mc))
+        ref.warm(list(ZOO["buckets"]))
+        refs[name] = ref
+        recs[name] = zoo_records(data_dir, ref.input_columns, seed, n)
+        if ref.fused:
+            priced[name] = ref.memory_analysis()["residentBytes"]
+    want = {name: ref.score_records(recs[name]) for name, ref in refs.items()}
+    out["priced_bytes"] = priced
+    budget_mb = ZOO["budget_factor"] * max(priced.values()) / MB
+    out["budget_mb"] = budget_mb
+    for ref in refs.values():
+        ref.release()
+    del refs
+    _sync(torch, device)
+    reset_obs()
+    hk.reset_counters()
+    root = os.path.join(data_dir, "zoo-root")
+    os.makedirs(root, exist_ok=True)
+    environment.set_property("shifu.serve.hbmBudgetMB", repr(budget_mb))
+    environment.set_property("shifu.loop.shadowSample", "1.0")
+    t0 = time.perf_counter()
+    try:
+        srv = ScoringServer(root=root, port=0, replicas=1, device=device,
+                            zoo=sets).start()
+    finally:
+        environment.set_property("shifu.serve.hbmBudgetMB", "")
+    zoo = srv.zoo
+    out["start_seconds"] = time.perf_counter() - t0
+    out["resident_at_start"] = zoo.health_snapshot()["residentTenants"]
+    # every LRU claim, with the candidates in LRU order at that moment
+    claims = []
+    orig_claim = zoo._claim_victim
+
+    def claim(exclude=None):
+        with zoo._lock:
+            cands = sorted(
+                (t.lru_key(), t.name) for t in zoo._tenants.values()
+                if t.state == zoo_mod.RESIDENT and t is not exclude
+                and t.busy is None and not t.shadow_staged)
+        victim = orig_claim(exclude=exclude)
+        if victim is not None:
+            claims.append(dict(victim=victim.name,
+                               lru=[nm for _k, nm in cands]))
+        return victim
+
+    zoo._claim_victim = claim
+    base = f"http://127.0.0.1:{srv.port}"
+
+    def score(name, records, timeout=120.0):
+        """POST /score/<set> until it answers 200 (429 while cold):
+        (doc, the first answer's code and Retry-After)."""
+        first = None
+        end = time.monotonic() + timeout
+        while True:
+            code, doc, hdrs = _http_full(f"{base}/score/{name}",
+                                         {"records": records})
+            if first is None:
+                first = (code, hdrs.get("Retry-After"))
+            if code == 200:
+                return doc, first
+            check(code == 429 and doc.get("reason") == "cold_start",
+                  f"zoo: /score/{name} answered {code} {doc}")
+            check(time.monotonic() < end, f"zoo: {name} never admitted")
+            time.sleep(0.05)
+
+    try:
+        # scores: each tenant's route and the zoo's own scoring path
+        # against a single-tenant registry of the set
+        first_docs = {}
+        for name in sets:
+            doc, _first = score(name, recs[name])
+            check(doc["scores"] == _rounded(want[name]),
+                  f"zoo: /score/{name} differs from a single-tenant "
+                  "registry")
+            got = zoo.score_batch(name, recs[name])
+            check(_bit_equal(got, want[name]),
+                  f"zoo: {name}'s scores are not bit-identical to a "
+                  "single-tenant registry's")
+            first_docs[name] = doc
+        # eviction frees at least the charged weights and staging
+        victim = "serve2"
+        zoo.ensure_resident(victim)
+        ma = zoo.fleet_of(victim).memory_analysis()["replicas"][0]
+        charged = (ma["active"]["weightsBytes"]
+                   + ma["active"]["stagingBytes"])
+        _sync(torch, device)
+        a0 = torch.cuda.memory_allocated() if device == "cuda" else 0
+        code, doc, _h = _http_full(f"{base}/admin/evict", {"set": victim})
+        check(code == 200 and doc["zoo"]["tenants"][victim]["state"]
+              == "cold", f"zoo: /admin/evict {victim} answered {code}")
+        _sync(torch, device)
+        a1 = torch.cuda.memory_allocated() if device == "cuda" else 0
+        out["evict"] = dict(tenant=victim, charged_bytes=charged,
+                            freed_bytes=a0 - a1)
+        if device == "cuda":
+            check(a0 - a1 >= charged, f"zoo: evicting {victim} freed "
+                  f"{a0 - a1} bytes < its charged {charged}")
+        # cold start: 429 with a Retry-After, then 200; re-admitted
+        # scores bit-identical
+        t_c = time.perf_counter()
+        doc, (code, retry) = score(victim, recs[victim])
+        out["cold"] = dict(first_code=code, retry_after=retry,
+                           seconds=time.perf_counter() - t_c)
+        check(code == 429 and retry is not None and int(retry) > 0,
+              f"zoo: a cold tenant answered {code} (Retry-After "
+              f"{retry})")
+        check(doc["scores"] == first_docs[victim]["scores"]
+              and _bit_equal(zoo.score_batch(victim, recs[victim]),
+                             want[victim]),
+              "zoo: the re-admitted tenant's scores changed")
+        # the pricing bound: each warm bucket of each NN tenant, one
+        # lone call's peak growth against the analytic program bytes
+        bound = {}
+        for name in sets:
+            zoo.ensure_resident(name)
+            reg = zoo.fleet_of(name).replicas[0].registry.active
+            if not reg.fused:
+                continue
+            for b in sorted(reg._warm_buckets):
+                data = records_to_columnar(
+                    (recs[name] * (b // n + 1))[:b], reg.input_columns)
+                reg.score_raw(data)  # this thread's first call
+                _sync(torch, device)
+                measured = None
+                if device == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                    before = torch.cuda.memory_allocated()
+                    reg.score_raw(data)
+                    torch.cuda.synchronize()
+                    measured = torch.cuda.max_memory_allocated() - before
+                analytic = reg.program_bytes(b)
+                bound[f"{name}@{b}"] = dict(measured=measured,
+                                            analytic=analytic)
+                check(measured is None or measured <= analytic,
+                      f"zoo: {name} bucket {b}: a call's peak growth "
+                      f"{measured} > the analytic {analytic} bytes")
+        out["pricing"] = bound
+        # the budget: stage -> shadow-score -> promote on a near-full
+        # budget (bytes held back so the stage must evict)
+        for name in [n for n in sets if n != "serve"] + ["serve"]:
+            zoo.ensure_resident(name)
+        cand = loop_candidate(os.path.join(sets["serve"], "models"),
+                              os.path.join(data_dir, "zoo-serve-cand"))
+        need = zoo.fleet_of("serve").memory_analysis()["residentBytes"]
+        evictable = sum(zoo.ledger.charge_of(nm) for nm in sets
+                        if nm != "serve"
+                        and zoo._get(nm).state == zoo_mod.RESIDENT)
+        check(evictable > 1, "zoo: no tenant to evict beside SERVE")
+        # free budget short of the stage by half of what the others
+        # hold: the stage must evict, and can fit by evicting
+        budget = zoo.ledger.budget_bytes
+        free = need - evictable // 2
+        reserve = max(0, budget - zoo.ledger.used - free)
+        zoo.ledger.acquire("reserve", "active", reserve)
+        claims_before = len(claims)
+        t_s = time.perf_counter()
+        code, doc, _h = _http_full(f"{base}/admin/stage",
+                                   {"set": "serve", "modelsDir": cand})
+        check(code == 200, f"zoo: /admin/stage answered {code} {doc}")
+        out["stage_seconds"] = time.perf_counter() - t_s
+        code, doc, _h = _http_full(f"{base}/admin/evict", {"set": "serve"})
+        check(code == 409 and "staged shadow" in doc.get("error", ""),
+              f"zoo: evicting a tenant with a staged candidate answered "
+              f"{code} {doc}")
+        for _ in range(ZOO["shadow"]):
+            score("serve", recs["serve"][:64])
+        _wait_for(lambda: (_http_doc(f"{base}/admin/shadow?set=serve")[1]
+                           ["shadow"] or {}).get("rows", 0)
+                  >= ZOO["shadow"] * 64, "the zoo's shadow rows")
+        _code, sh = _http_doc(f"{base}/admin/shadow?set=serve")
+        code, doc, _h = _http_full(f"{base}/admin/promote",
+                                   {"set": "serve",
+                                    "sha": sh["shadow"]["sha"]})
+        check(code == 200 and doc["to"] == sh["shadow"]["sha"],
+              f"zoo: /admin/promote answered {code} {doc}")
+        zoo.ledger.release("reserve", "active")
+        out["budget"] = dict(budget_bytes=budget, reserve_bytes=reserve,
+                             stage_need_bytes=need,
+                             peak_bytes=zoo.ledger.peak,
+                             stage_evictions=claims[claims_before:],
+                             shadow_agreement=sh["shadow"]["agreement"])
+        check(zoo.ledger.peak <= budget, f"zoo: ledger peak "
+              f"{zoo.ledger.peak} > budget {budget}")
+        check(zoo.ledger.charge_of("serve", "shadow") == 0,
+              "zoo: a shadow charge outlived the promote")
+        # eviction under pressure, in LRU order
+        check(len(claims) > claims_before,
+              "zoo: the near-full stage evicted nothing")
+        for c in claims:
+            check(c["lru"] and c["victim"] == c["lru"][0],
+                  f"zoo: evicted {c['victim']}, not the LRU of {c['lru']}")
+        from shifu_tpu_torch import obs
+
+        counters = obs.registry().snapshot()["counters"]
+        evicted = {k: v for k, v in counters.items()
+                   if k.startswith("serve.zoo.evictions")}
+        check(any('reason="pressure"' in k for k in evicted),
+              f"zoo: no pressure eviction counted: {evicted}")
+        out["evictions"] = evicted
+        out["claims"] = claims
+        code, health = _http_doc(f"{base}/healthz")
+        z = health.get("zoo") or {}
+        check(code == 200 and "residentTenants" in z
+              and "hbmBudgetUsedMB" in z,
+              f"zoo: /healthz has no zoo section: {health}")
+        out["health"] = {k: z[k] for k in ("residentTenants",
+                                           "hbmBudgetUsedMB",
+                                           "hbmBudgetMB", "hbmPeakUsedMB")}
+    finally:
+        environment.set_property("shifu.loop.shadowSample", "")
+        srv.shutdown(60)
+    check(os.path.isfile(srv.manifest_path or ""),
+          "zoo: no serve manifest")
+    with open(srv.manifest_path) as fh:
+        man = json.load(fh)
+    check("ledger" in man.get("zoo", {}),
+          "zoo: the manifest has no zoo ledger")
+    out["launches"] = dict(hk.launches)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _http_full(url, doc, timeout=120.0):
+    """POST `doc`: (status, JSON body, headers)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, json.dumps(doc).encode(),
+                                 {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def _spawn_serve(root, pkg, device, *flags):
+    env = dict(os.environ, PYTHONPATH=pkg)
+    log = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "shifu_tpu_torch", "serve", "--port", "0",
+         "--replicas", "1", f"-Dshifu.lease.ttlMs={FLEET['ttl_ms']}",
+         *flags, *_dev(device)], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=log, text=True)
+    return proc, log
+
+
+def _listening(proc, log, what):
+    line = proc.stdout.readline()
+    m = re.match(r"listening on ([\d.]+):(\d+)", line)
+    if m is None:
+        log.seek(0)
+        raise PhaseFailed(f"{what} did not start: {line!r}\n"
+                          f"{log.read()[-3000:]}")
+    return f"http://{m.group(1)}:{m.group(2)}"
+
+
+def _stop(proc, log):
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(10)
+    log.close()
+    return proc.returncode
+
+
+def _counter_sums(base):
+    """The serve.* counter samples of /fleet/metrics."""
+    import urllib.request
+
+    from shifu_tpu_torch.obs.metrics import parse_prometheus
+
+    with urllib.request.urlopen(f"{base}/fleet/metrics", timeout=30) as r:
+        samples = parse_prometheus(r.read().decode("utf-8"))
+    return {k: v for k, v in samples.items()
+            if k.startswith("serve_") and "_total" in k}
+
+
+def zoo_fleet(torch, data_dir, pkg, seed, device="cuda"):
+    """(b): two `shifu serve` processes on one root (bench SERVE): both
+    leases live, /fleet/metrics the same from either, a fleet round
+    commits on both; a second round with `peer_kill` on one aborts, the
+    survivor rolls back, keeps answering and reports the expiry; the
+    round again commits on the survivor alone."""
+    from shifu_tpu_torch.loop.promote import _models_sha
+    from shifu_tpu_torch.resilience import lease
+    from shifu_tpu_torch.utils import environment
+
+    root = os.path.join(data_dir, "zoo-fleet")
+    cols = write_serve_set(root, seed)
+    rng = np.random.default_rng(seed + 17)
+    body = [{c: f"{v:.6g}" for c, v in zip(cols, row)}
+            for row in rng.normal(size=(FLEET["rows"], len(cols)))]
+    ttl_s = FLEET["ttl_ms"] / 1000.0
+    out = {}
+    t0 = time.perf_counter()
+    # seconds from the phase's start at each step, to see where (b) goes
+    marks = out["marks"] = {}
+
+    def mark(step):
+        marks[step] = time.perf_counter() - t0
+
+    procs = [_spawn_serve(root, pkg, device) for _ in range(2)]
+    try:
+        bases = [_listening(p, lg, f"fleet process {i}")
+                 for i, (p, lg) in enumerate(procs)]
+        out["start_seconds"] = time.perf_counter() - t0
+        _wait_for(lambda: all(
+            (_http_doc(f"{b}/healthz")[1].get("peers") or {}).get(
+                "liveProcesses") == 2 for b in bases),
+            "both processes' peer views")
+        mark("peers")
+        live = [p for p in lease.scan(root) if not p["expired"]]
+        check(len(live) == 2, f"fleet: {len(live)} live leases")
+        for b in bases:
+            for _ in range(FLEET["requests"]):
+                code, _doc, _h = _http_full(f"{b}/score",
+                                            {"records": body})
+                check(code == 200, f"fleet: {b}/score answered {code}")
+        sums = [_counter_sums(b) for b in bases]
+        check(sums[0] == sums[1] and sum(
+            v for k, v in sums[0].items()
+            if k.startswith("serve_requests_total")) == 2 * FLEET[
+                "requests"], f"fleet: /fleet/metrics differ: {sums}")
+        mark("requests")
+        out["fleet_requests"] = sum(v for k, v in sums[0].items()
+                                    if k.startswith("serve_requests_total"))
+        # round 1: `shifu promote` (fleet mode: no --serve-url) commits
+        cand1 = loop_candidate(os.path.join(root, "models"),
+                               os.path.join(root, "models.candidate"))
+        sha1 = _models_sha(cand1)
+        old = _http_doc(f"{bases[0]}/healthz")[1]["sha"]
+        rc, _t = _cli_out(root, "promote", "--serve-url", bases[0],
+                          "--candidate", cand1, "--no-drift-gate")
+        check(rc == 2, f"fleet: promote --serve-url on a fleet of two "
+                       f"exited {rc}, not 2")
+        mark("refused")
+        t_r = time.perf_counter()
+        rc, _t = _cli_out(
+            root, "promote", "--candidate", cand1, "--no-drift-gate",
+            f"-Dshifu.promote.roundDeadlineMs={FLEET['deadline_ms']}")
+        out["round1_seconds"] = time.perf_counter() - t_r
+        check(rc == 0, f"fleet: round 1 exited {rc}")
+        _wait_for(lambda: all(_http_doc(f"{b}/healthz")[1]["sha"] == sha1
+                              for b in bases), "both on the new sha")
+        out["round1"] = dict(old=old, new=sha1)
+        mark("round1")
+        # round 2: process 1 restarts with peer_kill at its Nth beat
+        rc = _stop(*procs[1])
+        check(rc == 0, f"fleet: process 1 exit {rc} after SIGTERM")
+        procs[1] = _spawn_serve(
+            root, pkg, device,
+            f"-Dshifu.faults=peer_kill@lease={FLEET['kill_beat']}")
+        mark("stopped")
+        bases[1] = _listening(*procs[1], "the restarted process")
+        mark("restarted")
+        a = bases[0]
+        cand2 = loop_candidate(os.path.join(root, "models"),
+                               os.path.join(root, "models.candidate"))
+        sha2 = _models_sha(cand2)
+        victim = procs[1][0]
+        victim.wait(60)
+        t_dead = time.monotonic()
+        mark("killed")
+        check(victim.returncode == -signal.SIGKILL,
+              f"fleet: the peer_kill process exited {victim.returncode}")
+        # the survivor's /healthz, polled from the death on
+        seen = {}
+
+        def poll_expiry():
+            end = t_dead + 4 * ttl_s
+            while time.monotonic() < end and "t" not in seen:
+                try:
+                    peers = _http_doc(f"{a}/healthz", timeout=5)[1].get(
+                        "peers") or {}
+                except OSError:
+                    peers = {}
+                if peers.get("expiredProcesses") == 1:
+                    seen["t"] = time.monotonic() - t_dead
+                time.sleep(0.05)
+
+        import threading
+
+        poller = threading.Thread(target=poll_expiry, daemon=True)
+        poller.start()
+        # the dead peer's lease is still live: the round fences it
+        rc, _t = _cli_out(
+            root, "promote", "--candidate", cand2, "--no-drift-gate",
+            f"-Dshifu.promote.roundDeadlineMs={FLEET['abort_deadline_ms']}")
+        check(rc == 1, f"fleet: round 2 with a dead peer exited {rc}")
+        mark("round2")
+        _wait_for(lambda: _metric(a, "serve_swap_unstaged_total") >= 1,
+                  "the survivor's rollback")
+        code, doc, _h = _http_full(f"{a}/score", {"records": body})
+        check(code == 200, f"fleet: the survivor answered {code}")
+        poller.join(4 * ttl_s + 10)
+        check("t" in seen, "fleet: the survivor never reported the "
+                           "dead peer's expiry")
+        out["expiry_seconds"] = seen["t"]
+        check(out["expiry_seconds"] <= 2 * ttl_s,
+              f"fleet: expiry reported {out['expiry_seconds']:.2f} s after "
+              f"the death (> 2 x TTL)")
+        h = _http_doc(f"{a}/healthz")[1]
+        check(h["sha"] == sha1 and h["status"] == "degraded",
+              f"fleet: the survivor after the abort: {h['status']} "
+              f"{h['sha']}")
+        # round 3: the dead lease is out of the fence: commits on one
+        rc, _t = _cli_out(
+            root, "promote", "--candidate", cand2, "--no-drift-gate",
+            f"-Dshifu.promote.roundDeadlineMs={FLEET['deadline_ms']}")
+        check(rc == 0, f"fleet: round 3 exited {rc}")
+        _wait_for(lambda: _http_doc(f"{a}/healthz")[1]["sha"] == sha2,
+                  "the survivor on the third sha")
+        out["round3"] = dict(new=sha2)
+        mark("round3")
+    finally:
+        environment.set_property("shifu.promote.roundDeadlineMs", "")
+        rcs = [_stop(p, lg) for p, lg in procs]
+    check(rcs[0] == 0, f"fleet: the survivor exited {rcs[0]}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def zoo_bench(torch, data_dir, seed, device="cuda"):
+    """(c): bench SERVE's JSON closed loop through a zoo tenant and a
+    single-tenant server, in alternating pairs (printed, not gated)."""
+    from shifu_tpu_torch.serve.server import ScoringServer
+
+    root = os.path.join(data_dir, "zoo-bench")
+    cols = write_serve_set(os.path.join(root, "single"), seed)
+    _copy_set(os.path.join(root, "single"), os.path.join(root, "zoo"))
+    rng = np.random.default_rng(seed + 11)
+    singles = [json.dumps({c: f"{v:.4f}" for c, v in zip(
+        cols, rng.normal(size=len(cols)))}).encode()
+        for _ in range(SERVE["requests"])]
+    top = max(ZOO_BENCH["concurrency"])
+    servers = {
+        "single": ScoringServer(root=os.path.join(root, "single"), port=0,
+                                replicas=1,
+                                queue_depth=SERVE["queue_depth"],
+                                device=device),
+        "zoo": ScoringServer(root=os.path.join(root, "zoo"), port=0,
+                             replicas=1, queue_depth=SERVE["queue_depth"],
+                             device=device,
+                             zoo={"serve": os.path.join(root, "zoo")})}
+    out = {}
+    try:
+        for srv in servers.values():
+            srv.registry.warm([1, top])
+            srv.start()
+        paths = {"single": "/score", "zoo": "/score/serve"}
+        for k in range(ZOO_BENCH["pairs"]):
+            for conc in ZOO_BENCH["concurrency"]:
+                for label in ("single", "zoo"):
+                    lat, wall, codes = _closed_loop(
+                        servers[label].port, singles, conc,
+                        "application/json", path=paths[label])
+                    check(all(c == 200 for c in codes),
+                          f"zoo bench: {label} c{conc}: not all 200")
+                    out.setdefault(f"{label}_json_c{conc}", []).append(
+                        _latency(lat, wall))
+    finally:
+        for srv in servers.values():
+            srv.shutdown(60)
+    return out
+
+
+# --zoo-only: the sets phase 19 reads, built small on the CPU (phase 18's)
+
+
+def phase_zoo(torch, hk, data_dir, pkg, seed, device="cuda"):
+    """Phase 19: (a) the model zoo, (b) the fleet of serve processes,
+    (c) bench SERVE through a zoo tenant against a single-tenant server.
+    Counts the hand kernels it launches (none: no tree trains here)."""
+    t0 = time.perf_counter()
+    hk.reset_counters()
+    out = dict(zoo=zoo_serve(torch, hk, data_dir, seed, device))
+    out["fleet"] = zoo_fleet(torch, data_dir, pkg, seed, device)
+    out["bench"] = zoo_bench(torch, data_dir, seed, device)
+    out["launches"] = dict(hk.launches)
+    check(not any(out["launches"].values()),
+          f"zoo: a hand kernel launched in phase 19: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def print_zoo(o):
+    z, f, b = o["zoo"], o["fleet"], o["bench"]
+    print(f"zoo: (a) ScoringServer(zoo=...) on {', '.join(z['tenants'])}, "
+          f"budget {z['budget_mb']:.4f} MB (2.5 x the largest NN tenant's "
+          f"priced {max(z['priced_bytes'].values())} bytes), started in "
+          f"{z['start_seconds']:.2f} s with {z['resident_at_start']} "
+          f"resident; {z['rows']}-row scores bit-identical to a "
+          f"single-tenant registry on every tenant; evicting "
+          f"{z['evict']['tenant']} freed {z['evict']['freed_bytes']} bytes "
+          f"(charged {z['evict']['charged_bytes']}); cold start answered "
+          f"{z['cold']['first_code']} Retry-After {z['cold']['retry_after']}"
+          f" then 200 in {z['cold']['seconds']:.2f} s, re-admitted "
+          f"bit-identical")
+    print("zoo: pricing, a lone call's peak growth / analytic bytes: "
+          + ", ".join(f"{k} {v['measured']} / {v['analytic']}"
+                      for k, v in z["pricing"].items()))
+    bu = z["budget"]
+    print(f"zoo: near-full stage -> shadow ({bu['shadow_agreement']:.4f} "
+          f"agreement) -> promote: peak {bu['peak_bytes']} <= budget "
+          f"{bu['budget_bytes']} (held back {bu['reserve_bytes']}), the "
+          f"stage evicted {[c['victim'] for c in bu['stage_evictions']]} "
+          f"in LRU order; evictions {z['evictions']}; /healthz zoo "
+          f"{z['health']}; {z['seconds']:.1f} s")
+    print(f"zoo: (b) two shifu serve processes started in "
+          f"{f['start_seconds']:.1f} s, /fleet/metrics equal from both "
+          f"({f['fleet_requests']:.0f} requests); round 1 committed on "
+          f"both in {f['round1_seconds']:.2f} s; round 2 with peer_kill "
+          f"aborted, the survivor rolled back and reported the expiry "
+          f"{f['expiry_seconds']:.2f} s after the death; round 3 "
+          f"committed on the survivor; {f['seconds']:.1f} s")
+    print("zoo: (c) bench SERVE JSON, single-tenant / zoo tenant "
+          "(pairs): " + "; ".join(
+              f"c{c} p50 "
+              + "/".join(f"{r['p50_ms']:.3f}" for r in b[f"single_json_c{c}"])
+              + " vs " + "/".join(f"{r['p50_ms']:.3f}"
+                                  for r in b[f"zoo_json_c{c}"])
+              + " ms, p99 "
+              + "/".join(f"{r['p99_ms']:.3f}" for r in b[f"single_json_c{c}"])
+              + " vs " + "/".join(f"{r['p99_ms']:.3f}"
+                                  for r in b[f"zoo_json_c{c}"])
+              + " ms, qps "
+              + "/".join(f"{r['qps']:.1f}" for r in b[f"single_json_c{c}"])
+              + " vs " + "/".join(f"{r['qps']:.1f}"
+                                  for r in b[f"zoo_json_c{c}"])
+              for c in ZOO_BENCH["concurrency"]))
+    print(f"zoo: phase {o['seconds']:.1f} s, hand-kernel launches "
+          f"{o['launches']}")
+
+
 def run(args) -> int:
     import torch
 
@@ -6412,6 +7056,24 @@ def run(args) -> int:
     t_all = time.perf_counter()
 
     pkg = os.path.abspath(args.package_root or REPO)
+    if args.zoo_only:
+        # phase 19 alone on phase 18's small CPU-built sets (no hand
+        # kernel runs in it, so nothing is built)
+        data_dir = os.path.join(build.BUILD_DIR, "smoke-data")
+        shutil.rmtree(data_dir, ignore_errors=True)
+        try:
+            loop_only_sets(torch, hk, tt, data_dir, args.seed)
+            report["zoo"] = phase_zoo(torch, hk, data_dir, pkg, args.seed)
+            print_zoo(report["zoo"])
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
+        if args.out:
+            out = os.path.join(REPO, args.out)
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            with open(out, "w") as fh:
+                json.dump(report, fh, indent=1)
+        print(f"{card}")
+        return 0
     if args.loop_only:
         # phase 18 alone on small sets (its own paths launch no hand
         # kernel, so nothing is built)
@@ -6593,6 +7255,8 @@ def run(args) -> int:
         print_obs(ob)
         lp = phase_loop(torch, hk, data_dir, pkg, args.seed)
         print_loop(lp)
+        zo = phase_zoo(torch, hk, data_dir, pkg, args.seed)
+        print_zoo(zo)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     report["gbt"], report["rf"] = g, r
@@ -6608,6 +7272,7 @@ def run(args) -> int:
     report["hosts"] = ho
     report["obs"] = ob
     report["loop"] = lp
+    report["zoo"] = zo
     grown = [gr[k]["launches"] for k in ("leafwise_gbt", "leafwise_rf",
                                          "batched_gbt", "batched_rf")]
     # the streamed grower's: (a)'s forests and (b)'s RF train
@@ -6649,6 +7314,7 @@ def run(args) -> int:
             hosts_launches=sum(lc[name] for lc in host_runs),
             obs_launches=sum(lc[name] for lc in ob["launches"]),
             loop_launches=lp["launches"].get(name, 0),
+            zoo_launches=zo["launches"].get(name, 0),
             max_abs_err=stats.max_abs_err[name], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"]))
@@ -6687,6 +7353,9 @@ def main() -> int:
                     help="build the kernels, then run phase 16 alone")
     ap.add_argument("--loop-only", action="store_true",
                     help="run phase 18 alone on small sets built on the "
+                    "CPU (no kernel build)")
+    ap.add_argument("--zoo-only", action="store_true",
+                    help="run phase 19 alone on small sets built on the "
                     "CPU (no kernel build)")
     ap.add_argument("--package-root", default="",
                     help="directory to import shifu_tpu_torch from "

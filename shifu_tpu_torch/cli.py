@@ -51,8 +51,7 @@ run in a model-set directory. The flags follow the JAX subcommands;
 `normalize` and `varselect` are aliases of `norm` and `varsel`. Exit
 codes follow the JAX CLI: 0 ok, 1 ShifuError (or no card), 2 not
 implemented. Every other lifecycle subcommand exits 2 with the ROADMAP
-item that ports it, and so do the routes of a ported step that wait
-(serve's `--zoo`).
+item that ports it.
 -Dk=v anywhere on the line sets an operational property
 (ShifuCLI.java:430-453).
 """
@@ -73,7 +72,7 @@ from shifu_tpu_torch.utils.platform import DeviceUnavailable
 log = get_logger("shifu")
 
 # the JAX CLI's other subcommands and the ROADMAP item that ports each
-NOT_PORTED = {"retrain": "A.14", "check": "A.14"}
+NOT_PORTED = {"retrain": "A.14.6", "check": "A.14.8"}
 
 
 def _extract_props(argv: List[str]) -> List[str]:
@@ -185,7 +184,13 @@ def build_parser() -> argparse.ArgumentParser:
                               "(default 1.0; -Dshifu.loop.logSample)")
     p_serve.add_argument("--zoo", action="append", default=None,
                          metavar="NAME=PATH[,NAME=PATH...]",
-                         help="not ported yet (ROADMAP A.14.4)")
+                         help="multi-tenant model zoo: serve N model "
+                              "sets behind per-set POST /score/<set> "
+                              "routes on one device-memory budget "
+                              "(-Dshifu.serve.hbmBudgetMB; cold sets "
+                              "answer 429 + Retry-After while they "
+                              "load); repeatable, the first set is the "
+                              "default /score route")
     p_serve.add_argument("--device", choices=["cpu", "cuda"], default=None,
                          help=device_help)
     p_promote = sub.add_parser(
@@ -208,9 +213,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_promote.add_argument("--set", default=None, dest="set_name",
                            metavar="NAME",
                            help="with --serve-url against a model-zoo "
-                                "server: the tenant to stage/promote "
-                                "(the zoo is ROADMAP A.14.4: a port "
-                                "server answers 409)")
+                                "server: the tenant to stage/promote")
     p_promote.add_argument("--agree-min", type=float, default=None,
                            dest="agree_min",
                            help="min shadow agreement rate (default "
@@ -739,9 +742,6 @@ def serve(args: argparse.Namespace) -> int:
     from shifu_tpu_torch.analysis import sanitize
     from shifu_tpu_torch.serve.server import ScoringServer
 
-    if args.zoo:
-        raise NotImplementedError(
-            "serve --zoo is not ported yet: ROADMAP A.14.4")
     if args.traffic_log is not None:
         # the flag is sugar for -Dshifu.loop.logSample=<fraction>; the
         # server reads the property at construction. Parse it NOW: a typo
@@ -760,15 +760,36 @@ def serve(args: argparse.Namespace) -> int:
         san = sanitize.from_environment()
         sizes = ([int(s) for s in args.warm.split(",") if s.strip()]
                  if args.warm else [])
+        zoo_spec = None
+        if args.zoo:
+            # --zoo name=path[,name=path...] (repeatable), parsed before
+            # the port binds, in order: the first set is the default
+            # /score route
+            zoo_spec = {}
+            for chunk in args.zoo:
+                for item in chunk.split(","):
+                    item = item.strip()
+                    if not item:
+                        continue
+                    name, sep, set_path = item.partition("=")
+                    if not sep or not name or not set_path:
+                        raise ValueError(
+                            f"--zoo entry {item!r} must be NAME=PATH")
+                    if name in zoo_spec:
+                        # last-wins would serve the wrong set
+                        raise ValueError(
+                            f"--zoo tenant {name!r} given twice")
+                    zoo_spec[name] = set_path
         server = ScoringServer(
             root=".", models_dir=args.models_dir, host=args.host,
             port=args.port, queue_depth=args.queue_depth,
             max_batch_rows=args.max_batch_rows,
             max_wait_ms=args.max_wait_ms, replicas=args.replicas,
-            batching=args.batching, device=args.device)
+            batching=args.batching, device=args.device, zoo=zoo_spec)
     except (ValueError, OSError, RuntimeError, ShifuError) as e:
-        # a bad --warm, no models, a taken port, no card: before
-        # "listening"
+        # a bad --warm or --zoo, no models, a tenant past the budget (a
+        # LedgerFullError is a RuntimeError), a taken port, no card:
+        # before "listening"
         log.error("serve: %s", e)
         return 1
     if sizes:

@@ -26,8 +26,12 @@ over the existing subsystems instead of duplicating them:
                promote/hold decision, written as a `promote-<seq>.json`
                ledger manifest (`shifu promote`).
 
-`shifu retrain` (ROADMAP A.14.6) and the fleet-wide promotion round
-(`rounds.py`, with leases, A.14.7) are not ported yet.
+  rounds.py    the fleet-wide promotion round's records: prepare, ack,
+               commit, abort under `.shifu/runs/peers/rounds/`, each
+               written atomically (`shifu promote` coordinates, every
+               leased serve process takes part, serve/peers.py).
+
+`shifu retrain` (ROADMAP A.14.6) is not ported yet.
 
 Knobs (all -D properties):
 

@@ -135,7 +135,7 @@ class DriftMonitor:
         self._window_rows = 0
         self._rows = 0
         self._degraded: List[str] = []
-        # bumped by reset(): an in-flight _flush whose window was swapped
+        # bumped by reset(): an in-flight flush whose window was swapped
         # out before a promotion reset describes the OLD version's
         # traffic and must not merge into the clean slate
         self._gen = 0
@@ -281,7 +281,7 @@ class DriftMonitor:
                 want = (self._gen, self._epochs.get(key, 0))
                 if (gen if isinstance(gen, tuple) else (gen, 0)) != want:
                     # reset() (a promotion — the fold counted the old
-                    # version's traffic) or a concurrent _flush (the
+                    # version's traffic) or a concurrent flush (the
                     # fold's BASE window is already in the host fold —
                     # adopting base+delta would double-count the base)
                     # landed between window() and here: drop the fold
@@ -291,7 +291,7 @@ class DriftMonitor:
             self._rows += rows
             need_flush = self._window_rows > WINDOW_FLUSH_ROWS
         if need_flush:
-            self._flush()
+            self.flush()
 
     def reset(self) -> None:
         """Clean slate after a promotion acted on the drift: live counts,
@@ -332,8 +332,9 @@ class DriftMonitor:
             self._host += counts
             self._rows += data.n_rows
 
-    def _flush(self) -> None:
-        """Swap-fetch-merge window flush: the device window is swapped
+    def flush(self) -> None:
+        """Swap-fetch-merge window flush (also an evicted tenant's
+        registry handing its windows back): the device window is swapped
         for a fresh one UNDER the lock, the device->host copy runs
         OUTSIDE it, and the fetched counts merge back under the lock.
         Concurrent flushes each own their swapped-out window, so counts
@@ -365,7 +366,7 @@ class DriftMonitor:
 
     def counts(self) -> np.ndarray:
         """The live fold's per-slot counts (forces a window flush)."""
-        self._flush()
+        self.flush()
         with self._lock:
             return self._host.copy()
 

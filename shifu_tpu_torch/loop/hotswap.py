@@ -27,9 +27,11 @@ indirection the swap can flip atomically:
 
 Staging warms the candidate's row buckets (`warm`) the active set has
 served, so promotion costs no first-batch allocation. The model zoo's
-seams (`memory_analysis`, `release`) wait for ROADMAP A.14.4: a port
-registry holds no compiled-program cache to release, and a replaced or
-promoted-away version frees when its last in-flight batch drops it.
+seams: `stage(put_hook=)` streams the candidate's weight groups through
+the zoo's ledger, the candidate inherits the active's `cost_hook`,
+`memory_analysis()` prices active plus shadow, and `release()` drops
+both (eviction). A replaced, unstaged or promoted-away version frees
+when its last in-flight batch drops it.
 """
 
 from __future__ import annotations
@@ -195,18 +197,40 @@ class SwappableRegistry:
         return self._active.model_names
 
     @property
+    def active_models_dir(self) -> str:
+        """Dir of the version serving now: what an evicting zoo must
+        remember so re-admission rebuilds the promoted version."""
+        return self._active.models_dir
+
+    @property
     def fused(self) -> bool:
         return self._active.fused
 
     def memory_analysis(self) -> dict:
-        raise NotImplementedError(
-            "the model zoo's resident-cost accounting (serve/zoo.py) is "
-            "not ported yet: ROADMAP A.14.4")
+        """Active plus staged-shadow residency (registry
+        memory_analysis), the zoo ledger's per-replica read."""
+        with self._lock:  # paired read, like observe()
+            active, shadow = self._active, self._shadow
+        out = {"active": active.memory_analysis()}
+        total = out["active"]["residentBytes"]
+        if shadow is not None:
+            out["shadow"] = shadow.memory_analysis()
+            total += out["shadow"]["residentBytes"]
+        out["residentBytes"] = total
+        return out
 
     def release(self) -> int:
-        raise NotImplementedError(
-            "the model zoo's eviction seam (serve/zoo.py) is not ported "
-            "yet: ROADMAP A.14.4")
+        """Eviction: release the active and any staged shadow (their
+        tensors dropped, later scores refused). The owning fleet is
+        already drained when the zoo calls this."""
+        with self._lock:
+            active, shadow = self._active, self._shadow
+            self._shadow = None
+            self._shadow_stats = None
+        n = active.release()
+        if shadow is not None:
+            n += shadow.release()
+        return n
 
     @property
     def input_columns(self) -> List[str]:
@@ -223,17 +247,24 @@ class SwappableRegistry:
 
     # ---- shadow lifecycle ----
     def stage(self, models_dir: str, column_configs=None,
-              model_config=None, drift=None) -> dict:
+              model_config=None, drift=None, put_hook=None) -> dict:
         """Load + warm a candidate as the shadow on the active set's
         device; replaces any previously staged candidate. Returns the
-        shadow summary."""
+        shadow summary. `put_hook(nbytes)` (serve/zoo.py) streams the
+        stage: each weight group is ledger-acquired before it goes to
+        the device, so a stage on a near-full budget evicts cold tenants
+        group by group instead of overshooting."""
         from shifu_tpu_torch.obs import registry as obs_registry
 
         active = self._active
         cand = ModelRegistry(models_dir, column_configs=column_configs,
                              model_config=model_config, drift=drift,
                              device=active.device,
-                             labels=getattr(active, "labels", None))
+                             labels=getattr(active, "labels", None),
+                             put_hook=put_hook)
+        # the candidate inherits the active's re-pricing seam: a bucket
+        # first run by shadow traffic is priced like a live one
+        cand.cost_hook = getattr(active, "cost_hook", None)
         # staged: shadow scoring must not double-count drift rows the
         # active fold already saw; promotion flips the fold live
         cand.drift_live = False

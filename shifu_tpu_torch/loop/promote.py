@@ -19,17 +19,20 @@ The decision is computed from evidence:
 Every run writes a `promote-<seq>.json` ledger manifest with the gate
 evidence and the decision — promoted or held, the audit trail exists.
 
-Execution: with `--serve-url` the promotion is a POST /admin/promote
-(zero-downtime hot-swap in the running server); without one it is an
-offline atomic dir swap: `models/` -> `models.previous/`, candidate ->
-`models/` (os.replace-based, torn-state-proof via a rename sequence that
-always leaves a loadable models dir).
+Execution, by what the root holds:
 
-The JAX package's fleet mode (a lease-fenced two-phase commit over every
-live `shifu serve` process, `loop/rounds.py`) needs leases, ROADMAP
-A.14.7. A port `shifu serve` takes no lease; where lease files exist
-anyway (JAX serve processes share the model set), `run_promote` exits 2
-naming A.14.7 rather than promote one process of a fleet.
+  http     `--serve-url`: a POST /admin/promote (zero-downtime hot-swap
+           in the running server; `--set` picks a zoo tenant). Refused
+           (exit 2) when more than one serve process holds a lease on
+           the root: promoting one of them is a half-promoted fleet.
+  fleet    live leases and no `--serve-url`: a lease-fenced two-phase
+           commit over every live `shifu serve` process
+           (`run_promotion_round`, the records of `loop/rounds.py`):
+           each stages the candidate and acks, the commit lands only on
+           unanimous acks with the fence intact, then the dir swap.
+  offline  no live lease: an atomic dir swap, `models/` ->
+           `models.previous/`, candidate -> `models/` (a rename sequence
+           that always leaves a loadable models dir).
 """
 
 from __future__ import annotations
@@ -211,19 +214,129 @@ def _models_sha(models_dir: Optional[str]) -> Optional[str]:
         return None
 
 
-PEERS_DIRNAME = os.path.join(".shifu", "runs", "peers")
+def live_peers(root: str) -> list:
+    """Live (un-expired) process leases under the root — the set a
+    fleet-atomic promotion must fence."""
+    from shifu_tpu_torch.resilience import lease
+
+    return [p for p in lease.scan(root) if not p["expired"]]
 
 
-def peers_dir(root: str) -> str:
-    return os.path.join(os.path.abspath(root), PEERS_DIRNAME)
+def round_deadline_ms_setting() -> float:
+    """shifu.promote.roundDeadlineMs — promotion-round ack deadline
+    (0 = one lease TTL). Raise it for candidates whose fleet-wide
+    stage + warm outlasts a TTL: fence SAFETY does not depend on the
+    deadline (the fence is re-checked against the live lease files
+    immediately before commit, and participants renew right after their
+    device-heavy stage) — the TTL default is just the tightest deadline
+    that cannot outlive its own liveness evidence."""
+    from shifu_tpu_torch.utils import environment
+
+    return environment.get_float("shifu.promote.roundDeadlineMs", 0.0)
 
 
-def lease_files(root: str) -> list:
-    """Lease files some process left under the root's peers directory
-    (JAX `shifu serve` processes take them)."""
-    from shifu_tpu_torch.fs.listing import sorted_glob
+def run_promotion_round(root: str, candidate_dir: str,
+                        candidate_sha: str, peers: list) -> dict:
+    """The two-phase commit coordinator (loop/rounds.py records).
 
-    return sorted_glob(os.path.join(peers_dir(root), "*.lease.json"))
+    Prepare fences the CURRENT live incarnations (leaseId/token/epoch);
+    every fenced peer must stage + validate the sha-bound candidate and
+    ack before the deadline (one lease TTL out, or
+    -Dshifu.promote.roundDeadlineMs). The commit record is written only
+    after (a) unanimous ok-acks, (b) a fence re-check against the live
+    lease files, (c) no abort record exists (a participant that
+    self-aborted at deadline+grace writes one — its rollback must win),
+    and (d) the deadline has not passed. Everything else aborts.
+
+    The whole round runs under ONE trace id (`round-<rid>`), stamped
+    into the prepare record: this coordinator's prepare/acks/fence/
+    commit spans and every participant's stage/ack/commit spans share
+    it, so `shifu trace --fleet` renders the round as one stitched
+    cross-process timeline."""
+    from shifu_tpu_torch.loop import rounds
+    from shifu_tpu_torch.obs import reqtrace
+    from shifu_tpu_torch.resilience import lease
+
+    fence = [{"leaseId": p["leaseId"], "token": p["token"],
+              "epoch": p["epoch"]} for p in peers]
+    ttl_s = max(float(p.get("ttlMs", 5000.0)) for p in peers) / 1000.0
+    deadline_s = round_deadline_ms_setting() / 1000.0 or ttl_s
+    rid = rounds.new_round_id()
+    deadline = time.time() + deadline_s
+    rt = reqtrace.RequestTrace(trace_id=f"round-{rid}", sampled=True)
+    rt.annotate(role="coordinator", round=rid, sha=candidate_sha,
+                peers=len(fence))
+    with rt.stage("prepare"):
+        rounds.write_prepare(root, rid, candidate_dir, candidate_sha,
+                             fence, deadline, trace=rt.trace_id)
+    log.info("promotion round %s: prepared for %d peer(s), deadline in "
+             "%.1f s", rid, len(fence), deadline_s)
+    want = {f["leaseId"] for f in fence}
+    out = {"round": rid, "peers": fence, "acks": {}, "committed": False,
+           "deadlineUnix": deadline, "trace": rt.trace_id}
+
+    def _finish(outcome: str) -> None:
+        rt.annotate(outcome=outcome)
+        reqtrace.buffer().offer(rt)
+
+    def _abort(reason: str) -> dict:
+        with rt.stage("abort"):
+            rounds.write_abort(root, rid, reason)
+        out["reason"] = reason
+        _finish("abort")
+        log.warning("promotion round %s aborted: %s", rid, reason)
+        return out
+
+    t_acks = time.perf_counter()
+    while True:
+        state = rounds.read_round(root, rid)
+        out["acks"] = state["acks"]
+        nacks = [a for a in state["acks"].values() if not a.get("ok")]
+        if nacks:
+            return _abort("peer " + nacks[0]["leaseId"] + " refused: "
+                          + str(nacks[0].get("reason")))
+        bad_sha = [a for a in state["acks"].values()
+                   if a.get("stagedSha") != candidate_sha]
+        if bad_sha:
+            return _abort(f"peer {bad_sha[0]['leaseId']} staged "
+                          f"{bad_sha[0].get('stagedSha')}, not the "
+                          f"candidate {candidate_sha}")
+        if want <= set(state["acks"]):
+            break
+        if time.time() >= deadline:
+            missing = sorted(want - set(state["acks"]))
+            return _abort("no ack from " + ", ".join(missing)
+                          + " within the lease TTL")
+        time.sleep(rounds.ROUND_POLL_S)
+    rt.add_stage("acks", time.perf_counter() - t_acks, t_acks)
+    # unanimous — but only the SAME incarnations that acked may commit:
+    # a peer that died (lease expired/vanished) or restarted (token or
+    # epoch changed) after acking cannot apply the commit, and a fleet
+    # minus one is a half-promoted fleet
+    with rt.stage("fence"):
+        broken = lease.fence_check(root, fence)
+    if broken:
+        return _abort("; ".join(broken))
+    if rounds.read_round(root, rid)["abort"] is not None:
+        # a participant self-aborted (it judged the coordinator dead at
+        # deadline+grace) — its rollback already happened and MUST win;
+        # committing over it would split the fleet
+        out["reason"] = "a participant aborted the round first"
+        _finish("stale")
+        log.warning("promotion round %s: not committing — %s",
+                    rid, out["reason"])
+        return out
+    if time.time() >= deadline:
+        # participants may already be rolling back — committing now
+        # could split the fleet
+        return _abort("unanimous acks arrived after the deadline")
+    with rt.stage("commit"):
+        rounds.write_commit(root, rid, candidate_sha)
+    out["committed"] = True
+    _finish("commit")
+    log.info("promotion round %s: committed %s on %d peer(s)",
+             rid, candidate_sha, len(fence))
+    return out
 
 
 def offline_swap(root: str, candidate_dir: str) -> dict:
@@ -258,6 +371,7 @@ def run_promote(root: str, candidate_dir: Optional[str],
     """The `shifu promote` entry point. Returns the process exit code:
     0 promoted, 1 held by a gate, 2 operational error."""
     import sys
+    import time
 
     from shifu_tpu_torch import obs
     from shifu_tpu_torch.obs.ledger import RunLedger
@@ -267,20 +381,22 @@ def run_promote(root: str, candidate_dir: Optional[str],
     active_sha = None
     if set_name and not serve_url:
         # a zoo tenant only exists inside a serve process: the offline
-        # path swaps the root's models/ dir, which has no per-set meaning
+        # and fleet-round paths swap the root's models/ dir, which has
+        # no per-set meaning
         log.error("promote: --set %s needs --serve-url (model-zoo "
                   "tenants live in a serving process)", set_name)
         return 2
-    leases = lease_files(root)
-    if leases:
-        # serve processes hold leases on this model set: promoting one
-        # of them, or swapping models/ under them, is the half-promotion
-        # the fleet round exists to prevent, and the round needs leases
-        log.error("promote: %d serve process lease(s) under %s — the "
-                  "fleet-atomic promote is not ported yet: ROADMAP "
-                  "A.14.7", len(leases), peers_dir(root))
+    peers = live_peers(root)
+    if serve_url and len(peers) > 1:
+        # promoting ONE process of a multi-process fleet through its
+        # /admin plane is exactly the half-promotion the lease-fenced
+        # round exists to prevent
+        log.error("promote: %d live serve processes hold leases under "
+                  "%s — drop --serve-url and run the fleet-atomic "
+                  "promote instead", len(peers), root)
         return 2
-    mode = "http" if serve_url else "offline"
+    mode = ("http" if serve_url
+            else "fleet" if peers else "offline")
     try:
         if serve_url:
             serve_url = serve_url.rstrip("/")
@@ -314,29 +430,78 @@ def run_promote(root: str, candidate_dir: Optional[str],
                               active_sha=active_sha)
     swap = None
     error = None
-    if force and not decision["promote"]:
-        decision["forced"] = True
-        decision["promote"] = True
-    if decision["promote"]:
-        try:
-            if serve_url:
-                # bind the swap to the sha the gates evaluated: a
-                # re-staged shadow between the gate read and this POST
-                # is refused server-side (409), never rolled out blind
-                promote_doc = {"sha": (shadow or {}).get("sha")}
-                if set_name:
-                    promote_doc["set"] = set_name
-                swap = _http_json(f"{serve_url}/admin/promote",
-                                  promote_doc)
-            else:
-                if not candidate_dir:
+    round_info = None
+    if mode == "fleet":
+        # the two-phase round IS the shadow-validation gate here: every
+        # live leaseholder must stage the sha-bound candidate on its
+        # whole replica fleet and ack. Ledger shadow evidence (if an
+        # operator staged earlier) stays in the manifest as context.
+        # `--force` can override the DRIFT gate, never a failed round —
+        # unanimity is a safety property, not an operator preference.
+        drift_ok = decision["gates"]["drift"]["ok"]
+        if force and not drift_ok:
+            decision["forced"] = True
+        decision["promote"] = False
+        if drift_ok or force:
+            try:
+                if not candidate_dir or candidate_sha is None:
                     raise ValueError(
-                        "offline promote needs a candidate dir "
+                        "fleet promote needs a readable candidate dir "
                         "(default models.candidate is missing)")
-                swap = offline_swap(root, candidate_dir)
-        except (OSError, ValueError) as e:  # failed swap: held + ledgered
-            error = f"{type(e).__name__}: {e}"
-            decision["promote"] = False
+                round_info = run_promotion_round(
+                    root, os.path.abspath(candidate_dir),
+                    candidate_sha, peers)
+            except (OSError, ValueError) as e:
+                error = f"{type(e).__name__}: {e}"
+                round_info = None
+            committed = bool(round_info and round_info["committed"])
+            decision["gates"]["shadow"] = {
+                "ok": committed,
+                "reason": (None if committed else
+                           (round_info or {}).get("reason", error)),
+                "fleetValidated": committed,
+                "acks": len((round_info or {}).get("acks", {})),
+                "round": (round_info or {}).get("round"),
+            }
+            decision["promote"] = committed
+            if committed:
+                try:
+                    # the commit record is the atomic decision; the dir
+                    # swap makes it durable for future process starts
+                    swap = offline_swap(root, candidate_dir)
+                    swap.update({"mode": "fleet",
+                                 "round": round_info["round"],
+                                 "peers": len(round_info["peers"])})
+                except (OSError, ValueError) as e:
+                    # the fleet IS promoted (every live process swapped);
+                    # only the on-disk layout lags — surfaced loudly for
+                    # the operator, re-running promote converges it
+                    error = (f"committed but dir swap failed: "
+                             f"{type(e).__name__}: {e}")
+    else:
+        if force and not decision["promote"]:
+            decision["forced"] = True
+            decision["promote"] = True
+        if decision["promote"]:
+            try:
+                if serve_url:
+                    # bind the swap to the sha the gates evaluated: a
+                    # re-staged shadow between the gate read and this POST
+                    # is refused server-side (409), never rolled out blind
+                    promote_doc = {"sha": (shadow or {}).get("sha")}
+                    if set_name:
+                        promote_doc["set"] = set_name
+                    swap = _http_json(f"{serve_url}/admin/promote",
+                                      promote_doc)
+                else:
+                    if not candidate_dir:
+                        raise ValueError(
+                            "offline promote needs a candidate dir "
+                            "(default models.candidate is missing)")
+                    swap = offline_swap(root, candidate_dir)
+            except (OSError, ValueError) as e:  # failed swap: held + ledgered
+                error = f"{type(e).__name__}: {e}"
+                decision["promote"] = False
     # the audit trail: every promote attempt is a ledger manifest,
     # carrying the serve->train lineage of the candidate it gated
     try:
@@ -359,10 +524,19 @@ def run_promote(root: str, candidate_dir: Optional[str],
                                "candidateDir": candidate_dir,
                                "decision": decision,
                                "lineage": lineage,
-                               "round": None,
+                               "round": round_info,
                                "swap": swap}},
         )
         log.info("promote manifest -> %s", path)
+        if mode == "fleet" and round_info is not None:
+            # the coordinator's round spans, beside the manifest — the
+            # half `shifu trace --fleet` stitches with the participants'
+            from shifu_tpu_torch.obs import reqtrace
+
+            traces_path = os.path.join(ledger.dir,
+                                       f"promote-{seq}.traces.json")
+            if reqtrace.buffer().write_traces(traces_path):
+                log.info("round trace -> %s", traces_path)
     except OSError as e:
         log.warning("cannot write promote manifest: %s", e)
     if error:

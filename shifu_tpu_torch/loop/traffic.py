@@ -6,9 +6,9 @@ mean score, model-set sha, request trace id, unix timestamp) under
 `<root>/.shifu/runs/traffic/traffic-[<writer>-]<seq>.psv`. The log is
 shareable by several serve processes: each appends under its own writer
 id with its own monotone sequence, and consumers read the union across
-writers. A port `shifu serve` takes no lease yet (ROADMAP A.14.7), so
-it writes under no writer id (`traffic-<seq>.psv`). Design constraints,
-in order:
+writers: a `shifu serve` process's writer id is its lease id
+(`resilience/lease.py`; without a lease, `traffic-<seq>.psv`). Design
+constraints, in order:
 
   * **Append-only + torn-write-proof.** A chunk file appears atomically
     (resilience.checkpoint.atomic_write: temp + os.replace) when its row

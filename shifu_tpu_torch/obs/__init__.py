@@ -18,8 +18,8 @@ manifest.
 
 `install_jax_probes` and `obs/jaxprobe.py` have no counterpart: they
 count XLA compiles and traces, and torch compiles nothing per shape.
-`obs/fleetview.py` (the fleet collector behind `/fleet/*`) comes with
-leases and peers (ROADMAP A.14).
+`obs/fleetview.py` is the fleet collector behind a server's `/fleet/*`
+routes: it merges every leased serve process's metrics.
 """
 
 from __future__ import annotations

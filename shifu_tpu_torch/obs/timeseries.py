@@ -11,9 +11,10 @@ temp + os.replace, sequence numbers only grow, and a ``_meta.json``
 sidecar names the schema. A SIGKILLed process therefore leaves its last
 windows behind — its final counters survive the process — and
 regression tooling gets real per-window series instead of only shutdown
-manifests. A serving process without a lease (every `shifu serve` of
-the port: leases are ROADMAP A.14) snapshots under the solo id
-``<hostname>-<pid>-solo``, as the JAX server does.
+manifests. The directory is named by the serving process's lease id
+(resilience/lease.py), so the fleet collector (obs/fleetview.py) joins
+it against the peer scan; a lease-less server (`-Dshifu.lease.ttlMs=0`)
+snapshots under the solo id ``<hostname>-<pid>-solo``.
 
 Encoding, per window:
 
@@ -82,7 +83,7 @@ def retain_chunks_setting() -> int:
 
 def obs_dir(root: str, lease_id: str) -> str:
     """One process's time-series dir: ``<root>/.shifu/runs/obs/<leaseId>``.
-    The lease id (resilience/lease.py in the JAX package) is the
+    The lease id (resilience/lease.py) is the
     fleet-wide process name,
     so the collector can join these dirs against the peer scan."""
     return os.path.join(os.path.abspath(root), OBS_SUBDIR, str(lease_id))

@@ -1,22 +1,22 @@
-"""`shifu top` — a terminal dashboard over one serving process
+"""`shifu top` — a terminal dashboard over the fleet of serve processes
 (counterpart of `shifu_tpu/obs/top.py`).
 
-The JAX `shifu top` polls a fleet member's `/fleet/healthz` and
-`/fleet/metrics`, the merged view of every process that holds a lease.
-The port's `shifu serve` has no leases or peers yet (ROADMAP A.14), so
-`/fleet/*` answers 501 and the port's `top` reads ONE process: its
-`GET /metrics` (Prometheus text, parsed back through `parse_prometheus`)
-and its `GET /healthz`, and builds the same payload for that solo
-process (`solo_view`). Per refresh it renders:
+Polls ONE serve process's `GET /fleet/healthz` (the merged JSON view —
+every process answers for the whole fleet, so any member's URL works)
+plus `GET /fleet/metrics` (Prometheus text, parsed back through
+`parse_prometheus`) and renders, per refresh:
 
-  * QPS — the `serve.requests` counter delta between two polls over
-    the wall-clock between them (a rate needs two samples; the first
-    frame shows `-`),
-  * per-stage p50/p99 from the `serve.stage_seconds` histograms (every
-    replica's series of a stage folded bucket-exact),
-  * SLO burn from the `serve.slo.good/bad` counters,
-  * circuit-breaker states (`serve.breaker.open{replica=}`),
-  * the process row (its /healthz status).
+  * fleet QPS — the `serve.requests` counter delta between two polls
+    over the wall-clock between them (a rate needs two samples; the
+    first frame shows `-`),
+  * per-stage p50/p99 from the merged `serve.stage_seconds` histograms
+    (computed server-side by obs/fleetview.py, bucket-exact),
+  * fleet and per-tenant SLO burn from the merged good/bad counters,
+  * circuit-breaker states (`serve.breaker.open{process=,replica=}` —
+    each open breaker named),
+  * per-tenant device-memory residency and admission-queue depths,
+  * the process table the lease directory names (live/expired, source,
+    age).
 
 `--once` renders a single frame without clearing the screen (scripts,
 CI smoke); the interactive loop repaints with plain ANSI clears — no
@@ -28,12 +28,10 @@ from __future__ import annotations
 import json
 import sys
 import time
-import urllib.error
 import urllib.request
 from typing import Dict, Optional, Tuple
 
-from shifu_tpu_torch.obs.metrics import (_parse_key, parse_prometheus,
-                                         quantile_from_counts)
+from shifu_tpu_torch.obs.metrics import _parse_key, parse_prometheus
 
 REQUEST_SAMPLE = "serve_requests_total"
 
@@ -45,80 +43,23 @@ def _http_get(url: str, timeout_s: float = 5.0) -> bytes:
 
 def fetch_view(base_url: str,
                timeout_s: float = 5.0) -> Tuple[dict, Dict[str, float]]:
-    """One poll: (the solo payload, the /metrics flat samples)."""
+    """One poll: (the /fleet/healthz payload, the /fleet/metrics flat
+    samples). The answering process's own /healthz zoo detail rides
+    along as `background` — co-resident trainers are per-process ledger
+    tenants, not part of the merged fleet view."""
+    payload = json.loads(
+        _http_get(base_url + "/fleet/healthz", timeout_s).decode("utf-8"))
     samples = parse_prometheus(
-        _http_get(base_url + "/metrics", timeout_s).decode("utf-8"))
+        _http_get(base_url + "/fleet/metrics", timeout_s).decode("utf-8"))
     try:
-        health = json.loads(
+        hz = json.loads(
             _http_get(base_url + "/healthz", timeout_s).decode("utf-8"))
-    except urllib.error.HTTPError as e:  # 503 while draining: the body
-        health = json.loads(e.read().decode("utf-8"))  # is the health
-    return solo_view(base_url, health, samples), samples
-
-
-def _stage_quantiles(samples: Dict[str, float],
-                     qs: Tuple[float, ...] = (0.5, 0.99)) -> dict:
-    """Per-stage quantiles from the `serve_stage_seconds_bucket`
-    cumulative samples, every replica's series of a stage summed bucket
-    by bucket (the edges are pinned, so the sum is exact)."""
-    cum: Dict[str, Dict[float, float]] = {}
-    for key, v in samples.items():
-        name, labels = _parse_key(key)
-        if name != "serve_stage_seconds_bucket":
-            continue
-        le = labels.get("le", "+Inf")
-        edge = float("inf") if le == "+Inf" else float(le)
-        per = cum.setdefault(labels.get("stage", "?"), {})
-        per[edge] = per.get(edge, 0.0) + v
-    out = {}
-    for stage, per in sorted(cum.items()):
-        edges = sorted(per)
-        counts, prev = [], 0.0
-        for e in edges:
-            counts.append(per[e] - prev)
-            prev = per[e]
-        total = int(sum(counts))
-        if not total:
-            continue
-        out[stage] = {"count": total}
-        for q in qs:
-            out[stage][f"p{int(q * 100)}"] = quantile_from_counts(
-                edges, counts, q)
-    return out
-
-
-def _slo(samples: Dict[str, float], health: dict) -> dict:
-    good = bad = 0.0
-    for key, v in samples.items():
-        name, _labels = _parse_key(key)
-        if name == "serve_slo_good_total":
-            good += v
-        elif name == "serve_slo_bad_total":
-            bad += v
-    target = float((health.get("slo") or {}).get("target", 0.0) or 0.0)
-    total = good + bad
-    frac = (bad / total) if total else 0.0
-    return {"fleet": {"good": int(good), "bad": int(bad),
-                      "badFraction": round(frac, 6), "target": target,
-                      "burn": round(frac / max(1e-9, 1.0 - target), 4)},
-            "tenants": {}}
-
-
-def solo_view(base_url: str, health: dict,
-              samples: Dict[str, float]) -> dict:
-    """The payload the JAX `/fleet/healthz` serves, for one process."""
-    return {
-        "ts": time.time(),
-        "answeredBy": base_url,
-        "liveProcesses": 1,
-        "expiredProcesses": 0,
-        "processes": [{"leaseId": base_url, "live": True,
-                       "source": "self", "ageMs": 0.0,
-                       "info": {"status": health.get("status")}}],
-        "slo": _slo(samples, health),
-        "stages": _stage_quantiles(samples),
-        "health": health,
-    }
+        bg = (hz.get("zoo") or {}).get("background")
+        if bg:
+            payload["background"] = bg
+    except (OSError, ValueError):  # draining (503) / no zoo: no rows
+        pass
+    return payload, samples
 
 
 def total_requests(samples: Dict[str, float]) -> float:

@@ -9,7 +9,7 @@ the step runs on cuda and there is more than one (`_mesh`, the trainers'
 signature train together on a trainer's member axis. NormalizedData
 past `shifu.train.memoryBudgetMB` (or `train.trainOnDisk`) trains
 streamed, members one after another (`train/streaming.py`); the
-co-resident route raises NotImplementedError naming ROADMAP A.14.
+co-resident route raises NotImplementedError naming ROADMAP A.14.5.
 """
 
 from __future__ import annotations
@@ -96,7 +96,7 @@ class TrainProcessor(BasicProcessor):
             )
         if getattr(self, "coresident_cfg", None) is not None:
             raise NotImplementedError(
-                "co-resident NN training is not ported yet: ROADMAP A.14")
+                "co-resident NN training is not ported yet: ROADMAP A.14.5")
         plan = build_norm_plan(mc, self.column_configs)
         norm_json = plan_to_json(plan)
         suffix = self._model_suffix(alg)

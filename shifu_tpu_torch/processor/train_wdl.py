@@ -11,7 +11,7 @@ there is more than one (`parallel.mesh.train_mesh`, rows only: JAX
 NormalizedData or CleanedData past -Dshifu.train.memoryBudgetMB (or
 train.trainOnDisk) trains streamed, members one after another
 (`train/streaming_wdl.py`); the co-resident route waits for ROADMAP
-A.14.
+A.14.5.
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ def train_wdl_models(proc) -> None:
                          "run `shifu norm` before WDL training")
     if getattr(proc, "coresident_cfg", None) is not None:
         raise NotImplementedError(
-            "co-resident WDL training is not ported yet: ROADMAP A.14")
+            "co-resident WDL training is not ported yet: ROADMAP A.14.5")
     if (should_stream_training(norm_dir,
                                force_attr=bool(mc.train.train_on_disk))
             or should_stream_training(codes_dir)):

@@ -38,11 +38,14 @@ Examples::
   * `device_dead@replica=1` — serving replica 1's dispatches fail
     persistently: its breaker opens and its requests fail over.
 
+  * `lease_stall:ms=800` — every heartbeat-lease renewal stalls 800 ms
+    (a wedged process whose lease expires while it keeps running).
+  * `peer_kill@lease=5` — SIGKILL this process at its 5th lease
+    heartbeat (a serve process dying mid promotion round).
+
 The `device` seam is every profile dispatch (`obs/profile.py`
-`dispatch`), retried under `shifu.retry.device.*`. The `lease_stall` /
-`peer_kill` seams (the heartbeat leases, `resilience/lease.py` in the JAX
-package) have no seam in the port yet: a clause naming one raises
-`FaultSpecError` naming ROADMAP A.14 at parse, never arms silently.
+`dispatch`), retried under `shifu.retry.device.*`; the `lease` counter
+is the heartbeat of `serve/peers.py` (`resilience/lease.py`).
 
 Each seam calls `fault_point(counter)`; a scheduled clause fires when the
 1-based per-process event count reaches N, so a resumed run counts only
@@ -57,6 +60,7 @@ firing seam carried a replica context) and every absorbed fault
 
 from __future__ import annotations
 
+import os
 import signal
 import time
 import zlib
@@ -74,10 +78,6 @@ FAULTS_PROPERTY = "shifu.faults"
 
 SEAMS = ("io", "prefetch", "device", "ckpt", "serve", "preempt", "slow",
          "device_dead", "lease_stall", "peer_kill")
-# seams the port does not reach yet, and the ROADMAP item that adds each
-UNREACHED = {"lease_stall": "A.14 (resilience/lease.py heartbeats)",
-             "peer_kill": "A.14 (resilience/lease.py heartbeats)"}
-
 # seams that sleep instead of raising (latency injection)
 SLEEP_SEAMS = ("slow", "lease_stall")
 # seams whose bare clause means "always", not the probabilistic default
@@ -210,10 +210,6 @@ def _parse_clause(text: str) -> FaultClause:
             raise FaultSpecError(f"'{text}': bad value for '{k}': {v}")
     if not 0.0 <= p <= 1.0:
         raise FaultSpecError(f"'{text}': p must be in [0, 1]")
-    if seam in UNREACHED:
-        raise FaultSpecError(
-            f"'{text}': the '{seam}' seam is not ported yet (ROADMAP "
-            f"{UNREACHED[seam]}); the clause would never fire")
     return FaultClause(seam, counter.strip(), at, p, seed, ms, max_firings,
                        replica=replica)
 
@@ -236,12 +232,13 @@ class FaultPlan:
     def fire(self, counter: str, index: Optional[int] = None,
              replica: Optional[int] = None) -> None:
         """Evaluate every clause listening on `counter` for this event:
-        raise InjectedFaultError / PreemptionError, or sleep (the sleep
-        seams). Only one raising clause acts an event (preempt before a
-        transient fault); `fired` budgets are charged only on clauses
-        that act, so a preempt sharing a counter with a probabilistic
-        clause is deferred, not consumed. Every due sleep clause sleeps."""
-        severity = {"preempt": 1}
+        raise InjectedFaultError / PreemptionError, sleep (the sleep
+        seams), or SIGKILL the process (peer_kill). Only one raising
+        clause acts an event (peer_kill, then preempt, then a transient
+        fault); `fired` budgets are charged only on clauses that act, so
+        a preempt sharing a counter with a probabilistic clause is
+        deferred, not consumed. Every due sleep clause sleeps."""
+        severity = {"peer_kill": 0, "preempt": 1}
         with self._lock:
             if index is not None:
                 ordinal = index + 1
@@ -268,6 +265,11 @@ class FaultPlan:
             if c.seam in SLEEP_SEAMS:
                 time.sleep(c.ms / 1000.0)
                 continue
+            if c.seam == "peer_kill":
+                log.warning("fault injection: SIGKILL self at %s event %d",
+                            counter, ordinal)
+                os.kill(os.getpid(), signal.SIGKILL)
+                continue  # unreachable after SIGKILL
             if c.seam == "preempt":
                 log.warning("fault injection: preempting at %s event %d",
                             counter, ordinal)

@@ -225,7 +225,8 @@ class MicroBatcher:
                  batching: Optional[str] = None,
                  breaker=None, replica: Optional[int] = None,
                  observer: Optional[Callable[[ColumnarData, ScoreResult],
-                                             None]] = None) -> None:
+                                             None]] = None,
+                 labels: Optional[dict] = None) -> None:
         self.score_fn = score_fn
         self.observer = observer
         self.admission = admission
@@ -233,7 +234,11 @@ class MicroBatcher:
         # the replica index the fleet passes: the `serve.dispatch` seam's
         # context, so `seam@replica=N` clauses target this batcher
         self.replica = replica
-        self.labels = {} if replica is None else {"replica": str(replica)}
+        # identity labels ({"tenant": ...} in a model zoo) ride under the
+        # replica label on every serve.* series this batcher records
+        self.labels = dict(labels or {})
+        if replica is not None:
+            self.labels["replica"] = str(replica)
         # the fleet's failover hook, set by ReplicaFleet: (request, error)
         # -> replay on a healthy replica or fail under the budget. None:
         # fail directly

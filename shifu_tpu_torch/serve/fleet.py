@@ -30,7 +30,13 @@ Routing, failover and the replica count record `serve.router.*`,
 `serve.stage_seconds{stage=,replica=}` histograms and counts it against
 the SLO. The observer (the server's traffic log, shadow scoring and
 drift checks) runs on each replica's batcher after the batch's answers.
-What waits for ROADMAP A.14.4: the model zoo's hooks.
+
+The model zoo (serve/zoo.py) builds one fleet a tenant: `build(tenant=)`
+puts `{"tenant": set}` on every label of the fleet's stack, `put_hook`
+streams each replica's weight groups through the zoo's budget ledger
+(`stage(put_hook=)` a candidate's), `cost_hook` re-prices a tenant after
+a new row bucket, `memory_analysis()` sums the replicas' prices and
+`release()` drops their tensors on eviction.
 """
 
 from __future__ import annotations
@@ -123,10 +129,13 @@ class ScoringReplica:
                  deadline_ms: Optional[float] = None,
                  batching: Optional[str] = None,
                  queue_depth: Optional[int] = None,
-                 observer: Optional[Callable] = None) -> None:
+                 observer: Optional[Callable] = None,
+                 labels: Optional[dict] = None) -> None:
         self.index = int(index)
         self.name = str(self.index)
-        self.labels = {"replica": self.name}
+        # extra identity labels (the zoo's {"tenant": set}) ride under the
+        # replica label on every serve.* series of this replica's stack
+        self.labels = {**dict(labels or {}), "replica": self.name}
         self.registry = registry
         self.device = getattr(registry, "device", None)
         self.admission = (AdmissionQueue(queue_depth, labels=self.labels)
@@ -145,7 +154,7 @@ class ScoringReplica:
             health=self.health, max_restarts=max_restarts,
             deadline_ms=deadline_ms, batching=batching,
             breaker=self.breaker, replica=self.index,
-            observer=batch_observer)
+            observer=batch_observer, labels=labels)
 
     def snapshot(self) -> dict:
         snap = {
@@ -279,15 +288,19 @@ class ReplicaFleet:
     registry facade the server reads (`sha`, `model_names`, `fused`,
     `input_columns`, `score_records`, `warm`, `snapshot`)."""
 
-    def __init__(self, replicas: Sequence[ScoringReplica]) -> None:
+    def __init__(self, replicas: Sequence[ScoringReplica],
+                 labels: Optional[dict] = None) -> None:
         if not replicas:
             raise ValueError("a fleet needs at least one replica")
         self.replicas = list(replicas)
         self.router = DrainAwareRouter(self.replicas)
+        # fleet identity labels ({"tenant": set} in a zoo) ride the
+        # fleet-level series (serve.replicas, SLO, stage histograms)
+        self.labels = dict(labels or {})
         # fleet-level health (shutdown); per-replica crash state lives on
         # each replica's monitor and rolls up in health_snapshot()
         self.health = HealthMonitor()
-        self.slo = SloTracker()
+        self.slo = SloTracker(labels=self.labels)
         self.failover_max = failover_max_setting()
         self.failovers = 0
         self.failovers_exhausted = 0
@@ -298,7 +311,8 @@ class ReplicaFleet:
             rep.batcher.failover = (
                 lambda req, error, _src=rep:
                 self._failover(_src, req, error))
-        registry().gauge("serve.replicas").set(len(self.replicas))
+        registry().gauge("serve.replicas", **self.labels).set(
+            len(self.replicas))
 
     def _failover(self, src: ScoringReplica, req: ScoreRequest,
                   error: BaseException) -> None:
@@ -340,40 +354,50 @@ class ReplicaFleet:
               batching: Optional[str] = None,
               drift=None, column_configs=None,
               model_config=None,
-              observer: Optional[Callable] = None) -> "ReplicaFleet":
+              observer: Optional[Callable] = None,
+              tenant: Optional[str] = None,
+              put_hook=None, cost_hook=None) -> "ReplicaFleet":
         """One replica per card (see `replica_devices`), each with the
         model set on its own device behind a SwappableRegistry.
         `device=None` is the card; `drift` (one monitor) folds every
         replica's batches; `observer(replica, data, result)` runs after
-        each batch's answers."""
+        each batch's answers. `tenant` labels every series of the
+        fleet's stack; `put_hook` and `cost_hook` are the zoo's ledger
+        seams (serve/registry.py)."""
         from shifu_tpu_torch.loop.hotswap import SwappableRegistry
 
         devices = replica_devices(n_replicas, device)
+        extra = {"tenant": tenant} if tenant else {}
         replicas: List[ScoringReplica] = []
         try:
             for i, dev in enumerate(devices):
-                labels = {"replica": str(i)}
+                labels = {**extra, "replica": str(i)}
                 reg = ModelRegistry(models_dir, scale=scale, device=dev,
                                     column_configs=column_configs,
                                     model_config=model_config,
-                                    drift=drift, labels=labels)
+                                    drift=drift, labels=labels,
+                                    put_hook=put_hook)
+                reg.cost_hook = cost_hook
                 replicas.append(ScoringReplica(
                     SwappableRegistry(reg, labels=labels), index=i,
                     queue_depth=queue_depth,
                     max_batch_rows=max_batch_rows,
                     max_wait_ms=max_wait_ms, max_restarts=max_restarts,
                     deadline_ms=deadline_ms, batching=batching,
-                    observer=observer))
+                    observer=observer, labels=extra))
         except BaseException:
-            # a later replica failing must not leak the earlier ones'
-            # worker threads
+            # a later replica failing (the zoo's budget refusing a group)
+            # must not leak the earlier ones' worker threads or tensors:
+            # the caller releases its ledger charge on this exception
             for rep in replicas:
                 rep.admission.close()
                 rep.batcher.join(1.0)
+                rep.registry.release()
             raise
-        log.info("serving fleet: %d replica(s) over %d device(s)",
-                 len(replicas), len(set(devices)))
-        return cls(replicas)
+        log.info("serving fleet%s: %d replica(s) over %d device(s)",
+                 f" (tenant {tenant})" if tenant else "", len(replicas),
+                 len(set(devices)))
+        return cls(replicas, labels=extra)
 
     def __len__(self) -> int:
         return len(self.replicas)
@@ -427,8 +451,8 @@ class ReplicaFleet:
         exemplar = trace.trace_id if kept else None
         for stage, dur in trace.stage_totals().items():
             reg.histogram("serve.stage_seconds", buckets=LATENCY_BUCKETS,
-                          stage=stage, replica=replica).observe(
-                dur, exemplar=exemplar)
+                          stage=stage, replica=replica,
+                          **self.labels).observe(dur, exemplar=exemplar)
         # `status` is set only by the error paths: such a request got no
         # score, so it counts BAD whatever its latency
         self.slo.observe(total,
@@ -451,6 +475,17 @@ class ReplicaFleet:
     @property
     def input_columns(self) -> List[str]:
         return self.replicas[0].registry.input_columns
+
+    @property
+    def active_models_dir(self) -> str:
+        """Dir of the version serving now (replica 0; the pre-roll sha
+        check keeps the replicas on one version): what an evicting zoo
+        remembers so re-admission rebuilds the promoted set."""
+        return self.replicas[0].registry.active_models_dir
+
+    def score_raw(self, data: ColumnarData) -> ScoreResult:
+        """Routed scoring of one raw batch (blocks for the result)."""
+        return self.submit(data).wait()
 
     def score_records(self, records: Sequence[dict]) -> ScoreResult:
         """Direct scoring on replica 0, not routed: the parity path."""
@@ -538,16 +573,18 @@ class ReplicaFleet:
                 self._ctl_busy = None
 
     def stage(self, models_dir: str, column_configs=None,
-              model_config=None, drift=None) -> Optional[dict]:
+              model_config=None, drift=None,
+              put_hook=None) -> Optional[dict]:
         """Stage + warm the candidate as the shadow on EVERY replica
         (each loads it onto its own device). Returns the merged shadow
         snapshot. Refused while another rollout operation is in
-        flight."""
+        flight. `put_hook` streams the candidate's weight groups through
+        the zoo's ledger (SwappableRegistry.stage)."""
         with self._control("stage"):
             staged = [rep.registry.stage(models_dir,
                                          column_configs=column_configs,
                                          model_config=model_config,
-                                         drift=drift)
+                                         drift=drift, put_hook=put_hook)
                       for rep in self.replicas]
             shas = {st["sha"] for st in staged}
             if len(shas) != 1:  # same dir: only a mid-stage redeploy
@@ -636,6 +673,23 @@ class ReplicaFleet:
             return {"from": steps[0]["from"], "to": sha,
                     "replicas": len(steps), "steps": steps,
                     "shadow": shadow}
+
+    def memory_analysis(self) -> dict:
+        """The fleet's residency price: each replica's registry
+        `memory_analysis` (active and staged shadow), summed: the budget
+        bounds the deployment's total."""
+        per = []
+        total = 0
+        for rep in self.replicas:
+            m = rep.registry.memory_analysis()
+            per.append({"replica": rep.name, **m})
+            total += int(m.get("residentBytes", 0))
+        return {"replicas": per, "residentBytes": total}
+
+    def release(self) -> int:
+        """Eviction seam (zoo): release every replica's registries, their
+        device tensors dropped. Call after close()."""
+        return sum(rep.registry.release() for rep in self.replicas)
 
     def snapshot(self) -> dict:
         """Replica 0's registry view, every replica's stack, the router

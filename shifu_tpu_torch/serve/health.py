@@ -15,9 +15,10 @@ circuit breaker and the latency SLO tracker (counterpart of
 Transitions are monotone toward draining. Each transition counts in the
 obs registry (`serve.health.transitions`, `serve.breaker.transitions`,
 `serve.breaker.open`, `serve.breaker.trips`, `serve.slo.good/bad`,
-labeled by replica where the JAX package labels them), and the locks are
-race-tracked (`tracked_lock`, `-Dshifu.sanitize=race`). The per-tenant
-SLO settings wait with the model zoo (ROADMAP A.14.4).
+labeled by replica where the JAX package labels them, and by tenant in a
+model zoo), and the locks are race-tracked (`tracked_lock`,
+`-Dshifu.sanitize=race`). A zoo tenant's SLO tracker reads its own
+`shifu.serve.slo.<tenant>.ms` / `.target` first.
 """
 
 from __future__ import annotations
@@ -94,6 +95,20 @@ def slo_target_setting() -> float:
                                  DEFAULT_SLO_TARGET)
 
 
+def tenant_slo_ms(tenant: str) -> float:
+    """Per-tenant SLO threshold: shifu.serve.slo.<tenant>.ms, falling
+    back to the fleet-wide shifu.serve.sloMs."""
+    return environment.get_float(f"shifu.serve.slo.{tenant}.ms",
+                                 slo_ms_setting())
+
+
+def tenant_slo_target(tenant: str) -> float:
+    """Per-tenant objective: shifu.serve.slo.<tenant>.target, falling
+    back to shifu.serve.sloTarget."""
+    return environment.get_float(f"shifu.serve.slo.{tenant}.target",
+                                 slo_target_setting())
+
+
 def backoff_window_ms(base_ms: float, cap_ms: float, attempt: int) -> float:
     """The capped exponential backoff window of attempt `attempt`
     (1-based; the JAX package's `resilience/retry.py` formula)."""
@@ -105,16 +120,24 @@ class SloTracker:
     """Good/bad SLO accounting and burn rate over a rolling window. A
     request is good when its latency meets `shifu.serve.sloMs`;
     `burn_rate()` is the bad fraction over the window divided by the
-    error budget (1 - target)."""
+    error budget (1 - target). `labels` ({"tenant": ...} in a zoo) ride
+    the serve.slo.* series, and a tenant's tracker resolves its own
+    settings first."""
 
     def __init__(self, slo_ms: Optional[float] = None,
                  target: Optional[float] = None,
-                 window_s: float = DEFAULT_SLO_WINDOW_S) -> None:
-        self.slo_ms = float(slo_ms_setting() if slo_ms is None else slo_ms)
+                 window_s: float = DEFAULT_SLO_WINDOW_S,
+                 labels: Optional[dict] = None) -> None:
+        tenant = (labels or {}).get("tenant")
+        if slo_ms is None:
+            slo_ms = tenant_slo_ms(tenant) if tenant else slo_ms_setting()
+        self.slo_ms = float(slo_ms)
         if target is None:
-            target = slo_target_setting()
+            target = (tenant_slo_target(tenant) if tenant
+                      else slo_target_setting())
         self.target = min(max(float(target), 0.0), 0.9999)
         self.window_s = float(window_s)
+        self.labels = dict(labels or {})
         self._lock = tracked_lock("serve.slo")
         self._events: deque = deque(maxlen=SLO_WINDOW_EVENTS)
         self._good = 0
@@ -138,7 +161,8 @@ class SloTracker:
                 self._good += 1
             else:
                 self._bad += 1
-        registry().counter("serve.slo.good" if ok else "serve.slo.bad").inc()
+        registry().counter("serve.slo.good" if ok else "serve.slo.bad",
+                           **self.labels).inc()
 
     def burn_rate(self, now: Optional[float] = None) -> float:
         """Bad fraction over the rolling window / (1 - target); exported
@@ -155,7 +179,7 @@ class SloTracker:
         else:
             bad = sum(1 for ok in recent if not ok)
             rate = (bad / len(recent)) / max(1e-9, 1.0 - self.target)
-        registry().gauge("serve.slo.burn_rate").set(rate)
+        registry().gauge("serve.slo.burn_rate", **self.labels).set(rate)
         return rate
 
     def snapshot(self) -> dict:

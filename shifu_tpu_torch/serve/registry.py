@@ -45,12 +45,23 @@ device window after the forward pass (no extra copy either way); the
 fallback folds on the host (`fold_host`). `drift_live` gates the fold:
 `warm()`'s synthetic rows never fold, and a staged shadow registry
 shares the monitor without double-counting the batches it re-scores.
-What waits for ROADMAP A.14.4: the model zoo's seams (put/cost hooks,
-memory analysis, release).
+The model zoo's seams (serve/zoo.py): `put_hook(nbytes)` fires before
+each group of tensors goes to the device (each plan's constants, each
+layer's W and b, the drift constants; a fallback set's weights as one
+piece), so the zoo's budget ledger admits a set group by group;
+`cost_hook()` fires after a batch that ran a new row bucket;
+`memory_analysis()` prices the registry's residency; `release()` drops
+its tensors (eviction). The JAX registry prices its compiled programs
+from XLA's `memory_analysis()`; this registry runs eagerly, so there is
+no compiled program to ask: `programPeakBytes` is counted from the
+tensors that the torch calls of the fused function's first call at a
+bucket return (`program_bytes`, `costSource: "analytic"`), by shape and
+dtype; the allocator, whose peak is device-wide, is never read.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -61,6 +72,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 from shifu_tpu_torch.data.reader import ColumnarData, flat_numeric_matrix
 from shifu_tpu_torch.eval.scorer import (
@@ -86,6 +98,69 @@ def bucket_rows(n: int, minimum: int = SERVE_MIN_ROW_BUCKET) -> int:
     if n <= minimum:
         return minimum
     return 1 << int(n - 1).bit_length()
+
+
+# the caching allocator's block: every device allocation is a multiple
+ALLOC_BLOCK_BYTES = 512
+
+
+def _block(nbytes: int) -> int:
+    """`nbytes` rounded up to the caching allocator's block (0 stays 0)."""
+    return -(-int(nbytes) // ALLOC_BLOCK_BYTES) * ALLOC_BLOCK_BYTES
+
+
+class _CountAllocs(TorchFunctionMode):
+    """Counts the bytes that the torch calls run under it return new:
+    each result whose storage is none of its call's inputs' (a view or
+    an in-place result is not new), rounded up to the allocator's block,
+    as if none were freed before the count is read. A temporary inside
+    one call (the reciprocal behind `1.0 / x`) is not seen. The mode is
+    this thread's only: another thread's scoring does not enter it."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.nbytes = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        inputs = {t.untyped_storage().data_ptr()
+                  for t in _buffers((args, kwargs))
+                  if isinstance(t, torch.Tensor)}
+        for t in _buffers(out):
+            if isinstance(t, torch.Tensor) \
+                    and t.untyped_storage().data_ptr() not in inputs:
+                self.nbytes += _block(t.untyped_storage().nbytes())
+        return out
+
+
+def _ndarray_nbytes(obj) -> int:
+    """Total bytes of the numpy arrays and tensors reachable under `obj`
+    (lists, tuples, dicts and dataclass fields walked)."""
+    return sum(int(a.nbytes) if isinstance(a, np.ndarray)
+               else int(a.numel() * a.element_size()) for a in _buffers(obj))
+
+
+def _spec_weight_bytes(spec) -> int:
+    """One spec's weight bytes: its params tree, or (trees, adapters)
+    every array reachable on the spec. One definition for the
+    registration-time estimate and the fallback's resident charge."""
+    n = _ndarray_nbytes(getattr(spec, "params", None))
+    if not n and hasattr(spec, "__dict__"):
+        n = _ndarray_nbytes(vars(spec))
+    return n
+
+
+def estimate_weights_bytes(models_dir: str, column_configs=None,
+                           model_config=None) -> int:
+    """Weight-byte estimate of a model set, its specs loaded on the CPU
+    (no device work): what `serve/zoo.py` prices a tenant at before
+    admission decides whether it can ever be resident."""
+    paths = find_model_paths(models_dir)
+    if not paths:
+        raise ValueError(f"no models under {models_dir}")
+    return sum(_spec_weight_bytes(load_model(p, column_configs,
+                                             model_config, device="cpu"))
+               for p in paths)
 
 
 def model_set_sha(paths: Sequence[str]) -> str:
@@ -206,7 +281,7 @@ class _PlanConsts:
     operands, the padded tables, the one-hot widths, and the column
     order that puts the pieces back in spec order."""
 
-    def __init__(self, plan, device: torch.device) -> None:
+    def __init__(self, plan, device: torch.device, put_hook=None) -> None:
         from shifu_tpu_torch.norm.normalizer import value_params
 
         value_specs = [s for s in plan.specs if s.kind == "value"]
@@ -215,7 +290,10 @@ class _PlanConsts:
         self.nbytes = 0
 
         def put(a) -> torch.Tensor:
-            t = torch.as_tensor(np.ascontiguousarray(a), device=device)
+            a = np.ascontiguousarray(a)
+            if put_hook is not None:  # the ledger acquires first
+                put_hook(int(a.nbytes))
+            t = torch.as_tensor(a, device=device)
             self.nbytes += int(t.numel() * t.element_size())
             return t
 
@@ -227,6 +305,8 @@ class _PlanConsts:
                 np.asarray([1.0 if s.zscore else 0.0 for s in value_specs],
                            np.float32),
                 plan.cutoff)]
+        self.n_table = len(table_specs)
+        self.n_out = plan.n_out
         self.tables = None
         self.tab_positions = None
         if table_specs:
@@ -301,14 +381,21 @@ class ModelRegistry:
     buffers. `device=None` is the card. `timings` holds the last batch's
     featurize, device and d2h seconds; `transfers` counts the staging
     copies to the device and the result copies back. `labels` (the fleet
-    passes {"replica": "<i>"}) ride its `serve.score.rows` counter."""
+    passes {"replica": "<i>"}, and a zoo {"tenant": ...} too) ride its
+    `serve.score.rows` counter. `put_hook` and `cost_hook` are the zoo's
+    seams (module docstring)."""
 
     def __init__(self, models_dir: str,
                  scale: float = DEFAULT_SCORE_SCALE,
                  device: DeviceLike = None,
                  drift=None, column_configs=None,
-                 model_config=None, labels: Optional[dict] = None) -> None:
+                 model_config=None, labels: Optional[dict] = None,
+                 put_hook=None) -> None:
         self.labels = dict(labels or {})
+        self._put_hook = put_hook
+        self.cost_hook = None
+        self._released = False
+        self._program_bytes: Dict[int, int] = {}
         self.models_dir = models_dir
         self.paths = find_model_paths(models_dir)
         if not self.paths:
@@ -335,13 +422,16 @@ class ModelRegistry:
         if self.fused:
             self._build_fused()
         else:
+            self.weights_bytes = sum(_spec_weight_bytes(s)
+                                     for s in self.specs)
+            if put_hook is not None:
+                # the fallback's runner loads in one piece: the ledger
+                # sees its whole cost, just not streamed
+                put_hook(self.weights_bytes)
             self._runner = ModelRunner(self.paths, scale=scale,
                                        device=self.device,
                                        column_configs=column_configs,
                                        model_config=model_config)
-            self.weights_bytes = sum(
-                int(a.nbytes) for s in self.specs
-                for a in _arrays(vars(s)))
             self.model_widths: List[int] = []  # known at the first score
         self.input_columns = self._input_columns()
         log.info("registry %s: %d models, %s (%d input columns) on %s",
@@ -376,17 +466,21 @@ class ModelRegistry:
                 self._plans.append(plan)
                 self._featurizers.append(_PlanFeaturizer(plan))
             plan_idx.append(keys.index(key))
-        consts = [_PlanConsts(p, dev) for p in self._plans]
-        params = []
-        for spec in self.specs:
-            layers = []
-            for layer in spec.params:
-                w = torch.as_tensor(np.asarray(layer["W"], np.float32),
-                                    device=dev)
-                b = torch.as_tensor(np.asarray(layer["b"], np.float32),
-                                    device=dev)
-                layers.append({"W": w, "b": b})
-            params.append(layers)
+        hook = self._put_hook
+
+        def put_group(a) -> torch.Tensor:
+            """One weight group to the device, the ledger's acquire
+            first: residency never runs ahead of the budget."""
+            a = np.ascontiguousarray(np.asarray(a, np.float32))
+            if hook is not None:
+                hook(int(a.nbytes))
+            return torch.as_tensor(a, device=dev)
+
+        consts = [_PlanConsts(p, dev, put_hook=hook) for p in self._plans]
+        self._consts = consts
+        params = [[{"W": put_group(layer["W"]), "b": put_group(layer["b"])}
+                   for layer in spec.params] for spec in self.specs]
+        self._params = params
         self.weights_bytes = (
             sum(c.nbytes for c in consts)
             + sum(int(t.numel() * 4) for layers in params for layer in layers
@@ -405,15 +499,20 @@ class ModelRegistry:
         self._drift_slices = None
         if drift is not None:
             # the monitor is fleet-shared; ITS constants live on THIS
-            # replica's device
-            drift_consts = drift.device_consts(dev)
-            self.weights_bytes += sum(int(t.numel() * t.element_size())
-                                      for t in drift_consts.values())
+            # replica's device (counted on the host, then moved)
+            host_consts = drift.device_consts()
+            nbytes = sum(int(t.numel() * t.element_size())
+                         for t in host_consts.values())
+            if hook is not None:
+                hook(nbytes)
+            drift_consts = {k: t.to(dev) for k, t in host_consts.items()}
+            self.weights_bytes += nbytes
             nv, nc = len(drift.numeric_cols), len(drift.coded_cols)
             self._drift_slices = ((off, off + nv), (off + nv, off + nv + nc),
                                   off + nv + nc)  # last: the valid column
             off += nv + nc + 1
         self._staging_cols = off
+        self._drift_consts = drift_consts
         slices = self._slices
         drift_slices = self._drift_slices
         specs = self.specs
@@ -480,7 +579,25 @@ class ModelRegistry:
 
     def score_raw(self, data: ColumnarData) -> ScoreResult:
         """Raw batch -> ScoreResult: padded to its row bucket, one copy
-        to the device, one back, sliced to the batch's rows."""
+        to the device, one back, sliced to the batch's rows. Raises after
+        `release()` (an evicted tenant's registry)."""
+        if self._released:
+            raise ValueError(
+                f"registry {self.sha} was released (evicted): re-admit "
+                "the tenant before scoring")
+        n = data.n_rows
+        new_bucket = self.bucket(n) not in self._warm_buckets
+        result = self._score_raw(data)
+        if new_bucket and self.cost_hook is not None:
+            # the new bucket's staging exists now: the owner (the zoo's
+            # ledger) re-prices this registry's residency
+            try:
+                self.cost_hook()
+            except Exception as he:  # accounting must not fail scoring
+                log.warning("registry cost hook failed: %s", he)
+        return result
+
+    def _score_raw(self, data: ColumnarData) -> ScoreResult:
         n = data.n_rows
         if not self.fused:
             t0 = time.perf_counter()
@@ -523,6 +640,9 @@ class ModelRegistry:
                 window, drift_gen = self._drift_window()
             args = () if window is None else (window,)
             cuda = self.device.type == "cuda"
+            # a bucket's first call counts what the program allocates
+            count = (None if bucket in self._program_bytes
+                     else _CountAllocs())
             with torch.inference_mode():
                 if cuda:
                     with torch.cuda.device(self.device):
@@ -530,9 +650,10 @@ class ModelRegistry:
                         t_dev = time.perf_counter()
                         # the seam synchronizes the card before its clock
                         # stops (sync=True): the device stage's end
-                        out = profile.dispatch("serve.fused_score",
-                                               self._program, x, *args,
-                                               sync=True)
+                        with count or contextlib.nullcontext():
+                            out = profile.dispatch(
+                                "serve.fused_score", self._program, x,
+                                *args, sync=True)
                         t_d2h = time.perf_counter()
                         if window is not None:
                             out, window = out
@@ -540,13 +661,16 @@ class ModelRegistry:
                 else:
                     x = st.host  # a view of `buf`, used only in this call
                     t_dev = time.perf_counter()
-                    out = profile.dispatch("serve.fused_score",
-                                           self._program, x, *args,
-                                           sync=True)
+                    with count or contextlib.nullcontext():
+                        out = profile.dispatch("serve.fused_score",
+                                               self._program, x, *args,
+                                               sync=True)
                     t_d2h = time.perf_counter()
                     if window is not None:
                         out, window = out
                     host = out
+            if count is not None:
+                self._program_bytes[bucket] = count.nbytes
             if drift_gen is not None:  # a live fold: adopt its window
                 self.drift.note_window(window, n, gen=drift_gen,
                                        device=self.device,
@@ -592,6 +716,64 @@ class ModelRegistry:
             self.transfers["d2h"] += 1
         self.timings = timings
 
+    def program_bytes(self, bucket: int) -> int:
+        """Device bytes that one call of the fused function at `bucket`
+        rows allocates, counted on the bucket's first call: every tensor
+        its torch calls return new, each rounded up to the allocator's
+        block, as if none were freed before it returns (a bound of its
+        widest point that phase 19 of chip_smoke.py checks on the card). 0 for a bucket not run yet and for the fallback. The
+        staging buffer and the resident drift window are not in it:
+        `stagingBytes` and the weights hold them."""
+        return self._program_bytes.get(int(bucket), 0)
+
+    def memory_analysis(self) -> dict:
+        """The zoo ledger's price of this registry's residency:
+        `weightsBytes` (every tensor it put on the device), `programs`
+        (the analytic `program_bytes` of each warm bucket),
+        `stagingBytes` (each warm bucket's staging buffer on the device:
+        the device copy on cuda, the buffer itself on the CPU; the
+        pinned host buffer is `hostStagingBytes`, not charged) and
+        `residentBytes` = weights + the widest program + staging."""
+        with self._lock:
+            buckets = sorted(self._warm_buckets)
+            staging = list(self._staging.values())
+        programs = [{"bucket": b, "peakBytes": self.program_bytes(b),
+                     "costSource": "analytic"} for b in buckets
+                    if self.fused]
+        peak = max((p["peakBytes"] for p in programs), default=0)
+        dev = sum(_block(st.nbytes) for st in staging)
+        host = sum(st.nbytes for st in staging if st.dev is not None)
+        return {
+            "weightsBytes": int(self.weights_bytes),
+            "programs": programs,
+            "programPeakBytes": int(peak),
+            "stagingBytes": int(dev),
+            "hostStagingBytes": int(host),
+            "residentBytes": int(self.weights_bytes + peak + dev),
+        }
+
+    def release(self) -> int:
+        """Eviction seam (the fleet already drained): drop this
+        registry's device tensors (weights, constants, staging, the dead
+        drift window, its drift windows folded to the host first) so
+        they free once an in-flight batch lets go; later scores raise.
+        Returns the buckets dropped."""
+        if self.drift is not None and self.drift_live:
+            self.drift.flush()  # its device windows go to the host fold
+        with self._lock:
+            dropped = len(self._staging)
+            self._released = True
+            self._staging = {}
+            self._drift_dead_window = None
+            if self.fused:
+                self._program = None
+                self._consts = []
+                self._params = []
+                self._drift_consts = None
+            self._runner = None
+            self.specs = []
+        return dropped
+
     def snapshot(self) -> dict:
         """Registry state: the buckets run (the shape bound), transfers,
         the last batch's host split."""
@@ -630,15 +812,15 @@ def _aggregates(m: torch.Tensor) -> List[torch.Tensor]:
     return [m.mean(dim=1), m.amax(dim=1), m.amin(dim=1), med]
 
 
-def _arrays(obj) -> List[np.ndarray]:
-    """Every numpy array reachable under `obj` (lists, tuples, dicts,
-    dataclass fields such as a WDL spec's params)."""
-    if isinstance(obj, np.ndarray):
+def _buffers(obj) -> list:
+    """Every numpy array and tensor reachable under `obj` (lists, tuples,
+    dicts, dataclass fields such as a WDL spec's params)."""
+    if isinstance(obj, (np.ndarray, torch.Tensor)):
         return [obj]
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return _arrays(vars(obj))
+        return _buffers(vars(obj))
     if isinstance(obj, dict):
-        return [a for v in obj.values() for a in _arrays(v)]
+        return [a for v in obj.values() for a in _buffers(v)]
     if isinstance(obj, (list, tuple)):
-        return [a for v in obj for a in _arrays(v)]
+        return [a for v in obj for a in _buffers(v)]
     return []

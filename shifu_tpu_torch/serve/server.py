@@ -1,5 +1,5 @@
 """`shifu serve` front end: a stdlib HTTP server and the in-process Scorer
-(counterpart of `shifu_tpu/serve/server.py`, single-tenant).
+(counterpart of `shifu_tpu/serve/server.py`).
 
   POST /score    {"records": [{col: value, ...}, ...]}, a list of
                  records, one bare record, JSONL (one record a line), or
@@ -10,22 +10,33 @@
                  length (or a binary body past shifu.serve.wire.maxBodyMB),
                  415 on another Content-Type, 429 with Retry-After on
                  shed, 503 on shutdown or timeout. Error bodies are JSON.
-  POST /score/<set>  404: this server is single-tenant (the model zoo,
-                 ROADMAP A.14.4).
-  GET  /healthz  200 with the fleet's health, identity and the last
-                 drift verdict; 503 while draining.
+  POST /score/<set>  one tenant of the model zoo (`zoo=`, serve/zoo.py;
+                 `/score` is its first-registered set): 429 with
+                 Retry-After while a cold tenant is admitted in the
+                 background, 404 for an unknown set or a single-tenant
+                 server.
+  GET  /healthz  200 with the fleet's health, identity, the last drift
+                 verdict, the peer processes and (zoo) the `zoo`
+                 section; 503 while draining.
   GET  /metrics  the obs registry as Prometheus text (obs/metrics.py).
+  GET  /admin/metrics.json  the lossless metrics snapshot a peer's fleet
+                 collector merges (obs/fleetview.py).
+  GET  /fleet/metrics, /fleet/healthz  every serve process under this
+                 root merged: any process answers for the fleet.
   GET  /admin/traces  the retained request traces (obs/reqtrace.py) and
                  the ring's summary.
   GET  /admin/shadow  {"active": sha, "shadow": the staged candidate's
                  merged shadow evidence or null}.
-  POST /admin/stage  {"modelsDir": DIR}: load + warm DIR as the shadow on
-                 every replica (409 on a schema change or a busy fleet).
-  POST /admin/promote  {"sha": SHA}: rolling hot-swap of the staged
-                 shadow (409 when SHA is not the staged one); the sticky
-                 drift degrade clears and the drift monitor resets.
-  /admin/evict (ROADMAP A.14.4), /admin/coresident/* (A.14.5),
-  /admin/metrics.json and /fleet/* (A.14.7)  501 naming the item.
+  POST /admin/stage  {"modelsDir": DIR[, "set": SET]}: load + warm DIR
+                 as the shadow on every replica (409 on a schema change
+                 or a busy fleet); in a zoo streamed through its ledger.
+  POST /admin/promote  {"sha": SHA[, "set": SET]}: rolling hot-swap of
+                 the staged shadow (409 when SHA is not the staged one);
+                 the sticky drift degrade clears and the drift monitor
+                 resets.
+  POST /admin/evict  {"set": SET}: evict a zoo tenant (409 mid-rollout,
+                 with a staged shadow, or on a single-tenant server).
+  /admin/coresident/*  501: co-resident training is ROADMAP A.14.5.
 
 The loop seams (loop/): with a ColumnConfig.json beside the models the
 server builds a `DriftMonitor` whose fold rides every replica's scoring
@@ -39,16 +50,23 @@ Request traces: an inbound `X-Shifu-Trace` header is honored (and forces
 retention), otherwise a trace is kept under `shifu.trace.sample` head
 sampling and `shifu.trace.slowMs` tail capture; the id is echoed in the
 response header. `-Dshifu.obs.snapshotMs` arms the on-disk metrics time
-series (obs/timeseries.py) under the process's solo id.
+series (obs/timeseries.py) under the process's lease id.
+
+Every server holds a heartbeat lease under `.shifu/runs/peers/`
+(serve/peers.py; `-Dshifu.lease.ttlMs=0` turns it off): the processes
+serving one root see each other, a fleet-atomic `shifu promote` drives
+stage, promote and rollback on each through it, and the lease id names
+the process as traffic-log writer, drift reporter and time series.
 
 HTTP handler threads parse and answer; they never touch a tensor: every
 batch is scored on its replica's batcher thread. `Scorer.score_batch` is
 the same admission -> batcher -> registry path without HTTP.
 
-`ScoringServer.shutdown()` closes admission (new requests get 503), the
-batchers drain every admitted request, the listener stops, and the run
-ledger gets a `serve-<seq>.json` manifest with the retained traces
-beside it (`serve-<seq>.traces.json`, read by `shifu trace`).
+`ScoringServer.shutdown()` releases the lease, closes admission (new
+requests get 503), the batchers drain every admitted request, the
+listener stops, and the run ledger gets a `serve-<seq>.json` manifest
+(with the zoo's ledger and the peer view) and the retained traces beside
+it (`serve-<seq>.traces.json`, read by `shifu trace`).
 """
 
 from __future__ import annotations
@@ -70,6 +88,8 @@ from shifu_tpu_torch.serve.batcher import MicroBatcher
 from shifu_tpu_torch.serve.fleet import ReplicaFleet, ScoringReplica
 from shifu_tpu_torch.serve.health import DRAINING
 from shifu_tpu_torch.serve.queue import AdmissionQueue, RejectedError
+from shifu_tpu_torch.serve.zoo import ColdStartError, load_set_configs
+from shifu_tpu_torch.utils.errors import ShifuError
 from shifu_tpu_torch.utils.log import get_logger
 from shifu_tpu_torch.utils.platform import DeviceLike
 
@@ -87,13 +107,8 @@ _JSON_CONTENT_TYPES = frozenset({
 
 # the routes that wait, what each is in the JAX package, and its item
 _NOT_PORTED = (
-    ("/admin/evict", "tenant eviction (the model zoo)", "A.14.4"),
     ("/admin/coresident/", "co-resident training (coresident/)",
      "A.14.5"),
-    ("/admin/metrics.json", "the lossless metrics snapshot a peer's "
-                            "fleet collector reads", "A.14.7"),
-    ("/fleet/", "the fleet-of-processes views (obs/fleetview.py)",
-     "A.14.7"),
 )
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4"
 
@@ -217,28 +232,6 @@ def _all_objects(records: List) -> List[dict]:
     return records
 
 
-def load_set_configs(root: str):
-    """(column configs, model config) of the model set at `root`, each
-    None where its file is absent or malformed: serving degrades to
-    plain scoring, never to a failed start."""
-    from shifu_tpu_torch.config import ModelConfig, load_column_config_list
-
-    ccs = mc = None
-    cc_path = os.path.join(root, "ColumnConfig.json")
-    mc_path = os.path.join(root, "ModelConfig.json")
-    try:
-        if os.path.isfile(cc_path):
-            ccs = load_column_config_list(cc_path)
-    except Exception as e:  # a malformed config degrades, never kills
-        log.warning("cannot load %s (%s)", cc_path, e)
-    try:
-        if os.path.isfile(mc_path):
-            mc = ModelConfig.load(mc_path)
-    except Exception as e:  # a malformed config degrades, never kills
-        log.warning("cannot load %s (%s)", mc_path, e)
-    return ccs, mc
-
-
 class _HTTPServer(ThreadingHTTPServer):
     # the listen backlog: socketserver's default of 5 drops the SYNs of a
     # burst of new connections, which then wait a second to retry
@@ -247,7 +240,10 @@ class _HTTPServer(ThreadingHTTPServer):
 
 
 class ScoringServer:
-    """Fleet + Scorer + HTTP listener. `device=None` is the card."""
+    """Fleet (or model zoo) + Scorer + HTTP listener + heartbeat lease.
+    `device=None` is the card. `zoo` ({name: model-set path}) serves N
+    model sets on one budget (serve/zoo.py); the first-registered one
+    doubles as this server's registry facade."""
 
     def __init__(self, root: str = ".",
                  models_dir: Optional[str] = None,
@@ -260,25 +256,58 @@ class ScoringServer:
                  device: DeviceLike = None,
                  column_configs=None, model_config=None,
                  zoo: Optional[dict] = None) -> None:
-        if zoo:
-            raise NotImplementedError(
-                "the multi-tenant model zoo (serve/zoo.py) is not ported "
-                "yet: ROADMAP A.14.4")
-        import socket
-
         from shifu_tpu_torch.loop import (drift_check_batches_setting,
                                           log_sample_setting)
-        from shifu_tpu_torch.loop.drift import DriftMonitor
         from shifu_tpu_torch.loop.traffic import TrafficLog, traffic_columns
 
         self.root = os.path.abspath(root)
-        # the process's id in the ledger (recommendation reporter, metrics
-        # time series): without leases (ROADMAP A.14.7) a solo id, as a
-        # lease-less JAX server
-        self.lease_id = f"{socket.gethostname()}-{os.getpid()}-solo"
+        # the process's id in the ledger, until the lease names it
+        self.lease_id = ""
         self._observe_lock = tracked_lock("serve.server.observe")
         self._observed_batches = 0
         self._last_drift_verdict: Optional[dict] = None
+        self._drift_check_every = max(1, drift_check_batches_setting())
+        self.zoo = None
+        self.traffic: Optional[TrafficLog] = None
+        self.drift = None
+        if zoo:
+            # N model sets behind this server on one budget: per-tenant
+            # drift, traffic streams and shadows live in the zoo; the
+            # default (first-registered) tenant is the registry facade
+            # (/healthz identity, peers, manifests)
+            from shifu_tpu_torch.serve.zoo import ModelZoo
+
+            self.zoo = ModelZoo(
+                self.root, n_replicas=replicas, queue_depth=queue_depth,
+                max_batch_rows=max_batch_rows, max_wait_ms=max_wait_ms,
+                batching=batching, device=device)
+            try:
+                for name, set_path in zoo.items():
+                    self.zoo.register(name, set_path)
+                default = self.zoo.default_tenant
+                # the default tenant must fit; later ones admit in
+                # registration order into FREE budget only (evict=False:
+                # only scored demand earns an eviction) and stay cold
+                # past it
+                self.zoo.ensure_resident(default)
+                for name in list(zoo):
+                    if name == default:
+                        continue
+                    try:
+                        self.zoo.ensure_resident(name, evict=False)
+                    except Exception as e:  # past-budget: stays cold
+                        log.info("zoo: tenant %s stays cold at startup "
+                                 "(%s)", name, e)
+            except BaseException:
+                self.zoo.close(5.0)
+                raise
+            tenant = self.zoo._get(default)
+            self.column_configs = tenant.column_configs
+            self.model_config = tenant.model_config
+            self._registry = self.zoo.fleet_of(default)
+            self._scorer = tenant.scorer
+            self._finish_init(host, port)
+            return
         # the set's configs give an Encog EG-text model its norm plan; a
         # models_dir outside a model set still serves without them
         if column_configs is None or model_config is None:
@@ -289,27 +318,19 @@ class ScoringServer:
         self.model_config = model_config
         models_dir = models_dir or os.path.join(self.root, "models")
         # the drift baseline is the set's ColumnConfig (bins + counts),
-        # over the columns the models read: a column varsel dropped is
-        # not in the requests (the JAX server watches every binned column
-        # and fails each batch on such a set: ROADMAP C.16)
-        self.drift = None
-        if column_configs:
-            from shifu_tpu_torch.serve.registry import model_set_columns
+        # over the columns the models read (serve/zoo.drift_monitor_for)
+        from shifu_tpu_torch.serve.zoo import drift_monitor_for
 
-            schema = set(model_set_columns(models_dir, column_configs,
-                                           model_config))
-            self.drift = DriftMonitor([cc for cc in column_configs
-                                       if cc.column_name in schema])
-            if not self.drift.enabled:
-                self.drift = None
-        self.registry = ReplicaFleet.build(
+        self.drift = drift_monitor_for(models_dir, column_configs,
+                                       model_config)
+        self._registry = ReplicaFleet.build(
             models_dir,
             n_replicas=replicas, device=device, queue_depth=queue_depth,
             max_batch_rows=max_batch_rows, max_wait_ms=max_wait_ms,
             batching=batching, column_configs=column_configs,
             model_config=model_config, drift=self.drift,
             observer=self._observe)
-        input_columns = self.registry.input_columns
+        input_columns = self._registry.input_columns
         # outcome columns (target/weight) ride the request conversion as
         # extra raw columns so label-joined traffic keeps them
         label_cols: List[str] = []
@@ -319,12 +340,44 @@ class ScoringServer:
                 if (extra_col and extra_col not in label_cols
                         and extra_col not in input_columns):
                     label_cols.append(extra_col)
-        self.traffic: Optional[TrafficLog] = None
         if log_sample_setting() > 0.0:
             self.traffic = TrafficLog(self.root, traffic_columns(
                 list(input_columns) + label_cols))
-        self._drift_check_every = max(1, drift_check_batches_setting())
-        self.scorer = Scorer(fleet=self.registry, extra_columns=label_cols)
+        self._scorer = Scorer(fleet=self._registry,
+                              extra_columns=label_cols)
+        self._finish_init(host, port)
+
+    @property
+    def registry(self) -> ReplicaFleet:
+        """The default serving fleet. In a zoo the default tenant's fleet
+        is looked up on every read: budget pressure may have evicted and
+        re-admitted it, and a torn-down fleet would misreport (the last
+        one stands while the tenant is cold)."""
+        if self.zoo is not None:
+            from shifu_tpu_torch.serve import zoo as zoo_mod
+
+            tenant = self.zoo._get(self.zoo.default_tenant)
+            if tenant.state == zoo_mod.RESIDENT and tenant.fleet is not None:
+                self._registry = tenant.fleet
+                self._scorer = tenant.scorer
+        return self._registry
+
+    @property
+    def scorer(self) -> Scorer:
+        """The default Scorer (looked up like `registry`)."""
+        if self.zoo is not None:
+            self.registry  # refreshes both
+        return self._scorer
+
+    def _finish_init(self, host: str, port: int) -> None:
+        """The shared tail: HTTP listener, then the heartbeat lease (after
+        the listener, so the lease advertises the bound port), then the
+        lease id adopted as writer id and time-series name."""
+        import socket
+
+        from shifu_tpu_torch.obs.timeseries import MetricsSnapshotter
+        from shifu_tpu_torch.serve.peers import PeerRegistry
+
         self.started_at = time.time()
         self._serve_thread: Optional[threading.Thread] = None
         self._shutdown_lock = tracked_lock("serve.server.shutdown")
@@ -334,15 +387,68 @@ class ScoringServer:
         try:
             self.httpd = _HTTPServer((host, port), self._handler_class())
         except BaseException:
-            self.scorer.close(5.0)
+            self._close_scoring(5.0)
             raise
+        # N serve processes on one root see each other through their
+        # leases; a fleet-atomic `shifu promote` drives stage, promote and
+        # rollback here (off with -Dshifu.lease.ttlMs=0)
+        self.peers = PeerRegistry(
+            self.root,
+            stage_cb=self.stage_candidate,
+            promote_cb=self.promote_candidate,
+            unstage_cb=self._unstage_default,
+            info_cb=self._peer_info)
+        self.lease_id = (self.peers.lease.lease_id if self.peers.enabled
+                         else f"{socket.gethostname()}-{os.getpid()}-solo")
+        # the fleet-shared traffic log: each process appends under its
+        # lease id, never contending for a chunk sequence
+        if self.traffic is not None:
+            self.traffic.set_writer(self.lease_id)
+        if self.zoo is not None:
+            self.zoo.writer = self.lease_id
+            for name in self.zoo.tenants():
+                t = self.zoo._get(name)
+                if t.traffic is not None:
+                    t.traffic.set_writer(self.lease_id)
         # on-disk metrics time series (obs/timeseries.py), armed by
-        # -Dshifu.obs.snapshotMs, under the solo id
-        from shifu_tpu_torch.obs.timeseries import MetricsSnapshotter
-
+        # -Dshifu.obs.snapshotMs, under the lease id: a killed process
+        # leaves its last windows for the survivors' /fleet views
         self.obs_snap = MetricsSnapshotter(self.root, self.lease_id,
                                            registry_cb=obs_registry)
         self.obs_snap.start()
+
+    def _close_scoring(self, timeout: Optional[float]) -> None:
+        if self.zoo is not None:
+            # drains every resident tenant and flushes their traffic
+            self.zoo.close(timeout)
+        else:
+            self.scorer.close(timeout)
+
+    def _unstage_default(self) -> None:
+        """An aborted round's rollback: in a zoo through the zoo, so the
+        ledger's shadow charge and the tenant's staged flag roll back
+        with the device state."""
+        if self.zoo is not None:
+            self.zoo.unstage(self.zoo.default_tenant)
+        else:
+            self.registry.unstage()
+
+    def _peer_info(self) -> dict:
+        """The health summary renewed into this process's lease file: a
+        peer scan is a cheap fleet-of-processes health view."""
+        fleet = self.registry
+        info = {
+            "port": self.port,
+            "status": (self.zoo.fleet_health_snapshot()["status"]
+                       if self.zoo is not None
+                       else self.scorer.health.state),
+            "sha": fleet.sha,
+            "replicas": len(fleet.replicas),
+            "queueDepth": sum(len(r.admission) for r in fleet.replicas),
+        }
+        if self.traffic is not None and self.traffic.writer:
+            info["trafficWriter"] = self.traffic.writer
+        return info
 
     # ---- the loop seams ----
     def _observe(self, replica, data, result) -> None:
@@ -370,15 +476,22 @@ class ScoringServer:
                 self.scorer.health, self.root,
                 model_sha=self.registry.sha, reporter=self.lease_id)
 
-    def stage_candidate(self, models_dir: str) -> dict:
+    def stage_candidate(self, models_dir: str,
+                        set_name: Optional[str] = None) -> dict:
         """Load + warm a candidate model set as the shadow version on
-        EVERY replica (each onto its own device)."""
+        EVERY replica (each onto its own device). In a zoo the stage is
+        the tenant's (`set_name`, the default one when omitted), streamed
+        through the budget ledger."""
+        if self.zoo is not None:
+            return self.zoo.stage(set_name or self.zoo.default_tenant,
+                                  models_dir)
         return self.registry.stage(models_dir,
                                    column_configs=self.column_configs,
                                    model_config=self.model_config,
                                    drift=self.drift)
 
-    def promote_candidate(self, expected_sha: Optional[str] = None) -> dict:
+    def promote_candidate(self, expected_sha: Optional[str] = None,
+                          set_name: Optional[str] = None) -> dict:
         """ROLLING hot-swap: the fleet promotes one replica at a time
         (requests keep flowing on the others), and each replica step
         stamps a sha-bound `swap-<seq>.json` audit manifest. Afterwards
@@ -386,7 +499,12 @@ class ScoringServer:
         on — and the drift monitor resets, so drift on the NEW version's
         traffic re-degrades and re-recommends. `expected_sha` (from the
         gate evidence) must match the staged shadow on every replica, or
-        the roll is refused before the first swap."""
+        the roll is refused before the first swap. In a zoo the promote
+        is the tenant's, and the zoo moves the ledger's charge."""
+        if self.zoo is not None:
+            return self.zoo.promote(
+                set_name or self.zoo.default_tenant, expected_sha,
+                step_cb=self._write_swap_manifest)
         swap = self.registry.promote(expected_sha,
                                      step_cb=self._write_swap_manifest)
         self.scorer.health.clear_degraded()
@@ -394,6 +512,16 @@ class ScoringServer:
             self.drift.reset()
         self._last_drift_verdict = None
         return swap
+
+    def _fleet_for(self, set_name: Optional[str] = None) -> ReplicaFleet:
+        """The fleet whose trace and Retry-After surfaces a request uses:
+        the named tenant's when resident, else the default one."""
+        if self.zoo is None or not set_name:
+            return self.registry
+        try:
+            return self.zoo.fleet_of(set_name)
+        except (KeyError, ValueError):
+            return self.registry
 
     def _write_swap_manifest(self, replica, step: dict) -> None:
         """One sha-bound audit manifest per replica promote step."""
@@ -422,8 +550,13 @@ class ScoringServer:
         return self.httpd.server_address[1]
 
     def health(self) -> dict:
-        """The /healthz document: fleet health, identity, load."""
-        health = self.scorer.health_snapshot()
+        """The /healthz document: fleet health (in a zoo over the resident
+        tenants: an evicted tenant's torn-down fleet does not drain the
+        process), identity, load, the peers and the zoo section."""
+        if self.zoo is not None:
+            health = self.zoo.fleet_health_snapshot()
+        else:
+            health = self.scorer.health_snapshot()
         fleet = self.registry
         health.update({
             "models": len(fleet.model_names),
@@ -456,6 +589,25 @@ class ScoringServer:
                     f"SLO burn rate {snap['burnRate']:.2f} "
                     f"(>{slo.slo_ms:g}ms beyond the {slo.target:g} "
                     "objective)")
+        # the process fleet: an expired peer is a computed degrade reason
+        # (this process keeps serving; it clears when the lease is swept
+        # or the peer comes back)
+        if self.peers.enabled:
+            health["peers"] = self.peers.snapshot()
+            expired = self.peers.expired_peers()
+            if expired and health["status"] == "ok":
+                health["status"] = "degraded"
+                health["reason"] = ("peer lease(s) expired: "
+                                    + ", ".join(expired))
+        if self.zoo is not None:
+            # budget occupancy and tenant states; an admission in flight
+            # is a non-sticky cold_start degrade
+            z = self.zoo.health_snapshot()
+            health["zoo"] = z
+            if z["admitting"] and health["status"] == "ok":
+                health["status"] = "degraded"
+                health["reason"] = ("cold_start: warming tenant(s) "
+                                    + ", ".join(z["admitting"]))
         return health
 
     def _handler_class(self):
@@ -510,19 +662,56 @@ class ScoringServer:
                     self._reply(200, {**buf.snapshot(),
                                       "traces": buf.traces()})
                     return
+                if self.path == "/admin/metrics.json":
+                    # the lossless snapshot (exact histogram state) a
+                    # peer's fleet collector merges bucket for bucket
+                    from shifu_tpu_torch.obs import fleetview
+
+                    self._reply(200, {
+                        "schema": fleetview.METRICS_JSON_SCHEMA,
+                        "leaseId": server.lease_id,
+                        "pid": os.getpid(),
+                        "ts": time.time(),
+                        "metrics": obs_registry().snapshot(),
+                    })
+                    return
+                if self.path in ("/fleet/metrics", "/fleet/healthz"):
+                    # any process answers for the fleet: live peers
+                    # scraped, expired ones from their last on-disk
+                    # window, folded in sorted lease-id order
+                    from shifu_tpu_torch.obs import fleetview
+
+                    reg, payload = fleetview.fleet_view(
+                        server.root, self_id=server.lease_id,
+                        self_snapshot=lambda: obs_registry().snapshot())
+                    if self.path == "/fleet/metrics":
+                        self._reply(
+                            200, reg.to_prometheus().encode("utf-8"),
+                            content_type=PROMETHEUS_CONTENT_TYPE)
+                    else:
+                        self._reply(200, payload)
+                    return
                 if (self.path == "/admin/shadow"
                         or self.path.startswith("/admin/shadow?")):
                     from urllib.parse import parse_qs, urlsplit
 
                     q = parse_qs(urlsplit(self.path).query)
-                    if (q.get("set") or [None])[0]:
+                    set_name = (q.get("set") or [None])[0]
+                    if set_name and server.zoo is None:
                         # answering the one shadow for ?set= would let
                         # promote --set gate on the wrong tenant's evidence
                         self._reply(409, {"error": "this server is "
                                                    "single-tenant "
                                                    "(no --zoo)"})
                         return
-                    fleet = server.registry
+                    if set_name:
+                        try:
+                            fleet = server.zoo.fleet_of(set_name)
+                        except (KeyError, ValueError) as e:
+                            self._reply(404, {"error": str(e)})
+                            return
+                    else:
+                        fleet = server.registry
                     self._reply(200, {"active": fleet.sha,
                                       "shadow": fleet.shadow_snapshot()})
                     return
@@ -531,20 +720,35 @@ class ScoringServer:
                 self._reply(404, {"error": f"unknown path {self.path}"})
 
             def do_POST(self):
-                if self.path.startswith("/score/"):
-                    self._drain_body()
-                    self._reply(404, {
-                        "error": "this server is single-tenant: POST "
-                                 "/score (per-set routes come with the "
-                                 "model zoo, ROADMAP A.14.4)"})
-                    return
-                if self.path in ("/admin/stage", "/admin/promote"):
+                if self.path in ("/admin/stage", "/admin/promote",
+                                 "/admin/evict"):
                     self._do_admin()
                     return
-                if self.path != "/score":
+                # /score (single-tenant, or the zoo's default set) and
+                # /score/<set> (one tenant of the zoo)
+                set_name = None
+                if self.path.startswith("/score/"):
+                    set_name = self.path[len("/score/"):]
+                elif self.path != "/score":
+                    self._drain_body()
                     if not self._waits():
                         self._reply(404, {
                             "error": f"unknown path {self.path}"})
+                    return
+                if server.zoo is not None:
+                    set_name = set_name or server.zoo.default_tenant
+                    if set_name not in server.zoo.tenants():
+                        self._drain_body()
+                        self._reply(404, {
+                            "error": f"unknown model set {set_name!r}",
+                            "sets": server.zoo.tenants()})
+                        return
+                elif set_name is not None:
+                    self._drain_body()
+                    self._reply(404, {
+                        "error": "this server is single-tenant: POST "
+                                 "/score (start with --zoo for per-set "
+                                 "routes)"})
                     return
                 ctype = (self.headers.get("Content-Type") or "")
                 ctype = ctype.split(";", 1)[0].strip().lower()
@@ -600,7 +804,7 @@ class ScoringServer:
                 hdr = reqtrace.clean_trace_id(
                     self.headers.get(reqtrace.TRACE_HEADER))
                 buf = reqtrace.buffer()
-                fleet = server.registry
+                fleet = server._fleet_for(set_name)
                 trace = None
                 if hdr or buf.active or fleet.slo.enabled:
                     trace = reqtrace.RequestTrace(
@@ -615,7 +819,31 @@ class ScoringServer:
                         err_headers[reqtrace.TRACE_HEADER] = trace.trace_id
 
                 try:
-                    res = server.scorer.score_batch(records, trace=trace)
+                    if server.zoo is not None:
+                        res = server.zoo.score_batch(set_name, records,
+                                                     trace=trace)
+                    else:
+                        res = server.scorer.score_batch(records,
+                                                        trace=trace)
+                except ColdStartError as e:
+                    # a cold tenant: 429 now, with a Retry-After from the
+                    # observed warm-up; the admission runs in the
+                    # background. The tenant has no fleet, so the trace
+                    # goes to the ring directly, not another tenant's
+                    # stage histograms
+                    if trace is not None:
+                        trace.annotate(status="cold_start", tenant=set_name)
+                        trace.finish()
+                        reqtrace.buffer().offer(trace)
+                        err_headers[reqtrace.TRACE_HEADER] = trace.trace_id
+                    err_headers["Retry-After"] = str(
+                        int(math.ceil(e.retry_after_s)))
+                    self._reply(429, {
+                        "error": str(e), "reason": e.reason,
+                        "set": set_name,
+                        "retryAfterSeconds": round(e.retry_after_s, 3)},
+                        extra_headers=err_headers)
+                    return
                 except RejectedError as e:
                     _failed("rejected", reason=e.reason)
                     if e.reason == "closed":
@@ -623,7 +851,7 @@ class ScoringServer:
                                           "reason": e.reason},
                                     extra_headers=err_headers)
                         return
-                    hint = server.scorer.retry_after_seconds()
+                    hint = fleet.retry_after_seconds()
                     err_headers["Retry-After"] = str(int(math.ceil(hint)))
                     self._reply(429, {"error": str(e), "reason": e.reason,
                                       "retryAfterSeconds": round(hint, 3)},
@@ -639,6 +867,8 @@ class ScoringServer:
                     self._reply(500, {"error": f"{type(e).__name__}: {e}"},
                                 extra_headers=err_headers)
                     return
+                # the tenant that scored names its models
+                fleet = server._fleet_for(set_name)
                 doc = {"models": fleet.model_names, "scores": None}
                 if trace is None:
                     doc["scores"] = _result_rows(res)
@@ -656,8 +886,10 @@ class ScoringServer:
 
             def _do_admin(self):
                 """Rollout control plane: stage a candidate as the shadow
-                version, or promote the staged one (zero-downtime swap).
-                `shifu promote --serve-url` drives both."""
+                version, promote the staged one (zero-downtime swap), or
+                (zoo) evict a resident tenant. `shifu promote
+                --serve-url` drives stage and promote; `set` picks the
+                tenant (the zoo's default when omitted)."""
                 try:
                     length = int(self.headers.get("Content-Length", "0"))
                     body = self.rfile.read(length) if length else b"{}"
@@ -667,11 +899,25 @@ class ScoringServer:
                 except ValueError as e:
                     self._reply(400, {"error": f"bad request body: {e}"})
                     return
-                if doc.get("set"):
+                set_name = doc.get("set") or None
+                if set_name is not None and server.zoo is None:
                     self._reply(409, {"error": "this server is single-"
                                                "tenant (no --zoo)"})
                     return
                 try:
+                    if self.path == "/admin/evict":
+                        if server.zoo is None:
+                            self._reply(409, {"error": "eviction needs "
+                                                       "zoo mode"})
+                            return
+                        if not set_name:
+                            self._reply(400, {"error": "set required"})
+                            return
+                        server.zoo.evict(set_name, reason="admin")
+                        self._reply(200, {
+                            "evicted": set_name,
+                            "zoo": server.zoo.health_snapshot()})
+                        return
                     if self.path == "/admin/stage":
                         models_dir = doc.get("modelsDir")
                         if not models_dir:
@@ -679,13 +925,14 @@ class ScoringServer:
                                         {"error": "modelsDir required"})
                             return
                         self._reply(200, {
-                            "staged": server.stage_candidate(models_dir)})
+                            "staged": server.stage_candidate(
+                                models_dir, set_name=set_name)})
                         return
                     self._reply(200, server.promote_candidate(
-                        doc.get("sha")))
+                        doc.get("sha"), set_name=set_name))
                 except KeyError as e:
                     self._reply(404, {"error": str(e)})
-                except (ValueError, OSError) as e:
+                except (ValueError, OSError, ShifuError) as e:
                     self._reply(409, {"error": str(e)})
 
             def _drain_body(self, length: Optional[int] = None) -> None:
@@ -728,7 +975,12 @@ class ScoringServer:
                 return None
             self._shutdown_started = True
         try:
-            self.scorer.close(drain_timeout)
+            # the lease first: a draining process leaves the fleet
+            # cleanly (file removed), it does not expire into a
+            # survivor's degrade reason
+            self.peers.close()
+            snap = self.registry.snapshot()
+            self._close_scoring(drain_timeout)
             if self._serve_thread is not None:  # serve_forever runs
                 self.httpd.shutdown()
                 self._serve_thread.join(5.0)
@@ -740,7 +992,8 @@ class ScoringServer:
             # final time-series window AFTER the drain: the last chunk
             # carries the terminal counter state
             self.obs_snap.stop()
-            snap = self.registry.snapshot()
+            if self.zoo is None:
+                snap = self.registry.snapshot()
             self.manifest_path = self._write_manifest(snap)
             return snap
         finally:
@@ -760,6 +1013,10 @@ class ScoringServer:
         ledger = RunLedger(self.root)
         try:
             extra = {"serve": fleet_snapshot}
+            if self.zoo is not None:
+                # the budget ledger and each tenant's detail: evictions,
+                # cold starts and peak occupancy from the manifest alone
+                extra["zoo"] = self.zoo.snapshot()
             san = sanitize.current()
             if san is not None and san.active:
                 extra["sanitizer"] = san.verdict()
@@ -772,6 +1029,9 @@ class ScoringServer:
                 extra["traffic"] = self.traffic.snapshot()
             if self.registry.slo.enabled:
                 extra["slo"] = self.registry.slo.snapshot()
+            if self.peers.enabled:
+                # the last peer view before the lease went
+                extra["peers"] = self.peers.snapshot()
             if self.obs_snap.enabled:
                 extra["obsTimeseries"] = self.obs_snap.snapshot()
             seq = ledger.next_seq("serve")

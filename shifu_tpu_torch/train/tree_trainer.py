@@ -1186,8 +1186,13 @@ def _as_device(a, dtype, dev):
     if isinstance(a, torch.Tensor):
         return a.to(device=dev, dtype=dtype).contiguous()
     np_dt = {torch.int32: np.int32, torch.float32: np.float32}[dtype]
-    return torch.as_tensor(np.ascontiguousarray(np.asarray(a, np_dt)),
-                           device=dev)
+    a = np.ascontiguousarray(np.asarray(a, np_dt))
+    if not a.flags.writeable:
+        # a read-only buffer (a memory map, another library's array):
+        # on the CPU the tensor would share it, and a write through the
+        # tensor is undefined, so it gets its own copy
+        a = a.copy()
+    return torch.as_tensor(a, device=dev)
 
 
 def _assemble(trees: List, deferred: List[tuple]) -> None:

@@ -15,7 +15,8 @@ registries on device="cpu"). On top:
   * the server: the drift fold by default with a ColumnConfig, /healthz
     degrading on shifted traffic, the traffic log read back, `/admin/*`
     and `shifu promote --serve-url`, and the promote exit codes and
-    manifest (a lease directory exits 2 naming A.14.7).
+    manifest (live leases: the fleet round, test_torch_lease.py and
+    test_torch_chaos_fleet.py hold it with live participants).
 Every HTTP call and thread join takes a timeout.
 """
 
@@ -476,12 +477,12 @@ class TestDriftMonitor:
                 return torch.ones(mon.total_slots)
 
         mon.note_window(ResetOnFetch(), 8)
-        mon._flush()
+        mon.flush()
         assert fired
         assert float(mon._host.sum()) == 0.0  # old counts dropped
         # and post-reset traffic still folds normally
         mon.note_window(torch.ones(mon.total_slots), 8)
-        mon._flush()
+        mon.flush()
         assert float(mon._host.sum()) == float(mon.total_slots)
         # the fold-ADOPTION path is guarded the same way: a window read
         # before the reset must not be adopted after it (the registry
@@ -492,21 +493,21 @@ class TestDriftMonitor:
         assert mon._rows == 0 and not mon._windows  # stale: dropped
         w, gen = mon.window()
         mon.note_window(w + 1.0, 8, gen=gen)  # current gen: adopted
-        mon._flush()
+        mon.flush()
         assert float(mon._host.sum()) == float(mon.total_slots)
         # a fold whose BASE window a concurrent flush already merged
         # must be DROPPED (its token's flush epoch is stale)
         w, tok = mon.window()
         mon.note_window(w + 1.0, 8, gen=tok)
-        mon._flush()          # merges w+1.0; bumps the key's epoch
+        mon.flush()          # merges w+1.0; bumps the key's epoch
         before = float(mon._host.sum())
         mon.note_window(w + 1.0, 8, gen=tok)  # stale epoch: dropped
-        mon._flush()
+        mon.flush()
         assert float(mon._host.sum()) == before
         # and a fresh token folds normally again
         w, tok = mon.window()
         mon.note_window(w + 1.0, 8, gen=tok)
-        mon._flush()
+        mon.flush()
         assert float(mon._host.sum()) == before + float(mon.total_slots)
 
     def test_reset_reopens_the_degrade_loop(self, model_set,
@@ -646,6 +647,47 @@ class TestDriftMonitor:
         assert reg.drift_live  # restored for real traffic
         reg.score_raw(_training_raw(model_set))
         assert mon.verdict()["rows"] > 0
+
+    @pytest.mark.parametrize("with_drift", [False, True])
+    def test_program_price_near_the_op_level_count(
+            self, model_set, column_configs, with_drift):
+        """The zoo's price of a bucket (`program_bytes`, counted from the
+        torch calls of its first call) against every aten op's new
+        result in the same call: at most the op-level bytes (temporaries
+        inside one call are not seen), and within 5% of them."""
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        from shifu_tpu_torch.loop.drift import DriftMonitor
+        from shifu_tpu_torch.serve.registry import ModelRegistry, _block
+
+        class OpLevel(TorchDispatchMode):
+            nbytes = 0
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                flat = [t for t in (list(args) + list((kwargs or {})
+                                                      .values()))
+                        if isinstance(t, torch.Tensor)]
+                seen = {t.untyped_storage().data_ptr() for t in flat}
+                outs = out if isinstance(out, (tuple, list)) else [out]
+                for t in outs:
+                    if isinstance(t, torch.Tensor) \
+                            and t.untyped_storage().data_ptr() not in seen:
+                        self.nbytes += _block(t.untyped_storage().nbytes())
+                return out
+
+        mon = (DriftMonitor(column_configs, threshold=0.2, min_rows=64)
+               if with_drift else None)
+        reg = ModelRegistry(os.path.join(model_set, "models"), drift=mon,
+                            device="cpu")
+        reg.warm([1, 64])
+        for bucket in (8, 64):
+            st = reg._staging[bucket]
+            args = (reg._drift_window()[0],) if with_drift else ()
+            with torch.inference_mode(), OpLevel() as ops:
+                reg._program(st.host, *args)
+            price = reg.program_bytes(bucket)
+            assert 0.95 * ops.nbytes <= price <= ops.nbytes, bucket
 
     def test_column_with_mismatched_counts_not_monitored(
             self, column_configs):
@@ -1255,8 +1297,10 @@ def test_promote_refuses_sets_and_stale_shas(model_set, tmp_path):
 def test_run_promote_offline_modes_and_lease_dir(model_set, tmp_path):
     """Offline: the gates read the newest serve manifest's shadow and the
     newest recommendation; a pass swaps models/ (exit 0), --force is
-    recorded; a lease directory (a fleet of serve processes) exits 2
-    naming A.14.7 and touches nothing."""
+    recorded. A lease directory: live leases make it a fleet round (a
+    fenced peer that never acks aborts it at the deadline: held, exit 1,
+    nothing touched); `--serve-url` with two live leases exits 2 (one
+    process of a fleet); a torn or expired lease is no peer."""
     from shifu_tpu_torch.loop.promote import run_promote
     from shifu_tpu_torch.obs.ledger import RunLedger
     from shifu_tpu_torch import obs
@@ -1279,21 +1323,49 @@ def test_run_promote_offline_modes_and_lease_dir(model_set, tmp_path):
                  registry=obs.registry(),
                  extra={"recommendation": {"modelSetSha": active,
                                            "drift": {"maxPsi": 0.4}}})
-    os.makedirs(os.path.join(root, ".shifu", "runs", "peers"))
-    lease = os.path.join(root, ".shifu", "runs", "peers", "h-1-x.lease.json")
-    open(lease, "w").write("{}")
-    assert run_promote(root, cand) == 2
+    peers = os.path.join(root, ".shifu", "runs", "peers")
+    os.makedirs(peers)
+    import time
+
+    def write_lease(lid, ttl_ms=300.0, age_s=0.0):
+        path = os.path.join(peers, f"{lid}.lease.json")
+        with open(path, "w") as fh:
+            json.dump({"schema": "shifu.lease/1", "leaseId": lid,
+                       "host": "h", "pid": 1, "token": "t", "epoch": 1,
+                       "ttlMs": ttl_ms, "renewedAt": time.time() - age_s,
+                       "info": {}}, fh)
+        return path
+
+    leases = [write_lease("h-1-x", ttl_ms=60_000.0),
+              write_lease("h-2-y", ttl_ms=60_000.0)]
+    assert run_promote(root, cand, serve_url="http://127.0.0.1:9") == 2
+    for path in leases:
+        os.remove(path)
+    # a live peer that never acks: the round aborts at its deadline
+    leases = [write_lease("h-3-z", ttl_ms=300.0)]
+    assert run_promote(root, cand) == 1
     assert os.path.isdir(cand)
-    os.remove(lease)
+    held = sorted((p for p in glob.glob(os.path.join(
+        root, ".shifu/runs/promote-*.json")) if ".traces." not in p),
+        key=lambda p: int(p.rsplit("-", 1)[1].split(".")[0]))
+    doc = json.load(open(held[-1]))["promote"]
+    assert doc["mode"] == "fleet" and not doc["round"]["committed"]
+    assert "no ack" in doc["round"]["reason"]
+    os.remove(leases[0])
+    # torn and long-expired lease files are no peers: offline again
+    open(os.path.join(peers, "h-4-w.lease.json"), "w").write("{}")
+    write_lease("h-5-v", ttl_ms=100.0, age_s=60.0)
     assert run_promote(root, cand) == 0
     assert model_set_sha(find_model_paths(
         os.path.join(root, "models"))) == cand_sha
     assert os.path.isdir(os.path.join(root, "models.previous"))
-    runs = sorted(glob.glob(os.path.join(root, ".shifu/runs/promote-*.json")),
-                  key=lambda p: int(p.rsplit("-", 1)[1].split(".")[0]))
+    # (the fleet round leaves its trace spans beside its manifest)
+    runs = sorted((p for p in glob.glob(os.path.join(
+        root, ".shifu/runs/promote-*.json")) if ".traces." not in p),
+        key=lambda p: int(p.rsplit("-", 1)[1].split(".")[0]))
     docs = [json.load(open(p)) for p in runs]
-    assert [d["exitStatus"] for d in docs] == [1, 0]
-    assert docs[1]["promote"]["mode"] == "offline"
+    assert [d["exitStatus"] for d in docs] == [1, 1, 0]
+    assert docs[2]["promote"]["mode"] == "offline"
     assert run_promote(root, None, force=True) == 2  # forced, no candidate
     assert run_promote(root, None, set_name="a") == 2
 

@@ -242,12 +242,30 @@ XLA_ONLY_PROFILE_FIELDS = ("costSource", "compileSeconds",
 # counters that only the JAX package records: jaxprobe's XLA compile and
 # trace counts, which have no counterpart in the port
 JAXPROBE_COUNTERS = ("jax.compiles", "jax.traces")
-# counters of the JAX heartbeat leases (`resilience/lease.py`), which the
-# port has not yet (ROADMAP A.14.7): a lease thread that another test of
-# the same worker process left running ticks them into whatever run is
-# open, so they are not the step's
+# counters of the heartbeat leases (`resilience/lease.py`), which both
+# packages record: the steps here run no server, so neither manifest may
+# hold them (`_stop_leaked_heartbeats` ends a lease thread another test
+# of the worker process left running before the steps run)
 LEASE_COUNTERS = ("peer.lease.acquired", "peer.lease.renewals",
                   "peer.lease.swept", "peer.lease.expired")
+
+
+def _stop_leaked_heartbeats() -> int:
+    """Close every heartbeat lease (either package's PeerRegistry) still
+    running in this process: a server another test left open would tick
+    its lease counters into whatever run is open. Returns the number
+    closed."""
+    import gc
+
+    from shifu_tpu.serve.peers import PeerRegistry as JPeers
+    from shifu_tpu_torch.serve.peers import PeerRegistry as PPeers
+
+    live = [o for o in gc.get_objects()
+            if type(o) in (JPeers, PPeers) and o.enabled
+            and o._thread is not None and o._thread.is_alive()]
+    for reg in live:
+        reg.close()
+    return len(live)
 
 
 def _set_eval_data(root: str) -> None:
@@ -307,6 +325,7 @@ def lifecycles(request, tmp_path_factory):
     out = {}
     # the profilers' annotations are process-global and survive a run's
     # reset on purpose; other tests of the worker process leave theirs
+    _stop_leaked_heartbeats()
     with _no_annotations():
         for package in ("jax", "port"):
             root = str(base / package)
@@ -335,7 +354,7 @@ def _no_annotations():
 def _integer_counters(m: dict) -> Dict[str, float]:
     out = {}
     for k, v in m["metrics"]["counters"].items():
-        if _parse_key(k)[0] in JAXPROBE_COUNTERS + LEASE_COUNTERS:
+        if _parse_key(k)[0] in JAXPROBE_COUNTERS:
             continue
         assert float(v).is_integer(), (k, v)
         out[k] = v
@@ -349,6 +368,9 @@ def test_step_counters_equal_jax(lifecycles):
     for step in steps:
         j, p = runs["jax"][step], runs["port"][step]
         assert _integer_counters(p) == _integer_counters(j), (alg, step)
+        for name in LEASE_COUNTERS:  # no server: no lease counted
+            assert not [k for k in p["metrics"]["counters"]
+                        if _parse_key(k)[0] == name], (step, name)
         assert p["status"] == j["status"] == "ok"
         # the gauges and series are the same names (their values are
         # measured: AUC, errors; not held here)

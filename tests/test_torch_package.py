@@ -1,5 +1,7 @@
 """Package rules of the port: no JAX, device resolution, shared formats."""
 
+import glob
+import json
 import os
 import subprocess
 import sys
@@ -64,7 +66,9 @@ MODULES = [
     "shifu_tpu_torch.serve.batcher", "shifu_tpu_torch.serve.fleet",
     "shifu_tpu_torch.serve.health", "shifu_tpu_torch.serve.queue",
     "shifu_tpu_torch.serve.registry", "shifu_tpu_torch.serve.server",
-    "shifu_tpu_torch.serve.wire",
+    "shifu_tpu_torch.serve.wire", "shifu_tpu_torch.serve.zoo",
+    "shifu_tpu_torch.serve.peers", "shifu_tpu_torch.resilience.lease",
+    "shifu_tpu_torch.loop.rounds", "shifu_tpu_torch.obs.fleetview",
     "shifu_tpu_torch.stats.binning", "shifu_tpu_torch.stats.correlation",
     "shifu_tpu_torch.stats.engine", "shifu_tpu_torch.stats.metrics",
     "shifu_tpu_torch.stats.psi", "shifu_tpu_torch.stats.rebin",
@@ -130,6 +134,58 @@ def test_import_leaves_jax_and_reference_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_port_source_imports_jax_anywhere():
+    """Every import statement of the port, at module level or inside a
+    function (which the import check above cannot see until it runs).
+    Parquet input may import pyarrow lazily; JAX never."""
+    import ast
+
+    bad = []
+    for mod in MODULES:
+        rel = mod.replace(".", os.sep)
+        path = os.path.join(REPO, rel + ".py")
+        if not os.path.exists(path):
+            path = os.path.join(REPO, rel, "__init__.py")
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        for n in ast.walk(tree):
+            if isinstance(n, ast.Import):
+                names = [a.name for a in n.names]
+            elif isinstance(n, ast.ImportFrom) and n.module and not n.level:
+                names = [n.module]
+            else:
+                continue
+            bad += [f"{mod}:{n.lineno} {m}" for m in names
+                    if m.split(".")[0] in ("jax", "shifu_tpu")]
+    assert bad == []
+
+
+def test_cli_promote_runs_on_the_port_alone(tmp_path):
+    """`python -m shifu_tpu_torch promote` loads no JAX module, and its
+    manifest records the port's own metrics registry."""
+    code = (
+        "import json, sys\n"
+        "from shifu_tpu_torch import obs\n"
+        "from shifu_tpu_torch.cli import main\n"
+        "obs.registry().counter('promote.probe').inc(7)\n"
+        "rc = main(['promote'])\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(json.dumps({'rc': rc, 'bad': bad}))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"rc": 1, "bad": []}  # held: no shadow stats
+    (path,) = glob.glob(str(tmp_path / ".shifu/runs/promote-*.json"))
+    with open(path) as fh:
+        manifest = json.load(fh)
+    assert manifest["metrics"]["counters"]["promote.probe"] == 7
+    assert manifest["promote"]["mode"] == "offline"
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

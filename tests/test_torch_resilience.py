@@ -45,11 +45,6 @@ FIELDS = ("seam", "counter", "at", "p", "seed", "ms", "max", "replica")
 @pytest.mark.parametrize("spec", EXAMPLES)
 def test_grammar_round_trip_matches_jax(spec):
     (jc,) = jfaults.FaultPlan.parse(spec).clauses
-    if jc.seam in faults.UNREACHED:
-        # the port has no such seam yet: it refuses, never arms silently
-        with pytest.raises(FaultSpecError, match="A.14"):
-            FaultPlan.parse(spec)
-        return
     (pc,) = FaultPlan.parse(spec).clauses
     assert [getattr(pc, f) for f in FIELDS] == \
         [getattr(jc, f) for f in FIELDS]
@@ -107,14 +102,35 @@ def test_sleep_seam_and_counters():
 
 
 def test_unreachable_seams_raise_naming_a14():
+    """Every seam is reachable now: `lease_stall` sleeps at the lease
+    heartbeat and `peer_kill` SIGKILLs the process at its Nth beat, as in
+    the JAX package; the sanitizer modes other than race still name
+    their ROADMAP item."""
     penv.set_property(faults.FAULTS_PROPERTY, "io:p=0,lease_stall:ms=5")
     try:
         assert faults.plan_active()
-        with pytest.raises(FaultSpecError, match="A.14"):
-            faults.fault_point("io")
+        faults.fault_point("io")  # parses and arms
+        t0 = time.perf_counter()
+        faults.fault_point("lease")
+        assert time.perf_counter() - t0 >= 0.004
     finally:
         penv.set_property(faults.FAULTS_PROPERTY, "")
         faults.reset()
+    # peer_kill: the process dies by SIGKILL at its 3rd lease beat
+    code = ("import sys; from shifu_tpu_torch.resilience import faults; "
+            "from shifu_tpu_torch.utils import environment as e; "
+            "e.set_property('shifu.faults', 'peer_kill@lease=3'); "
+            "[print(i, flush=True) or faults.fault_point('lease') "
+            "for i in range(5)]")
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                          capture_output=True, text=True, timeout=120,
+                          env=dict(os.environ, PYTHONPATH=repo))
+    assert proc.returncode == -signal.SIGKILL, proc.stderr
+    assert proc.stdout.split() == ["0", "1", "2"]
     for mode in ("transfer", "nan", "recompile", "all"):
         penv.set_property("shifu.sanitize", mode)
         try:

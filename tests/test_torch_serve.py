@@ -521,25 +521,35 @@ def test_error_statuses_have_json_bodies(server):
     assert code == 404 and "single-tenant" in doc["error"]
     code, doc, _ = _http_error(f"{base}/nope", "{}")
     assert code == 404 and "error" in doc
-    # the obs routes and the rollout plane answer; the lossless snapshot
-    # and the fleet views still wait for A.14.7
+    # the obs routes, the lossless snapshot, the fleet views and the
+    # rollout plane answer
     with urllib.request.urlopen(f"{base}/metrics", timeout=10) as r:
         assert r.status == 200
         assert r.headers["Content-Type"].startswith("text/plain")
         assert "serve_replicas 1.0" in r.read().decode("utf-8")
     code, doc = _get(f"{base}/admin/traces")
     assert code == 200 and "traces" in doc and "capacity" in doc
-    for path in ("/admin/metrics.json", "/fleet/healthz"):
-        code, doc = _get(f"{base}{path}")
-        assert code == 501 and "A.14.7" in doc["error"], path
+    code, doc = _get(f"{base}/admin/metrics.json")
+    assert code == 200 and doc["schema"] == "shifu.obs.metrics/1"
+    assert doc["leaseId"] == server.lease_id
+    assert "serve.replicas" in doc["metrics"]["gauges"]
+    code, doc = _get(f"{base}/fleet/healthz")
+    assert code == 200 and doc["liveProcesses"] == 1
+    assert doc["answeredBy"] == server.lease_id
+    with urllib.request.urlopen(f"{base}/fleet/metrics", timeout=10) as r:
+        assert r.status == 200
+        assert "fleet_processes_live 1.0" in r.read().decode("utf-8")
     code, doc, _ = _http_error(f"{base}/admin/stage", "{}")
     assert code == 400 and "modelsDir required" in doc["error"]
     code, doc, _ = _http_error(f"{base}/admin/stage", "[1]")
     assert code == 400 and "error" in doc
     code, doc, _ = _http_error(f"{base}/admin/promote", "{}")
     assert code == 409 and "no staged candidate" in doc["error"]
+    # eviction is the zoo's; co-resident training waits for A.14.5
     code, doc, _ = _http_error(f"{base}/admin/evict", "{}")
-    assert code == 501 and "A.14.4" in doc["error"]
+    assert code == 409 and "zoo mode" in doc["error"]
+    code, doc, _ = _http_error(f"{base}/admin/coresident/admit", "{}")
+    assert code == 501 and "A.14.5" in doc["error"]
 
 
 def test_oversize_binary_body_is_400(server):
@@ -613,8 +623,22 @@ def test_http_429_under_saturation_then_clean_drain(model_set):
 
 
 def test_server_waits_for_the_zoo(model_set):
-    with pytest.raises(NotImplementedError, match="A.14"):
-        ScoringServer(root=model_set, device="cpu", zoo={"a": model_set})
+    """A zoo server waits for its default tenant: at construction the
+    first set is resident and scores; /score is its route."""
+    srv = ScoringServer(root=model_set, device="cpu", port=0, replicas=1,
+                        zoo={"a": model_set, "b": model_set}).start()
+    try:
+        assert srv.zoo.default_tenant == "a"
+        assert srv.zoo._get("a").state == "resident"
+        base = f"http://127.0.0.1:{srv.port}"
+        for path in ("/score", "/score/a"):
+            status, doc = _post(f"{base}{path}", json.dumps(records(2)))
+            assert status == 200 and len(doc["scores"]) == 2
+        code, doc = _get(f"{base}/healthz")
+        assert code == 200 and set(doc["zoo"]["tenants"]) == {"a", "b"}
+        assert srv.registry is srv.zoo.fleet_of("a")
+    finally:
+        srv.shutdown(10)
 
 
 # ---------------------------------------------------------------------------
@@ -661,8 +685,16 @@ def test_cli_serve_without_a_card_exits_1(model_set):
 
 
 def test_cli_serve_zoo_exits_2(capsys):
-    assert cli_main(["serve", "--zoo", "a=b", "--device", "cpu"]) == 2
-    assert "A.14.4" in capsys.readouterr().err
+    """`serve --zoo` is ported: a malformed or repeated entry, or a set
+    with no models, fails startup (exit 1) with the JAX CLI's errors."""
+    for spec, err in ((["a"], "must be NAME=PATH"),
+                      (["a=x,a=y"], "given twice"),
+                      (["a=/nonexistent-set"], "no models")):
+        argv = ["serve", "--device", "cpu", "--port", "0"]
+        for item in spec:
+            argv += ["--zoo", item]
+        assert cli_main(argv) == 1
+        assert err in capsys.readouterr().err
     # --traffic-log is ported: a fraction outside (0, 1] fails startup
     for bad in ("2", "0", "x"):
         assert cli_main(["serve", "--traffic-log", bad, "--device",
