@@ -309,6 +309,35 @@ Phases, each of which must pass:
            concurrency 1, 4, 16 through a zoo tenant against a
            single-tenant server, in alternating pairs (printed).
            `--zoo-only` runs it alone on phase 18's small CPU-built sets.
+  phase 20 the co-resident trainer (`coresident/`) and `shifu retrain`;
+           its one hand-kernel path is the GBT retrain's appended trees
+           (the `kernels` line's `retrain_launches`). (a) bench
+           `STREAMED` (250,000 x 30, [50] tanh, 8 shards, 2 epochs):
+           `train_nn_coresident` at K=1 bit-identical to
+           `train_nn_streamed`, K=2/M=1 and K=2/M=2 bit-identical to K=1
+           (the CPU tests' pin, Rprop); DENSE width (32,768 x 1024,
+           [2048, 2048], bf16 matmuls) K=3 bit-identical to K=1. (b)
+           bench `WDL` (2 epochs, 4 shards): K=1 bit-identical to
+           `train_wdl_streamed`, K=2/M=2 within 1e-6 of K=1. (c) `shifu
+           serve --zoo` (a subprocess) on phase 19's SERVE and NN sets,
+           its budget the tenants' charge + the trainer's + half of
+           SERVE's: (a)'s K=2/M=2 trainer through `HttpGrant`; a
+           rollout's stage of SERVE evicts it first
+           (`reason="pressure_background"`), it checkpoints, is
+           re-admitted after the promote and finishes bit-identical to
+           (a)'s run; requests flow all the while, every one answered;
+           the ledger's peak within the budget; bench SERVE JSON p50/p99
+           with a co-resident trainer and solo, in alternating pairs.
+           (d) `shifu retrain --from-traffic` on phase 9(c)'s NN set and
+           a label-joined traffic log of 20,000 of phase 10's held-out
+           rows, plain and `--coresident` (K=2, M=2); the co-resident
+           one killed by `preempt@epoch=3` and `--resume`d, its
+           candidate files byte-identical; GBT `--append-trees 4` on
+           phase 17's set (the tree entries launched, the parent's
+           trees bit-equal); `shifu promote` of the plain candidate
+           after a stage and 128 shadow-scored rows (promoted or held,
+           printed). `--coresident-only` builds the kernels and runs it
+           alone on phase 18's small CPU-built sets.
 
 Every main-path run (phases 3-6 and 8's train) must launch the scan entry
 once for each subtraction level of each tree (bench `gbt` 25, `rf` 70,
@@ -7027,6 +7056,624 @@ def print_zoo(o):
           f"{o['launches']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the co-resident trainer (coresident/) and `shifu retrain`
+# ---------------------------------------------------------------------------
+
+STREAMED = dict(n=250_000, d=30, hidden=[50], epochs=2, shards=8)  # bench.py
+CORES_DENSE = dict(n=32_768, d=DENSE["d"], hidden=DENSE["hidden"],
+                   epochs=2, shards=4)  # (a): DENSE width, the rows timed
+CORES_WDL = dict(epochs=2, shards=4)  # (b): bench WDL's rows and widths
+CORES_WDL_TOL = 1e-6  # (b): K=2/M=2 vs K=1, the JAX package's bound
+CORES = dict(traffic_rows=20_000, batch=1_000, append_trees=4,
+             kill_epoch=3, shadow_rows=128, pairs=2, concurrency=4,
+             requests=240)
+
+
+def _cores_timed(torch, fn, device="cuda"):
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, res
+
+
+def cores_nn_dir(data_dir, name, spec):
+    """bench.py's NN draws written as `spec["shards"]` NormalizedData
+    shards."""
+    from shifu_tpu_torch.norm.dataset import write_normalized
+
+    x, t, w = nn_bench_data(spec)
+    out = os.path.join(data_dir, name, "NormalizedData")
+    write_normalized(out, x, t, w, [f"x{i}" for i in range(spec["d"])],
+                     n_shards=spec["shards"])
+    return out
+
+
+def _nn_state(res) -> bytes:
+    return nn_flat_bytes(res.params) + np.asarray(
+        [res.train_error, res.valid_error, res.iterations]).tobytes()
+
+
+def cores_train(torch, data_dir, tag, data, cfg, k, m, grant=None,
+                device="cuda", **ccfg_kw):
+    """One `train_nn_coresident` run: (seconds, result, the grant's
+    ledger peak)."""
+    from shifu_tpu_torch.coresident import (CoresidentConfig, LocalGrant,
+                                            train_nn_coresident)
+
+    grant = grant or LocalGrant("retrain")
+    ccfg = CoresidentConfig(stages=k, microbatches=m, family_dir=os.path.join(
+        data_dir, "cores-fam", tag), **ccfg_kw)
+    secs, res = _cores_timed(torch, lambda: train_nn_coresident(
+        data, cfg, ccfg, grant=grant, device=device), device)
+    return secs, res, getattr(getattr(grant, "ledger", None), "peak", None)
+
+
+def cores_nn(torch, data_dir, device="cuda"):
+    """(a): NN at bench STREAMED width, K=1 against train_nn_streamed,
+    K=2/M=1 and K=2/M=2 against K=1; DENSE width (bf16 matmuls), K=3
+    against K=1."""
+    from shifu_tpu_torch.train import nn_trainer as nt
+    from shifu_tpu_torch.train.streaming import train_nn_streamed
+
+    d = cores_nn_dir(data_dir, "cores-streamed", STREAMED)
+    cfg = nn_bench_cfg(nt, STREAMED, bf16=False)
+    s_secs, streamed = _cores_timed(
+        torch, lambda: train_nn_streamed(d, cfg, device=device), device)
+    out = dict(rows=STREAMED["n"], streamed_seconds=s_secs, data=d)
+    runs = {}
+    for tag, k, m in (("k1", 1, 1), ("k2m1", 2, 1), ("k2m2", 2, 2)):
+        secs, res, peak = cores_train(torch, data_dir, tag, d, cfg, k, m,
+                                      device=device)
+        runs[tag] = res
+        out[f"{tag}_seconds"], out[f"{tag}_peak_bytes"] = secs, peak
+    check(_nn_state(runs["k1"]) == _nn_state(streamed),
+          "cores: NN K=1 differs from train_nn_streamed "
+          f"(max |dw| {_nn_diff(nt, runs['k1'], streamed)})")
+    check(_nn_state(runs["k2m1"]) == _nn_state(runs["k1"]),
+          "cores: NN K=2/M=1 differs from K=1 "
+          f"(max |dw| {_nn_diff(nt, runs['k2m1'], runs['k1'])})")
+    out["k2m2_max_abs_diff"] = _nn_diff(nt, runs["k2m2"], runs["k1"])
+    # the CPU tests pin K=2/M=2's weights bit-identical to K=1's (Rprop;
+    # the error sums add in another order)
+    out["k2m2_bit_identical"] = (nn_flat_bytes(runs["k2m2"].params)
+                                 == nn_flat_bytes(runs["k1"].params))
+    out["k2m2_valid_error_diff"] = abs(runs["k2m2"].valid_error
+                                       - runs["k1"].valid_error)
+    check(out["k2m2_bit_identical"],
+          f"cores: NN K=2/M=2 differs from K=1 by "
+          f"{out['k2m2_max_abs_diff']}")
+    out["k2m2"] = runs["k2m2"]
+    dd = cores_nn_dir(data_dir, "cores-dense", CORES_DENSE)
+    dcfg = nn_bench_cfg(nt, CORES_DENSE, bf16=True)
+    dense = {}
+    for tag, k in (("dense-k1", 1), ("dense-k3", 3)):
+        secs, dense[tag], _p = cores_train(torch, data_dir, tag, dd, dcfg,
+                                           k, 1, device=device)
+        out[f"{tag}_seconds"] = secs
+    check(_nn_state(dense["dense-k3"]) == _nn_state(dense["dense-k1"]),
+          "cores: DENSE K=3 differs from K=1 (max |dw| "
+          f"{_nn_diff(nt, dense['dense-k3'], dense['dense-k1'])})")
+    out["dense_rows"] = CORES_DENSE["n"]
+    shutil.rmtree(os.path.dirname(dd), ignore_errors=True)
+    return out
+
+
+def cores_wdl(torch, data_dir, seed, device="cuda"):
+    """(b): WDL at bench WDL width: K=1 against train_wdl_streamed
+    (bit-identical), K=2/M=2 within 1e-6 of K=1."""
+    from shifu_tpu_torch.coresident import (CoresidentConfig, LocalGrant,
+                                            train_wdl_coresident)
+    from shifu_tpu_torch.models.wdl import flatten_wdl
+    from shifu_tpu_torch.norm.dataset import write_codes, write_normalized
+    from shifu_tpu_torch.train import wdl_trainer as wt
+    from shifu_tpu_torch.train.streaming_wdl import train_wdl_streamed
+
+    dense, codes, t, w = wdl_bench_data(seed)
+    base = os.path.join(data_dir, "cores-wdl")
+    nd = os.path.join(base, "NormalizedData")
+    cd = os.path.join(base, "CleanedData")
+    write_normalized(nd, dense, t, w,
+                     [f"n{i}" for i in range(WDL["dense"])],
+                     n_shards=CORES_WDL["shards"])
+    write_codes(cd, codes, t, w, [f"c{i}" for i in range(WDL["wide"])],
+                [WDL["vocab"]] * WDL["wide"], n_shards=CORES_WDL["shards"])
+    args = (nd, cd, list(range(WDL["dense"])), list(range(WDL["wide"])),
+            [WDL["vocab"]] * WDL["wide"])
+    cfg = dataclasses.replace(wdl_bench_cfg(wt),
+                              num_epochs=CORES_WDL["epochs"])
+    out = dict(rows=WDL["n"])
+    out["streamed_seconds"], streamed = _cores_timed(
+        torch, lambda: train_wdl_streamed(*args, cfg, device=device), device)
+    runs = {}
+    for tag, k, m in (("k1", 1, 1), ("k2m2", 2, 2)):
+        ccfg = CoresidentConfig(stages=k, microbatches=m,
+                                family_dir=os.path.join(data_dir,
+                                                        "cores-fam", tag))
+        out[f"{tag}_seconds"], runs[tag] = _cores_timed(
+            torch, lambda: train_wdl_coresident(
+                *args, cfg, ccfg, grant=LocalGrant("retrain"),
+                device=device), device)
+    check(wdl_state([runs["k1"]]) == wdl_state([streamed]),
+          "cores: WDL K=1 differs from train_wdl_streamed")
+    out["k2m2_max_abs_diff"] = float(np.abs(
+        flatten_wdl(runs["k2m2"].params)
+        - flatten_wdl(runs["k1"].params)).max())
+    check(out["k2m2_max_abs_diff"] <= CORES_WDL_TOL,
+          f"cores: WDL K=2/M=2 is {out['k2m2_max_abs_diff']} from K=1 "
+          f"(> {CORES_WDL_TOL})")
+    out["k2m2_bit_identical"] = (wdl_state([runs["k2m2"]])
+                                 == wdl_state([runs["k1"]]))
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def _metric_sum(base, *parts) -> float:
+    """The sum of the /metrics samples whose name holds every part."""
+    import urllib.request
+
+    from shifu_tpu_torch.obs.metrics import parse_prometheus
+
+    with urllib.request.urlopen(f"{base}/metrics", timeout=30) as r:
+        samples = parse_prometheus(r.read().decode("utf-8"))
+    return sum(v for k, v in samples.items() if all(p in k for p in parts))
+
+
+def _serve_bodies(cols, seed, n):
+    rng = np.random.default_rng(seed + 17)
+    return [json.dumps({c: f"{v:.4f}" for c, v in zip(
+        cols, rng.normal(size=len(cols)))}).encode() for _ in range(n)]
+
+
+def cores_evict(torch, data_dir, pkg, seed, nn, device="cuda"):
+    """(c): `shifu serve --zoo` (a subprocess) on phase 19's bench SERVE
+    and NN sets, its budget the two tenants' charge + the trainer's
+    whole charge + half of SERVE's; the (a) K=2/M=2 trainer through
+    HttpGrant: a rollout's stage of SERVE needs the trainer's bytes and
+    evicts it first, the trainer checkpoints and waits, the promote
+    frees the old version, the trainer is re-admitted and finishes
+    bit-identical to (a)'s uninterrupted run; requests flow all the
+    while, every one answered; the ledger's peak within the budget.
+    Then SERVE latency with a trainer resident and solo, in pairs."""
+    import threading
+
+    from shifu_tpu_torch.coresident import HttpGrant
+    from shifu_tpu_torch.serve.server import ScoringServer
+    from shifu_tpu_torch.train import nn_trainer as nt
+
+    zs = os.path.join(data_dir, "zoo-sets")
+    sets = {"serve": os.path.join(zs, "serve"), "nn": os.path.join(zs, "nn")}
+    cand = loop_candidate(os.path.join(sets["serve"], "models"),
+                          os.path.join(data_dir, "cores-candidate"))
+    root = os.path.join(data_dir, "cores-zoo")
+    os.makedirs(root, exist_ok=True)
+    # the tenants' charges, from the same server class in this process
+    with props_set({"shifu.lease.ttlMs": "0"}):
+        probe = ScoringServer(root=root, port=0, replicas=1, device=device,
+                              zoo=sets).start()
+    try:
+        for name in sets:
+            probe.zoo.ensure_resident(name)
+        used = probe.zoo.ledger.used
+        serve_bytes = probe.zoo.ledger.charge_of("serve")
+    finally:
+        probe.shutdown(60)
+    _sync(torch, device)
+    need = nn["k2m2_peak_bytes"]
+    budget = used + need + serve_bytes // 2
+    out = dict(tenants_bytes=used, trainer_bytes=need, budget_bytes=budget,
+               serve_bytes=serve_bytes)
+    zoo_arg = ",".join(f"{k}={v}" for k, v in sets.items())
+    proc, log = _spawn_serve(root, pkg, device, "--zoo", zoo_arg,
+                             f"-Dshifu.serve.hbmBudgetMB={budget / MB!r}")
+    try:
+        base = _listening(proc, log, "cores: shifu serve --zoo")
+        port = int(base.rsplit(":", 1)[1])
+        cols = [f"c{i}" for i in range(SERVE["cols"])]
+        for name in sets:
+            recs = zoo_records(data_dir, _set_columns(sets[name]), seed, 4)
+            end = time.monotonic() + 120
+            while _http_full(f"{base}/score/{name}",
+                             {"records": recs})[0] != 200:
+                check(time.monotonic() < end, f"cores: {name} never warm")
+                time.sleep(0.05)
+        bodies = _serve_bodies(cols, seed, CORES["requests"])
+        codes, stop = [], threading.Event()
+
+        def traffic():
+            while not stop.is_set():
+                _lat, _w, c = _closed_loop(port, bodies[:16], 1,
+                                           "application/json",
+                                           path="/score/serve")
+                codes.extend(c)
+
+        staged, promoted = [], []
+        released = threading.Event()
+
+        class _Pressure(HttpGrant):
+            """After epoch 1's checkpoint a rollout stages a new SERVE
+            version: its bytes need the trainer's."""
+
+            def heartbeat(self, epoch):
+                if epoch == 1 and not staged:
+                    staged.append(_http_full(
+                        f"{base}/admin/stage",
+                        {"modelsDir": cand, "set": "serve"})[0])
+                return super().heartbeat(epoch)
+
+            def release(self, final=False):
+                super().release(final)
+                if not final:
+                    released.set()
+
+        def rollout_ends():
+            # once the evicted trainer has dropped its buffers and
+            # released, the promote frees the old version's bytes
+            released.wait(120)
+            promoted.append(_http_full(f"{base}/admin/promote",
+                                       {"set": "serve"})[0])
+
+        cfg = nn_bench_cfg(nt, STREAMED, bf16=False)
+        threads = [threading.Thread(target=traffic, daemon=True),
+                   threading.Thread(target=rollout_ends, daemon=True)]
+        for th in threads:
+            th.start()
+        try:
+            secs, res, _p = cores_train(
+                torch, data_dir, "evict", nn["data"], cfg, 2, 2,
+                grant=_Pressure(base, "retrain"), device=device,
+                serve_url=base, wait_ms=120_000.0)
+        finally:
+            stop.set()
+            for th in threads:
+                th.join(120)
+        out["trainer_seconds"] = secs
+        check(staged == [200] and promoted == [200],
+              f"cores: the rollout answered stage {staged}, promote "
+              f"{promoted}")
+        check(_nn_state(res) == _nn_state(nn["k2m2"]),
+              "cores: the evicted and re-admitted trainer differs from "
+              "the uninterrupted one (max |dw| "
+              f"{_nn_diff(nt, res, nn['k2m2'])})")
+        out["evictions"] = _metric_sum(base, "evictions",
+                                       'reason="pressure_background"',
+                                       'tenant="retrain"')
+        check(out["evictions"] == 1,
+              f"cores: {out['evictions']} pressure_background evictions "
+              "of the trainer (want 1)")
+        out["requests"] = len(codes)
+        check(codes and all(c == 200 for c in codes),
+              f"cores: {sum(c != 200 for c in codes)} of {len(codes)} "
+              "requests not answered 200")
+        z = _health(base)["zoo"]
+        out["peak_mb"], out["budget_mb"] = z["hbmPeakUsedMB"], z[
+            "hbmBudgetMB"]
+        check(z["hbmPeakUsedMB"] <= z["hbmBudgetMB"],
+              f"cores: the ledger's peak {z['hbmPeakUsedMB']} MB passed the "
+              f"budget {z['hbmBudgetMB']} MB")
+        out["latency"] = cores_latency(torch, data_dir, base, port, bodies,
+                                       nn, device)
+    finally:
+        out["serve_rc"] = _stop(proc, log)
+    check(out["serve_rc"] == 0, f"cores: serve exited {out['serve_rc']}")
+    return out
+
+
+def _set_columns(root):
+    from shifu_tpu_torch.serve.registry import ModelRegistry
+
+    return ModelRegistry(os.path.join(root, "models"),
+                         device="cpu").input_columns
+
+
+def _health(base):
+    import urllib.request
+
+    with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
+        return json.loads(r.read())
+
+
+def cores_latency(torch, data_dir, base, port, bodies, nn, device="cuda"):
+    """SERVE JSON closed loop at CORES concurrency with a co-resident
+    trainer running (through HttpGrant, one run after another) and solo,
+    in alternating pairs (printed, not gated)."""
+    import threading
+
+    from shifu_tpu_torch.coresident import HttpGrant
+    from shifu_tpu_torch.train import nn_trainer as nt
+
+    cfg = nn_bench_cfg(nt, STREAMED, bf16=False)
+    out = dict(resident=[], solo=[], trainer_runs=[])
+    for pair in range(CORES["pairs"]):
+        stop = threading.Event()
+        runs = []
+
+        def train():
+            i = 0
+            while not stop.is_set():
+                cores_train(torch, data_dir, f"lat{pair}-{i}", nn["data"],
+                            cfg, 2, 2, grant=HttpGrant(base, "latency"),
+                            device=device, tenant="latency", serve_url=base)
+                runs.append(i)
+                i += 1
+
+        th = threading.Thread(target=train, daemon=True)
+        th.start()
+        end = time.monotonic() + 60
+        while "latency" not in _health(base)["zoo"]["background"]:
+            check(time.monotonic() < end, "cores: the trainer never admitted")
+            time.sleep(0.01)
+        lat, wall, codes = _closed_loop(port, bodies, CORES["concurrency"],
+                                        "application/json",
+                                        path="/score/serve")
+        stop.set()
+        th.join(300)
+        check(all(c == 200 for c in codes), "cores: latency: not all 200")
+        out["resident"].append(_latency(lat, wall))
+        out["trainer_runs"].append(len(runs))
+        lat, wall, codes = _closed_loop(port, bodies, CORES["concurrency"],
+                                        "application/json",
+                                        path="/score/serve")
+        check(all(c == 200 for c in codes), "cores: latency: not all 200")
+        out["solo"].append(_latency(lat, wall))
+    return out
+
+
+def _candidate_bytes(root):
+    from shifu_tpu_torch.eval.scorer import find_model_paths
+
+    out = {}
+    for p in find_model_paths(os.path.join(root, "models.candidate")):
+        with open(p, "rb") as fh:
+            out[os.path.basename(p)] = fh.read()
+    return out
+
+
+def cores_traffic(torch, data_dir, root, device="cuda"):
+    """A label-joined traffic log on `root`: phase 10's held-out rows,
+    every raw column (the target and weight included), scored through a
+    `ScoringServer` with `shifu.loop.logSample` 1."""
+    from shifu_tpu_torch.data.reader import read_columnar, read_header
+    from shifu_tpu_torch.serve.server import ScoringServer
+
+    src = os.path.join(data_dir, "eval-raw", "data")
+    names = read_header(os.path.join(src, "header.txt"))
+    n = CORES["traffic_rows"]
+    data = read_columnar(os.path.join(src, "data.txt"), names, max_rows=n)
+    recs = [{c: str(data.raw[c][i]) for c in names}
+            for i in range(data.n_rows)]
+    with props_set({"shifu.loop.logSample": "1.0",
+                    "shifu.lease.ttlMs": "0"}):
+        srv = ScoringServer(root=root, port=0, replicas=1,
+                            device=device).start()
+        try:
+            for a in range(0, len(recs), CORES["batch"]):
+                srv.scorer.score_batch(recs[a:a + CORES["batch"]])
+        finally:
+            srv.shutdown(60)
+    return recs
+
+
+def cores_retrain(torch, hk, data_dir, gbt_root, device="cuda"):
+    """(d): `shifu retrain --from-traffic` on phase 9's NN set, plain
+    and `--coresident` (K=2, M=2); the co-resident run killed at an
+    epoch by a fault clause, then `--resume`: the candidate files
+    byte-identical; GBT `--append-trees 4` on phase 17's set (its
+    launches counted, the parent's trees kept bit for bit); `shifu
+    promote` of the plain candidate through a server's stage and
+    shadow."""
+    from shifu_tpu_torch.models.tree import TreeModelSpec
+    from shifu_tpu_torch.obs.ledger import list_runs
+    from shifu_tpu_torch.processor.retrain import RetrainProcessor
+    from shifu_tpu_torch.resilience.faults import PreemptionError
+
+    base = os.path.join(data_dir, "cores-retrain")
+    plain = os.path.join(base, "plain")
+    shutil.copytree(os.path.join(data_dir, "nn-card2"), plain,
+                    ignore=shutil.ignore_patterns(".shifu", "tmp", "evals"))
+    recs = cores_traffic(torch, data_dir, plain, device)
+    co = shutil.copytree(plain, os.path.join(base, "co"))
+    kill = shutil.copytree(plain, os.path.join(base, "kill"))
+    out = dict(traffic_rows=len(recs))
+    hk.reset_counters()
+    out["plain_seconds"], rc = _cores_timed(torch, lambda: RetrainProcessor(
+        plain, from_traffic=True, device=device).run(), device)
+    check(rc == 0, f"cores: retrain --from-traffic returned {rc}")
+    (m,) = list_runs(plain, step="retrain", last=1)
+    src = m["retrain"]["source"]
+    out["rows"], out["chunks"] = src["rows"], len(src["trafficChunks"])
+    check(src["kind"] == "traffic" and src["rows"] > 0,
+          f"cores: the retrain read {src}")
+    pipe = {"shifu.coresident.stages": "2",
+            "shifu.coresident.microbatches": "2"}
+    with props_set(pipe):
+        out["co_seconds"], rc = _cores_timed(
+            torch, lambda: RetrainProcessor(
+                co, from_traffic=True, coresident=True,
+                device=device).run(), device)
+        check(rc == 0, f"cores: retrain --coresident returned {rc}")
+        kill_at = f"preempt@epoch={CORES['kill_epoch']}"
+        with props_set({"shifu.faults": kill_at}):
+            try:
+                RetrainProcessor(kill, from_traffic=True, coresident=True,
+                                 device=device).run()
+                killed = False
+            except PreemptionError:
+                killed = True
+        check(killed, "cores: the fault clause did not stop the retrain")
+        with props_set({"shifu.resume": "true"}):
+            rc = RetrainProcessor(kill, from_traffic=True, coresident=True,
+                                  device=device).run()
+        check(rc == 0, f"cores: retrain --resume returned {rc}")
+    co_files = _candidate_bytes(co)
+    check(co_files and _candidate_bytes(kill) == co_files,
+          "cores: the resumed co-resident retrain differs from the "
+          "unbroken one")
+    (mc,) = list_runs(co, step="retrain", last=1)
+    out["coresident"] = mc["retrain"]["coresident"]
+    out["nn_launches"] = dict(hk.launches)
+    check(not any(out["nn_launches"].values()),
+          f"cores: the NN retrains launched {out['nn_launches']}")
+    # GBT: the appended trees train through the tree entries
+    groot = shutil.copytree(gbt_root, os.path.join(base, "gbt"),
+                            ignore=shutil.ignore_patterns(".shifu", "tmp"))
+    parent = TreeModelSpec.load(os.path.join(groot, "models", "model0.gbt"))
+    reset_obs()
+    hk.reset_counters()
+    out["gbt_seconds"], rc = _cores_timed(torch, lambda: RetrainProcessor(
+        groot, append_trees=CORES["append_trees"], device=device).run(),
+        device)
+    out["launches"] = dict(hk.launches)
+    check(rc == 0, f"cores: GBT retrain returned {rc}")
+    cand = TreeModelSpec.load(os.path.join(groot, "models.candidate",
+                                           "model0.gbt"))
+    check(len(cand.trees) == len(parent.trees) + CORES["append_trees"],
+          f"cores: {len(cand.trees)} trees after appending to "
+          f"{len(parent.trees)}")
+    check(trees_equal(parent.trees, cand.trees),
+          "cores: the GBT retrain changed a parent tree")
+    if device == "cuda":  # the CPU runs the entries' plain versions
+        check(out["launches"]["scan_level"] > 0 and (
+            out["launches"]["fused_level"]
+            + out["launches"]["hist_level"]) > 0,
+            f"cores: the GBT retrain launched {out['launches']}")
+        check(not any(hk.reference_calls.values()),
+              f"cores: the GBT retrain ran plain versions "
+              f"{dict(hk.reference_calls)}")
+    out["parent_trees"], out["trees"] = len(parent.trees), len(cand.trees)
+    out["promote"] = cores_promote(torch, plain, recs, device)
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def cores_promote(torch, root, recs, device="cuda"):
+    """`shifu promote` of the candidate through a running server: stage
+    it, let it shadow-score held-out rows, then the gated promote (its
+    decision printed: 0 promoted, 1 held)."""
+    from shifu_tpu_torch.loop.promote import run_promote
+    from shifu_tpu_torch.obs.ledger import list_runs
+    from shifu_tpu_torch.serve.server import ScoringServer
+
+    with props_set({"shifu.loop.shadowSample": "1.0",
+                    "shifu.lease.ttlMs": "0"}):
+        srv = ScoringServer(root=root, port=0, replicas=1,
+                            device=device).start()
+        try:
+            base = f"http://127.0.0.1:{srv.port}"
+            code, _d, _h = _http_full(f"{base}/admin/stage", {
+                "modelsDir": os.path.join(root, "models.candidate")})
+            check(code == 200, f"cores: /admin/stage answered {code}")
+            n = CORES["shadow_rows"]
+            for a in range(0, n, 64):
+                code, _d, _h = _http_full(f"{base}/score",
+                                          {"records": recs[a:a + 64]})
+                check(code == 200, f"cores: /score answered {code}")
+            _wait_for(lambda: (_http_doc(f"{base}/admin/shadow")[1][
+                "shadow"] or {}).get("rows", 0) >= n, "the shadow rows")
+            shadow = _http_doc(f"{base}/admin/shadow")[1]["shadow"]
+            rc = run_promote(root, None, serve_url=base,
+                             require_drift=False)
+        finally:
+            srv.shutdown(60)
+    check(rc in (0, 1), f"cores: shifu promote returned {rc}")
+    (m,) = list_runs(root, step="promote", last=1)
+    decision = m["promote"]["decision"]
+    check(decision["promote"] == (rc == 0),
+          f"cores: promote rc {rc} but decision {decision}")
+    return dict(rc=rc, decision="promoted" if rc == 0 else "held",
+                rows=shadow["rows"], agreement=shadow["agreement"])
+
+
+def coresident_only_sets(torch, hk, tt, data_dir, seed):
+    """--coresident-only: phase 18's small CPU-built sets, phase 19's
+    zoo sets and phase 17's GBT set, its 5-tree parent trained on the
+    CPU."""
+    from shifu_tpu_torch.processor.train import TrainProcessor
+
+    loop_only_sets(torch, hk, tt, data_dir, seed)
+    zoo_sets(data_dir, seed)
+    gbt = obs_set(data_dir, "GBT")
+    check(TrainProcessor(gbt, device="cpu").run() == 0,
+          "cores: the GBT parent did not train")
+    return gbt
+
+
+def phase_coresident(torch, hk, data_dir, pkg, seed, gbt_root,
+                     device="cuda"):
+    """Phase 20: (a) NN and (b) WDL co-resident against the streamed
+    trainers, (c) eviction under serving pressure through HttpGrant,
+    (d) `shifu retrain` and `shifu promote`. The hand-kernel launches
+    are (d)'s GBT retrain's (counted from 0 just before it)."""
+    t0 = time.perf_counter()
+    hk.reset_counters()
+    out = dict(nn=cores_nn(torch, data_dir, device))
+    out["wdl"] = cores_wdl(torch, data_dir, seed, device)
+    out["nn_launches"] = dict(hk.launches)
+    check(not any(out["nn_launches"].values()),
+          f"cores: the NN/WDL trainers launched {out['nn_launches']}")
+    out["evict"] = cores_evict(torch, data_dir, pkg, seed, out["nn"], device)
+    out["retrain"] = cores_retrain(torch, hk, data_dir, gbt_root, device)
+    out["launches"] = out["retrain"]["launches"]
+    for key in ("k2m2",):
+        out["nn"].pop(key)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def print_coresident(o, card):
+    a, b, c, d = o["nn"], o["wdl"], o["evict"], o["retrain"]
+    print(f"cores: [{card}] (a) NN bench STREAMED ({a['rows']} x "
+          f"{STREAMED['d']}, {STREAMED['shards']} shards, "
+          f"{STREAMED['epochs']} epochs): streamed "
+          f"{a['streamed_seconds']:.3f} s, co-resident K=1 "
+          f"{a['k1_seconds']:.3f} s (bit-identical), K=2/M=1 "
+          f"{a['k2m1_seconds']:.3f} s (bit-identical), K=2/M=2 "
+          f"{a['k2m2_seconds']:.3f} s (weights bit-identical: "
+          f"{a['k2m2_bit_identical']}, max |dw| {a['k2m2_max_abs_diff']}, "
+          f"|d valid error| {a['k2m2_valid_error_diff']}); "
+          f"DENSE width ({a['dense_rows']} rows, bf16 matmuls) K=1 "
+          f"{a['dense-k1_seconds']:.3f} s, K=3 {a['dense-k3_seconds']:.3f} s"
+          " (bit-identical)")
+    print(f"cores: [{card}] (b) WDL bench width ({b['rows']} rows, "
+          f"{CORES_WDL['epochs']} epochs): streamed "
+          f"{b['streamed_seconds']:.3f} s, K=1 {b['k1_seconds']:.3f} s "
+          f"(bit-identical), K=2/M=2 {b['k2m2_seconds']:.3f} s, max |dw| "
+          f"{b['k2m2_max_abs_diff']} <= {CORES_WDL_TOL} (bit-identical: "
+          f"{b['k2m2_bit_identical']})")
+    print(f"cores: [{card}] (c) shifu serve --zoo serve,nn, budget "
+          f"{c['budget_bytes']} bytes (tenants {c['tenants_bytes']} + "
+          f"trainer {c['trainer_bytes']} + half of SERVE's "
+          f"{c['serve_bytes']}): the stage evicted the trainer first "
+          f"({c['evictions']:.0f} pressure_background), re-admitted after "
+          f"the promote, finished bit-identical in "
+          f"{c['trainer_seconds']:.3f} s; {c['requests']} requests all "
+          f"200; ledger peak {c['peak_mb']} MB <= {c['budget_mb']} MB")
+    lt = c["latency"]
+    print(f"cores: [{card}] (c) bench SERVE JSON c{CORES['concurrency']} "
+          "with a co-resident trainer / solo (pairs): p50 "
+          + "/".join(f"{r['p50_ms']:.3f}" for r in lt["resident"]) + " vs "
+          + "/".join(f"{r['p50_ms']:.3f}" for r in lt["solo"])
+          + " ms, p99 "
+          + "/".join(f"{r['p99_ms']:.3f}" for r in lt["resident"]) + " vs "
+          + "/".join(f"{r['p99_ms']:.3f}" for r in lt["solo"])
+          + f" ms (trainer runs {lt['trainer_runs']})")
+    print(f"cores: [{card}] (d) shifu retrain --from-traffic "
+          f"({d['traffic_rows']} logged rows, {d['chunks']} chunks, "
+          f"{d['rows']} normalized): plain {d['plain_seconds']:.3f} s, "
+          f"--coresident (K=2, M=2) {d['co_seconds']:.3f} s; killed at "
+          f"epoch {CORES['kill_epoch']} then --resume: candidate files "
+          f"byte-identical; GBT --append-trees {CORES['append_trees']}: "
+          f"{d['parent_trees']} -> {d['trees']} trees in "
+          f"{d['gbt_seconds']:.3f} s, parent trees bit-equal, launches "
+          f"{d['launches']}; shifu promote rc {d['promote']['rc']} "
+          f"({d['promote']['decision']}, shadow agreement "
+          f"{d['promote']['agreement']} on {d['promote']['rows']} rows)")
+    print(f"cores: [{card}] phase {o['seconds']:.1f} s")
+
+
 def run(args) -> int:
     import torch
 
@@ -7056,6 +7703,27 @@ def run(args) -> int:
     t_all = time.perf_counter()
 
     pkg = os.path.abspath(args.package_root or REPO)
+    if args.coresident_only:
+        # phase 20 alone on small sets built on the CPU; its GBT retrain
+        # launches the tree entries, so the kernels are built first
+        build.load("hist_level", rebuild=True)
+        data_dir = os.path.join(build.BUILD_DIR, "smoke-data")
+        shutil.rmtree(data_dir, ignore_errors=True)
+        try:
+            gbt_root = coresident_only_sets(torch, hk, tt, data_dir,
+                                            args.seed)
+            report["coresident"] = phase_coresident(
+                torch, hk, data_dir, pkg, args.seed, gbt_root)
+            print_coresident(report["coresident"], card)
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
+        if args.out:
+            out = os.path.join(REPO, args.out)
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            with open(out, "w") as fh:
+                json.dump(report, fh, indent=1)
+        print(f"{card}")
+        return 0
     if args.zoo_only:
         # phase 19 alone on phase 18's small CPU-built sets (no hand
         # kernel runs in it, so nothing is built)
@@ -7257,6 +7925,9 @@ def run(args) -> int:
         print_loop(lp)
         zo = phase_zoo(torch, hk, data_dir, pkg, args.seed)
         print_zoo(zo)
+        co = phase_coresident(torch, hk, data_dir, pkg, args.seed,
+                              os.path.join(data_dir, "obs-gbt"))
+        print_coresident(co, card)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     report["gbt"], report["rf"] = g, r
@@ -7273,6 +7944,7 @@ def run(args) -> int:
     report["obs"] = ob
     report["loop"] = lp
     report["zoo"] = zo
+    report["coresident"] = co
     grown = [gr[k]["launches"] for k in ("leafwise_gbt", "leafwise_rf",
                                          "batched_gbt", "batched_rf")]
     # the streamed grower's: (a)'s forests and (b)'s RF train
@@ -7285,6 +7957,8 @@ def run(args) -> int:
     grown += host_runs
     # phase 17's trains (each counted on its own)
     grown += ob["launches"]
+    # phase 20's GBT retrain
+    grown.append(co["launches"])
 
     kernels = []
     mc_lines = ":358-365,:408-430,:540-552,:767-769"
@@ -7315,6 +7989,7 @@ def run(args) -> int:
             obs_launches=sum(lc[name] for lc in ob["launches"]),
             loop_launches=lp["launches"].get(name, 0),
             zoo_launches=zo["launches"].get(name, 0),
+            retrain_launches=co["launches"].get(name, 0),
             max_abs_err=stats.max_abs_err[name], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"]))
@@ -7357,6 +8032,9 @@ def main() -> int:
     ap.add_argument("--zoo-only", action="store_true",
                     help="run phase 19 alone on small sets built on the "
                     "CPU (no kernel build)")
+    ap.add_argument("--coresident-only", action="store_true",
+                    help="build the kernels, then run phase 20 alone on "
+                    "small sets built on the CPU")
     ap.add_argument("--package-root", default="",
                     help="directory to import shifu_tpu_torch from "
                     "(default: this checkout)")

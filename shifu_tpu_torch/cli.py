@@ -10,6 +10,13 @@
                                      [--device cpu|cuda] [-Dk=v ...]
     python -m shifu_tpu_torch train [-dry] [--resume] [--device cpu|cuda]
                                     [-Dk=v ...]
+    python -m shifu_tpu_torch retrain [--from-traffic|--data PATH]
+                                      [--candidate-dir DIR]
+                                      [--append-trees N]
+                                      [--traffic-stream SET]
+                                      [--coresident [--serve-url URL]]
+                                      [--resume] [--device cpu|cuda]
+                                      [-Dk=v ...]
     python -m shifu_tpu_torch posttrain [--device cpu|cuda] [-Dk=v ...]
     python -m shifu_tpu_torch eval [-new NAME|-list|-delete NAME|-run [NAME]|
                                    -score [NAME]|-perf [NAME]|-confmat [NAME]|
@@ -50,8 +57,9 @@ run in a model-set directory. The flags follow the JAX subcommands;
 `top`, `runs` and `profile` touch no device and take none.
 `normalize` and `varselect` are aliases of `norm` and `varsel`. Exit
 codes follow the JAX CLI: 0 ok, 1 ShifuError (or no card), 2 not
-implemented. Every other lifecycle subcommand exits 2 with the ROADMAP
-item that ports it.
+implemented, 3 a co-resident retrain evicted past its wait window.
+Every other lifecycle subcommand exits 2 with the ROADMAP item that
+ports it.
 -Dk=v anywhere on the line sets an operational property
 (ShifuCLI.java:430-453).
 """
@@ -72,7 +80,7 @@ from shifu_tpu_torch.utils.platform import DeviceUnavailable
 log = get_logger("shifu")
 
 # the JAX CLI's other subcommands and the ROADMAP item that ports each
-NOT_PORTED = {"retrain": "A.14.6", "check": "A.14.8"}
+NOT_PORTED = {"check": "A.14.8"}
 
 
 def _extract_props(argv: List[str]) -> List[str]:
@@ -193,6 +201,54 @@ def build_parser() -> argparse.ArgumentParser:
                               "default /score route")
     p_serve.add_argument("--device", choices=["cpu", "cuda"], default=None,
                          help=device_help)
+    p_retrain = sub.add_parser(
+        "retrain", help="warm-start incremental training: norm a new "
+                        "data stream (default: the serve traffic log), "
+                        "warm-start NN/WDL from the previous models / "
+                        "append GBT trees, write the result to the "
+                        "candidate dir for `shifu promote`")
+    p_retrain.add_argument("--from-traffic", action="store_true",
+                           dest="from_traffic",
+                           help="retrain from the serve-side traffic log "
+                                "(.shifu/runs/traffic; the default when "
+                                "one exists and --data is not given)")
+    p_retrain.add_argument("--data", default=None, dest="data_path",
+                           help="explicit new-data path/glob (takes the "
+                                "place of the traffic log; mutually "
+                                "exclusive with --from-traffic)")
+    p_retrain.add_argument("--candidate-dir", default=None,
+                           dest="candidate_dir",
+                           help="output model dir (default "
+                                "models.candidate; promoted by `shifu "
+                                "promote`)")
+    p_retrain.add_argument("--append-trees", type=int, default=None,
+                           dest="append_trees",
+                           help="GBT: trees appended on the new chunks "
+                                "(default -Dshifu.loop.appendTrees=10)")
+    p_retrain.add_argument("--traffic-stream", default=None,
+                           dest="traffic_stream", metavar="SET",
+                           help="retrain from ONE model-zoo tenant's "
+                                "traffic stream "
+                                "(.shifu/runs/traffic/<SET>/ — zoo "
+                                "servers log per set)")
+    p_retrain.add_argument("--coresident", action="store_true",
+                           help="run the NN/WDL retrain as a co-resident "
+                                "background tenant of the serving "
+                                "fleet's device-memory ledger: pipeline "
+                                "stages pinned per device, evictable "
+                                "first under serving pressure, resumable "
+                                "bit-identically after eviction "
+                                "(-Dshifu.coresident.* knobs)")
+    p_retrain.add_argument("--serve-url", default=None, dest="serve_url",
+                           help="with --coresident: a running server "
+                                "base URL — the trainer registers with "
+                                "THAT process's ledger via "
+                                "/admin/coresident/* instead of a "
+                                "private local grant")
+    p_retrain.add_argument("--resume", action="store_true",
+                           help=resume_help)
+    p_retrain.add_argument("--device", choices=["cpu", "cuda"],
+                           default=None, help=device_help)
     p_promote = sub.add_parser(
         "promote", help="gate a candidate rollout on shadow agreement + "
                         "drift verdicts, then hot-swap it live (running "
@@ -450,6 +506,8 @@ def dispatch(args: argparse.Namespace) -> int:
         from shifu_tpu_torch.processor.train import TrainProcessor
 
         return TrainProcessor(dry=args.dry, device=args.device).run()
+    if cmd == "retrain":
+        return retrain(args)
     if cmd == "posttrain":
         from shifu_tpu_torch.processor.posttrain import PostTrainProcessor
 
@@ -730,6 +788,29 @@ def dispatch(args: argparse.Namespace) -> int:
         return ManageProcessor(cmd, getattr(args, "version", None)).run()
     raise NotImplementedError(
         f"`{cmd}` is not ported yet: ROADMAP {NOT_PORTED[cmd]}")
+
+
+def retrain(args: argparse.Namespace) -> int:
+    """`shifu retrain`; a co-resident run evicted past its wait window
+    prints the resume hint and exits 3."""
+    from shifu_tpu_torch.coresident import EvictedError
+    from shifu_tpu_torch.processor.retrain import RetrainProcessor
+
+    proc = RetrainProcessor(
+        from_traffic=args.from_traffic, data_path=args.data_path,
+        candidate_dir=args.candidate_dir, append_trees=args.append_trees,
+        traffic_stream=args.traffic_stream or "",
+        coresident=args.coresident, serve_url=args.serve_url,
+        device=args.device)
+    try:
+        return proc.run()
+    except EvictedError as e:
+        log.error("co-resident retrain evicted: %s", e)
+        print(f"trainer `{e.tenant}` was evicted by serving pressure at "
+              f"epoch {e.epoch} and re-admission did not land within the "
+              f"wait window. State is checkpointed; resume bit-identically "
+              f"with:\n  shifu retrain --coresident --resume")
+        return 3
 
 
 def serve(args: argparse.Namespace) -> int:

@@ -31,7 +31,9 @@ over the existing subsystems instead of duplicating them:
                written atomically (`shifu promote` coordinates, every
                leased serve process takes part, serve/peers.py).
 
-`shifu retrain` (ROADMAP A.14.6) is not ported yet.
+`shifu retrain` (processor/retrain.py) consumes the traffic log and/or
+new data through the existing ShardPlan streaming feeds, warm-starts
+NN/LR from the previous model and extends GBT by appending trees.
 
 Knobs (all -D properties):
 
@@ -54,6 +56,8 @@ Knobs (all -D properties):
                               (default 0.95)
   shifu.loop.promoteMinRows   min shadow-scored rows before a promote
                               decision is meaningful (default 64)
+  shifu.loop.appendTrees      GBT retrain: trees appended on new chunks
+                              (default 10)
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ DEFAULT_SHADOW_SAMPLE = 0.25
 DEFAULT_SHADOW_TOLERANCE = 5.0
 DEFAULT_PROMOTE_AGREE = 0.95
 DEFAULT_PROMOTE_MIN_ROWS = 64
+DEFAULT_APPEND_TREES = 10
 
 
 def log_sample_setting() -> float:
@@ -112,3 +117,8 @@ def promote_agree_setting() -> float:
 def promote_min_rows_setting() -> int:
     return environment.get_int("shifu.loop.promoteMinRows",
                                DEFAULT_PROMOTE_MIN_ROWS)
+
+
+def append_trees_setting() -> int:
+    return environment.get_int("shifu.loop.appendTrees",
+                               DEFAULT_APPEND_TREES)

@@ -51,8 +51,8 @@ from shifu_tpu_torch.utils.log import get_logger
 
 log = get_logger(__name__)
 
-# where a candidate model set waits for `shifu promote` (the JAX
-# `shifu retrain` writes it; ROADMAP A.14.6)
+# where a candidate model set waits for `shifu promote` (`shifu retrain`
+# writes it, processor/retrain.py)
 DEFAULT_CANDIDATE_DIR = "models.candidate"
 
 

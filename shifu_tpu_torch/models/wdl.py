@@ -224,43 +224,75 @@ def wdl_forward(p: WDLParams, dense: torch.Tensor, codes: torch.Tensor,
     with a member axis on `p`, [M, n]. The hidden activation of layer i is
     activations[i % len], relu when the list is empty. `embed_devices`
     (a mesh's model group) splits the embedding lookup's columns over
-    those devices (`_gather_split`)."""
+    those devices (`_gather_split`). The pieces (`wdl_deep_input`,
+    `wdl_dense`, `wdl_wide_logit`) are what the co-resident pipeline's
+    stages run, the same ops in the same order."""
     members = p.bias.dim() == 2
-    pieces = [dense.expand(p.bias.shape[0], *dense.shape)
-              if members else dense]
-    n_cat = len(p.embed)
-    if n_cat:
-        idx = torch.stack([
-            torch.clamp(codes[:, f].long(), 0, table.shape[-2] - 1)
-            for f, table in enumerate(p.embed)], dim=1)
-        emb = (_gather_split(p.embed, idx, embed_devices)
-               if embed_devices is not None and len(embed_devices) > 1
-               else _gather_fields(p.embed, idx))
-        pieces.append(emb.reshape(*emb.shape[:-2], -1))
-    h = torch.cat(pieces, dim=-1)
-    n_hidden = len(p.dense_layers) - 1
-    for i in range(n_hidden):
-        act = activation_fn(activations[i % len(activations)]
-                            if activations else "relu")
-        layer = p.dense_layers[i]
-        h = act(torch.matmul(h, layer["W"]) + _row(layer["b"], members))
-    last = p.dense_layers[-1]
-    deep_logit = (torch.matmul(h, last["W"]) + _row(last["b"], members))[
-        ..., 0]
-
-    if members:
-        wide_logit = torch.matmul(p.wide_dense, dense.T)
-    else:
-        wide_logit = dense @ p.wide_dense
-    if n_cat:
-        wide = _gather_fields([t[..., None] for t in p.wide], idx)[..., 0]
-        for f in range(n_cat):
-            wide_logit = wide_logit + wide[..., f]
-
+    idx = wdl_field_index(p.embed, codes)
+    h = wdl_deep_input(p.embed, dense, idx,
+                       p.bias.shape[0] if members else 0, embed_devices)
+    h = wdl_dense(p.dense_layers, h, activations, 0,
+                  len(p.dense_layers) - 1, members)
+    deep_logit = h[..., 0]
+    wide_logit = wdl_wide_logit(p.wide, p.wide_dense, dense, idx, members)
     logit = deep_logit + wide_logit + p.bias[..., :1]
     if logits_only:
         return logit
     return 1.0 / (1.0 + torch.exp(-logit))
+
+
+def wdl_field_index(embed, codes: torch.Tensor) -> Optional[torch.Tensor]:
+    """The categorical codes [n, F] clipped into each field's table, or
+    None without categorical fields."""
+    if not len(embed):
+        return None
+    return torch.stack([
+        torch.clamp(codes[:, f].long(), 0, table.shape[-2] - 1)
+        for f, table in enumerate(embed)], dim=1)
+
+
+def wdl_deep_input(embed, dense: torch.Tensor, idx: Optional[torch.Tensor],
+                   members: int = 0,
+                   embed_devices: Optional[Sequence[torch.device]] = None
+                   ) -> torch.Tensor:
+    """The deep tower's input: the dense columns beside the embeddings
+    ([n, Dn + F*E], or [M, n, ...] for `members` > 0)."""
+    pieces = [dense.expand(members, *dense.shape) if members else dense]
+    if idx is not None:
+        emb = (_gather_split(embed, idx, embed_devices)
+               if embed_devices is not None and len(embed_devices) > 1
+               else _gather_fields(embed, idx))
+        pieces.append(emb.reshape(*emb.shape[:-2], -1))
+    return torch.cat(pieces, dim=-1)
+
+
+def wdl_dense(layers, h: torch.Tensor, activations: Sequence[str], lo: int,
+              n_hidden: int, members: bool) -> torch.Tensor:
+    """Dense layers lo, lo + 1, ... of the deep tower over `h`: layer i
+    below `n_hidden` applies its activation, the output layer none."""
+    for i, layer in enumerate(layers, start=lo):
+        z = torch.matmul(h, layer["W"]) + _row(layer["b"], members)
+        if i < n_hidden:
+            z = activation_fn(activations[i % len(activations)]
+                              if activations else "relu")(z)
+        h = z
+    return h
+
+
+def wdl_wide_logit(wide, wide_dense, dense: torch.Tensor,
+                   idx: Optional[torch.Tensor], members: bool
+                   ) -> torch.Tensor:
+    """The wide tower's logit [n] (or [M, n]): the dense columns' linear
+    term, then each field's table entry in field order."""
+    if members:
+        wide_logit = torch.matmul(wide_dense, dense.T)
+    else:
+        wide_logit = dense @ wide_dense
+    if idx is not None:
+        w = _gather_fields([t[..., None] for t in wide], idx)[..., 0]
+        for f in range(len(wide)):
+            wide_logit = wide_logit + w[..., f]
+    return wide_logit
 
 
 def _row(b: torch.Tensor, members: bool) -> torch.Tensor:

@@ -283,6 +283,36 @@ def replicate(t: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
     return [by_dev[d] for d in mesh.devices]
 
 
+def fleet_mesh(n_devices: int, device: DeviceLike = None) -> Mesh:
+    """The mesh of `n_devices` fleet replicas: replica i on card i %
+    count on cuda (the serving fleet's replica -> device assignment),
+    every replica on the CPU otherwise; the lifecycle folds' mesh."""
+    return lifecycle_mesh(max(1, int(n_devices)), resolve_device(device))
+
+
+def fleet_reduce(mesh: Mesh, parts: np.ndarray,
+                 max_cols: int = 0) -> np.ndarray:
+    """Merge of per-replica stat vectors (JAX `fleet_reduce`): `parts`
+    is [D, K], one row a mesh device; each row stages onto its device,
+    and the lead device sums the leading K - max_cols columns in replica
+    order in f32 and takes the max of the trailing `max_cols` (extrema
+    do not sum). The host gets ONE [K] vector, as f64. The JAX package
+    runs one psum/pmax collective; the port has none (`psum`)."""
+    parts = np.asarray(parts, dtype=np.float32)
+    assert parts.shape[0] == mesh.size, (parts.shape, mesh.size)
+    head = parts.shape[1] - int(max_cols)
+    lead = mesh.lead
+    rows = [torch.as_tensor(parts[d], device=dev)
+            for d, dev in enumerate(mesh.devices)]
+    out = rows[0].to(lead, non_blocking=True)
+    for row in rows[1:]:
+        row = row.to(lead, non_blocking=True)
+        out = torch.cat([out[:head] + row[:head],
+                         torch.maximum(out[head:], row[head:])])
+    registry().counter("serve.fleet.reduces").inc()
+    return out.cpu().numpy().astype(np.float64)
+
+
 def psum(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
     """Sum of the shards' partials on the lead device in shard order, in
     their dtype; under `hierarchical_reduce`, within each dcn slice

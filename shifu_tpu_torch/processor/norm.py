@@ -70,10 +70,15 @@ class NormProcessor(BasicProcessor):
 
     def __init__(self, root: str = ".", shuffle: bool = False, seed: int = 0,
                  device: DeviceLike = None,
-                 host_plan: Optional[HostPlan] = None):
+                 host_plan: Optional[HostPlan] = None,
+                 names_override=None):
         super().__init__(root, device=device)
         self.shuffle = shuffle
         self.seed = seed
+        # the retrain seam: the traffic log's `_meta.json` names the file
+        # layout (input columns + target/weight + score/sha/ts), which is
+        # neither the configured header nor ColumnConfig order
+        self.names_override = list(names_override) if names_override else None
         # an explicit HostPlan (in-process multi-host runs, tests);
         # None reads the lifecycle knobs
         self.host_plan = host_plan
@@ -89,7 +94,9 @@ class NormProcessor(BasicProcessor):
         ds = mc.data_set
         self.timings = t = {}
 
-        if ds.header_path:
+        if self.names_override:
+            names = list(self.names_override)
+        elif ds.header_path:
             names = read_header(self.resolve(ds.header_path), ds.header_delimiter)
         else:
             names = [c.column_name for c in self.column_configs]

@@ -8,8 +8,10 @@ the step runs on cuda and there is more than one (`_mesh`, the trainers'
 `mesh=`), else on one device; bagging members, ONEVSALL classes, k-fold folds and grid trials of one program
 signature train together on a trainer's member axis. NormalizedData
 past `shifu.train.memoryBudgetMB` (or `train.trainOnDisk`) trains
-streamed, members one after another (`train/streaming.py`); the
-co-resident route raises NotImplementedError naming ROADMAP A.14.5.
+streamed, members one after another (`train/streaming.py`); so does
+a co-resident run (`shifu retrain --coresident`, `coresident_cfg` set),
+each member a background tenant of the serving ledger
+(`coresident/trainer.py`).
 """
 
 from __future__ import annotations
@@ -94,16 +96,17 @@ class TrainProcessor(BasicProcessor):
             raise ShifuError(
                 ErrorCode.DATA_NOT_FOUND, f"{norm_dir} — run `shifu norm` first"
             )
-        if getattr(self, "coresident_cfg", None) is not None:
-            raise NotImplementedError(
-                "co-resident NN training is not ported yet: ROADMAP A.14.5")
         plan = build_norm_plan(mc, self.column_configs)
         norm_json = plan_to_json(plan)
         suffix = self._model_suffix(alg)
         self.paths.ensure(self.paths.models_dir())
         self.paths.ensure(self.paths.train_dir())
-        if should_stream_training(norm_dir,
-                                  force_attr=bool(mc.train.train_on_disk)):
+        # a co-resident run (retrain --coresident) always rides the
+        # shard-streamed epoch loop: the stage pipeline feeds from the
+        # same ShardFeed whatever the matrix size
+        if (getattr(self, "coresident_cfg", None) is not None
+                or should_stream_training(
+                    norm_dir, force_attr=bool(mc.train.train_on_disk))):
             self._train_nn_streamed(alg, norm_dir, norm_json, suffix)
             return
 
@@ -180,11 +183,18 @@ class TrainProcessor(BasicProcessor):
         from shifu_tpu_torch.train.streaming import train_nn_streamed
 
         mc = self.model_config
+        cc_base = getattr(self, "coresident_cfg", None)
         composites = flatten_params(
             mc.train.params or {},
             self.resolve(mc.train.grid_config_file)
             if mc.train.grid_config_file else None,
         )
+        if cc_base is not None and (len(composites) > 1
+                                    or (mc.train.num_k_fold or -1) > 0):
+            raise ShifuError(
+                ErrorCode.INVALID_MODEL_CONFIG,
+                "--coresident trains the final member(s) only — grid "
+                "search / k-fold explore on the dedicated trainer first")
         multi = mc.is_multi_classification()
         is_ova = multi and mc.train.is_one_vs_all()
         if len(composites) > 1:
@@ -215,11 +225,29 @@ class TrainProcessor(BasicProcessor):
             cfg.progress_cb = progress_writer(self.paths.progress_path(i), i)
             init_flat = (self._continuous_init(i, suffix)
                          if mc.train.is_continuous else None)
-            res = train_nn_streamed(
-                norm_dir, cfg, init_flat=init_flat,
-                target_class=i if is_ova else None,
-                resume=resume_requested(), device=self.device,
-                mesh=self._mesh())
+            ident_extra = getattr(self, "train_ident_extra", None)
+            if cc_base is not None:
+                from dataclasses import replace as dc_replace
+
+                from shifu_tpu_torch.coresident import train_nn_coresident
+
+                # bagging members need distinct checkpoint families and
+                # ledger identities (ONEVSALL classes already split on
+                # the family's -c<class> suffix)
+                ccfg_i = dc_replace(
+                    cc_base, tenant=(cc_base.tenant if i == 0 or is_ova
+                                     else f"{cc_base.tenant}-m{i}"))
+                res = train_nn_coresident(
+                    norm_dir, cfg, ccfg=ccfg_i, init_flat=init_flat,
+                    target_class=i if is_ova else None,
+                    resume=resume_requested(), ident_extra=ident_extra,
+                    device=self.device)
+            else:
+                res = train_nn_streamed(
+                    norm_dir, cfg, init_flat=init_flat,
+                    target_class=i if is_ova else None,
+                    resume=resume_requested(), device=self.device,
+                    mesh=self._mesh(), ident_extra=ident_extra)
             self._save_model(i, alg, cfg, res, columns, norm_json, suffix,
                              class_tags=class_tags)
 

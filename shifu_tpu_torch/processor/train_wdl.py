@@ -10,8 +10,8 @@ there is more than one (`parallel.mesh.train_mesh`, rows only: JAX
 `processor/train_wdl.py:305-315` without the `model` axis).
 NormalizedData or CleanedData past -Dshifu.train.memoryBudgetMB (or
 train.trainOnDisk) trains streamed, members one after another
-(`train/streaming_wdl.py`); the co-resident route waits for ROADMAP
-A.14.5.
+(`train/streaming_wdl.py`), and so does a co-resident run (`shifu
+retrain --coresident`: `coresident/trainer.train_wdl_coresident`).
 """
 
 from __future__ import annotations
@@ -81,11 +81,11 @@ def train_wdl_models(proc) -> None:
     if not (os.path.isdir(norm_dir) and os.path.isdir(codes_dir)):
         raise ShifuError(ErrorCode.DATA_NOT_FOUND,
                          "run `shifu norm` before WDL training")
-    if getattr(proc, "coresident_cfg", None) is not None:
-        raise NotImplementedError(
-            "co-resident WDL training is not ported yet: ROADMAP A.14.5")
-    if (should_stream_training(norm_dir,
-                               force_attr=bool(mc.train.train_on_disk))
+    # co-resident runs always stream: the stage pipeline feeds from the
+    # paired (norm, codes) shard feed whatever the matrix size
+    if (getattr(proc, "coresident_cfg", None) is not None
+            or should_stream_training(
+                norm_dir, force_attr=bool(mc.train.train_on_disk))
             or should_stream_training(codes_dir)):
         _train_wdl_streamed(proc)
         return
@@ -296,10 +296,24 @@ def _train_wdl_streamed(proc) -> None:
         cfg.progress_cb = progress_writer(proc.paths.progress_path(i), i)
         init_flat = (_continuous_init(proc, i) if mc.train.is_continuous
                      else None)
-        res = train_wdl_streamed(norm_dir, codes_dir, num_idx, cat_idx,
-                                 vocab_sizes, cfg, init_flat=init_flat,
-                                 resume=resume_requested(),
-                                 device=proc.device,
-                                 mesh=mesh_mod.train_mesh(proc.device))
+        cc_base = getattr(proc, "coresident_cfg", None)
+        if cc_base is not None:
+            from dataclasses import replace as dc_replace
+
+            from shifu_tpu_torch.coresident import train_wdl_coresident
+
+            ccfg_i = dc_replace(
+                cc_base, tenant=(cc_base.tenant if i == 0
+                                 else f"{cc_base.tenant}-m{i}"))
+            res = train_wdl_coresident(
+                norm_dir, codes_dir, num_idx, cat_idx, vocab_sizes, cfg,
+                ccfg=ccfg_i, init_flat=init_flat,
+                resume=resume_requested(), device=proc.device)
+        else:
+            res = train_wdl_streamed(norm_dir, codes_dir, num_idx, cat_idx,
+                                     vocab_sizes, cfg, init_flat=init_flat,
+                                     resume=resume_requested(),
+                                     device=proc.device,
+                                     mesh=mesh_mod.train_mesh(proc.device))
         _save_wdl_member(proc, i, cfg, res, num_names, cat_names,
                          vocab_sizes, dense_specs, plan.cutoff, categories)

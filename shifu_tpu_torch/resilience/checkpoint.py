@@ -28,6 +28,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import tempfile
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
@@ -272,18 +273,28 @@ class ShardedStreamCheckpoint:
     the host count, and a change of it rejects the family (the chunk ->
     host assignment moved). At one host the names stay the un-prefixed
     ones. `clear` at one host also sweeps leftover per-host families; at
-    several it touches only its own host's files."""
+    several it touches only its own host's files.
+
+    `part_kind` names what a part is: "shards" for the row-sharded
+    folds, "stages" for the co-resident trainer's pipeline stages. It is
+    the stamp key, the file infix (`-shard00000-`, `-stage00000-`) and
+    the rejection reason when the count moved between runs
+    (`ckpt.rejected{reason="stages"}`)."""
 
     _SLOTS = ("a", "b")
 
     def __init__(self, base: str, config_sha: str, n_shards: int,
                  every: Optional[int] = None,
                  sections: Optional[Dict[str, str]] = None,
-                 n_hosts: int = 1, host_index: int = 0) -> None:
+                 n_hosts: int = 1, host_index: int = 0,
+                 part_kind: str = "shards") -> None:
         self.base = base
         self.n_shards = max(1, int(n_shards))
         self.n_hosts = max(1, int(n_hosts))
         self.host_index = int(host_index)
+        self.part_kind = part_kind
+        self._part_infix = (part_kind[:-1] if part_kind.endswith("s")
+                            else part_kind) or "part"
         self.every = every_chunks_setting() if every is None else int(every)
         self._since = 0
         self._epoch = 0
@@ -291,7 +302,8 @@ class ShardedStreamCheckpoint:
                         else f"{base}-h{self.host_index:03d}")
         self._shards = [
             {slot: StreamCheckpoint(
-                f"{self._family}-shard{s:05d}-{slot}{CKPT_SUFFIX}",
+                f"{self._family}-{self._part_infix}{s:05d}-{slot}"
+                f"{CKPT_SUFFIX}",
                 config_sha, every=0, sections=sections)
              for slot in self._SLOTS}
             for s in range(self.n_shards)]
@@ -305,7 +317,7 @@ class ShardedStreamCheckpoint:
         assert len(per_shard) == self.n_shards
         epoch = self._epoch + 1
         slot = self._SLOTS[epoch % len(self._SLOTS)]
-        stamp = {"epoch": epoch, "shards": self.n_shards}
+        stamp = {"epoch": epoch, self.part_kind: self.n_shards}
         if self.n_hosts > 1:
             stamp["hosts"] = self.n_hosts
             stamp["host"] = self.host_index
@@ -341,11 +353,15 @@ class ShardedStreamCheckpoint:
         if epoch is None or slot not in self._SLOTS:
             _registry().counter("ckpt.rejected", reason="partial").inc()
             return None
-        if meta.get("shards") != self.n_shards:
-            log.warning("sharded checkpoint %s was written with %s shards "
+        if meta.get(self.part_kind) != self.n_shards:
+            # every stored part covers another slice (of the rows, or of
+            # the co-resident trainer's flat weights)
+            log.warning("sharded checkpoint %s was written with %s %s "
                         "(now %d); starting fresh", self.base,
-                        meta.get("shards"), self.n_shards)
-            _registry().counter("ckpt.rejected", reason="shards").inc()
+                        meta.get(self.part_kind), self.part_kind,
+                        self.n_shards)
+            _registry().counter("ckpt.rejected",
+                                reason=self.part_kind).inc()
             return None
         if meta.get("hosts", 1) != self.n_hosts:
             # the chunk -> host assignment moved: every stored cursor
@@ -372,7 +388,8 @@ class ShardedStreamCheckpoint:
     def clear(self) -> None:
         """Remove the whole family, stale slots and shard counts too (and,
         at one host, the per-host families of an earlier fleet run)."""
-        patterns = [glob.escape(self._family) + "-shard*" + CKPT_SUFFIX]
+        patterns = [glob.escape(self._family) + f"-{self._part_infix}*"
+                    + CKPT_SUFFIX]
         if self.n_hosts == 1:
             patterns.append(glob.escape(self.base) + "-h*" + CKPT_SUFFIX)
         for pattern in patterns:
@@ -387,20 +404,34 @@ class ShardedStreamCheckpoint:
 def list_resumable(root: str) -> List[dict]:
     """The snapshots a preempted step left behind: the chunked folds'
     under <root>/.shifu/runs/ckpt and the streamed trainers' beside
-    their checkpoint paths under tmp/train."""
+    their checkpoint paths, under tmp/train for `shifu train` and
+    tmp/retrain/train for `shifu retrain`. A co-resident family (its
+    stage slot files and the shared commit pointer) lists as one entry,
+    the pointer's."""
     root = os.path.abspath(root)
     d = ckpt_dir(root)
     paths = ([os.path.join(d, n) for n in sorted(os.listdir(d))
               if n.endswith(CKPT_SUFFIX)] if os.path.isdir(d) else [])
-    paths += sorted(glob.glob(os.path.join(root, "tmp", "train", "**",
-                                           "*" + CKPT_SUFFIX),
-                              recursive=True))
+    step_of = {}
+    for step, base in (("train", os.path.join(root, "tmp", "train")),
+                       ("retrain", os.path.join(root, "tmp", "retrain",
+                                                "train"))):
+        for path in sorted(glob.glob(os.path.join(base, "**",
+                                                  "*" + CKPT_SUFFIX),
+                                     recursive=True)):
+            paths.append(path)
+            step_of[path] = step
+    part_re = re.compile(r"^coresident-.+-stage\d{5}-[ab]$")
     out: List[dict] = []
     for path in paths:
         name = os.path.basename(path)[: -len(CKPT_SUFFIX)]
+        if os.path.dirname(path) == d and part_re.match(name):
+            continue
         if os.path.dirname(path) != d:
-            # trainer snapshot: its checkpoint dir keeps members apart
-            name = f"train-{os.path.basename(os.path.dirname(path))}"
+            # trainer snapshot: its checkpoint dir keeps members apart,
+            # its step keeps retrain state apart from train state
+            name = (f"{step_of[path]}-"
+                    f"{os.path.basename(os.path.dirname(path))}")
         entry = {"name": name, "path": path,
                  "bytes": os.path.getsize(path),
                  "mtime": os.path.getmtime(path)}
@@ -410,6 +441,15 @@ def list_resumable(root: str) -> List[dict]:
             entry["chunkIndex"] = header.get("chunkIndex")
             entry["configSha"] = header.get("configSha")
             entry["meta"] = header.get("meta", {})
+            if (os.path.dirname(path) == d
+                    and name.startswith("coresident-")
+                    and name.endswith("-shared")):
+                # the family's commit pointer: the run's trainer epoch
+                # and stage count
+                entry["name"] = name[: -len("-shared")]
+                entry["family"] = "coresident"
+                entry["epoch"] = entry["meta"].get("it")
+                entry["stages"] = entry["meta"].get("stages")
         except Exception:  # unreadable: listed, marked corrupt
             entry["corrupt"] = True
         out.append(entry)

@@ -41,8 +41,8 @@ behind /metrics, the metrics time series (shifu.obs.snapshotMs) and the
 shutdown manifest come from `shifu_tpu_torch/obs/`; the drift monitor,
 the traffic log, the hot-swap rollout (stage, shadow, promote) and the
 promote gates and the fleet-atomic promotion round from
-`shifu_tpu_torch/loop/`. What waits for ROADMAP A.14.5: co-resident
-training on the zoo's background tenants.
+`shifu_tpu_torch/loop/`; the co-resident trainer (`coresident/`) rides
+the zoo's background tenants through `/admin/coresident/*`.
 """
 
 from shifu_tpu_torch.serve.batcher import MicroBatcher, ScoreRequest

@@ -36,7 +36,12 @@
                  resets.
   POST /admin/evict  {"set": SET}: evict a zoo tenant (409 mid-rollout,
                  with a staged shadow, or on a single-tenant server).
-  /admin/coresident/*  501: co-resident training is ROADMAP A.14.5.
+  POST /admin/coresident/{admit,charge,heartbeat,release}  the
+                 co-resident trainer's grant plane (`HttpGrant`,
+                 coresident/tenant.py) on the zoo's ledger as a
+                 `priority=background` tenant: a charge that does not
+                 fit answers 409 with the byte deficit (409 too without
+                 --zoo), an unknown action or tenant 404.
 
 The loop seams (loop/): with a ColumnConfig.json beside the models the
 server builds a `DriftMonitor` whose fold rides every replica's scoring
@@ -105,11 +110,6 @@ _JSON_CONTENT_TYPES = frozenset({
     "application/x-www-form-urlencoded",
 })
 
-# the routes that wait, what each is in the JAX package, and its item
-_NOT_PORTED = (
-    ("/admin/coresident/", "co-resident training (coresident/)",
-     "A.14.5"),
-)
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4"
 
 
@@ -636,16 +636,6 @@ class ScoringServer:
                 self.end_headers()
                 self.wfile.write(body)
 
-            def _waits(self) -> bool:
-                """501 for a route that is not ported yet."""
-                for prefix, what, item in _NOT_PORTED:
-                    if self.path.startswith(prefix):
-                        self._reply(501, {
-                            "error": f"{self.path}: {what} is not ported "
-                                     f"yet: ROADMAP {item}"})
-                        return True
-                return False
-
             def do_GET(self):
                 if self.path == "/healthz":
                     health = server.health()
@@ -715,14 +705,15 @@ class ScoringServer:
                     self._reply(200, {"active": fleet.sha,
                                       "shadow": fleet.shadow_snapshot()})
                     return
-                if self._waits():
-                    return
                 self._reply(404, {"error": f"unknown path {self.path}"})
 
             def do_POST(self):
                 if self.path in ("/admin/stage", "/admin/promote",
                                  "/admin/evict"):
                     self._do_admin()
+                    return
+                if self.path.startswith("/admin/coresident/"):
+                    self._do_coresident()
                     return
                 # /score (single-tenant, or the zoo's default set) and
                 # /score/<set> (one tenant of the zoo)
@@ -731,9 +722,7 @@ class ScoringServer:
                     set_name = self.path[len("/score/"):]
                 elif self.path != "/score":
                     self._drain_body()
-                    if not self._waits():
-                        self._reply(404, {
-                            "error": f"unknown path {self.path}"})
+                    self._reply(404, {"error": f"unknown path {self.path}"})
                     return
                 if server.zoo is not None:
                     set_name = set_name or server.zoo.default_tenant
@@ -933,6 +922,63 @@ class ScoringServer:
                 except KeyError as e:
                     self._reply(404, {"error": str(e)})
                 except (ValueError, OSError, ShifuError) as e:
+                    self._reply(409, {"error": str(e)})
+
+            def _do_coresident(self):
+                """The co-resident trainer's grant plane (HttpGrant,
+                coresident/tenant.py): admit / charge / heartbeat /
+                release against the zoo's HBM ledger as a
+                `priority=background` tenant. A charge that does not
+                fit answers 409 with the byte deficit — the trainer
+                backs off; it NEVER evicts a serving tenant."""
+                from shifu_tpu_torch.serve.zoo import LedgerFullError
+
+                if server.zoo is None:
+                    self._drain_body()
+                    self._reply(409, {"error": "co-resident training "
+                                               "needs zoo mode"})
+                    return
+                action = self.path[len("/admin/coresident/"):]
+                try:
+                    length = int(self.headers.get("Content-Length", "0"))
+                    body = self.rfile.read(length) if length else b"{}"
+                    doc = json.loads(body.decode("utf-8") or "{}")
+                    if not isinstance(doc, dict):
+                        raise ValueError("body must be a JSON object")
+                except ValueError as e:
+                    self._reply(400, {"error": f"bad request body: {e}"})
+                    return
+                tenant = doc.get("tenant") or ""
+                zoo = server.zoo
+                try:
+                    if action == "admit":
+                        self._reply(200, zoo.admit_background(
+                            tenant, meta=doc.get("meta") or {}))
+                    elif action == "charge":
+                        nbytes = int(doc.get("bytes", 0))
+                        if nbytes >= 0:
+                            zoo.background_acquire(tenant, nbytes)
+                        else:
+                            zoo.background_reduce(tenant, -nbytes)
+                        self._reply(200, {"charged": nbytes})
+                    elif action == "heartbeat":
+                        evicted = zoo.background_heartbeat(
+                            tenant, int(doc.get("epoch", -1)))
+                        self._reply(200, {"evicted": evicted})
+                    elif action == "release":
+                        zoo.background_release(
+                            tenant, final=bool(doc.get("final")))
+                        self._reply(200, {"released": tenant})
+                    else:
+                        self._reply(404, {
+                            "error": f"unknown coresident action "
+                                     f"{action!r}"})
+                except LedgerFullError as e:
+                    self._reply(409, {"error": str(e),
+                                      "deficit": e.deficit})
+                except KeyError as e:
+                    self._reply(404, {"error": str(e)})
+                except (ValueError, ShifuError) as e:
                     self._reply(409, {"error": str(e)})
 
             def _drain_body(self, length: Optional[int] = None) -> None:

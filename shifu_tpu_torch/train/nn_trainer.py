@@ -249,10 +249,13 @@ class _Net:
         # max(0, 1 - y f(x)) with y in {-1, +1}
         self.hinge = cfg.loss == "hinge"
 
-    def layers(self, flat: torch.Tensor):
-        """[(W [M, in, out], b [M, 1, out])], views of `flat`."""
+    def layers(self, flat: torch.Tensor, lo: int = 0,
+               hi: Optional[int] = None):
+        """[(W [M, in, out], b [M, 1, out])] of layers [lo, hi), views of
+        `flat`, which holds exactly those layers (all of them by
+        default; a co-resident pipeline stage's slice otherwise)."""
         out, off, m = [], 0, flat.shape[0]
-        for fi, fo in self.shapes:
+        for fi, fo in self.shapes[lo:hi]:
             w = flat[:, off: off + fi * fo].view(m, fi, fo)
             off += fi * fo
             b = flat[:, off: off + fo].view(m, 1, fo)
@@ -273,16 +276,26 @@ class _Net:
         h = x
         rate = self.cfg.dropout_rate
         for i in range(self.n_hidden):
-            w, b = layers[i]
-            h = activation_fn(hidden_activation(self.cfg.activations, i))(
-                self.matmul(h, w) + b)
+            h = self.layer_out(i, h, *layers[i])
             if keep_masks is not None:
                 h = torch.where(keep_masks[i], h / (1.0 - rate),
                                 torch.zeros_like(h))
-        w, b = layers[-1]
-        out = self.matmul(h, w) + b
+        return self.output(self.layer_out(self.n_hidden, h, *layers[-1]))
+
+    def layer_out(self, i: int, h, w, b) -> torch.Tensor:
+        """Layer i of the forward: a hidden layer's activation, or the
+        output layer's value (the sigmoid, the raw decision value for
+        SVM)."""
+        z = self.matmul(h, w) + b
+        if i < self.n_hidden:
+            return activation_fn(hidden_activation(self.cfg.activations,
+                                                   i))(z)
         if not self.hinge:  # SVM keeps the raw decision value
-            out = activation_fn("sigmoid")(out)
+            z = activation_fn("sigmoid")(z)
+        return z
+
+    def output(self, out: torch.Tensor) -> torch.Tensor:
+        """The output layer's value as p: [M, rows] (or [M, rows, K])."""
         return out if self.out_dim > 1 else out[..., 0]
 
     def ideal(self, t: torch.Tensor) -> torch.Tensor:

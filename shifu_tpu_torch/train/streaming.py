@@ -135,16 +135,22 @@ class ShardFeed:
 
 
 def _stream_train_sha(cfg: NNTrainConfig, meta: NormMeta,
-                      target_class: Optional[int]):
+                      target_class: Optional[int],
+                      ident_extra: Optional[dict] = None):
     """(sha, sections) of a streamed run: the hyperparameters in `train`,
-    the shard layout in `data`."""
-    return ckpt_mod.sectioned_sha({
+    the shard layout in `data`, and `ident_extra` (a retrain's warm-start
+    parent) in `loop`, so a snapshot of another parent rejects naming
+    that section."""
+    sections = {
         "train": {k: v for k, v in cfg.__dict__.items()
                   if not callable(v) and k != "progress_cb"},
         "data": {"shardRows": list(meta.shard_rows),
                  "columns": list(meta.columns),
                  "targetClass": target_class},
-    })
+    }
+    if ident_extra:
+        sections["loop"] = dict(ident_extra)
+    return ckpt_mod.sectioned_sha(sections)
 
 
 class StreamedLoop:
@@ -326,6 +332,7 @@ def train_nn_streamed(
     resume: bool = False,
     device: DeviceLike = None,
     mesh=None,
+    ident_extra: Optional[dict] = None,
 ) -> TrainResult:
     """Full-batch training streamed from the NormalizedData shards of
     `data_dir` on one device (`device=None` = cuda), or with each shard's
@@ -333,7 +340,8 @@ def train_nn_streamed(
     trains the ONEVSALL member of that class; `sig_override(s, rows,
     offset, weights) -> (sig_t, sig_v)` replaces the per-shard draw
     (k-fold: membership by the global row index); `resume` continues
-    from the member's stream checkpoint."""
+    from the member's stream checkpoint; `ident_extra` joins the
+    checkpoint identity as its `loop` section."""
     mesh, dev = mesh_device(mesh, device)
     if cfg.mini_batchs > 1:
         log.warning("MiniBatchs=%d is ignored on the streamed path — each "
@@ -351,7 +359,8 @@ def train_nn_streamed(
         adam_beta1=cfg.adam_beta1, adam_beta2=cfg.adam_beta2)
     ck = None
     if cfg.checkpoint_path and cfg.checkpoint_every:
-        sha, sections = _stream_train_sha(cfg, feed.meta, target_class)
+        sha, sections = _stream_train_sha(cfg, feed.meta, target_class,
+                                          ident_extra)
         ck = ckpt_mod.StreamCheckpoint(
             cfg.checkpoint_path + ".state" + ckpt_mod.CKPT_SUFFIX, sha,
             every=0, sections=sections)

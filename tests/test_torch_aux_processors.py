@@ -326,11 +326,18 @@ def test_cli_subcommands_cover_jax_cli(capsys):
     jax_cmds = _subcommands(jcli.build_parser())
     port_cmds = _subcommands(cli.build_parser())
     assert port_cmds == jax_cmds
-    # trace, top, runs and profile are ported with the obs layer, and
-    # promote with the serving loop (A.14.3), with the JAX CLI's flags
-    assert set(cli.NOT_PORTED) == {"retrain", "check"}
+    # trace, top, runs and profile are ported with the obs layer,
+    # promote with the serving loop (A.14.3) and retrain with the
+    # co-resident trainer (A.14.5-6), with the JAX CLI's flags (retrain
+    # adds the port's --device, as train does)
+    assert set(cli.NOT_PORTED) == {"check"}
     assert (_subcommand_flags(cli.build_parser(), "promote")
             == _subcommand_flags(jcli.build_parser(), "promote"))
+    device = (("--device",), "device", None)
+    port_retrain = _subcommand_flags(cli.build_parser(), "retrain")
+    assert device in port_retrain
+    assert (port_retrain - {device}
+            == _subcommand_flags(jcli.build_parser(), "retrain"))
     for name, item in cli.NOT_PORTED.items():
         assert item.startswith("A.14")
         assert cli.main([name]) == 2

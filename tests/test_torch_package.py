@@ -85,6 +85,11 @@ MODULES = [
     "shifu_tpu_torch.loop", "shifu_tpu_torch.loop.drift",
     "shifu_tpu_torch.loop.traffic", "shifu_tpu_torch.loop.hotswap",
     "shifu_tpu_torch.loop.promote", "shifu_tpu_torch.fs.source",
+    "shifu_tpu_torch.coresident", "shifu_tpu_torch.coresident.config",
+    "shifu_tpu_torch.coresident.plan", "shifu_tpu_torch.coresident.tenant",
+    "shifu_tpu_torch.coresident.pipeline",
+    "shifu_tpu_torch.coresident.trainer",
+    "shifu_tpu_torch.processor.retrain",
 ]
 
 

@@ -545,11 +545,11 @@ def test_error_statuses_have_json_bodies(server):
     assert code == 400 and "error" in doc
     code, doc, _ = _http_error(f"{base}/admin/promote", "{}")
     assert code == 409 and "no staged candidate" in doc["error"]
-    # eviction is the zoo's; co-resident training waits for A.14.5
+    # eviction and the co-resident grant plane are the zoo's
     code, doc, _ = _http_error(f"{base}/admin/evict", "{}")
     assert code == 409 and "zoo mode" in doc["error"]
     code, doc, _ = _http_error(f"{base}/admin/coresident/admit", "{}")
-    assert code == 501 and "A.14.5" in doc["error"]
+    assert code == 409 and "zoo mode" in doc["error"]
 
 
 def test_oversize_binary_body_is_400(server):

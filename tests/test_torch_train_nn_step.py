@@ -202,5 +202,9 @@ def test_cli_exit_codes(prepared, tmp_path, monkeypatch, capsys):
     # export touches no device: it runs without a card
     assert cli.main(["export", "-t", "columnstats"]) == 0
     assert os.path.isfile(os.path.join(root, "export", "columnstats.csv"))
-    assert cli.main(["retrain"]) == 2
-    assert "ROADMAP A.14" in capsys.readouterr().err
+    assert cli.main(["retrain"]) == 1  # no card, no --device
+    assert "CUDA" in capsys.readouterr().err
+    # the co-resident retrain warm-starts from models/ into the candidate
+    assert cli.main(["retrain", "--device", "cpu", "--coresident"]) == 0
+    assert os.path.isfile(os.path.join(root, "models.candidate",
+                                       "model0.nn"))

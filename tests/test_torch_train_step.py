@@ -281,7 +281,13 @@ def test_cli_train_and_unported_steps(prepared, tmp_path):
     proc = run("export")
     assert proc.returncode == 0, proc.stderr
     assert os.path.isfile(os.path.join(root, "export", "model0.pmml"))
-    proc = run("retrain")
+    # retrain: RF has no warm start, so it trains fresh on the new data
+    # (here the configured data in place) into models.candidate/
+    proc = run("retrain", "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    assert os.path.isfile(os.path.join(root, "models.candidate",
+                                       "model0.rf"))
+    proc = run("check")
     assert proc.returncode == 2
     assert "not ported yet: ROADMAP A.14" in proc.stderr
     proc = run("train", "--device", "cpu", "-dry")

@@ -230,7 +230,8 @@ def test_eval_and_posttrain_score_wdl(prepared, tmp_path):
 def test_cli_routes_that_wait(prepared, tmp_path, monkeypatch):
     """`python -m shifu_tpu_torch train --device cpu` writes the files,
     the streamed route (forceStreaming, trainOnDisk) too; the
-    co-resident route raises naming A.14."""
+    co-resident route (K=1) writes the streamed route's model, byte for
+    byte."""
     root = str(tmp_path / "port")
     shutil.copytree(prepared, root)
     _edit(root, dict(numTrainEpochs=3))
@@ -252,7 +253,14 @@ def test_cli_routes_that_wait(prepared, tmp_path, monkeypatch):
     assert cli.main(["train", "--device", "cpu"]) == 0
     assert os.path.isfile(model)
     _edit(root, dict(trainOnDisk=False))
+    with open(model, "rb") as fh:
+        streamed = fh.read()
+    os.remove(model)
+    from shifu_tpu_torch.coresident import CoresidentConfig
+
     proc = TrainProcessor(root, device="cpu")
-    proc.coresident_cfg = object()
-    with pytest.raises(NotImplementedError, match="A.14"):
-        proc.run()
+    proc.coresident_cfg = CoresidentConfig(
+        stages=1, microbatches=1, family_dir=str(tmp_path / "fam"))
+    assert proc.run() == 0
+    with open(model, "rb") as fh:
+        assert fh.read() == streamed

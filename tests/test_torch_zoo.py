@@ -734,8 +734,9 @@ def test_zoo_route_refusals_on_a_single_tenant_server(three_sets):
         code, doc, _h = _post(srv.port, "/score/a",
                               {"records": _records(cols)})
         assert code == 404 and "single-tenant" in doc["error"]
+        # the co-resident grant plane rides a zoo's ledger
         code, doc, _h = _post(srv.port, "/admin/coresident/admit", {})
-        assert code == 501 and "A.14.5" in doc["error"]
+        assert code == 409 and "zoo mode" in doc["error"]
     finally:
         srv.shutdown(10)
         penv.set_property("shifu.lease.ttlMs", "")
@@ -824,3 +825,133 @@ def test_background_name_collisions_and_flagged_reacquire(three_sets,
         z.evict("retrain")
         with pytest.raises(full, match="flagged"):
             z.background_acquire("retrain", 1024)
+
+
+# ---------------------------------------------------------------------------
+# the background tenants over HTTP: /admin/coresident/* on both servers
+# ---------------------------------------------------------------------------
+
+
+def _grant(srv, action, doc):
+    return _post(srv.port, f"/admin/coresident/{action}",
+                 {"tenant": "retrain", **doc})
+
+
+def _zoo_health(srv):
+    return _get(srv.port, "/healthz")[1]["zoo"]
+
+
+def _score_until_200(srv, name, cols, seconds=60):
+    deadline = time.monotonic() + seconds
+    while time.monotonic() < deadline:
+        code, _doc, _h = _post(srv.port, f"/score/{name}",
+                               {"records": _records(cols)})
+        if code == 200:
+            return code
+        time.sleep(0.1)
+    return code
+
+
+def test_coresident_http_charge_is_fit_or_fail(servers):
+    """tests/test_zoo.py's fit-or-fail case through `/admin/coresident/*`
+    (the plane `HttpGrant` posts to): a charge one byte past the free
+    budget is a 409 with the deficit, evicts no serving tenant, and the
+    free budget itself fits."""
+    js, ps, _root, _cols = servers
+    got = []
+    for srv in (js, ps):
+        code, grant, _h = _grant(srv, "admit", {"meta": {"algo": "nn"}})
+        assert code == 200 and grant["freeBytes"] > 0
+        over = _grant(srv, "charge", {"bytes": grant["freeBytes"] + 1})
+        states = {n: t["state"]
+                  for n, t in _zoo_health(srv)["tenants"].items()}
+        fits = _grant(srv, "charge", {"bytes": grant["freeBytes"]})
+        back = _grant(srv, "charge", {"bytes": -1024})
+        got.append((sorted(grant), over[0], over[1]["deficit"], states,
+                    fits[:2], back[:2]))
+    (jkeys, jover, jdef, jstates, jfits, jback), \
+        (pkeys, pover, pdef, pstates, pfits, pback) = got
+    assert pkeys == jkeys
+    assert pover == jover == 409 and pdef >= 1 and jdef >= 1
+    assert pstates == jstates
+    assert pstates["a"] == pstates["b"] == "resident"
+    assert pfits[0] == jfits[0] == 200
+    assert pback == jback == (200, {"charged": -1024})
+
+
+def test_coresident_http_serving_pressure_evicts_background_first(
+        servers):
+    """A cold set loading under the budget evicts the charged trainer
+    first (reason pressure_background), and the next heartbeat says so."""
+    js, ps, _root, cols = servers
+    got = []
+    for srv, obs in ((js, jobs), (ps, pobs)):
+        _code, grant, _h = _grant(srv, "admit", {"meta": {"stages": 2}})
+        assert _grant(srv, "charge",
+                      {"bytes": grant["freeBytes"]})[0] == 200
+        quiet = _grant(srv, "heartbeat", {"epoch": 3})[1]
+        answered = _score_until_200(srv, "c", cols)
+        flagged = _grant(srv, "heartbeat", {"epoch": 4})[1]
+        counters = _evictions(obs.registry().snapshot()["counters"])
+        got.append((quiet, answered, flagged,
+                    counters.get('serve.zoo.evictions{reason='
+                                 '"pressure_background",'
+                                 'tenant="retrain"}')))
+    assert got[0] == got[1] == ({"evicted": False}, 200,
+                                {"evicted": True}, 1)
+
+
+def test_coresident_http_evicted_record_survives_until_final_release(
+        servers):
+    js, ps, _root, _cols = servers
+    snaps = []
+    for srv in (js, ps):
+        code, grant, _h = _grant(srv, "admit", {"meta": {"algo": "nn",
+                                                         "stages": 2}})
+        assert code == 200
+        # within each side's own priced budget
+        assert _grant(srv, "charge",
+                      {"bytes": grant["freeBytes"] // 2})[0] == 200
+        _grant(srv, "heartbeat", {"epoch": 5})
+        code, _doc, _h = _post(srv.port, "/admin/evict", {"set": "retrain"})
+        assert code == 200
+        snaps.append(_zoo_health(srv)["background"]["retrain"])
+        # a flagged tenant's charge is refused until it re-admits
+        assert _grant(srv, "charge", {"bytes": 1024})[0] == 409
+        assert _grant(srv, "release", {"final": False})[1] == {
+            "released": "retrain"}
+        assert "retrain" in _zoo_health(srv)["background"]
+        _grant(srv, "admit", {})
+        assert _grant(srv, "heartbeat", {"epoch": 6})[1] == {
+            "evicted": False}
+        _grant(srv, "release", {"final": True})
+        assert "retrain" not in (_zoo_health(srv).get("background") or {})
+    assert set(snaps[0]) == set(snaps[1])
+    for key in ("evictRequested", "evictions", "epoch", "stages"):
+        assert snaps[1][key] == snaps[0][key]
+    assert snaps[1]["evictRequested"] and snaps[1]["evictions"] == 1
+    assert snaps[1]["epoch"] == 5 and snaps[1]["stages"] == 2
+
+
+def test_coresident_http_refusals(servers):
+    """A serving tenant's name is refused (409), an unknown tenant or
+    action is a 404, a body that is not JSON a 400 — on both servers."""
+    js, ps, _root, _cols = servers
+    got = []
+    for srv in (js, ps):
+        clash = _post(srv.port, "/admin/coresident/admit", {"tenant": "a"})
+        unknown = _post(srv.port, "/admin/coresident/charge",
+                        {"tenant": "nobody", "bytes": 1})
+        action = _grant(srv, "bogus", {})
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/admin/coresident/admit",
+            b"{not json", {"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            bad = 200
+        except urllib.error.HTTPError as e:
+            bad = e.code
+        got.append((clash[0], "serving tenant" in clash[1]["error"],
+                    unknown[0], action[0], "bogus" in action[1]["error"],
+                    bad))
+    assert got[0] == got[1] == (409, True, 404, 404, True, 400)
